@@ -1,0 +1,72 @@
+"""Weight bridge: a JAX (flax) parameter tree -> the port's state_dict.
+
+The tree is the JAX package's params as nested dicts of numpy arrays
+(e.g. `jax.tree_util.tree_map(np.asarray, params)`); this module imports
+no JAX. Conversions:
+  * Dense `kernel` (in, out)      -> Linear `weight` (out, in);
+  * nn.Conv `kernel` (k, in, out) -> Conv1d `weight` (out, in, k);
+  * `bias`                        -> `bias`;
+  * `eh/emb_<kind>__<name>`       -> `eh.tables.<kind>__<name>`;
+  * `eh/tr_<kind>__<name>/...`    -> `eh.transforms.<kind>__<name>....`;
+  * AdditiveAttention `proj_kernel` / `proj_bias` / `query` as they are,
+    with the flax module name `AdditiveAttention_0` -> `attention`.
+Raises on any key it cannot place and on any parameter of the port that
+the tree leaves unset.
+"""
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+_MODULE_NAMES = {"AdditiveAttention_0": "attention"}
+
+
+def _flatten(tree: Mapping, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def _place(path, arr):
+    """(port key, converted array) for one JAX leaf."""
+    *mods, leaf = path
+    if mods[:1] == ["eh"] and leaf.startswith("emb_") and len(mods) == 1:
+        return f"eh.tables.{leaf[4:]}", arr
+    names = []
+    for m in mods:
+        if mods[:1] == ["eh"] and m.startswith("tr_"):
+            names += ["transforms", m[3:]]
+        else:
+            names.append(_MODULE_NAMES.get(m, m))
+    if leaf == "kernel" and arr.ndim == 2:
+        leaf, arr = "weight", arr.T
+    elif leaf == "kernel" and arr.ndim == 3:
+        leaf, arr = "weight", arr.transpose(2, 1, 0)
+    elif leaf not in ("bias", "proj_kernel", "proj_bias", "query"):
+        raise KeyError(f"bridge: no rule for JAX parameter {'/'.join(path)}")
+    return ".".join(names + [leaf]), arr
+
+
+def params_from_jax(tree: Mapping, model: torch.nn.Module
+                    ) -> Dict[str, torch.Tensor]:
+    """A state_dict for `model` holding the JAX tree's values (f32 CPU
+    tensors); load it with `model.load_state_dict`."""
+    if "params" in tree and len(tree) == 1:
+        tree = tree["params"]
+    want = model.state_dict()
+    out = {}
+    for path, arr in _flatten(tree):
+        key, conv = _place(path, arr)
+        if key not in want:
+            raise KeyError(f"bridge: JAX parameter {'/'.join(path)} maps to "
+                           f"{key}, which the port does not have")
+        if tuple(want[key].shape) != conv.shape:
+            raise ValueError(f"bridge: {key} is {tuple(want[key].shape)} in "
+                             f"the port, {conv.shape} from JAX")
+        out[key] = torch.tensor(conv, dtype=torch.float32)
+    missing = sorted(set(want) - set(out))
+    if missing:
+        raise KeyError(f"bridge: port parameters left unset: {missing}")
+    return out

@@ -1,0 +1,183 @@
+"""LegoConfig — component wiring: configs -> a ready Legommender module.
+
+The port of the JAX package's models/lego_config.py:53-297 (reference
+model/lego_config.py:57-256) for content-based models whose user operator
+pools click vectors (NAML: meta CNN / Ada / Dot). It holds the
+hyper-parameters, instantiates the operator/predictor classes with merged
+configs, runs the matching/ranking compatibility checks and registers the
+inputer vocabs into the embedding hub. The training-side gradient plans
+(catalog_plans, HistoryGradPlan) are not built.
+"""
+import inspect
+import logging
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from legommenders_tpu_torch.data.dataset import LegoData
+from legommenders_tpu_torch.models.embedding import EmbeddingHub
+from legommenders_tpu_torch.models.item_table import ItemContentTable
+from legommenders_tpu_torch.models.legommender import Legommender
+from legommenders_tpu_torch.utils.function import combine_config
+from legommenders_tpu_torch.utils.registry import OPERATORS, PREDICTORS
+
+# populate the registries (decorator side effects)
+import legommenders_tpu_torch.models.operators  # noqa: F401
+import legommenders_tpu_torch.models.predictors  # noqa: F401
+
+# keys combine_config injects; their absence from a class is expected
+_INJECTED_KEYS = ("hidden_size", "input_dim")
+
+
+def _filter_fields(cfg: dict, cls, what: str) -> dict:
+    """Keep the keys `cls.__init__` takes; WARN about the rest — a silently
+    dropped YAML key is a config no-op the user can't see otherwise."""
+    known = set(inspect.signature(cls.__init__).parameters) - {"self"}
+    dropped = [k for k in cfg if k not in known and k not in _INJECTED_KEYS]
+    if dropped:
+        logging.getLogger("legommenders_tpu_torch").warning(
+            "%s (%s): ignoring unknown config keys %s — declared fields "
+            "are %s", what, cls.__name__, dropped, sorted(known))
+    return {k: v for k, v in cfg.items() if k in known}
+
+
+@dataclass
+class LegoConfig:
+    data: LegoData
+    item_operator: Optional[str] = None       # meta.item, e.g. "CNN"
+    user_operator: str = "Ada"                # meta.user
+    predictor: str = "Dot"                    # meta.predictor
+    hidden_size: int = 64
+    item_hidden_size: Optional[int] = None
+    embedding_dim: Optional[int] = None
+    use_neg_sampling: bool = True
+    use_item_content: bool = True
+    use_fast_eval: bool = True
+    cache_page_size: int = 512
+    item_config: dict = field(default_factory=dict)
+    user_config: dict = field(default_factory=dict)
+    predictor_config: dict = field(default_factory=dict)
+    embed_config: dict = field(default_factory=dict)   # resolved embed yaml
+    dtype: torch.dtype = torch.float32
+
+    @classmethod
+    def from_configs(cls, data: LegoData, model_cfg: dict,
+                     embed_cfg: Optional[dict] = None,
+                     dtype: torch.dtype = torch.float32) -> "LegoConfig":
+        meta = model_cfg.get("meta") or {}
+        cfg = model_cfg.get("config") or {}
+        return cls(
+            data=data,
+            item_operator=meta.get("item"),
+            user_operator=meta.get("user", "Ada"),
+            predictor=meta.get("predictor", "Dot"),
+            hidden_size=int(cfg.get("hidden_size", 64)),
+            item_hidden_size=cfg.get("item_hidden_size"),
+            embedding_dim=cfg.get("embedding_dim"),
+            use_neg_sampling=bool(cfg.get("use_neg_sampling", True)),
+            use_item_content=bool(cfg.get("use_item_content", True)),
+            use_fast_eval=bool(cfg.get("use_fast_eval", True)),
+            cache_page_size=int(cfg.get("cache_page_size", 512)),
+            item_config=dict(cfg.get("item_config") or {}),
+            user_config=dict(cfg.get("user_config") or {}),
+            predictor_config=dict(cfg.get("predictor_config") or {}),
+            embed_config=dict(embed_cfg or {}),
+            dtype=dtype,
+        )
+
+    # ------------------------------------------------------------------ #
+    def build(self, device="cpu") -> Tuple[Legommender, ItemContentTable]:
+        """The model (on the CPU, parameters from the default init) and the
+        item content table on `device`."""
+        data = self.data
+        if not self.use_item_content or not self.item_operator:
+            raise NotImplementedError(
+                "the port builds content-based models only "
+                "(use_item_content with meta.item)")
+        item_hidden = int(self.item_hidden_size or self.hidden_size)
+        emb_dim = int(self.embedding_dim or self.hidden_size)
+
+        hub = EmbeddingHub(
+            embedding_dim=emb_dim,
+            transformation=self.embed_config.get("transformation", "auto"),
+            transformation_dropout=float(
+                self.embed_config.get("transformation_dropout", 0.0) or 0.0),
+        )
+        for entry in self.embed_config.get("embeddings") or []:
+            path = entry["path"]
+            arr = np.load(path) if isinstance(path, str) else np.asarray(path)
+            hub.load_pretrained(
+                arr,
+                vocab_name=entry.get("vocab_name"),
+                col_name=entry.get("col_name"),
+                frozen=bool(entry.get("frozen", True)),
+            )
+
+        contents = ItemContentTable.from_data(data, device=device)
+        item_cols = tuple(
+            (col, contents.col_vocabs[col], contents.seq_lens()[col])
+            for col, _ in data.item_inputs
+        )
+        for col, vocab, _ in item_cols:
+            v = data.items.vocab_of(col)
+            fitted_size = len(v) if v else int(data.items[col].max()) + 1
+            if not hub.has(vocab):
+                hub.register_vocab(vocab, fitted_size)
+            elif hub.size_of(vocab) < fitted_size:
+                # reference raises on vocab-size conflicts
+                # (embedding_hub.py:346-360)
+                raise ValueError(
+                    f"pretrained embedding for vocab '{vocab}' has "
+                    f"{hub.size_of(vocab)} rows but the fitted vocab has "
+                    f"{fitted_size} tokens; re-export the embedding")
+
+        user_op_cls = OPERATORS[self.user_operator]
+        pred_cls = PREDICTORS[self.predictor]
+        if user_op_cls.flatten_mode:
+            raise NotImplementedError(
+                f"flatten-mode user operator {self.user_operator} is not "
+                f"ported yet")
+
+        item_op_cls = OPERATORS[self.item_operator]
+        icfg = combine_config(
+            {k: v for k, v in self.item_config.items()
+             if k != "inputer_config"},
+            hidden_size=item_hidden, input_dim=emb_dim)
+        icfg = _filter_fields(icfg, item_op_cls, "item_config")
+        item_op = item_op_cls(dtype=self.dtype, **icfg)
+        inputer_cfg = dict(self.item_config.get("inputer_config") or {})
+        inputer_cfg = _filter_fields(inputer_cfg, item_op_cls.inputer_class,
+                                     "item_config.inputer_config")
+        item_inputer = item_op_cls.inputer_class(
+            cols=item_cols, dtype=self.dtype, **inputer_cfg)
+
+        ucfg = combine_config(
+            {k: v for k, v in self.user_config.items()
+             if k != "inputer_config"},
+            hidden_size=self.hidden_size, input_dim=item_op.output_dim)
+        ucfg = _filter_fields(ucfg, user_op_cls, "user_config")
+        user_op = user_op_cls(dtype=self.dtype, **ucfg)
+
+        pcfg = combine_config(dict(self.predictor_config),
+                              hidden_size=self.hidden_size)
+        pcfg = _filter_fields(pcfg, pred_cls, "predictor_config")
+        predictor = pred_cls(dtype=self.dtype, **pcfg)
+
+        # compatibility checks (reference lego_config.py:217-224)
+        if self.use_neg_sampling and not predictor.allow_matching:
+            raise ValueError(
+                f"{self.predictor} does not support matching "
+                f"(neg-sampling) mode")
+        if not self.use_neg_sampling and not predictor.allow_ranking:
+            raise ValueError(f"{self.predictor} does not support ranking mode")
+
+        model = Legommender(
+            eh=hub.build(self.dtype),
+            item_op=item_op,
+            user_op=user_op,
+            predictor=predictor,
+            item_inputer=item_inputer,
+        )
+        return model, contents

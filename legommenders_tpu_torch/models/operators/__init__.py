@@ -1,0 +1,3 @@
+from legommenders_tpu_torch.models.operators.base import BaseOperator
+# import modules for registration side effects
+from legommenders_tpu_torch.models.operators import ada, cnn  # noqa: F401

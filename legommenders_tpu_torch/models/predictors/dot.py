@@ -1,0 +1,13 @@
+"""DotPredictor — inner product (the JAX package's
+models/predictors/dot.py; reference dot_predictor.py:6-10)."""
+import torch
+
+from legommenders_tpu_torch.models.predictors.base import BasePredictor
+from legommenders_tpu_torch.utils.registry import PREDICTORS
+
+
+@PREDICTORS.register
+class DotPredictor(BasePredictor):
+
+    def forward(self, user, items):
+        return torch.einsum("...d,...kd->...k", user, items)

@@ -1,0 +1,76 @@
+"""Fast-eval representation caches (the port of the JAX package's
+runtime/cacher.py single-device path, :73-145 and :261-298).
+
+Before evaluation every item representation (num_items, D) and every user
+representation (num_users, D) is computed once, so that each eval row is
+two gathers and the predictor (reference base_lego.py:349-398,
+repr_cacher.py:35-142). Both builds are a Python loop over pages of
+`page_size` rows under `torch.inference_mode()`; contents and the history
+matrix are placed on the device once.
+"""
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from legommenders_tpu_torch.data.token_store import UNSET
+from legommenders_tpu_torch.utils.device import resolve_device
+
+
+class ReprCache:
+    """Holds item/user representation caches for one model."""
+
+    def __init__(self, model, item_contents: Dict[str, torch.Tensor],
+                 history: np.ndarray, page_size: int = 512, device="cuda"):
+        self.device = resolve_device(device)
+        self.model = model
+        self.item_contents = {c: torch.as_tensor(a, device=self.device)
+                              for c, a in item_contents.items()}
+        self.page_size = int(page_size)
+        self.item_repr: Optional[torch.Tensor] = None
+        self.user_repr: Optional[torch.Tensor] = None
+        self.num_items = next(iter(self.item_contents.values())).shape[0]
+        self.num_users = history.shape[0]
+        # the UNSET-split history matrix, placed once
+        self.hist_safe = torch.as_tensor(
+            np.where(history == UNSET, 0, history).astype(np.int32),
+            device=self.device)
+        self.hist_mask = torch.as_tensor(
+            (history != UNSET).astype(np.int32), device=self.device)
+
+    @property
+    def active(self) -> bool:
+        return self.item_repr is not None and self.user_repr is not None
+
+    def pages(self, n: int):
+        """(start, stop) of each page over n rows."""
+        P = self.page_size
+        return [(s, min(s + P, n)) for s in range(0, n, P)]
+
+    @torch.inference_mode()
+    def build_item_cache(self) -> torch.Tensor:
+        outs = [self.model.encode_item_page(
+                    {c: a[s:e] for c, a in self.item_contents.items()})
+                for s, e in self.pages(self.num_items)]
+        self.item_repr = torch.cat(outs)
+        return self.item_repr
+
+    @torch.inference_mode()
+    def build_user_cache(self) -> torch.Tensor:
+        if self.item_repr is None:
+            raise RuntimeError("build_item_cache first")
+        outs = [self.model.encode_user(self.item_repr[self.hist_safe[s:e]],
+                                       self.hist_mask[s:e])
+                for s, e in self.pages(self.num_users)]
+        self.user_repr = torch.cat(outs)
+        return self.user_repr
+
+    def cache(self):
+        self.build_item_cache()
+        self.build_user_cache()
+        return self
+
+    def clean(self):
+        """Drop caches at train-phase entry (reference repr_cacher.py:90-101)."""
+        self.item_repr = None
+        self.user_repr = None

@@ -1,0 +1,56 @@
+"""Manager — glue between configs, data, model and the runtime.
+
+The port of the JAX package's runtime/manager.py without the mesh,
+pipeline and LM parts (reference loader/manager.py:121-431). It builds the
+dataset, the model from the model config (parameters drawn from a seeded
+torch.Generator, then placed on `device`), the repr cache and evaluators.
+"""
+from typing import Optional
+
+import torch
+
+from legommenders_tpu_torch.data.dataset import LegoData
+from legommenders_tpu_torch.models.lego_config import LegoConfig
+from legommenders_tpu_torch.runtime.cacher import ReprCache
+from legommenders_tpu_torch.runtime.evaluator import Evaluator
+from legommenders_tpu_torch.utils.device import resolve_device
+
+DEFAULT_METRICS = ["GAUC", "MRR", "NDCG@1", "NDCG@5", "NDCG@10"]
+_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+           "f32": torch.float32, "float32": torch.float32}
+
+
+class Manager:
+    def __init__(self, data_cfg: Optional[dict] = None,
+                 model_cfg: Optional[dict] = None,
+                 embed_cfg: Optional[dict] = None,
+                 exp_cfg: Optional[dict] = None,
+                 data: Optional[LegoData] = None,
+                 dtype: torch.dtype = torch.float32,
+                 device="cuda", seed: int = 0):
+        self.device = resolve_device(device)
+        self.exp_cfg = dict(exp_cfg or {})
+        self.policy = dict(self.exp_cfg.get("policy") or {})
+        self.metrics = list(self.exp_cfg.get("metrics") or DEFAULT_METRICS)
+        dtype = _DTYPES.get(str(self.policy.get("dtype") or "").lower(), dtype)
+
+        self.data = data if data is not None else LegoData.from_config(data_cfg)
+        self.lego_cfg = LegoConfig.from_configs(
+            self.data, dict(model_cfg or {}), embed_cfg, dtype=dtype)
+        self.model, self.contents = self.lego_cfg.build(self.device)
+        self.model.reset_parameters(torch.Generator().manual_seed(seed))
+        self.model.to(self.device).eval()
+
+        self.cache = None
+        if self.lego_cfg.use_fast_eval and self._caching_allowed():
+            self.cache = ReprCache(
+                self.model, self.contents.columns, self.data.history_matrix(),
+                page_size=self.lego_cfg.cache_page_size, device=self.device)
+
+    def _caching_allowed(self) -> bool:
+        return bool(type(self.model.item_op).allow_caching
+                    and type(self.model.user_op).allow_caching)
+
+    def evaluator(self) -> Evaluator:
+        return Evaluator(self.model, self.data, self.metrics,
+                         cache=self.cache, device=self.device)
