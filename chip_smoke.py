@@ -6,8 +6,8 @@ CUDA card and nvcc (on PATH, or under CUDA_HOME), imports nothing of JAX,
 and exits non-zero when any phase fails:
   1. device: requires CUDA, prints the card's name and power limit, turns
      TF32 off for the parity phases;
-  2. build: compiles every csrc/*.cu with nvcc (one process each, all at
-     once) and prints the build seconds and ptxas' register/spill report;
+  2. build: compiles csrc/additive_pool.cu with nvcc and prints the build
+     seconds and ptxas' register/spill report;
   3. kernel vs plain version: the additive pool at both widths the NAML
      serving path gives it (item pool 65,000 x 31 x 64, user pool
      20,000 x 50 x 64, H = 256), in f32 and bf16, with partly and fully
@@ -23,7 +23,8 @@ and exits non-zero when any phase fails:
      cache build. The first 2,048 item and user reprs are held against
      the plain version on the card, and the device metrics against the
      numpy MetricPool on the same scores. One more warm pass runs under
-     torch.profiler for device time by kernel and the idle share;
+     torch.profiler for device time by kernel (the additive pool's time
+     at the 512-row pages the path gives it included) and the idle share;
   5. prints one JSON line of kernels, the card line, and
      {"ok": true, "device": {...}} as the last line.
 """
@@ -110,8 +111,7 @@ def pool_inputs(N, L, dtype, device, seed):
     return x, mask, w1, b1, w2
 
 
-def check_pool(pool: str, N: int, L: int, dtype_name: str, device,
-               timed: bool = True) -> dict:
+def check_pool(pool: str, N: int, L: int, dtype_name: str, device) -> dict:
     import torch
     from legommenders_tpu_torch.ops.additive import (
         additive_pool, additive_pool_reference,
@@ -123,8 +123,7 @@ def check_pool(pool: str, N: int, L: int, dtype_name: str, device,
     with torch.inference_mode():
         got = additive_pool(*args)
         want = additive_pool_reference(x.float(), *args[1:])
-        if device.type == "cuda":
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
         err = (got.float() - want).abs()
         zero_rows = mask.sum(dim=1) == 0
         res = {"pool": pool, "N": N, "L": L, "D": D, "H": H,
@@ -132,11 +131,10 @@ def check_pool(pool: str, N: int, L: int, dtype_name: str, device,
                "max_abs_err": float(err.max()),
                "rel_err": float(err.max() / want.abs().max()),
                "all_masked_rows": int(zero_rows.sum()),
-               "all_masked_exact_zero": bool((got[zero_rows] == 0).all())}
-        if timed:
-            res["ms"] = time_ms(lambda: additive_pool(*args), iters=20)
-            res["plain_ms"] = time_ms(
-                lambda: additive_pool_reference(*args), iters=5)
+               "all_masked_exact_zero": bool((got[zero_rows] == 0).all()),
+               "ms": time_ms(lambda: additive_pool(*args), iters=20),
+               "plain_ms": time_ms(lambda: additive_pool_reference(*args),
+                                   iters=5)}
     res["bound_ms"], res["bound_by"] = bound(N, L, dtype_name)
     res["bound_peak"] = f"{dtype_name} {PEAK[dtype_name] / 1e12:g} TFLOP/s"
     ok = (res["max_abs_err"] <= F32_TOL if dtype_name == "f32"
@@ -150,7 +148,8 @@ def check_pool(pool: str, N: int, L: int, dtype_name: str, device,
 def profile_serving(cache, ev) -> dict:
     """torch.profiler over one warm serving pass (cache build + scoring +
     metrics): device time by kernel and the device's idle share of the
-    window's wall time (the profiler's own host cost included)."""
+    window's wall time (the profiler's own host cost included), and the
+    additive pool's device time summed over its launches in the pass."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -167,7 +166,10 @@ def profile_serving(cache, ev) -> dict:
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    pool = [e for e in kernels if "additive_pool_kernel" in e.key]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "pool_ms": sum(e.self_device_time_total for e in pool) / 1e3,
+            "pool_launches": sum(e.count for e in pool),
             # no device time in the trace means the share was not measured
             "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
             "kernel_launches": sum(e.count for e in kernels),
@@ -176,8 +178,7 @@ def profile_serving(cache, ev) -> dict:
                             for e in top]}
 
 
-def run_main_path(device, data_kw=DATA_KW, model_cfg=MODEL_CFG,
-                  exp_cfg=EXP_CFG, repr_rows=REPR_ROWS) -> dict:
+def run_main_path(device) -> dict:
     """NAML serving through Manager + Tester.test(); returns its record."""
     from unittest import mock
 
@@ -193,26 +194,22 @@ def run_main_path(device, data_kw=DATA_KW, model_cfg=MODEL_CFG,
     from legommenders_tpu_torch.runtime.manager import Manager
     from legommenders_tpu_torch.runtime.tester import Tester
 
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-
     rec = {}
     t0 = time.perf_counter()
-    data = SyntheticProcessor(**data_kw).as_lego_data()
+    data = SyntheticProcessor(**DATA_KW).as_lego_data()
     rec["host_data_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    m = Manager(model_cfg=model_cfg, exp_cfg=exp_cfg, data=data,
+    m = Manager(model_cfg=MODEL_CFG, exp_cfg=EXP_CFG, data=data,
                 device=device, seed=0)
     tester = Tester(m)
-    sync()
+    torch.cuda.synchronize()
     rec["setup_s"] = time.perf_counter() - t0
 
     additive_pool.launches = 0
     t0 = time.perf_counter()
     res = tester.test()
-    sync()
+    torch.cuda.synchronize()
     rec["test_s"] = time.perf_counter() - t0
     rec["launches"] = additive_pool.launches
     cache = m.cache
@@ -224,10 +221,10 @@ def run_main_path(device, data_kw=DATA_KW, model_cfg=MODEL_CFG,
     ev = tester.evaluator
 
     def timed(fn):
-        sync()
+        torch.cuda.synchronize()
         t = time.perf_counter()
         out = fn()
-        sync()
+        torch.cuda.synchronize()
         return out, time.perf_counter() - t
 
     _, rec["cache_s"] = timed(cache.cache)
@@ -238,8 +235,7 @@ def run_main_path(device, data_kw=DATA_KW, model_cfg=MODEL_CFG,
     host_metrics = ev.pool(scores.float().cpu().numpy(), ph.labels, ph.groups)
     rec["metric_vs_numpy_err"] = max(abs(dev_metrics[k] - host_metrics[k])
                                      for k in host_metrics)
-    if device.type == "cuda":
-        rec["profile"] = profile_serving(cache, ev)
+    rec["profile"] = profile_serving(cache, ev)
 
     # reprs of the first rows vs the plain pool on the card, page by page
     item_repr, user_repr = cache.item_repr, cache.user_repr
@@ -250,11 +246,11 @@ def run_main_path(device, data_kw=DATA_KW, model_cfg=MODEL_CFG,
         item_ref = torch.cat([
             m.model.encode_item_page(
                 {c: a[s:e] for c, a in cache.item_contents.items()})
-            for s, e in cache.pages(min(repr_rows, cache.num_items))])
+            for s, e in cache.pages(min(REPR_ROWS, cache.num_items))])
         user_ref = torch.cat([
             m.model.encode_user(item_repr[cache.hist_safe[s:e]],
                                 cache.hist_mask[s:e])
-            for s, e in cache.pages(min(repr_rows, cache.num_users))])
+            for s, e in cache.pages(min(REPR_ROWS, cache.num_users))])
     for name, got, want in (("item", item_repr, item_ref),
                             ("user", user_repr, user_ref)):
         err = (got[:len(want)].float() - want.float()).abs().max()
@@ -289,7 +285,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     # fails outside a checkout: the port is part of the repository
-    from legommenders_tpu_torch.ops import build
+    from legommenders_tpu_torch.ops import additive, build
 
     device = torch.device("cuda", 0)
     card = card_line()
@@ -298,12 +294,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    logs = build.build()
-    log(f"[build] {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+    text = build.build("additive_pool")
+    log(f"[build] additive_pool in {time.perf_counter() - t0:.2f} s")
+    for line in text.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[build] {line.strip()}")
 
     checks = []
     for pool, (N, L) in POOLS.items():
@@ -311,6 +306,8 @@ def main() -> int:
             res = check_pool(pool, N, L, dtype, device)
             checks.append(res)
             log(f"[kernel] {json.dumps(res)}")
+    log(f"[kernel] persistent grid by (L, D, H, bf16, device): "
+        f"{additive._grids}")
 
     rec = run_main_path(device)
     log(f"[main] {json.dumps(rec)}")
@@ -335,6 +332,10 @@ def main() -> int:
         "bound_by": "bytes" if all(c["bound_by"] == "bytes"
                                    for c in main_dtype) else "operations",
         "library_ms": None,
+        # the same kernel at the 512-row pages of the main path: device time
+        # summed over its launches in the profiled warm pass
+        "main_path_ms": rec["profile"]["pool_ms"],
+        "main_path_profiled_launches": rec["profile"]["pool_launches"],
         "checks": checks,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -32,8 +32,10 @@
 //      eight warps through shared memory;
 //   4. warp 0 runs the masked softmax with the reference's guards;
 //   5. threads d < D write sum_l a[l] * x[l, d].
-// The C entry points return a cudaError_t; the launch is checked with
-// cudaGetLastError() and never synchronises.
+// The device queries and the shared-memory attribute are set once per
+// width by additive_pool_prepare, not on every launch. The C entry points
+// return a cudaError_t; the launch is checked with cudaGetLastError() and
+// never synchronises.
 
 #include <cfloat>
 #include <cstddef>
@@ -170,27 +172,39 @@ additive_pool_kernel(const T* __restrict__ x, const float* __restrict__ mask,
   }
 }
 
+// Lets the kernel use the device's opt-in shared memory and sets *blocks to
+// the persistent blocks that fit on the device at once at these widths.
 template <typename T>
-int launch(const void* x, const void* mask, const void* w1, const void* b1,
-           const void* w2, void* out, int N, int L, int D, int H,
-           cudaStream_t stream) {
+cudaError_t prepare(int L, int D, int H, int device, int* blocks) {
   auto kernel = additive_pool_kernel<T>;
   const size_t smem = smem_floats(L, D, H) * sizeof(float);
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  int sms = 0, optin = 0, per_sm = 0;
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device);
+  if (err != cudaSuccess) return err;
+  if (smem > (size_t)optin) return cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+                             optin);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
                                                       smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long blocks = (long)per_sm * sms;
-  const int grid = (int)(N < blocks ? N : blocks);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  *blocks = per_sm * sms;
+  return cudaSuccess;
+}
+
+template <typename T>
+int launch(const void* x, const void* mask, const void* w1, const void* b1,
+           const void* w2, void* out, int N, int L, int D, int H, int blocks,
+           cudaStream_t stream) {
+  const size_t smem = smem_floats(L, D, H) * sizeof(float);
+  const int grid = N < blocks ? N : blocks;
+  additive_pool_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(mask),
       static_cast<const float*>(w1), static_cast<const float*>(b1),
       static_cast<const float*>(w2), static_cast<T*>(out), N, L, D, H);
@@ -206,20 +220,32 @@ size_t additive_pool_smem_bytes(int L, int D, int H) {
   return smem_floats(L, D, H) * sizeof(float);
 }
 
+// Readies the kernel for x of this type at these widths on `device`, once:
+// sets *blocks to the persistent grid that additive_pool_forward takes.
+// Returns a cudaError_t.
+int additive_pool_prepare(int L, int D, int H, int x_is_bf16, int device,
+                          int* blocks) {
+  if (x_is_bf16) return prepare<__nv_bfloat16>(L, D, H, device, blocks);
+  return prepare<float>(L, D, H, device, blocks);
+}
+
 // x (N, L, D) f32 or bf16 (x_is_bf16), mask (N, L) f32, w1 (D, H) f32,
 // b1 (H) f32, w2 (H) f32 -> out (N, D) of x's type. All contiguous, all on
-// `device`; D % 4 == 0. Enqueued on `stream`; returns a cudaError_t.
+// `device`; D % 4 == 0; `blocks` from additive_pool_prepare at the same
+// widths, type and device. Enqueued on `stream`; queries nothing and
+// returns a cudaError_t.
 int additive_pool_forward(const void* x, const void* mask, const void* w1,
                           const void* b1, const void* w2, void* out, int N,
-                          int L, int D, int H, int x_is_bf16, int device,
-                          void* stream) {
+                          int L, int D, int H, int x_is_bf16, int blocks,
+                          int device, void* stream) {
   if (N == 0) return cudaSuccess;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_is_bf16)
-    return launch<__nv_bfloat16>(x, mask, w1, b1, w2, out, N, L, D, H, st);
-  return launch<float>(x, mask, w1, b1, w2, out, N, L, D, H, st);
+    return launch<__nv_bfloat16>(x, mask, w1, b1, w2, out, N, L, D, H, blocks,
+                                 st);
+  return launch<float>(x, mask, w1, b1, w2, out, N, L, D, H, blocks, st);
 }
 
 const char* additive_pool_error_string(int err) {

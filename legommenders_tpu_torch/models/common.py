@@ -44,6 +44,7 @@ class AdditiveAttention(nn.Module):
         self.proj_kernel = nn.Parameter(torch.empty(input_dim, hidden_size))
         self.proj_bias = nn.Parameter(torch.zeros(hidden_size))
         self.query = nn.Parameter(torch.empty(hidden_size, 1))
+        self._pool_cache = None
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -53,6 +54,23 @@ class AdditiveAttention(nn.Module):
         with torch.no_grad():
             self.proj_bias.zero_()
 
+    def pool_weights(self):
+        """proj_kernel, proj_bias and query[:, 0] cast to the compute dtype,
+        as the JAX module casts them, and held as f32 (the kernel's weight
+        type; the values are those of the cast). Without grad the casts are
+        made once and kept until a parameter is replaced or written in place
+        (its data pointer or version counter moves)."""
+        params = (self.proj_kernel, self.proj_bias, self.query[:, 0])
+        if torch.is_grad_enabled():
+            return tuple(p.to(self.dtype).float() for p in params)
+        key = (self.dtype, self.query.device) + tuple(
+            (p.data_ptr(), p._version)
+            for p in (self.proj_kernel, self.proj_bias, self.query))
+        if self._pool_cache is None or self._pool_cache[0] != key:
+            self._pool_cache = (key, tuple(
+                p.to(self.dtype).float().contiguous() for p in params))
+        return self._pool_cache[1]
+
     def forward(self, inputs: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         lead, (L, D) = inputs.shape[:-2], inputs.shape[-2:]
@@ -61,8 +79,6 @@ class AdditiveAttention(nn.Module):
             m = torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
         else:
             m = mask.reshape(-1, L).float()
-        out = additive_pool(
-            x.to(self.dtype).contiguous(), m,
-            self.proj_kernel.to(self.dtype), self.proj_bias.to(self.dtype),
-            self.query[:, 0].to(self.dtype))
+        out = additive_pool(x.to(self.dtype).contiguous(), m,
+                            *self.pool_weights())
         return out.reshape(*lead, D)

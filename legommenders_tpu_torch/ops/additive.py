@@ -17,6 +17,7 @@ CUDA tensor through the kernel; there is no fallback between the two. Its
 the card a call that would need one raises.
 """
 import ctypes
+import functools
 
 import torch
 
@@ -26,7 +27,8 @@ from legommenders_tpu_torch.ops.core import masked_softmax
 # the largest dynamic shared memory a block may use on sm_90
 MAX_SMEM_BYTES = 232448
 
-_argtypes_set = False
+# (L, D, H, x is bf16, device index) -> persistent grid of the kernel
+_grids = {}
 
 
 def additive_pool_reference(x, mask, w1, b1, w2):
@@ -41,20 +43,43 @@ def additive_pool_reference(x, mask, w1, b1, w2):
     return torch.einsum("nl,nld->nd", a, xf).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
 def _kernel_lib() -> ctypes.CDLL:
-    global _argtypes_set
     lib = build.library("additive_pool")
-    if not _argtypes_set:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.additive_pool_forward.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                              i, i, p]
-        lib.additive_pool_forward.restype = i
-        lib.additive_pool_smem_bytes.argtypes = [i, i, i]
-        lib.additive_pool_smem_bytes.restype = ctypes.c_size_t
-        lib.additive_pool_error_string.argtypes = [i]
-        lib.additive_pool_error_string.restype = ctypes.c_char_p
-        _argtypes_set = True
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.additive_pool_forward.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
+                                          i, p]
+    lib.additive_pool_forward.restype = i
+    lib.additive_pool_prepare.argtypes = [i, i, i, i, i,
+                                          ctypes.POINTER(ctypes.c_int)]
+    lib.additive_pool_prepare.restype = i
+    lib.additive_pool_smem_bytes.argtypes = [i, i, i]
+    lib.additive_pool_smem_bytes.restype = ctypes.c_size_t
+    lib.additive_pool_error_string.argtypes = [i]
+    lib.additive_pool_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _check(lib, err: int, what: str):
+    if err:
+        msg = lib.additive_pool_error_string(err).decode()
+        raise RuntimeError(f"additive_pool {what} failed: {msg} "
+                           f"(cudaError {err})")
+
+
+def _grid(lib, L: int, D: int, H: int, bf16: bool, device: int) -> int:
+    """The kernel's persistent grid at these widths, prepared on first use."""
+    key = (L, D, H, bf16, device)
+    if key not in _grids:
+        smem = lib.additive_pool_smem_bytes(L, D, H)
+        if smem > MAX_SMEM_BYTES:
+            raise ValueError(f"additive_pool: L={L} D={D} H={H} need {smem} "
+                             f"B of shared memory, more than {MAX_SMEM_BYTES}")
+        blocks = ctypes.c_int(0)
+        _check(lib, lib.additive_pool_prepare(L, D, H, int(bf16), device,
+                                              ctypes.byref(blocks)), "prepare")
+        _grids[key] = blocks.value
+    return _grids[key]
 
 
 def additive_pool(x, mask, w1, b1, w2):
@@ -93,24 +118,18 @@ def additive_pool(x, mask, w1, b1, w2):
     if D % 4:
         raise ValueError(f"additive_pool: D={D} is not a multiple of 4")
     lib = _kernel_lib()
-    smem = lib.additive_pool_smem_bytes(L, D, H)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"additive_pool: L={L} D={D} H={H} need {smem} B of "
-                         f"shared memory, more than {MAX_SMEM_BYTES}")
+    bf16, dev = x.dtype == torch.bfloat16, x.device.index or 0
+    blocks = _grid(lib, L, D, H, bf16, dev)
     out = torch.empty((N, D), dtype=x.dtype, device=x.device)
     if N == 0:
         return out
+    # no-ops for f32 contiguous inputs (what AdditiveAttention passes)
     maskf = mask.float().contiguous()
     w1f, b1f, w2f = (t.float().contiguous() for t in (w1, b1, w2))
-    err = lib.additive_pool_forward(
+    _check(lib, lib.additive_pool_forward(
         x.data_ptr(), maskf.data_ptr(), w1f.data_ptr(), b1f.data_ptr(),
-        w2f.data_ptr(), out.data_ptr(), N, L, D, H,
-        int(x.dtype == torch.bfloat16), x.device.index or 0,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        msg = lib.additive_pool_error_string(err).decode()
-        raise RuntimeError(f"additive_pool kernel launch failed: {msg} "
-                           f"(cudaError {err})")
+        w2f.data_ptr(), out.data_ptr(), N, L, D, H, int(bf16), blocks, dev,
+        torch.cuda.current_stream(x.device).cuda_stream), "kernel launch")
     additive_pool.launches += 1
     return out
 

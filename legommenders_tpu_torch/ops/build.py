@@ -1,21 +1,20 @@
-"""Builds the port's CUDA sources (csrc/*.cu) and loads them with ctypes.
+"""Builds a CUDA source of the port (csrc/<name>.cu) and loads it with ctypes.
 
-Each source is compiled by `nvcc` on its own into a shared library with a
-plain C interface, in `_build/` beside this package (listed in .gitignore):
+The source is compiled by `nvcc` into a shared library with a plain C
+interface, in `_build/` beside this package (listed in .gitignore):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>.so csrc/<name>.cu
 
-A library is rebuilt when its source is newer. `build()` starts one nvcc
-per source, all at once, and waits for all of them; `library(name)` builds
-on first use and loads. Nothing is compiled or loaded at import time.
+A library is rebuilt when its source is newer. `library(name)` builds on
+first use and loads; `build(name)` only builds and returns nvcc's output.
+Nothing is compiled or loaded at import time.
 """
 import ctypes
 import os
 import shutil
 import subprocess
-import threading
-from typing import Dict, Iterable, Optional
+from typing import Dict
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -24,7 +23,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -50,43 +48,28 @@ def _stale(name: str) -> bool:
             or os.path.getmtime(lib) < os.path.getmtime(source(name)))
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
-    """Compile the named sources (every csrc/*.cu by default) that are
-    missing or stale, one nvcc process each, all started together.
-    Returns {name: compiler output} for the sources compiled; raises with
-    the compiler's output if any of them fails."""
-    if names is None:
-        names = sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
-    todo = [n for n in names if _stale(n)]
-    if not todo:
-        return {}
+def build(name: str) -> str:
+    """Compile csrc/<name>.cu if its library is missing or stale. Returns
+    the compiler's output ('' when nothing was compiled); raises with it if
+    nvcc fails."""
+    if not _stale(name):
+        return ""
     os.makedirs(BUILD, exist_ok=True)
-    exe = nvcc()
-    procs = {}
-    for n in todo:
-        tmp = f"{lib_path(n)}.{os.getpid()}.tmp"
-        procs[n] = (tmp, subprocess.Popen(
-            [exe, *NVCC_FLAGS, "-o", tmp, source(n)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    logs, failed = {}, []
-    for n, (tmp, proc) in procs.items():
-        logs[n] = proc.communicate()[0]
-        if proc.returncode == 0:
-            os.replace(tmp, lib_path(n))
-        else:
-            failed.append(n)
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    if failed:
-        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
-                           + "\n".join(logs[n] for n in failed))
-    return logs
+    tmp = f"{lib_path(name)}.{os.getpid()}.tmp"
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, source(name)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
+    os.replace(tmp, lib_path(name))
+    return proc.stdout
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built first if needed."""
-    with _lock:
-        if name not in _loaded:
-            build([name])
-            _loaded[name] = ctypes.CDLL(lib_path(name))
-        return _loaded[name]
+    if name not in _loaded:
+        build(name)
+        _loaded[name] = ctypes.CDLL(lib_path(name))
+    return _loaded[name]

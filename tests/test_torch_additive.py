@@ -111,6 +111,29 @@ def test_additive_attention_module_matches_flax(pool_inputs):
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
 
 
+def test_pool_weights_cached_until_a_parameter_changes():
+    """Without grad the compute-dtype casts are made once per parameter
+    state; an in-place write or a new state dict refreshes them, and with
+    grad they stay attached to the parameters."""
+    mod = AdditiveAttention(16, 32, dtype=torch.bfloat16)
+    want = lambda: tuple(p.to(torch.bfloat16).float() for p in  # noqa: E731
+                         (mod.proj_kernel, mod.proj_bias, mod.query[:, 0]))
+    with torch.no_grad():
+        first = mod.pool_weights()
+        assert all(w.dtype == torch.float32 for w in first)
+        assert all(torch.equal(a, b) for a, b in zip(first, want()))
+        assert all(a is b for a, b in zip(first, mod.pool_weights()))
+        mod.proj_bias.add_(0.5)
+        second = mod.pool_weights()
+    assert torch.equal(second[1], want()[1]) and not torch.equal(first[1],
+                                                                 second[1])
+    mod.load_state_dict({k: v * 2 for k, v in mod.state_dict().items()})
+    with torch.inference_mode():
+        third = mod.pool_weights()
+    assert all(torch.equal(a, b) for a, b in zip(third, want()))
+    assert all(w.requires_grad for w in mod.pool_weights())
+
+
 @pytest.mark.parametrize("name", ["masked_softmax", "masked_mean",
                                   "masked_max"])
 def test_masked_ops_match_jax(name):
