@@ -6,25 +6,38 @@ CUDA card and nvcc (on PATH, or under CUDA_HOME), imports nothing of JAX,
 and exits non-zero when any phase fails:
   1. device: requires CUDA, prints the card's name and power limit, turns
      TF32 off for the parity phases;
-  2. build: compiles csrc/additive_pool.cu with nvcc and prints the build
+  2. build: compiles csrc/additive_pool.cu and csrc/packed_attention.cu
+     with nvcc, one process each, both at once, and prints the build
      seconds and ptxas' register/spill report;
-  3. kernel vs plain version: the additive pool at both widths the NAML
-     serving path gives it (item pool 65,000 x 31 x 64, user pool
-     20,000 x 50 x 64, H = 256), in f32 and bf16, with partly and fully
-     masked rows; f32 within 1e-5 absolute, bf16 within 2e-2 of the
-     largest output of the plain version computed in f32 from the same
-     bf16 inputs; all-masked rows must give exactly 0. Times both with
-     CUDA events beside the card's least possible time (bound);
-  4. main path: NAML (CNN / Ada / Dot, hidden 64, bf16) at full width on
-     the synthetic MIND-small-geometry fixture, random weights from seed
-     0, through Manager + Tester.test(): item cache, user cache, cached
-     scoring of the test phase and the group metrics. The kernel's launch
-     count over that run must equal the item pages + user pages of the
-     cache build. The first 2,048 item and user reprs are held against
-     the plain version on the card, and the device metrics against the
-     numpy MetricPool on the same scores. One more warm pass runs under
-     torch.profiler for device time by kernel (the additive pool's time
-     at the 512-row pages the path gives it included) and the idle share;
+  3. kernels vs plain versions, each at the shapes its main path gives it,
+     in f32 (within 1e-5 absolute) and bf16 (within 2e-2 of the largest
+     output of the plain version computed from the same bf16 inputs),
+     timed with CUDA events beside the card's least possible time (bound):
+     - the additive pool at both NAML widths (item pool 65,000 x 31 x 64,
+       user pool 20,000 x 50 x 64, H = 256) with partly and fully masked
+       rows; all-masked rows must give exactly 0;
+     - the packed attention at bert-naml's page shape (171 packed rows of
+       3 items x 34 tokens = 102, D = 768, 12 heads), with the block-
+       diagonal biases packed_mask_bias makes from random title lengths;
+       torch's scaled_dot_product_attention is timed beside it as the
+       yardstick (library_ms) and is never called by the port;
+  4. main paths, each through Manager + Tester.test() at full width on one
+     synthetic MIND-small-geometry fixture (65,000 items, 20,000 users,
+     title 30, history 50, vocab 30,000), random weights from seed 0, bf16;
+     every launch count is set to 0 just before a path and read just after:
+     - NAML (CNN / Ada / Dot, hidden 64): the pool launches once per item
+       page + user page, the attention never;
+     - bert-naml (BertBase / Ada / Dot, item-bert.yaml's defaults: 12
+       layers, d 768, 12 heads, LoRA r 32 folded, fused attention, tanh
+       gelu, [CLS] title [SEP] category [SEP] compacted, pages of 512): the
+       attention launches 12 times per item page, the pool once per item
+       page + user page.
+     The first 2,048 item and user reprs are held against the same model
+     with every kernel patched out for its plain version, on the card, and
+     the device metrics against the numpy MetricPool on the same scores.
+     One more warm pass of each runs under torch.profiler for device time
+     by kernel (each kernel's time at the main path's shapes included)
+     and the device's idle share;
   5. prints one JSON line of kernels, the card line, and
      {"ok": true, "device": {...}} as the last line.
 """
@@ -52,6 +65,25 @@ MODEL_CFG = {
                "cache_page_size": 512,
                "item_config": {"dropout": 0.1, "kernel_size": 3}},
 }
+# config/model/bert-naml.yaml with common/operators/item-bert.yaml's
+# defaults as written (BertBase: 12 layers, 12 heads, d 768)
+BERT_CFG = {
+    "meta": {"item": "BertBase", "user": "Ada", "predictor": "Dot"},
+    "config": {"use_item_content": True, "hidden_size": 64,
+               "embedding_dim": 768, "cache_page_size": 512,
+               "item_config": {
+                   "lm_dtype": "bf16", "tune_from": None, "use_lora": True,
+                   "lora_r": 32, "fused_attention": True,
+                   "gelu_approximate": True, "lora_dropout": 0.0,
+                   "lora_fold": True, "dropout_reuse": True,
+                   "inputer_config": {"use_cls_token": True,
+                                      "use_sep_token": True,
+                                      "compact": True}}},
+}
+BERT_LAYERS = 12
+# bert-naml's attention page: 512 items of L = 1 + 30 + 1 + 1 + 1 = 34
+# tokens, packed G = 128 // 34 = 3 to a row: 171 rows of T = 102
+ATTN_PAGE = dict(items=512, L=34, D=768, heads=12)
 EXP_CFG = {"policy": {"dtype": "bf16"}}
 F32_TOL, BF16_REL_TOL = 1e-5, 2e-2
 REPR_ROWS = 2048
@@ -84,15 +116,21 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound(N: int, L: int, dtype: str):
-    """(ms, 'bytes'|'operations') the card needs at least: inputs read
-    once, output written once, against the data-sheet peak for dtype."""
-    xb = 2 if dtype == "bf16" else 4
-    flops = 2.0 * N * L * (D * H + H + D)
-    nbytes = N * L * D * xb + N * L * 4 + (D * H + 2 * H) * 4 + N * D * xb
+def roof(flops: float, nbytes: float, dtype: str):
+    """(ms, 'bytes'|'operations') the card needs at least for this work:
+    the larger of the bytes over the memory rate and the operations over
+    the data-sheet peak for dtype."""
     t_ops, t_bytes = flops / PEAK[dtype], nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound(N: int, L: int, dtype: str):
+    """The additive pool's bound: inputs read once, output written once."""
+    xb = 2 if dtype == "bf16" else 4
+    flops = 2.0 * N * L * (D * H + H + D)
+    nbytes = N * L * D * xb + N * L * 4 + (D * H + 2 * H) * 4 + N * D * xb
+    return roof(flops, nbytes, dtype)
 
 
 def pool_inputs(N, L, dtype, device, seed):
@@ -145,11 +183,79 @@ def check_pool(pool: str, N: int, L: int, dtype_name: str, device) -> dict:
     return res
 
 
+def attention_inputs(dtype, device, seed):
+    """q, k, v ~ N(0, 1) at bert-naml's attention page; the bias is the one
+    packed_mask_bias makes for 512 items whose valid lengths are those of
+    the fixture's titles (15..30 tokens + [CLS], 2 [SEP], category)."""
+    import torch
+    from legommenders_tpu_torch.models.lm.layers import (
+        pack_items, packed_mask_bias,
+    )
+
+    items, L, Dm = ATTN_PAGE["items"], ATTN_PAGE["L"], ATTN_PAGE["D"]
+    g = torch.Generator(device=device).manual_seed(seed)
+    lens = torch.randint(19, L + 1, (items,), generator=g, device=device)
+    mask = (torch.arange(L, device=device)[None] < lens[:, None]).int()
+    _, mask_p, _ = pack_items(torch.zeros(items, L, 1, device=device), mask,
+                              128 // L)
+    B, T = mask_p.shape
+    q, k, v = (torch.randn(B, T, Dm, generator=g, device=device).to(dtype)
+               for _ in range(3))
+    return q, k, v, packed_mask_bias(mask_p, L, dtype)[:, 0]
+
+
+def check_attention(dtype_name: str, device) -> dict:
+    import torch
+    from torch.nn import functional as F
+    from legommenders_tpu_torch.ops.attention import (
+        packed_attention, reference_attention,
+    )
+
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
+    heads = ATTN_PAGE["heads"]
+    q, k, v, bias = attention_inputs(dtype, device, seed=7)
+    B, T, Dm = q.shape
+    # the head-split layout torch's own attention takes; timed only
+    qh, kh, vh = (t.view(B, T, heads, Dm // heads).transpose(1, 2)
+                  for t in (q, k, v))
+    mask4 = bias[:, None]
+    with torch.inference_mode():
+        got = packed_attention(heads, 0.0, q, k, v, bias)
+        want = reference_attention(heads, q, k, v, bias)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        res = {"B": B, "T": T, "D": Dm, "heads": heads, "dtype": dtype_name,
+               "max_abs_err": float(err.max()),
+               "rel_err": float(err.max() / want.float().abs().max()),
+               "finite": bool(torch.isfinite(got.float()).all()),
+               "ms": time_ms(lambda: packed_attention(heads, 0.0, q, k, v,
+                                                      bias), iters=50),
+               "plain_ms": time_ms(lambda: reference_attention(
+                   heads, q, k, v, bias), iters=5),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                   qh, kh, vh, attn_mask=mask4), iters=50)}
+    flops = 4.0 * B * T * T * Dm
+    nbytes = 4 * B * T * Dm * q.element_size() + B * T * T * bias.element_size()
+    res["bound_ms"], res["bound_by"] = roof(flops, nbytes, dtype_name)
+    res["bound_peak"] = f"{dtype_name} {PEAK[dtype_name] / 1e12:g} TFLOP/s"
+    ok = (res["max_abs_err"] <= F32_TOL if dtype_name == "f32"
+          else res["rel_err"] <= BF16_REL_TOL)
+    if not (ok and res["finite"]):
+        raise RuntimeError(f"packed_attention disagrees with its plain "
+                           f"version: {res}")
+    return res
+
+
+# each kernel's device-side names, as the profiler lists them
+KERNEL_NAMES = {"additive_pool": ("additive_pool_kernel",),
+                "packed_attention": ("attention_mma", "attention_simt")}
+
+
 def profile_serving(cache, ev) -> dict:
     """torch.profiler over one warm serving pass (cache build + scoring +
     metrics): device time by kernel and the device's idle share of the
-    window's wall time (the profiler's own host cost included), and the
-    additive pool's device time summed over its launches in the pass."""
+    window's wall time (the profiler's own host cost included), and each
+    port kernel's device time and launches summed over the pass."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -166,10 +272,12 @@ def profile_serving(cache, ev) -> dict:
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    pool = [e for e in kernels if "additive_pool_kernel" in e.key]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "pool_ms": sum(e.self_device_time_total for e in pool) / 1e3,
-            "pool_launches": sum(e.count for e in pool),
+    ours = {}
+    for name, keys in KERNEL_NAMES.items():
+        evs = [e for e in kernels if any(k in e.key for k in keys)]
+        ours[name] = {"ms": sum(e.self_device_time_total for e in evs) / 1e3,
+                      "launches": sum(e.count for e in evs)}
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "kernels": ours,
             # no device time in the trace means the share was not measured
             "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
             "kernel_launches": sum(e.count for e in kernels),
@@ -178,43 +286,54 @@ def profile_serving(cache, ev) -> dict:
                             for e in top]}
 
 
-def run_main_path(device) -> dict:
-    """NAML serving through Manager + Tester.test(); returns its record."""
+def _plain_attention(num_heads, dropout_p, q, k, v, bias, seed=None):
+    from legommenders_tpu_torch.ops.attention import reference_attention
+
+    return reference_attention(num_heads, q, k, v, bias)
+
+
+def run_path(name: str, model_cfg: dict, data, device,
+             attention_per_item_page: int) -> dict:
+    """One serving path through Manager + Tester.test(); returns its record.
+    Every kernel's launch count is set to 0 just before Tester.test() and
+    read just after: the pool must launch once per item and user page, the
+    attention `attention_per_item_page` times per item page."""
     from unittest import mock
 
     import numpy as np
     import torch
     import legommenders_tpu_torch.models.common as common
-    from legommenders_tpu_torch.data.processors.synthetic import (
-        SyntheticProcessor,
-    )
+    import legommenders_tpu_torch.models.lm.layers as lm_layers
     from legommenders_tpu_torch.ops.additive import (
         additive_pool, additive_pool_reference,
     )
+    from legommenders_tpu_torch.ops.attention import packed_attention
     from legommenders_tpu_torch.runtime.manager import Manager
     from legommenders_tpu_torch.runtime.tester import Tester
 
-    rec = {}
+    counters = {"additive_pool": additive_pool,
+                "packed_attention": packed_attention}
+    rec = {"path": name}
     t0 = time.perf_counter()
-    data = SyntheticProcessor(**DATA_KW).as_lego_data()
-    rec["host_data_s"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    m = Manager(model_cfg=MODEL_CFG, exp_cfg=EXP_CFG, data=data,
+    m = Manager(model_cfg=model_cfg, exp_cfg=EXP_CFG, data=data,
                 device=device, seed=0)
     tester = Tester(m)
     torch.cuda.synchronize()
     rec["setup_s"] = time.perf_counter() - t0
 
-    additive_pool.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     res = tester.test()
     torch.cuda.synchronize()
     rec["test_s"] = time.perf_counter() - t0
-    rec["launches"] = additive_pool.launches
+    rec["launches"] = {k: fn.launches for k, fn in counters.items()}
     cache = m.cache
-    rec["pages"] = (len(cache.pages(cache.num_items))
-                    + len(cache.pages(cache.num_users)))
+    rec["item_pages"] = len(cache.pages(cache.num_items))
+    rec["user_pages"] = len(cache.pages(cache.num_users))
+    rec["expected_launches"] = {
+        "additive_pool": rec["item_pages"] + rec["user_pages"],
+        "packed_attention": attention_per_item_page * rec["item_pages"]}
     rec["metrics"] = res
 
     # the same phases again, warm, one at a time
@@ -237,11 +356,14 @@ def run_main_path(device) -> dict:
                                      for k in host_metrics)
     rec["profile"] = profile_serving(cache, ev)
 
-    # reprs of the first rows vs the plain pool on the card, page by page
+    # reprs of the first rows vs the same model with every kernel patched
+    # out for its plain version, on the card, page by page
     item_repr, user_repr = cache.item_repr, cache.user_repr
     rec["item_repr_shape"] = list(item_repr.shape)
     rec["user_repr_shape"] = list(user_repr.shape)
     with mock.patch.object(common, "additive_pool", additive_pool_reference), \
+            mock.patch.object(lm_layers, "packed_attention",
+                              _plain_attention), \
             torch.inference_mode():
         item_ref = torch.cat([
             m.model.encode_item_page(
@@ -251,11 +373,11 @@ def run_main_path(device) -> dict:
             m.model.encode_user(item_repr[cache.hist_safe[s:e]],
                                 cache.hist_mask[s:e])
             for s, e in cache.pages(min(REPR_ROWS, cache.num_users))])
-    for name, got, want in (("item", item_repr, item_ref),
+    for part, got, want in (("item", item_repr, item_ref),
                             ("user", user_repr, user_ref)):
         err = (got[:len(want)].float() - want.float()).abs().max()
-        rec[f"{name}_repr_rel_err"] = float(err / want.float().abs().max())
-        rec[f"{name}_repr_finite"] = bool(torch.isfinite(got).all())
+        rec[f"{part}_repr_rel_err"] = float(err / want.float().abs().max())
+        rec[f"{part}_repr_finite"] = bool(torch.isfinite(got).all())
 
     problems = []
     if rec["item_repr_shape"] != [data.num_items, 64] or \
@@ -265,13 +387,18 @@ def run_main_path(device) -> dict:
         problems.append("metrics not finite in [0, 1]")
     if rec["metric_vs_numpy_err"] > 1e-5:
         problems.append("device metrics disagree with the numpy pool")
-    for name in ("item", "user"):
-        if not rec[f"{name}_repr_finite"]:
-            problems.append(f"{name} reprs not finite")
-        if rec[f"{name}_repr_rel_err"] > BF16_REL_TOL:
-            problems.append(f"{name} reprs disagree with the plain pool")
+    for part in ("item", "user"):
+        if not rec[f"{part}_repr_finite"]:
+            problems.append(f"{part} reprs not finite")
+        if rec[f"{part}_repr_rel_err"] > BF16_REL_TOL:
+            problems.append(f"{part} reprs disagree with the plain path")
+    if rec["launches"] != rec["expected_launches"]:
+        problems.append("kernel launches on the path")
     if problems:
-        raise RuntimeError(f"main path failed ({', '.join(problems)}): {rec}")
+        raise RuntimeError(f"{name} path failed ({', '.join(problems)}): "
+                           f"{rec}")
+    del m, tester, cache, ev
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -285,6 +412,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     # fails outside a checkout: the port is part of the repository
+    from legommenders_tpu_torch.data.processors.synthetic import (
+        SyntheticProcessor,
+    )
     from legommenders_tpu_torch.ops import additive, build
 
     device = torch.device("cuda", 0)
@@ -294,11 +424,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    text = build.build("additive_pool")
-    log(f"[build] additive_pool in {time.perf_counter() - t0:.2f} s")
-    for line in text.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    texts = build.build_all(["additive_pool", "packed_attention"])
+    log(f"[build] additive_pool + packed_attention, one nvcc each at once, "
+        f"in {time.perf_counter() - t0:.2f} s")
+    for name, text in texts.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
 
     checks = []
     for pool, (N, L) in POOLS.items():
@@ -308,35 +440,71 @@ def main() -> int:
             log(f"[kernel] {json.dumps(res)}")
     log(f"[kernel] persistent grid by (L, D, H, bf16, device): "
         f"{additive._grids}")
+    attn_checks = []
+    for dtype in ("f32", "bf16"):
+        res = check_attention(dtype, device)
+        attn_checks.append(res)
+        log(f"[kernel] packed_attention {json.dumps(res)}")
 
-    rec = run_main_path(device)
-    log(f"[main] {json.dumps(rec)}")
-    if rec["launches"] != rec["pages"]:
-        raise RuntimeError(f"additive_pool launched {rec['launches']} times "
-                           f"on the main path, the cache build ran "
-                           f"{rec['pages']} pages")
+    t0 = time.perf_counter()
+    data = SyntheticProcessor(**DATA_KW).as_lego_data()
+    log(f"[data] host data build {time.perf_counter() - t0:.2f} s, shared "
+        f"by both paths")
+    paths = {}
+    for name, cfg, per_page in (("naml", MODEL_CFG, 0),
+                                ("bert-naml", BERT_CFG, BERT_LAYERS)):
+        paths[name] = run_path(name, cfg, data, device, per_page)
+        log(f"[main] {json.dumps(paths[name])}")
 
-    main_dtype = [c for c in checks if c["dtype"] == "bf16"]
+    def by_path(key):
+        return {p: rec["launches"][key] for p, rec in paths.items()}
+
+    def profiled(key):
+        return {p: rec["profile"]["kernels"][key] for p, rec in paths.items()}
+
+    pool_bf16 = [c for c in checks if c["dtype"] == "bf16"]
+    attn_bf16 = next(c for c in attn_checks if c["dtype"] == "bf16")
     kernels = [{
         "name": "additive_pool",
         "route": "cuda",
         "source": "legommenders_tpu_torch/csrc/additive_pool.cu",
         "replaces": "legommenders_tpu/ops/pallas_additive.py:34",
-        "launches": rec["launches"],
-        # item + user pool at full width, bf16 (the main path's dtype)
-        "max_abs_err": max(c["max_abs_err"] for c in main_dtype),
-        "ms": sum(c["ms"] for c in main_dtype),
-        "plain_ms": sum(c["plain_ms"] for c in main_dtype),
-        "bound_ms": sum(c["bound_ms"] for c in main_dtype),
-        "bound_us": sum(c["bound_ms"] for c in main_dtype) * 1e3,
+        "launches": sum(by_path("additive_pool").values()),
+        "launches_by_path": by_path("additive_pool"),
+        # item + user pool at NAML's full width, bf16 (the main dtype)
+        "max_abs_err": max(c["max_abs_err"] for c in pool_bf16),
+        "ms": sum(c["ms"] for c in pool_bf16),
+        "plain_ms": sum(c["plain_ms"] for c in pool_bf16),
+        "bound_ms": sum(c["bound_ms"] for c in pool_bf16),
+        "bound_us": sum(c["bound_ms"] for c in pool_bf16) * 1e3,
         "bound_by": "bytes" if all(c["bound_by"] == "bytes"
-                                   for c in main_dtype) else "operations",
+                                   for c in pool_bf16) else "operations",
         "library_ms": None,
-        # the same kernel at the 512-row pages of the main path: device time
-        # summed over its launches in the profiled warm pass
-        "main_path_ms": rec["profile"]["pool_ms"],
-        "main_path_profiled_launches": rec["profile"]["pool_launches"],
+        # device time summed over the kernel's launches in each path's
+        # profiled warm pass, at the shapes the path gives it
+        "main_path_ms": sum(v["ms"] for v in profiled("additive_pool")
+                            .values()),
+        "main_path_by_path": profiled("additive_pool"),
         "checks": checks,
+    }, {
+        "name": "packed_attention",
+        "route": "cuda",
+        "source": "legommenders_tpu_torch/csrc/packed_attention.cu",
+        "replaces": "legommenders_tpu/ops/pallas_attention.py:53",
+        "launches": sum(by_path("packed_attention").values()),
+        "launches_by_path": by_path("packed_attention"),
+        # one bert-naml page, bf16 (the main dtype)
+        "max_abs_err": attn_bf16["max_abs_err"],
+        "ms": attn_bf16["ms"],
+        "plain_ms": attn_bf16["plain_ms"],
+        "bound_ms": attn_bf16["bound_ms"],
+        "bound_by": attn_bf16["bound_by"],
+        "library_ms": attn_bf16["library_ms"],
+        "library": "torch.nn.functional.scaled_dot_product_attention",
+        "main_path_ms": sum(v["ms"] for v in profiled("packed_attention")
+                            .values()),
+        "main_path_by_path": profiled("packed_attention"),
+        "checks": attn_checks,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

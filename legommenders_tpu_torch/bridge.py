@@ -9,7 +9,13 @@ no JAX. Conversions:
   * `eh/emb_<kind>__<name>`       -> `eh.tables.<kind>__<name>`;
   * `eh/tr_<kind>__<name>/...`    -> `eh.transforms.<kind>__<name>....`;
   * AdditiveAttention `proj_kernel` / `proj_bias` / `query` as they are,
-    with the flax module name `AdditiveAttention_0` -> `attention`.
+    with the flax module name `AdditiveAttention_0` -> `attention`;
+  * LayerNorm `scale`             -> `weight`;
+  * LoRA `lora_A` (D, r) / `lora_B` (r, F) -> (r, D) / (F, r);
+  * BERT `position_embeddings`, `token_type_embeddings` and the
+    ConcatInputer's `special_tokens` as they are. Module paths keep their
+    names (`item_op/lm/layer_3/attention/query` ->
+    `item_op.lm.layer_3.attention.query`).
 Raises on any key it cannot place and on any parameter of the port that
 the tree leaves unset.
 """
@@ -19,6 +25,9 @@ import numpy as np
 import torch
 
 _MODULE_NAMES = {"AdditiveAttention_0": "attention"}
+_AS_THEY_ARE = ("bias", "proj_kernel", "proj_bias", "query",
+                "position_embeddings", "token_type_embeddings",
+                "special_tokens")
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -44,7 +53,11 @@ def _place(path, arr):
         leaf, arr = "weight", arr.T
     elif leaf == "kernel" and arr.ndim == 3:
         leaf, arr = "weight", arr.transpose(2, 1, 0)
-    elif leaf not in ("bias", "proj_kernel", "proj_bias", "query"):
+    elif leaf == "scale":
+        leaf = "weight"
+    elif leaf in ("lora_A", "lora_B"):
+        arr = arr.T
+    elif leaf not in _AS_THEY_ARE:
         raise KeyError(f"bridge: no rule for JAX parameter {'/'.join(path)}")
     return ".".join(names + [leaf]), arr
 

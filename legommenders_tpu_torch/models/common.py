@@ -33,6 +33,21 @@ def reset_linear(layer: nn.Module, generator: Optional[torch.Generator]):
         layer.bias.zero_()
 
 
+def cached_casts(module: nn.Module, params, make):
+    """`make()`, the compute-dtype copies of `params`, made once per state
+    of the parameters while grad is off (a served model's weights do not
+    change between pages) and kept on `module`; made anew when a parameter
+    is replaced or written in place (its data pointer or version counter
+    moves) or `module.dtype` changes; every call while grad is on."""
+    if torch.is_grad_enabled():
+        return make()
+    key = (module.dtype,) + tuple((p.data_ptr(), p._version) for p in params)
+    cache = getattr(module, "_cast_cache", None)
+    if cache is None or cache[0] != key:
+        module._cast_cache = cache = (key, make())
+    return cache[1]
+
+
 class AdditiveAttention(nn.Module):
     """exp-softmax additive pooling (..., L, D) -> (..., D), through the
     CUDA kernel on the card and the plain version on the CPU."""
@@ -44,7 +59,6 @@ class AdditiveAttention(nn.Module):
         self.proj_kernel = nn.Parameter(torch.empty(input_dim, hidden_size))
         self.proj_bias = nn.Parameter(torch.zeros(hidden_size))
         self.query = nn.Parameter(torch.empty(hidden_size, 1))
-        self._pool_cache = None
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -57,19 +71,11 @@ class AdditiveAttention(nn.Module):
     def pool_weights(self):
         """proj_kernel, proj_bias and query[:, 0] cast to the compute dtype,
         as the JAX module casts them, and held as f32 (the kernel's weight
-        type; the values are those of the cast). Without grad the casts are
-        made once and kept until a parameter is replaced or written in place
-        (its data pointer or version counter moves)."""
-        params = (self.proj_kernel, self.proj_bias, self.query[:, 0])
-        if torch.is_grad_enabled():
-            return tuple(p.to(self.dtype).float() for p in params)
-        key = (self.dtype, self.query.device) + tuple(
-            (p.data_ptr(), p._version)
-            for p in (self.proj_kernel, self.proj_bias, self.query))
-        if self._pool_cache is None or self._pool_cache[0] != key:
-            self._pool_cache = (key, tuple(
-                p.to(self.dtype).float().contiguous() for p in params))
-        return self._pool_cache[1]
+        type; the values are those of the cast); see `cached_casts`."""
+        params = (self.proj_kernel, self.proj_bias, self.query)
+        return cached_casts(self, params, lambda: tuple(
+            p.to(self.dtype).float().contiguous()
+            for p in (self.proj_kernel, self.proj_bias, self.query[:, 0])))
 
     def forward(self, inputs: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -91,6 +91,11 @@ class EmbeddingTables(nn.Module):
             return self._by_name[("vocab", vocab_name)]
         raise KeyError(f"no embedding table for vocab={vocab_name} col={col_name}")
 
+    def dim_of(self, vocab_name: str, col_name: Optional[str] = None) -> int:
+        """Width of the vectors `embed` returns for this vocab/column."""
+        spec = self._spec(vocab_name, col_name)
+        return spec.target_dim if spec.transform else spec.dim
+
     def embed(self, ids: torch.Tensor, vocab_name: str,
               col_name: Optional[str] = None) -> torch.Tensor:
         spec = self._spec(vocab_name, col_name)

@@ -2,11 +2,13 @@
 
 The port of the JAX package's models/lego_config.py:53-297 (reference
 model/lego_config.py:57-256) for content-based models whose user operator
-pools click vectors (NAML: meta CNN / Ada / Dot). It holds the
-hyper-parameters, instantiates the operator/predictor classes with merged
-configs, runs the matching/ranking compatibility checks and registers the
-inputer vocabs into the embedding hub. The training-side gradient plans
-(catalog_plans, HistoryGradPlan) are not built.
+pools click vectors (NAML: CNN / Ada / Dot; bert-naml: BertBase / Ada /
+Dot). It holds the hyper-parameters, instantiates the operator/predictor
+classes with merged configs (`lm_dtype` given as a string, "bf16"/"f32"),
+builds the item inputer at the embedding width (its special tokens are
+parameters), runs the matching/ranking compatibility checks and registers
+the inputer vocabs into the embedding hub. The training-side gradient
+plans (catalog_plans, HistoryGradPlan) are not built.
 """
 import inspect
 import logging
@@ -28,7 +30,11 @@ import legommenders_tpu_torch.models.operators  # noqa: F401
 import legommenders_tpu_torch.models.predictors  # noqa: F401
 
 # keys combine_config injects; their absence from a class is expected
-_INJECTED_KEYS = ("hidden_size", "input_dim")
+_INJECTED_KEYS = ("hidden_size", "input_dim", "lm_dtype")
+# dtype names of the configs (policy dtype, item_config.lm_dtype)
+DTYPE_NAMES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+               "f32": torch.float32, "float32": torch.float32,
+               "f16": torch.float16, "float16": torch.float16}
 
 
 def _filter_fields(cfg: dict, cls, what: str) -> dict:
@@ -146,12 +152,19 @@ class LegoConfig:
              if k != "inputer_config"},
             hidden_size=item_hidden, input_dim=emb_dim)
         icfg = _filter_fields(icfg, item_op_cls, "item_config")
+        # YAML configs express dtypes as strings ("bf16")
+        if isinstance(icfg.get("lm_dtype"), str):
+            icfg["lm_dtype"] = DTYPE_NAMES[icfg["lm_dtype"].lower()]
         item_op = item_op_cls(dtype=self.dtype, **icfg)
+        eh = hub.build(self.dtype)
         inputer_cfg = dict(self.item_config.get("inputer_config") or {})
         inputer_cfg = _filter_fields(inputer_cfg, item_op_cls.inputer_class,
                                      "item_config.inputer_config")
+        # an inputer with parameters (special tokens) needs its width
+        col, vocab, _ = item_cols[0]
         item_inputer = item_op_cls.inputer_class(
-            cols=item_cols, dtype=self.dtype, **inputer_cfg)
+            cols=item_cols, dtype=self.dtype, dim=eh.dim_of(vocab, col),
+            **inputer_cfg)
 
         ucfg = combine_config(
             {k: v for k, v in self.user_config.items()
@@ -174,7 +187,7 @@ class LegoConfig:
             raise ValueError(f"{self.predictor} does not support ranking mode")
 
         model = Legommender(
-            eh=hub.build(self.dtype),
+            eh=eh,
             item_op=item_op,
             user_op=user_op,
             predictor=predictor,

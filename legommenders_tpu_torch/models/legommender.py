@@ -4,6 +4,8 @@ The port of the JAX package's models/legommender.py for serving: an item
 (content) operator, a user (behavior) operator and a click predictor over
 shared embedding tables (reference model/legommender.py:55-263).
 
+  * `item_inputer` is a submodule: an inputer with parameters (the
+    special tokens of ConcatInputer) keeps them in the model's state_dict;
   * `encode_item_content` / `encode_item_page`: token-id contents
     {col: (..., L)} -> item vectors (..., D), without paging
     (JAX :126-161, :225-227);
@@ -39,6 +41,7 @@ class Legommender(nn.Module):
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         self.eh.reset_parameters(generator)
+        self.item_inputer.reset_parameters(generator)
         self.item_op.reset_parameters(generator)
         self.user_op.reset_parameters(generator)
         self.predictor.reset_parameters(generator)

@@ -1,3 +1,5 @@
 from legommenders_tpu_torch.models.operators.base import BaseOperator
 # import modules for registration side effects
-from legommenders_tpu_torch.models.operators import ada, cnn  # noqa: F401
+from legommenders_tpu_torch.models.operators import (  # noqa: F401
+    ada, cnn, lm_ops,
+)

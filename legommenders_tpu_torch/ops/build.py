@@ -7,7 +7,8 @@ interface, in `_build/` beside this package (listed in .gitignore):
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>.so csrc/<name>.cu
 
 A library is rebuilt when its source is newer. `library(name)` builds on
-first use and loads; `build(name)` only builds and returns nvcc's output.
+first use and loads; `build(name)` only builds and returns nvcc's output;
+`build_all(names)` runs one nvcc for each source, all at once.
 Nothing is compiled or loaded at import time.
 """
 import ctypes
@@ -48,23 +49,45 @@ def _stale(name: str) -> bool:
             or os.path.getmtime(lib) < os.path.getmtime(source(name)))
 
 
+def _start(name: str):
+    """Starts nvcc on csrc/<name>.cu if its library is missing or stale:
+    (process, temporary output) or None."""
+    if not _stale(name):
+        return None
+    os.makedirs(BUILD, exist_ok=True)
+    tmp = f"{lib_path(name)}.{os.getpid()}.tmp"
+    proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", tmp, source(name)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp
+
+
+def _finish(name: str, started) -> str:
+    if started is None:
+        return ""
+    proc, tmp = started
+    out, _ = proc.communicate()
+    if proc.returncode:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(f"nvcc failed for {name}:\n{out}")
+    os.replace(tmp, lib_path(name))
+    return out
+
+
+def build_all(names) -> Dict[str, str]:
+    """Compiles every stale csrc/<name>.cu, all nvcc processes started
+    together. Returns each compiler's output ('' when nothing was
+    compiled); raises with it if nvcc fails."""
+    started = {name: _start(name) for name in names}
+    return {name: _finish(name, s) for name, s in started.items()}
+
+
 def build(name: str) -> str:
     """Compile csrc/<name>.cu if its library is missing or stale. Returns
     the compiler's output ('' when nothing was compiled); raises with it if
     nvcc fails."""
-    if not _stale(name):
-        return ""
-    os.makedirs(BUILD, exist_ok=True)
-    tmp = f"{lib_path(name)}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, source(name)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if proc.returncode:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
-    os.replace(tmp, lib_path(name))
-    return proc.stdout
+    return build_all([name])[name]
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -10,14 +10,12 @@ from typing import Optional
 import torch
 
 from legommenders_tpu_torch.data.dataset import LegoData
-from legommenders_tpu_torch.models.lego_config import LegoConfig
+from legommenders_tpu_torch.models.lego_config import DTYPE_NAMES, LegoConfig
 from legommenders_tpu_torch.runtime.cacher import ReprCache
 from legommenders_tpu_torch.runtime.evaluator import Evaluator
 from legommenders_tpu_torch.utils.device import resolve_device
 
 DEFAULT_METRICS = ["GAUC", "MRR", "NDCG@1", "NDCG@5", "NDCG@10"]
-_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
-           "f32": torch.float32, "float32": torch.float32}
 
 
 class Manager:
@@ -32,7 +30,8 @@ class Manager:
         self.exp_cfg = dict(exp_cfg or {})
         self.policy = dict(self.exp_cfg.get("policy") or {})
         self.metrics = list(self.exp_cfg.get("metrics") or DEFAULT_METRICS)
-        dtype = _DTYPES.get(str(self.policy.get("dtype") or "").lower(), dtype)
+        dtype = DTYPE_NAMES.get(str(self.policy.get("dtype") or "").lower(),
+                                dtype)
 
         self.data = data if data is not None else LegoData.from_config(data_cfg)
         self.lego_cfg = LegoConfig.from_configs(

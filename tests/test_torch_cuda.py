@@ -1,11 +1,15 @@
-"""The additive-pool CUDA kernel on the card (skips without one).
+"""The CUDA kernels on the card (skips without one): the additive pool
+and the packed attention.
 
 Imports no JAX, so that it runs on a machine with the card but without
 JAX: `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`.
-The kernel is held against its plain version at small, odd shapes (L not
-a multiple of the register tile, H below and above the block width) with
-f32 inputs within 1e-5 (values O(1), sums in another order), and every
-input the wrapper refuses must raise before a launch.
+Each kernel is held against its plain version at small, odd shapes (the
+pool: L not a multiple of the register tile, H below and above the block
+width; the attention: odd B and T <= 128, packed and plain biases, every
+head width of the tensor-core path and two of the CUDA-core path) with f32
+inputs within 1e-5 (values O(1), sums in another order) and bf16 within
+2e-2 of the largest output, and every input a wrapper refuses must raise
+before a launch.
 """
 import os
 import sys
@@ -86,3 +90,124 @@ def test_wrapper_refuses(device):
         additive_pool(x, mask, w1, b1, w2)
     with pytest.raises(ValueError, match="on cpu"):
         additive_pool(x, mask.cpu(), w1.detach(), b1, w2)
+
+
+# ---------------------------------------------------------------------------
+# packed attention (csrc/packed_attention.cu)
+# ---------------------------------------------------------------------------
+from legommenders_tpu_torch.models.lm.layers import (  # noqa: E402
+    pack_items, packed_mask_bias,
+)
+from legommenders_tpu_torch.ops.attention import (  # noqa: E402
+    packed_attention, reference_attention,
+)
+
+
+def _attn_inputs(B, T, D, device, dtype, packed_L=0, seed=0):
+    """q, k, v ~ N(0, 1); bias: block-diagonal over items of L = packed_L
+    tokens of random length (packed_mask_bias), or key validity."""
+    g = torch.Generator(device="cpu").manual_seed(seed + B + T + D)
+    q, k, v = (torch.randn(B, T, D, generator=g).to(device, dtype)
+               for _ in range(3))
+    if packed_L:
+        G = T // packed_L
+        lens = torch.randint(1, packed_L + 1, (B * G,), generator=g)
+        mask = (torch.arange(packed_L)[None] < lens[:, None]).int()
+        _, mask_p, _ = pack_items(torch.zeros(B * G, packed_L, 1), mask, G)
+        bias = packed_mask_bias(mask_p, packed_L, dtype)[:, 0]
+    else:
+        lens = torch.randint(1, T + 1, (B,), generator=g)
+        valid = torch.arange(T)[None] < lens[:, None]
+        neg = torch.finfo(dtype).min
+        bias = torch.where(valid, 0.0, neg)[:, None].expand(B, T, T)
+        bias = bias.to(dtype).contiguous()
+    return q, k, v, bias.to(device)
+
+
+# (B, T, heads, dh, packed_L): odd B and T, every head width of the bf16
+# kernel in both types, and two more head widths in f32
+ATTN_SHAPES = [(5, 102, 12, 64, 34), (3, 117, 2, 16, 13), (7, 9, 4, 32, 0),
+               (2, 128, 2, 128, 0), (1, 1, 3, 64, 0)]
+ATTN_CASES = ([s + (dt,) for s in ATTN_SHAPES for dt in ("f32", "bf16")]
+              + [(4, 33, 3, 24, 11, "f32"), (6, 70, 2, 40, 0, "f32")])
+
+
+@pytest.mark.parametrize("B,T,heads,dh,L,dtype", ATTN_CASES)
+def test_attention_kernel_matches_plain(device, B, T, heads, dh, L, dtype):
+    """f32 within 1e-5 absolute; bf16 within 2e-2 of the largest output of
+    the plain version on the same bf16 inputs."""
+    tdtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    q, k, v, bias = _attn_inputs(B, T, heads * dh, device, tdtype, L)
+    before = packed_attention.launches
+    with torch.no_grad():
+        got = packed_attention(heads, 0.0, q, k, v, bias)
+        want = reference_attention(heads, q, k, v, bias)
+    torch.cuda.synchronize()
+    assert packed_attention.launches == before + 1
+    assert got.dtype == tdtype and got.shape == q.shape
+    err = (got.float() - want.float()).abs().max().item()
+    if dtype == "f32":
+        assert err <= 1e-5
+    else:
+        assert err <= 2e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_masked_keys_get_zero_weight(device, dtype):
+    """Values at masked keys are huge: a weight above zero would show. The
+    bias is a broadcast view (stride 0 over the query rows) and f32."""
+    B, T, heads, dh = 4, 50, 2, 64
+    q, k, v, _ = _attn_inputs(B, T, heads * dh, device, dtype)
+    valid = torch.arange(T, device=device)[None] < torch.tensor(
+        [1, 20, 37, 50], device=device)[:, None]
+    v[~valid] = 1e30
+    bias = torch.where(valid, 0.0, torch.finfo(torch.float32).min)
+    bias = bias[:, None].expand(B, T, T)
+    with torch.no_grad():
+        got = packed_attention(heads, 0.0, q, k, v, bias)
+        want = reference_attention(heads, q, k, v, bias)
+    assert torch.isfinite(got.float()).all()
+    assert got.float().abs().max().item() < 100.0
+    tol = 1e-5 if dtype == torch.float32 else 2e-2 * want.float().abs().max()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_attention_wrapper_refuses(device):
+    q, k, v, bias = _attn_inputs(3, 10, 32, device, torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        packed_attention(2, 0.1, q, k, v, bias)
+    big = torch.zeros(1, 129, 32, device=device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="T=129"):
+        packed_attention(2, 0.0, big, big, big,
+                         torch.zeros(1, 129, 129, device=device))
+    with pytest.raises(ValueError, match="multiple of num_heads"):
+        packed_attention(3, 0.0, q, k, v, bias)
+    with pytest.raises(ValueError, match="head widths"):
+        packed_attention(4, 0.0, q, k, v, bias)
+    with pytest.raises(ValueError, match="shape"):
+        packed_attention(2, 0.0, q, k[:, :9], v, bias)
+    with pytest.raises(ValueError, match="shape"):
+        packed_attention(2, 0.0, q, k, v, bias[:, :, :9])
+    with pytest.raises(TypeError, match="f32/bf16"):
+        packed_attention(2, 0.0, q.half(), k.half(), v.half(), bias)
+    with pytest.raises(TypeError, match="differ"):
+        packed_attention(2, 0.0, q, k.float(), v, bias)
+    with pytest.raises(TypeError, match="bias dtype"):
+        packed_attention(2, 0.0, q.float(), k.float(), v.float(), bias)
+    with pytest.raises(ValueError, match="on cpu"):
+        packed_attention(2, 0.0, q, k, v, bias.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        packed_attention(2, 0.0, q.transpose(0, 1).contiguous().transpose(
+            0, 1), k, v, bias)
+    with pytest.raises(ValueError, match="last dimension"):
+        packed_attention(2, 0.0, q, k, v, bias.transpose(1, 2))
+    flat = torch.zeros(q.numel() + 1, device=device, dtype=q.dtype)
+    with pytest.raises(ValueError, match="aligned"):
+        packed_attention(2, 0.0, flat[1:].view(q.shape), k, v, bias)
+    with pytest.raises(ValueError, match="shared memory"):
+        wide = torch.zeros(1, 128, 2 * 256, device=device)
+        packed_attention(2, 0.0, wide, wide, wide,
+                         torch.zeros(1, 128, 128, device=device))
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        packed_attention(2, 0.0, q, k, v, bias)
