@@ -16,13 +16,22 @@ and exits non-zero when any phase fails:
      - the additive pool at both NAML widths (item pool 65,000 x 31 x 64,
        user pool 20,000 x 50 x 64, H = 256) with partly and fully masked
        rows; all-masked rows must give exactly 0;
-     - the packed attention at bert-naml's page shape (171 packed rows of
-       3 items x 34 tokens = 102, D = 768, 12 heads), with the block-
-       diagonal biases packed_mask_bias makes from random title lengths;
-       torch's scaled_dot_product_attention is timed beside it as the
-       yardstick (library_ms) and is never called by the port;
-  4. main paths, each through Manager + Tester.test() at full width on one
-     synthetic MIND-small-geometry fixture (65,000 items, 20,000 users,
+     - the packed attention forward at bert-naml's serving page (171
+       packed rows of 3 items x 34 tokens = 102, D = 768, 12 heads), with
+       the block-diagonal biases packed_mask_bias makes from random title
+       lengths;
+     - at the training page (171 rows of 3 items x 40 tokens = 120: the
+       cached hidden states are padded to 40) at dropout 0.1 and 0: the
+       forward against the plain version given the mask kernel's mask,
+       the backward (dq, dk, dv) against the plain backward with the same
+       mask, the mask kernel against the plain Philox (exactly), the keep
+       fraction within 4 sigma of 0.9, the same seed giving the same mask
+       and another seed another;
+     torch's scaled_dot_product_attention (forward, and forward + backward
+     with the float mask and the dropout) is timed beside them as the
+     yardstick (library_ms) and is never called by the port;
+  4. serving paths, each through Manager + Tester.test() at full width on
+     one synthetic MIND-small-geometry fixture (65,000 items, 20,000 users,
      title 30, history 50, vocab 30,000), random weights from seed 0, bf16;
      every launch count is set to 0 just before a path and read just after:
      - NAML (CNN / Ada / Dot, hidden 64): the pool launches once per item
@@ -36,11 +45,31 @@ and exits non-zero when any phase fails:
      with every kernel patched out for its plain version, on the card, and
      the device metrics against the numpy MetricPool on the same scores.
      One more warm pass of each runs under torch.profiler for device time
-     by kernel (each kernel's time at the main path's shapes included)
-     and the device's idle share;
-  5. prints one JSON line of kernels, the card line, and
+     by kernel and the device's idle share;
+  5. training paths on the same fixture, bf16, Adam (lr 1e-4), batches of
+     2,048 impressions (1 positive + 4 negatives) assembled on the device
+     by DeviceTrainPipeline; launch counts set to 0 before the timed steps:
+     - bert-naml layer-split (tune_from 10: layers 0-9 cached once on the
+       device, 1,270 attention launches; layers 10-11 trained with LoRA
+       r 32 folded, hidden and attention dropout 0.1 through
+       SharedBitsDropout and the kernel, the 65,000-item catalog encoded
+       every step in 127 pages of 512 under `full` remat): per step 508
+       attention forwards, 254 backwards and 255 pools; 1 warm and 5 timed
+       steps (finite losses, step ms, impressions/s, peak memory), one
+       more under torch.profiler; then the gradient of every trainable
+       tensor on one batch at dropout 0 (lora_B made non-zero), through
+       the kernels and with every kernel patched out for its plain version
+       (plain forward and plain backward), at bf16 and, with the same
+       weights, at f32: at f32 the kernels' within 2e-2 of each tensor's
+       largest plain gradient; at bf16 within 2e-2, or within half the
+       plain path's own bf16-vs-f32 error where that is larger (see
+       precision_check); and the bf16 cache built through the kernel and
+       through the plain unfused attention, each against the f32 cache;
+     - NAML: 1 warm and 3 timed steps, 2 pool launches per step;
+  6. prints one JSON line of kernels, the card line, and
      {"ok": true, "device": {...}} as the last line.
 """
+import itertools
 import json
 import math
 import os
@@ -81,9 +110,24 @@ BERT_CFG = {
                                       "compact": True}}},
 }
 BERT_LAYERS = 12
-# bert-naml's attention page: 512 items of L = 1 + 30 + 1 + 1 + 1 = 34
-# tokens, packed G = 128 // 34 = 3 to a row: 171 rows of T = 102
+# layer-split training: bench_lm.py's configuration (tune_from 10, pages
+# of 512 under full remat, 4 negatives) with item-bert.yaml's dropout
+# defaults (hidden and attention 0.1, dropout_reuse)
+BERT_TRAIN_CFG = {
+    "meta": BERT_CFG["meta"],
+    "config": {**BERT_CFG["config"], "use_fast_eval": False,
+               "neg_count": 4, "item_page_size": 512,
+               "item_page_remat": "full", "full_catalog_encode": "auto",
+               "item_config": {**BERT_CFG["config"]["item_config"],
+                               "tune_from": 10}},
+}
+TRAIN_BATCH, TRAIN_LR, LM_STEPS, NAML_STEPS = 2048, 1e-4, 5, 3
+# bert-naml's attention pages: 512 items of L = 1 + 30 + 1 + 1 + 1 = 34
+# tokens (serving) or of the cached 34 padded to L = 40 (training), packed
+# G = 128 // L = 3 to a row: 171 rows of T = 102 or 120
 ATTN_PAGE = dict(items=512, L=34, D=768, heads=12)
+TRAIN_PAGE = dict(items=512, L=40, D=768, heads=12)
+TRAIN_DROPOUT = 0.1
 EXP_CFG = {"policy": {"dtype": "bf16"}}
 F32_TOL, BF16_REL_TOL = 1e-5, 2e-2
 REPR_ROWS = 2048
@@ -183,18 +227,20 @@ def check_pool(pool: str, N: int, L: int, dtype_name: str, device) -> dict:
     return res
 
 
-def attention_inputs(dtype, device, seed):
-    """q, k, v ~ N(0, 1) at bert-naml's attention page; the bias is the one
-    packed_mask_bias makes for 512 items whose valid lengths are those of
-    the fixture's titles (15..30 tokens + [CLS], 2 [SEP], category)."""
+def attention_inputs(dtype, device, seed, page=ATTN_PAGE):
+    """q, k, v ~ N(0, 1) at one of bert-naml's attention pages; the bias is
+    the one packed_mask_bias makes for 512 items whose valid lengths are
+    those of the fixture's titles (15..30 tokens + [CLS], 2 [SEP],
+    category: at most 34, the rest of a training item's 40 is padding)."""
     import torch
     from legommenders_tpu_torch.models.lm.layers import (
         pack_items, packed_mask_bias,
     )
 
-    items, L, Dm = ATTN_PAGE["items"], ATTN_PAGE["L"], ATTN_PAGE["D"]
+    items, L, Dm = page["items"], page["L"], page["D"]
     g = torch.Generator(device=device).manual_seed(seed)
-    lens = torch.randint(19, L + 1, (items,), generator=g, device=device)
+    lens = torch.randint(19, ATTN_PAGE["L"] + 1, (items,), generator=g,
+                         device=device)
     mask = (torch.arange(L, device=device)[None] < lens[:, None]).int()
     _, mask_p, _ = pack_items(torch.zeros(items, L, 1, device=device), mask,
                               128 // L)
@@ -221,7 +267,7 @@ def check_attention(dtype_name: str, device) -> dict:
     mask4 = bias[:, None]
     with torch.inference_mode():
         got = packed_attention(heads, 0.0, q, k, v, bias)
-        want = reference_attention(heads, q, k, v, bias)
+        want = reference_attention(heads, 0.0, q, k, v, bias)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs()
         res = {"B": B, "T": T, "D": Dm, "heads": heads, "dtype": dtype_name,
@@ -231,7 +277,7 @@ def check_attention(dtype_name: str, device) -> dict:
                "ms": time_ms(lambda: packed_attention(heads, 0.0, q, k, v,
                                                       bias), iters=50),
                "plain_ms": time_ms(lambda: reference_attention(
-                   heads, q, k, v, bias), iters=5),
+                   heads, 0.0, q, k, v, bias), iters=5),
                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                    qh, kh, vh, attn_mask=mask4), iters=50)}
     flops = 4.0 * B * T * T * Dm
@@ -246,16 +292,140 @@ def check_attention(dtype_name: str, device) -> dict:
     return res
 
 
+def check_attention_train(dtype_name: str, p: float, device,
+                          timed: bool) -> dict:
+    """Forward, backward and keep mask at the training page, dropout p,
+    against their plain versions given the mask kernel's mask; with
+    `timed`, each kernel, its plain version and torch's SDPA (forward, and
+    forward + backward) timed with CUDA events."""
+    import torch
+    from torch.nn import functional as F
+    from legommenders_tpu_torch.ops.attention import (
+        dropout_bits_reference, dropout_keep_mask, keep_threshold,
+        packed_attention, packed_attention_backward, reference_attention,
+        reference_attention_backward,
+    )
+
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
+    heads = TRAIN_PAGE["heads"]
+    q, k, v, bias = attention_inputs(dtype, device, seed=11, page=TRAIN_PAGE)
+    B, T, Dm = q.shape
+    gen = torch.Generator(device=device).manual_seed(12)
+    g = torch.randn(q.shape, generator=gen, device=device).to(dtype)
+    seed = torch.tensor([20231], dtype=torch.int32, device=device)
+    res = {"B": B, "T": T, "D": Dm, "heads": heads, "dtype": dtype_name,
+           "dropout": p}
+    with torch.no_grad():
+        keep = dropout_keep_mask(heads, p, B, T, seed) if p else None
+        out = packed_attention(heads, p, q, k, v, bias, seed)
+        want = reference_attention(heads, p, q, k, v, bias, keep)
+        grads = packed_attention_backward(heads, p, q, k, v, bias, seed, g)
+        wgrads = reference_attention_backward(heads, p, q, k, v, bias, g,
+                                              keep)
+        torch.cuda.synchronize()
+    problems = []
+    for name, a, b in (("out", out, want),) + tuple(
+            zip(("dq", "dk", "dv"), grads, wgrads)):
+        err = (a.float() - b.float()).abs().max().item()
+        rel = err / b.float().abs().max().item()
+        res[f"{name}_max_abs_err"], res[f"{name}_rel_err"] = err, rel
+        finite = bool(torch.isfinite(a.float()).all())
+        if not finite or (err > F32_TOL if dtype_name == "f32"
+                          else rel > BF16_REL_TOL):
+            problems.append(name)
+    if p:
+        plain = dropout_bits_reference(heads, B, T, int(seed.item()),
+                                       device) >= keep_threshold(p)
+        res["mask_equals_plain"] = bool(torch.equal(keep, plain))
+        del plain
+        res["mask_same_seed_equal"] = bool(torch.equal(
+            keep, dropout_keep_mask(heads, p, B, T, seed)))
+        res["mask_other_seed_differs"] = not torch.equal(
+            keep, dropout_keep_mask(heads, p, B, T, seed + 1))
+        n = keep.numel()
+        res["keep_fraction"] = keep.float().mean().item()
+        res["keep_fraction_sigma"] = ((res["keep_fraction"] - (1 - p))
+                                      / (p * (1 - p) / n) ** 0.5)
+        if not (res["mask_equals_plain"] and res["mask_same_seed_equal"]
+                and res["mask_other_seed_differs"]
+                and abs(res["keep_fraction_sigma"]) <= 4):
+            problems.append("keep mask")
+    if problems:
+        raise RuntimeError(f"attention training kernels disagree with "
+                           f"their plain versions ({problems}): {res}")
+    if not timed:
+        return res
+
+    def fwd():
+        packed_attention(heads, p, q, k, v, bias, seed)
+
+    def bwd():
+        packed_attention_backward(heads, p, q, k, v, bias, seed, g)
+
+    # the head-split layout torch's own attention takes; timed only
+    qh, kh, vh = (t.view(B, T, heads, Dm // heads).transpose(1, 2)
+                  .detach().requires_grad_(True) for t in (q, k, v))
+    gh = g.view(B, T, heads, Dm // heads).transpose(1, 2)
+    mask4 = bias[:, None]
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask4,
+                                           dropout_p=p)
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask4,
+                                       dropout_p=p).backward(gh)
+
+    with torch.no_grad():
+        res["fwd_ms"] = time_ms(fwd, iters=50)
+        res["bwd_ms"] = time_ms(bwd, iters=50)
+        res["fwd_plain_ms"] = time_ms(lambda: reference_attention(
+            heads, p, q, k, v, bias, keep), iters=3)
+        res["bwd_plain_ms"] = time_ms(lambda: reference_attention_backward(
+            heads, p, q, k, v, bias, g, keep), iters=3)
+        if p:
+            res["mask_ms"] = time_ms(lambda: dropout_keep_mask(
+                heads, p, B, T, seed), iters=50)
+            res["mask_plain_ms"] = time_ms(lambda: dropout_bits_reference(
+                heads, B, T, 20231, device) >= keep_threshold(p), iters=2)
+    res["sdpa_fwd_ms"] = time_ms(sdpa_fwd, iters=50)
+    res["sdpa_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd, iters=20)
+    xb, bb = q.element_size(), bias.element_size()
+    res["fwd_bound_ms"], res["fwd_bound_by"] = roof(
+        4.0 * B * T * T * Dm, 4 * B * T * Dm * xb + B * T * T * bb,
+        dtype_name)
+    # recompute S, then dPd, dV, dQ, dK: five T x T x dh products per head
+    res["bwd_bound_ms"], res["bwd_bound_by"] = roof(
+        10.0 * B * T * T * Dm, 7 * B * T * Dm * xb + B * T * T * bb,
+        dtype_name)
+    # one byte written per element; Philox's integer work has no entry in
+    # the data sheet's table, so the bytes are the bound
+    res["mask_bound_ms"] = B * heads * T * T / HBM_BYTES_PER_S * 1e3
+    return res
+
+
 # each kernel's device-side names, as the profiler lists them
 KERNEL_NAMES = {"additive_pool": ("additive_pool_kernel",),
-                "packed_attention": ("attention_mma", "attention_simt")}
+                "packed_attention": ("attention_mma", "attention_simt"),
+                "packed_attention_backward": ("attention_bwd_mma",
+                                              "attention_bwd_simt"),
+                "dropout_keep_mask": ("dropout_mask",)}
 
 
-def profile_serving(cache, ev) -> dict:
-    """torch.profiler over one warm serving pass (cache build + scoring +
-    metrics): device time by kernel and the device's idle share of the
-    window's wall time (the profiler's own host cost included), and each
-    port kernel's device time and launches summed over the pass."""
+def _is(name, key):
+    """Whether the profiler's kernel `key` is the port's kernel `name`
+    (the forward's names are prefixes of the backward's)."""
+    hit = any(k in key for k in KERNEL_NAMES[name])
+    if name == "packed_attention":
+        hit = hit and "attention_bwd" not in key
+    return hit
+
+
+def profile_window(fn) -> dict:
+    """torch.profiler over one call of fn: device time by kernel and the
+    device's idle share of the window's wall time (the profiler's own host
+    cost included), and each port kernel's device time and launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -264,17 +434,16 @@ def profile_serving(cache, ev) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        cache.cache()
-        ev.metrics("test", ev.score_phase_device("test"))
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     ours = {}
-    for name, keys in KERNEL_NAMES.items():
-        evs = [e for e in kernels if any(k in e.key for k in keys)]
+    for name in KERNEL_NAMES:
+        evs = [e for e in kernels if _is(name, e.key)]
         ours[name] = {"ms": sum(e.self_device_time_total for e in evs) / 1e3,
                       "launches": sum(e.count for e in evs)}
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "kernels": ours,
@@ -286,10 +455,36 @@ def profile_serving(cache, ev) -> dict:
                             for e in top]}
 
 
-def _plain_attention(num_heads, dropout_p, q, k, v, bias, seed=None):
-    from legommenders_tpu_torch.ops.attention import reference_attention
+def _plain_attention():
+    """packed_attention with its kernels patched out: an autograd Function
+    whose forward is the plain forward and whose backward is the plain
+    backward (the kernels' rounding points), at dropout 0 (the
+    comparisons run without dropout)."""
+    import torch
+    from legommenders_tpu_torch.ops.attention import (
+        reference_attention, reference_attention_backward,
+    )
 
-    return reference_attention(num_heads, q, k, v, bias)
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, num_heads, q, k, v, bias):
+            ctx.num_heads = num_heads
+            ctx.save_for_backward(q, k, v, bias)
+            return reference_attention(num_heads, 0.0, q, k, v, bias)
+
+        @staticmethod
+        def backward(ctx, g):
+            q, k, v, bias = ctx.saved_tensors
+            dq, dk, dv = reference_attention_backward(ctx.num_heads, 0.0, q,
+                                                      k, v, bias, g)
+            return None, dq, dk, dv, None
+
+    def stand_in(num_heads, dropout_p, q, k, v, bias, seed=None):
+        if dropout_p:
+            raise ValueError("the plain stand-in runs at dropout 0")
+        return Plain.apply(num_heads, q, k, v, bias)
+
+    return stand_in
 
 
 def run_path(name: str, model_cfg: dict, data, device,
@@ -354,7 +549,8 @@ def run_path(name: str, model_cfg: dict, data, device,
     host_metrics = ev.pool(scores.float().cpu().numpy(), ph.labels, ph.groups)
     rec["metric_vs_numpy_err"] = max(abs(dev_metrics[k] - host_metrics[k])
                                      for k in host_metrics)
-    rec["profile"] = profile_serving(cache, ev)
+    rec["profile"] = profile_window(lambda: (
+        cache.cache(), ev.metrics("test", ev.score_phase_device("test"))))
 
     # reprs of the first rows vs the same model with every kernel patched
     # out for its plain version, on the card, page by page
@@ -363,7 +559,7 @@ def run_path(name: str, model_cfg: dict, data, device,
     rec["user_repr_shape"] = list(user_repr.shape)
     with mock.patch.object(common, "additive_pool", additive_pool_reference), \
             mock.patch.object(lm_layers, "packed_attention",
-                              _plain_attention), \
+                              _plain_attention()), \
             torch.inference_mode():
         item_ref = torch.cat([
             m.model.encode_item_page(
@@ -398,6 +594,309 @@ def run_path(name: str, model_cfg: dict, data, device,
         raise RuntimeError(f"{name} path failed ({', '.join(problems)}): "
                            f"{rec}")
     del m, tester, cache, ev
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _counters():
+    from legommenders_tpu_torch.ops.additive import additive_pool
+    from legommenders_tpu_torch.ops.attention import (
+        dropout_keep_mask, packed_attention, packed_attention_backward,
+    )
+
+    return {"additive_pool": additive_pool,
+            "packed_attention": packed_attention,
+            "packed_attention_backward": packed_attention_backward,
+            "dropout_keep_mask": dropout_keep_mask}
+
+
+def _zero_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    return {k: fn.launches for k, fn in _counters().items()}
+
+
+def _train_steps(m, data, device, n_steps: int) -> dict:
+    """1 warm step, then n_steps timed ones with every launch count set to
+    0 before them; the record of the timed steps (losses, step ms,
+    impressions/s, launches per step, peak memory) and the pipeline."""
+    import numpy as np
+    import torch
+    from legommenders_tpu_torch.data.device_pipeline import (
+        DeviceTrainPipeline,
+    )
+    from legommenders_tpu_torch.runtime import steps
+
+    cfg = m.lego_cfg
+    dp = DeviceTrainPipeline(data, batch_size=TRAIN_BATCH,
+                             neg_count=cfg.neg_count,
+                             use_neg_sampling=cfg.use_neg_sampling, seed=0,
+                             device=device)
+    opt = steps.adam(m.model, TRAIN_LR)
+    step = dp.make_fused_train_step(m.model, m.contents.columns, opt, seed=0)
+    # row-index slices, epoch after epoch
+    stream = itertools.chain.from_iterable(iter(dp.epoch_indices, None))
+    rec = {"batch": TRAIN_BATCH, "rows": dp.n, "trainable_tensors": len(
+        steps.trainable_parameters(m.model)), "trainable_values": sum(
+        p.numel() for p in steps.trainable_parameters(m.model))}
+    t0 = time.perf_counter()
+    rec["warm_loss"] = step(next(stream), 0).item()
+    rec["warm_step_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    losses = [step(next(stream), i + 1) for i in range(n_steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rec["launches"] = _counts()
+    rec["launches_per_step"] = {k: v / n_steps
+                                for k, v in rec["launches"].items()}
+    rec["losses"] = [x.item() for x in losses]
+    rec["step_ms"] = dt / n_steps * 1e3
+    rec["impressions_per_s"] = TRAIN_BATCH * n_steps / dt
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(np.isfinite(rec["losses"] + [rec["warm_loss"]])):
+        raise RuntimeError(f"training losses not finite: {rec}")
+    rec["profile"] = profile_window(lambda: step(next(stream), n_steps + 1))
+    return rec, dp
+
+
+def _grads(m, batch, plain: bool):
+    """(loss, {name: f32 gradient}) of every trainable tensor of m's model
+    on `batch` at dropout 0 (no generator); with `plain`, every kernel is
+    patched out for its plain version (plain forwards and backwards)."""
+    import contextlib
+    from unittest import mock
+
+    import legommenders_tpu_torch.models.common as common
+    import legommenders_tpu_torch.models.lm.layers as lm_layers
+    from legommenders_tpu_torch.ops.additive import additive_pool_reference
+    from legommenders_tpu_torch.runtime import steps
+
+    model = m.model
+    loss_fn = steps.make_loss_fn(model, m.contents.columns, True)
+    with contextlib.ExitStack() as stack:
+        if plain:
+            stack.enter_context(mock.patch.object(
+                common, "additive_pool", additive_pool_reference))
+            stack.enter_context(mock.patch.object(
+                lm_layers, "packed_attention", _plain_attention()))
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn(batch, None)
+        loss.backward()
+    out = {n: p.grad.float().clone() for n, p in model.named_parameters()
+           if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), out
+
+
+def _rel_errs(got: dict, want: dict) -> dict:
+    """Per tensor: the largest |got - want| over the largest |want|."""
+    if got.keys() != want.keys():
+        raise RuntimeError(f"gradients of different tensors: {sorted(got)} "
+                           f"vs {sorted(want)}")
+    return {n: (got[n] - want[n]).abs().max().item()
+            / max(want[n].abs().max().item(), 1e-30) for n in want}
+
+
+def _cache_err(got, want, mask, rows: int = 4096) -> float:
+    """The largest |got - want| at the cache's valid positions over the
+    largest |want| there, a block of rows at a time."""
+    err = scale = 0.0
+    for s in range(0, want.shape[0], rows):
+        keep = mask[s:s + rows, :, None] > 0
+        w = want[s:s + rows].float()
+        err = max(err, ((got[s:s + rows].float() - w).abs() * keep)
+                  .max().item())
+        scale = max(scale, (w.abs() * keep).max().item())
+    return err / scale
+
+
+def _lower_cache(m):
+    """m's lower slice over the catalog again, padded as the cache is:
+    (hidden, mask) on the device."""
+    from legommenders_tpu_torch.models.operators.lm_ops import (
+        LM_HIDDEN_KEY, LM_MASK_KEY,
+    )
+    from legommenders_tpu_torch.runtime.lm_cache import (
+        build_lm_hidden, device_entries,
+    )
+
+    cols = {c: a for c, a in m.contents.columns.items()
+            if c not in (LM_HIDDEN_KEY, LM_MASK_KEY)}
+    out = device_entries(
+        *build_lm_hidden(m.model, cols, m.lego_cfg.cache_page_size),
+        m.model.item_op.lm_dtype, m.device)
+    return out[LM_HIDDEN_KEY], out[LM_MASK_KEY]
+
+
+def precision_check(m16, dp, data, device) -> dict:
+    """The training gradients and the layer-split cache of the bf16 model
+    (as trained by the timed steps, lora_B drawn non-zero) against the same
+    weights at f32, on the card, on one batch at dropout 0. Gradients of
+    every trainable tensor from four runs: the kernels (K) and their plain
+    versions (P), each at bf16 and f32. Gates, per tensor, each error the
+    largest difference over the largest value of the second operand:
+      - f32: K32 within 2e-2 of P32;
+      - bf16: K16 within 2e-2 of P16, or, where bf16 itself moves the
+        gradient further, within half the plain path's own bf16 error
+        (P16 against P32).
+    At bf16 the plain path's gradients lie 3e-2 to 3e-1 of their largest
+    value from its f32 ones (H100, seed 0): the query LoRA and the item
+    pool's parameters get their gradients through softmax backwards whose
+    terms cancel (they sum to 0 over each row or item), so rounding flips
+    upstream move them by a large share of their size. The kernels round
+    where the plain versions round; what they change is the order of f32
+    sums, a fraction of that spread (at most 0.29 of it, H100). Recorded
+    besides: K16 against P32, K16 run twice, and the bf16 cache built
+    through the kernel (as the port builds it) and through the plain
+    unfused attention (as the JAX package builds it), each against the f32
+    cache."""
+    import copy
+
+    import torch
+    from legommenders_tpu_torch.data.device_pipeline import step_generator
+    from legommenders_tpu_torch.models.lm.layers import BertSelfAttention
+    from legommenders_tpu_torch.models.operators.lm_ops import (
+        LM_HIDDEN_KEY, LM_MASK_KEY,
+    )
+    from legommenders_tpu_torch.runtime.manager import Manager
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=device).manual_seed(5)
+    with torch.no_grad():
+        for mod in m16.model.modules():
+            if getattr(mod, "lora_r", 0) > 0:
+                mod.lora_B.normal_(0.0, 0.05, generator=g)
+    idx = next(dp.epoch_indices(shuffle=False))
+    batch = dp.assemble(idx, step_generator(0, 10 ** 6, device))
+    rec = {"loss": {}}
+    grads = {}
+    for name, m, plain in (("K16", m16, False), ("K16_again", m16, False),
+                           ("P16", m16, True)):
+        rec["loss"][name], grads[name] = _grads(m, batch, plain)
+
+    # the lower slice at bf16 through the plain unfused attention
+    attn = [mod for mod in m16.model.item_op.lm_lower.modules()
+            if isinstance(mod, BertSelfAttention)]
+    for mod in attn:
+        mod.fused = False
+    unfused16, _ = _lower_cache(m16)
+    for mod in attn:
+        mod.fused = True
+
+    cfg = copy.deepcopy(BERT_TRAIN_CFG)
+    cfg["config"]["item_config"]["lm_dtype"] = "f32"
+    m32 = Manager(model_cfg=cfg, exp_cfg={"policy": {"dtype": "f32"}},
+                  data=data, device=device, seed=0)
+    m32.model.load_state_dict(m16.model.state_dict())
+    assert m32.prepare_lm_cache(root=None)
+    cols16, cols32 = m16.contents.columns, m32.contents.columns
+    if not torch.equal(cols16[LM_MASK_KEY], cols32[LM_MASK_KEY]):
+        raise RuntimeError("the bf16 and f32 caches have different masks")
+    mask = cols32[LM_MASK_KEY]
+    rec["cache_rel_err"] = {
+        "kernel_bf16_vs_unfused_bf16": _cache_err(
+            cols16[LM_HIDDEN_KEY], unfused16, mask),
+        "kernel_bf16_vs_f32": _cache_err(cols16[LM_HIDDEN_KEY],
+                                         cols32[LM_HIDDEN_KEY], mask),
+        "unfused_bf16_vs_f32": _cache_err(unfused16, cols32[LM_HIDDEN_KEY],
+                                          mask)}
+    del unfused16
+    for name, plain in (("K32", False), ("P32", True)):
+        rec["loss"][name], grads[name] = _grads(m32, batch, plain)
+    del m32, cols32
+    torch.cuda.empty_cache()
+
+    pairs = {"K32_vs_P32": ("K32", "P32"), "K16_vs_P16": ("K16", "P16"),
+             "P16_vs_P32": ("P16", "P32"), "K16_vs_P32": ("K16", "P32"),
+             "K16_vs_K16_again": ("K16_again", "K16")}
+    rec["rel_err"] = {k: _rel_errs(grads[a], grads[b])
+                      for k, (a, b) in pairs.items()}
+    rec["max_rel_err"] = {k: max(v.values())
+                          for k, v in rec["rel_err"].items()}
+    rec["bf16_limit"] = {n: max(BF16_REL_TOL, 0.5 * e) for n, e in
+                         rec["rel_err"]["P16_vs_P32"].items()}
+    rec["tensors"] = len(grads["P32"])
+    rec["s"] = time.perf_counter() - t0
+    problems = [f"f32 {n}" for n, e in rec["rel_err"]["K32_vs_P32"].items()
+                if e > BF16_REL_TOL]
+    problems += [f"bf16 {n}" for n, e in rec["rel_err"]["K16_vs_P16"].items()
+                 if e > rec["bf16_limit"][n]]
+    if problems:
+        raise RuntimeError(f"training gradients disagree with the plain "
+                           f"path ({problems}): {rec}")
+    return rec
+
+
+def run_lm_training(data, device) -> dict:
+    """bert-naml layer-split training at full width (see the header)."""
+    import torch
+    from legommenders_tpu_torch.models.operators.lm_ops import LM_HIDDEN_KEY
+    from legommenders_tpu_torch.runtime.manager import Manager
+
+    rec = {"path": "bert-naml layer-split training"}
+    t0 = time.perf_counter()
+    m = Manager(model_cfg=BERT_TRAIN_CFG, exp_cfg=EXP_CFG, data=data,
+                device=device, seed=0)
+    torch.cuda.synchronize()
+    rec["setup_s"] = time.perf_counter() - t0
+    op = m.model.item_op
+    _zero_counts()
+    t0 = time.perf_counter()
+    assert m.prepare_lm_cache(root=None)
+    torch.cuda.synchronize()
+    rec["cache_s"] = time.perf_counter() - t0
+    rec["cache_launches"] = _counts()
+    hid = m.contents.columns[LM_HIDDEN_KEY]
+    rec["cache_shape"], rec["cache_dtype"] = list(hid.shape), str(hid.dtype)
+    rec["cache_gb"] = hid.numel() * hid.element_size() / 2 ** 30
+    pages = -(-data.num_items // m.lego_cfg.cache_page_size)
+    rec["expected_cache_launches"] = op.resolved_tune_from * pages
+    train, dp = _train_steps(m, data, device, LM_STEPS)
+    rec.update(train)
+    n_pages = -(-data.num_items // m.model.item_page_size)
+    upper = op.num_hidden_layers - op.resolved_tune_from
+    rec["expected_launches_per_step"] = {
+        "packed_attention": 2 * upper * n_pages,
+        "packed_attention_backward": upper * n_pages,
+        "additive_pool": 2 * n_pages + 1, "dropout_keep_mask": 0}
+    log(f"[main] {json.dumps(rec)}")
+    del hid
+    rec["grad_check"] = precision_check(m, dp, data, device)
+    del m, dp, op
+    torch.cuda.empty_cache()
+    problems = []
+    if rec["cache_launches"]["packed_attention"] != \
+            rec["expected_cache_launches"]:
+        problems.append("cache-build launches")
+    if rec["launches_per_step"] != rec["expected_launches_per_step"]:
+        problems.append("launches per step")
+    if problems:
+        raise RuntimeError(f"bert-naml training failed ({problems}): {rec}")
+    return rec
+
+
+def run_naml_training(data, device) -> dict:
+    """NAML training at full width: the pool launches once for the
+    catalog and once for the users per step."""
+    import torch
+    from legommenders_tpu_torch.runtime.manager import Manager
+
+    m = Manager(model_cfg=MODEL_CFG, exp_cfg=EXP_CFG, data=data,
+                device=device, seed=0)
+    rec = {"path": "naml training"}
+    train, dp = _train_steps(m, data, device, NAML_STEPS)
+    rec.update(train)
+    rec["expected_launches_per_step"] = {
+        "additive_pool": 2, "packed_attention": 0,
+        "packed_attention_backward": 0, "dropout_keep_mask": 0}
+    if rec["launches_per_step"] != rec["expected_launches_per_step"]:
+        raise RuntimeError(f"naml training launches: {rec}")
+    del m, dp
     torch.cuda.empty_cache()
     return rec
 
@@ -445,25 +944,52 @@ def main() -> int:
         res = check_attention(dtype, device)
         attn_checks.append(res)
         log(f"[kernel] packed_attention {json.dumps(res)}")
+    train_checks = []
+    for dtype in ("f32", "bf16"):
+        for p in (TRAIN_DROPOUT, 0.0):
+            res = check_attention_train(dtype, p, device,
+                                        timed=dtype == "bf16")
+            train_checks.append(res)
+            log(f"[kernel] attention training page {json.dumps(res)}")
 
     t0 = time.perf_counter()
     data = SyntheticProcessor(**DATA_KW).as_lego_data()
     log(f"[data] host data build {time.perf_counter() - t0:.2f} s, shared "
-        f"by both paths")
+        f"by every path")
     paths = {}
     for name, cfg, per_page in (("naml", MODEL_CFG, 0),
                                 ("bert-naml", BERT_CFG, BERT_LAYERS)):
         paths[name] = run_path(name, cfg, data, device, per_page)
         log(f"[main] {json.dumps(paths[name])}")
+    lm_train = run_lm_training(data, device)
+    log(f"[main] {json.dumps(lm_train)}")
+    naml_train = run_naml_training(data, device)
+    log(f"[main] {json.dumps(naml_train)}")
+
+    # launches of each kernel on each main path: the serving passes, the
+    # cache build and the timed training steps
+    runs = {p: rec["launches"] for p, rec in paths.items()}
+    runs["bert-naml lm cache"] = lm_train["cache_launches"]
+    runs["bert-naml training"] = lm_train["launches"]
+    runs["naml training"] = naml_train["launches"]
+    profiles = {p: rec["profile"] for p, rec in paths.items()}
+    profiles["bert-naml training step"] = lm_train["profile"]
+    profiles["naml training step"] = naml_train["profile"]
 
     def by_path(key):
-        return {p: rec["launches"][key] for p, rec in paths.items()}
+        return {p: c.get(key, 0) for p, c in runs.items()}
 
     def profiled(key):
-        return {p: rec["profile"]["kernels"][key] for p, rec in paths.items()}
+        return {p: pr["kernels"][key] for p, pr in profiles.items()}
+
+    def main_path(key):
+        return sum(v["ms"] for v in profiled(key).values())
 
     pool_bf16 = [c for c in checks if c["dtype"] == "bf16"]
     attn_bf16 = next(c for c in attn_checks if c["dtype"] == "bf16")
+    tr = next(c for c in train_checks
+              if c["dtype"] == "bf16" and c["dropout"] == TRAIN_DROPOUT)
+    sdpa = "torch.nn.functional.scaled_dot_product_attention"
     kernels = [{
         "name": "additive_pool",
         "route": "cuda",
@@ -480,10 +1006,9 @@ def main() -> int:
         "bound_by": "bytes" if all(c["bound_by"] == "bytes"
                                    for c in pool_bf16) else "operations",
         "library_ms": None,
-        # device time summed over the kernel's launches in each path's
-        # profiled warm pass, at the shapes the path gives it
-        "main_path_ms": sum(v["ms"] for v in profiled("additive_pool")
-                            .values()),
+        # device time summed over the kernel's launches in each profiled
+        # window, at the shapes the path gives it
+        "main_path_ms": main_path("additive_pool"),
         "main_path_by_path": profiled("additive_pool"),
         "checks": checks,
     }, {
@@ -493,18 +1018,56 @@ def main() -> int:
         "replaces": "legommenders_tpu/ops/pallas_attention.py:53",
         "launches": sum(by_path("packed_attention").values()),
         "launches_by_path": by_path("packed_attention"),
-        # one bert-naml page, bf16 (the main dtype)
-        "max_abs_err": attn_bf16["max_abs_err"],
-        "ms": attn_bf16["ms"],
-        "plain_ms": attn_bf16["plain_ms"],
-        "bound_ms": attn_bf16["bound_ms"],
-        "bound_by": attn_bf16["bound_by"],
-        "library_ms": attn_bf16["library_ms"],
-        "library": "torch.nn.functional.scaled_dot_product_attention",
-        "main_path_ms": sum(v["ms"] for v in profiled("packed_attention")
-                            .values()),
+        # one training page at dropout 0.1, bf16 (the main dtype)
+        "max_abs_err": tr["out_max_abs_err"],
+        "ms": tr["fwd_ms"],
+        "plain_ms": tr["fwd_plain_ms"],
+        "bound_ms": tr["fwd_bound_ms"],
+        "bound_by": tr["fwd_bound_by"],
+        "library_ms": tr["sdpa_fwd_ms"],
+        "library": f"{sdpa} (forward, float mask, dropout_p)",
+        # the serving page at dropout 0
+        "serving_page": {k: attn_bf16[k] for k in (
+            "T", "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")},
+        "main_path_ms": main_path("packed_attention"),
         "main_path_by_path": profiled("packed_attention"),
         "checks": attn_checks,
+    }, {
+        "name": "packed_attention_backward",
+        "route": "cuda",
+        "source": "legommenders_tpu_torch/csrc/packed_attention.cu",
+        "replaces": "legommenders_tpu/ops/pallas_attention.py:84",
+        "launches": sum(by_path("packed_attention_backward").values()),
+        "launches_by_path": by_path("packed_attention_backward"),
+        "max_abs_err": max(tr[f"{g}_max_abs_err"] for g in ("dq", "dk", "dv")),
+        "ms": tr["bwd_ms"],
+        "plain_ms": tr["bwd_plain_ms"],
+        "bound_ms": tr["bwd_bound_ms"],
+        "bound_by": tr["bwd_bound_by"],
+        # torch has no backward-only call: its forward + backward, beside
+        # the port's forward + backward
+        "library_ms": tr["sdpa_fwd_bwd_ms"],
+        "library": f"{sdpa} (forward + backward, float mask, dropout_p)",
+        "fwd_plus_bwd_ms": tr["fwd_ms"] + tr["bwd_ms"],
+        "main_path_ms": main_path("packed_attention_backward"),
+        "main_path_by_path": profiled("packed_attention_backward"),
+        "checks": train_checks,
+    }, {
+        "name": "dropout_keep_mask",
+        "route": "cuda",
+        "source": "legommenders_tpu_torch/csrc/packed_attention.cu",
+        "replaces": "legommenders_tpu/ops/pallas_attention.py:272",
+        # as in JAX, the mask is drawn only to hold the forward and the
+        # backward against their plain versions: no main path launches it
+        "on_main_path": False,
+        "launches": sum(by_path("dropout_keep_mask").values()),
+        "launches_by_path": by_path("dropout_keep_mask"),
+        "max_abs_err": 0.0 if tr["mask_equals_plain"] else 1.0,
+        "ms": tr["mask_ms"],
+        "plain_ms": tr["mask_plain_ms"],
+        "bound_ms": tr["mask_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

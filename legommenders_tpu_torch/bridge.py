@@ -15,7 +15,11 @@ no JAX. Conversions:
   * BERT `position_embeddings`, `token_type_embeddings` and the
     ConcatInputer's `special_tokens` as they are. Module paths keep their
     names (`item_op/lm/layer_3/attention/query` ->
-    `item_op.lm.layer_3.attention.query`).
+    `item_op.lm.layer_3.attention.query`); in layer-split mode the frozen
+    lower slice `item_op/lm_lower/{embedding stage, layer_0..k-1}` and the
+    trained upper slice `item_op/lm/layer_k..` map the same way.
+The same conversion maps a tree of JAX gradients onto the port's
+parameter names.
 Raises on any key it cannot place and on any parameter of the port that
 the tree leaves unset.
 """

@@ -1,8 +1,13 @@
-"""Shared blocks: AdditiveAttention and flax-equivalent initialisers.
+"""Shared blocks: AdditiveAttention, dropout and flax-equivalent
+initialisers.
 
 AdditiveAttention mirrors the JAX package's models/common.py:16-66 without
 its sequence-parallel branch. Parameters keep the JAX names and layouts:
 proj_kernel (D, H), proj_bias (H,), query (H, 1).
+
+Dropout draws from an explicit torch.Generator handed down with the
+forward (`rng`), never from torch's global generator; `rng=None` is eval
+mode, as `training=False` is in JAX.
 """
 import math
 from typing import Optional
@@ -33,13 +38,27 @@ def reset_linear(layer: nn.Module, generator: Optional[torch.Generator]):
         layer.bias.zero_()
 
 
+def dropout(x: torch.Tensor, p: float,
+            rng: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's nn.Dropout: each element kept with probability 1 - p (a
+    uniform draw below 1 - p) and divided by 1 - p, else 0. Identity when
+    `rng` is None (eval) or p is 0."""
+    if rng is None or p <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=rng, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def cached_casts(module: nn.Module, params, make):
     """`make()`, the compute-dtype copies of `params`, made once per state
-    of the parameters while grad is off (a served model's weights do not
+    of the parameters while no gradient can reach them (grad off, or every
+    parameter frozen: a served model's weights, or a frozen base, do not
     change between pages) and kept on `module`; made anew when a parameter
     is replaced or written in place (its data pointer or version counter
-    moves) or `module.dtype` changes; every call while grad is on."""
-    if torch.is_grad_enabled():
+    moves) or `module.dtype` changes; every call while a gradient can reach
+    them."""
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
         return make()
     key = (module.dtype,) + tuple((p.data_ptr(), p._version) for p in params)
     cache = getattr(module, "_cast_cache", None)

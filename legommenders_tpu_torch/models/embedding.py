@@ -6,8 +6,9 @@ loader/embedding_hub.py:121-385:
   * tables keyed by vocab name AND by feature (column) name, lookup
     precedence feature > vocab;
   * pretrained `.npy` matrices, frozen (no grad) or trainable;
-  * a Linear (+ Dropout) transform after lookup when the table dim differs
-    from the model dim or the policy is 'linear';
+  * a Linear (+ dropout, drawn from the forward's generator) transform
+    after lookup when the table dim differs from the model dim or the
+    policy is 'linear';
   * token ids clipped into the table (UNSET = -1 reads row 0; the caller
     masks pad positions).
 The training-only gradient plans (PlannedTables / catalog_grad) are not
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from legommenders_tpu_torch.models.common import reset_linear
+from legommenders_tpu_torch.models.common import dropout, reset_linear
 
 
 @dataclass(frozen=True)
@@ -53,7 +54,6 @@ class EmbeddingTables(nn.Module):
         self.dtype = dtype
         self.tables = nn.ParameterDict()
         self.transforms = nn.ModuleDict()
-        self.dropouts = nn.ModuleDict()
         for spec in self.specs:
             self.tables[spec.param_name] = nn.Parameter(
                 torch.empty(spec.size, spec.dim),
@@ -61,9 +61,6 @@ class EmbeddingTables(nn.Module):
             if spec.transform:
                 self.transforms[spec.param_name] = nn.Linear(
                     spec.dim, spec.target_dim)
-                if spec.transform_dropout > 0:
-                    self.dropouts[spec.param_name] = nn.Dropout(
-                        spec.transform_dropout)
         self._by_name = {(s.kind, s.name): s for s in self.specs}
         self.reset_parameters()
 
@@ -97,7 +94,8 @@ class EmbeddingTables(nn.Module):
         return spec.target_dim if spec.transform else spec.dim
 
     def embed(self, ids: torch.Tensor, vocab_name: str,
-              col_name: Optional[str] = None) -> torch.Tensor:
+              col_name: Optional[str] = None,
+              rng: Optional[torch.Generator] = None) -> torch.Tensor:
         spec = self._spec(vocab_name, col_name)
         table = self.tables[spec.param_name]
         safe = ids.clamp(0, spec.size - 1)
@@ -106,8 +104,7 @@ class EmbeddingTables(nn.Module):
             layer = self.transforms[spec.param_name]
             out = nn.functional.linear(out, layer.weight.to(self.dtype),
                                        layer.bias.to(self.dtype))
-            if spec.param_name in self.dropouts:
-                out = self.dropouts[spec.param_name](out)
+            out = dropout(out, spec.transform_dropout, rng)
         return out
 
 

@@ -34,5 +34,8 @@ class BaseInputer(nn.Module):
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """Inputers without parameters have nothing to draw."""
 
-    def get_embeddings(self, eh, contents: Dict[str, torch.Tensor]):
+    def get_embeddings(self, eh, contents: Dict[str, torch.Tensor],
+                       rng: Optional[torch.Generator] = None):
+        """`rng`: the dropout generator of the embedding transforms
+        (None: eval)."""
         raise NotImplementedError

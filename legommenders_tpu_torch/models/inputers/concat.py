@@ -56,7 +56,8 @@ class ConcatInputer(BaseInputer):
         vec = self.special_tokens[row].to(self.dtype)
         return vec.expand(*lead, 1, vec.shape[-1])
 
-    def get_embeddings(self, eh, contents: Dict[str, torch.Tensor]):
+    def get_embeddings(self, eh, contents: Dict[str, torch.Tensor],
+                       rng: Optional[torch.Generator] = None):
         first = contents[self.cols[0][0]]
         lead = first.shape[:-1]
         parts, mask_parts = [], []
@@ -70,7 +71,7 @@ class ConcatInputer(BaseInputer):
         for col, vocab, _ in self.cols:
             ids = contents[col]
             m = self.mask_of(ids)
-            emb = eh.embed(ids, vocab, col)
+            emb = eh.embed(ids, vocab, col, rng)
             emb = emb * m[..., None].to(emb.dtype)
             parts.append(emb.to(self.dtype))
             mask_parts.append(m)

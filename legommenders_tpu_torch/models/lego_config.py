@@ -3,12 +3,15 @@
 The port of the JAX package's models/lego_config.py:53-297 (reference
 model/lego_config.py:57-256) for content-based models whose user operator
 pools click vectors (NAML: CNN / Ada / Dot; bert-naml: BertBase / Ada /
-Dot). It holds the hyper-parameters, instantiates the operator/predictor
-classes with merged configs (`lm_dtype` given as a string, "bf16"/"f32"),
-builds the item inputer at the embedding width (its special tokens are
-parameters), runs the matching/ranking compatibility checks and registers
-the inputer vocabs into the embedding hub. The training-side gradient
-plans (catalog_plans, HistoryGradPlan) are not built.
+Dot). It holds the hyper-parameters (the training ones too: neg_count,
+use_neg_sampling, item_page_size, item_page_remat, full_catalog_encode;
+layer-split mode is item_config's `tune_from`), instantiates the
+operator/predictor classes with merged configs (`lm_dtype` given as a
+string, "bf16"/"f32"), builds the item inputer at the embedding width (its
+special tokens are parameters), runs the matching/ranking compatibility
+checks and registers the inputer vocabs into the embedding hub. The
+training-side gradient plans (catalog_plans, HistoryGradPlan) are not
+built: they change only how the backward sums, not what it computes.
 """
 import inspect
 import logging
@@ -58,9 +61,13 @@ class LegoConfig:
     hidden_size: int = 64
     item_hidden_size: Optional[int] = None
     embedding_dim: Optional[int] = None
+    neg_count: int = 4
     use_neg_sampling: bool = True
     use_item_content: bool = True
     use_fast_eval: bool = True
+    item_page_size: int = 0
+    item_page_remat: str = "full"   # "full" | "none" ("dots"/"ffn": slice 6)
+    full_catalog_encode: str = "auto"
     cache_page_size: int = 512
     item_config: dict = field(default_factory=dict)
     user_config: dict = field(default_factory=dict)
@@ -82,9 +89,13 @@ class LegoConfig:
             hidden_size=int(cfg.get("hidden_size", 64)),
             item_hidden_size=cfg.get("item_hidden_size"),
             embedding_dim=cfg.get("embedding_dim"),
+            neg_count=int(cfg.get("neg_count", 4)),
             use_neg_sampling=bool(cfg.get("use_neg_sampling", True)),
             use_item_content=bool(cfg.get("use_item_content", True)),
             use_fast_eval=bool(cfg.get("use_fast_eval", True)),
+            item_page_size=int(cfg.get("item_page_size") or 0),
+            item_page_remat=str(cfg.get("item_page_remat", "full")),
+            full_catalog_encode=str(cfg.get("full_catalog_encode", "auto")),
             cache_page_size=int(cfg.get("cache_page_size", 512)),
             item_config=dict(cfg.get("item_config") or {}),
             user_config=dict(cfg.get("user_config") or {}),
@@ -192,5 +203,8 @@ class LegoConfig:
             user_op=user_op,
             predictor=predictor,
             item_inputer=item_inputer,
+            item_page_size=self.item_page_size,
+            item_page_remat=self.item_page_remat,
+            full_catalog_encode=self.full_catalog_encode,
         )
         return model, contents

@@ -1,43 +1,82 @@
-"""Legommender — the composed model, eval-mode paths.
+"""Legommender — the composed model, for serving and for training.
 
-The port of the JAX package's models/legommender.py for serving: an item
-(content) operator, a user (behavior) operator and a click predictor over
-shared embedding tables (reference model/legommender.py:55-263).
+The port of the JAX package's models/legommender.py: an item (content)
+operator, a user (behavior) operator and a click predictor over shared
+embedding tables (reference model/legommender.py:55-263).
 
   * `item_inputer` is a submodule: an inputer with parameters (the
     special tokens of ConcatInputer) keeps them in the model's state_dict;
-  * `encode_item_content` / `encode_item_page`: token-id contents
-    {col: (..., L)} -> item vectors (..., D), without paging
-    (JAX :126-161, :225-227);
+  * `encode_item_content`: token-id contents {col: (..., L)} -> item
+    vectors (..., D); in layer-split LM mode the contents carry the cached
+    lower-slice hidden states under LM_HIDDEN_KEY and the item operator
+    runs its upper slice over them (JAX :91-161). With `item_page_size` the
+    flattened rows are encoded in pages; under `item_page_remat: full`
+    each page is a torch.utils.checkpoint region (recomputed in the
+    backward, only its output kept), under `none` every page keeps its
+    activations (JAX `_encode_paged`, :163-213). A page gathers its rows
+    inside the region, as JAX gathers inside the scan body;
+  * `encode_item_lower`: the offline split of layer-split mode (:215-223);
   * `encode_user`: click vectors (B, S, D) + mask (B, S) -> (B, D);
   * `score_cached`: precomputed reprs -> scores (B, K);
-  * `forward`: the catalog branch of the JAX `__call__` (:319-342) — the
-    whole catalog is encoded once and candidates and clicks are gathered
-    from it. In eval mode the per-occurrence branch computes the same
-    values, so the port takes this branch always.
-Training (dropout on, gradient plans, paging with remat) is not ported yet.
+  * `forward`: the JAX `__call__` (:281-352) for content models: with
+    `full_catalog_encode` "on", or "auto" while num_items <= 2 B (K + S),
+    the whole catalog is encoded once and candidates and clicks are
+    gathered from it; otherwise candidates and clicks are encoded per
+    occurrence in one pass.
+`rng` is the explicit dropout generator of a training forward; None is
+eval mode (JAX `training=False`). A paged forward draws one seed per page
+from it before the page runs and gives the page a generator of its own
+made from that seed: torch.utils.checkpoint restores only torch's default
+generators, so a page that drew from `rng` itself would draw other masks
+when it is recomputed in the backward. The JAX training-side gradient
+plans (catalog_grad's PlannedTables and HistoryGradPlan) rewrite only the
+backward's summation and are not ported: the port's gradients are autograd's
+own.
 """
+import functools
 from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from legommenders_tpu_torch.models.embedding import EmbeddingTables
 from legommenders_tpu_torch.models.inputers.base import BaseInputer
 from legommenders_tpu_torch.models.operators.base import BaseOperator
+from legommenders_tpu_torch.models.operators.lm_ops import (
+    LM_HIDDEN_KEY, LM_MASK_KEY,
+)
 from legommenders_tpu_torch.models.predictors.base import BasePredictor
+
+REMAT_POLICIES = ("full", "none")
+LM_REMAT_POLICIES = ("dots", "ffn")
 
 
 class Legommender(nn.Module):
     def __init__(self, eh: EmbeddingTables, item_op: BaseOperator,
                  user_op: BaseOperator, predictor: BasePredictor,
-                 item_inputer: BaseInputer):
+                 item_inputer: BaseInputer, item_page_size: int = 0,
+                 item_page_remat: str = "full",
+                 full_catalog_encode: str = "auto"):
         super().__init__()
+        if item_page_remat in LM_REMAT_POLICIES:
+            raise NotImplementedError(
+                f"item_page_remat={item_page_remat!r} is an LM knob, not "
+                f"ported yet (ROADMAP.md, queue 1, slice 6)")
+        if item_page_remat not in REMAT_POLICIES:
+            raise ValueError(f"item_page_remat={item_page_remat!r}: one of "
+                             f"{REMAT_POLICIES + LM_REMAT_POLICIES}")
+        if full_catalog_encode not in ("auto", "on", "off"):
+            raise ValueError(f"full_catalog_encode={full_catalog_encode!r}: "
+                             f"auto, on or off")
         self.eh = eh
         self.item_op = item_op
         self.user_op = user_op
         self.predictor = predictor
         self.item_inputer = item_inputer
+        self.item_page_size = int(item_page_size or 0)
+        self.item_page_remat = item_page_remat
+        self.full_catalog_encode = full_catalog_encode
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         self.eh.reset_parameters(generator)
@@ -49,29 +88,83 @@ class Legommender(nn.Module):
     # ------------------------------------------------------------------ #
     # item side                                                          #
     # ------------------------------------------------------------------ #
-    def encode_item_content(self, contents: Dict[str, torch.Tensor]
+    def _encode_flat(self, flat: Dict[str, torch.Tensor],
+                     rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """One inputer + item-operator pass over flattened (M, ...) rows."""
+        if LM_HIDDEN_KEY in flat:
+            return self.item_op(flat[LM_HIDDEN_KEY], flat[LM_MASK_KEY],
+                                rng=rng)
+        emb, mask = self.item_inputer.get_embeddings(self.eh, flat, rng)
+        return self.item_op(emb, mask, rng=rng)
+
+    def encode_item_content(self, contents: Dict[str, torch.Tensor],
+                            rng: Optional[torch.Generator] = None
                             ) -> torch.Tensor:
-        """contents: {col: (..., L)} token ids -> (..., D) item vectors.
-        Leading dims are flattened for the operator pass and restored."""
-        first = next(iter(contents.values()))
-        lead = first.shape[:-1]
-        flat = {c: a.reshape(-1, a.shape[-1]) for c, a in contents.items()}
-        emb, mask = self.item_inputer.get_embeddings(self.eh, flat)
-        out = self.item_op(emb, mask)
+        """contents: {col: (..., L)} token ids (and, in layer-split mode,
+        LM_HIDDEN_KEY (..., L, D) / LM_MASK_KEY (..., L)) -> (..., D) item
+        vectors. Leading dims are flattened for the operator pass and
+        restored."""
+        lm_mode = LM_HIDDEN_KEY in contents
+        first = (contents[LM_HIDDEN_KEY] if lm_mode
+                 else next(iter(contents.values())))
+        lead = first.shape[:-2] if lm_mode else first.shape[:-1]
+        flat = {c: a.reshape((-1,) + tuple(a.shape[len(lead):]))
+                for c, a in contents.items()}
+        M = flat[LM_HIDDEN_KEY if lm_mode else next(iter(flat))].shape[0]
+        P = self.item_page_size
+        if P > 0 and M > P:
+            out = self._encode_paged(flat, M, P, rng)
+        else:
+            out = self._encode_flat(flat, rng)
         return out.reshape(*lead, *out.shape[1:])
+
+    def _encode_page(self, flat: Dict[str, torch.Tensor], M: int, P: int,
+                     page: int, seed: Optional[int]) -> torch.Tensor:
+        """Rows page*P .. page*P+P-1 (clipped to M: the tail re-encodes the
+        last row), gathered here, with a generator made from `seed`."""
+        device = next(iter(flat.values())).device
+        ids = (page * P + torch.arange(P, device=device)).clamp(max=M - 1)
+        rows = {c: a.index_select(0, ids) for c, a in flat.items()}
+        rng = None
+        if seed is not None:
+            rng = torch.Generator(device=device)
+            rng.manual_seed(seed)
+        return self._encode_flat(rows, rng)
+
+    def _encode_paged(self, flat: Dict[str, torch.Tensor], M: int, P: int,
+                      rng: Optional[torch.Generator]) -> torch.Tensor:
+        n_pages = -(-M // P)
+        seeds = [None] * n_pages
+        if rng is not None:
+            seeds = torch.randint(0, 2 ** 62, (n_pages,), generator=rng,
+                                  device=rng.device).tolist()
+        remat = self.item_page_remat == "full" and torch.is_grad_enabled()
+        outs = []
+        for page, seed in enumerate(seeds):
+            fn = functools.partial(self._encode_page, flat, M, P, page, seed)
+            outs.append(checkpoint(fn, use_reentrant=False,
+                                   preserve_rng_state=False)
+                        if remat else fn())
+        return torch.cat(outs)[:M]
 
     def encode_item_page(self, contents: Dict[str, torch.Tensor]
                          ) -> torch.Tensor:
-        """Cache-building entry: one page of items -> (P, D)."""
+        """Cache-building entry: one page of items -> (P, D), eval mode."""
         return self.encode_item_content(contents)
+
+    def encode_item_lower(self, contents: Dict[str, torch.Tensor]):
+        """Offline LM split: inputer embeddings -> lower-slice hidden
+        states. Returns (hidden (N, L, D), mask (N, L))."""
+        emb, mask = self.item_inputer.get_embeddings(self.eh, contents)
+        return self.item_op.encode_lower(emb, mask), mask
 
     # ------------------------------------------------------------------ #
     # user side and scoring                                              #
     # ------------------------------------------------------------------ #
-    def encode_user(self, clicks: torch.Tensor,
-                    mask: torch.Tensor) -> torch.Tensor:
+    def encode_user(self, clicks: torch.Tensor, mask: torch.Tensor,
+                    rng: Optional[torch.Generator] = None) -> torch.Tensor:
         """clicks (B, S, D) click vectors + mask (B, S) -> user repr."""
-        return self.user_op(clicks, mask)
+        return self.user_op(clicks, mask, rng=rng)
 
     def score_cached(self, user_repr: torch.Tensor,
                      item_repr: torch.Tensor) -> torch.Tensor:
@@ -79,15 +172,32 @@ class Legommender(nn.Module):
         return self.predictor(user_repr, item_repr)
 
     def forward(self, batch: Dict[str, torch.Tensor],
-                item_contents: Dict[str, torch.Tensor]) -> torch.Tensor:
+                item_contents: Dict[str, torch.Tensor],
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         """Raw scores (B, K) for a batch of candidates and histories (the
-        pipeline's fixed batch keys)."""
+        pipeline's fixed batch keys); K = 1 + negatives (matching) or 1
+        (ranking)."""
         cand_ids = batch["candidates"]                  # (B, K)
         hist_ids = batch["history"]                     # (B, S)
         click_mask = batch["mask"]                      # (B, S)
+        (B, K), S = cand_ids.shape, hist_ids.shape[1]
         num_items = next(iter(item_contents.values())).shape[0]
-        all_reprs = self.encode_item_content(item_contents)     # (N, D)
-        item_repr = all_reprs[cand_ids.clamp(0, num_items - 1)]
-        clicks = all_reprs[hist_ids.clamp(0, num_items - 1)]
-        user_repr = self.encode_user(clicks, click_mask)
+        safe_cand = cand_ids.clamp(0, num_items - 1)
+        safe_hist = hist_ids.clamp(0, num_items - 1)
+        use_catalog = self.full_catalog_encode == "on" or (
+            self.full_catalog_encode == "auto"
+            and num_items <= 2 * B * (K + S))
+        if use_catalog:
+            # every item encoded once, occurrences gathered
+            all_reprs = self.encode_item_content(item_contents, rng)
+            item_repr = all_reprs[safe_cand]
+            clicks = all_reprs[safe_hist]
+        else:
+            # one item-operator pass over candidates + clicks
+            all_ids = torch.cat([safe_cand.reshape(-1), safe_hist.reshape(-1)])
+            contents = {c: a[all_ids] for c, a in item_contents.items()}
+            reprs = self.encode_item_content(contents, rng)
+            item_repr = reprs[:B * K].reshape(B, K, -1)
+            clicks = reprs[B * K:].reshape(B, S, -1)
+        user_repr = self.encode_user(clicks, click_mask, rng)
         return self.predictor(user_repr, item_repr)

@@ -28,5 +28,5 @@ class AdaOperator(BaseOperator):
     def reset_parameters(self, generator=None):
         self.attention.reset_parameters(generator)
 
-    def forward(self, embeddings, mask=None):
+    def forward(self, embeddings, mask=None, rng=None):
         return self.attention(embeddings, mask)

@@ -5,11 +5,16 @@ model/operators/cnn_operator.py:25-67): per-column Conv1d 'same' + ReLU +
 mask + dropout, a Linear for length-1 columns, concatenation on the
 sequence axis, then additive attention. Tensors stay (N, L, D) at the
 module boundary; only the convolution runs in PyTorch's (N, C, L) layout.
+The dropout draws from the forward's generator `rng` (None: eval).
 """
+from typing import Optional
+
 import torch
 from torch import nn
 
-from legommenders_tpu_torch.models.common import AdditiveAttention, reset_linear
+from legommenders_tpu_torch.models.common import (
+    AdditiveAttention, dropout, reset_linear,
+)
 from legommenders_tpu_torch.models.operators.base import BaseOperator
 from legommenders_tpu_torch.utils.registry import OPERATORS
 
@@ -25,7 +30,7 @@ class CNNOperator(BaseOperator):
         self.kernel_size = kernel_size
         self.cnn = nn.Conv1d(input_dim, hidden_size, kernel_size)
         self.linear = nn.Linear(input_dim, hidden_size)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = dropout
         self.attention = AdditiveAttention(hidden_size, additive_hidden_size,
                                            dtype)
         self.reset_parameters()
@@ -44,14 +49,15 @@ class CNNOperator(BaseOperator):
                                  self.cnn.bias.to(self.dtype))
         return y.transpose(1, 2)
 
-    def forward(self, embeddings: dict, mask: dict) -> torch.Tensor:
+    def forward(self, embeddings: dict, mask: dict,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         outs, out_masks = [], []
         for col, emb in embeddings.items():
             m = mask[col]
             if emb.shape[-2] > 1:
                 x = torch.relu(self._conv_same(emb))
                 x = x * m[..., None].to(x.dtype)
-                x = self.dropout(x)
+                x = dropout(x, self.dropout, rng)
             else:
                 x = nn.functional.linear(emb.to(self.dtype),
                                          self.linear.weight.to(self.dtype),

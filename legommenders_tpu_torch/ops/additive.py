@@ -11,10 +11,13 @@ The kernel replaces the Pallas TPU kernel of the JAX package
 JAX package that kernel is opt-in and the default path is `_forward_jnp`;
 in the port the CUDA kernel is the path on the card.
 
-`additive_pool` takes a CPU tensor through `additive_pool_reference` and a
-CUDA tensor through the kernel; there is no fallback between the two. Its
-`launches` attribute counts kernel launches. There is no backward yet: on
-the card a call that would need one raises.
+`additive_pool` is a torch.autograd.Function. Its forward takes a CPU
+tensor through `additive_pool_reference` and a CUDA tensor through the
+kernel; there is no fallback between the two. Its `launches` attribute
+counts kernel launches. Its backward is `additive_pool_backward_reference`,
+plain PyTorch on either device: the port of the JAX package's recompute
+backward (`_bwd` of ops/pallas_additive.py:117-133), which is jnp code and
+not a Pallas kernel there either. Only the inputs are kept between the two.
 """
 import ctypes
 import functools
@@ -41,6 +44,26 @@ def additive_pool_reference(x, mask, w1, b1, w2):
     s = torch.einsum("nlh,h->nl", h, w2.float())
     a = masked_softmax(s, mask.float())
     return torch.einsum("nl,nld->nd", a, xf).to(x.dtype)
+
+
+def additive_pool_backward_reference(x, mask, w1, b1, w2, g):
+    """The recompute backward `_bwd` of ops/pallas_additive.py:117-133, in
+    f32 from the given values: (dx, dw1, db1, dw2), each in the dtype of
+    its input."""
+    xf, w1f, b1f, w2f, gf = (t.float() for t in (x, w1, b1, w2, g))
+    h = torch.tanh(torch.einsum("nld,dh->nlh", xf, w1f) + b1f)
+    s = torch.einsum("nlh,h->nl", h, w2f)
+    a = masked_softmax(s, mask.float())
+    da = torch.einsum("nd,nld->nl", gf, xf)
+    dx = a[..., None] * gf[:, None, :]
+    ds = a * (da - (a * da).sum(dim=-1, keepdim=True))
+    dpre = ds[..., None] * w2f * (1.0 - h * h)          # tanh'
+    dw2 = torch.einsum("nlh,nl->h", h, ds)
+    dw1 = torch.einsum("nld,nlh->dh", xf, dpre)
+    db1 = dpre.sum(dim=(0, 1))
+    dx = dx + torch.einsum("nlh,dh->nld", dpre, w1f)
+    return (dx.to(x.dtype), dw1.to(w1.dtype), db1.to(b1.dtype),
+            dw2.to(w2.dtype))
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,14 +105,7 @@ def _grid(lib, L: int, D: int, H: int, bf16: bool, device: int) -> int:
     return _grids[key]
 
 
-def additive_pool(x, mask, w1, b1, w2):
-    """x (N, L, D) f32 or bf16, mask (N, L), w1 (D, H), b1 (H,), w2 (H,)
-    -> (N, D) in x's dtype, f32 accumulation.
-
-    CPU tensors take the plain version. CUDA tensors launch the kernel; the
-    weights and mask are passed to it as f32. Raises on a tensor that is on
-    neither, on shapes, dtypes or layouts the kernel does not take, and on
-    inputs that require grad while grad mode is on."""
+def _forward(x, mask, w1, b1, w2):
     if x.device.type == "cpu":
         return additive_pool_reference(x, mask, w1, b1, w2)
     if x.device.type != "cuda":
@@ -111,10 +127,6 @@ def additive_pool(x, mask, w1, b1, w2):
         if t.device != x.device:
             raise ValueError(f"additive_pool: {name} on {t.device}, x on "
                              f"{x.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, w1, b1, w2)):
-        raise RuntimeError("additive_pool: the CUDA kernel has no backward "
-                           "yet; call it under torch.no_grad()")
     if D % 4:
         raise ValueError(f"additive_pool: D={D} is not a multiple of 4")
     lib = _kernel_lib()
@@ -132,6 +144,32 @@ def additive_pool(x, mask, w1, b1, w2):
         torch.cuda.current_stream(x.device).cuda_stream), "kernel launch")
     additive_pool.launches += 1
     return out
+
+
+class _AdditivePool(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, mask, w1, b1, w2):
+        ctx.save_for_backward(x, mask, w1, b1, w2)
+        return _forward(x, mask, w1, b1, w2)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mask, w1, b1, w2 = ctx.saved_tensors
+        dx, dw1, db1, dw2 = additive_pool_backward_reference(
+            x, mask, w1, b1, w2, g)
+        return dx, None, dw1, db1, dw2
+
+
+def additive_pool(x, mask, w1, b1, w2):
+    """x (N, L, D) f32 or bf16, mask (N, L), w1 (D, H), b1 (H,), w2 (H,)
+    -> (N, D) in x's dtype, f32 accumulation; differentiable in x, w1, b1
+    and w2.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel; the
+    weights and mask are passed to it as f32. Raises on a tensor that is on
+    neither, and on shapes, dtypes or layouts the kernel does not take."""
+    return _AdditivePool.apply(x, mask, w1, b1, w2)
 
 
 additive_pool.launches = 0

@@ -1,23 +1,35 @@
-"""Packed-block multi-head attention: the plain PyTorch version and the
-wrapper of the hand-written CUDA kernel `csrc/packed_attention.cu`.
+"""Packed-block multi-head attention with dropout: the plain PyTorch
+versions and the wrappers of the hand-written CUDA kernels of
+`csrc/packed_attention.cu`.
 
 For each row b and head h (dh = D // num_heads, columns h*dh .. h*dh+dh-1):
 
     s = (q_h @ k_h^T) / sqrt(dh) + bias[b]    # (T, T), f32
     p = softmax(s)                            # f32, over the keys
+    p = keep ? p / (1 - dropout_p) : 0        # attention dropout
     o_h = p.to(v.dtype) @ v_h                 # f32 sums, rounded once
 
-The kernel replaces the Pallas TPU kernel of the JAX package
-(ops/pallas_attention.py `_fwd_kernel`, launched by `_call_fwd`). Its
-callers are the LM item encoders, which pack G = 128 // L items into one
-T = G * L <= 128 sequence with a block-diagonal bias
-(models/lm/layers.pack_items / packed_mask_bias).
+The kernels replace the three Pallas TPU kernels of the JAX package's
+ops/pallas_attention.py: the forward `_fwd_kernel`, the backward
+`_bwd_kernel` (which recomputes p from q, k and the bias and regenerates
+the dropout bits; only q, k, v, the bias and the seed are kept) and
+`_bits_kernel`, which gives the keep mask both draw. Their callers are the
+LM item encoders, which pack G = 128 // L items into one T = G * L <= 128
+sequence with a block-diagonal bias (models/lm/layers.pack_items /
+packed_mask_bias).
 
-`packed_attention` takes a CPU tensor through `reference_attention` and a
-CUDA tensor through the kernel; there is no fallback between the two. Its
-`launches` attribute counts kernel launches. Eval mode only: attention
-dropout (`dropout_p > 0`) and the backward come with LM training, and a
-call that would need either raises.
+The dropout bits are Philox4x32-10, a pure function of (seed, b, h, i, j)
+(see the source's header); `dropout_bits_reference` computes the same
+function in PyTorch, so the CPU and the card draw the same mask from the
+same seed. An element is kept iff its bits >= floor(dropout_p * 2^32).
+
+`packed_attention` is a torch.autograd.Function with the JAX signature: it
+keeps q, k, v, the bias and the seed for the backward and gives no gradient
+to the bias or the seed. A CPU tensor takes the plain versions
+(`reference_attention`, `reference_attention_backward`, the PyTorch
+Philox); a CUDA tensor launches the kernels; there is no fallback between
+the two. `packed_attention.launches`, `packed_attention_backward.launches`
+and `dropout_keep_mask.launches` count kernel launches.
 """
 import ctypes
 import functools
@@ -28,17 +40,71 @@ import torch
 from legommenders_tpu_torch.ops import build
 
 MAX_T = 128
-# head widths of the bf16 (tensor-core) kernel
+# head widths of the bf16 (tensor-core) kernels
 BF16_HEAD_WIDTHS = (16, 32, 64, 128)
 # the largest dynamic shared memory a block may use on sm_90
 MAX_SMEM_BYTES = 232448
 
+_U32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
-def reference_attention(num_heads: int, q, k, v, bias):
-    """Plain version: `reference_attention` of ops/pallas_attention.py:306-323
-    at dropout 0. q, k, v (B, T, D), bias (B, T, T) additive -> (B, T, D)
-    in q's dtype; scores and softmax in f32, the probabilities rounded to
-    v's dtype before the product with v."""
+
+def keep_threshold(dropout_p: float) -> int:
+    """keep iff bits >= threshold; P(bits < t) = t / 2^32 = dropout_p
+    (ops/pallas_attention.py `_keep_threshold`)."""
+    return min(int(dropout_p * 2.0 ** 32), 2 ** 32 - 1)
+
+
+def _mulhilo(a: int, b: torch.Tensor):
+    """(high, low) 32 bits of the 64-bit product of the constant a and the
+    uint32 values of b (int64), in 16-bit limbs so nothing overflows."""
+    a_hi, a_lo = a >> 16, a & 0xFFFF
+    b_hi, b_lo = b >> 16, b & 0xFFFF
+    mid = a_hi * b_lo + a_lo * b_hi
+    lo = a_lo * b_lo + ((mid & 0xFFFF) << 16)
+    hi = a_hi * b_hi + (mid >> 16) + (lo >> 32)
+    return hi & _U32, lo & _U32
+
+
+def _philox4x32_10(c, key):
+    """Philox4x32-10 on int64 tensors holding uint32 values."""
+    c0, c1, c2, c3 = c
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W[0]) & _U32, (k1 + _PHILOX_W[1]) & _U32
+    return c0, c1, c2, c3
+
+
+def dropout_bits_reference(num_heads: int, B: int, T: int, seed: int,
+                           device="cpu") -> torch.Tensor:
+    """Plain version of the kernels' dropout bits: (B, H, T, T) int64
+    holding uint32 values. Element (b, h, i, j) is word
+    (i >> 3 & 1) * 2 + (j & 1) of Philox4x32-10 at counter
+    (j // 2, i with bit 3 cleared, h, b) and key (seed, 0)."""
+    ar = functools.partial(torch.arange, dtype=torch.int64, device=device)
+    b = ar(B)[:, None, None, None]
+    h = ar(num_heads)[None, :, None, None]
+    i = ar(T)[None, None, :, None]
+    j = ar(T)[None, None, None, :]
+    shape = (B, num_heads, T, T)
+    ctr = [t.expand(shape) for t in (j >> 1, i & ~8, h, b)]
+    r = _philox4x32_10(ctr, (int(seed) & _U32, 0))
+    w = (((i >> 3) & 1) * 2 + (j & 1)).expand(shape)
+    return torch.where(w == 0, r[0], torch.where(
+        w == 1, r[1], torch.where(w == 2, r[2], r[3])))
+
+
+def reference_attention(num_heads: int, dropout_p: float, q, k, v, bias,
+                        keep_mask=None):
+    """Plain version of the forward: `reference_attention` of
+    ops/pallas_attention.py:306-323. q, k, v (B, T, D), bias (B, T, T)
+    additive, keep_mask (B, H, T, T) bool or None -> (B, T, D) in q's
+    dtype; scores and softmax in f32, the probabilities rounded to v's
+    dtype before the product with v."""
     B, T, D = q.shape
     dh = D // num_heads
     qh = q.float().reshape(B, T, num_heads, dh)
@@ -47,19 +113,57 @@ def reference_attention(num_heads: int, q, k, v, bias):
     s = torch.einsum("bqhd,bkhd->bhqk", qh, kh) / math.sqrt(dh)
     s = s + bias.float()[:, None]
     p = torch.softmax(s, dim=-1)
+    if keep_mask is not None:
+        p = torch.where(keep_mask, p / (1.0 - dropout_p), 0.0)
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), vh)
     return out.reshape(B, T, D).to(q.dtype)
+
+
+def reference_attention_backward(num_heads: int, dropout_p: float, q, k, v,
+                                 bias, g, keep_mask=None):
+    """Plain version of the backward, step by step as `_bwd_kernel` of
+    ops/pallas_attention.py:84-134, with its rounding points: pd is rounded
+    to g's dtype before dV, g to v's dtype before dP, and ds * 1/sqrt(dh)
+    to q's dtype before dQ and dK. Returns (dq, dk, dv) in q's dtype."""
+    B, T, D = q.shape
+    H = num_heads
+    dh = D // H
+    inv_sqrt = 1.0 / math.sqrt(dh)
+    qh, kh, vh, gh = (t.reshape(B, T, H, dh) for t in (q, k, v, g))
+    s = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float()) * inv_sqrt
+    s = s + bias.float()[:, None]
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    if keep_mask is not None:
+        keep = keep_mask.float() * (1.0 / (1.0 - dropout_p))
+        pd = p * keep
+    else:
+        keep, pd = None, p
+    dv = torch.einsum("bhqk,bqhd->bkhd", pd.to(g.dtype).float(), gh.float())
+    dpd = torch.einsum("bqhd,bkhd->bhqk", gh.to(v.dtype).float(), vh.float())
+    dp = dpd * keep if keep is not None else dpd
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    ds = (ds * inv_sqrt).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kh.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qh.float())
+    return tuple(t.reshape(B, T, D).to(q.dtype) for t in (dq, dk, dv))
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_lib() -> ctypes.CDLL:
     lib = build.library("packed_attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    ll = ctypes.c_longlong
+    ll, u = ctypes.c_longlong, ctypes.c_uint
     lib.packed_attention_forward.argtypes = [p, p, p, p, p, i, i, i, i, f,
-                                             ll, ll, i, i, i, p]
+                                             ll, ll, i, i, p, u, f, i, i, p]
     lib.packed_attention_forward.restype = i
-    lib.packed_attention_smem_bytes.argtypes = [i, i, i]
+    lib.packed_attention_backward.argtypes = [p, p, p, p, p, p, p, p, i, i,
+                                              i, i, f, ll, ll, i, i, p, u, f,
+                                              i, i, p]
+    lib.packed_attention_backward.restype = i
+    lib.packed_attention_keep_mask.argtypes = [p, p, i, i, i, u, i, p]
+    lib.packed_attention_keep_mask.restype = i
+    lib.packed_attention_smem_bytes.argtypes = [i, i, i, i]
     lib.packed_attention_smem_bytes.restype = ctypes.c_size_t
     lib.packed_attention_prepare.argtypes = [i]
     lib.packed_attention_prepare.restype = i
@@ -82,27 +186,25 @@ def _prepare(device: int):
     _check(lib, lib.packed_attention_prepare(device), "prepare")
 
 
-def packed_attention(num_heads: int, dropout_p: float, q, k, v, bias,
-                     seed=None):
-    """q, k, v (B, T, D) f32 or bf16 with D = num_heads * dh, T <= 128 and,
-    in bf16, dh in BF16_HEAD_WIDTHS; bias (B, T, T) additive, in q's dtype
-    or f32 (its last dimension contiguous; broadcast views with stride 0
-    are read as they are);
-    `seed` is the JAX signature's dropout seed, unused at dropout 0.
-    Returns (B, T, D) in q's dtype.
+def _device_index(t: torch.Tensor) -> int:
+    return t.device.index if t.device.index is not None else 0
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel.
-    Raises on `dropout_p > 0`, on a tensor that is on neither device, on
-    shapes, dtypes, layouts or devices the kernel does not take, and on
-    inputs that require grad while grad mode is on."""
-    if dropout_p > 0.0:
-        raise NotImplementedError(
-            "packed_attention: attention dropout (dropout_p > 0) comes with "
-            "the LM training slice; eval mode runs at dropout_p = 0")
-    if q.device.type == "cpu":
-        return reference_attention(num_heads, q, k, v, bias)
-    if q.device.type != "cuda":
-        raise ValueError(f"packed_attention: unsupported device {q.device}")
+
+def _check_seed(seed, device, dropout_p: float):
+    if dropout_p <= 0.0:
+        return
+    if seed is None:
+        raise ValueError("packed_attention: dropout_p > 0 needs a seed")
+    if seed.dtype != torch.int32 or seed.numel() != 1:
+        raise TypeError(f"packed_attention: seed must be one int32, got "
+                        f"{seed.dtype} {tuple(seed.shape)}")
+    if seed.device != device:
+        raise ValueError(f"packed_attention: seed on {seed.device}, q on "
+                         f"{device}")
+
+
+def _check_cuda(num_heads: int, q, k, v, bias, g=None, backward=False):
+    """Validates CUDA inputs; returns (dh, bf16, shared-memory bytes)."""
     if q.dim() != 3:
         raise ValueError(f"packed_attention: q must be (B, T, D), got "
                          f"{tuple(q.shape)}")
@@ -114,54 +216,184 @@ def packed_attention(num_heads: int, dropout_p: float, q, k, v, bias,
                          f"num_heads={num_heads}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"packed_attention: q dtype {q.dtype} is not f32/bf16")
-    for name, t, want in (("k", k, (B, T, D)), ("v", v, (B, T, D)),
-                          ("bias", bias, (B, T, T))):
+    named = [("k", k, (B, T, D)), ("v", v, (B, T, D)),
+             ("bias", bias, (B, T, T))]
+    if g is not None:
+        named.append(("g", g, (B, T, D)))
+    for name, t, want in named:
         if tuple(t.shape) != want:
             raise ValueError(f"packed_attention: {name} shape "
                              f"{tuple(t.shape)} != {want}")
         if t.device != q.device:
             raise ValueError(f"packed_attention: {name} on {t.device}, q on "
                              f"{q.device}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
+    same = [k, v] + ([g] if g is not None else [])
+    if any(t.dtype != q.dtype for t in same):
         raise TypeError(f"packed_attention: q/k/v dtypes {q.dtype}/{k.dtype}/"
                         f"{v.dtype} differ")
     if bias.dtype not in (q.dtype, torch.float32):
         raise TypeError(f"packed_attention: bias dtype {bias.dtype} is neither "
                         f"q's ({q.dtype}) nor f32")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+    if not all(t.is_contiguous() for t in [q] + same):
         raise ValueError("packed_attention: q, k and v must be contiguous")
     if T > 1 and bias.stride(2) != 1:
         raise ValueError("packed_attention: bias must be contiguous in its "
                          "last dimension")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    if any(t.data_ptr() % 16 for t in [q] + same):
         raise ValueError("packed_attention: q, k and v must be 16-byte "
                          "aligned")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v, bias)):
-        raise RuntimeError("packed_attention: the CUDA kernel has no backward "
-                           "yet; call it under torch.no_grad()")
     dh, bf16 = D // num_heads, q.dtype == torch.bfloat16
     if bf16 and dh not in BF16_HEAD_WIDTHS:
         raise ValueError(f"packed_attention: bf16 takes head widths "
                          f"{BF16_HEAD_WIDTHS}, got {dh}")
-    lib = _kernel_lib()
-    smem = lib.packed_attention_smem_bytes(T, dh, int(bf16))
+    smem = _kernel_lib().packed_attention_smem_bytes(T, dh, int(bf16),
+                                                     int(backward))
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"packed_attention: T={T} dh={dh} need {smem} B of "
                          f"shared memory, more than {MAX_SMEM_BYTES}")
+    return dh, bf16
+
+
+def _drop_args(dropout_p: float, seed):
+    """(seed pointer, threshold, keep scale, on) for the C entry points."""
+    if dropout_p <= 0.0:
+        return None, 0, 1.0, 0
+    return (seed.data_ptr(), keep_threshold(dropout_p),
+            1.0 / (1.0 - dropout_p), 1)
+
+
+def dropout_keep_mask(num_heads: int, dropout_p: float, B: int, T: int, seed,
+                      device=None) -> torch.Tensor:
+    """The (B, num_heads, T, T) bool keep mask that the forward and the
+    backward draw for `seed` ((1,) int32) at dropout_p. On the CPU the
+    PyTorch Philox; on the card the mask kernel (the counterpart of
+    ops/pallas_attention.py `dropout_keep_mask`)."""
+    device = torch.device(device) if device is not None else seed.device
+    thresh = keep_threshold(dropout_p)
+    if device.type == "cpu":
+        bits = dropout_bits_reference(num_heads, B, T, int(seed.reshape(-1)[0]))
+        return bits >= thresh
+    if device.type != "cuda":
+        raise ValueError(f"dropout_keep_mask: unsupported device {device}")
+    if seed.device != device or seed.dtype != torch.int32:
+        raise ValueError(f"dropout_keep_mask: seed must be int32 on {device}")
+    out = torch.empty((B, num_heads, T, T), dtype=torch.bool, device=device)
+    if B == 0 or T == 0:
+        return out
+    lib = _kernel_lib()
+    dev = _device_index(seed)
+    _check(lib, lib.packed_attention_keep_mask(
+        seed.data_ptr(), out.data_ptr(), B, T, num_heads, thresh, dev,
+        torch.cuda.current_stream(device).cuda_stream), "keep-mask launch")
+    dropout_keep_mask.launches += 1
+    return out
+
+
+dropout_keep_mask.launches = 0
+
+
+def _forward(num_heads: int, dropout_p: float, q, k, v, bias, seed):
+    if q.device.type == "cpu":
+        keep = (dropout_keep_mask(num_heads, dropout_p, q.shape[0],
+                                  q.shape[1], seed)
+                if dropout_p > 0.0 else None)
+        return reference_attention(num_heads, dropout_p, q, k, v, bias, keep)
+    if q.device.type != "cuda":
+        raise ValueError(f"packed_attention: unsupported device {q.device}")
+    dh, bf16 = _check_cuda(num_heads, q, k, v, bias)
+    _check_seed(seed, q.device, dropout_p)
+    B, T, _ = q.shape
     out = torch.empty_like(q)
     if B == 0 or T == 0:
         return out
-    dev = q.device.index if q.device.index is not None else 0
+    lib = _kernel_lib()
+    dev = _device_index(q)
     _prepare(dev)
     _check(lib, lib.packed_attention_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         out.data_ptr(), B, T, num_heads, dh, 1.0 / math.sqrt(dh),
         bias.stride(0), bias.stride(1), int(bf16),
-        int(bias.dtype == torch.bfloat16), dev,
+        int(bias.dtype == torch.bfloat16), *_drop_args(dropout_p, seed), dev,
         torch.cuda.current_stream(q.device).cuda_stream), "kernel launch")
     packed_attention.launches += 1
     return out
+
+
+def packed_attention_backward(num_heads: int, dropout_p: float, q, k, v,
+                              bias, seed, g):
+    """(dq, dk, dv) of `packed_attention` for the output gradient g
+    (B, T, D): the plain backward on the CPU (with the mask the seed
+    draws), the backward kernel on the card."""
+    if q.device.type == "cpu":
+        keep = (dropout_keep_mask(num_heads, dropout_p, q.shape[0],
+                                  q.shape[1], seed)
+                if dropout_p > 0.0 else None)
+        return reference_attention_backward(num_heads, dropout_p, q, k, v,
+                                            bias, g, keep)
+    if q.device.type != "cuda":
+        raise ValueError(f"packed_attention: unsupported device {q.device}")
+    g = g.contiguous()
+    dh, bf16 = _check_cuda(num_heads, q, k, v, bias, g, backward=True)
+    _check_seed(seed, q.device, dropout_p)
+    B, T, _ = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    if B == 0 or T == 0:
+        return dq, dk, dv
+    lib = _kernel_lib()
+    dev = _device_index(q)
+    _prepare(dev)
+    _check(lib, lib.packed_attention_backward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T,
+        num_heads, dh, 1.0 / math.sqrt(dh), bias.stride(0), bias.stride(1),
+        int(bf16), int(bias.dtype == torch.bfloat16),
+        *_drop_args(dropout_p, seed), dev,
+        torch.cuda.current_stream(q.device).cuda_stream),
+        "backward kernel launch")
+    packed_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+packed_attention_backward.launches = 0
+
+
+class _PackedAttention(torch.autograd.Function):
+    """Keeps q, k, v, the bias and the seed (as `_vjp_fwd` does); the
+    backward regenerates the dropout bits from the seed."""
+
+    @staticmethod
+    def forward(ctx, num_heads, dropout_p, q, k, v, bias, seed):
+        ctx.num_heads, ctx.dropout_p = num_heads, dropout_p
+        ctx.save_for_backward(q, k, v, bias, seed)
+        return _forward(num_heads, dropout_p, q, k, v, bias, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, seed = ctx.saved_tensors
+        dq, dk, dv = packed_attention_backward(
+            ctx.num_heads, ctx.dropout_p, q, k, v, bias, seed, g)
+        return None, None, dq, dk, dv, None, None
+
+
+def packed_attention(num_heads: int, dropout_p: float, q, k, v, bias,
+                     seed=None):
+    """q, k, v (B, T, D) f32 or bf16 with D = num_heads * dh, T <= 128 and,
+    in bf16, dh in BF16_HEAD_WIDTHS; bias (B, T, T) additive, in q's dtype
+    or f32 (its last dimension contiguous; broadcast views with stride 0
+    are read as they are); `seed` the (1,) int32 dropout seed on q's
+    device, needed when dropout_p > 0 and unused otherwise.
+    Returns (B, T, D) in q's dtype; differentiable in q, k and v.
+
+    CPU tensors take the plain versions. CUDA tensors launch the kernels.
+    Raises on a tensor that is on neither device, and on shapes, dtypes,
+    layouts or devices the kernels do not take."""
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"packed_attention: dropout_p={dropout_p} is not in "
+                         f"[0, 1)")
+    if dropout_p > 0.0 and seed is None:
+        raise ValueError("packed_attention: dropout_p > 0 needs a seed")
+    return _PackedAttention.apply(num_heads, float(dropout_p), q, k, v, bias,
+                                  seed)
 
 
 packed_attention.launches = 0

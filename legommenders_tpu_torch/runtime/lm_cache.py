@@ -1,0 +1,126 @@
+"""LM layer-split caching: the lower slice's hidden states for every item.
+
+The port of the JAX package's runtime/lm_cache.py:30-154 (reference
+once_operator.py:101-134 and loader/pager/lm_layer_pager.py), without
+IISAN. The frozen lower `tune_from` layers run once over every item, page
+by page on the device under torch.no_grad() at dropout 0; the (N, L, D)
+hidden states and (N, L) masks stay on the device as content columns
+(LM_HIDDEN_KEY / LM_MASK_KEY) that the train step gathers from.
+
+On disk (optional) the cache is f32 in JAX's layout, cache/<data>/<op>/,
+under names the JAX package never writes: torch_layer_<k>.<sig>.npy and
+torch_mask.<sig>.npy, keyed by a fingerprint of the item operator's
+weights and its output-affecting knobs. Rows with NaNs are replaced by
+random values and their mask reduced to the first position (reference
+once_operator.py:118-123). On the device the token dim is padded to a
+multiple of 8 with mask 0 (JAX :141-152): L = 34 becomes 40, so the upper
+slice packs 3 items into T = 120, as in JAX.
+"""
+import hashlib
+import os
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.nn import functional as F
+
+from legommenders_tpu_torch.models.operators.lm_ops import (
+    LM_HIDDEN_KEY, LM_MASK_KEY,
+)
+
+TOKEN_ALIGN = 8
+
+
+def cache_dir(data_name: str, operator_name: str, root: str = "cache") -> str:
+    return os.path.join(root, data_name, operator_name)
+
+
+def weights_fingerprint(module: torch.nn.Module, extra: str = "") -> str:
+    """Short digest of a module's parameter values (the first 8 values of
+    each tensor, by name), with `extra` folded in."""
+    h = hashlib.md5()
+    h.update(extra.encode())
+    for name, t in sorted(module.state_dict().items()):
+        h.update(name.encode())
+        h.update(t.detach().reshape(-1)[:8].float().cpu().numpy().tobytes())
+    return h.hexdigest()[:10]
+
+
+def arch_key(op) -> str:
+    """Output-affecting knobs of the item operator that its weights do not
+    capture (JAX lm_cache.arch_key)."""
+    dt = str(getattr(op, "lm_dtype", torch.float32)).replace("torch.", "")
+    return (f"gelu_approx={bool(getattr(op, 'gelu_approximate', False))},"
+            f"lm_dtype={dt},"
+            f"fused_qkv={bool(getattr(op, 'fused_qkv', False))}")
+
+
+def scrub_nans(hidden: torch.Tensor, mask: torch.Tensor, seed: int = 0):
+    """Rows with a NaN get random values in [0, 1); an item with such a
+    row keeps only its first position in the mask. In place."""
+    nan_pos = torch.isnan(hidden).any(dim=-1)
+    if bool(nan_pos.any()):
+        rng = np.random.default_rng(seed)
+        n = int(nan_pos.sum())
+        hidden[nan_pos] = torch.as_tensor(
+            rng.random((n, hidden.shape[-1])), dtype=hidden.dtype,
+            device=hidden.device)
+        nan_item = nan_pos.any(dim=-1)
+        mask[nan_item] = 0
+        mask[nan_item, 0] = 1
+    return hidden, mask
+
+
+@torch.no_grad()
+def build_lm_hidden(model, contents: Dict[str, torch.Tensor],
+                    page_size: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The lower slice over every item, `page_size` items at a time on the
+    contents' device: (hidden (N, L, D) in the slice's dtype, mask (N, L)
+    int32), NaNs scrubbed."""
+    n = next(iter(contents.values())).shape[0]
+    hidden, masks = [], []
+    for s in range(0, n, page_size):
+        h, m = model.encode_item_lower(
+            {c: a[s:s + page_size] for c, a in contents.items()})
+        hidden.append(h)
+        masks.append(m.to(torch.int32))
+    return scrub_nans(torch.cat(hidden), torch.cat(masks))
+
+
+def device_entries(hidden: torch.Tensor, mask: torch.Tensor,
+                   dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
+    """{LM_HIDDEN_KEY, LM_MASK_KEY} on `device`, the hidden states in
+    `dtype`, the token dim padded to a multiple of TOKEN_ALIGN (mask 0)."""
+    pad = (-hidden.shape[1]) % TOKEN_ALIGN
+    hidden = F.pad(hidden.to(device=device, dtype=dtype), (0, 0, 0, pad))
+    mask = F.pad(mask.to(device=device, dtype=torch.int32), (0, pad))
+    return {LM_HIDDEN_KEY: hidden.contiguous(), LM_MASK_KEY: mask}
+
+
+def load_or_build_lm_cache(model, contents: Dict[str, torch.Tensor],
+                           data_name: str, operator_name: str, layer: int,
+                           page_size: int = 256,
+                           root: Optional[str] = "cache",
+                           device_dtype: torch.dtype = torch.float32,
+                           ) -> Dict[str, torch.Tensor]:
+    """The cache's content columns on the contents' device. With `root`,
+    the f32 cache files there are read if present or built and written;
+    with root None the cache is built on the device and nothing is
+    written."""
+    device = next(iter(contents.values())).device
+    if root is None:
+        hidden, mask = build_lm_hidden(model, contents, page_size)
+        return device_entries(hidden, mask, device_dtype, device)
+    sig = weights_fingerprint(model.item_op, extra=arch_key(model.item_op))
+    d = cache_dir(data_name, operator_name, root)
+    hpath = os.path.join(d, f"torch_layer_{layer}.{sig}.npy")
+    mpath = os.path.join(d, f"torch_mask.{sig}.npy")
+    if os.path.isfile(hpath) and os.path.isfile(mpath):
+        hidden = torch.from_numpy(np.load(hpath))
+        mask = torch.from_numpy(np.load(mpath))
+    else:
+        hidden, mask = build_lm_hidden(model, contents, page_size)
+        os.makedirs(d, exist_ok=True)
+        np.save(hpath, hidden.float().cpu().numpy())
+        np.save(mpath, mask.cpu().numpy())
+    return device_entries(hidden, mask, device_dtype, device)

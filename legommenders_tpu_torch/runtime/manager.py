@@ -1,9 +1,11 @@
 """Manager — glue between configs, data, model and the runtime.
 
-The port of the JAX package's runtime/manager.py without the mesh,
-pipeline and LM parts (reference loader/manager.py:121-431). It builds the
+The port of the JAX package's runtime/manager.py without the mesh and
+pipeline parts (reference loader/manager.py:121-431). It builds the
 dataset, the model from the model config (parameters drawn from a seeded
-torch.Generator, then placed on `device`), the repr cache and evaluators.
+torch.Generator, then placed on `device`), the repr cache and evaluators,
+and, for a layer-split LM item operator, the lower slice's cache
+(`prepare_lm_cache`).
 """
 from typing import Optional
 
@@ -11,7 +13,9 @@ import torch
 
 from legommenders_tpu_torch.data.dataset import LegoData
 from legommenders_tpu_torch.models.lego_config import DTYPE_NAMES, LegoConfig
+from legommenders_tpu_torch.models.operators.lm_ops import LMOperator
 from legommenders_tpu_torch.runtime.cacher import ReprCache
+from legommenders_tpu_torch.runtime.lm_cache import load_or_build_lm_cache
 from legommenders_tpu_torch.runtime.evaluator import Evaluator
 from legommenders_tpu_torch.utils.device import resolve_device
 
@@ -45,6 +49,27 @@ class Manager:
             self.cache = ReprCache(
                 self.model, self.contents.columns, self.data.history_matrix(),
                 page_size=self.lego_cfg.cache_page_size, device=self.device)
+
+    def prepare_lm_cache(self, root: Optional[str] = "cache") -> bool:
+        """Layer-split LM caching (JAX runtime/manager.py:116-144): if the
+        item operator is an LMOperator with `tune_from`, build (or, with a
+        cache `root`, load) the lower slice's hidden states and add them to
+        `self.contents.columns` (and the repr cache's contents) on the
+        manager's device, in the operator's lm_dtype. `root=None` builds on
+        the device and writes nothing. Returns whether it did."""
+        op = self.model.item_op
+        if not isinstance(op, LMOperator) or not op.use_lm_cache:
+            return False
+        extra = load_or_build_lm_cache(
+            self.model, dict(self.contents.columns),
+            data_name=self.data.name, operator_name=op.transformer_key,
+            layer=op.resolved_tune_from,
+            page_size=self.lego_cfg.cache_page_size, root=root,
+            device_dtype=op.lm_dtype)
+        self.contents.columns.update(extra)
+        if self.cache is not None:
+            self.cache.item_contents.update(extra)
+        return True
 
     def _caching_allowed(self) -> bool:
         return bool(type(self.model.item_op).allow_caching

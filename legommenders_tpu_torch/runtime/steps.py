@@ -1,0 +1,65 @@
+"""Losses and the train step.
+
+The port of the JAX package's runtime/steps.py:17-60 (reference
+legommender.py:114-118, 252-263): the model returns raw scores and the
+loss lives here — cross-entropy over (B, K+1) scores with the positive at
+column 0, or BCE-with-logits for pointwise ranking. A step takes an
+explicit batch and an explicit dropout generator and updates the model's
+parameters in place through a torch optimizer; `adam` builds
+`optax.adam`'s update (betas 0.9 / 0.999, eps 1e-8 outside the square
+root, no weight decay) over the trainable parameters.
+"""
+from typing import Callable, Dict
+
+import torch
+from torch.nn import functional as F
+
+
+def neg_sampling_loss(scores: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy with the positive always at column 0."""
+    return -torch.log_softmax(scores, dim=-1)[..., 0].mean()
+
+
+def ranking_loss(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """BCE-with-logits over (B, 1) scores."""
+    s = scores.reshape(-1)
+    return F.binary_cross_entropy_with_logits(s,
+                                              labels.reshape(-1).to(s.dtype))
+
+
+def trainable_parameters(model: torch.nn.Module):
+    return [p for p in model.parameters() if p.requires_grad]
+
+
+def adam(model: torch.nn.Module, lr: float) -> torch.optim.Adam:
+    """optax.adam(lr) over the model's trainable parameters."""
+    return torch.optim.Adam(trainable_parameters(model), lr=lr,
+                            betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+
+
+def make_loss_fn(model, item_contents: Dict[str, torch.Tensor],
+                 use_neg_sampling: bool) -> Callable:
+    """loss_fn(batch, rng) -> scalar loss of a training forward."""
+    def loss_fn(batch, rng):
+        scores = model(batch, item_contents, rng)
+        if use_neg_sampling:
+            return neg_sampling_loss(scores)
+        return ranking_loss(scores, batch["label"])
+    return loss_fn
+
+
+def make_train_step(model, item_contents: Dict[str, torch.Tensor],
+                    optimizer: torch.optim.Optimizer,
+                    use_neg_sampling: bool = True) -> Callable:
+    """step(batch, rng) -> loss (a 0-dim tensor, detached): one forward
+    with dropout drawn from `rng`, the backward and the optimizer update."""
+    loss_fn = make_loss_fn(model, item_contents, use_neg_sampling)
+
+    def step(batch, rng):
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(batch, rng)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step

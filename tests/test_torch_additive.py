@@ -4,7 +4,12 @@ The plain version of `legommenders_tpu_torch/ops/additive.py` is held
 against the JAX `_forward_jnp` and against the Pallas kernel run in
 interpret mode, on the same numpy inputs; the AdditiveAttention module is
 held against the flax module on the same weights. f32 throughout; the
-tolerance is 1e-5 (the sums run in another order on each side).
+tolerance is 1e-5 (the sums run in another order on each side). The
+gradients of `additive_pool` (an autograd Function whose backward is the
+plain recompute `additive_pool_backward_reference`) and of the module are
+held against `jax.grad` through the JAX `additive_attention_fused` and its
+custom backward, within the tolerances of tests/test_ops.py (1e-4
+relative, 1e-5 absolute).
 """
 import functools
 
@@ -16,7 +21,9 @@ import torch
 
 from legommenders_tpu.models.common import AdditiveAttention as JAdditive
 from legommenders_tpu.ops import core as jcore
-from legommenders_tpu.ops.pallas_additive import _forward_jnp
+from legommenders_tpu.ops.pallas_additive import (
+    _forward_jnp, additive_attention_fused,
+)
 from legommenders_tpu_torch.models.common import AdditiveAttention
 from legommenders_tpu_torch.ops import core
 from legommenders_tpu_torch.ops.additive import (
@@ -149,3 +156,53 @@ def test_masked_ops_match_jax(name):
     got = getattr(core, name)(*_torch(*args)).numpy()
     np.testing.assert_allclose(got, want, rtol=TOL, atol=1e-6)
     assert np.all(got[0] == 0.0)
+
+
+@pytest.mark.parametrize("loss", ["square", "weighted"])
+def test_pool_gradients_match_jax(pool_inputs, loss):
+    """d/d(x, w1, b1, w2) of sum(out**2) and of sum(out * w) for a fixed
+    random w; the all-masked row gets zero gradient in x."""
+    x, mask, w1, b1, w2 = pool_inputs
+    wgt = np.random.default_rng(5).normal(size=(x.shape[0], x.shape[2]))
+    wgt = wgt.astype(np.float32)
+
+    def reduce(out, lib):
+        if loss == "square":
+            return (out ** 2).sum()
+        return (out * (jnp.asarray(wgt) if lib == "jax"
+                       else torch.from_numpy(wgt))).sum()
+
+    want = jax.grad(lambda *a: reduce(additive_attention_fused(
+        a[0], jnp.asarray(mask), *a[1:]), "jax"), argnums=(0, 1, 2, 3))(
+        *map(jnp.asarray, (x, w1, b1, w2)))
+    tx, tw1, tb1, tw2 = (torch.from_numpy(a).requires_grad_(True)
+                         for a in (x, w1, b1, w2))
+    out = additive_pool(tx, torch.from_numpy(mask), tw1, tb1, tw2)
+    got = torch.autograd.grad(reduce(out, "torch"), (tx, tw1, tb1, tw2))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
+                                   atol=1e-5)
+    assert np.all(got[0].numpy()[0] == 0.0)
+
+
+def test_additive_attention_module_gradients_match_flax(pool_inputs):
+    """The module's parameter and input gradients (through the cast
+    weights of pool_weights) against jax.grad of the flax module."""
+    x, mask, *_ = pool_inputs
+    jmod = JAdditive(hidden_size=32)
+    params = jmod.init(jax.random.PRNGKey(1), jnp.asarray(x),
+                       jnp.asarray(mask))
+    jx, jm = jnp.asarray(x), jnp.asarray(mask)
+    gp, gx = jax.grad(lambda p, a: (jmod.apply(p, a, jm) ** 2).sum(),
+                      argnums=(0, 1))(params, jx)
+    mod = AdditiveAttention(16, 32)
+    mod.load_state_dict({k: torch.from_numpy(np.array(params["params"][k]))
+                         for k in ("proj_kernel", "proj_bias", "query")})
+    tx = torch.from_numpy(x).requires_grad_(True)
+    (mod(tx, torch.from_numpy(mask)) ** 2).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx), rtol=1e-4,
+                               atol=1e-5)
+    for k in ("proj_kernel", "proj_bias", "query"):
+        np.testing.assert_allclose(getattr(mod, k).grad.numpy(),
+                                   np.asarray(gp["params"][k]), rtol=1e-4,
+                                   atol=1e-5)

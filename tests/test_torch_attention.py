@@ -23,7 +23,7 @@ from legommenders_tpu.ops.pallas_attention import (
 from legommenders_tpu_torch.bridge import params_from_jax
 from legommenders_tpu_torch.models.lm import layers
 from legommenders_tpu_torch.ops.attention import (
-    packed_attention, reference_attention,
+    dropout_keep_mask, packed_attention, reference_attention,
 )
 
 TOL = 1e-5
@@ -87,7 +87,7 @@ def test_reference_and_wrapper_match_jax(case):
     want_ref = np.asarray(jreference(H, 0.0, *map(jnp.asarray,
                                                   (q, k, v, bias))))
     tq, tk, tv, tb = map(torch.from_numpy, (q, k, v, bias))
-    got_ref = reference_attention(H, tq, tk, tv, tb).numpy()
+    got_ref = reference_attention(H, 0.0, tq, tk, tv, tb).numpy()
     before = packed_attention.launches
     got = packed_attention(H, 0.0, tq, tk, tv, tb, None).numpy()
     assert packed_attention.launches == before     # no kernel on the CPU
@@ -107,7 +107,7 @@ def test_reference_bf16_rounds_like_jax():
                       np.float32)
     tq, tk, tv = (torch.from_numpy(np.asarray(a, np.float32)).bfloat16()
                   for a in (jq, jk, jv))
-    got = reference_attention(H, tq, tk, tv,
+    got = reference_attention(H, 0.0, tq, tk, tv,
                               torch.from_numpy(bias).bfloat16())
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
@@ -115,10 +115,21 @@ def test_reference_bf16_rounds_like_jax():
 
 
 def test_wrapper_refuses_dropout_and_other_devices():
+    """Dropout needs a seed and a rate in [0, 1) (with both it runs: the
+    CPU path applies the keep mask the seed draws); a tensor on neither
+    the CPU nor the card is refused."""
     (q, k, v), bias = _qkv(2, 5, 8, 10), _plain_bias(2, 5, 11)
     tq, tk, tv, tb = map(torch.from_numpy, (q, k, v, bias))
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="needs a seed"):
         packed_attention(H, 0.1, tq, tk, tv, tb)
+    with pytest.raises(ValueError, match="not in"):
+        packed_attention(H, 1.0, tq, tk, tv, tb,
+                         torch.zeros(1, dtype=torch.int32))
+    seed = torch.tensor([5], dtype=torch.int32)
+    keep = dropout_keep_mask(H, 0.1, 2, 5, seed)
+    np.testing.assert_array_equal(
+        packed_attention(H, 0.1, tq, tk, tv, tb, seed).numpy(),
+        reference_attention(H, 0.1, tq, tk, tv, tb, keep).numpy())
     with pytest.raises(ValueError, match="unsupported device"):
         packed_attention(H, 0.0, tq.to("meta"), tk.to("meta"),
                          tv.to("meta"), tb.to("meta"))

@@ -248,11 +248,19 @@ def test_bridge_places_bert_names_and_rejects_strays(pair):
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="tune_from"):
-        BertBaseOperator(hidden_size=8, input_dim=16, num_hidden_layers=2,
-                         num_attention_heads=2, tune_from=1)
+    """The LM knobs of a later slice raise: the `ffn`/`dots` page remat
+    policies and the Llama family. (Layer-split mode, `tune_from`, is
+    ported: tests/test_torch_lm_train.py.)"""
+    op = BertBaseOperator(hidden_size=8, input_dim=16, num_hidden_layers=2,
+                          num_attention_heads=2, tune_from=1)
+    assert op.use_lm_cache and op.resolved_tune_from == 1
     data = SyntheticProcessor(**dict(DATA_KW, num_items=30,
                                      num_users=10)).as_lego_data()
+    for policy in ("ffn", "dots"):
+        cfg = model_cfg("f32")
+        cfg["config"]["item_page_remat"] = policy
+        with pytest.raises(NotImplementedError, match="slice 6"):
+            Manager(model_cfg=cfg, data=data, device="cpu")
     cfg = model_cfg("f32")
     cfg["meta"]["item"] = "Llama"
     del cfg["config"]["item_config"]["dropout_reuse"]   # BERT/OPT only

@@ -1,15 +1,17 @@
 """The CUDA kernels on the card (skips without one): the additive pool
-and the packed attention.
+and the packed attention's forward (with and without dropout), backward
+and keep mask.
 
 Imports no JAX, so that it runs on a machine with the card but without
 JAX: `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`.
 Each kernel is held against its plain version at small, odd shapes (the
 pool: L not a multiple of the register tile, H below and above the block
 width; the attention: odd B and T <= 128, packed and plain biases, every
-head width of the tensor-core path and two of the CUDA-core path) with f32
-inputs within 1e-5 (values O(1), sums in another order) and bf16 within
-2e-2 of the largest output, and every input a wrapper refuses must raise
-before a launch.
+head width of the tensor-core path and two of the CUDA-core path, at
+dropout 0 and 0.1 with the mask the mask kernel draws) with f32 inputs
+within 1e-5 (values O(1), sums in another order) and bf16 within 2e-2 of
+the largest output, and every input a wrapper refuses must raise before a
+launch. The mask kernel must give the plain Philox's mask exactly.
 """
 import os
 import sys
@@ -20,7 +22,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from legommenders_tpu_torch.ops.additive import (  # noqa: E402
-    additive_pool, additive_pool_reference,
+    additive_pool, additive_pool_backward_reference, additive_pool_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -85,11 +87,17 @@ def test_wrapper_refuses(device):
                       torch.zeros(256, 1024, device=device),
                       torch.zeros(1024, device=device),
                       torch.zeros(1024, device=device))
-    w1.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        additive_pool(x, mask, w1, b1, w2)
     with pytest.raises(ValueError, match="on cpu"):
-        additive_pool(x, mask.cpu(), w1.detach(), b1, w2)
+        additive_pool(x, mask.cpu(), w1, b1, w2)
+    # under grad the kernel runs and the plain backward follows it
+    w1.requires_grad_(True)
+    before = additive_pool.launches
+    out = additive_pool(x, mask, w1, b1, w2)
+    assert additive_pool.launches == before + 1
+    g = torch.randn_like(out)
+    (dw1,) = torch.autograd.grad(out, (w1,), g)
+    want = additive_pool_backward_reference(x, mask, w1.detach(), b1, w2, g)
+    assert (dw1 - want[1]).abs().max().item() <= 1e-5
 
 
 # ---------------------------------------------------------------------------
@@ -99,7 +107,9 @@ from legommenders_tpu_torch.models.lm.layers import (  # noqa: E402
     pack_items, packed_mask_bias,
 )
 from legommenders_tpu_torch.ops.attention import (  # noqa: E402
-    packed_attention, reference_attention,
+    MAX_SMEM_BYTES, dropout_bits_reference, dropout_keep_mask,
+    keep_threshold, packed_attention, packed_attention_backward,
+    reference_attention, reference_attention_backward,
 )
 
 
@@ -141,7 +151,7 @@ def test_attention_kernel_matches_plain(device, B, T, heads, dh, L, dtype):
     before = packed_attention.launches
     with torch.no_grad():
         got = packed_attention(heads, 0.0, q, k, v, bias)
-        want = reference_attention(heads, q, k, v, bias)
+        want = reference_attention(heads, 0.0, q, k, v, bias)
     torch.cuda.synchronize()
     assert packed_attention.launches == before + 1
     assert got.dtype == tdtype and got.shape == q.shape
@@ -165,7 +175,7 @@ def test_attention_kernel_masked_keys_get_zero_weight(device, dtype):
     bias = bias[:, None].expand(B, T, T)
     with torch.no_grad():
         got = packed_attention(heads, 0.0, q, k, v, bias)
-        want = reference_attention(heads, q, k, v, bias)
+        want = reference_attention(heads, 0.0, q, k, v, bias)
     assert torch.isfinite(got.float()).all()
     assert got.float().abs().max().item() < 100.0
     tol = 1e-5 if dtype == torch.float32 else 2e-2 * want.float().abs().max()
@@ -174,8 +184,14 @@ def test_attention_kernel_masked_keys_get_zero_weight(device, dtype):
 
 def test_attention_wrapper_refuses(device):
     q, k, v, bias = _attn_inputs(3, 10, 32, device, torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="needs a seed"):
         packed_attention(2, 0.1, q, k, v, bias)
+    with pytest.raises(TypeError, match="int32"):
+        packed_attention(2, 0.1, q, k, v, bias,
+                         torch.zeros(1, dtype=torch.int64, device=device))
+    with pytest.raises(ValueError, match="seed on cpu"):
+        packed_attention(2, 0.1, q, k, v, bias,
+                         torch.zeros(1, dtype=torch.int32))
     big = torch.zeros(1, 129, 32, device=device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="T=129"):
         packed_attention(2, 0.0, big, big, big,
@@ -208,6 +224,96 @@ def test_attention_wrapper_refuses(device):
         wide = torch.zeros(1, 128, 2 * 256, device=device)
         packed_attention(2, 0.0, wide, wide, wide,
                          torch.zeros(1, 128, 128, device=device))
-    q.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        packed_attention(2, 0.0, q, k, v, bias)
+    with pytest.raises(ValueError, match="shared memory"):
+        wide = torch.zeros(1, 128, 2 * 128, device=device)
+        packed_attention_backward(2, 0.0, wide, wide, wide,
+                                  torch.zeros(1, 128, 128, device=device),
+                                  None, wide)
+
+
+# ---------------------------------------------------------------------------
+# dropout, backward and keep mask
+# ---------------------------------------------------------------------------
+def _bwd_simt_bytes(T, dh):
+    return (2 * T * (dh + 1) + 2 * T * T + 4 * 2 * dh) * 4
+
+
+def _close(got, want, dtype):
+    err = (got.float() - want.float()).abs().max().item()
+    if dtype == "f32":
+        return err <= 1e-5
+    return err <= 2e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("B,T,heads,dh,L,dtype", ATTN_CASES)
+def test_attention_dropout_and_backward_match_plain(device, B, T, heads, dh,
+                                                    L, dtype, p):
+    """The forward at dropout p and the backward (dq, dk, dv) against the
+    plain versions with the mask the mask kernel draws for the seed."""
+    tdtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    q, k, v, bias = _attn_inputs(B, T, heads * dh, device, tdtype, L, seed=1)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(T)
+                    ).to(device, tdtype)
+    seed = torch.tensor([1234 + T], dtype=torch.int32, device=device)
+    keep = dropout_keep_mask(heads, p, B, T, seed) if p > 0 else None
+    with torch.no_grad():
+        got = packed_attention(heads, p, q, k, v, bias, seed)
+        want = reference_attention(heads, p, q, k, v, bias, keep)
+    assert _close(got, want, dtype)
+    if dtype == "f32" and _bwd_simt_bytes(T, dh) > MAX_SMEM_BYTES:
+        with pytest.raises(ValueError, match="shared memory"):
+            packed_attention_backward(heads, p, q, k, v, bias, seed, g)
+        return
+    before = packed_attention_backward.launches
+    got = packed_attention_backward(heads, p, q, k, v, bias, seed, g)
+    want = reference_attention_backward(heads, p, q, k, v, bias, g, keep)
+    torch.cuda.synchronize()
+    assert packed_attention_backward.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == tdtype and a.shape == q.shape
+        assert torch.isfinite(a.float()).all()
+        assert _close(a, b, dtype)
+
+
+def test_attention_autograd_runs_both_kernels(device):
+    """packed_attention under autograd: one forward and one backward
+    launch, the gradients those of the plain backward."""
+    q, k, v, bias = _attn_inputs(5, 120, 12 * 64, device, torch.bfloat16, 40)
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    seed = torch.tensor([7], dtype=torch.int32, device=device)
+    f0, b0 = packed_attention.launches, packed_attention_backward.launches
+    out = packed_attention(12, 0.1, q, k, v, bias, seed)
+    g = torch.randn_like(out)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    torch.cuda.synchronize()
+    assert packed_attention.launches == f0 + 1
+    assert packed_attention_backward.launches == b0 + 1
+    keep = dropout_keep_mask(12, 0.1, 5, 120, seed)
+    want = reference_attention_backward(12, 0.1, q.detach(), k.detach(),
+                                        v.detach(), bias, g, keep)
+    for a, b in zip(grads, want):
+        assert _close(a, b, "bf16")
+
+
+@pytest.mark.parametrize("B,T,heads", [(3, 120, 12), (2, 9, 2), (1, 128, 3),
+                                       (4, 1, 2), (5, 33, 4)])
+def test_keep_mask_kernel_matches_plain_philox(device, B, T, heads):
+    """Exact agreement with the plain Philox; the same seed gives the same
+    mask, another seed another; the keep fraction within 4 sigma of 0.9."""
+    p = 0.1
+    seed = torch.tensor([99 + T], dtype=torch.int32, device=device)
+    before = dropout_keep_mask.launches
+    got = dropout_keep_mask(heads, p, B, T, seed)
+    torch.cuda.synchronize()
+    assert dropout_keep_mask.launches == before + 1
+    want = dropout_bits_reference(heads, B, T, 99 + T, device) >= \
+        keep_threshold(p)
+    assert torch.equal(got, want)
+    assert torch.equal(got, dropout_keep_mask(heads, p, B, T, seed))
+    n = got.numel()
+    if n >= 1000:
+        other = dropout_keep_mask(heads, p, B, T, seed + 1)
+        assert not torch.equal(got, other)
+        frac = got.float().mean().item()
+        assert abs(frac - 0.9) <= 4 * (0.9 * 0.1 / n) ** 0.5
