@@ -12,7 +12,9 @@ and exits non-zero when any phase fails:
   3. kernels vs plain versions, each at the shapes its main path gives it,
      in f32 (within 1e-5 absolute) and bf16 (within 2e-2 of the largest
      output of the plain version computed from the same bf16 inputs),
-     timed with CUDA events beside the card's least possible time (bound):
+     timed with CUDA events (the calls enqueued behind a sleep kernel, so
+     that the host's pace does not set a short kernel's time) beside the
+     card's least possible time (bound):
      - the additive pool at both NAML widths (item pool 65,000 x 31 x 64,
        user pool 20,000 x 50 x 64, H = 256) with partly and fully masked
        rows; all-masked rows must give exactly 0;
@@ -45,7 +47,8 @@ and exits non-zero when any phase fails:
      with every kernel patched out for its plain version, on the card, and
      the device metrics against the numpy MetricPool on the same scores.
      One more warm pass of each runs under torch.profiler for device time
-     by kernel and the device's idle share;
+     by kernel and the device's idle share; in every profiled window each
+     port kernel's profiled launches must equal its wrapper's count;
   5. training paths on the same fixture, bf16, Adam (lr 1e-4), batches of
      2,048 impressions (1 positive + 4 negatives) assembled on the device
      by DeviceTrainPipeline; launch counts set to 0 before the timed steps:
@@ -130,6 +133,8 @@ TRAIN_PAGE = dict(items=512, L=40, D=768, heads=12)
 TRAIN_DROPOUT = 0.1
 EXP_CFG = {"policy": {"dtype": "bf16"}}
 F32_TOL, BF16_REL_TOL = 1e-5, 2e-2
+# a sleep kernel of this many cycles (~10 ms) ahead of each timed loop
+HEAD_START_CYCLES = 20_000_000
 REPR_ROWS = 2048
 
 
@@ -146,12 +151,17 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Device ms per call of fn, timed with CUDA events over `iters` calls
+    enqueued behind a sleep kernel: a kernel shorter than the host's cost
+    of enqueuing it would otherwise be timed at the host's pace."""
     import torch
 
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HEAD_START_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -405,31 +415,31 @@ def check_attention_train(dtype_name: str, p: float, device,
     return res
 
 
-# each kernel's device-side names, as the profiler lists them
+# each kernel's device-side names, as the profiler lists them (no name is
+# part of another)
 KERNEL_NAMES = {"additive_pool": ("additive_pool_kernel",),
-                "packed_attention": ("attention_mma", "attention_simt"),
-                "packed_attention_backward": ("attention_bwd_mma",
+                "packed_attention": ("attention_fwd_tc", "attention_simt"),
+                "packed_attention_backward": ("attention_bwd_tc",
                                               "attention_bwd_simt"),
                 "dropout_keep_mask": ("dropout_mask",)}
 
-
 def _is(name, key):
-    """Whether the profiler's kernel `key` is the port's kernel `name`
-    (the forward's names are prefixes of the backward's)."""
-    hit = any(k in key for k in KERNEL_NAMES[name])
-    if name == "packed_attention":
-        hit = hit and "attention_bwd" not in key
-    return hit
+    """Whether the profiler's kernel `key` is the port's kernel `name`."""
+    return any(k in key for k in KERNEL_NAMES[name])
 
 
 def profile_window(fn) -> dict:
     """torch.profiler over one call of fn: device time by kernel and the
     device's idle share of the window's wall time (the profiler's own host
-    cost included), and each port kernel's device time and launches."""
+    cost included), and each port kernel's device time and launches.
+    Raises when a port kernel's profiled launches differ from its wrapper's
+    count over the same window (a kernel whose name the profiler lists
+    otherwise would read 0 ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    before = _counts()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -442,10 +452,16 @@ def profile_window(fn) -> dict:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     ours = {}
+    counted = {k: v - before[k] for k, v in _counts().items()}
     for name in KERNEL_NAMES:
         evs = [e for e in kernels if _is(name, e.key)]
         ours[name] = {"ms": sum(e.self_device_time_total for e in evs) / 1e3,
                       "launches": sum(e.count for e in evs)}
+        if ours[name]["launches"] != counted[name]:
+            raise RuntimeError(
+                f"{name}: the profiler lists {ours[name]['launches']} "
+                f"launches of {KERNEL_NAMES[name]}, its wrapper counted "
+                f"{counted[name]} in the same window")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "kernels": ours,
             # no device time in the trace means the share was not measured
             "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
@@ -989,6 +1005,8 @@ def main() -> int:
     attn_bf16 = next(c for c in attn_checks if c["dtype"] == "bf16")
     tr = next(c for c in train_checks
               if c["dtype"] == "bf16" and c["dropout"] == TRAIN_DROPOUT)
+    tr0 = next(c for c in train_checks
+               if c["dtype"] == "bf16" and c["dropout"] == 0.0)
     sdpa = "torch.nn.functional.scaled_dot_product_attention"
     kernels = [{
         "name": "additive_pool",
@@ -1026,6 +1044,7 @@ def main() -> int:
         "bound_by": tr["fwd_bound_by"],
         "library_ms": tr["sdpa_fwd_ms"],
         "library": f"{sdpa} (forward, float mask, dropout_p)",
+        "train_p0": {"ms": tr0["fwd_ms"], "library_ms": tr0["sdpa_fwd_ms"]},
         # the serving page at dropout 0
         "serving_page": {k: attn_bf16[k] for k in (
             "T", "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")},
@@ -1049,6 +1068,7 @@ def main() -> int:
         "library_ms": tr["sdpa_fwd_bwd_ms"],
         "library": f"{sdpa} (forward + backward, float mask, dropout_p)",
         "fwd_plus_bwd_ms": tr["fwd_ms"] + tr["bwd_ms"],
+        "train_p0": {"ms": tr0["bwd_ms"]},
         "main_path_ms": main_path("packed_attention_backward"),
         "main_path_by_path": profiled("packed_attention_backward"),
         "checks": train_checks,

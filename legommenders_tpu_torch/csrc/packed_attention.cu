@@ -28,8 +28,9 @@
 //     word (i >> 3 & 1) * 2 + (j & 1)
 // so the four words of one draw are exactly the elements (i, j), (i, j+1),
 // (i+8, j), (i+8, j+1) that one lane holds in the m16n8 accumulator layout
-// of mma.sync. The forward, the backward and the mask kernel call the same
-// `dropout_bits4`, so they agree whatever their grid or block shape. An
+// of mma.sync, which wgmma's m64nN layout repeats per warp and chunk. The
+// forward, the backward and the mask kernel call the same `dropout_bits4`,
+// so they agree whatever their grid or block shape. An
 // element is kept iff its bits >= floor(dropout * 2^32), as in the TPU
 // kernels (`_keep_threshold`); the TPU's own draws (seeded per program)
 // cannot be reproduced and are not: the contract is that the same keep
@@ -41,35 +42,69 @@
 // (171*120*120 * 2 B): 131 MB, 39 us at 3.35 TB/s, against 4*B*T^2*D =
 // 7.6 GFLOP, 7.7 us on the bf16 tensor cores. The backward reads q, k, v, g
 // and the bias and writes dq, dk, dv (7 * 31.5 MB + 4.9 MB = 226 MB, 67 us)
-// for 8*B*T^2*D = 15.1 GFLOP plus the recompute (19 GFLOP, 19 us). Both are
-// bound by bytes only if the products run on the tensor cores, and the
-// Philox draws (10 rounds of two 32-bit multiplies per four elements) must
-// stay off the critical path.
+// for 8*B*T^2*D = 15.1 GFLOP plus the recompute (19 GFLOP, 19 us). On this
+// card neither reaches those bounds: per (b, h) item a consumer warp runs
+// the softmax, the keep factors (one Philox draw per four elements, ten
+// rounds of two 32-bit wide multiplies) and the epilogue, and with 8
+// consumer warps per SM their latency, not bytes or tensor-core time, sets
+// the pace.
 //
-// Design. One block per (b, h); 1-D grid, b-major, so the blocks of one row
-// run together and read its bias from L2.
-//  * forward, bf16, dh in {16, 32, 64, 128} (the main path): attention_mma.
-//    8 warps. Q_h, K_h and V_h (Tp x dh, Tp = T rounded up to 16, zero rows
-//    past T) are staged in shared memory with cp.async, all copies in flight
-//    at once, rows padded by 16 B so ldmatrix is free of bank conflicts.
-//    Warp w owns query rows 16w..16w+15: S = Q.K^T with mma.sync m16n8k16
-//    (bf16 in, f32 accumulate) into registers, scale + bias (read from
-//    device memory, two neighbouring columns per load when the strides
-//    allow), row max and sum across each quad of lanes with shuffles, p =
-//    e / sum, the dropout applied in registers (one Philox draw per four
-//    elements, template parameter DROP so the eval path carries none of
-//    it), rounded to bf16 and packed in place as the A operand of O = P.V.
-//    Nothing of (T, T) leaves registers. exp is __expf and each row divides
-//    by one reciprocal: within a few f32 ulps, below the bf16 rounding of p.
-//  * backward, bf16: attention_bwd_mma, 8 warps, one block per SM (up to
-//    209 KB of shared memory at dh = 128). Q, K, V and g staged as in the
-//    forward. Phase 1, warp w on query rows 16w..16w+15: S and P as in the
-//    forward, dPd = g.V^T with the same mma loop, dp, the row sums, dS; dS
-//    and round(pd) go to shared memory (Tp x Tp bf16 each), then dQ = dS.K
-//    for the warp's own rows. Phase 2, after one barrier, warp w on key
-//    rows 16w..16w+15: dK = dS^T.Q and dV = round(pd)^T.g, the transposed
-//    A operands read with ldmatrix.trans. Each output row is written once
-//    by one warp: no atomics.
+// Design of the bf16 kernels (dh in {16, 32, 64, 128}; the main path's is
+// 64): attention_fwd_tc and attention_bwd_tc. Both are persistent: a grid
+// of min(B*H, SMs) CTAs of 384 threads, one per SM, each walking a
+// contiguous b-major share of the (b, h) items, so the heads of one row
+// follow each other and share its bias.
+//  * Warp roles. Warpgroup 0 is the producer: setmaxnreg gives it 40
+//    registers a thread and its warp 0 issues every copy; warpgroups 1 and 2
+//    are consumers at 232 registers, warpgroup 1 + g owning query rows
+//    64g..64g+63 (T <= 64 leaves warpgroup 2 idle in the forward).
+//  * Loads. TMA with 3-D tensor maps over q, k, v (and g) viewed as
+//    (B, T, D), boxes of 128 rows x min(dh, 64) columns (dh 128: two boxes),
+//    swizzled as wgmma reads them (128, 64 or 32 B rows); rows past T are
+//    TMA's zero fill, so T is never padded in device memory. They land in a
+//    ring of two stages (one where two do not fit: dh 128, or an f32 bias
+//    at T near 128), each with a `full` and an `empty` mbarrier; the
+//    producer fills stage n+1 while the consumers work on stage n. The maps
+//    are encoded on the host (cuTensorMapEncodeTiled, fetched from the
+//    driver through the runtime, so nothing links libcuda) and the last 64
+//    are kept by argument, so a call usually encodes none.
+//  * The bias. The producer stages row b's bias in shared memory: one bulk
+//    async copy (cp.async.bulk, completed on the stage's mbarrier) when its
+//    rows are contiguous or a broadcast view (stride 0), whatever their
+//    alignment (T = 102 bf16 rows are 204 B: too ragged for TMA), else
+//    cp.async of 16, 8 or 4 bytes, or element by element. The forward keeps
+//    one copy per stage and reloads it only when b changes; the backward
+//    keeps one slot, refilled when every consumer is done with the previous
+//    row (its own mbarrier pair), or reads device memory where the slot
+//    does not fit (dh 128 with an f32 bias).
+//  * Products, all wgmma (bf16 in, f32 accumulate). Forward: S = Q.K^T
+//    (m64n128, both operands from shared memory, K-major), the softmax in
+//    registers in f32 (scale + bias, row max, __expf, one reciprocal per
+//    row, the dropout, p rounded to bf16 once), then O = P.V with P packed
+//    in place as the register A operand and V read through a transposed
+//    (MN-major) descriptor. The accumulator layout gives warp w rows
+//    16w..16w+15 and each lane, in every 8-column chunk, the (r, r+8) x
+//    (c, c+1) positions of an mma.sync m16n8 tile: the Philox mapping
+//    below keeps its meaning. O goes through shared memory to a TMA store;
+//    rows past T fall outside the tensor and are not written.
+//  * Masked chunks (forward). A warp skips the exponentials and the Philox
+//    draws of an 8-key chunk whose bias masks all its 16 x 8 scores (its
+//    rows each having a key that is not masked; with dropout, rows past
+//    T, whose outputs are never stored, do not count): those weights are
+//    exactly 0 either way. At bert-naml's packing (3 items of 40) about half the
+//    chunks of a warp fall outside its rows' items. The backward skips
+//    nothing: on the card that measured slower there.
+//  * Backward. Phase 1, warpgroup g on its query rows: S and dPd = g.V^T
+//    (both m64n128 from shared memory), p, the keep factors, dp, the row
+//    sums and dS in registers with the reference's rounding points; dS and
+//    round(pd) to shared memory (bf16, 128 x 128 each, swizzled as a
+//    transposed A operand), dQ = dS.K with dS as the register A operand.
+//    After a barrier of both warpgroups, phase 2 on key rows 64g..:
+//    dK = dS^T.Q and dV = round(pd)^T.g, dS^T and pd^T read through MN-major
+//    descriptors. dQ, dK and dV go through the K and V tiles of the stage
+//    (dead by then) to TMA stores; each output row is written once, no
+//    atomics. Shared memory at dh 64, T = 120: 2 x 64 KB + 64 KB + the
+//    bias slot, 227 KB.
 //  * f32 (forward and backward): attention_simt / attention_bwd_simt on the
 //    CUDA cores, with the reference's exact expf and division. 4 warps; a
 //    warp takes one query row at a time (lane j owns keys j, j+32, j+64,
@@ -78,16 +113,18 @@
 //    lane-per-key and the lane-per-column reads are free of bank conflicts.
 //  * keep mask: dropout_mask, one block per (b, h), one Philox draw per
 //    four elements, the mask written as bytes.
-// wgmma and TMA are left for a later version. The C entry points return a
-// cudaError_t; a launch is checked with cudaGetLastError() and never
-// synchronises. packed_attention_prepare sets the shared-memory attributes
-// once per device.
+// The C entry points return a cudaError_t; a launch is checked with
+// cudaGetLastError() and never synchronises. packed_attention_prepare sets
+// the shared-memory attributes and records the SM count once per device.
 
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <mutex>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -96,7 +133,6 @@ typedef __nv_bfloat16 bf16;
 constexpr int kMaxT = 128;
 constexpr int kSimtWarps = 4;
 constexpr int kSimtThreads = 32 * kSimtWarps;
-constexpr int kMmaThreads = 256;  // 8 warps x 16 query rows = kMaxT
 constexpr int kMaskThreads = 256;
 
 __device__ inline float to_f32(float v) { return v; }
@@ -431,146 +467,233 @@ attention_bwd_simt(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core kernels (bf16, dh a multiple of 16 up to 128)
+// Tensor-core kernels (bf16, dh in {16, 32, 64, 128}): TMA + wgmma, persistent
 // ---------------------------------------------------------------------------
 
-// 16 bytes global -> shared without registers; src_bytes = 0 writes zeros
-__device__ inline void cp_async16(bf16* dst, const bf16* src, int src_bytes) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(a), "l"(src), "r"(src_bytes));
+constexpr int kTcThreads = 384;  // producer warpgroup + 2 consumer warpgroups
+constexpr int kConsumerThreads = 256;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kAuxBytes = 1024;  // mbarriers
+constexpr int kAlignBytes = 1024;
+
+// Shared-memory geometry of one 128-row tile of a head (Q_h, K_h, V_h or
+// g_h) as TMA writes it: boxes of at most 64 columns (128 B, the widest
+// swizzle), each box a region of 128 rows; rows past T are TMA's zero fill.
+template <int DH>
+struct Tile {
+  static constexpr int kBox = DH < 64 ? DH : 64;            // columns per box
+  static constexpr int kBoxes = DH / kBox;                   // 2 at dh 128
+  static constexpr int kRowBytes = kBox * 2;                 // 32, 64 or 128
+  static constexpr int kLayout = hopper::swizzle_layout(kRowBytes);
+  static constexpr int kRegion = kMaxT * kRowBytes;
+  static constexpr int kBytes = kBoxes * kRegion;
+
+  // K-major operand: rows row0.. (a multiple of 8), the 16 columns of step k
+  __device__ static uint64_t kmajor(const unsigned char* t, int row0, int k) {
+    const int c = k * 16;
+    return hopper::make_desc(
+        t + (c / kBox) * kRegion + row0 * kRowBytes + (c % kBox) * 2, 16,
+        8 * kRowBytes, kLayout);
+  }
+  // MN-major operand (rows are K): the 16 rows of step k, all DH columns
+  __device__ static uint64_t mnmajor(const unsigned char* t, int k) {
+    return hopper::make_desc(t + k * 16 * kRowBytes, kRegion, 8 * kRowBytes,
+                             kLayout);
+  }
+};
+
+// dS and round(pd) of one item in the backward: 128 x 128 bf16 each, as two
+// regions of 64 key columns (128 B rows, 128 B swizzle), the layout wgmma
+// reads as a transposed (MN-major) A operand.
+constexpr int kPRegion = kMaxT * 128;
+constexpr int kPBytes = 2 * kPRegion;
+
+__device__ __forceinline__ uint32_t* p_at(unsigned char* p, int i, int j) {
+  return reinterpret_cast<uint32_t*>(
+      p + (j >> 6) * kPRegion + i * 128 + ((((j & 63) >> 3) ^ (i & 7)) << 4) +
+      (j & 7) * 2);
 }
 
-__device__ inline void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ inline void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// c += a . b for one m16n8k16 tile: bf16 inputs, f32 accumulators
-__device__ inline void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ inline uint32_t pack_bf16(float lo, float hi) {
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Stages rows 0..Tp-1 of head h of row b of each of the n (B, T, D) arrays
-// `src` into `dst` (Tp x LD bf16 each), every copy in flight at once; rows
-// Tn..Tp-1 are zero-filled.
-template <int DH, int N>
-__device__ inline void stage_rows(bf16* const (&dst)[N],
-                                  const bf16* const (&src)[N], size_t base,
-                                  int Tn, int Tp, int D) {
-  constexpr int LD = DH + 8, CH = DH / 8;
-  for (int i = threadIdx.x; i < Tp * CH; i += kMmaThreads) {
-    const int j = i / CH, c = (i - j * CH) * 8;
-    const size_t gi = j < Tn ? base + (size_t)j * D + c : base;
-    const int n = j < Tn ? 16 : 0;
+template <int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[N][4]) {
 #pragma unroll
-    for (int a = 0; a < N; ++a) cp_async16(dst[a] + j * LD + c, src[a] + gi, n);
-  }
-  asm volatile("cp.async.wait_all;\n" ::);
-  __syncthreads();
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e]) :: "memory");
 }
 
-// acc[nt] = A_w . B^T for the warp's 16 rows of `as` and all Tp rows of
-// `bs` (both Tp x LD, row-major, the product over DH): the S = Q.K^T loop
-template <int DH>
-__device__ inline void rows_times_rows_t(float (&acc)[kMaxT / 8][4],
-                                         const bf16* as, const bf16* bs,
-                                         int row0, int Tp, int lane) {
-  constexpr int LD = DH + 8;
-  const int mat = lane >> 3, mr = lane & 7;  // ldmatrix: matrix and its row
-#pragma unroll
-  for (int nt = 0; nt < kMaxT / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    uint32_t a[4];
-    ldmatrix_x4(a, as + (row0 + (mat & 1) * 8 + mr) * LD + kk * 16 + (mat >> 1) * 8);
-#pragma unroll
-    for (int np = 0; np < kMaxT / 16; ++np) {
-      if (np * 16 < Tp) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, bs + (np * 16 + (mat >> 1) * 8 + mr) * LD + kk * 16 + (mat & 1) * 8);
-        mma_bf16(acc[2 * np], a, bk[0], bk[1]);
-        mma_bf16(acc[2 * np + 1], a, bk[2], bk[3]);
-      }
-    }
-  }
+// The first and one-past-last work item (b-major (b, h)) of this CTA: a
+// contiguous share, so the heads of one row follow each other.
+__device__ __forceinline__ void my_items(int n_items, int& first, int& last) {
+  first = static_cast<int>((long long)blockIdx.x * n_items / gridDim.x);
+  last = static_cast<int>((long long)(blockIdx.x + 1) * n_items / gridDim.x);
 }
 
-// scale + bias and the softmax of the warp's rows, in place in `sacc`
-// (this lane holds rows r0 = row0 + lane/4 and r1 = r0 + 8, columns
-// nt*8 + qc and nt*8 + qc + 1 of every tile nt): on return sacc holds the
-// exponentials and (i0, i1) the reciprocals of their row sums
+// the lowest finite value of the bias type: a key at or below it is masked
 template <typename TB>
-__device__ inline void softmax_rows(float (&sacc)[kMaxT / 8][4],
-                                    const TB* __restrict__ bias, int b,
-                                    long long sb, long long sq, int Tn, int Tp,
-                                    float scale, int bias_pairs, int r0,
-                                    int qc, float& i0, float& i1) {
+__device__ __forceinline__ float masked_at();
+template <>
+__device__ __forceinline__ float masked_at<float>() { return -3.402823466e38f; }
+template <>
+__device__ __forceinline__ float masked_at<bf16>() {
+  return __bfloat162float(__ushort_as_bfloat16(0xFF7Fu));
+}
+
+// Two neighbouring bias elements at shared-memory address a, read as one
+// pair or as two
+template <bool PAIRS, typename TB>
+__device__ __forceinline__ float2 lds_bias2(uint32_t a) {
+  if constexpr (sizeof(TB) == 4) {
+    float2 v;
+    if constexpr (PAIRS) {
+      asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+                   : "=f"(v.x), "=f"(v.y) : "r"(a));
+    } else {
+      asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v.x) : "r"(a));
+      asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v.y) : "r"(a + 4));
+    }
+    return v;
+  } else {
+    uint32_t lo, hi;
+    if constexpr (PAIRS) {
+      uint32_t w;
+      asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(w) : "r"(a));
+      lo = w << 16;
+      hi = w & 0xFFFF0000u;
+    } else {
+      unsigned short x, y;
+      asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(x) : "r"(a));
+      asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(y) : "r"(a + 2));
+      lo = (uint32_t)x << 16;
+      hi = (uint32_t)y << 16;
+    }
+    return make_float2(__uint_as_float(lo), __uint_as_float(hi));
+  }
+}
+
+// Scale + bias of this thread's two rows of a 64 x 128 score tile, in place
+// in `s` (wgmma's accumulator layout: rows r0 = row of lane l/4 and r0 + 8,
+// columns 8c + qc and 8c + qc + 1 of every chunk c), from the item's bias
+// staged in shared memory: `bb` is row 0 (row stride `rs`), readable up to
+// 128 columns past the start of any row < T, so every read is
+// unconditional and all are issued before the first is used; rows past T
+// are padding (bias 0: any finite bias will do) and columns past T are
+// masked (-inf), both by selection. Returns the chunks whose four elements
+// of this thread are all masked, or lie in rows past T where `pad_dead`
+// (bit c).
+template <bool PAIRS, typename TB>
+__device__ __forceinline__ uint32_t add_bias_smem(float (&s)[64], const TB* bb,
+                                                  int rs, int Tn, int r0,
+                                                  int qc, float scale,
+                                                  bool pad_dead) {
+  const float low = masked_at<TB>();
   const int r1 = r0 + 8;
-  const TB* b0 = bias + b * sb + (long long)r0 * sq;
-  const TB* b1 = bias + b * sb + (long long)r1 * sq;
+  const bool v0 = r0 < Tn, v1 = r1 < Tn;
+  const uint32_t a0 =
+      hopper::smem_u32(bb + min(r0, Tn - 1) * rs + qc);
+  const uint32_t a1 =
+      hopper::smem_u32(bb + min(r1, Tn - 1) * rs + qc);
+  float2 x[16][2];
+#pragma unroll
+  for (int c = 0; c < 16; ++c) {
+    x[c][0] = lds_bias2<PAIRS, TB>(a0 + 8 * c * sizeof(TB));
+    x[c][1] = lds_bias2<PAIRS, TB>(a1 + 8 * c * sizeof(TB));
+  }
+  uint32_t masked = 0u;
+#pragma unroll
+  for (int c = 0; c < 16; ++c) {
+    const int col = 8 * c + qc;
+    const bool k0 = col < Tn, k1 = col + 1 < Tn;
+    const float e0 = k0 ? (v0 ? x[c][0].x : 0.f) : -INFINITY;
+    const float e1 = k1 ? (v0 ? x[c][0].y : 0.f) : -INFINITY;
+    const float e2 = k0 ? (v1 ? x[c][1].x : 0.f) : -INFINITY;
+    const float e3 = k1 ? (v1 ? x[c][1].y : 0.f) : -INFINITY;
+    s[4 * c + 0] = s[4 * c + 0] * scale + e0;
+    s[4 * c + 1] = s[4 * c + 1] * scale + e1;
+    s[4 * c + 2] = s[4 * c + 2] * scale + e2;
+    s[4 * c + 3] = s[4 * c + 3] * scale + e3;
+    const bool c0 = v0 || !pad_dead, c1 = v1 || !pad_dead;
+    const uint32_t live = (uint32_t)(c0 && e0 > low) | (uint32_t)(c0 && e1 > low) |
+                          (uint32_t)(c1 && e2 > low) | (uint32_t)(c1 && e3 > low);
+    masked |= (live ^ 1u) << c;
+  }
+  return masked;
+}
+
+// The same from the bias in device memory: only elements of the array are
+// read.
+template <typename TB>
+__device__ inline void add_bias_global(float (&s)[64], const TB* bb,
+                                       long long rs, int pairs, int Tn,
+                                       int r0, int qc, float scale) {
+  const int r1 = r0 + 8;
+  const TB* b0 = bb + (long long)r0 * rs;
+  const TB* b1 = bb + (long long)r1 * rs;
+#pragma unroll
+  for (int c = 0; c < 16; ++c) {
+    const int col = 8 * c + qc;
+    float2 c0, c1;
+    if (pairs && col + 1 < Tn) {
+      c0 = r0 < Tn ? load2(b0 + col) : make_float2(0.f, 0.f);
+      c1 = r1 < Tn ? load2(b1 + col) : make_float2(0.f, 0.f);
+    } else {
+      c0.x = col < Tn ? (r0 < Tn ? to_f32(b0[col]) : 0.f) : -INFINITY;
+      c0.y = col + 1 < Tn ? (r0 < Tn ? to_f32(b0[col + 1]) : 0.f) : -INFINITY;
+      c1.x = col < Tn ? (r1 < Tn ? to_f32(b1[col]) : 0.f) : -INFINITY;
+      c1.y = col + 1 < Tn ? (r1 < Tn ? to_f32(b1[col + 1]) : 0.f) : -INFINITY;
+    }
+    s[4 * c + 0] = s[4 * c + 0] * scale + c0.x;
+    s[4 * c + 1] = s[4 * c + 1] * scale + c0.y;
+    s[4 * c + 2] = s[4 * c + 2] * scale + c1.x;
+    s[4 * c + 3] = s[4 * c + 3] * scale + c1.y;
+  }
+}
+
+// The softmax of this thread's two rows of biased scores, in place: on
+// return s holds the exponentials (0 at masked keys) and (i0, i1) the
+// reciprocals of their row sums. With SKIP, `masked` (add_bias_smem's) and
+// `low` (the bias's masked value) let the warp skip a chunk whose 16 x 8
+// scores are all masked in rows that each have a key that is not (or lie
+// in rows past T, see add_bias_smem): there every weight of a row < T is
+// exactly 0 (exp underflows), so the skip changes no bit that is stored.
+// Returns the chunks skipped (bit c), the same in every lane.
+template <bool SKIP>
+__device__ inline uint32_t softmax_rows(float (&s)[64], uint32_t masked,
+                                        float low, float& i0, float& i1) {
   float m0 = -INFINITY, m1 = -INFINITY;
 #pragma unroll
-  for (int nt = 0; nt < kMaxT / 8; ++nt) {
-    if (nt * 8 < Tp) {
-      // bias at columns col, col + 1 of rows r0, r1: rows past T are
-      // padding (any finite bias will do), columns past T are masked
-      const int col = nt * 8 + qc;
-      float2 c0, c1;
-      if (bias_pairs && col + 1 < Tn) {
-        c0 = r0 < Tn ? load2(b0 + col) : make_float2(0.f, 0.f);
-        c1 = r1 < Tn ? load2(b1 + col) : make_float2(0.f, 0.f);
-      } else {
-        c0.x = col < Tn ? (r0 < Tn ? to_f32(b0[col]) : 0.f) : -INFINITY;
-        c0.y = col + 1 < Tn ? (r0 < Tn ? to_f32(b0[col + 1]) : 0.f) : -INFINITY;
-        c1.x = col < Tn ? (r1 < Tn ? to_f32(b1[col]) : 0.f) : -INFINITY;
-        c1.y = col + 1 < Tn ? (r1 < Tn ? to_f32(b1[col + 1]) : 0.f) : -INFINITY;
-      }
-      sacc[nt][0] = sacc[nt][0] * scale + c0.x;
-      sacc[nt][1] = sacc[nt][1] * scale + c0.y;
-      sacc[nt][2] = sacc[nt][2] * scale + c1.x;
-      sacc[nt][3] = sacc[nt][3] * scale + c1.y;
-      m0 = fmaxf(m0, fmaxf(sacc[nt][0], sacc[nt][1]));
-      m1 = fmaxf(m1, fmaxf(sacc[nt][2], sacc[nt][3]));
-    }
+  for (int c = 0; c < 16; ++c) {
+    m0 = fmaxf(m0, fmaxf(s[4 * c + 0], s[4 * c + 1]));
+    m1 = fmaxf(m1, fmaxf(s[4 * c + 2], s[4 * c + 3]));
   }
 #pragma unroll
   for (int o = 1; o <= 2; o <<= 1) {
     m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
     m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
   }
+  const uint32_t dead =
+      SKIP ? __reduce_and_sync(0xffffffffu, m0 > low && m1 > low ? masked : 0u)
+           : 0u;
   float l0 = 0.f, l1 = 0.f;
 #pragma unroll
-  for (int nt = 0; nt < kMaxT / 8; ++nt) {
-    if (nt * 8 < Tp) {
+  for (int c = 0; c < 16; ++c) {
+    if ((dead >> c) & 1u) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        sacc[nt][e] = __expf(sacc[nt][e] - m0);
-        sacc[nt][2 + e] = __expf(sacc[nt][2 + e] - m1);
-        l0 += sacc[nt][e];
-        l1 += sacc[nt][2 + e];
-      }
+      for (int e = 0; e < 4; ++e) s[4 * c + e] = 0.f;
+      continue;
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[4 * c + e] = __expf(s[4 * c + e] - m0);
+      s[4 * c + 2 + e] = __expf(s[4 * c + 2 + e] - m1);
+      l0 += s[4 * c + e];
+      l1 += s[4 * c + 2 + e];
     }
   }
 #pragma unroll
@@ -580,215 +703,522 @@ __device__ inline void softmax_rows(float (&sacc)[kMaxT / 8][4],
   }
   i0 = 1.f / l0;
   i1 = 1.f / l1;
+  return dead;
+}
+
+// How the producer stages an item's bias (row b: T rows of T elements,
+// strides (sb, sq, 1)): kBiasRows, its rows contiguous (sq = T): one bulk
+// copy of the T x T block; kBiasRow, a broadcast view (sq = 0): one bulk
+// copy of its one row; kBiasStrided, any other view: cp.async of
+// `bias_copy` bytes (16, 8 or 4) a piece, or element by element (0), into
+// rows of bias_ld(T) elements. A bulk copy takes the 16-byte aligned span
+// that holds the block, so the block starts (src & 15) bytes into the
+// stage's bias area; the bytes after the last 16-byte boundary are copied
+// by the warp's lanes.
+enum BiasMode { kBiasStrided = 0, kBiasRows = 1, kBiasRow = 2 };
+
+__host__ __device__ inline int bias_ld(int T) { return (T + 7) & ~7; }
+
+// shared memory for one row's bias, with room to read 128 columns past the
+// start of any row and the up to 15 bytes a bulk copy starts early
+__host__ __device__ inline size_t bias_slot_bytes(int T, int bias_bytes) {
+  return (((size_t)T * bias_ld(T) + kMaxT) * bias_bytes + 16 + kAlignBytes -
+          1) & ~(size_t)(kAlignBytes - 1);
+}
+
+__device__ __forceinline__ int bias_row_stride(int mode, int Tn) {
+  return mode == kBiasRow ? 0 : mode == kBiasRows ? Tn : bias_ld(Tn);
+}
+
+template <typename TB>
+__device__ __forceinline__ int bias_offset(const TB* src, int mode) {
+  return mode == kBiasStrided ? 0
+                              : static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+}
+
+// Shared memory of the forward: `stages` x (Q | K | V tiles | the item's
+// bias) | O of both warpgroups (64 rows each, the store's swizzled boxes) |
+// mbarriers, plus the slack that aligns the start to 1024 B (the swizzle's
+// repeat).
+template <int DH>
+__host__ __device__ inline size_t fwd_stage_bytes(int T, int bias_bytes) {
+  return 3 * (size_t)Tile<DH>::kBytes + bias_slot_bytes(T, bias_bytes);
 }
 
 template <int DH>
-__host__ __device__ inline size_t mma_smem_bytes(int T) {
-  return (size_t)3 * ((T + 15) & ~15) * (DH + 8) * sizeof(bf16);
+__host__ __device__ inline size_t fwd_smem_bytes(int T, int bias_bytes,
+                                                 int stages) {
+  return stages * fwd_stage_bytes<DH>(T, bias_bytes) + Tile<DH>::kBytes +
+         kAuxBytes + kAlignBytes;
+}
+
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + kAlignBytes - 1) &
+      ~(uintptr_t)(kAlignBytes - 1));
+}
+
+// The strided bias copy: rows of T elements into rows of bias_ld(T), with
+// cp.async units of CB bytes (0: element by element)
+template <typename TB, int CB>
+__device__ void copy_bias_strided(TB* dst, const TB* src, long long sq,
+                                  int Tn, int lane) {
+  const int ld = bias_ld(Tn);
+  if constexpr (CB == 0) {
+    for (int x = lane; x < Tn * Tn; x += 32) {
+      const int i = x / Tn, j = x - i * Tn;
+      dst[i * ld + j] = src[i * sq + j];
+    }
+  } else {
+    constexpr int U = CB / (int)sizeof(TB);
+    const int per_row = Tn / U;
+    for (int x = lane; x < Tn * per_row; x += 32) {
+      const int i = x / per_row, j = (x - i * per_row) * U;
+      hopper::cp_async<CB>(dst + i * ld + j, src + i * sq + j);
+    }
+  }
+}
+
+// The 16-byte aligned span [lo, hi) of a bulk bias copy from src (`block`
+// bytes), and the tail after it
+struct BiasSpan {
+  uintptr_t s0, lo, hi;
+  __device__ BiasSpan(const void* src, int block)
+      : s0(reinterpret_cast<uintptr_t>(src)), lo(s0 & ~(uintptr_t)15),
+        hi((s0 + block) & ~(uintptr_t)15) {}
+  __device__ uint32_t bytes() const { return static_cast<uint32_t>(hi - lo); }
+};
+
+// The producer warp's copy of row b's bias (src) into `bs`: lane 0 issues
+// the bulk copy, completed on `bar` (whose expected bytes the caller has
+// set), the lanes copy its tail; or the strided copy, cp.async, waited for
+// here. The caller arrives on `bar` after a __syncwarp.
+template <typename TB>
+__device__ void stage_bias(unsigned char* bs, const TB* src, int mode,
+                           int bias_copy, long long sq, int Tn, int block,
+                           int lane, uint64_t* bar) {
+  if (mode != kBiasStrided) {
+    const BiasSpan sp(src, block);
+    if (lane == 0 && sp.hi > sp.lo)
+      hopper::bulk_load(bs, reinterpret_cast<const void*>(sp.lo), sp.bytes(),
+                        bar);
+    const int n_tail = static_cast<int>((sp.s0 + block - sp.hi) / sizeof(TB));
+    if (lane < n_tail)
+      reinterpret_cast<TB*>(bs + (sp.hi - sp.lo))[lane] =
+          reinterpret_cast<const TB*>(sp.hi)[lane];
+    return;
+  }
+  TB* dst = reinterpret_cast<TB*>(bs);
+  switch (bias_copy) {
+    case 16: copy_bias_strided<TB, 16>(dst, src, sq, Tn, lane); break;
+    case 8: copy_bias_strided<TB, 8>(dst, src, sq, Tn, lane); break;
+    case 4: copy_bias_strided<TB, 4>(dst, src, sq, Tn, lane); break;
+    default: copy_bias_strided<TB, 0>(dst, src, sq, Tn, lane); break;
+  }
+  hopper::cp_async_wait_all();
+}
+
+__device__ __forceinline__ int bias_block_bytes(int mode, int Tn, int es) {
+  return (mode == kBiasRow ? Tn : Tn * Tn) * es;
 }
 
 template <int DH, typename TB, bool DROP>
-__global__ void __launch_bounds__(kMmaThreads, DH <= 64 ? 3 : 1)
-attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const TB* __restrict__ bias,
-              bf16* __restrict__ out, int Tn, int H, float scale,
-              long long sb, long long sq, int bias_pairs,
-              const int* __restrict__ seed_ptr, uint32_t thresh,
-              float keep_scale) {
-  constexpr int LD = DH + 8;   // shared row stride, in elements
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int Tp = (Tn + 15) & ~15;
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + Tp * LD;
-  bf16* vs = ks + Tp * LD;
-
-  const int b = blockIdx.x / H, h = blockIdx.x - b * H;
-  const int D = H * DH;
-  const size_t base = (size_t)b * Tn * D + (size_t)h * DH;
-  {
-    bf16* const dst[3] = {qs, ks, vs};
-    const bf16* const src[3] = {q, k, v};
-    stage_rows<DH, 3>(dst, src, base, Tn, Tp, D);
+__global__ void __launch_bounds__(kTcThreads, 1)
+attention_fwd_tc(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap to,
+                 const TB* __restrict__ bias, int n_items, int Tn, int H,
+                 float scale, long long sb, long long sq, int bias_mode,
+                 int bias_copy, int bias_pairs, int stages,
+                 const int* __restrict__ seed_ptr, uint32_t thresh,
+                 float keep_scale) {
+  using G = Tile<DH>;
+  constexpr int kORegion = 64 * G::kRowBytes;  // one box of a warpgroup's O
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const size_t stage_bytes = fwd_stage_bytes<DH>(Tn, sizeof(TB));
+  unsigned char* obuf = smem + stages * stage_bytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(obuf + G::kBytes);
+  uint64_t* empty = full + 2;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(&full[s], 2);  // expect_tx + the bias's arrival
+      hopper::mbar_init(&empty[s], kConsumerThreads / 32);
+    }
+    hopper::fence_barrier_init();
   }
-
+  __syncthreads();
+  int first, last;
+  my_items(n_items, first, last);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = warp * 16;
-  if (row0 >= Tn) return;
-  const int mat = lane >> 3, mr = lane & 7;  // ldmatrix: matrix and its row
 
-  // S = Q_h . K_h^T for query rows row0..row0+15, all Tp keys
-  float sacc[kMaxT / 8][4];
-  rows_times_rows_t<DH>(sacc, qs, ks, row0, Tp, lane);
-  const int qc = (lane & 3) * 2;
-  const int r0 = row0 + (lane >> 2);
-  float i0, i1;
-  softmax_rows<TB>(sacc, bias, b, sb, sq, Tn, Tp, scale, bias_pairs, r0, qc,
-                   i0, i1);
-  const uint32_t seed = DROP ? static_cast<uint32_t>(*seed_ptr) : 0u;
-
-  // P (with its dropout) rounded to bf16 and packed as the A operand of
-  // P.V, so the f32 scores die here; 16 keys per k-step
-  uint32_t pa[kMaxT / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kMaxT / 16; ++kk) {
-    float p[2][4];
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int nt = 2 * kk + hf;
-      p[hf][0] = sacc[nt][0] * i0;
-      p[hf][1] = sacc[nt][1] * i0;
-      p[hf][2] = sacc[nt][2] * i1;
-      p[hf][3] = sacc[nt][3] * i1;
-      if (DROP && nt * 8 < Tp) {
-        const uint4 r = dropout_bits4(seed, b, h, r0, nt * 8 + qc);
-        p[hf][0] = drop(p[hf][0], r.x, thresh, keep_scale);
-        p[hf][1] = drop(p[hf][1], r.y, thresh, keep_scale);
-        p[hf][2] = drop(p[hf][2], r.z, thresh, keep_scale);
-        p[hf][3] = drop(p[hf][3], r.w, thresh, keep_scale);
-      }
+  if (warp < 4) {
+    // ---- producer: one warp issues the loads of the next items ----------
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (warp != 0) return;
+    if (lane == 0) {
+      hopper::prefetch_tensor_map(&tq);
+      hopper::prefetch_tensor_map(&tk);
+      hopper::prefetch_tensor_map(&tv);
     }
-    pa[kk][0] = pack_bf16(p[0][0], p[0][1]);
-    pa[kk][1] = pack_bf16(p[0][2], p[0][3]);
-    pa[kk][2] = pack_bf16(p[1][0], p[1][1]);
-    pa[kk][3] = pack_bf16(p[1][2], p[1][3]);
-  }
-
-  // O = round(P) . V_h
-  float oacc[DH / 8][4];
+    const int block = bias_block_bytes(bias_mode, Tn, sizeof(TB));
+    int stage = 0, held0 = -1, held1 = -1;  // the row whose bias a stage holds
+    uint32_t phase = 0;
+    for (int it = first; it < last; ++it) {
+      const int b = it / H, h = it - b * H;
+      hopper::mbar_wait(&empty[stage], phase ^ 1u);
+      unsigned char* st = smem + stage * stage_bytes;
+      unsigned char* bs = st + 3 * G::kBytes;
+      const TB* src = bias + b * sb;
+      const bool load_bias = (stage ? held1 : held0) != b;
+      const bool bulk = load_bias && bias_mode != kBiasStrided;
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(
+            &full[stage],
+            3 * G::kBytes + (bulk ? BiasSpan(src, block).bytes() : 0u));
 #pragma unroll
-  for (int nt = 0; nt < DH / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[nt][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < kMaxT / 16; ++kk) {
-    if (kk * 16 < Tp) {
-#pragma unroll
-      for (int dp = 0; dp < DH / 16; ++dp) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vs + (kk * 16 + (mat & 1) * 8 + mr) * LD + dp * 16 + (mat >> 1) * 8);
-        mma_bf16(oacc[2 * dp], pa[kk], bv[0], bv[1]);
-        mma_bf16(oacc[2 * dp + 1], pa[kk], bv[2], bv[3]);
+        for (int x = 0; x < G::kBoxes; ++x) {
+          const int c0 = h * DH + x * G::kBox;
+          hopper::tma_load_3d(st + x * G::kRegion, &tq, &full[stage], c0, 0, b);
+          hopper::tma_load_3d(st + G::kBytes + x * G::kRegion, &tk, &full[stage],
+                              c0, 0, b);
+          hopper::tma_load_3d(st + 2 * G::kBytes + x * G::kRegion, &tv,
+                              &full[stage], c0, 0, b);
+        }
       }
+      if (load_bias) {
+        stage_bias<TB>(bs, src, bias_mode, bias_copy, sq, Tn, block, lane,
+                       &full[stage]);
+        if (stage) held1 = b; else held0 = b;
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&full[stage]);
+      if (++stage == stages) { stage = 0; phase ^= 1u; }
     }
-  }
-
-  const int r1 = r0 + 8;
+  } else {
+    // ---- consumers: warpgroup g owns query rows 64g..64g+63 --------------
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    const int g = (warp >> 2) - 1, wl = warp & 3;
+    const int rl0 = 16 * wl + (lane >> 2);  // row within the tile
+    const int r0 = 64 * g + rl0;
+    const int qc = (lane & 3) * 2;
+    const bool leader = (threadIdx.x & 127) == 0;
+    const uint32_t seed = DROP ? static_cast<uint32_t>(*seed_ptr) : 0u;
+    const bool has_rows = 64 * g < Tn;
+    const int rs = bias_row_stride(bias_mode, Tn);
+    unsigned char* ob = obuf + g * G::kBoxes * kORegion;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int it = first; it < last; ++it) {
+      const int b = it / H, h = it - b * H;
+      hopper::mbar_wait(&full[stage], phase);
+      const unsigned char* st = smem + stage * stage_bytes;
+      float o[DH / 2];
+      if (has_rows) {
+        // S = Q_h . K_h^T for the tile's 64 rows and all 128 key slots
+        float s[64];
+        hopper::wgmma_fence();
 #pragma unroll
-  for (int nt = 0; nt < DH / 8; ++nt) {
-    const int col = nt * 8 + qc;
-    if (r0 < Tn)
-      *reinterpret_cast<__nv_bfloat162*>(out + base + (size_t)r0 * D + col) =
-          __floats2bfloat162_rn(oacc[nt][0], oacc[nt][1]);
-    if (r1 < Tn)
-      *reinterpret_cast<__nv_bfloat162*>(out + base + (size_t)r1 * D + col) =
-          __floats2bfloat162_rn(oacc[nt][2], oacc[nt][3]);
+        for (int k = 0; k < DH / 16; ++k)
+          hopper::wgmma_ss<0, 0>(s, G::kmajor(st, 64 * g, k),
+                                 G::kmajor(st + G::kBytes, 0, k), k);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+        const TB* bb = reinterpret_cast<const TB*>(
+            st + 3 * G::kBytes + bias_offset(bias + b * sb, bias_mode));
+        // With dropout, rows past T (never stored) do not keep a chunk's
+        // draws alive. Without, they still vote: on an H100 80GB HBM3 at
+        // 700 W (tools/time_attention.py) leaving them out took the
+        // serving page (T = 102, p 0) from 57.3-57.5 to 62.1 us, for a
+        // reason not yet understood. One rule for both instances waits on
+        // that cause; re-measure before changing it.
+        const uint32_t masked =
+            bias_pairs
+                ? add_bias_smem<true>(s, bb, rs, Tn, r0, qc, scale, DROP)
+                : add_bias_smem<false>(s, bb, rs, Tn, r0, qc, scale, DROP);
+        float i0, i1;
+        const uint32_t dead =
+            softmax_rows<true>(s, masked, masked_at<TB>(), i0, i1);
+        // P (with its dropout) rounded to bf16, packed in place as the A
+        // fragments of P.V: 16 keys per k-step
+        uint32_t pa[8][4];
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          float p[2][4];
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int c = 2 * kk + hf;
+            p[hf][0] = s[4 * c + 0] * i0;
+            p[hf][1] = s[4 * c + 1] * i0;
+            p[hf][2] = s[4 * c + 2] * i1;
+            p[hf][3] = s[4 * c + 3] * i1;
+            if (DROP && !((dead >> c) & 1u)) {
+              const uint4 r = dropout_bits4(seed, b, h, r0, 8 * c + qc);
+              p[hf][0] = drop(p[hf][0], r.x, thresh, keep_scale);
+              p[hf][1] = drop(p[hf][1], r.y, thresh, keep_scale);
+              p[hf][2] = drop(p[hf][2], r.z, thresh, keep_scale);
+              p[hf][3] = drop(p[hf][3], r.w, thresh, keep_scale);
+            }
+          }
+          pa[kk][0] = pack_bf16(p[0][0], p[0][1]);
+          pa[kk][1] = pack_bf16(p[0][2], p[0][3]);
+          pa[kk][2] = pack_bf16(p[1][0], p[1][1]);
+          pa[kk][3] = pack_bf16(p[1][2], p[1][3]);
+        }
+        // O = round(P) . V_h (V read as a transposed operand)
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          hopper::wgmma_rs<1>(o, pa[kk], G::mnmajor(st + 2 * G::kBytes, kk), kk);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(o);
+        fence_frags(pa);
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[stage]);
+      if (has_rows) {
+        // O through shared memory (the store's swizzled boxes) and one TMA
+        // store per box; rows past T fall outside the tensor and are not
+        // written
+        if (leader) hopper::bulk_wait_read();
+        hopper::named_barrier_sync(2 + g, 128);
+#pragma unroll
+        for (int c = 0; c < DH / 8; ++c) {
+          const int col = 8 * c + qc;
+          unsigned char* region = ob + (col / G::kBox) * kORegion;
+          const uint32_t at0 = rl0 * G::kRowBytes + (col % G::kBox) * 2;
+          const uint32_t at1 = at0 + 8 * G::kRowBytes;
+          *reinterpret_cast<uint32_t*>(region + hopper::swizzled(at0, G::kRowBytes)) =
+              pack_bf16(o[4 * c + 0], o[4 * c + 1]);
+          *reinterpret_cast<uint32_t*>(region + hopper::swizzled(at1, G::kRowBytes)) =
+              pack_bf16(o[4 * c + 2], o[4 * c + 3]);
+        }
+        hopper::fence_proxy_async();
+        hopper::named_barrier_sync(2 + g, 128);
+        if (leader) {
+#pragma unroll
+          for (int x = 0; x < G::kBoxes; ++x)
+            hopper::tma_store_3d(&to, ob + x * kORegion, h * DH + x * G::kBox,
+                                 64 * g, b);
+          hopper::bulk_commit();
+        }
+      }
+      if (++stage == stages) { stage = 0; phase ^= 1u; }
+    }
+    if (leader) hopper::bulk_wait();
   }
 }
 
-// (dS or round(pd))^T . X for the warp's 16 key rows j0..j0+15: the A
-// operand is read transposed from `ps` (Tp x LDT, rows = queries), X from
-// `xs` (Tp x LD, rows = queries); the result is written to rows j0.. of
-// head h of `out`
+// Shared memory of the backward: `stages` x (Q | K | V | g tiles) | dS |
+// round(pd) | the bias of the current row b (one slot, `bias` bytes; 0 when
+// it does not fit and the bias is read from device memory) | mbarriers,
+// plus the alignment slack.
 template <int DH>
-__device__ inline void keys_product(const bf16* ps, int LDT, const bf16* xs,
-                                    bf16* __restrict__ out, size_t base,
-                                    int j0, int Tn, int Tp, int D, int lane) {
-  constexpr int LD = DH + 8;
-  const int mat = lane >> 3, mr = lane & 7;
-  float acc[DH / 8][4];
+__host__ __device__ constexpr size_t bwd_stage_bytes() {
+  return 4 * (size_t)Tile<DH>::kBytes;
+}
+
+template <int DH>
+__host__ __device__ inline size_t bwd_smem_bytes(int stages, size_t bias) {
+  return stages * bwd_stage_bytes<DH>() + 2 * (size_t)kPBytes + bias +
+         kAuxBytes + kAlignBytes;
+}
+
+// Rows `row` and row + 8 of this thread's part of a 64 x DH accumulator
+// tile (the wgmma layout), rounded to bf16, into a 128-row head tile laid
+// out as TMA reads and writes it (Tile<DH>: swizzled boxes)
+template <int DH>
+__device__ __forceinline__ void acc_to_tile(unsigned char* tile,
+                                            const float (&acc)[DH / 2],
+                                            int row, int qc) {
+  using G = Tile<DH>;
 #pragma unroll
-  for (int nt = 0; nt < DH / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < kMaxT / 16; ++kk) {
-    if (kk * 16 < Tp) {
-      uint32_t a[4];
-      ldmatrix_x4_trans(a, ps + (kk * 16 + (mat >> 1) * 8 + mr) * LDT + j0 + (mat & 1) * 8);
-#pragma unroll
-      for (int dp = 0; dp < DH / 16; ++dp) {
-        uint32_t bx[4];
-        ldmatrix_x4_trans(bx, xs + (kk * 16 + (mat & 1) * 8 + mr) * LD + dp * 16 + (mat >> 1) * 8);
-        mma_bf16(acc[2 * dp], a, bx[0], bx[1]);
-        mma_bf16(acc[2 * dp + 1], a, bx[2], bx[3]);
-      }
-    }
-  }
-  const int qc = (lane & 3) * 2, r0 = j0 + (lane >> 2), r1 = r0 + 8;
-#pragma unroll
-  for (int nt = 0; nt < DH / 8; ++nt) {
-    const int col = nt * 8 + qc;
-    if (r0 < Tn)
-      *reinterpret_cast<__nv_bfloat162*>(out + base + (size_t)r0 * D + col) =
-          __floats2bfloat162_rn(acc[nt][0], acc[nt][1]);
-    if (r1 < Tn)
-      *reinterpret_cast<__nv_bfloat162*>(out + base + (size_t)r1 * D + col) =
-          __floats2bfloat162_rn(acc[nt][2], acc[nt][3]);
+  for (int c = 0; c < DH / 8; ++c) {
+    const int col = 8 * c + qc;
+    unsigned char* region = tile + (col / G::kBox) * G::kRegion;
+    const uint32_t at0 = row * G::kRowBytes + (col % G::kBox) * 2;
+    const uint32_t at1 = at0 + 8 * G::kRowBytes;
+    *reinterpret_cast<uint32_t*>(region + hopper::swizzled(at0, G::kRowBytes)) =
+        pack_bf16(acc[4 * c + 0], acc[4 * c + 1]);
+    *reinterpret_cast<uint32_t*>(region + hopper::swizzled(at1, G::kRowBytes)) =
+        pack_bf16(acc[4 * c + 2], acc[4 * c + 3]);
   }
 }
 
-// shared memory: Q | K | V | g (Tp x (DH+8) bf16 each) | dS | round(pd)
-// (Tp x (Tp+8) bf16 each; the row stride is an odd multiple of 16 B, free
-// of ldmatrix bank conflicts)
+// One TMA store of rows 64g..64g+63 of a head tile to head h of row b
 template <int DH>
-__host__ __device__ inline size_t bwd_mma_smem_bytes(int T) {
-  const size_t Tp = (T + 15) & ~15;
-  return (4 * Tp * (DH + 8) + 2 * Tp * (Tp + 8)) * sizeof(bf16);
+__device__ __forceinline__ void store_tile_rows(const CUtensorMap* map,
+                                                const unsigned char* tile,
+                                                int g, int h, int b) {
+  using G = Tile<DH>;
+#pragma unroll
+  for (int x = 0; x < G::kBoxes; ++x)
+    hopper::tma_store_3d(map, tile + x * G::kRegion + 64 * g * G::kRowBytes,
+                         h * DH + x * G::kBox, 64 * g, b);
 }
 
 template <int DH, typename TB>
-__global__ void __launch_bounds__(kMmaThreads, 1)
-attention_bwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const TB* __restrict__ bias,
-                  const bf16* __restrict__ g, bf16* __restrict__ dq,
-                  bf16* __restrict__ dk, bf16* __restrict__ dv, int Tn, int H,
-                  float scale, long long sb, long long sq, int bias_pairs,
-                  const int* __restrict__ seed_ptr, uint32_t thresh,
-                  float keep_scale, int dropout) {
-  constexpr int LD = DH + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int Tp = (Tn + 15) & ~15;
-  const int LDT = Tp + 8;
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + Tp * LD;
-  bf16* vs = ks + Tp * LD;
-  bf16* gs = vs + Tp * LD;
-  bf16* dss = gs + Tp * LD;     // [Tp][LDT]: dS, rows = queries
-  bf16* pds = dss + Tp * LDT;   // [Tp][LDT]: round(pd), rows = queries
-
-  const int b = blockIdx.x / H, h = blockIdx.x - b * H;
-  const int D = H * DH;
-  const size_t base = (size_t)b * Tn * D + (size_t)h * DH;
-  {
-    bf16* const dst[4] = {qs, ks, vs, gs};
-    const bf16* const src[4] = {q, k, v, g};
-    stage_rows<DH, 4>(dst, src, base, Tn, Tp, D);
+__global__ void __launch_bounds__(kTcThreads, 1)
+attention_bwd_tc(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tg,
+                 const __grid_constant__ CUtensorMap tdq,
+                 const __grid_constant__ CUtensorMap tdk,
+                 const __grid_constant__ CUtensorMap tdv,
+                 const TB* __restrict__ bias, int n_items,
+                 int Tn, int H, float scale, long long sb, long long sq,
+                 int bias_mode, int bias_copy, int bias_pairs, int bias_smem,
+                 int stages, const int* __restrict__ seed_ptr,
+                 uint32_t thresh, float keep_scale, int dropout) {
+  using G = Tile<DH>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  constexpr size_t stage_bytes = bwd_stage_bytes<DH>();
+  unsigned char* dss = smem + stages * stage_bytes;  // dS, rows = queries
+  unsigned char* pds = dss + kPBytes;                // round(pd)
+  unsigned char* bs = pds + kPBytes;                 // the bias slot
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      bs + (bias_smem ? bias_slot_bytes(Tn, sizeof(TB)) : 0));
+  uint64_t* empty = full + 2;
+  uint64_t* bias_full = empty + 2;
+  uint64_t* bias_empty = bias_full + 1;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2);  // each warpgroup's leader
+    }
+    hopper::mbar_init(bias_full, 2);  // expect_tx + the copy's end
+    hopper::mbar_init(bias_empty, kConsumerThreads / 32);
+    hopper::fence_barrier_init();
   }
-
+  __syncthreads();
+  int first, last;
+  my_items(n_items, first, last);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = warp * 16;
-  const int mat = lane >> 3, mr = lane & 7;
-  const int qc = (lane & 3) * 2;
-  const int r0 = row0 + (lane >> 2), r1 = r0 + 8;
-  if (row0 < Tn) {
-    // phase 1, query rows row0..row0+15: P recomputed as in the forward
-    float sacc[kMaxT / 8][4];
-    rows_times_rows_t<DH>(sacc, qs, ks, row0, Tp, lane);
-    float i0, i1;
-    softmax_rows<TB>(sacc, bias, b, sb, sq, Tn, Tp, scale, bias_pairs, r0,
-                     qc, i0, i1);
-    // dPd = round(g) . V^T
-    float dacc[kMaxT / 8][4];
-    rows_times_rows_t<DH>(dacc, gs, vs, row0, Tp, lane);
-    const uint32_t seed = dropout ? static_cast<uint32_t>(*seed_ptr) : 0u;
-    // p and the keep factors; dp = dPd * keep; row sums of dp * p
-    float rs0 = 0.f, rs1 = 0.f;
+
+  if (warp < 4) {
+    // ---- producer: Q, K, V and g of the next items; the bias of each new
+    // row b once its slot is free ---------------------------------------
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (warp != 0) return;
+    if (lane == 0) {
+      hopper::prefetch_tensor_map(&tq);
+      hopper::prefetch_tensor_map(&tk);
+      hopper::prefetch_tensor_map(&tv);
+      hopper::prefetch_tensor_map(&tg);
+    }
+    const int block = bias_block_bytes(bias_mode, Tn, sizeof(TB));
+    int stage = 0, held = -1;
+    uint32_t phase = 0, gen = 0;  // gen: bias rows loaded so far
+    for (int it = first; it < last; ++it) {
+      const int b = it / H, h = it - b * H;
+      hopper::mbar_wait(&empty[stage], phase ^ 1u);
+      unsigned char* st = smem + stage * stage_bytes;
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(&full[stage], 4 * G::kBytes);
 #pragma unroll
-    for (int nt = 0; nt < kMaxT / 8; ++nt) {
-      if (nt * 8 < Tp) {
+        for (int x = 0; x < G::kBoxes; ++x) {
+          const int c0 = h * DH + x * G::kBox;
+          const CUtensorMap* maps[4] = {&tq, &tk, &tv, &tg};
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+            hopper::tma_load_3d(st + a * G::kBytes + x * G::kRegion, maps[a],
+                                &full[stage], c0, 0, b);
+        }
+      }
+      if (bias_smem && held != b) {
+        const TB* src = bias + b * sb;
+        // the consumers are done with the previous row's bias
+        if (gen > 0) hopper::mbar_wait(bias_empty, (gen - 1) & 1u);
+        if (lane == 0)
+          hopper::mbar_arrive_expect_tx(
+              bias_full,
+              bias_mode != kBiasStrided ? BiasSpan(src, block).bytes() : 0u);
+        stage_bias<TB>(bs, src, bias_mode, bias_copy, sq, Tn, block, lane,
+                       bias_full);
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(bias_full);
+        held = b;
+        ++gen;
+      }
+      if (++stage == stages) { stage = 0; phase ^= 1u; }
+    }
+  } else {
+    // ---- consumers: warpgroup g owns query rows (phase 1), then key rows
+    // (phase 2) 64g..64g+63 ------------------------------------------------
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    const int g = (warp >> 2) - 1, wl = warp & 3;
+    const int r0 = 64 * g + 16 * wl + (lane >> 2), r1 = r0 + 8;
+    const int qc = (lane & 3) * 2;
+    const bool leader = (threadIdx.x & 127) == 0;
+    const uint32_t seed = dropout ? static_cast<uint32_t>(*seed_ptr) : 0u;
+    const int rs = bias_row_stride(bias_mode, Tn);
+    int stage = 0, held = -1;
+    uint32_t phase = 0, gen = 0;
+    for (int it = first; it < last; ++it) {
+      const int b = it / H, h = it - b * H;
+      hopper::mbar_wait(&full[stage], phase);
+      unsigned char* st = smem + stage * stage_bytes;
+      unsigned char* qs = st;
+      unsigned char* ks = st + G::kBytes;
+      unsigned char* vs = st + 2 * G::kBytes;
+      unsigned char* gs = st + 3 * G::kBytes;
+
+      // phase 1, query rows: S = Q.K^T (P recomputed as in the forward) and
+      // dPd = round(g).V^T
+      float s[64], dpd[64];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < DH / 16; ++k)
+        hopper::wgmma_ss<0, 0>(s, G::kmajor(qs, 64 * g, k), G::kmajor(ks, 0, k),
+                               k);
+#pragma unroll
+      for (int k = 0; k < DH / 16; ++k)
+        hopper::wgmma_ss<0, 0>(dpd, G::kmajor(gs, 64 * g, k),
+                               G::kmajor(vs, 0, k), k);
+      hopper::wgmma_commit();
+      if (bias_smem && held != b) {
+        hopper::mbar_wait(bias_full, gen & 1u);
+        held = b;
+        ++gen;
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dpd);
+      if (bias_smem) {
+        const TB* bb = reinterpret_cast<const TB*>(
+            bs + bias_offset(bias + b * sb, bias_mode));
+        if (bias_pairs)
+          add_bias_smem<true>(s, bb, rs, Tn, r0, qc, scale, false);
+        else
+          add_bias_smem<false>(s, bb, rs, Tn, r0, qc, scale, false);
+        // the last item of this row: the slot may take the next row's bias
+        if (it + 1 == last || (it + 1) / H != b) {
+          __syncwarp();
+          if (lane == 0) hopper::mbar_arrive(bias_empty);
+        }
+      } else {
+        add_bias_global<TB>(s, bias + b * sb, sq, bias_pairs, Tn, r0, qc,
+                            scale);
+      }
+      // (the backward skips no chunk: on the card that measured slower)
+      float i0, i1;
+      softmax_rows<false>(s, 0u, 0.f, i0, i1);
+      // every consumer is past the previous item's phase 2: dS and pd may
+      // be rewritten
+      hopper::named_barrier_sync(1, kConsumerThreads);
+      // p and the keep factors; dp = dPd * keep; row sums of dp * p;
+      // round(pd) to shared memory
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
         float kf[4] = {1.f, 1.f, 1.f, 1.f};
         if (dropout) {
-          const uint4 r = dropout_bits4(seed, b, h, r0, nt * 8 + qc);
+          const uint4 r = dropout_bits4(seed, b, h, r0, 8 * c + qc);
           kf[0] = r.x >= thresh ? keep_scale : 0.f;
           kf[1] = r.y >= thresh ? keep_scale : 0.f;
           kf[2] = r.z >= thresh ? keep_scale : 0.f;
@@ -796,74 +1226,98 @@ attention_bwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float p = sacc[nt][e] * (e < 2 ? i0 : i1);
-          sacc[nt][e] = p;
-          dacc[nt][e] *= kf[e];
-          // round(pd) for dV, in place of dP's keep factor once used
-          kf[e] *= p;
+          const float p = s[4 * c + e] * (e < 2 ? i0 : i1);
+          s[4 * c + e] = p;
+          dpd[4 * c + e] *= kf[e];
+          kf[e] *= p;  // pd, in place of the keep factor once used
         }
-        rs0 += dacc[nt][0] * sacc[nt][0] + dacc[nt][1] * sacc[nt][1];
-        rs1 += dacc[nt][2] * sacc[nt][2] + dacc[nt][3] * sacc[nt][3];
-        const int col = nt * 8 + qc;
-        *reinterpret_cast<uint32_t*>(pds + r0 * LDT + col) = pack_bf16(kf[0], kf[1]);
-        *reinterpret_cast<uint32_t*>(pds + r1 * LDT + col) = pack_bf16(kf[2], kf[3]);
+        rs0 += dpd[4 * c + 0] * s[4 * c + 0] + dpd[4 * c + 1] * s[4 * c + 1];
+        rs1 += dpd[4 * c + 2] * s[4 * c + 2] + dpd[4 * c + 3] * s[4 * c + 3];
+        const int col = 8 * c + qc;
+        *p_at(pds, r0, col) = pack_bf16(kf[0], kf[1]);
+        *p_at(pds, r1, col) = pack_bf16(kf[2], kf[3]);
       }
-    }
 #pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      rs0 += __shfl_xor_sync(0xffffffffu, rs0, o);
-      rs1 += __shfl_xor_sync(0xffffffffu, rs1, o);
-    }
-    // dS = round(p * (dp - rowsum) * scale)
-#pragma unroll
-    for (int nt = 0; nt < kMaxT / 8; ++nt) {
-      if (nt * 8 < Tp) {
-        const int col = nt * 8 + qc;
-        *reinterpret_cast<uint32_t*>(dss + r0 * LDT + col) = pack_bf16(
-            sacc[nt][0] * (dacc[nt][0] - rs0) * scale,
-            sacc[nt][1] * (dacc[nt][1] - rs0) * scale);
-        *reinterpret_cast<uint32_t*>(dss + r1 * LDT + col) = pack_bf16(
-            sacc[nt][2] * (dacc[nt][2] - rs1) * scale,
-            sacc[nt][3] * (dacc[nt][3] - rs1) * scale);
+      for (int o = 1; o <= 2; o <<= 1) {
+        rs0 += __shfl_xor_sync(0xffffffffu, rs0, o);
+        rs1 += __shfl_xor_sync(0xffffffffu, rs1, o);
       }
-    }
-    __syncwarp();
-    // dQ = dS . K_h for the warp's rows (A from its own rows of dS)
-    float oacc[DH / 8][4];
+      // dS = round(p * (dp - rowsum) * scale), to shared memory and packed
+      // as the A fragments of dQ = dS.K
+      uint32_t da[8][4];
 #pragma unroll
-    for (int nt = 0; nt < DH / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) oacc[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kMaxT / 16; ++kk) {
-      if (kk * 16 < Tp) {
-        uint32_t a[4];
-        ldmatrix_x4(a, dss + (row0 + (mat & 1) * 8 + mr) * LDT + kk * 16 + (mat >> 1) * 8);
-#pragma unroll
-        for (int dp = 0; dp < DH / 16; ++dp) {
-          uint32_t bk[4];
-          ldmatrix_x4_trans(bk, ks + (kk * 16 + (mat & 1) * 8 + mr) * LD + dp * 16 + (mat >> 1) * 8);
-          mma_bf16(oacc[2 * dp], a, bk[0], bk[1]);
-          mma_bf16(oacc[2 * dp + 1], a, bk[2], bk[3]);
-        }
+      for (int c = 0; c < 16; ++c) {
+        const int col = 8 * c + qc;
+        const uint32_t x0 = pack_bf16(s[4 * c + 0] * (dpd[4 * c + 0] - rs0) * scale,
+                                      s[4 * c + 1] * (dpd[4 * c + 1] - rs0) * scale);
+        const uint32_t x1 = pack_bf16(s[4 * c + 2] * (dpd[4 * c + 2] - rs1) * scale,
+                                      s[4 * c + 3] * (dpd[4 * c + 3] - rs1) * scale);
+        *p_at(dss, r0, col) = x0;
+        *p_at(dss, r1, col) = x1;
+        da[c >> 1][(c & 1) * 2 + 0] = x0;
+        da[c >> 1][(c & 1) * 2 + 1] = x1;
       }
-    }
+      hopper::fence_proxy_async();
+      {
+        float acc[DH / 2];
+        hopper::wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < DH / 8; ++nt) {
-      const int col = nt * 8 + qc;
-      if (r0 < Tn)
-        *reinterpret_cast<__nv_bfloat162*>(dq + base + (size_t)r0 * D + col) =
-            __floats2bfloat162_rn(oacc[nt][0], oacc[nt][1]);
-      if (r1 < Tn)
-        *reinterpret_cast<__nv_bfloat162*>(dq + base + (size_t)r1 * D + col) =
-            __floats2bfloat162_rn(oacc[nt][2], oacc[nt][3]);
+        for (int kk = 0; kk < 8; ++kk)
+          hopper::wgmma_rs<1>(acc, da[kk], G::mnmajor(ks, kk), kk);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(acc);
+        fence_frags(da);
+        // dQ through the V tile: both warpgroups' dPd products are done
+        acc_to_tile<DH>(vs, acc, r0, qc);
+        hopper::fence_proxy_async();
+      }
+      // every row of dS and pd is written, and dQ staged
+      hopper::named_barrier_sync(1, kConsumerThreads);
+      if (leader) {
+        store_tile_rows<DH>(&tdq, vs, g, h, b);
+        hopper::bulk_commit();
+      }
+      // phase 2, key rows 64g..: dK = dS^T.Q, dV = round(pd)^T.g, the
+      // transposed A operands read as MN-major tiles of dS and pd
+      float ak[DH / 2], av[DH / 2];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        hopper::wgmma_ss<1, 1>(
+            ak, hopper::make_desc(dss + g * kPRegion + kk * 16 * 128, kPRegion,
+                                  1024, 1),
+            G::mnmajor(qs, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        hopper::wgmma_ss<1, 1>(
+            av, hopper::make_desc(pds + g * kPRegion + kk * 16 * 128, kPRegion,
+                                  1024, 1),
+            G::mnmajor(gs, kk), kk);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(ak);
+      hopper::fence_regs(av);
+      // dK through the K tile (both warpgroups' dQ products are done), dV
+      // through the V tile once dQ's store has read it; rows past T fall
+      // outside the tensor and are not written
+      acc_to_tile<DH>(ks, ak, r0, qc);
+      if (leader) hopper::bulk_wait_read();
+      hopper::named_barrier_sync(2 + g, 128);
+      acc_to_tile<DH>(vs, av, r0, qc);
+      hopper::fence_proxy_async();
+      hopper::named_barrier_sync(2 + g, 128);
+      if (leader) {
+        store_tile_rows<DH>(&tdk, ks, g, h, b);
+        store_tile_rows<DH>(&tdv, vs, g, h, b);
+        hopper::bulk_commit();
+        // the stage is free once the stores have read it
+        hopper::bulk_wait_read();
+        hopper::mbar_arrive(&empty[stage]);
+      }
+      if (++stage == stages) { stage = 0; phase ^= 1u; }
     }
-  }
-  __syncthreads();
-  // phase 2, key rows row0..row0+15: dK = dS^T . Q, dV = round(pd)^T . g
-  if (row0 < Tn) {
-    keys_product<DH>(dss, LDT, qs, dk, base, row0, Tn, Tp, D, lane);
-    keys_product<DH>(pds, LDT, gs, dv, base, row0, Tn, Tp, D, lane);
+    if (leader) hopper::bulk_wait();
   }
 }
 
@@ -884,6 +1338,88 @@ struct Drop {
   int on;
 };
 
+// per device, set by packed_attention_prepare
+constexpr int kMaxDevices = 64;
+int g_sms[kMaxDevices];
+int g_optin[kMaxDevices];
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of head tiles of a (B, T, D) bf16 array: boxes of
+// Tile<DH>::kBox columns x `rows` rows x 1, swizzled as wgmma reads them;
+// rows past T (and so past the row's end) are zero-filled on a load and
+// left out on a store. Encoding one costs the host microseconds, so the
+// last maps are kept, by their arguments (the caching allocator hands a
+// kernel the same buffers call after call).
+struct MapKey {
+  const void* ptr;
+  int B, T, D, box, rows;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && B == o.B && T == o.T && D == o.D && box == o.box &&
+           rows == o.rows;
+  }
+};
+
+constexpr int kMapCache = 64;
+MapKey g_map_keys[kMapCache];
+CUtensorMap g_maps[kMapCache];
+int g_map_next = 0;
+std::mutex g_map_mutex;
+
+template <int DH>
+bool head_map(CUtensorMap* map, const void* x, int B, int T, int D, int rows) {
+  using G = Tile<DH>;
+  const MapKey key = {x, B, T, D, G::kBox, rows};
+  std::lock_guard<std::mutex> lock(g_map_mutex);
+  for (int i = 0; i < kMapCache; ++i)
+    if (g_map_keys[i] == key) {
+      *map = g_maps[i];
+      return true;
+    }
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
+  const cuuint32_t box[3] = {G::kBox, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUtensorMapSwizzle sw = G::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : G::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
+  if (enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims,
+          strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  g_map_keys[g_map_next] = key;
+  g_maps[g_map_next] = *map;
+  g_map_next = (g_map_next + 1) % kMapCache;
+  return true;
+}
+
 // two neighbouring bias elements are read as one when every row starts on
 // a pair boundary
 template <typename TB>
@@ -892,38 +1428,108 @@ int bias_pairs(const void* bias, long long sb, long long sq) {
          reinterpret_cast<uintptr_t>(bias) % (2 * sizeof(TB)) == 0;
 }
 
+// the widest cp.async unit (16, 8 or 4 bytes; 0: none) that every bias row
+// of T elements starts on and ends on
+template <typename TB>
+int bias_copy_bytes(const void* bias, int T, long long sb, long long sq) {
+  for (int cb = 16; cb >= 4; cb >>= 1) {
+    const long long es = sizeof(TB);
+    if ((T * es) % cb == 0 && (sb * es) % cb == 0 && (sq * es) % cb == 0 &&
+        reinterpret_cast<uintptr_t>(bias) % cb == 0)
+      return cb;
+  }
+  return 0;
+}
+
+// kBiasRows / kBiasRow when the bias's layout allows a bulk copy (its
+// start 16-byte aligned, so no span reaches before the array)
+int bias_mode(const void* bias, int T, long long sq) {
+  if (reinterpret_cast<uintptr_t>(bias) % 16) return kBiasStrided;
+  if (sq == 0 || T == 1) return kBiasRow;
+  return sq == T ? kBiasRows : kBiasStrided;
+}
+
+template <int DH>
+int fwd_stages(int T, int bias_bytes, int optin) {
+  return fwd_smem_bytes<DH>(T, bias_bytes, 2) <= (size_t)optin ? 2 : 1;
+}
+
+// The backward's ring depth and whether the bias has a slot in shared
+// memory: the first of (2 stages, slot), (1, slot), (1, none) that fits.
+// Two stages without the slot never come next: at dh 64 (1, slot) always
+// fits, and at dh 128 two stages never do. (1, none) is taken at dh 128
+// by an f32 bias once T > ~88, and reads the bias from device memory.
+template <int DH>
+void bwd_layout(int T, int bias_bytes, int optin, int& stages, int& bias_smem) {
+  const size_t slot = bias_slot_bytes(T, bias_bytes);
+  bias_smem = 1;
+  for (stages = 2; stages >= 1; --stages)
+    if (bwd_smem_bytes<DH>(stages, slot) <= (size_t)optin) return;
+  stages = 1;
+  bias_smem = 0;
+}
+
 template <int DH, typename TB>
-int launch_mma(const void* q, const void* k, const void* v, const void* bias,
-               void* out, int B, int T_, int H, float scale, long long sb,
-               long long sq, Drop dr, cudaStream_t st) {
-  const int pairs = bias_pairs<TB>(bias, sb, sq);
-  const size_t smem = mma_smem_bytes<DH>(T_);
+int launch_fwd_tc(const void* q, const void* k, const void* v,
+                  const void* bias, void* out, int B, int T_, int H,
+                  float scale, long long sb, long long sq, Drop dr, int dev,
+                  cudaStream_t st) {
+  CUtensorMap mq, mk, mv, mo;
+  const int D = H * DH;
+  if (!head_map<DH>(&mq, q, B, T_, D, kMaxT) ||
+      !head_map<DH>(&mk, k, B, T_, D, kMaxT) ||
+      !head_map<DH>(&mv, v, B, T_, D, kMaxT) ||
+      !head_map<DH>(&mo, out, B, T_, D, 64))
+    return cudaErrorInvalidValue;
+  const int stages = fwd_stages<DH>(T_, sizeof(TB), g_optin[dev]);
+  const size_t smem = fwd_smem_bytes<DH>(T_, sizeof(TB), stages);
+  const int n_items = B * H;
+  const int grid = n_items < g_sms[dev] ? n_items : g_sms[dev];
+  const int mode = bias_mode(bias, T_, sq);
+  const int cb = bias_copy_bytes<TB>(bias, T_, sb, sq);
+  // a strided copy starts every row on a pair; a bulk copy keeps the
+  // array's alignment
+  const int pairs = mode == kBiasStrided ? 1 : bias_pairs<TB>(bias, sb, sq);
   if (dr.on)
-    attention_mma<DH, TB, true><<<B * H, kMmaThreads, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const TB*>(bias),
-        static_cast<bf16*>(out), T_, H, scale, sb, sq, pairs, dr.seed,
-        dr.thresh, dr.keep_scale);
+    attention_fwd_tc<DH, TB, true><<<grid, kTcThreads, smem, st>>>(
+        mq, mk, mv, mo, static_cast<const TB*>(bias), n_items, T_, H, scale,
+        sb, sq, mode, cb, pairs, stages, dr.seed, dr.thresh, dr.keep_scale);
   else
-    attention_mma<DH, TB, false><<<B * H, kMmaThreads, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const TB*>(bias),
-        static_cast<bf16*>(out), T_, H, scale, sb, sq, pairs, dr.seed,
-        dr.thresh, dr.keep_scale);
+    attention_fwd_tc<DH, TB, false><<<grid, kTcThreads, smem, st>>>(
+        mq, mk, mv, mo, static_cast<const TB*>(bias), n_items, T_, H, scale,
+        sb, sq, mode, cb, pairs, stages, dr.seed, dr.thresh, dr.keep_scale);
   return cudaGetLastError();
 }
 
 template <int DH, typename TB>
-int launch_bwd_mma(const void* q, const void* k, const void* v,
-                   const void* bias, const void* g, void* dq, void* dk,
-                   void* dv, int B, int T_, int H, float scale, long long sb,
-                   long long sq, Drop dr, cudaStream_t st) {
-  attention_bwd_mma<DH, TB><<<B * H, kMmaThreads, bwd_mma_smem_bytes<DH>(T_), st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const TB*>(bias),
-      static_cast<const bf16*>(g), static_cast<bf16*>(dq),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), T_, H, scale, sb, sq,
-      bias_pairs<TB>(bias, sb, sq), dr.seed, dr.thresh, dr.keep_scale, dr.on);
+int launch_bwd_tc(const void* q, const void* k, const void* v,
+                  const void* bias, const void* g, void* dq, void* dk,
+                  void* dv, int B, int T_, int H, float scale, long long sb,
+                  long long sq, Drop dr, int dev, cudaStream_t st) {
+  CUtensorMap mq, mk, mv, mg, mdq, mdk, mdv;
+  const int D = H * DH;
+  if (!head_map<DH>(&mq, q, B, T_, D, kMaxT) ||
+      !head_map<DH>(&mk, k, B, T_, D, kMaxT) ||
+      !head_map<DH>(&mv, v, B, T_, D, kMaxT) ||
+      !head_map<DH>(&mg, g, B, T_, D, kMaxT) ||
+      !head_map<DH>(&mdq, dq, B, T_, D, 64) ||
+      !head_map<DH>(&mdk, dk, B, T_, D, 64) ||
+      !head_map<DH>(&mdv, dv, B, T_, D, 64))
+    return cudaErrorInvalidValue;
+  int stages, in_smem;
+  bwd_layout<DH>(T_, sizeof(TB), g_optin[dev], stages, in_smem);
+  const size_t smem = bwd_smem_bytes<DH>(
+      stages, in_smem ? bias_slot_bytes(T_, sizeof(TB)) : 0);
+  const int n_items = B * H;
+  const int grid = n_items < g_sms[dev] ? n_items : g_sms[dev];
+  const int mode = bias_mode(bias, T_, sq);
+  const int pairs = in_smem && mode == kBiasStrided
+                        ? 1 : bias_pairs<TB>(bias, sb, sq);
+  attention_bwd_tc<DH, TB><<<grid, kTcThreads, smem, st>>>(
+      mq, mk, mv, mg, mdq, mdk, mdv, static_cast<const TB*>(bias), n_items,
+      T_, H, scale,
+      sb, sq, mode, bias_copy_bytes<TB>(bias, T_, sb, sq), pairs, in_smem,
+      stages, dr.seed, dr.thresh, dr.keep_scale, dr.on);
   return cudaGetLastError();
 }
 
@@ -931,12 +1537,12 @@ template <typename TB>
 int dispatch_fwd_bf16(const void* q, const void* k, const void* v,
                       const void* bias, void* out, int B, int T_, int H,
                       int dh, float scale, long long sb, long long sq, Drop dr,
-                      cudaStream_t st) {
+                      int dev, cudaStream_t st) {
   switch (dh) {
-    case 16: return launch_mma<16, TB>(q, k, v, bias, out, B, T_, H, scale, sb, sq, dr, st);
-    case 32: return launch_mma<32, TB>(q, k, v, bias, out, B, T_, H, scale, sb, sq, dr, st);
-    case 64: return launch_mma<64, TB>(q, k, v, bias, out, B, T_, H, scale, sb, sq, dr, st);
-    case 128: return launch_mma<128, TB>(q, k, v, bias, out, B, T_, H, scale, sb, sq, dr, st);
+    case 16: return launch_fwd_tc<16, TB>(q, k, v, bias, out, B, T_, H, scale, sb, sq, dr, dev, st);
+    case 32: return launch_fwd_tc<32, TB>(q, k, v, bias, out, B, T_, H, scale, sb, sq, dr, dev, st);
+    case 64: return launch_fwd_tc<64, TB>(q, k, v, bias, out, B, T_, H, scale, sb, sq, dr, dev, st);
+    case 128: return launch_fwd_tc<128, TB>(q, k, v, bias, out, B, T_, H, scale, sb, sq, dr, dev, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -945,12 +1551,13 @@ template <typename TB>
 int dispatch_bwd_bf16(const void* q, const void* k, const void* v,
                       const void* bias, const void* g, void* dq, void* dk,
                       void* dv, int B, int T_, int H, int dh, float scale,
-                      long long sb, long long sq, Drop dr, cudaStream_t st) {
+                      long long sb, long long sq, Drop dr, int dev,
+                      cudaStream_t st) {
   switch (dh) {
-    case 16: return launch_bwd_mma<16, TB>(q, k, v, bias, g, dq, dk, dv, B, T_, H, scale, sb, sq, dr, st);
-    case 32: return launch_bwd_mma<32, TB>(q, k, v, bias, g, dq, dk, dv, B, T_, H, scale, sb, sq, dr, st);
-    case 64: return launch_bwd_mma<64, TB>(q, k, v, bias, g, dq, dk, dv, B, T_, H, scale, sb, sq, dr, st);
-    case 128: return launch_bwd_mma<128, TB>(q, k, v, bias, g, dq, dk, dv, B, T_, H, scale, sb, sq, dr, st);
+    case 16: return launch_bwd_tc<16, TB>(q, k, v, bias, g, dq, dk, dv, B, T_, H, scale, sb, sq, dr, dev, st);
+    case 32: return launch_bwd_tc<32, TB>(q, k, v, bias, g, dq, dk, dv, B, T_, H, scale, sb, sq, dr, dev, st);
+    case 64: return launch_bwd_tc<64, TB>(q, k, v, bias, g, dq, dk, dv, B, T_, H, scale, sb, sq, dr, dev, st);
+    case 128: return launch_bwd_tc<128, TB>(q, k, v, bias, g, dq, dk, dv, B, T_, H, scale, sb, sq, dr, dev, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -958,12 +1565,12 @@ int dispatch_bwd_bf16(const void* q, const void* k, const void* v,
 template <int DH>
 cudaError_t allow_optin_dh(int optin) {
   const cudaError_t errs[] = {
-      allow_optin_smem(attention_mma<DH, float, false>, optin),
-      allow_optin_smem(attention_mma<DH, float, true>, optin),
-      allow_optin_smem(attention_mma<DH, bf16, false>, optin),
-      allow_optin_smem(attention_mma<DH, bf16, true>, optin),
-      allow_optin_smem(attention_bwd_mma<DH, float>, optin),
-      allow_optin_smem(attention_bwd_mma<DH, bf16>, optin),
+      allow_optin_smem(attention_fwd_tc<DH, float, false>, optin),
+      allow_optin_smem(attention_fwd_tc<DH, float, true>, optin),
+      allow_optin_smem(attention_fwd_tc<DH, bf16, false>, optin),
+      allow_optin_smem(attention_fwd_tc<DH, bf16, true>, optin),
+      allow_optin_smem(attention_bwd_tc<DH, float>, optin),
+      allow_optin_smem(attention_bwd_tc<DH, bf16>, optin),
   };
   for (cudaError_t e : errs)
     if (e != cudaSuccess) return e;
@@ -975,30 +1582,38 @@ cudaError_t allow_optin_dh(int optin) {
 extern "C" {
 
 // Dynamic shared memory a block of the forward (backward = 0) or the
-// backward (backward = 1) needs for this head width, length and type (0
-// for a bf16 head width the tensor-core kernels do not take).
+// backward (backward = 1) needs at least for this head width, length and
+// type, whatever the bias type (0 for a bf16 head width the tensor-core
+// kernels do not take).
 size_t packed_attention_smem_bytes(int T, int dh, int qkv_is_bf16,
                                    int backward) {
   if (!qkv_is_bf16)
     return backward ? bwd_simt_smem_bytes(T, dh) : simt_smem_bytes(T, dh);
   switch (dh) {
-    case 16: return backward ? bwd_mma_smem_bytes<16>(T) : mma_smem_bytes<16>(T);
-    case 32: return backward ? bwd_mma_smem_bytes<32>(T) : mma_smem_bytes<32>(T);
-    case 64: return backward ? bwd_mma_smem_bytes<64>(T) : mma_smem_bytes<64>(T);
-    case 128: return backward ? bwd_mma_smem_bytes<128>(T) : mma_smem_bytes<128>(T);
+    case 16: return backward ? bwd_smem_bytes<16>(1, 0) : fwd_smem_bytes<16>(T, 4, 1);
+    case 32: return backward ? bwd_smem_bytes<32>(1, 0) : fwd_smem_bytes<32>(T, 4, 1);
+    case 64: return backward ? bwd_smem_bytes<64>(1, 0) : fwd_smem_bytes<64>(T, 4, 1);
+    case 128: return backward ? bwd_smem_bytes<128>(1, 0) : fwd_smem_bytes<128>(T, 4, 1);
     default: return 0;
   }
 }
 
-// Lets every kernel of this library use the device's opt-in shared memory.
-// Once per device; returns a cudaError_t.
+// Lets every kernel of this library use the device's opt-in shared memory
+// and records the device's SM count (the persistent grid). Once per
+// device; returns a cudaError_t.
 int packed_attention_prepare(int device) {
-  int optin = 0;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  int optin = 0, sms = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                device);
   if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  if (!encode_tiled()) return cudaErrorNotSupported;
+  g_optin[device] = optin;
+  g_sms[device] = sms;
   const cudaError_t errs[] = {
       allow_optin_smem(attention_simt, optin),
       allow_optin_smem(attention_bwd_simt, optin),
@@ -1030,6 +1645,7 @@ int packed_attention_forward(const void* q, const void* k, const void* v,
   if (B == 0 || T == 0) return cudaSuccess;
   if (T > kMaxT || (!qkv_is_bf16 && bias_is_bf16) || (dropout && !seed))
     return cudaErrorInvalidValue;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1043,8 +1659,8 @@ int packed_attention_forward(const void* q, const void* k, const void* v,
     return cudaGetLastError();
   }
   if (bias_is_bf16)
-    return dispatch_fwd_bf16<bf16>(q, k, v, bias, out, B, T, H, dh, scale, sb, sq, dr, st);
-  return dispatch_fwd_bf16<float>(q, k, v, bias, out, B, T, H, dh, scale, sb, sq, dr, st);
+    return dispatch_fwd_bf16<bf16>(q, k, v, bias, out, B, T, H, dh, scale, sb, sq, dr, device, st);
+  return dispatch_fwd_bf16<float>(q, k, v, bias, out, B, T, H, dh, scale, sb, sq, dr, device, st);
 }
 
 // The backward of packed_attention_forward with the same arguments: g, dq,
@@ -1062,6 +1678,7 @@ int packed_attention_backward(const void* q, const void* k, const void* v,
   if (B == 0 || T == 0) return cudaSuccess;
   if (T > kMaxT || (!qkv_is_bf16 && bias_is_bf16) || (dropout && !seed))
     return cudaErrorInvalidValue;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1076,8 +1693,8 @@ int packed_attention_backward(const void* q, const void* k, const void* v,
     return cudaGetLastError();
   }
   if (bias_is_bf16)
-    return dispatch_bwd_bf16<bf16>(q, k, v, bias, g, dq, dk, dv, B, T, H, dh, scale, sb, sq, dr, st);
-  return dispatch_bwd_bf16<float>(q, k, v, bias, g, dq, dk, dv, B, T, H, dh, scale, sb, sq, dr, st);
+    return dispatch_bwd_bf16<bf16>(q, k, v, bias, g, dq, dk, dv, B, T, H, dh, scale, sb, sq, dr, device, st);
+  return dispatch_bwd_bf16<float>(q, k, v, bias, g, dq, dk, dv, B, T, H, dh, scale, sb, sq, dr, device, st);
 }
 
 // The (B, H, T, T) keep mask (one byte per element, 1 = kept) that the

@@ -18,6 +18,29 @@ LM item encoders, which pack G = 128 // L items into one T = G * L <= 128
 sequence with a block-diagonal bias (models/lm/layers.pack_items /
 packed_mask_bias).
 
+On the card, bf16 runs the Hopper kernels `attention_fwd_tc` and
+`attention_bwd_tc`; f32 runs CUDA-core kernels that repeat the
+reference's exact expf and division. What bounds the bf16 kernels at
+bert-naml's pages is not bytes or tensor-core time but each consumer warp's
+chain of softmax, Philox draws and epilogue. Their design:
+- persistent, one 384-thread CTA per SM walking a b-major share of the
+  (b, h) items;
+- warpgroup 0 is the producer, cut to 40 registers by setmaxnreg. Its warp 0
+  issues TMA loads of Q, K, V (and g) into a two-stage mbarrier ring (one
+  stage where two do not fit);
+- warpgroups 1 and 2 are consumers at 232 registers, each owning 64 query
+  rows. They run every product with wgmma: P and dS are register A
+  operands, V, dS^T and pd^T are transposed shared-memory operands;
+- the bias is staged in shared memory by one bulk copy, or by cp.async
+  where its rows are strided;
+- the forward skips the exponentials and the draws of 8-key chunks that
+  the bias masks for all 16 rows of a warp (with dropout, rows past T do
+  not count);
+- outputs leave by TMA stores.
+The tensor maps are encoded on the host, and the last 64 are kept, so a
+call usually encodes none. `csrc/packed_attention.cu`'s header has the
+details.
+
 The dropout bits are Philox4x32-10, a pure function of (seed, b, h, i, j)
 (see the source's header); `dropout_bits_reference` computes the same
 function in PyTorch, so the CPU and the card draw the same mask from the

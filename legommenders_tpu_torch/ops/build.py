@@ -6,13 +6,18 @@ interface, in `_build/` beside this package (listed in .gitignore):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>.so csrc/<name>.cu
 
-A library is rebuilt when its source is newer. `library(name)` builds on
+A library is rebuilt when its source, or a header of csrc/ that it
+includes (`#include "x.cuh"`, followed through headers), is newer. The
+tensor-map encoder the attention kernels need comes from the driver
+through the runtime (`cudaGetDriverEntryPointByVersion`), so nothing links
+libcuda. `library(name)` builds on
 first use and loads; `build(name)` only builds and returns nvcc's output;
 `build_all(names)` runs one nvcc for each source, all at once.
 Nothing is compiled or loaded at import time.
 """
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 from typing import Dict
@@ -43,10 +48,31 @@ def lib_path(name: str) -> str:
     return os.path.join(BUILD, f"lib{name}.so")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list:
+    """csrc/<name>.cu and every csrc/ header it includes, directly or
+    through another header."""
+    todo, seen = [source(name)], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path) as f:
+            for inc in _INCLUDE.findall(f.read()):
+                dep = os.path.join(os.path.dirname(path), inc)
+                if os.path.isfile(dep):
+                    todo.append(dep)
+    return seen
+
+
 def _stale(name: str) -> bool:
     lib = lib_path(name)
     return (not os.path.isfile(lib)
-            or os.path.getmtime(lib) < os.path.getmtime(source(name)))
+            or os.path.getmtime(lib) < max(os.path.getmtime(p)
+                                           for p in sources(name)))
 
 
 def _start(name: str):

@@ -11,7 +11,13 @@ head width of the tensor-core path and two of the CUDA-core path, at
 dropout 0 and 0.1 with the mask the mask kernel draws) with f32 inputs
 within 1e-5 (values O(1), sums in another order) and bf16 within 2e-2 of
 the largest output, and every input a wrapper refuses must raise before a
-launch. The mask kernel must give the plain Philox's mask exactly.
+launch. The mask kernel must give the plain Philox's mask exactly. The
+bf16 tensor-core kernels (persistent, TMA-fed) are held besides at the
+shapes their schedule and loads make risky (TC_CASES: bert-naml's full
+pages, B * H far above and below the grid, T around the 64-row tiles,
+every head width, ragged, broadcast and f32 biases), and the keep mask the
+forward and the backward apply is read back from their outputs and must
+equal the mask kernel's bit for bit.
 """
 import os
 import sys
@@ -317,3 +323,99 @@ def test_keep_mask_kernel_matches_plain_philox(device, B, T, heads):
         assert not torch.equal(got, other)
         frac = got.float().mean().item()
         assert abs(frac - 0.9) <= 4 * (0.9 * 0.1 / n) ** 0.5
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core kernels' schedule and loads: persistent grid, TMA boxes of
+# 128 rows zero-filled past T, the bias staged in shared memory
+# ---------------------------------------------------------------------------
+# (B, T, heads, dh, packed_L, bias): "bf16" contiguous in q's type,
+# "broadcast" a bf16 view with stride 0 over the query rows, "f32" an f32
+# bias beside bf16 q. bert-naml's training page (171 rows of T = 120, 12
+# heads of 64) and serving page (T = 102: bf16 bias rows of 204 B, not a
+# multiple of 16 B); B * H above (300) and below (1) the grid; T at and
+# around the 64-row query tiles; every head width.
+TC_CASES = [(171, 120, 12, 64, 40, "bf16"), (171, 102, 12, 64, 34, "bf16"),
+            (300, 50, 1, 64, 0, "bf16"), (1, 77, 1, 64, 0, "bf16"),
+            (3, 1, 2, 64, 0, "bf16"), (3, 8, 2, 64, 0, "f32"),
+            (3, 63, 2, 64, 0, "bf16"), (3, 64, 2, 64, 0, "broadcast"),
+            (3, 65, 2, 64, 0, "bf16"), (3, 127, 2, 64, 0, "f32"),
+            (3, 128, 2, 64, 0, "bf16"), (4, 65, 3, 16, 13, "bf16"),
+            (4, 127, 2, 32, 0, "broadcast"), (2, 63, 2, 128, 0, "f32"),
+            (2, 128, 2, 128, 0, "broadcast"), (6, 96, 2, 16, 32, "f32"),
+            (5, 8, 3, 32, 0, "bf16"),
+            # dh 128 with an f32 bias past T ~88: the backward reads the
+            # bias from device memory (no slot for it in shared memory)
+            (2, 128, 2, 128, 0, "f32")]
+
+
+def _tc_inputs(B, T, heads, dh, L, bias_kind, device):
+    q, k, v, bias = _attn_inputs(B, T, heads * dh, device, torch.bfloat16, L,
+                                 seed=2)
+    btype = torch.float32 if bias_kind == "f32" else torch.bfloat16
+    if L:
+        G = T // L
+        g = torch.Generator(device="cpu").manual_seed(B + T)
+        lens = torch.randint(1, L + 1, (B * G,), generator=g)
+        mask = (torch.arange(L)[None] < lens[:, None]).int()
+        _, mask_p, _ = pack_items(torch.zeros(B * G, L, 1), mask, G)
+        bias = packed_mask_bias(mask_p, L, btype)[:, 0].to(device)
+    elif bias_kind == "broadcast":
+        bias = bias[:, :1].expand(B, T, T)
+        assert bias.stride(1) == 0
+    else:
+        bias = bias.to(btype)
+    return q, k, v, bias
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("B,T,heads,dh,L,bias_kind", TC_CASES)
+def test_tc_attention_shapes_match_plain(device, B, T, heads, dh, L,
+                                         bias_kind, p):
+    """The bf16 forward and backward against the plain versions given the
+    mask kernel's mask, within 2e-2 of the largest output."""
+    q, k, v, bias = _tc_inputs(B, T, heads, dh, L, bias_kind, device)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(B)
+                    ).to(device, torch.bfloat16)
+    seed = torch.tensor([4321 + T], dtype=torch.int32, device=device)
+    keep = dropout_keep_mask(heads, p, B, T, seed) if p > 0 else None
+    f0, b0 = packed_attention.launches, packed_attention_backward.launches
+    with torch.no_grad():
+        got = packed_attention(heads, p, q, k, v, bias, seed)
+        want = reference_attention(heads, p, q, k, v, bias, keep)
+        grads = packed_attention_backward(heads, p, q, k, v, bias, seed, g)
+        wgrads = reference_attention_backward(heads, p, q, k, v, bias, g, keep)
+    torch.cuda.synchronize()
+    assert packed_attention.launches == f0 + 1
+    assert packed_attention_backward.launches == b0 + 1
+    for a, b in ((got, want),) + tuple(zip(grads, wgrads)):
+        assert a.dtype == torch.bfloat16 and a.shape == q.shape
+        assert torch.isfinite(a.float()).all()
+        assert _close(a, b, "bf16")
+
+
+@pytest.mark.parametrize("B,T,heads,dh", [(3, 64, 2, 64), (4, 37, 2, 64),
+                                          (5, 120, 3, 128), (2, 16, 2, 16)])
+def test_tc_keep_mask_is_the_mask_kernels(device, B, T, heads, dh):
+    """The keep mask the forward and the backward apply, read back exactly:
+    with q = k = 0 and a zero bias every weight is 1/T, and with v (or g) the
+    identity over the keys out[i, j] (dv[j, i]) is above 0 iff element
+    (i, j) is kept. It must equal the mask kernel's bit for bit."""
+    p = 0.1
+    D = heads * dh
+    z = torch.zeros(B, T, D, device=device, dtype=torch.bfloat16)
+    eye = torch.zeros(B, T, heads, dh, device=device, dtype=torch.bfloat16)
+    idx = torch.arange(T, device=device)
+    eye[:, idx, :, idx] = 1.0
+    eye = eye.reshape(B, T, D)
+    bias = torch.zeros(B, T, T, device=device, dtype=torch.bfloat16)
+    seed = torch.tensor([777 + T], dtype=torch.int32, device=device)
+    keep = dropout_keep_mask(heads, p, B, T, seed)
+    with torch.no_grad():
+        out = packed_attention(heads, p, z, z, eye, bias, seed)
+        _, _, dv = packed_attention_backward(heads, p, z, z, z, bias, seed,
+                                             eye)
+    fwd = out.reshape(B, T, heads, dh)[..., :T].permute(0, 2, 1, 3) > 0
+    bwd = dv.reshape(B, T, heads, dh)[..., :T].permute(0, 2, 3, 1) > 0
+    assert torch.equal(fwd, keep)
+    assert torch.equal(bwd, keep)
