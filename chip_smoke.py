@@ -16,8 +16,12 @@ and exits non-zero when any phase fails:
      that the host's pace does not set a short kernel's time) beside the
      card's least possible time (bound):
      - the additive pool at both NAML widths (item pool 65,000 x 31 x 64,
-       user pool 20,000 x 50 x 64, H = 256) with partly and fully masked
-       rows; all-masked rows must give exactly 0;
+       user pool 20,000 x 50 x 64, H = 256) and at one page of 512 items
+       or users at each length the main paths pool (L = 31, 34, 40, 50),
+       with partly and fully masked rows; all-masked rows must give
+       exactly 0; bf16 goes to the tensor-core kernel, f32 to the
+       CUDA-core one; the bound counts the N*L*H tanh at the
+       special-function units' rate beside the products and the bytes;
      - the packed attention forward at bert-naml's serving page (171
        packed rows of 3 items x 34 tokens = 102, D = 768, 12 heads), with
        the block-diagonal biases packed_mask_bias makes from random title
@@ -35,7 +39,9 @@ and exits non-zero when any phase fails:
   4. serving paths, each through Manager + Tester.test() at full width on
      one synthetic MIND-small-geometry fixture (65,000 items, 20,000 users,
      title 30, history 50, vocab 30,000), random weights from seed 0, bf16;
-     every launch count is set to 0 just before a path and read just after:
+     every launch count is set to 0 just before a path and read just after
+     (every profiled pool launch of a main path must be the tensor-core
+     kernel's):
      - NAML (CNN / Ada / Dot, hidden 64): the pool launches once per item
        page + user page, the attention never;
      - bert-naml (BertBase / Ada / Dot, item-bert.yaml's defaults: 12
@@ -86,9 +92,25 @@ sys.path.insert(0, ROOT)
 # NVIDIA H100 SXM data-sheet peaks (dense)
 PEAK = {"bf16": 989e12, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
+# Per-clock rates of one SM (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0) x 132 SMs x 1.98 GHz
+# (H100 SXM boost): tanh.approx.f32, 16 special-function results per clock;
+# 32-bit integer add, compare and bitwise operations on the integer ALU,
+# and 32-bit integer multiply-add on the FMA pipe, 64 each per clock.
+TANH_PER_S = 16 * 132 * 1.98e9
+INT_PER_S = 64 * 132 * 1.98e9
+# One Philox4x32-10 draw with the keep test of its four words: per round,
+# two three-input XORs (LOP3) on the integer ALU and two 32 x 32 -> 64-bit
+# multiplies (IMAD.WIDE.U32, counted at the guide's multiply-add rate) on
+# the FMA pipe; the key schedule is the same in every thread and leaves
+# the loop; four compares with the threshold on the ALU.
+PHILOX_ALU_OPS, PHILOX_FMA_OPS = 2 * 10 + 4, 2 * 10
 
 D, H = 64, 256
 POOLS = {"item": (65000, 31), "user": (20000, 50)}
+# one cache page (512 items or users) at each length the main paths pool:
+# NAML items 31, bert-naml items 34 (serving) and 40 (training), users 50
+PAGE_N, PAGE_LS = 512, (31, 34, 40, 50)
 DATA_KW = dict(num_items=65000, num_users=20000, title_len=30, history_len=50,
                vocab_size=30000, inters_per_user=12)
 MODEL_CFG = {
@@ -180,11 +202,40 @@ def roof(flops: float, nbytes: float, dtype: str):
 
 
 def bound(N: int, L: int, dtype: str):
-    """The additive pool's bound: inputs read once, output written once."""
+    """The additive pool's bound: inputs read once, output written once;
+    its operations are the products at the data-sheet peak for dtype and
+    the N*L*H tanh at the special-function units' rate, which run on
+    separate units: the longest of the three."""
     xb = 2 if dtype == "bf16" else 4
     flops = 2.0 * N * L * (D * H + H + D)
     nbytes = N * L * D * xb + N * L * 4 + (D * H + 2 * H) * 4 + N * D * xb
-    return roof(flops, nbytes, dtype)
+    ms, by = roof(flops, nbytes, dtype)
+    tanh_ms = N * L * H / TANH_PER_S * 1e3
+    return (ms, by) if ms >= tanh_ms else (tanh_ms, "operations")
+
+
+def philox_draws(T: int) -> int:
+    """The Philox draws that cover (i, j) in [0, T)^2 for one (b, h): each
+    gives the words of rows i and i + 8 for i with bit 3 clear, and of
+    columns j and j + 1 for even j."""
+    return sum(1 for i in range(T) if not i & 8) * ((T + 1) // 2)
+
+
+def mask_bound(B: int, heads: int, T: int):
+    """The keep mask's bound: one byte written per element, and the Philox
+    draws at the integer ALU's and the FMA pipe's rates, which run side by
+    side."""
+    draws = B * heads * philox_draws(T)
+    t_ops = draws * max(PHILOX_ALU_OPS, PHILOX_FMA_OPS) / INT_PER_S
+    t_bytes = B * heads * T * T / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def pool_iters(N: int) -> int:
+    """Calls per timing of the pool: fewer for the full pools than for a
+    page, whose launch is ~100 times shorter."""
+    return 20 if N > PAGE_N else 50
 
 
 def pool_inputs(N, L, dtype, device, seed):
@@ -206,7 +257,7 @@ def pool_inputs(N, L, dtype, device, seed):
 def check_pool(pool: str, N: int, L: int, dtype_name: str, device) -> dict:
     import torch
     from legommenders_tpu_torch.ops.additive import (
-        additive_pool, additive_pool_reference,
+        additive_pool, additive_pool_reference, pool_kernel,
     )
 
     dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
@@ -220,11 +271,13 @@ def check_pool(pool: str, N: int, L: int, dtype_name: str, device) -> dict:
         zero_rows = mask.sum(dim=1) == 0
         res = {"pool": pool, "N": N, "L": L, "D": D, "H": H,
                "dtype": dtype_name,
+               "kernel": pool_kernel(dtype, L, D, H)[0],
                "max_abs_err": float(err.max()),
                "rel_err": float(err.max() / want.abs().max()),
                "all_masked_rows": int(zero_rows.sum()),
                "all_masked_exact_zero": bool((got[zero_rows] == 0).all()),
-               "ms": time_ms(lambda: additive_pool(*args), iters=20),
+               "ms": time_ms(lambda: additive_pool(*args),
+                              iters=pool_iters(N)),
                "plain_ms": time_ms(lambda: additive_pool_reference(*args),
                                    iters=5)}
     res["bound_ms"], res["bound_by"] = bound(N, L, dtype_name)
@@ -409,19 +462,21 @@ def check_attention_train(dtype_name: str, p: float, device,
     res["bwd_bound_ms"], res["bwd_bound_by"] = roof(
         10.0 * B * T * T * Dm, 7 * B * T * Dm * xb + B * T * T * bb,
         dtype_name)
-    # one byte written per element; Philox's integer work has no entry in
-    # the data sheet's table, so the bytes are the bound
-    res["mask_bound_ms"] = B * heads * T * T / HBM_BYTES_PER_S * 1e3
+    res["mask_bound_ms"], res["mask_bound_by"] = mask_bound(B, heads, T)
     return res
 
 
 # each kernel's device-side names, as the profiler lists them (no name is
 # part of another)
-KERNEL_NAMES = {"additive_pool": ("additive_pool_kernel",),
+KERNEL_NAMES = {"additive_pool": ("additive_pool_tc", "additive_pool_kernel"),
                 "packed_attention": ("attention_fwd_tc", "attention_simt"),
                 "packed_attention_backward": ("attention_bwd_tc",
                                               "attention_bwd_simt"),
                 "dropout_keep_mask": ("dropout_mask",)}
+
+# the pool kernel of every main path (all run at the bf16 policy)
+MAIN_POOL_KERNEL = "additive_pool_tc"
+
 
 def _is(name, key):
     """Whether the profiler's kernel `key` is the port's kernel `name`."""
@@ -434,7 +489,8 @@ def profile_window(fn) -> dict:
     cost included), and each port kernel's device time and launches.
     Raises when a port kernel's profiled launches differ from its wrapper's
     count over the same window (a kernel whose name the profiler lists
-    otherwise would read 0 ms)."""
+    otherwise would read 0 ms), and when a pool launch is not the
+    tensor-core kernel's (every window is a main path at bf16)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -456,12 +512,20 @@ def profile_window(fn) -> dict:
     for name in KERNEL_NAMES:
         evs = [e for e in kernels if _is(name, e.key)]
         ours[name] = {"ms": sum(e.self_device_time_total for e in evs) / 1e3,
-                      "launches": sum(e.count for e in evs)}
+                      "launches": sum(e.count for e in evs),
+                      "by_kernel": {k: sum(e.count for e in evs if k in e.key)
+                                    for k in KERNEL_NAMES[name]}}
         if ours[name]["launches"] != counted[name]:
             raise RuntimeError(
                 f"{name}: the profiler lists {ours[name]['launches']} "
                 f"launches of {KERNEL_NAMES[name]}, its wrapper counted "
                 f"{counted[name]} in the same window")
+    pool = ours["additive_pool"]
+    if pool["by_kernel"][MAIN_POOL_KERNEL] != pool["launches"]:
+        raise RuntimeError(f"additive_pool: of {pool['launches']} profiled "
+                           f"launches on a main path, only "
+                           f"{pool['by_kernel'][MAIN_POOL_KERNEL]} are "
+                           f"{MAIN_POOL_KERNEL}'s: {pool['by_kernel']}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "kernels": ours,
             # no device time in the trace means the share was not measured
             "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
@@ -948,7 +1012,9 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     checks = []
-    for pool, (N, L) in POOLS.items():
+    shapes = list(POOLS.items()) + [(f"page L{L}", (PAGE_N, L))
+                                    for L in PAGE_LS]
+    for pool, (N, L) in shapes:
         for dtype in ("f32", "bf16"):
             res = check_pool(pool, N, L, dtype, device)
             checks.append(res)
@@ -1001,7 +1067,10 @@ def main() -> int:
     def main_path(key):
         return sum(v["ms"] for v in profiled(key).values())
 
-    pool_bf16 = [c for c in checks if c["dtype"] == "bf16"]
+    pool_bf16 = [c for c in checks
+                 if c["dtype"] == "bf16" and c["pool"] in POOLS]
+    page_bf16 = [c for c in checks
+                 if c["dtype"] == "bf16" and c["pool"] not in POOLS]
     attn_bf16 = next(c for c in attn_checks if c["dtype"] == "bf16")
     tr = next(c for c in train_checks
               if c["dtype"] == "bf16" and c["dropout"] == TRAIN_DROPOUT)
@@ -1024,6 +1093,10 @@ def main() -> int:
         "bound_by": "bytes" if all(c["bound_by"] == "bytes"
                                    for c in pool_bf16) else "operations",
         "library_ms": None,
+        # one page of 512 at each main-path L, bf16
+        "pages": {c["L"]: {k: c[k] for k in (
+            "kernel", "max_abs_err", "rel_err", "ms", "plain_ms",
+            "bound_ms", "bound_by")} for c in page_bf16},
         # device time summed over the kernel's launches in each profiled
         # window, at the shapes the path gives it
         "main_path_ms": main_path("additive_pool"),
@@ -1086,7 +1159,7 @@ def main() -> int:
         "ms": tr["mask_ms"],
         "plain_ms": tr["mask_plain_ms"],
         "bound_ms": tr["mask_bound_ms"],
-        "bound_by": "bytes",
+        "bound_by": tr["mask_bound_by"],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

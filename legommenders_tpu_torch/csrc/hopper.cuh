@@ -1,14 +1,111 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
 // mbarriers, TMA tensor loads, cp.async, wgmma shared-memory descriptors
 // and the wgmma instructions themselves, named barriers and setmaxnreg.
-// Device code only; the host encodes its tensor maps with
-// cuTensorMapEncodeTiled (see packed_attention.cu).
+// Device code, and on the host `encode_tiled`, the driver's
+// cuTensorMapEncodeTiled, and `tensor_map`, the cache through which a
+// source encodes its tensor maps.
 #pragma once
 
 #include <cstdint>
 #include <cuda.h>
+#include <cuda_runtime.h>
+#include <mutex>
 
 namespace hopper {
+
+// ---------------------------------------------------------------------------
+// host: the tensor-map encoder
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda);
+// nullptr where the driver does not have it
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A tiled tensor map of `rank` dimensions (element strides 1, no
+// interleave, no out-of-bounds NaN fill: parts of a box past the tensor
+// read as zeros and are left out on a store), through a cache of the last
+// kMapCache maps kept by every argument of the encode. Encoding one costs
+// the host microseconds, and the caching allocator hands a kernel the same
+// buffers call after call. false where the driver has no encoder or
+// refuses the arguments.
+inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType dtype, int rank,
+                       const void* ptr, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box,
+                       CUtensorMapSwizzle swizzle,
+                       CUtensorMapL2promotion l2) {
+  struct Key {
+    const void* ptr;
+    CUtensorMapDataType dtype;
+    int rank;
+    CUtensorMapSwizzle swizzle;
+    CUtensorMapL2promotion l2;
+    cuuint64_t dims[5], strides[4];
+    cuuint32_t box[5];
+    bool operator==(const Key& o) const {
+      if (ptr != o.ptr || dtype != o.dtype || rank != o.rank ||
+          swizzle != o.swizzle || l2 != o.l2)
+        return false;
+      for (int d = 0; d < rank; ++d)
+        if (dims[d] != o.dims[d] || box[d] != o.box[d] ||
+            (d + 1 < rank && strides[d] != o.strides[d]))
+          return false;
+      return true;
+    }
+  };
+  constexpr int kMapCache = 64;
+  static Key keys[kMapCache];
+  static CUtensorMap maps[kMapCache];
+  static int next = 0;
+  static std::mutex mutex;
+
+  if (rank < 1 || rank > 5) return false;
+  Key key = {ptr, dtype, rank, swizzle, l2, {}, {}, {}};
+  for (int d = 0; d < rank; ++d) {
+    key.dims[d] = dims[d];
+    key.box[d] = box[d];
+    if (d + 1 < rank) key.strides[d] = strides[d];
+  }
+  std::lock_guard<std::mutex> lock(mutex);
+  for (int i = 0; i < kMapCache; ++i)
+    if (keys[i] == key) {
+      *map = maps[i];
+      return true;
+    }
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
+  if (enc(map, dtype, rank, const_cast<void*>(ptr), dims, strides, box, estr,
+          CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, l2,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  keys[next] = key;
+  maps[next] = *map;
+  next = (next + 1) % kMapCache;
+  return true;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -56,6 +153,29 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // ---------------------------------------------------------------------------
 // copies
 // ---------------------------------------------------------------------------
+
+// TMA: the box at coordinate c0 of a 1-D tensor map, or at (c0, c1) of a
+// 2-D one, into shared memory; completes the whole box's bytes (zero fill
+// included) on `bar`
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
 
 // TMA: the box at coordinates (c0, c1, c2) of a 3-D tensor map into shared
 // memory; completes `bytes` (the whole box, zero fill included) on `bar`

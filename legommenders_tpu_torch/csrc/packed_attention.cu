@@ -122,7 +122,6 @@
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mutex>
 
 #include "hopper.cuh"
 
@@ -1343,81 +1342,22 @@ constexpr int kMaxDevices = 64;
 int g_sms[kMaxDevices];
 int g_optin[kMaxDevices];
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // The tensor map of head tiles of a (B, T, D) bf16 array: boxes of
 // Tile<DH>::kBox columns x `rows` rows x 1, swizzled as wgmma reads them;
 // rows past T (and so past the row's end) are zero-filled on a load and
-// left out on a store. Encoding one costs the host microseconds, so the
-// last maps are kept, by their arguments (the caching allocator hands a
-// kernel the same buffers call after call).
-struct MapKey {
-  const void* ptr;
-  int B, T, D, box, rows;
-  bool operator==(const MapKey& o) const {
-    return ptr == o.ptr && B == o.B && T == o.T && D == o.D && box == o.box &&
-           rows == o.rows;
-  }
-};
-
-constexpr int kMapCache = 64;
-MapKey g_map_keys[kMapCache];
-CUtensorMap g_maps[kMapCache];
-int g_map_next = 0;
-std::mutex g_map_mutex;
-
+// left out on a store (hopper::tensor_map keeps the last maps).
 template <int DH>
 bool head_map(CUtensorMap* map, const void* x, int B, int T, int D, int rows) {
   using G = Tile<DH>;
-  const MapKey key = {x, B, T, D, G::kBox, rows};
-  std::lock_guard<std::mutex> lock(g_map_mutex);
-  for (int i = 0; i < kMapCache; ++i)
-    if (g_map_keys[i] == key) {
-      *map = g_maps[i];
-      return true;
-    }
-  const EncodeTiled enc = encode_tiled();
-  if (!enc) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)B};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
   const cuuint32_t box[3] = {G::kBox, (cuuint32_t)rows, 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
   const CUtensorMapSwizzle sw = G::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                 : G::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                       : CU_TENSOR_MAP_SWIZZLE_32B;
-  if (enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims,
-          strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return false;
-  g_map_keys[g_map_next] = key;
-  g_maps[g_map_next] = *map;
-  g_map_next = (g_map_next + 1) % kMapCache;
-  return true;
+  return hopper::tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x, dims,
+                            strides, box, sw,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
 }
 
 // two neighbouring bias elements are read as one when every row starts on
@@ -1611,7 +1551,7 @@ int packed_attention_prepare(int device) {
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  if (!encode_tiled()) return cudaErrorNotSupported;
+  if (!hopper::encode_tiled()) return cudaErrorNotSupported;
   g_optin[device] = optin;
   g_sms[device] = sms;
   const cudaError_t errs[] = {

@@ -6,13 +6,18 @@ the hand-written CUDA kernel `csrc/additive_pool.cu`.
     a = masked_softmax(s, mask)    # (N, L)
     out = sum_l a[:, l] * x[:, l]  # (N, D)
 
-The kernel replaces the Pallas TPU kernel of the JAX package
+The kernels replace the Pallas TPU kernel of the JAX package
 (ops/pallas_additive.py `_kernel`, launched by `_forward_pallas`). In the
 JAX package that kernel is opt-in and the default path is `_forward_jnp`;
-in the port the CUDA kernel is the path on the card.
+in the port the CUDA kernels are the path on the card. `pool_kernel` says
+which of the two takes a call: `additive_pool_tc` (bf16 x on the tensor
+cores, whole items per 128-row tile: every shape the models run) or
+`additive_pool_kernel` (the CUDA cores: f32 x, and every shape the
+tensor-core kernel does not take). The choice is by dtype and shape only;
+a build or launch error of either raises.
 
 `additive_pool` is a torch.autograd.Function. Its forward takes a CPU
-tensor through `additive_pool_reference` and a CUDA tensor through the
+tensor through `additive_pool_reference` and a CUDA tensor through a
 kernel; there is no fallback between the two. Its `launches` attribute
 counts kernel launches. Its backward is `additive_pool_backward_reference`,
 plain PyTorch on either device: the port of the JAX package's recompute
@@ -30,8 +35,25 @@ from legommenders_tpu_torch.ops.core import masked_softmax
 # the largest dynamic shared memory a block may use on sm_90
 MAX_SMEM_BYTES = 232448
 
-# (L, D, H, x is bf16, device index) -> persistent grid of the kernel
+TC_KERNEL, SIMT_KERNEL = "additive_pool_tc", "additive_pool_kernel"
+# the tensor-core kernel's widths: x rows of 64 bf16 (one 128-byte swizzled
+# row), H in 64-column wgmma groups, items packed whole into 128-row tiles
+TC_D, TC_H_STEP, TC_MAX_H, TC_TILE_ROWS = 64, 64, 256, 128
+
+# (kernel, L, D, H, x is bf16, device index) -> persistent grid of a kernel
 _grids = {}
+
+
+def pool_kernel(dtype: torch.dtype, L: int, D: int, H: int):
+    """The kernel that pools x of this dtype and these widths on the card,
+    and the items one of its tiles holds: (TC_KERNEL, G = 128 // L) for
+    bf16 x with D = 64, H a multiple of 64 up to 256 and L <= 128;
+    (SIMT_KERNEL, 1) otherwise (f32 x, whose 1e-5 gate neither the tensor
+    cores nor the fast tanh meet, and every other width)."""
+    if (dtype == torch.bfloat16 and D == TC_D and 1 <= L <= TC_TILE_ROWS
+            and H % TC_H_STEP == 0 and TC_H_STEP <= H <= TC_MAX_H):
+        return TC_KERNEL, TC_TILE_ROWS // L
+    return SIMT_KERNEL, 1
 
 
 def additive_pool_reference(x, mask, w1, b1, w2):
@@ -76,6 +98,12 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.additive_pool_prepare.argtypes = [i, i, i, i, i,
                                           ctypes.POINTER(ctypes.c_int)]
     lib.additive_pool_prepare.restype = i
+    lib.additive_pool_tc_forward.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                             i, i, p]
+    lib.additive_pool_tc_forward.restype = i
+    lib.additive_pool_tc_prepare.argtypes = [i, i,
+                                             ctypes.POINTER(ctypes.c_int)]
+    lib.additive_pool_tc_prepare.restype = i
     lib.additive_pool_smem_bytes.argtypes = [i, i, i]
     lib.additive_pool_smem_bytes.restype = ctypes.c_size_t
     lib.additive_pool_error_string.argtypes = [i]
@@ -90,19 +118,31 @@ def _check(lib, err: int, what: str):
                            f"(cudaError {err})")
 
 
-def _grid(lib, L: int, D: int, H: int, bf16: bool, device: int) -> int:
-    """The kernel's persistent grid at these widths, prepared on first use."""
-    key = (L, D, H, bf16, device)
+def _grid(lib, kernel: str, L: int, D: int, H: int, bf16: bool,
+          device: int) -> int:
+    """A kernel's persistent grid at these widths, prepared on first use."""
+    key = (kernel, L, D, H, bf16, device)
     if key not in _grids:
-        smem = lib.additive_pool_smem_bytes(L, D, H)
-        if smem > MAX_SMEM_BYTES:
-            raise ValueError(f"additive_pool: L={L} D={D} H={H} need {smem} "
-                             f"B of shared memory, more than {MAX_SMEM_BYTES}")
         blocks = ctypes.c_int(0)
-        _check(lib, lib.additive_pool_prepare(L, D, H, int(bf16), device,
-                                              ctypes.byref(blocks)), "prepare")
+        if kernel == TC_KERNEL:
+            err = lib.additive_pool_tc_prepare(H, device, ctypes.byref(blocks))
+        else:
+            smem = lib.additive_pool_smem_bytes(L, D, H)
+            if smem > MAX_SMEM_BYTES:
+                raise ValueError(f"additive_pool: L={L} D={D} H={H} need "
+                                 f"{smem} B of shared memory, more than "
+                                 f"{MAX_SMEM_BYTES}")
+            err = lib.additive_pool_prepare(L, D, H, int(bf16), device,
+                                            ctypes.byref(blocks))
+        _check(lib, err, "prepare")
         _grids[key] = blocks.value
     return _grids[key]
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a fresh copy where t does not start on the 16 bytes TMA
+    needs (a view that starts mid-row)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _forward(x, mask, w1, b1, w2):
@@ -131,17 +171,28 @@ def _forward(x, mask, w1, b1, w2):
         raise ValueError(f"additive_pool: D={D} is not a multiple of 4")
     lib = _kernel_lib()
     bf16, dev = x.dtype == torch.bfloat16, x.device.index or 0
-    blocks = _grid(lib, L, D, H, bf16, dev)
+    kernel, G = pool_kernel(x.dtype, L, D, H)
+    blocks = _grid(lib, kernel, L, D, H, bf16, dev)
     out = torch.empty((N, D), dtype=x.dtype, device=x.device)
     if N == 0:
         return out
     # no-ops for f32 contiguous inputs (what AdditiveAttention passes)
     maskf = mask.float().contiguous()
     w1f, b1f, w2f = (t.float().contiguous() for t in (w1, b1, w2))
-    _check(lib, lib.additive_pool_forward(
-        x.data_ptr(), maskf.data_ptr(), w1f.data_ptr(), b1f.data_ptr(),
-        w2f.data_ptr(), out.data_ptr(), N, L, D, H, int(bf16), blocks, dev,
-        torch.cuda.current_stream(x.device).cuda_stream), "kernel launch")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if kernel == TC_KERNEL:
+        # held in names until the launch is enqueued: a copy freed earlier
+        # could hand its memory to the next one
+        xa, maska, w1a = _aligned(x), _aligned(maskf), _aligned(w1f)
+        err = lib.additive_pool_tc_forward(
+            xa.data_ptr(), maska.data_ptr(), w1a.data_ptr(), b1f.data_ptr(),
+            w2f.data_ptr(), out.data_ptr(), N, L, H, G, blocks, dev, stream)
+    else:
+        err = lib.additive_pool_forward(
+            x.data_ptr(), maskf.data_ptr(), w1f.data_ptr(), b1f.data_ptr(),
+            w2f.data_ptr(), out.data_ptr(), N, L, D, H, int(bf16), blocks,
+            dev, stream)
+    _check(lib, err, "kernel launch")
     additive_pool.launches += 1
     return out
 
@@ -166,9 +217,13 @@ def additive_pool(x, mask, w1, b1, w2):
     -> (N, D) in x's dtype, f32 accumulation; differentiable in x, w1, b1
     and w2.
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel; the
-    weights and mask are passed to it as f32. Raises on a tensor that is on
-    neither, and on shapes, dtypes or layouts the kernel does not take."""
+    CPU tensors take the plain version. CUDA tensors launch the kernel
+    `pool_kernel` names; the weights and mask are passed to it as f32. The
+    tensor-core kernel rounds W1 to bf16 once: exact for AdditiveAttention,
+    whose W1 holds bf16 values at the bf16 policy, and at most 2^-9 of each
+    weight for an f32 W1, inside the bf16 tolerance. Raises on a tensor
+    that is on neither device, and on shapes, dtypes or layouts the kernels
+    do not take."""
     return _AdditivePool.apply(x, mask, w1, b1, w2)
 
 

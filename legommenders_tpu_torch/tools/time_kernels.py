@@ -1,0 +1,173 @@
+#!/usr/bin/env python3
+"""Times the kernels of one checkout of the port on one card, so that two
+trees can be compared in one run (parent, change, change, parent):
+
+    python3 legommenders_tpu_torch/tools/time_kernels.py --root DIR \
+        [--kernels pool,attention] [--out FILE]
+
+Imports legommenders_tpu_torch from DIR (its kernels built there at first
+use) and times, with chip_smoke.time_ms, REPS times each (median, min,
+max), on chip_smoke.py's inputs taken from this checkout for either tree:
+  - pool: the additive pool in bf16 at chip_smoke's pool shapes
+    (chip_smoke.pool_inputs): the full item catalog (65,000 x 31) and user
+    pool (20,000 x 50) over 20 calls, and one page of 512 at each length
+    the main paths pool (L = 31, 34, 40, 50) over 50 calls;
+  - attention: the packed-attention forward and backward at bert-naml's
+    attention pages (chip_smoke.attention_inputs: 171 packed rows, D 768,
+    12 heads, bf16; the training page, T = 120, at dropout 0.1 and 0, and
+    the serving page, T = 102, at 0) and torch's
+    scaled_dot_product_attention (forward, and forward + backward) over 50
+    calls; and the wrapper's host cost per call: time.perf_counter over
+    1,000 calls enqueued while a sleep kernel holds the card, so that no
+    call waits for the device.
+Prints one JSON object (and writes it to --out).
+"""
+import argparse
+import functools
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+sys.path.insert(0, CHECKOUT)
+
+import chip_smoke  # noqa: E402  (no top-level torch or port import)
+
+CALLS, REPS = 50, 5
+KERNELS = ("pool", "attention")
+
+
+def _stats(xs):
+    return {"median": statistics.median(xs), "min": min(xs), "max": max(xs),
+            "n": len(xs)}
+
+
+def _host_us(torch, fn, calls=1000):
+    """Host microseconds per call with the device queue kept busy."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def _sdpa_fwd(F, qh, kh, vh, mask, p):
+    import torch
+    with torch.no_grad():
+        F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                       dropout_p=p)
+
+
+def _sdpa_fwd_bwd(F, qh, kh, vh, mask, p, gh):
+    F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                   dropout_p=p).backward(gh)
+
+
+def pool_cases(torch, device):
+    """(name, fn, calls) of the pool at chip_smoke's shapes, bf16."""
+    from legommenders_tpu_torch.ops.additive import additive_pool
+
+    shapes = list(chip_smoke.POOLS.items())
+    shapes += [(f"page L{L}", (chip_smoke.PAGE_N, L))
+               for L in chip_smoke.PAGE_LS]
+    return [(f"pool {name}", functools.partial(
+                additive_pool, *chip_smoke.pool_inputs(
+                    N, L, torch.bfloat16, device, seed=L)),
+             chip_smoke.pool_iters(N))
+            for name, (N, L) in shapes]
+
+
+def attention_cases(torch, device):
+    """(name, fn, calls) of the attention kernels and SDPA at bert-naml's
+    pages."""
+    from torch.nn import functional as F
+    from legommenders_tpu_torch.ops import attention as A
+
+    seed = torch.tensor([20231], dtype=torch.int32, device=device)
+    heads = chip_smoke.ATTN_PAGE["heads"]
+    cases = []
+    for page, cfg, s in (("train", chip_smoke.TRAIN_PAGE, 11),
+                         ("serve", chip_smoke.ATTN_PAGE, 7)):
+        q, k, v, bias = chip_smoke.attention_inputs(torch.bfloat16, device,
+                                                    seed=s, page=cfg)
+        B, T, Dm = q.shape
+        g = torch.randn(q.shape, generator=torch.Generator(
+            device=device).manual_seed(12), device=device).to(q.dtype)
+        for p in ((0.1, 0.0) if page == "train" else (0.0,)):
+            cases.append((f"{page} p{p} fwd", functools.partial(
+                A.packed_attention, heads, p, q, k, v, bias, seed), CALLS))
+            if page == "train":
+                cases.append((f"{page} p{p} bwd", functools.partial(
+                    A.packed_attention_backward, heads, p, q, k, v, bias,
+                    seed, g), CALLS))
+        # torch's own attention in its head-split layout, at the page's
+        # first dropout: timed only
+        p = 0.1 if page == "train" else 0.0
+        qh, kh, vh = (t.view(B, T, heads, Dm // heads).transpose(1, 2)
+                      .detach().requires_grad_(True) for t in (q, k, v))
+        gh = g.view(B, T, heads, Dm // heads).transpose(1, 2)
+        cases.append((f"{page} sdpa fwd", functools.partial(
+            _sdpa_fwd, F, qh, kh, vh, bias[:, None], p), CALLS))
+        if page == "train":
+            cases.append((f"{page} sdpa fwd+bwd", functools.partial(
+                _sdpa_fwd_bwd, F, qh, kh, vh, bias[:, None], p, gh), CALLS))
+    return cases
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", required=True)
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma-separated subset of " + ", ".join(KERNELS))
+    ap.add_argument("--out", default="")
+    args = ap.parse_args()
+    kernels = args.kernels.split(",")
+    if not set(kernels) <= set(KERNELS):
+        ap.error(f"--kernels: {kernels} is not a subset of {KERNELS}")
+    # the tree under test comes before this checkout on the path
+    sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+    if not torch.cuda.is_available():
+        print("time_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    import legommenders_tpu_torch
+
+    device = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    res = {"root": os.path.abspath(args.root),
+           "port": os.path.dirname(legommenders_tpu_torch.__file__),
+           "card": card, "torch": torch.__version__}
+    cases = []
+    if "pool" in kernels:
+        cases += pool_cases(torch, device)
+    if "attention" in kernels:
+        cases += attention_cases(torch, device)
+        by_name = {name: fn for name, fn, _ in cases}
+        with torch.no_grad():
+            res["host_us_fwd"] = _host_us(torch, by_name["train p0.1 fwd"])
+            res["host_us_bwd"] = _host_us(torch, by_name["train p0.1 bwd"])
+    # outside no_grad: the SDPA case runs its backward
+    times = {name: [] for name, _, _ in cases}
+    for _ in range(REPS):
+        for name, fn, calls in cases:
+            times[name].append(chip_smoke.time_ms(fn, iters=calls) * 1e3)
+    res["us"] = {name: _stats(xs) for name, xs in times.items()}
+    print(json.dumps(res), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(res, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

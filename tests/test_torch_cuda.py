@@ -17,7 +17,12 @@ shapes their schedule and loads make risky (TC_CASES: bert-naml's full
 pages, B * H far above and below the grid, T around the 64-row tiles,
 every head width, ragged, broadcast and f32 biases), and the keep mask the
 forward and the backward apply is read back from their outputs and must
-equal the mask kernel's bit for bit.
+equal the mask kernel's bit for bit. The bf16 tensor-core pool (whole items
+per 128-row tile) is held at every main-path L with N around one tile, a
+page and more tiles than the grid, with all-masked and single-position
+items, an f32 W1, one item per tile and every hidden width; the profiler's
+kernel names must show it took those and the CUDA-core pool f32 and the
+odd shapes.
 """
 import os
 import sys
@@ -104,6 +109,171 @@ def test_wrapper_refuses(device):
     (dw1,) = torch.autograd.grad(out, (w1,), g)
     want = additive_pool_backward_reference(x, mask, w1.detach(), b1, w2, g)
     assert (dw1 - want[1]).abs().max().item() <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core pool (additive_pool_tc): bf16, whole items per 128-row tile
+# ---------------------------------------------------------------------------
+from legommenders_tpu_torch.ops.additive import (  # noqa: E402
+    SIMT_KERNEL, TC_KERNEL, pool_kernel,
+)
+
+SMS = 132  # the H100's persistent grid
+
+
+def _pool_tc_ns(L):
+    """N = 1, G - 1, G, G + 1 (around one tile), a page and one more item,
+    and three waves of tiles over the persistent grid, ragged."""
+    G = 128 // L
+    return sorted({1, max(G - 1, 1), G, G + 1, 512, 513, 3 * SMS * G + 7})
+
+
+# every L a main path pools at (D 64, H 256), at each N of _pool_tc_ns
+TC_POOL_CASES = [(N, L) for L in (31, 34, 40, 50) for N in _pool_tc_ns(L)]
+
+
+def _pool_tc_inputs(N, L, device, H=256, bf16_w1=True):
+    """bf16 x; W1 rounded to bf16 values, as AdditiveAttention hands it
+    over (bf16_w1), or left f32; item 0 all masked, unless it is the only
+    one."""
+    x, mask, w1, b1, w2 = _inputs(N, L, 64, H, device, torch.bfloat16)
+    if N == 1:
+        mask[0, ::2] = 1.0
+    if bf16_w1:
+        w1 = w1.to(torch.bfloat16).float()
+    return x, mask, w1, b1, w2
+
+
+def _pool_tc_check(args):
+    """The pool of args against the plain version in f32 from the same
+    inputs, within 2e-2 of the largest output; one launch; all-masked items
+    exactly 0. Returns the output."""
+    x, mask = args[0], args[1]
+    before = additive_pool.launches
+    with torch.no_grad():
+        got = additive_pool(*args)
+        want = additive_pool_reference(x.float(), *args[1:])
+    torch.cuda.synchronize()
+    assert additive_pool.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (x.shape[0], 64)
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want).abs().max() / want.abs().max()
+    assert err.item() <= 2e-2
+    assert (got[mask.sum(dim=1) == 0] == 0).all()
+    return got
+
+
+@pytest.mark.parametrize("N,L", TC_POOL_CASES)
+def test_tc_pool_matches_plain(device, N, L):
+    assert pool_kernel(torch.bfloat16, L, 64, 256)[0] == TC_KERNEL
+    _pool_tc_check(_pool_tc_inputs(N, L, device))
+
+
+def _masked_items_inputs(device, N=300, L=31):
+    """Every third item all masked, every third one valid at one position
+    only, the rest with random holes."""
+    x, mask, w1, b1, w2 = _pool_tc_inputs(N, L, device)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    pos = torch.randint(0, L, (len(range(1, N, 3)),), generator=g).to(device)
+    mask[0::3] = 0.0
+    mask[1::3] = 0.0
+    mask[torch.arange(1, N, 3, device=device), pos] = 1.0
+    return (x, mask, w1, b1, w2), pos
+
+
+def test_tc_pool_all_masked_and_single_position_items(device):
+    args, pos = _masked_items_inputs(device)
+    got = _pool_tc_check(args)
+    x = args[0]
+    assert (got[0::3] == 0).all()
+    # one valid position: its weight is 1 / (1 + EPS), so out is that row
+    rows = torch.arange(1, x.shape[0], 3, device=device)
+    one = x[rows, pos].float()
+    assert (got[1::3].float() - one).abs().max() <= 2e-2 * one.abs().max()
+
+
+def test_tc_pool_w1_not_bf16_exact(device):
+    """An f32 W1 (chip_smoke's pool inputs draw one) is rounded to bf16
+    once in the kernel: still within the bf16 gate."""
+    args = _pool_tc_inputs(513, 31, device, bf16_w1=False)
+    assert not torch.equal(args[2], args[2].to(torch.bfloat16).float())
+    _pool_tc_check(args)
+
+
+def test_tc_pool_unaligned_views(device):
+    """x, mask and W1 as views that start off the 16 bytes TMA and the bulk
+    copy need: the wrapper hands the kernel aligned copies, each held until
+    the launch is enqueued (none may take another's freed memory)."""
+    x, mask, w1, b1, w2 = _pool_tc_inputs(513, 31, device)
+
+    def shifted(t, by):
+        buf = torch.empty(t.numel() + by, dtype=t.dtype, device=device)
+        view = buf[by:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    args = (shifted(x, 1), shifted(mask, 1), shifted(w1, 1), b1, w2)
+    assert all(t.data_ptr() % 16 for t in args[:3])
+    got = _pool_tc_check(args)
+    assert torch.equal(got, additive_pool(x, mask, w1, b1, w2))
+
+
+@pytest.mark.parametrize("N", [1, 300])
+def test_tc_pool_one_item_per_tile(device, N):
+    """L = 128: G = 1, the whole 128-row tile one item."""
+    assert pool_kernel(torch.bfloat16, 128, 64, 256) == (TC_KERNEL, 1)
+    _pool_tc_check(_pool_tc_inputs(N, 128, device))
+
+
+@pytest.mark.parametrize("H", [64, 128, 192])
+def test_tc_pool_other_hidden_widths(device, H):
+    """The kernel's other instances: H / 64 groups of 64 columns."""
+    assert pool_kernel(torch.bfloat16, 31, 64, H)[0] == TC_KERNEL
+    _pool_tc_check(_pool_tc_inputs(300, 31, device, H=H))
+
+
+def test_pool_kernels_by_profiled_name(device):
+    """Under torch.profiler: every tensor-core case above launches
+    additive_pool_tc, and f32 and the odd shapes launch
+    additive_pool_kernel (f32 within 1e-5, bf16 within 2e-2)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tc = [_pool_tc_inputs(N, L, device) for N, L in TC_POOL_CASES]
+    tc += [_masked_items_inputs(device)[0],
+           _pool_tc_inputs(513, 31, device, bf16_w1=False),
+           _pool_tc_inputs(300, 128, device)]
+    tc += [_pool_tc_inputs(300, 31, device, H=H) for H in (64, 128, 192)]
+    simt = [_inputs(N, L, D, H, device, dt) for N, L, D, H, dt in (
+        (37, 13, 16, 32, torch.float32), (300, 50, 64, 256, torch.float32),
+        (5, 1, 8, 300, torch.float32), (513, 31, 64, 256, torch.float32),
+        (37, 13, 16, 32, torch.bfloat16), (5, 1, 8, 300, torch.bfloat16),
+        (9, 31, 64, 96, torch.bfloat16))]
+    for args in tc:
+        assert pool_kernel(args[0].dtype, *args[0].shape[1:],
+                           args[2].shape[1])[0] == TC_KERNEL
+    for args in simt:
+        assert pool_kernel(args[0].dtype, *args[0].shape[1:],
+                           args[2].shape[1])[0] == SIMT_KERNEL
+    torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        outs = [additive_pool(*args) for args in tc + simt]
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    def launches(name):
+        return sum(e.count for e in evs if name in e.key)
+
+    assert launches(TC_KERNEL) == len(tc)
+    assert launches(SIMT_KERNEL) == len(simt)
+    with torch.no_grad():
+        for args, got in zip(simt, outs[len(tc):]):
+            want = additive_pool_reference(args[0].float(), *args[1:])
+            err = (got.float() - want).abs().max()
+            if args[0].dtype == torch.float32:
+                assert err.item() <= 1e-5
+            else:
+                assert (err / want.abs().max()).item() <= 2e-2
 
 
 # ---------------------------------------------------------------------------
