@@ -92,19 +92,40 @@ sys.path.insert(0, ROOT)
 # NVIDIA H100 SXM data-sheet peaks (dense)
 PEAK = {"bf16": 989e12, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
-# Per-clock rates of one SM (CUDA C++ Programming Guide, arithmetic
-# instruction throughput, compute capability 9.0) x 132 SMs x 1.98 GHz
-# (H100 SXM boost): tanh.approx.f32, 16 special-function results per clock;
-# 32-bit integer add, compare and bitwise operations on the integer ALU,
-# and 32-bit integer multiply-add on the FMA pipe, 64 each per clock.
-TANH_PER_S = 16 * 132 * 1.98e9
-INT_PER_S = 64 * 132 * 1.98e9
-# One Philox4x32-10 draw with the keep test of its four words: per round,
-# two three-input XORs (LOP3) on the integer ALU and two 32 x 32 -> 64-bit
-# multiplies (IMAD.WIDE.U32, counted at the guide's multiply-add rate) on
-# the FMA pipe; the key schedule is the same in every thread and leaves
-# the loop; four compares with the threshold on the ALU.
-PHILOX_ALU_OPS, PHILOX_FMA_OPS = 2 * 10 + 4, 2 * 10
+# 132 SMs at 1.98 GHz (H100 SXM boost)
+SMS, SM_HZ = 132, 1.98e9
+# tanh.approx.f32: 16 special-function results per clock per SM (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0)
+TANH_PER_S = 16 * SMS * SM_HZ
+# Integer instructions one SM issues per clock, measured on an NVIDIA H100
+# 80GB HBM3 at 700 W (SM clock 1.98 GHz throughout) by
+# legommenders_tpu_torch/tools/int_rates.py: LOP3 63.6 and IMAD 64.0 (the
+# guide's 64 for 32-bit integer operations), LOP3 + ISETP together 60.4,
+# and IMAD.WIDE.U32 (32 x 32 -> 64-bit) 31.7 beside as many LOP3: it
+# takes two of the FMA pipe's 64 slots, so the FMA pipe's rate for the
+# Philox products is 32, half the guide's multiply-add rate. mask_bound
+# lets the two pipes run side by side; mixed as in a draw (IMAD.WIDE.U32
+# beside two LOP3) they issue 2 warp instructions a clock per SM together,
+# the products at 21: the bound is the lower of the two readings.
+ALU_PER_CLK = 64
+IMAD_WIDE_PER_CLK = 32
+# Philox4x32-10 at counter (jp, i, h, b) (column pair, row with bit 3
+# clear, head, packed row): per round two IMAD.WIDE.U32 (32 x 32 -> 64) on
+# the FMA pipe and two three-input XORs (LOP3) on the integer ALU. Each is
+# needed once per distinct value of the counter words its input holds:
+# rounds 0-2's products and rounds 0-1's XORs hold fewer than all four
+# (tests/test_torch_build.py checks these sets against the Philox itself).
+_ALL_WORDS = ("jp", "i", "h", "b")
+PHILOX_PRODUCT_WORDS = (
+    (("jp",), ("h",)), (("i", "h"), ("jp", "b")),
+    (("jp", "b", "h"), ("jp", "i", "h"))) + ((_ALL_WORDS, _ALL_WORDS),) * 7
+PHILOX_XOR_WORDS = (
+    (("i", "h"), ("jp", "b")),
+    (("jp", "b", "h"), ("jp", "i", "h"))) + ((_ALL_WORDS, _ALL_WORDS),) * 8
+# Philox draws per unit of work of a dropout_mask thread (kMaskDraws) and
+# the threads of its CTA (kMaskThreads)
+MASK_DRAWS, MASK_THREADS = 4, 256
 
 D, H = 64, 256
 POOLS = {"item": (65000, 31), "user": (20000, 50)}
@@ -214,22 +235,76 @@ def bound(N: int, L: int, dtype: str):
     return (ms, by) if ms >= tanh_ms else (tanh_ms, "operations")
 
 
+def philox_rows(T: int) -> int:
+    """The rows i < T with bit 3 clear: each draw gives rows i and i + 8."""
+    return (T >> 4) * 8 + min(T & 15, 8)
+
+
 def philox_draws(T: int) -> int:
     """The Philox draws that cover (i, j) in [0, T)^2 for one (b, h): each
     gives the words of rows i and i + 8 for i with bit 3 clear, and of
     columns j and j + 1 for even j."""
-    return sum(1 for i in range(T) if not i & 8) * ((T + 1) // 2)
+    return philox_rows(T) * ((T + 1) // 2)
+
+
+def philox_ops(B: int, heads: int, T: int):
+    """(products, XORs) the draws of a (B, heads, T, T) mask need: each of
+    PHILOX_PRODUCT_WORDS / PHILOX_XOR_WORDS once per distinct value of the
+    counter words it holds."""
+    size = {"jp": (T + 1) // 2, "i": philox_rows(T), "h": heads, "b": B}
+
+    def count(table):
+        return sum(math.prod(size[w] for w in words)
+                   for rnd in table for words in rnd)
+
+    return count(PHILOX_PRODUCT_WORDS), count(PHILOX_XOR_WORDS)
 
 
 def mask_bound(B: int, heads: int, T: int):
     """The keep mask's bound: one byte written per element, and the Philox
-    draws at the integer ALU's and the FMA pipe's rates, which run side by
-    side."""
-    draws = B * heads * philox_draws(T)
-    t_ops = draws * max(PHILOX_ALU_OPS, PHILOX_FMA_OPS) / INT_PER_S
+    draws' operations, the products on the FMA pipe and the XORs and one
+    compare per element on the integer ALU, which run side by side, each at
+    its measured rate: the longest of the three."""
+    products, xors = philox_ops(B, heads, T)
+    t_alu = (xors + B * heads * T * T) / (ALU_PER_CLK * SMS * SM_HZ)
+    t_fma = products / (IMAD_WIDE_PER_CLK * SMS * SM_HZ)
+    t_ops = max(t_alu, t_fma)
     t_bytes = B * heads * T * T / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def mask_shape(page: dict):
+    """(B, heads, T) of the keep mask of an attention page: its items
+    packed G = 128 // L to a row."""
+    G = 128 // page["L"]
+    return -(-page["items"] // G), page["heads"], G * page["L"]
+
+
+def mask_layout(T: int):
+    """dropout_mask's launch arguments for T (csrc/packed_attention.cu
+    keep_mask_launch): the column blocks n_cb of 2 MASK_DRAWS columns, the
+    row groups n_gi (philox_rows) and the store width W, 8 when T is a
+    multiple of 8, else 1."""
+    return -(-T // (2 * MASK_DRAWS)), philox_rows(T), 8 if T % 8 == 0 else 1
+
+
+def mask_units(T: int):
+    """The units of work of one (b, h) item as dropout_mask's threads take
+    them: thread t keeps column block c = t % n_cb (columns 2Dc..2Dc+2D-1,
+    D = MASK_DRAWS) and takes row groups t // n_cb, + g_step, ... (rows
+    i0 = 16 (gi >> 3) + (gi & 7) and i0 + 8), or, with n_cb >= the CTA's
+    threads, blocks t, t + threads, ... and every row group; yields
+    (t, i0, j0, nv), nv the bytes it stores in each row."""
+    cols, n = 2 * MASK_DRAWS, MASK_THREADS
+    n_cb, n_gi, _ = mask_layout(T)
+    g_step, c_step = (n // n_cb, n_cb) if n_cb < n else (1, n)
+    for t in range(n):
+        g_first = t // n_cb if t // n_cb < g_step else n_gi
+        for c in range(t % n_cb, n_cb, c_step):
+            for gi in range(g_first, n_gi, g_step):
+                i0 = (gi >> 3) << 4 | (gi & 7)
+                yield t, i0, c * cols, min(cols, T - c * cols)
 
 
 def pool_iters(N: int) -> int:

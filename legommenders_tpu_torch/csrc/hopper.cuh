@@ -208,14 +208,26 @@ __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
-// waits until this thread's committed bulk stores have read their sources
+// waits until at most N of this thread's committed bulk-store groups have
+// not yet read their sources
+template <int N = 0>
 __device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
 }
 
 // waits until this thread's committed bulk stores have completed
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) shared memory
+// -> device memory, in this thread's bulk group (the store-side twin of
+// bulk_load)
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      :: "l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
 }
 
 // `bytes` (a multiple of 16; both addresses 16-byte aligned) device memory

@@ -29,12 +29,14 @@
 // so the four words of one draw are exactly the elements (i, j), (i, j+1),
 // (i+8, j), (i+8, j+1) that one lane holds in the m16n8 accumulator layout
 // of mma.sync, which wgmma's m64nN layout repeats per warp and chunk. The
-// forward, the backward and the mask kernel call the same `dropout_bits4`,
-// so they agree whatever their grid or block shape. An
-// element is kept iff its bits >= floor(dropout * 2^32), as in the TPU
-// kernels (`_keep_threshold`); the TPU's own draws (seeded per program)
-// cannot be reproduced and are not: the contract is that the same keep
-// mask gives the same output. The seed is read from device memory.
+// forward and the backward call the same draw (`philox_row` once per row,
+// `dropout_bits4_at` per column pair; the f32 kernels through
+// `dropout_bits4`), the mask kernel the same rounds split further
+// (`dropout_bits4_split`), so they agree whatever their grid or block
+// shape. An element is kept iff its bits >= floor(dropout * 2^32), as
+// in the TPU kernels (`_keep_threshold`); the TPU's own draws (seeded per
+// program) cannot be reproduced and are not: the contract is that the same
+// keep mask gives the same output. The seed is read from device memory.
 //
 // What bounds them. The LM item encoder's training page gives one call
 // B = 171 packed rows, T = 120 (3 items of 40 tokens), D = 768, 12 heads,
@@ -111,12 +113,31 @@
 //    j+96), then, in the backward, one key row at a time for dK and dV. K
 //    and V are staged with rows padded to dh + 1 floats, so that both the
 //    lane-per-key and the lane-per-column reads are free of bank conflicts.
-//  * keep mask: dropout_mask, one block per (b, h), one Philox draw per
-//    four elements, the mask written as bytes.
+//  * keep mask: dropout_mask. What bounds it is the integer work of its
+//    Philox draws: of a draw's 20 IMAD.WIDE.U32 only rounds 3-9's 14 take
+//    all of (b, h, i, j) (the split below), on the FMA pipe, which takes
+//    two of its slots for each (32 per clock per SM, tools/int_rates.py);
+//    16 XORs and 4 compares on the integer ALU (64 per clock); its bytes
+//    take less time. (Measured beside twice as many XORs, the products
+//    issue at 21 a clock, not 32: mixed, the two pipes issue no more than
+//    2 warp instructions a clock per SM together.) So its design issues
+//    little besides those: a persistent grid of 4 CTAs of 256 threads per
+//    SM walks the (b, h) items; a thread keeps one block of 4 column pairs
+//    for every item and takes rows (i and i + 8) of it by shifts and
+//    masks, with no division in the loops; what the draws take from the
+//    columns and the item is computed once per item, from the row once
+//    per row, leaving per draw 15 products; the round keys once per
+//    thread; each product is one mul.wide.u32; the keep bytes are packed
+//    by predicated ORs. T a multiple of 8 (the training page's 120)
+//    stores them 8 bytes at a time; other T up to 156 (serving's 102)
+//    stage the item in shared memory for one bulk copy, which runs while
+//    the next item is drawn (narrow stores straight to device memory
+//    took twice as long). Any T.
 // The C entry points return a cudaError_t; a launch is checked with
 // cudaGetLastError() and never synchronises. packed_attention_prepare sets
 // the shared-memory attributes and records the SM count once per device.
 
+#include <climits>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
@@ -133,6 +154,8 @@ constexpr int kMaxT = 128;
 constexpr int kSimtWarps = 4;
 constexpr int kSimtThreads = 32 * kSimtWarps;
 constexpr int kMaskThreads = 256;
+constexpr int kMaskCtasPerSm = 4;
+constexpr int kMaskDraws = 4;  // draws per unit of work of dropout_mask
 
 __device__ inline float to_f32(float v) { return v; }
 __device__ inline float to_f32(bf16 v) { return __bfloat162float(v); }
@@ -159,32 +182,159 @@ __device__ inline float warp_max(float v) {
 // Dropout bits: Philox4x32-10 as a pure function of (seed, b, h, i, j)
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+constexpr uint32_t kPhiloxM0 = 0xD2511F53u, kPhiloxM1 = 0xCD9E8D57u;
+constexpr uint32_t kPhiloxW0 = 0x9E3779B9u, kPhiloxW1 = 0xBB67AE85u;
+
+// The round keys of key (seed, 0): round r uses (x(r), r * kPhiloxW1), the
+// second word a constant. PhiloxKey computes the first words once per
+// thread and holds them; PhiloxSeed holds the seed alone and adds at each
+// use, for kernels with no registers to spare.
+struct PhiloxKey {
+  uint32_t k[10];
+  __device__ __forceinline__ explicit PhiloxKey(uint32_t seed) {
 #pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-    k.x += 0x9E3779B9u;
-    k.y += 0xBB67AE85u;
+    for (int r = 0; r < 10; ++r) k[r] = seed + static_cast<uint32_t>(r) * kPhiloxW0;
+  }
+  __device__ __forceinline__ uint32_t x(int r) const { return k[r]; }
+};
+
+struct PhiloxSeed {
+  uint32_t seed;
+  __device__ __forceinline__ explicit PhiloxSeed(uint32_t s) : seed(s) {}
+  __device__ __forceinline__ uint32_t x(int r) const {
+    return seed + static_cast<uint32_t>(r) * kPhiloxW0;
+  }
+};
+
+// (hi, lo) of the 64-bit product a * m: one IMAD.WIDE.U32
+__device__ __forceinline__ void mul_wide(uint32_t a, uint32_t m, uint32_t& hi,
+                                         uint32_t& lo) {
+  unsigned long long p;
+  asm("mul.wide.u32 %0, %1, %2;" : "=l"(p) : "r"(a), "r"(m));
+  hi = static_cast<uint32_t>(p >> 32);
+  lo = static_cast<uint32_t>(p);
+}
+
+// Rounds R0..9 of Philox4x32-10 on counter c: per round two wide products
+// and two three-input XORs.
+template <int R0, typename K>
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, const K& k) {
+#pragma unroll
+  for (int r = R0; r < 10; ++r) {
+    uint32_t hi0, lo0, hi1, lo1;
+    mul_wide(c.x, kPhiloxM0, hi0, lo0);
+    mul_wide(c.z, kPhiloxM1, hi1, lo1);
+    c = make_uint4(hi1 ^ c.y ^ k.x(r), lo1,
+                   hi0 ^ c.w ^ (static_cast<uint32_t>(r) * kPhiloxW1), lo0);
   }
   return c;
 }
 
+// A row's draws differ only in the first counter word, j / 2. What rounds
+// 0 and 1 compute from the other three, (i with bit 3 clear, h, b), is
+// taken once per row: round 0's product of h, and round 1's product of
+// its first word (hi1(h) ^ i ^ seed), leave per draw two products and
+// three XORs of the first two rounds' four and four.
+struct PhiloxRow {
+  uint32_t b, q, p, r;
+};
+
+template <typename K>
+__device__ __forceinline__ PhiloxRow philox_row(const K& k, int b, int h,
+                                                int i0) {
+  uint32_t hi1, lo1, hia, loa;
+  mul_wide(static_cast<uint32_t>(h), kPhiloxM1, hi1, lo1);
+  mul_wide(hi1 ^ static_cast<uint32_t>(i0) ^ k.x(0), kPhiloxM0, hia, loa);
+  return {static_cast<uint32_t>(b), lo1 ^ k.x(1), hia ^ kPhiloxW1, loa};
+}
+
+// The draw at column pair jp of a row: the bits of (i, 2jp), (i, 2jp+1),
+// (i+8, 2jp), (i+8, 2jp+1).
+template <typename K>
+__device__ __forceinline__ uint4 dropout_bits4_at(const PhiloxRow& w,
+                                                  const K& k, uint32_t jp) {
+  uint32_t hi0, lo0, hi1, lo1;
+  mul_wide(jp, kPhiloxM0, hi0, lo0);  // round 0
+  mul_wide(hi0 ^ w.b, kPhiloxM1, hi1, lo1);  // round 1
+  return philox4x32_10<2>(make_uint4(hi1 ^ w.q, lo1, lo0 ^ w.p, w.r), k);
+}
+
 // The bits of (i, j), (i, j+1), (i+8, j), (i+8, j+1) for i with bit 3 clear
 // and j even (the words of one draw).
-__device__ __forceinline__ uint4 dropout_bits4(uint32_t seed, int b, int h,
+template <typename K>
+__device__ __forceinline__ uint4 dropout_bits4(const K& k, int b, int h,
                                                int i, int j) {
-  return philox4x32_10(
-      make_uint4(static_cast<uint32_t>(j) >> 1, static_cast<uint32_t>(i & ~8),
-                 static_cast<uint32_t>(h), static_cast<uint32_t>(b)),
-      make_uint2(seed, 0u));
+  return dropout_bits4_at(philox_row(k, b, h, i & ~8), k,
+                          static_cast<uint32_t>(j) >> 1);
+}
+
+// The deeper split of the mask kernel, same bits. Of a draw's 20 products
+// only rounds 3-9's 14 take all four counter words: round 0's take jp
+// alone and h alone, round 1's (i0, h) and (jp, b), round 2's (jp, b, h)
+// and (jp, i0, h). dropout_mask keeps each thread on fixed column pairs,
+// so it takes jp's product (PhiloxCol), h's (PhiloxHead) and the (jp, b)
+// and (jp, b, h) terms (PhiloxColItem) once per item, the
+// (i0, h) term once per row (PhiloxRow2), and per draw one XOR, one
+// product and two XORs before rounds 3-9.
+struct PhiloxCol {
+  uint32_t hi, lo;  // round 0: M0 * jp
+};
+struct PhiloxHead {
+  uint32_t hi, lo;  // round 0: M1 * h
+};
+struct PhiloxColItem {
+  uint32_t y, z, w;  // x3 = hi(M1 z2) ^ y, z3 = z ^ row.w, w3 = w
+};
+struct PhiloxRow2 {
+  uint32_t p, w;  // z2 = p ^ col.lo, and round 2's w2 (^ its key word)
+};
+
+__device__ __forceinline__ PhiloxCol philox_col(uint32_t jp) {
+  PhiloxCol c;
+  mul_wide(jp, kPhiloxM0, c.hi, c.lo);
+  return c;
+}
+
+__device__ __forceinline__ PhiloxHead philox_head(uint32_t h) {
+  PhiloxHead d;
+  mul_wide(h, kPhiloxM1, d.hi, d.lo);
+  return d;
+}
+
+template <typename K>
+__device__ __forceinline__ PhiloxColItem philox_col_item(const PhiloxCol& c,
+                                                         const PhiloxHead& d,
+                                                         const K& k,
+                                                         uint32_t b) {
+  uint32_t zh, zl, xh, xl;
+  mul_wide(c.hi ^ b, kPhiloxM1, zh, zl);              // round 1, z1 = (jp, b)
+  mul_wide(zh ^ d.lo ^ k.x(1), kPhiloxM0, xh, xl);    // round 2, x2 = (jp, b, h)
+  return {zl ^ k.x(2), xh ^ (2u * kPhiloxW1), xl};
+}
+
+template <typename K>
+__device__ __forceinline__ PhiloxRow2 philox_row2(const PhiloxHead& d,
+                                                  const K& k, uint32_t i0) {
+  uint32_t xh, xl;
+  mul_wide(d.hi ^ i0 ^ k.x(0), kPhiloxM0, xh, xl);    // round 1, x1 = (i0, h)
+  return {xh ^ kPhiloxW1, xl};
+}
+
+template <typename K>
+__device__ __forceinline__ uint4 dropout_bits4_split(const PhiloxColItem& ci,
+                                                     const PhiloxRow2& w,
+                                                     const PhiloxCol& c,
+                                                     const K& k) {
+  uint32_t hi, lo;
+  mul_wide(w.p ^ c.lo, kPhiloxM1, hi, lo);            // round 2, z2 = (jp, i0, h)
+  return philox4x32_10<3>(make_uint4(hi ^ ci.y, lo, ci.z ^ w.w, ci.w), k);
 }
 
 // The bits of one element (i, j).
-__device__ __forceinline__ uint32_t dropout_bits(uint32_t seed, int b, int h,
+template <typename K>
+__device__ __forceinline__ uint32_t dropout_bits(const K& k, int b, int h,
                                                  int i, int j) {
-  const uint4 r = dropout_bits4(seed, b, h, i, j);
+  const uint4 r = dropout_bits4(k, b, h, i, j);
   const int w = ((i >> 3) & 1) * 2 + (j & 1);
   return w == 0 ? r.x : w == 1 ? r.y : w == 2 ? r.z : r.w;
 }
@@ -195,25 +345,143 @@ __device__ __forceinline__ float drop(float p, uint32_t bits, uint32_t thresh,
   return bits >= thresh ? p * keep_scale : 0.f;
 }
 
-__global__ void __launch_bounds__(kMaskThreads)
+// The keep bytes (1 kept, 0 dropped) of four elements, first in the lowest
+// byte: four compares, then one select and three predicated ORs.
+__device__ __forceinline__ uint32_t keep_bytes(uint32_t a, uint32_t b,
+                                               uint32_t c, uint32_t d,
+                                               uint32_t thresh) {
+  uint32_t w;
+  asm("{\n\t.reg .pred p0, p1, p2, p3;\n\t"
+      "setp.ge.u32 p0, %1, %5;\n\t"
+      "setp.ge.u32 p1, %2, %5;\n\t"
+      "setp.ge.u32 p2, %3, %5;\n\t"
+      "setp.ge.u32 p3, %4, %5;\n\t"
+      "selp.u32 %0, 1, 0, p0;\n\t"
+      "@p1 or.b32 %0, %0, 0x100;\n\t"
+      "@p2 or.b32 %0, %0, 0x10000;\n\t"
+      "@p3 or.b32 %0, %0, 0x1000000;\n\t}"
+      : "=r"(w)
+      : "r"(a), "r"(b), "r"(c), "r"(d), "r"(thresh));
+  return w;
+}
+
+// Stores the first nv of the 8 bytes w at p: as one 8-byte store (W 8,
+// nv 8, p 8-aligned) or byte by byte (W 1).
+template <int W>
+__device__ __forceinline__ void store_keep(uint8_t* p, const uint32_t (&w)[2],
+                                           int nv) {
+  if constexpr (W == 8) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (k < nv) p[k] = static_cast<uint8_t>(w[k / 4] >> (8 * (k % 4)));
+  }
+}
+
+// Shared memory of one staging buffer of dropout_mask: a (b, h) item's
+// T * T bytes at the offset mod 16 they have in device memory.
+__host__ __device__ inline int mask_buffer_bytes(int T) {
+  return (T * T + 31) & ~15;
+}
+
+// The keep mask. A persistent grid (kMaskCtasPerSm CTAs per SM) walks the
+// (b, h) items, b-major, stepping b and h without a division. A unit of
+// work is D = kMaskDraws draws along j: row group gi (rows i0 = 16 (gi >> 3)
+// + (gi & 7) and i0 + 8) and column block c (columns 2Dc..2Dc+2D-1). A
+// thread keeps one column block, c = t % n_cb, and takes row groups
+// t / n_cb, + g_step, ... (one division, before the loops; threads past
+// g_step * n_cb idle); with more than kMaskThreads blocks it takes blocks
+// t, t + kMaskThreads, ... and every row group. So what a draw takes from
+// its columns and the item (PhiloxCol, PhiloxColItem) is drawn once per
+// item, and the loop over rows is left with the products that need the
+// row (keeping PhiloxCol across items as well ran 1.6 % slower). Each
+// unit's 2D + 2D keep bytes are written as two 8-byte stores when T is a
+// multiple of 8 (W 8), else byte by byte (W 1). STAGED (W 1, T up to 156),
+// they go into one of two shared-memory copies of the item, laid out as
+// it is in device memory (its offset mod 16 kept); once the item is
+// whole, one thread stores its 16-byte aligned middle by one bulk copy
+// (cp.async.bulk) while the CTA draws the next item into the other copy,
+// and a few threads store the ragged ends (< 16 bytes each).
+template <int W, bool STAGED>
+__global__ void __launch_bounds__(kMaskThreads, kMaskCtasPerSm)
 dropout_mask(const int* __restrict__ seed_ptr, uint8_t* __restrict__ out,
-             int Tn, int H, uint32_t thresh) {
-  const int b = blockIdx.x / H, h = blockIdx.x - b * H;
-  const uint32_t seed = static_cast<uint32_t>(*seed_ptr);
-  uint8_t* o = out + (size_t)blockIdx.x * Tn * Tn;
-  // one work item per draw: rows i with bit 3 clear, columns j even
-  const int n_i = ((Tn + 15) / 16) * 8, n_j = (Tn + 1) / 2;
-  for (int w = threadIdx.x; w < n_i * n_j; w += kMaskThreads) {
-    const int ig = w / n_j, j = 2 * (w - ig * n_j);
-    const int i = (ig >> 3) * 16 + (ig & 7);
-    if (i >= Tn) continue;
-    const uint4 r = dropout_bits4(seed, b, h, i, j);
-    o[i * Tn + j] = r.x >= thresh;
-    if (j + 1 < Tn) o[i * Tn + j + 1] = r.y >= thresh;
-    if (i + 8 < Tn) {
-      o[(i + 8) * Tn + j] = r.z >= thresh;
-      if (j + 1 < Tn) o[(i + 8) * Tn + j + 1] = r.w >= thresh;
+             int n_items, int Tn, int H, int n_cb, int n_gi, uint32_t thresh) {
+  constexpr int D = kMaskDraws, kCols = 2 * D;
+  static_assert(D == 4, "a unit's keep bytes are two words a row");
+  extern __shared__ __align__(16) uint8_t mask_smem[];
+  const PhiloxKey key(static_cast<uint32_t>(*seed_ptr));
+  const int item_bytes = Tn * Tn;
+  const int c_first = threadIdx.x % n_cb;
+  const int g_step = n_cb < kMaskThreads ? kMaskThreads / n_cb : 1;
+  const int c_step = n_cb < kMaskThreads ? n_cb : kMaskThreads;
+  const int g_first = threadIdx.x / n_cb < g_step ? threadIdx.x / n_cb : n_gi;
+  const int step_b = gridDim.x / H, step_h = gridDim.x - step_b * H;
+  int b = blockIdx.x / H, h = blockIdx.x - b * H;
+  int parity = 0;  // the staging buffer of this item
+  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+    uint8_t* g = out + (size_t)it * item_bytes;
+    uint8_t* o = g;
+    int shift = 0;
+    if constexpr (STAGED) {
+      shift = static_cast<int>(reinterpret_cast<uintptr_t>(g) & 15);
+      o = mask_smem + parity * mask_buffer_bytes(Tn) + shift;
+      // the bulk copy of two items ago has read this buffer
+      if (threadIdx.x == 0) hopper::bulk_wait_read<1>();
+      __syncthreads();
     }
+    const PhiloxHead head = philox_head(static_cast<uint32_t>(h));
+    for (int c = c_first; c < n_cb; c += c_step) {
+      PhiloxCol col[D];
+      PhiloxColItem ci[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        col[d] = philox_col(static_cast<uint32_t>(c * D + d));
+        ci[d] = philox_col_item(col[d], head, key, static_cast<uint32_t>(b));
+      }
+      const int j0 = c * kCols, nv = min(kCols, Tn - j0);
+      for (int gi = g_first; gi < n_gi; gi += g_step) {
+        const int i0 = (gi >> 3) << 4 | (gi & 7);
+        const PhiloxRow2 row = philox_row2(head, key, static_cast<uint32_t>(i0));
+        uint4 r[D];
+#pragma unroll
+        for (int d = 0; d < D; ++d) r[d] = dropout_bits4_split(ci[d], row, col[d], key);
+        const uint32_t top[2] = {
+            keep_bytes(r[0].x, r[0].y, r[1].x, r[1].y, thresh),
+            keep_bytes(r[2].x, r[2].y, r[3].x, r[3].y, thresh)};
+        const uint32_t bottom[2] = {
+            keep_bytes(r[0].z, r[0].w, r[1].z, r[1].w, thresh),
+            keep_bytes(r[2].z, r[2].w, r[3].z, r[3].w, thresh)};
+        uint8_t* p = o + (i0 * Tn + j0);
+        store_keep<W>(p, top, nv);
+        if (i0 + 8 < Tn) store_keep<W>(p + 8 * Tn, bottom, nv);
+      }
+    }
+    if constexpr (STAGED) {
+      hopper::fence_proxy_async();
+      __syncthreads();
+      const int head_bytes = min((16 - shift) & 15, item_bytes);
+      const int body = (item_bytes - head_bytes) & ~15;
+      const int t = threadIdx.x;
+      if (t == 0) {
+        if (body) hopper::bulk_store(g + head_bytes, o + head_bytes, body);
+        hopper::bulk_commit();  // a group per item, empty or not
+      } else if (t <= head_bytes) {
+        g[t - 1] = o[t - 1];
+      } else if (t > 16 && t - 17 < item_bytes - head_bytes - body) {
+        g[head_bytes + body + t - 17] = o[head_bytes + body + t - 17];
+      }
+      parity ^= 1;
+    }
+    h += step_h;
+    b += step_b;
+    if (h >= H) {
+      h -= H;
+      ++b;
+    }
+  }
+  if constexpr (STAGED) {
+    if (threadIdx.x == 0) hopper::bulk_wait();
   }
 }
 
@@ -241,7 +509,7 @@ attention_simt(const float* __restrict__ q, const float* __restrict__ k,
   const int b = blockIdx.x / H, h = blockIdx.x - b * H;
   const int D = H * dh;
   const size_t base = (size_t)b * Tn * D + (size_t)h * dh;
-  const uint32_t seed = dropout ? static_cast<uint32_t>(*seed_ptr) : 0u;
+  const PhiloxKey key(dropout ? static_cast<uint32_t>(*seed_ptr) : 0u);
   for (int i = threadIdx.x; i < Tn * dh; i += kSimtThreads) {
     const int j = i / dh, d = i - j * dh;
     const size_t g = base + (size_t)j * D + d;
@@ -291,7 +559,7 @@ attention_simt(const float* __restrict__ q, const float* __restrict__ k,
       const int j = lane + 32 * c;
       if (j < Tn) {
         float p = s[c] / sum;
-        if (dropout) p = drop(p, dropout_bits(seed, b, h, i, j), thresh, keep_scale);
+        if (dropout) p = drop(p, dropout_bits(key, b, h, i, j), thresh, keep_scale);
         pw[j] = p;
       }
     }
@@ -344,7 +612,7 @@ attention_bwd_simt(const float* __restrict__ q, const float* __restrict__ k,
   const int b = blockIdx.x / H, h = blockIdx.x - b * H;
   const int D = H * dh;
   const size_t base = (size_t)b * Tn * D + (size_t)h * dh;
-  const uint32_t seed = dropout ? static_cast<uint32_t>(*seed_ptr) : 0u;
+  const PhiloxKey key(dropout ? static_cast<uint32_t>(*seed_ptr) : 0u);
   for (int i = threadIdx.x; i < Tn * dh; i += kSimtThreads) {
     const int j = i / dh, d = i - j * dh;
     const size_t gi = base + (size_t)j * D + d;
@@ -403,7 +671,7 @@ attention_bwd_simt(const float* __restrict__ q, const float* __restrict__ k,
         s[c] = s[c] / sum;                     // p
         float kf = 1.f;
         if (dropout)
-          kf = dropout_bits(seed, b, h, i, j) >= thresh ? keep_scale : 0.f;
+          kf = dropout_bits(key, b, h, i, j) >= thresh ? keep_scale : 0.f;
         pds[i * Tn + j] = s[c] * kf;           // pd
         dpd[c] *= kf;                          // dp
         rs += dpd[c] * s[c];
@@ -903,7 +1171,7 @@ attention_fwd_tc(const __grid_constant__ CUtensorMap tq,
     const int r0 = 64 * g + rl0;
     const int qc = (lane & 3) * 2;
     const bool leader = (threadIdx.x & 127) == 0;
-    const uint32_t seed = DROP ? static_cast<uint32_t>(*seed_ptr) : 0u;
+    const PhiloxKey key(DROP ? static_cast<uint32_t>(*seed_ptr) : 0u);
     const bool has_rows = 64 * g < Tn;
     const int rs = bias_row_stride(bias_mode, Tn);
     unsigned char* ob = obuf + g * G::kBoxes * kORegion;
@@ -941,7 +1209,9 @@ attention_fwd_tc(const __grid_constant__ CUtensorMap tq,
         const uint32_t dead =
             softmax_rows<true>(s, masked, masked_at<TB>(), i0, i1);
         // P (with its dropout) rounded to bf16, packed in place as the A
-        // fragments of P.V: 16 keys per k-step
+        // fragments of P.V: 16 keys per k-step; the lane's draws all share
+        // rows r0 and r0 + 8
+        const PhiloxRow prow = philox_row(key, b, h, r0);
         uint32_t pa[8][4];
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk) {
@@ -954,7 +1224,7 @@ attention_fwd_tc(const __grid_constant__ CUtensorMap tq,
             p[hf][2] = s[4 * c + 2] * i1;
             p[hf][3] = s[4 * c + 3] * i1;
             if (DROP && !((dead >> c) & 1u)) {
-              const uint4 r = dropout_bits4(seed, b, h, r0, 8 * c + qc);
+              const uint4 r = dropout_bits4_at(prow, key, 4 * c + (qc >> 1));
               p[hf][0] = drop(p[hf][0], r.x, thresh, keep_scale);
               p[hf][1] = drop(p[hf][1], r.y, thresh, keep_scale);
               p[hf][2] = drop(p[hf][2], r.z, thresh, keep_scale);
@@ -1154,7 +1424,9 @@ attention_bwd_tc(const __grid_constant__ CUtensorMap tq,
     const int r0 = 64 * g + 16 * wl + (lane >> 2), r1 = r0 + 8;
     const int qc = (lane & 3) * 2;
     const bool leader = (threadIdx.x & 127) == 0;
-    const uint32_t seed = dropout ? static_cast<uint32_t>(*seed_ptr) : 0u;
+    // keys added at each use (PhiloxSeed): held in registers (PhiloxKey), or
+    // with the draws' row terms hoisted, ptxas spills here
+    const PhiloxSeed key(dropout ? static_cast<uint32_t>(*seed_ptr) : 0u);
     const int rs = bias_row_stride(bias_mode, Tn);
     int stage = 0, held = -1;
     uint32_t phase = 0, gen = 0;
@@ -1217,7 +1489,7 @@ attention_bwd_tc(const __grid_constant__ CUtensorMap tq,
       for (int c = 0; c < 16; ++c) {
         float kf[4] = {1.f, 1.f, 1.f, 1.f};
         if (dropout) {
-          const uint4 r = dropout_bits4(seed, b, h, r0, 8 * c + qc);
+          const uint4 r = dropout_bits4(key, b, h, r0, 8 * c + qc);
           kf[0] = r.x >= thresh ? keep_scale : 0.f;
           kf[1] = r.y >= thresh ? keep_scale : 0.f;
           kf[2] = r.z >= thresh ? keep_scale : 0.f;
@@ -1517,6 +1789,34 @@ cudaError_t allow_optin_dh(int optin) {
   return cudaSuccess;
 }
 
+// shared memory a CTA of dropout_mask may stage in (both copies): the
+// default limit, so no opt-in, and kMaskCtasPerSm CTAs fit on an SM
+constexpr int kMaskStageBytes = 48 * 1024;
+
+// dropout_mask's launch for T: 8-byte stores straight to device memory
+// when T is a multiple of 8; else byte stores, staged in shared memory
+// where the two copies fit (T up to 156), straight to device memory above.
+int keep_mask_launch(const int* seed, uint8_t* out, int B, int T, int H,
+                     uint32_t thresh, int sms, cudaStream_t st) {
+  constexpr int kCols = 2 * kMaskDraws;
+  const int n_cb = (T + kCols - 1) / kCols;               // column blocks
+  const int n_gi = (T >> 4) * 8 + ((T & 15) < 8 ? (T & 15) : 8);  // rows, bit 3 clear
+  const int n_items = B * H, ctas = kMaskCtasPerSm * sms;
+  const int grid = n_items < ctas ? n_items : ctas;
+  const int smem = 2 * mask_buffer_bytes(T);
+  if (T % 8 == 0)
+    dropout_mask<8, false><<<grid, kMaskThreads, 0, st>>>(
+        seed, out, n_items, T, H, n_cb, n_gi, thresh);
+  else if (smem <= kMaskStageBytes)
+    dropout_mask<1, true><<<grid, kMaskThreads, smem, st>>>(
+        seed, out, n_items, T, H, n_cb, n_gi, thresh);
+  else
+    dropout_mask<1, false><<<grid, kMaskThreads, 0, st>>>(
+        seed, out, n_items, T, H, n_cb, n_gi, thresh);
+  return cudaGetLastError();
+}
+
+
 }  // namespace
 
 extern "C" {
@@ -1638,17 +1938,21 @@ int packed_attention_backward(const void* q, const void* k, const void* v,
 }
 
 // The (B, H, T, T) keep mask (one byte per element, 1 = kept) that the
-// forward and the backward draw for the int32 at `seed` and `thresh`.
-// Enqueued on `stream`; returns a cudaError_t.
+// forward and the backward draw for the int32 at `seed` and `thresh`, for
+// any T; packed_attention_prepare called on `device`. Enqueued on
+// `stream`; returns a cudaError_t.
 int packed_attention_keep_mask(const void* seed, void* out, int B, int T,
                                int H, unsigned int thresh, int device,
                                void* stream) {
-  if (B == 0 || T == 0) return cudaSuccess;
+  if (B == 0 || T == 0 || H == 0) return cudaSuccess;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (g_sms[device] <= 0) return cudaErrorInitializationError;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  dropout_mask<<<B * H, kMaskThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(seed), static_cast<uint8_t*>(out), T, H, thresh);
-  return cudaGetLastError();
+  if ((long long)T * T > INT_MAX) return cudaErrorInvalidValue;
+  return keep_mask_launch(static_cast<const int*>(seed),
+                          static_cast<uint8_t*>(out), B, T, H, thresh,
+                          g_sms[device], static_cast<cudaStream_t>(stream));
 }
 
 const char* packed_attention_error_string(int err) {

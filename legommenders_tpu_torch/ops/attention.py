@@ -45,6 +45,11 @@ The dropout bits are Philox4x32-10, a pure function of (seed, b, h, i, j)
 (see the source's header); `dropout_bits_reference` computes the same
 function in PyTorch, so the CPU and the card draw the same mask from the
 same seed. An element is kept iff its bits >= floor(dropout_p * 2^32).
+The three kernels share one draw; the keep-mask kernel `dropout_mask`,
+bound by the draws' wide products, walks the (b, h) items with a
+persistent grid, eight draws per thread and unit of work found by shifts
+and masks, and writes 8- or 16-byte stores (T a multiple of 8) or stages
+each item in shared memory for one bulk copy (other T).
 
 `packed_attention` is a torch.autograd.Function with the JAX signature: it
 keeps q, k, v, the bias and the seed for the backward and gives no gradient
@@ -305,6 +310,7 @@ def dropout_keep_mask(num_heads: int, dropout_p: float, B: int, T: int, seed,
         return out
     lib = _kernel_lib()
     dev = _device_index(seed)
+    _prepare(dev)
     _check(lib, lib.packed_attention_keep_mask(
         seed.data_ptr(), out.data_ptr(), B, T, num_heads, thresh, dev,
         torch.cuda.current_stream(device).cuda_stream), "keep-mask launch")

@@ -3,7 +3,7 @@
 trees can be compared in one run (parent, change, change, parent):
 
     python3 legommenders_tpu_torch/tools/time_kernels.py --root DIR \
-        [--kernels pool,attention] [--out FILE]
+        [--kernels pool,attention,mask] [--out FILE]
 
 Imports legommenders_tpu_torch from DIR (its kernels built there at first
 use) and times, with chip_smoke.time_ms, REPS times each (median, min,
@@ -19,7 +19,10 @@ max), on chip_smoke.py's inputs taken from this checkout for either tree:
     scaled_dot_product_attention (forward, and forward + backward) over 50
     calls; and the wrapper's host cost per call: time.perf_counter over
     1,000 calls enqueued while a sleep kernel holds the card, so that no
-    call waits for the device.
+    call waits for the device;
+  - mask: the dropout keep-mask kernel at dropout 0.1 over 50 calls, at
+    the training page (171 x 12 heads, T = 120, chip_smoke.mask_shape)
+    and at the serving page's T = 102 (byte stores, staged).
 Prints one JSON object (and writes it to --out).
 """
 import argparse
@@ -38,7 +41,7 @@ sys.path.insert(0, CHECKOUT)
 import chip_smoke  # noqa: E402  (no top-level torch or port import)
 
 CALLS, REPS = 50, 5
-KERNELS = ("pool", "attention")
+KERNELS = ("pool", "attention", "mask")
 
 
 def _stats(xs):
@@ -122,6 +125,18 @@ def attention_cases(torch, device):
     return cases
 
 
+def mask_cases(torch, device):
+    """(name, fn, calls) of the keep-mask kernel at bert-naml's pages."""
+    from legommenders_tpu_torch.ops.attention import dropout_keep_mask
+
+    seed = torch.tensor([20231], dtype=torch.int32, device=device)
+    return [(f"mask T{T}", functools.partial(
+                dropout_keep_mask, heads, chip_smoke.TRAIN_DROPOUT, B, T,
+                seed), CALLS)
+            for B, heads, T in (chip_smoke.mask_shape(chip_smoke.TRAIN_PAGE),
+                                chip_smoke.mask_shape(chip_smoke.ATTN_PAGE))]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", required=True)
@@ -156,6 +171,8 @@ def main() -> int:
         with torch.no_grad():
             res["host_us_fwd"] = _host_us(torch, by_name["train p0.1 fwd"])
             res["host_us_bwd"] = _host_us(torch, by_name["train p0.1 bwd"])
+    if "mask" in kernels:
+        cases += mask_cases(torch, device)
     # outside no_grad: the SDPA case runs its backward
     times = {name: [] for name, _, _ in cases}
     for _ in range(REPS):

@@ -13,6 +13,8 @@ plain backward, which follows `_bwd_kernel` step by step, must equal
 autograd of the plain forward (1e-5) with and without a mask, and the
 port's own Philox mask must be a deterministic function of the seed.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -205,3 +207,85 @@ def test_philox_matches_random123_known_answers(ctr, key, want):
     got = _philox4x32_10([torch.tensor([c], dtype=torch.int64) for c in ctr],
                          key)
     assert [int(w) for w in got] == list(want)
+
+
+def _row_hoisted_draw(seed, b, h, i0, jp):
+    """The kernels' split of one draw (csrc/packed_attention.cu
+    `philox_row` + `dropout_bits4_at`): what rounds 0 and 1 take from
+    (i0, h, b) once per row, then per column pair two products and three
+    XORs before rounds 2-9."""
+    from legommenders_tpu_torch.ops.attention import (
+        _PHILOX_M, _PHILOX_W, _U32, _mulhilo,
+    )
+
+    t = functools.partial(torch.tensor, dtype=torch.int64)
+    kx = [(seed + r * _PHILOX_W[0]) & _U32 for r in range(10)]
+    hi1, lo1 = _mulhilo(_PHILOX_M[1], t([h]))                   # philox_row
+    hia, loa = _mulhilo(_PHILOX_M[0], hi1 ^ i0 ^ kx[0])
+    q, p, r = lo1 ^ kx[1], hia ^ _PHILOX_W[1], loa
+    hi0, lo0 = _mulhilo(_PHILOX_M[0], t([jp]))                  # per draw
+    hi1, lo1 = _mulhilo(_PHILOX_M[1], hi0 ^ b)
+    c = [hi1 ^ q, lo1, lo0 ^ p, r]
+    for rnd in range(2, 10):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c[0])
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c[2])
+        c = [hi1 ^ c[1] ^ kx[rnd], lo1, hi0 ^ c[3] ^ ((rnd * _PHILOX_W[1]) & _U32),
+             lo0]
+    return [int(w) for w in c]
+
+
+@pytest.mark.parametrize("seed,b,h,i0,jp", [
+    (0, 0, 0, 0, 0), (20231, 170, 11, 119, 59), (0xFFFFFFFF, 3, 7, 23, 1),
+    (0x7FFFFFFF, 2 ** 31 - 1, 2 ** 16, 2 ** 20 + 7, 2 ** 31 + 5)])
+def test_row_hoisted_draw_is_philox(seed, b, h, i0, jp):
+    """Hoisting rounds 0-1's row terms out of the draw, as the mask, the
+    forward and the backward kernels do, keeps Philox4x32-10 of counter
+    (jp, i0, h, b) and key (seed, 0) bit for bit."""
+    from legommenders_tpu_torch.ops.attention import _philox4x32_10
+
+    want = _philox4x32_10([torch.tensor([c], dtype=torch.int64)
+                           for c in (jp, i0, h, b)], (seed, 0))
+    assert _row_hoisted_draw(seed, b, h, i0, jp) == [int(w) for w in want]
+
+
+def _column_split_draw(seed, b, h, i0, jp):
+    """The mask kernel's split of one draw (csrc/packed_attention.cu
+    `philox_col`, `philox_head`, `philox_col_item`, `philox_row2`,
+    `dropout_bits4_split`): round 0's products of jp and of h, rounds 1-2's
+    of (jp, b) and (jp, b, h), round 1's of (i0, h), then per draw round
+    2's product of (jp, i0, h) and rounds 3-9."""
+    from legommenders_tpu_torch.ops.attention import (
+        _PHILOX_M, _PHILOX_W, _U32, _mulhilo,
+    )
+
+    t = functools.partial(torch.tensor, dtype=torch.int64)
+    kx = [(seed + r * _PHILOX_W[0]) & _U32 for r in range(10)]
+    col_hi, col_lo = _mulhilo(_PHILOX_M[0], t([jp]))            # philox_col
+    head_hi, head_lo = _mulhilo(_PHILOX_M[1], t([h]))           # philox_head
+    zh, zl = _mulhilo(_PHILOX_M[1], col_hi ^ b)                 # philox_col_item
+    xh, xl = _mulhilo(_PHILOX_M[0], zh ^ head_lo ^ kx[1])
+    ci = (zl ^ kx[2], xh ^ ((2 * _PHILOX_W[1]) & _U32), xl)
+    rh, rl = _mulhilo(_PHILOX_M[0], head_hi ^ i0 ^ kx[0])       # philox_row2
+    row_p, row_w = rh ^ _PHILOX_W[1], rl
+    hi, lo = _mulhilo(_PHILOX_M[1], row_p ^ col_lo)             # per draw
+    c = [hi ^ ci[0], lo, ci[1] ^ row_w, ci[2]]
+    for rnd in range(3, 10):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c[0])
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c[2])
+        c = [hi1 ^ c[1] ^ kx[rnd], lo1, hi0 ^ c[3] ^ ((rnd * _PHILOX_W[1]) & _U32),
+             lo0]
+    return [int(w) for w in c]
+
+
+@pytest.mark.parametrize("seed,b,h,i0,jp", [
+    (0, 0, 0, 0, 0), (20231, 170, 11, 119, 59), (0xFFFFFFFF, 3, 7, 23, 1),
+    (0x7FFFFFFF, 2 ** 31 - 1, 2 ** 16, 2 ** 20 + 7, 2 ** 31 + 5)])
+def test_column_split_draw_is_philox(seed, b, h, i0, jp):
+    """Taking a draw's column, head and item terms apart from its row's, as
+    the mask kernel does, keeps Philox4x32-10 of counter (jp, i0, h, b) and
+    key (seed, 0) bit for bit."""
+    from legommenders_tpu_torch.ops.attention import _philox4x32_10
+
+    want = _philox4x32_10([torch.tensor([c], dtype=torch.int64)
+                           for c in (jp, i0, h, b)], (seed, 0))
+    assert _column_split_draw(seed, b, h, i0, jp) == [int(w) for w in want]

@@ -4,7 +4,8 @@ any csrc/ header it includes is newer; every device-side name that
 chip_smoke.py matches in a profile is a kernel of its source, and no name
 is part of another; which pool kernel takes which dtype and widths; the
 attention pages and pool shapes chip_smoke.py and the A/B timer share;
-the pool's and the keep mask's bounds chip_smoke.py reports.
+the pool's and the keep mask's bounds chip_smoke.py reports; the keep-mask
+kernel's work map; the SASS and integer-rate tools' counting.
 """
 import os
 import re
@@ -120,8 +121,12 @@ def test_attention_timer_uses_the_smoke_runs_inputs_and_timer():
 
     assert time_kernels.chip_smoke is chip_smoke
     for own_copy in ("HEAD_START_CYCLES", "pool_inputs", "attention_inputs",
-                     "time_ms", "POOLS"):
+                     "time_ms", "POOLS", "mask_shape", "TRAIN_DROPOUT"):
         assert not hasattr(time_kernels, own_copy)
+    # the mask set times the training page's mask and a ragged T
+    assert "mask" in time_kernels.KERNELS
+    assert [chip_smoke.mask_shape(p)[2] % 8 for p in
+            (chip_smoke.TRAIN_PAGE, chip_smoke.ATTN_PAGE)] == [0, 6]
 
 
 # every (L, D, H) a main path pools at: NAML items (31), bert-naml items
@@ -215,21 +220,142 @@ def test_philox_draws_cover_the_mask_once(T):
     assert len(seen) == T * T and set(seen.values()) == {1}
 
 
+@pytest.mark.parametrize("T", [1, 7, 8, 9, 16, 17, 102, 120, 127, 128, 129,
+                               200, 2049])
+def test_mask_work_map_covers_the_mask_once(T):
+    """dropout_mask's thread -> work map (chip_smoke.mask_units: a column
+    block per thread, rows by shifts and masks) covers every (i, j) of a
+    T x T mask exactly once, through the four words of each draw it keeps;
+    its draws past T are only those of the last block's columns; every
+    store of W bytes starts on W in the (B, H, T, T) array and lies inside
+    its row; with fewer column blocks than threads, a thread keeps one."""
+    D = chip_smoke.MASK_DRAWS
+    n_cb, n_gi, W = chip_smoke.mask_layout(T)
+    assert n_cb == -(-T // (2 * D)) and W in (1, 8)
+    assert n_gi == sum(1 for i in range(T) if not i & 8)
+    seen, draws, blocks = {}, 0, {}
+    rows = set(range(T)) if T <= 200 else {0, 7, 16, T - 1}
+    for t, i0, j0, nv in chip_smoke.mask_units(T):
+        assert not i0 & 8 and i0 < T and j0 % (2 * D) == 0
+        assert 0 < nv <= 2 * D and j0 + nv <= T
+        blocks.setdefault(t, set()).add(j0)
+        if W == 8:
+            assert nv == 8
+        for row in (i0, i0 + 8):
+            start = T * T + row * T + j0  # the next item's, so the base too
+            assert row >= T or start % W == 0
+        for d in range(D):
+            j = j0 + 2 * d
+            draws += j < T
+            for e in ((i0, j), (i0, j + 1), (i0 + 8, j), (i0 + 8, j + 1)):
+                if e[0] < T and e[1] < T and (e[0] in rows or T <= 200):
+                    assert j0 <= e[1] < j0 + nv
+                    seen[e] = seen.get(e, 0) + 1
+    assert len(seen) == len(rows) * T and set(seen.values()) == {1}
+    assert draws == chip_smoke.philox_draws(T)
+    if n_cb < chip_smoke.MASK_THREADS:
+        assert all(len(js) == 1 for js in blocks.values())
+
+
+def test_mask_mirror_takes_the_sources_unit():
+    """chip_smoke's mirror of the work map takes the kernel's draws per
+    unit and threads per CTA (kMaskDraws, kMaskThreads in
+    csrc/packed_attention.cu)."""
+    with open(build.source("packed_attention")) as f:
+        src = f.read()
+    draws = re.search(r"constexpr int kMaskDraws = (\d+);", src)
+    threads = re.search(r"constexpr int kMaskThreads = (\d+);", src)
+    assert draws and int(draws.group(1)) == chip_smoke.MASK_DRAWS
+    assert threads and int(threads.group(1)) == chip_smoke.MASK_THREADS
+
+
+def _philox_words_read(rnd: int):
+    """For round rnd of Philox4x32-10 at counter (jp, i, h, b) and key
+    (seed, 0): the counter words that each of its two product inputs and
+    each of its two XOR outputs holds, found by changing one word at a
+    time over a small grid."""
+    import itertools as it
+    import torch
+    from legommenders_tpu_torch.ops.attention import (
+        _PHILOX_M, _PHILOX_W, _U32, _mulhilo,
+    )
+
+    grid = {"jp": [0, 1, 59], "i": [0, 7, 119], "h": [0, 5, 11],
+            "b": [0, 2, 170]}
+    names = list(grid)
+    combos = list(it.product(*grid.values()))
+    c = [torch.tensor([x[k] for x in combos], dtype=torch.int64)
+         for k in range(4)]
+    k0, k1 = 20231, 0
+    for _ in range(rnd):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c[0])
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c[2])
+        c = [hi1 ^ c[1] ^ k0, lo1, hi0 ^ c[3] ^ k1, lo0]
+        k0, k1 = (k0 + _PHILOX_W[0]) & _U32, (k1 + _PHILOX_W[1]) & _U32
+    hi0, lo0 = _mulhilo(_PHILOX_M[0], c[0])
+    hi1, lo1 = _mulhilo(_PHILOX_M[1], c[2])
+    values = (c[0], c[2], hi1 ^ c[1] ^ k0, hi0 ^ c[3] ^ k1)
+
+    def words(v):
+        table = dict(zip(combos, v.tolist()))
+        held = set()
+        for x in combos:
+            for k, name in enumerate(names):
+                for other in grid[name]:
+                    y = x[:k] + (other,) + x[k + 1:]
+                    if table[y] != table[x]:
+                        held.add(name)
+        return held
+
+    return [words(v) for v in values]
+
+
+@pytest.mark.parametrize("rnd", range(10))
+def test_philox_terms_hold_the_words_the_bound_counts(rnd):
+    """chip_smoke.PHILOX_PRODUCT_WORDS / PHILOX_XOR_WORDS, from which the
+    mask's bound counts each product and XOR once per distinct value of
+    its counter words, are the words each really holds."""
+    x_in, z_in, x_out, z_out = _philox_words_read(rnd)
+    assert [x_in, z_in] == [set(w) for w in
+                            chip_smoke.PHILOX_PRODUCT_WORDS[rnd]]
+    assert [x_out, z_out] == [set(w) for w in
+                              chip_smoke.PHILOX_XOR_WORDS[rnd]]
+
+
 def test_mask_bound_counts_the_philox_work():
-    """The training page's mask: 7,879,680 draws of 24 integer-ALU
-    operations each outlast its 2.95 MB of bytes."""
-    B, heads, T = 171, 12, 120
-    assert B * heads * chip_smoke.philox_draws(T) == 7_879_680
+    """The training page's mask (chip_smoke.mask_shape): 7,879,680 draws,
+    each 14 products and 16 XORs that hold all of (jp, i, h, b) plus the
+    terms of rounds 0-2 that hold fewer, and 14,400 compares an item; at
+    the measured rates the products outlast the ALU's work and the 2.95 MB
+    of bytes."""
+    B, heads, T = chip_smoke.mask_shape(chip_smoke.TRAIN_PAGE)
+    assert (B, heads, T) == (171, 12, 120)
+    assert chip_smoke.mask_shape(chip_smoke.ATTN_PAGE) == (171, 12, 102)
+    draws = B * heads * chip_smoke.philox_draws(T)
+    assert draws == 7_879_680
+    R, J = 64, 60
+    products, xors = chip_smoke.philox_ops(B, heads, T)
+    assert products == (14 * draws + B * heads * J + heads * R * J
+                        + heads * R + B * J + J + heads)
+    assert xors == (16 * draws + B * heads * J + heads * R * J
+                    + heads * R + B * J)
     ms, by = chip_smoke.mask_bound(B, heads, T)
     assert by == "operations"
-    assert ms == pytest.approx(7_879_680 * 24 / chip_smoke.INT_PER_S * 1e3)
+    clocks = chip_smoke.SMS * chip_smoke.SM_HZ
+    alu = (xors + B * heads * T * T) / (chip_smoke.ALU_PER_CLK * clocks)
+    fma = products / (chip_smoke.IMAD_WIDE_PER_CLK * clocks)
+    assert fma > alu
+    assert ms == pytest.approx(fma * 1e3)
+    assert ms == pytest.approx(0.013211640553)
     assert ms > B * heads * T * T / chip_smoke.HBM_BYTES_PER_S * 1e3
 
 
 def test_sass_count_takes_the_kernels_last_loop():
     """tools/sass_count.py: the first function whose name holds the
-    kernel's, the body of its last backward branch, counted by opcode and
-    by pipe (the trailing self-branch is no loop)."""
+    kernel's, the body of its last innermost loop (a backward branch whose
+    range holds no other; the trailing self-branch is no loop), counted by
+    opcode, by IMAD form, by pipe, per draw, with the opcodes of a division
+    sequence apart."""
     sys.path.insert(0, os.path.join(ROOT, "legommenders_tpu_torch", "tools"))
     import sass_count
 
@@ -237,7 +363,7 @@ def test_sass_count_takes_the_kernels_last_loop():
         Function : _ZN5other12dropout_maskXv
         /*0000*/   IMAD R1, R2, R3, RZ ;
         /*0010*/   @!P0 BRA 0x0 ;
-        Function : _ZN4anon12dropout_maskEPKiPhiij
+        Function : _ZN4anon12dropout_maskILi8EEvPKiPhiiiiij
         /*0000*/   LDC R1, c[0x0][0x28] ;
         /*0010*/   IMAD.WIDE.U32 R2, R3, -0x2daee0ad, RZ ;
         /*0020*/   LOP3.LUT R4, R4, 0x1, RZ, 0xc0, !PT ;
@@ -248,9 +374,63 @@ def test_sass_count_takes_the_kernels_last_loop():
         Function : _Z4nextv
         /*0000*/   IADD3 R1, R1, 0x1, RZ ;
     """
-    insts = sass_count.instructions(sass, "dropout_maskEP")
+    insts = sass_count.instructions(sass, "dropout_maskILi8E")
     assert [a for a, _ in insts] == [0, 0x10, 0x20, 0x30, 0x40, 0x50, 0x60]
     got = sass_count.count(sass_count.loop_body(insts))
-    assert got == {"range": ["0x10", "0x40"], "instructions": 4,
+    assert got == {"range": ["0x10", "0x40"], "instructions": 4, "draws": 1,
+                   "per_draw": 4.0,
                    "by_pipe": {"fma": 1, "alu": 1, "other": 2},
-                   "by_opcode": {"IMAD": 1, "LOP3": 1, "STG": 1, "BRA": 1}}
+                   "by_opcode": {"IMAD": 1, "LOP3": 1, "STG": 1, "BRA": 1},
+                   "imad_forms": {"IMAD.WIDE.U32": 1}, "division": {}}
+    # an outer loop (items) around an inner one (units of 4 draws, with a
+    # division sequence): the inner one is counted, per draw
+    nested = """
+        Function : _Z12dropout_maskv
+        /*0000*/   IADD3 R1, R1, 0x1, RZ ;
+        /*0010*/   I2F.U32.RP R5, R6 ;
+        /*0020*/   MUFU.RCP R5, R5 ;
+        /*0030*/   IMAD.HI.U32 R2, R3, R4, RZ ;
+        /*0040*/   @!P0 BRA 0x10 ;
+        /*0050*/   IADD3 R1, R1, 0x1, RZ ;
+        /*0060*/   @!P1 BRA 0x0 ;
+        /*0070*/   EXIT ;
+    """
+    got = sass_count.count(sass_count.loop_body(
+        sass_count.instructions(nested, "dropout_mask")), draws=4)
+    assert got["range"] == ["0x10", "0x40"] and got["per_draw"] == 1.0
+    assert got["division"] == {"I2F": 1, "MUFU": 1}
+    assert got["imad_forms"] == {"IMAD.HI.U32": 1}
+
+
+def test_int_rates_count_each_kernels_loop_by_kind():
+    """tools/int_rates.py counts, in each int_rate<op>'s loop, the
+    instructions of the op's kind (IMAD.WIDE for op 0, LOP3 and ISETP for
+    op 4, IMAD and LOP3 but not IMAD.WIDE for op 6) beside all of the
+    loop's."""
+    sys.path.insert(0, os.path.join(ROOT, "legommenders_tpu_torch", "tools"))
+    import int_rates
+
+    sass = """
+        Function : _ZN48_GLOBAL__N__int_rates8int_rateILi0EEEvPKjPjiPx
+        /*0000*/   CS2R R4, SR_CLOCKLO ;
+        /*0010*/   IMAD.WIDE.U32 R2, R3, R6, R8 ;
+        /*0020*/   IMAD.WIDE.U32 R8, R9, R2, R4 ;
+        /*0030*/   IADD3 R1, R1, 0x1, RZ ;
+        /*0040*/   @P0 BRA 0x10 ;
+        Function : _ZN48_GLOBAL__N__int_rates8int_rateILi4EEEvPKjPjiPx
+        /*0000*/   LOP3.LUT R2, R3, R4, R5, 0x96, !PT ;
+        /*0010*/   ISETP.GE.U32.AND P1, PT, R2, R4, P1 ;
+        /*0020*/   SEL R6, RZ, 0x1, !P1 ;
+        /*0030*/   @P0 BRA 0x0 ;
+        Function : _ZN48_GLOBAL__N__int_rates8int_rateILi6EEEvPKjPjiPx
+        /*0000*/   IMAD R2, R3, R4, R5 ;
+        /*0010*/   LOP3.LUT R2, R2, R4, R5, 0x96, !PT ;
+        /*0020*/   IMAD.WIDE.U32 R6, R3, R4, RZ ;
+        /*0030*/   @P0 BRA 0x0 ;
+    """
+    assert int_rates.loop_counts(sass, 0) == (2, 4)
+    assert int_rates.loop_counts(sass, 4) == (2, 4)
+    assert int_rates.loop_counts(sass, 6) == (2, 4)
+    assert set(name for name, _ in int_rates.OPS.values()) == {
+        "imad_wide", "imad_hi", "imad", "lop3", "lop3_isetp", "philox_mix",
+        "imad_lop3", "philox_mix_2"}

@@ -472,27 +472,57 @@ def test_attention_autograd_runs_both_kernels(device):
         assert _close(a, b, "bf16")
 
 
-@pytest.mark.parametrize("B,T,heads", [(3, 120, 12), (2, 9, 2), (1, 128, 3),
-                                       (4, 1, 2), (5, 33, 4)])
-def test_keep_mask_kernel_matches_plain_philox(device, B, T, heads):
-    """Exact agreement with the plain Philox; the same seed gives the same
-    mask, another seed another; the keep fraction within 4 sigma of 0.9."""
-    p = 0.1
+# "at bits": the threshold set to one element's bits (kept: bits >= it)
+@pytest.mark.parametrize("B,T,heads,p,side_stream", [
+    (3, 120, 12, 0.1, False), (2, 9, 2, 0.1, False), (1, 128, 3, 0.1, False),
+    (4, 1, 2, 0.1, False), (5, 33, 4, 0.1, False),
+    # the serving page's T (byte stores, staged), B * H above the persistent
+    # grid (4 CTAs per SM); the training page on a stream of its own
+    (171, 102, 12, 0.1, False), (171, 120, 12, 0.1, True),
+    # T > 128: staged (129), 8-byte stores (200), and T = 170, whose two
+    # staged copies would not fit, straight to device memory
+    (2, 129, 3, 0.1, False), (3, 200, 2, 0.5, False),
+    (2, 170, 2, 0.1, False),
+    # byte stores staged (124, 4 mod 8) and straight to device memory (164,
+    # 4 mod 8; 157, odd); more column blocks than a CTA's threads (2049
+    # bytes, 2056 8-byte stores)
+    (3, 124, 2, 0.1, False), (2, 164, 2, 0.1, False),
+    (2, 157, 3, 0.1, False), (1, 2049, 1, 0.1, False),
+    (1, 2056, 2, 0.1, False),
+    (6, 64, 12, 1e-4, False), (8, 64, 4, 0.999, False),
+    (4, 120, 2, "at bits", False), (2, 102, 12, "at bits", True),
+])
+def test_keep_mask_kernel_matches_plain_philox(device, B, T, heads, p,
+                                               side_stream):
+    """Exact agreement with the plain Philox, at any T, on any stream; the
+    same seed gives the same mask, another seed another; the keep fraction
+    within 4 sigma of 1 - p."""
     seed = torch.tensor([99 + T], dtype=torch.int32, device=device)
+    bits = dropout_bits_reference(heads, B, T, 99 + T, device)
+    at = (B - 1, heads - 1, T - 1, T // 2)
+    if p == "at bits":
+        p = int(bits[at]) / 2.0 ** 32
+        assert keep_threshold(p) == int(bits[at])
+    want = bits >= keep_threshold(p)
+    del bits
+    stream = torch.cuda.Stream(device) if side_stream else \
+        torch.cuda.current_stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
     before = dropout_keep_mask.launches
-    got = dropout_keep_mask(heads, p, B, T, seed)
-    torch.cuda.synchronize()
+    with torch.cuda.stream(stream):
+        got = dropout_keep_mask(heads, p, B, T, seed)
+    stream.synchronize()
     assert dropout_keep_mask.launches == before + 1
-    want = dropout_bits_reference(heads, B, T, 99 + T, device) >= \
-        keep_threshold(p)
+    assert got.dtype == torch.bool and got.view(torch.uint8).max() <= 1
     assert torch.equal(got, want)
+    assert bool(got[at]) == bool(want[at])
     assert torch.equal(got, dropout_keep_mask(heads, p, B, T, seed))
     n = got.numel()
     if n >= 1000:
         other = dropout_keep_mask(heads, p, B, T, seed + 1)
         assert not torch.equal(got, other)
         frac = got.float().mean().item()
-        assert abs(frac - 0.9) <= 4 * (0.9 * 0.1 / n) ** 0.5
+        assert abs(frac - (1 - p)) <= 4 * (p * (1 - p) / n) ** 0.5
 
 
 # ---------------------------------------------------------------------------

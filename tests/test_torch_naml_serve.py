@@ -181,6 +181,21 @@ def test_manager_requires_cuda_unless_cpu(monkeypatch):
         Manager(model_cfg=MODEL_CFG, data=data)
 
 
+@pytest.mark.parametrize("entry", ["ReprCache", "Evaluator"])
+def test_entry_points_require_cuda_unless_cpu(entry, monkeypatch):
+    """The caches and the evaluator default to the card and raise without
+    one, as the Manager does (the Tester runs on its Manager's device)."""
+    from legommenders_tpu_torch.runtime.cacher import ReprCache
+    from legommenders_tpu_torch.runtime.evaluator import Evaluator
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    make = {"ReprCache": lambda: ReprCache(None, {"title": np.zeros((2, 3))},
+                                           np.zeros((1, 2))),
+            "Evaluator": lambda: Evaluator(None, None, ["AUC"], cache=object())}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make[entry]()
+
+
 def test_port_imports_nothing_of_jax():
     """The port and chip_smoke.py import no jax/flax/optax and nothing of
     the JAX package."""
