@@ -75,13 +75,36 @@ and exits non-zero when any phase fails:
        precision_check); and the bf16 cache built through the kernel and
        through the plain unfused attention, each against the f32 cache;
      - NAML: 1 warm and 3 timed steps, 2 pool launches per step;
-  6. prints one JSON line of kernels, the card line, and
+  6. the run loop on the same fixture, bf16, through the entry points a
+     user calls (each path's launch counts set to 0 just before it, read
+     just after and held against the count the code gives):
+     1. NAML through Trainer.train() + test() on host batches (TrainBatcher
+        with the C negative sampler, a Prefetcher moving batches to the
+        card): batches of 2,048, 2 epochs of 8 steps, 4 warmup updates,
+        dev through the caches each epoch, the best checkpoint saved and
+        reloaded (bit for bit what was saved, scoring as the in-memory
+        copy does); step ms (median after the first step, each step timed
+        to the card's end of it), impressions/s, the share of the loop
+        spent waiting for batches, checkpoint bytes and save/load seconds;
+     2. the same Trainer on device batches (`device_batching`), 8 steps;
+     3. the trained model's test phase by full forwards (pages of the eval
+        batch, 8,192, each encoding the catalog and pooling its users),
+        beside the cached Tester.test(): the first 2,048 scores within
+        1e-2 of the cached path's largest score, the metrics within 1e-3;
+     4. Tester.latency over 20 eval batches, cached and by full forwards;
+     5. bert-naml layer-split through the Trainer with item_lr (the LoRA
+        of the upper slice alone in the item LR group), 2 steps of 2,048,
+        dev through the caches;
+     6. the CLI (python -m legommenders_tpu_torch.process / .trainer at
+        `make smoke`'s geometry) on the card, where PyYAML is installed;
+  7. prints one JSON line of kernels, the card line, and
      {"ok": true, "device": {...}} as the last line.
 """
 import itertools
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -1056,6 +1079,352 @@ def run_naml_training(data, device) -> dict:
     return rec
 
 
+# the run loop (phase 6): Trainer at batch 2,048, 4 negatives, 2 epochs of
+# 8 steps, 4 warmup updates, loss read twice an epoch
+RUN_POLICY = {"batch_size": TRAIN_BATCH, "lr": TRAIN_LR, "epoch": 2,
+              "epoch_batch": 8, "n_warmup": 4, "check_interval": -2,
+              "dtype": "bf16"}
+DEVICE_BATCH_STEPS, LATENCY_BATCHES, LM_TRAINER_STEPS = 8, 20, 2
+FULL_SCORE_ROWS = 2048
+# full forward against the cached path: the first scores within 1e-2 of
+# the cached path's largest score (2.5 bf16 steps of it), the metrics
+# within 1e-3 (both paths run the same kernels on the same items; they
+# agreed exactly on an NVIDIA H100 80GB HBM3 at 700 W)
+FULL_SCORE_REL_TOL, FULL_METRIC_TOL = 1e-2, 1e-3
+# the metric engine sums groups with atomics: equal scores give metrics
+# that may differ in their last bits
+METRIC_REPEAT_TOL = 1e-6
+
+
+def _eval_pages(m) -> int:
+    """Pool launches of one pass through the repr caches: one per item page
+    and one per user page."""
+    cache = m.cache
+    return (len(cache.pages(cache.num_items))
+            + len(cache.pages(cache.num_users)))
+
+
+def _timed_trainer(m, seed=0, **kw):
+    """A Trainer whose steps are each timed to the device's end."""
+    from legommenders_tpu_torch.runtime.trainer import Trainer
+    from legommenders_tpu_torch.utils.timer import Timer
+
+    timer = Timer(activate=True)
+    return Trainer(m, seed=seed, timer=timer, **kw), timer
+
+
+def _step_record(tr, timer) -> dict:
+    """Step ms (median of the steps after the first), impressions/s at
+    that median, and the share of the step loop spent waiting for host
+    batches."""
+    step_s = timer.samples["step"]
+    med = statistics.median(step_s[1:])
+    return {"steps": tr.global_step, "step_ms": med * 1e3,
+            "step_ms_first": step_s[0] * 1e3,
+            "impressions_per_s": TRAIN_BATCH / med,
+            "prefetch_wait_s": tr.prefetch_wait_s,
+            "prefetch_wait_share": tr.prefetch_wait_s / (
+                tr.prefetch_wait_s + sum(step_s)),
+            "epochs": tr.epochs}
+
+
+def run_loop_naml(data, device, tmp) -> dict:
+    """6.1: NAML through Trainer.train() + test() on host batches (the
+    default path): dev through the caches each epoch, the best checkpoint
+    saved to `tmp` and reloaded before the test. The checkpoint functions
+    the Trainer calls are wrapped to time them and to keep a copy of what
+    was saved: the reloaded weights must equal it bit for bit and score as
+    it does."""
+    import numpy as np
+    import torch
+    from legommenders_tpu_torch import native
+    from legommenders_tpu_torch.runtime import trainer as trainer_mod
+    from legommenders_tpu_torch.runtime.manager import Manager
+
+    exp = {"policy": dict(RUN_POLICY)}
+    m = Manager(model_cfg=MODEL_CFG, exp_cfg=exp, data=data, device=device,
+                seed=0)
+    ckpt = os.path.join(tmp, "naml.ckpt")
+    tr, timer = _timed_trainer(m, ckpt_path=ckpt)
+    saved, io_s = {}, {"save": [], "load": []}
+    save, load = trainer_mod.save_checkpoint, trainer_mod.load_checkpoint
+
+    def timed_save(path, model, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(path, model, *a, **k)
+        io_s["save"].append(time.perf_counter() - t0)
+        saved.update({n: v.detach().clone()
+                      for n, v in model.state_dict().items()})
+
+    def timed_load(*a, **k):
+        t0 = time.perf_counter()
+        out = load(*a, **k)
+        torch.cuda.synchronize()
+        io_s["load"].append(time.perf_counter() - t0)
+        return out
+
+    rec = {"path": "naml Trainer, host batches", "policy": RUN_POLICY}
+    trainer_mod.save_checkpoint = timed_save
+    trainer_mod.load_checkpoint = timed_load
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        out = tr.train()
+        rec["train_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["test"] = tr.test()
+        torch.cuda.synchronize()
+        rec["test_s"] = time.perf_counter() - t0
+        rec["launches"] = _counts()
+    finally:
+        trainer_mod.save_checkpoint, trainer_mod.load_checkpoint = save, load
+    rec.update(_step_record(tr, timer))
+    rec["best_dev"] = out["best_dev"]
+    rec["sampler"] = native.backend()
+    pages = _eval_pages(m)
+    evals = len(tr.epochs) + 1
+    rec["expected_launches"] = {
+        "additive_pool": 2 * tr.global_step + evals * pages,
+        "packed_attention": 0, "packed_attention_backward": 0,
+        "dropout_keep_mask": 0}
+    rec["pool_launches_per_step"] = (
+        rec["launches"]["additive_pool"] - evals * pages) / tr.global_step
+    rec["checkpoint_bytes"] = os.path.getsize(ckpt)
+    rec["checkpoint_save_s"] = io_s["save"]
+    rec["checkpoint_load_s"] = io_s["load"]
+    rec["reload_bit_exact"] = all(torch.equal(v, saved[n]) for n, v in
+                                  m.model.state_dict().items())
+    m.model.load_state_dict(saved)
+    rec["in_memory_test"] = tr.test()
+    rec["reload_vs_in_memory"] = max(
+        abs(rec["test"][k] - rec["in_memory_test"][k]) for k in rec["test"])
+    problems = []
+    if rec["sampler"] != "c":
+        problems.append("the C negative sampler did not run")
+    if rec["launches"] != rec["expected_launches"]:
+        problems.append("kernel launches")
+    if not (np.isfinite(rec["best_dev"]) and all(
+            np.isfinite(e["loss"]) for e in tr.epochs) and all(
+            np.isfinite(v) and 0 <= v <= 1 for v in rec["test"].values())):
+        problems.append("losses or metrics not finite")
+    if not rec["reload_bit_exact"] or not io_s["load"]:
+        problems.append("the reloaded best differs from what was saved")
+    if rec["reload_vs_in_memory"] > METRIC_REPEAT_TOL:
+        problems.append("the reloaded best scores otherwise")
+    if problems:
+        raise RuntimeError(f"naml Trainer failed ({problems}): {rec}")
+    return rec, m, tr
+
+
+def run_loop_device_batches(data, device) -> dict:
+    """6.2: the same Trainer with `device_batching`, for 8 steps."""
+    import numpy as np
+    import torch
+    from legommenders_tpu_torch.runtime.manager import Manager
+
+    policy = {**RUN_POLICY, "epoch": 1, "epoch_batch": DEVICE_BATCH_STEPS,
+              "device_batching": True}
+    m = Manager(model_cfg=MODEL_CFG, exp_cfg={"policy": policy}, data=data,
+                device=device, seed=0)
+    tr, timer = _timed_trainer(m)
+    rec = {"path": "naml Trainer, device batches", "policy": policy}
+    _zero_counts()
+    out = tr.train()
+    torch.cuda.synchronize()
+    rec["launches"] = _counts()
+    rec.update(_step_record(tr, timer))
+    rec["best_dev"] = out["best_dev"]
+    rec["expected_launches"] = {
+        "additive_pool": 2 * tr.global_step + _eval_pages(m),
+        "packed_attention": 0, "packed_attention_backward": 0,
+        "dropout_keep_mask": 0}
+    if rec["launches"] != rec["expected_launches"] or not np.isfinite(
+            rec["best_dev"]) or tr.global_step != DEVICE_BATCH_STEPS:
+        raise RuntimeError(f"naml Trainer on device batches failed: {rec}")
+    del m, tr
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_full_forward(m, tr) -> dict:
+    """6.3: the trained model's test phase through full forwards (the path
+    of use_fast_eval off), beside the cached Tester.test(). Each page of
+    the eval batch size encodes the whole catalog (full_catalog_encode
+    "auto": the catalog is no larger than 2 B (K + S) occurrences) and
+    pools its users: two pool launches a page."""
+    import torch
+    from legommenders_tpu_torch.runtime.tester import Tester
+
+    ev = tr.evaluator
+    ph = ev.phase("test")
+    P, S = ev.batch_size, m.data.history_matrix().shape[1]
+    n_items = m.data.num_items
+    model = m.model
+    use_catalog = model.full_catalog_encode == "on" or (
+        model.full_catalog_encode == "auto" and n_items <= 2 * P * (1 + S))
+    if not (use_catalog and model.item_page_size == 0):
+        raise RuntimeError("the full-forward pages were expected to encode "
+                           "the catalog in one pass")
+    pages = -(-ph.n // P)
+    rec = {"path": "naml full-forward test", "rows": ph.n,
+           "eval_batch": P, "pages": pages,
+           "expected_launches": {"additive_pool": 2 * pages,
+                                 "packed_attention": 0,
+                                 "packed_attention_backward": 0,
+                                 "dropout_keep_mask": 0}}
+    tester = Tester(m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec["cached_test"] = tester.test()
+    torch.cuda.synchronize()
+    rec["cached_test_s"] = time.perf_counter() - t0
+    cached_scores = ev.score_phase_device("test")
+    _zero_counts()
+    t0 = time.perf_counter()
+    rec["full_test"] = ev.evaluate("test", use_cache=False)
+    torch.cuda.synchronize()
+    rec["full_test_s"] = time.perf_counter() - t0
+    rec["launches"] = _counts()
+    full = ev.score_phase_device_full("test")[:FULL_SCORE_ROWS].float()
+    want = cached_scores[:FULL_SCORE_ROWS].float()
+    rec["score_rel_err"] = float((full - want).abs().max()
+                                 / want.abs().max())
+    rec["metric_max_abs_diff"] = max(
+        abs(rec["full_test"][k] - rec["cached_test"][k])
+        for k in rec["cached_test"])
+    if (rec["launches"] != rec["expected_launches"]
+            or rec["score_rel_err"] > FULL_SCORE_REL_TOL
+            or rec["metric_max_abs_diff"] > FULL_METRIC_TOL):
+        raise RuntimeError(f"full-forward test failed: {rec}")
+    return rec
+
+
+def run_latency(m) -> dict:
+    """6.4: Tester.latency over 20 eval batches, through the caches (their
+    build is one pass of pages) and by full forwards (two pool launches a
+    batch)."""
+    from legommenders_tpu_torch.runtime.tester import Tester
+
+    tester = Tester(m)
+    rec = {"path": "naml Tester.latency", "batches": LATENCY_BATCHES,
+           "eval_batch": tester.evaluator.batch_size}
+    for use_cache, want in ((True, _eval_pages(m)),
+                            (False, 2 * LATENCY_BATCHES)):
+        key = "cached" if use_cache else "full"
+        _zero_counts()
+        rec[f"{key}_ms_per_batch"] = tester.latency(LATENCY_BATCHES,
+                                                    use_cache=use_cache)
+        rec[f"{key}_launches"] = _counts()
+        if rec[f"{key}_launches"]["additive_pool"] != want:
+            raise RuntimeError(f"latency ({key}) launches: {rec}")
+    return rec
+
+
+def run_loop_lm(data, device) -> dict:
+    """6.5: bert-naml layer-split through the Trainer, with item_lr (two
+    LR groups), 2 steps of 2,048, dev through the caches."""
+    import copy
+
+    import numpy as np
+    import torch
+    from legommenders_tpu_torch.runtime.manager import Manager
+
+    cfg = copy.deepcopy(BERT_TRAIN_CFG)
+    cfg["config"]["use_fast_eval"] = True
+    policy = {**RUN_POLICY, "epoch": 1, "epoch_batch": LM_TRAINER_STEPS,
+              "item_lr": TRAIN_LR / 10}
+    m = Manager(model_cfg=cfg, exp_cfg={"policy": policy}, data=data,
+                device=device, seed=0)
+    tr, timer = _timed_trainer(m, lm_cache_root=None)
+    rec = {"path": "bert-naml Trainer, layer-split", "policy": policy}
+    _zero_counts()
+    t0 = time.perf_counter()
+    tr.init()
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t0
+    rec["cache_launches"] = _counts()
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = tr.train()
+    torch.cuda.synchronize()
+    rec["train_s"] = time.perf_counter() - t0
+    rec["launches"] = _counts()
+    rec["best_dev"] = out["best_dev"]
+    rec["epochs"] = tr.epochs
+    rec["step_ms"] = [s * 1e3 for s in timer.samples["step"]]
+    names = {id(p): n for n, p in m.model.named_parameters()}
+    groups = {g["name"]: sorted(names[id(p)] for p in g["params"])
+              for g in tr.optimizer.param_groups}
+    rec["group_sizes"] = {k: len(v) for k, v in groups.items()}
+    lora = sorted(n for n, p in m.model.named_parameters()
+                  if p.requires_grad and n.startswith("item_op.lm.")
+                  and ".lora_" in n)
+    op = m.model.item_op
+    cache = m.cache
+    item_pages = len(cache.pages(cache.num_items))
+    upper = op.num_hidden_layers - op.resolved_tune_from
+    n_pages = -(-data.num_items // m.model.item_page_size)
+    steps = tr.global_step
+    rec["expected_launches"] = {
+        "packed_attention": steps * 2 * upper * n_pages + upper * item_pages,
+        "packed_attention_backward": steps * upper * n_pages,
+        "additive_pool": steps * (2 * n_pages + 1) + _eval_pages(m),
+        "dropout_keep_mask": 0}
+    problems = []
+    if groups.get("item") != lora:
+        problems.append("the item LR group is not the LoRA of lm")
+    if rec["launches"] != rec["expected_launches"]:
+        problems.append("kernel launches")
+    if steps != LM_TRAINER_STEPS or not all(
+            np.isfinite(e["loss"]) for e in tr.epochs) or not np.isfinite(
+            rec["best_dev"]):
+        problems.append("losses or dev not finite")
+    if problems:
+        raise RuntimeError(f"bert-naml Trainer failed ({problems}): {rec}")
+    del m, tr, cache
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_cli(tmp) -> dict:
+    """6.6: the CLI at `make smoke`'s geometry on the card: process, then
+    train (2 epochs of 4 batches of 16, hidden 16), from a temporary
+    working directory; the result CSV must exist. Needs PyYAML (the
+    configs are YAML)."""
+    import importlib.util
+
+    rec = {"path": "CLI (make smoke geometry)"}
+    rec["yaml"] = importlib.util.find_spec("yaml") is not None
+    if not rec["yaml"]:
+        rec["outcome"] = "not run: PyYAML is not installed here"
+        return rec
+    from legommenders_tpu_torch import process, trainer
+
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        t0 = time.perf_counter()
+        data_dir = os.path.join(tmp, "data", "synthetic")
+        process.main(["--data", "synthetic", "--save_dir", data_dir])
+        rec["results"] = trainer.main([
+            "--data", "synthetic", "--model", "naml", "--epoch", "2",
+            "--epoch_batch", "4", "--batch_size", "16", "--hidden_size",
+            "16", "--data_dir", data_dir])
+        rec["s"] = time.perf_counter() - t0
+        csvs = [os.path.join(d, f) for d, _, fs in
+                os.walk(os.path.join(tmp, "checkpoints")) for f in fs
+                if f.endswith(".csv")]
+    finally:
+        os.chdir(cwd)
+    if len(csvs) != 1:
+        raise RuntimeError(f"CLI: expected one result CSV, found {csvs}")
+    with open(csvs[0]) as f:
+        rec["csv"] = f.read().splitlines()
+    rec["outcome"] = "ran"
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -1123,12 +1492,40 @@ def main() -> int:
     naml_train = run_naml_training(data, device)
     log(f"[main] {json.dumps(naml_train)}")
 
+    # 6. the run loop
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        loop, m_loop, tr_loop = run_loop_naml(data, device, tmp)
+        log(f"[loop] {json.dumps(loop)}")
+        full = run_full_forward(m_loop, tr_loop)
+        log(f"[loop] {json.dumps(full)}")
+        latency = run_latency(m_loop)
+        log(f"[loop] {json.dumps(latency)}")
+        del m_loop, tr_loop
+        torch.cuda.empty_cache()
+        dev_loop = run_loop_device_batches(data, device)
+        log(f"[loop] {json.dumps(dev_loop)}")
+        log(f"[loop] step ms: host batches {loop['step_ms']:.3f}, device "
+            f"batches {dev_loop['step_ms']:.3f} ({card})")
+        lm_loop = run_loop_lm(data, device)
+        log(f"[loop] {json.dumps(lm_loop)}")
+        cli = run_cli(tmp)
+        log(f"[loop] cli: {cli['outcome']}: {json.dumps(cli)}")
+
     # launches of each kernel on each main path: the serving passes, the
     # cache build and the timed training steps
     runs = {p: rec["launches"] for p, rec in paths.items()}
     runs["bert-naml lm cache"] = lm_train["cache_launches"]
     runs["bert-naml training"] = lm_train["launches"]
     runs["naml training"] = naml_train["launches"]
+    runs["naml Trainer (host batches)"] = loop["launches"]
+    runs["naml Trainer (device batches)"] = dev_loop["launches"]
+    runs["naml full-forward test"] = full["launches"]
+    runs["naml latency (cached)"] = latency["cached_launches"]
+    runs["naml latency (full)"] = latency["full_launches"]
+    runs["bert-naml Trainer lm cache"] = lm_loop["cache_launches"]
+    runs["bert-naml Trainer"] = lm_loop["launches"]
     profiles = {p: rec["profile"] for p, rec in paths.items()}
     profiles["bert-naml training step"] = lm_train["profile"]
     profiles["naml training step"] = naml_train["profile"]

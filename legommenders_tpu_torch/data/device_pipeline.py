@@ -19,27 +19,12 @@ import numpy as np
 import torch
 
 from legommenders_tpu_torch.data.dataset import LegoData
+from legommenders_tpu_torch.data.pipeline import _user_extra_cols
 from legommenders_tpu_torch.data.token_store import UNSET
-from legommenders_tpu_torch.runtime.steps import make_train_step
+from legommenders_tpu_torch.runtime.steps import (
+    make_train_step, step_generator,
+)
 from legommenders_tpu_torch.utils.device import resolve_device
-
-
-def _user_extra_cols(data: LegoData) -> Dict[str, np.ndarray]:
-    """User-side input columns (SemanticMix-style) to inject into batches,
-    keyed by column name (the JAX package's data/pipeline.py:38-45)."""
-    cols = {}
-    for col, _ in getattr(data, "user_inputs", None) or []:
-        if col in data.users and col != data.cm.history_col:
-            cols[col] = data.users[col]
-    return cols
-
-
-def step_generator(seed: int, step_idx: int, device) -> torch.Generator:
-    """The generator of one step: seeded from (seed, step_idx), as JAX
-    folds the step index into its key."""
-    g = torch.Generator(device=device)
-    g.manual_seed((int(seed) << 32) + int(step_idx))
-    return g
 
 
 class DeviceTrainPipeline:

@@ -151,6 +151,12 @@ class LMOperator(BaseOperator):
             raise ValueError("encode_lower requires tune_from")
         return self.lm_lower(embeddings, mask)
 
+    def get_pretrained_parameter_names(self):
+        """The dual-LR signal (JAX lm_ops.py:164-166; reference
+        once_operator.py:153-154): parameters under `lm` train at
+        item_lr."""
+        return ["lm"]
+
 
 @OPERATORS.register
 class BertOperator(LMOperator):

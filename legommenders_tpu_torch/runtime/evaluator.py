@@ -1,23 +1,81 @@
-"""Evaluation: device-resident cached scoring + the metric pool.
+"""Evaluation: device-resident cached or full-forward scoring, the host
+batched path, and the metric pool.
 
-The port of the JAX package's runtime/evaluator.py cached device path
-(:80-130, :174-206, :334-356; reference base_lego.py:349-427 and the
-fast-eval flow of tester.py:54-77). A phase's (user, candidate) index
-columns are placed on the device once; scoring gathers both reprs from the
-caches page by page and runs the predictor; when every metric is
-device-supported the scores never leave the device and the torch metric
-engine returns a handful of scalars, otherwise one (n,) copy feeds the
-numpy pool. The full-forward path for models without caches is not ported
-yet.
+The port of the JAX package's runtime/evaluator.py (reference
+base_lego.py:349-427 and the fast-eval flow of tester.py:54-77):
+
+  * cached (`score_phase_device`): a phase's (user, candidate) index
+    columns are placed on the device once; scoring gathers both reprs from
+    the caches page by page and runs the predictor;
+  * full forward (`score_phase_device_full`), for models without caches or
+    with `use_fast_eval` off: the history matrix, its mask, the user-extra
+    columns and the item contents are placed once; each page of the eval
+    batch size is made by device gathers (the tail page padded with row 0,
+    its scores dropped) and runs the model's forward in eval mode;
+  * host batched (`collect_scores`), for `Tester.latency` and
+    `max_batches` sweeps: EvalBatcher batches moved to the device inside
+    the Prefetcher's thread, scores kept on the device until one copy at
+    the end.
+When every metric is device-supported the scores of the device paths never
+leave the device and the torch metric engine returns a handful of scalars;
+otherwise one (n,) copy feeds the numpy pool.
 """
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from legommenders_tpu_torch.data.pipeline import (
+    EvalBatcher, Prefetcher, _user_extra_cols, device_batches,
+    on_current_stream,
+)
+from legommenders_tpu_torch.data.token_store import UNSET
 from legommenders_tpu_torch.runtime.device_metrics import compute_device
 from legommenders_tpu_torch.runtime.metrics import MetricPool
+from legommenders_tpu_torch.runtime.steps import make_eval_step
 from legommenders_tpu_torch.utils.device import resolve_device
+from legommenders_tpu_torch.utils.timer import Timer
+
+
+def collect_scores(step_fn: Callable, batcher: EvalBatcher, device,
+                   latency_timer: Optional[Timer] = None,
+                   max_batches: int = 0, needed_keys=None):
+    """Run `step_fn(batch) -> (B, K) scores` over a batcher; returns
+    (scores, labels, groups) of the valid rows as numpy arrays.
+    `needed_keys` limits what is moved to the device (the cached path reads
+    only user_id/candidates). With a `latency_timer`, each forward is timed
+    up to the device's end of it."""
+    device = torch.device(device)
+    prefetcher = Prefetcher(device_batches(
+        batcher.epoch(), device, keys=needed_keys,
+        skip=("label", "group", "valid")))
+    device_scores, valids, labels_all, groups_all = [], [], [], []
+    n = 0
+    for batch in prefetcher:
+        on_current_stream(batch)
+        jb = {k: v for k, v in batch.items() if isinstance(v, torch.Tensor)}
+        if latency_timer is not None:
+            latency_timer.start("forward")
+            out = step_fn(jb)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            latency_timer.stop("forward")
+        else:
+            out = step_fn(jb)
+        # scores stay on the device; one copy at the end
+        device_scores.append(out.reshape(len(batch["valid"]), -1)[:, 0])
+        valids.append(batch["valid"] > 0)
+        labels_all.append(batch["label"])
+        groups_all.append(batch["group"])
+        n += 1
+        if max_batches and n >= max_batches:
+            prefetcher.close()
+            break
+    scores = torch.cat(device_scores).float().cpu().numpy()
+    valid = np.concatenate(valids)
+    return (scores[valid],
+            np.concatenate(labels_all)[valid],
+            np.concatenate(groups_all)[valid])
 
 
 class DevicePhase:
@@ -47,26 +105,34 @@ class DevicePhase:
 
 
 class Evaluator:
-    # rows scored per step of the device-resident path
+    # rows scored per step of the device-resident cached path
     DEVICE_EVAL_PAGE = 1 << 18
 
-    def __init__(self, model, data, metrics, cache, device="cuda"):
-        if cache is None:
-            raise NotImplementedError(
-                "the port evaluates through the repr caches only; the "
-                "full-forward path is not ported yet")
+    def __init__(self, model, data, metrics, cache=None, device="cuda", *,
+                 item_contents: Optional[Dict[str, torch.Tensor]] = None,
+                 batch_size: int = 256):
+        """`item_contents` (the model's content columns, by reference: a
+        layer-split LM cache added later is seen) feed the full-forward and
+        host-batched paths; `batch_size` is the eval batch size, the page
+        of the full-forward path."""
         self.device = resolve_device(device)
         self.model = model
         self.data = data
+        self.item_contents = item_contents
+        self.batch_size = int(batch_size)
         self.pool = MetricPool.parse(list(metrics))
         self.cache = cache
         self._phases: Dict[str, DevicePhase] = {}
+        self._substrate = None
 
     def phase(self, phase: str) -> DevicePhase:
         if phase not in self._phases:
             self._phases[phase] = DevicePhase(self.data, phase, self.device)
         return self._phases[phase]
 
+    # ------------------------------------------------------------------ #
+    # cached scoring                                                     #
+    # ------------------------------------------------------------------ #
     @torch.inference_mode()
     def score_phase_device(self, phase: str) -> torch.Tensor:
         """(n,) scores of a whole phase from the caches, on the device."""
@@ -83,6 +149,67 @@ class Evaluator:
             out.append(self.model.score_cached(u, i).reshape(-1))
         return torch.cat(out)
 
+    def cached_step(self) -> Callable:
+        """step(batch) -> (B, K) scores from the caches (JAX
+        cacher.make_cached_eval_step)."""
+        cache = self.cache
+
+        @torch.inference_mode()
+        def step(batch):
+            u = cache.user_repr[batch["user_id"].long().clamp(
+                0, cache.user_repr.shape[0] - 1)]
+            i = cache.item_repr[batch["candidates"].long().clamp(
+                0, cache.item_repr.shape[0] - 1)]
+            return self.model.score_cached(u, i)
+
+        return step
+
+    # ------------------------------------------------------------------ #
+    # full-forward scoring                                               #
+    # ------------------------------------------------------------------ #
+    def substrate(self) -> dict:
+        """History (pad -> 0), its mask, the user-extra columns and the
+        item contents, on the device, placed once."""
+        if self._substrate is None:
+            hist = self.data.history_matrix()
+
+            def place(a):
+                return torch.as_tensor(
+                    np.where(a == UNSET, 0, a).astype(np.int32),
+                    device=self.device)
+
+            self._substrate = {
+                "hist": place(hist),
+                "mask": torch.as_tensor((hist != UNSET).astype(np.int32),
+                                        device=self.device),
+                "extra": {c: place(m) for c, m in
+                          _user_extra_cols(self.data).items()},
+            }
+        return self._substrate
+
+    @torch.inference_mode()
+    def score_phase_device_full(self, phase: str) -> torch.Tensor:
+        """(n,) scores of a whole phase through the model's forward, on the
+        device: pages of the eval batch size, the tail page padded with row
+        0 (user 0, item 0) and its padded scores dropped."""
+        ph = self.phase(phase)
+        sub = self.substrate()
+        P = self.batch_size
+        out = []
+        for s in range(0, ph.n, P):
+            u, i = ph.users[s:s + P], ph.items[s:s + P]
+            if len(u) < P:
+                pad = u.new_zeros(P - len(u))
+                u, i = torch.cat([u, pad]), torch.cat([i, pad])
+            ul = u.long()
+            batch = {"history": sub["hist"][ul], "mask": sub["mask"][ul],
+                     "candidates": i[:, None], "user_id": u}
+            for c, m in sub["extra"].items():
+                batch[c] = m[ul]
+            out.append(self.model(batch, self.item_contents).reshape(-1))
+        return torch.cat(out)[:ph.n]
+
+    # ------------------------------------------------------------------ #
     @torch.inference_mode()
     def metrics(self, phase: str, scores: torch.Tensor) -> Dict[str, float]:
         ph = self.phase(phase)
@@ -92,7 +219,28 @@ class Evaluator:
             return {str(m): vals[str(m)] for m in self.pool.metrics}
         return self.pool(scores.float().cpu().numpy(), ph.labels, ph.groups)
 
-    def evaluate(self, phase: str) -> Dict[str, float]:
-        """Rebuild the caches, score the phase and compute the metrics."""
-        self.cache.cache()
-        return self.metrics(phase, self.score_phase_device(phase))
+    def evaluate(self, phase: str, latency_timer: Optional[Timer] = None,
+                 use_cache: Optional[bool] = None,
+                 max_batches: int = 0) -> Dict[str, float]:
+        """The metrics of a phase, in JAX evaluator.py:334-388's order:
+        through the caches (rebuilt first) when there are caches, else by
+        full forwards; whole-phase on the device, or host batches for a
+        latency timing or a `max_batches` sweep."""
+        use_cache = (self.cache is not None) if use_cache is None else use_cache
+        if use_cache:
+            self.cache.cache()
+            if latency_timer is None and not max_batches:
+                return self.metrics(phase, self.score_phase_device(phase))
+            step = self.cached_step()
+            needed_keys = ("user_id", "candidates")
+        else:
+            if latency_timer is None and not max_batches:
+                return self.metrics(phase,
+                                    self.score_phase_device_full(phase))
+            step = make_eval_step(self.model, self.item_contents)
+            needed_keys = None
+        batcher = EvalBatcher(self.data, phase, self.batch_size)
+        scores, labels, groups = collect_scores(
+            step, batcher, self.device, latency_timer=latency_timer,
+            max_batches=max_batches, needed_keys=needed_keys)
+        return self.pool(scores, labels, groups)

@@ -3,22 +3,33 @@
 The port of the JAX package's runtime/manager.py without the mesh and
 pipeline parts (reference loader/manager.py:121-431). It builds the
 dataset, the model from the model config (parameters drawn from a seeded
-torch.Generator, then placed on `device`), the repr cache and evaluators,
-and, for a layer-split LM item operator, the lower slice's cache
-(`prepare_lm_cache`).
+torch.Generator, then placed on `device`), the repr cache, the host
+batchers and evaluators, and, for a layer-split LM item operator, the
+lower slice's cache (`prepare_lm_cache`). The policy is the exp config's
+`policy` over DEFAULT_POLICY; the dev metric and the patience come from
+its `store`. A mesh policy raises: multi-device runs are ROADMAP queue 1,
+item 8.
 """
+import os
 from typing import Optional
 
 import torch
 
+from legommenders_tpu_torch.config.dotfiles import ModelInit
 from legommenders_tpu_torch.data.dataset import LegoData
+from legommenders_tpu_torch.data.pipeline import EvalBatcher, TrainBatcher
 from legommenders_tpu_torch.models.lego_config import DTYPE_NAMES, LegoConfig
 from legommenders_tpu_torch.models.operators.lm_ops import LMOperator
 from legommenders_tpu_torch.runtime.cacher import ReprCache
 from legommenders_tpu_torch.runtime.lm_cache import load_or_build_lm_cache
 from legommenders_tpu_torch.runtime.evaluator import Evaluator
 from legommenders_tpu_torch.utils.device import resolve_device
+from legommenders_tpu_torch.utils.logging import get_logger
 
+DEFAULT_POLICY = dict(
+    epoch=50, lr=1e-3, item_lr=None, batch_size=64, n_warmup=0,
+    check_interval=-2, simple_dev=False, epoch_batch=0, accumulate_batch=1,
+)
 DEFAULT_METRICS = ["GAUC", "MRR", "NDCG@1", "NDCG@5", "NDCG@10"]
 
 
@@ -32,7 +43,14 @@ class Manager:
                  device="cuda", seed: int = 0):
         self.device = resolve_device(device)
         self.exp_cfg = dict(exp_cfg or {})
-        self.policy = dict(self.exp_cfg.get("policy") or {})
+        self.policy = {**DEFAULT_POLICY, **(self.exp_cfg.get("policy") or {})}
+        if self.policy.get("mesh"):
+            raise NotImplementedError(
+                "exp.policy.mesh: multi-device runs are not ported yet "
+                "(ROADMAP.md, queue 1, item 8)")
+        store = self.exp_cfg.get("store") or {}
+        self.dev_metric = store.get("metric", "GAUC")
+        self.patience = int(store.get("patience", 5))
         self.metrics = list(self.exp_cfg.get("metrics") or DEFAULT_METRICS)
         dtype = DTYPE_NAMES.get(str(self.policy.get("dtype") or "").lower(),
                                 dtype)
@@ -75,6 +93,48 @@ class Manager:
         return bool(type(self.model.item_op).allow_caching
                     and type(self.model.user_op).allow_caching)
 
+    # ------------------------------------------------------------------ #
+    def train_batcher(self, seed: int = 2023) -> TrainBatcher:
+        return TrainBatcher(
+            self.data, batch_size=int(self.policy["batch_size"]),
+            neg_count=self.lego_cfg.neg_count,
+            use_neg_sampling=self.lego_cfg.use_neg_sampling, seed=seed)
+
+    @property
+    def eval_batch_size(self) -> int:
+        """Eval batches are gathers + the predictor on the cached path, so
+        4x the train batch unless the policy sets `eval_batch_size`."""
+        return int(self.policy.get("eval_batch_size")
+                   or 4 * int(self.policy["batch_size"]))
+
+    def eval_batcher(self, phase: str) -> EvalBatcher:
+        return EvalBatcher(self.data, phase, self.eval_batch_size)
+
     def evaluator(self) -> Evaluator:
         return Evaluator(self.model, self.data, self.metrics,
-                         cache=self.cache, device=self.device)
+                         cache=self.cache, device=self.device,
+                         item_contents=self.contents.columns,
+                         batch_size=self.eval_batch_size)
+
+    def load_lm_weights(self, log=None) -> bool:
+        """Pretrained LM weights for the item operator, from the local
+        checkpoint the `.model` dotfile names under the operator's
+        transformer_key (JAX manager.py:175-238). Without an entry the LM
+        runs from its random init, with a warning, as in JAX; a named
+        checkpoint raises, because the HF weight maps are not ported yet
+        (ROADMAP.md, queue 1, item 5). Returns whether weights were
+        loaded."""
+        log = log or get_logger("manager")
+        op = self.model.item_op
+        if not isinstance(op, LMOperator):
+            return False
+        path = ModelInit.get(op.transformer_key)
+        if not path or not os.path.isdir(path):
+            log.warning(
+                f"no local HF checkpoint for '{op.transformer_key}' "
+                f"(.model dotfile) — LM runs from RANDOM init")
+            return False
+        raise NotImplementedError(
+            f"loading the HF checkpoint {path} for '{op.transformer_key}': "
+            f"the HF weight maps are not ported yet (ROADMAP.md, queue 1, "
+            f"item 5)")

@@ -1,6 +1,6 @@
-"""Losses and the train step.
+"""Losses, the train steps and the eval step.
 
-The port of the JAX package's runtime/steps.py:17-60 (reference
+The port of the JAX package's runtime/steps.py (reference
 legommender.py:114-118, 252-263): the model returns raw scores and the
 loss lives here — cross-entropy over (B, K+1) scores with the positive at
 column 0, or BCE-with-logits for pointwise ranking. A step takes an
@@ -8,6 +8,9 @@ explicit batch and an explicit dropout generator and updates the model's
 parameters in place through a torch optimizer; `adam` builds
 `optax.adam`'s update (betas 0.9 / 0.999, eps 1e-8 outside the square
 root, no weight decay) over the trainable parameters.
+`make_train_step_folded` draws each step's generator from (seed, step
+index) (`step_generator`, as JAX folds the step index into its key);
+`make_eval_step` runs the model in eval mode (no generator).
 """
 from typing import Callable, Dict
 
@@ -25,6 +28,14 @@ def ranking_loss(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     s = scores.reshape(-1)
     return F.binary_cross_entropy_with_logits(s,
                                               labels.reshape(-1).to(s.dtype))
+
+
+def step_generator(seed: int, step_idx: int, device) -> torch.Generator:
+    """The generator of one step: seeded from (seed, step_idx), as JAX
+    folds the step index into its key."""
+    g = torch.Generator(device=device)
+    g.manual_seed((int(seed) << 32) + int(step_idx))
+    return g
 
 
 def trainable_parameters(model: torch.nn.Module):
@@ -61,5 +72,33 @@ def make_train_step(model, item_contents: Dict[str, torch.Tensor],
         loss.backward()
         optimizer.step()
         return loss.detach()
+
+    return step
+
+
+def make_train_step_folded(model, item_contents: Dict[str, torch.Tensor],
+                           optimizer, use_neg_sampling: bool = True,
+                           seed: int = 0) -> Callable:
+    """step(batch, step_idx) -> loss: make_train_step with the dropout
+    generator of (seed, step_idx) on the batch's device (JAX
+    steps.py:77-93)."""
+    train_step = make_train_step(model, item_contents, optimizer,
+                                 use_neg_sampling)
+
+    def step(batch, step_idx: int):
+        device = next(iter(batch.values())).device
+        return train_step(batch, step_generator(seed, step_idx, device))
+
+    return step
+
+
+def make_eval_step(model, item_contents: Dict[str, torch.Tensor]
+                   ) -> Callable:
+    """step(batch) -> scores (B, K): the forward in eval mode (JAX
+    steps.py:96-102)."""
+
+    @torch.inference_mode()
+    def step(batch):
+        return model(batch, item_contents)
 
     return step

@@ -22,11 +22,15 @@ per 128-row tile) is held at every main-path L with N around one tile, a
 page and more tiles than the grid, with all-masked and single-position
 items, an f32 W1, one item per tile and every hidden width; the profiler's
 kernel names must show it took those and the CUDA-core pool f32 and the
-odd shapes.
+odd shapes. The run loop on the card (a 150-item NAML fixture, f32): four
+Trainer steps on host batches and on device batches, a checkpoint round
+trip of CUDA tensors (exact), and full-forward scores against cached ones
+(1e-5).
 """
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -619,3 +623,86 @@ def test_tc_keep_mask_is_the_mask_kernels(device, B, T, heads, dh):
     bwd = dv.reshape(B, T, heads, dh)[..., :T].permute(0, 2, 3, 1) > 0
     assert torch.equal(fwd, keep)
     assert torch.equal(bwd, keep)
+
+
+# --------------------------------------------------------------------- #
+# the run loop on the card                                              #
+# --------------------------------------------------------------------- #
+RUN_DATA = dict(num_items=150, num_users=60, title_len=10, history_len=8,
+                vocab_size=300, inters_per_user=12)
+RUN_CFG = {
+    "meta": {"item": "CNN", "user": "Ada", "predictor": "Dot"},
+    "config": {"use_item_content": True, "hidden_size": 16,
+               "cache_page_size": 64,
+               "item_config": {"dropout": 0.1, "kernel_size": 3,
+                               "additive_hidden_size": 32},
+               "user_config": {"additive_hidden_size": 32}},
+}
+
+
+def _run_manager(device, **policy):
+    from legommenders_tpu_torch.data.processors.synthetic import (
+        SyntheticProcessor,
+    )
+    from legommenders_tpu_torch.runtime.manager import Manager
+
+    exp = {"policy": {"batch_size": 16, "eval_batch_size": 64, **policy},
+           "metrics": ["GAUC", "MRR"]}
+    return Manager(model_cfg=RUN_CFG, exp_cfg=exp, device=device,
+                   data=SyntheticProcessor(**RUN_DATA).as_lego_data())
+
+
+@pytest.mark.parametrize("device_batching", [False, True])
+def test_trainer_steps_on_card(device, device_batching, tmp_path):
+    """4 steps of the Trainer (host batches through the Prefetcher, or the
+    device pipeline), dev through the caches, the best checkpoint saved and
+    reloaded, the test: finite, on the card, the pool kernel launched."""
+    from legommenders_tpu_torch.runtime.trainer import Trainer
+
+    m = _run_manager(device, epoch=1, epoch_batch=4,
+                     device_batching=device_batching)
+    tr = Trainer(m, seed=0, ckpt_path=str(tmp_path / "t.ckpt"))
+    before = additive_pool.launches
+    out = tr.train()
+    res = tr.test()
+    assert tr.global_step == 4
+    assert additive_pool.launches > before + 8
+    assert all(p.device.type == "cuda" for p in m.model.parameters())
+    assert np.isfinite(out["best_dev"])
+    assert all(np.isfinite(v) for v in res.values())
+
+
+def test_checkpoint_round_trip_on_card(device, tmp_path):
+    from legommenders_tpu_torch.runtime import checkpoint
+    from legommenders_tpu_torch.runtime.trainer import Trainer, build_optimizer
+
+    m = _run_manager(device, epoch=1, epoch_batch=3, accumulate_batch=2)
+    tr = Trainer(m, seed=0)
+    tr.train()
+    path = str(tmp_path / "m.ckpt")
+    checkpoint.save_checkpoint(path, m.model, tr.optimizer, meta={"e": 1})
+    m2 = _run_manager(device, epoch=1, epoch_batch=3, accumulate_batch=2)
+    opt = build_optimizer(m2.model, m2.policy)
+    assert checkpoint.load_auto(path, m2.model, opt) == {"e": 1}
+    for (n, a), b in zip(m.model.state_dict().items(),
+                         m2.model.state_dict().values()):
+        assert b.is_cuda and torch.equal(a, b), n
+    want, got = tr.optimizer.state_dict(), opt.state_dict()
+    assert got["mini_step"] == want["mini_step"] == 1
+    for i, st in want["optimizer"]["state"].items():
+        for k, v in st.items():
+            assert torch.equal(v.cpu(), got["optimizer"]["state"][i][k].cpu())
+    for a, b in zip(want["acc"], got["acc"]):
+        assert (a is None and b is None) or (b.is_cuda and torch.equal(a, b))
+
+
+def test_full_forward_matches_cached_on_card(device):
+    """f32: the full-forward scores (pages of 64, the tail padded) against
+    the cached path's, within 1e-5."""
+    m = _run_manager(device)
+    ev = m.evaluator()
+    full = ev.score_phase_device_full("test")
+    m.cache.cache()
+    cached = ev.score_phase_device("test")
+    assert full.shape == cached.shape == (720,)
+    assert (full - cached).abs().max().item() <= 1e-5
