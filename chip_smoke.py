@@ -64,9 +64,10 @@ and exits non-zero when any phase fails:
        SharedBitsDropout and the kernel, the 65,000-item catalog encoded
        every step in 127 pages of 512 under `full` remat): per step 508
        attention forwards, 254 backwards and 255 pools; 1 warm and 5 timed
-       steps (finite losses, step ms, impressions/s, peak memory), one
-       more under torch.profiler; then the gradient of every trainable
-       tensor on one batch at dropout 0 (lora_B made non-zero), through
+       steps, each to the device's end of it (finite losses, median
+       step ms, impressions/s, peak memory), one more under
+       torch.profiler; then the gradient of every trainable tensor on
+       one batch at dropout 0 (lora_B made non-zero), through
        the kernels and with every kernel patched out for its plain version
        (plain forward and plain backward), at bf16 and, with the same
        weights, at f32: at f32 the kernels' within 2e-2 of each tensor's
@@ -74,7 +75,8 @@ and exits non-zero when any phase fails:
        plain path's own bf16-vs-f32 error where that is larger (see
        precision_check); and the bf16 cache built through the kernel and
        through the plain unfused attention, each against the f32 cache;
-     - NAML: 1 warm and 3 timed steps, 2 pool launches per step;
+     - NAML: 1 warm and 3 timed steps, 2 pool launches per step, the
+       catalog-grad plans live;
   6. the run loop on the same fixture, bf16, through the entry points a
      user calls (each path's launch counts set to 0 just before it, read
      just after and held against the count the code gives):
@@ -96,8 +98,30 @@ and exits non-zero when any phase fails:
         of the upper slice alone in the item LR group), 2 steps of 2,048,
         dev through the caches;
      6. the CLI (python -m legommenders_tpu_torch.process / .trainer at
-        `make smoke`'s geometry) on the card, where PyYAML is installed;
-  7. prints one JSON line of kernels, the card line, and
+        `make smoke`'s geometry, NAML and LSTUR) on the card, where PyYAML
+        is installed;
+  7. the news zoo and the catalog gradient plans, on the same fixture:
+     1. the pool kernel against its plain version (f32 and bf16) at each
+        zoo pool shape (ZOO_POOLS: L 1, 30 and 33 at H 256, L 31 and 50 at
+        H 64), at the full catalog or user count and at a page of 512;
+     2. NRMS, LSTUR, Fastformer and MINER, each built from its
+        config/model YAML at its defaults (hidden 64, 8 heads, 3 layers,
+        32 context codes of 200, 4 negatives), bf16: Tester.test()
+        (through the caches; MINER, whose user operator refuses caching,
+        by full forwards, a catalog encode a page of 8,192), the first
+        2,048 served item reprs against the same model with its kernels
+        patched out (2e-2), 1 warm and 4 fused training steps of 2,048
+        (median step ms, impressions/s, peak memory; one more profiled);
+        every pool launch held against the count the modules give
+        (AdditiveAttention modules per encode x encodes) and the catalog
+        gradient plans live in the steps (catalog_grad.last_trace);
+     3. NAML's gradients on one batch with the plans and without them
+        (catalog_plans and catalog_history_plan None), at f32 within 1e-5
+        of each tensor's largest value and at bf16 within 2e-2 (a bias
+        against the larger of its own and its weight's: a pool's
+        proj_bias gradient is cancellation residue); then the bf16 step
+        both ways, 3 timed steps each and one profiled;
+  8. prints one JSON line of kernels, the card line, and
      {"ok": true, "device": {...}} as the last line.
 """
 import itertools
@@ -245,16 +269,16 @@ def roof(flops: float, nbytes: float, dtype: str):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def bound(N: int, L: int, dtype: str):
-    """The additive pool's bound: inputs read once, output written once;
-    its operations are the products at the data-sheet peak for dtype and
-    the N*L*H tanh at the special-function units' rate, which run on
-    separate units: the longest of the three."""
+def bound(N: int, L: int, dtype: str, h: int = H):
+    """The additive pool's bound at hidden width h: inputs read once,
+    output written once; its operations are the products at the data-sheet
+    peak for dtype and the N*L*h tanh at the special-function units' rate,
+    which run on separate units: the longest of the three."""
     xb = 2 if dtype == "bf16" else 4
-    flops = 2.0 * N * L * (D * H + H + D)
-    nbytes = N * L * D * xb + N * L * 4 + (D * H + 2 * H) * 4 + N * D * xb
+    flops = 2.0 * N * L * (D * h + h + D)
+    nbytes = N * L * D * xb + N * L * 4 + (D * h + 2 * h) * 4 + N * D * xb
     ms, by = roof(flops, nbytes, dtype)
-    tanh_ms = N * L * H / TANH_PER_S * 1e3
+    tanh_ms = N * L * h / TANH_PER_S * 1e3
     return (ms, by) if ms >= tanh_ms else (tanh_ms, "operations")
 
 
@@ -336,7 +360,7 @@ def pool_iters(N: int) -> int:
     return 20 if N > PAGE_N else 50
 
 
-def pool_inputs(N, L, dtype, device, seed):
+def pool_inputs(N, L, dtype, device, seed, h=H):
     """x ~ N(0, 1); mask with random holes, every 97th row fully masked and
     every 89th fully valid; weights at the model's init scale."""
     import torch
@@ -346,20 +370,21 @@ def pool_inputs(N, L, dtype, device, seed):
     mask = (torch.rand(N, L, generator=g, device=device) < 0.8).float()
     mask[::97] = 0.0
     mask[1::89] = 1.0
-    w1 = torch.randn(D, H, generator=g, device=device) / math.sqrt(D)
-    b1 = torch.randn(H, generator=g, device=device) * 0.1
-    w2 = torch.randn(H, generator=g, device=device) / math.sqrt(H)
+    w1 = torch.randn(D, h, generator=g, device=device) / math.sqrt(D)
+    b1 = torch.randn(h, generator=g, device=device) * 0.1
+    w2 = torch.randn(h, generator=g, device=device) / math.sqrt(h)
     return x, mask, w1, b1, w2
 
 
-def check_pool(pool: str, N: int, L: int, dtype_name: str, device) -> dict:
+def check_pool(pool: str, N: int, L: int, dtype_name: str, device,
+               h: int = H, plain_iters: int = 5) -> dict:
     import torch
     from legommenders_tpu_torch.ops.additive import (
         additive_pool, additive_pool_reference, pool_kernel,
     )
 
     dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
-    args = pool_inputs(N, L, dtype, device, seed=L)
+    args = pool_inputs(N, L, dtype, device, seed=L, h=h)
     x, mask = args[0], args[1]
     with torch.inference_mode():
         got = additive_pool(*args)
@@ -367,9 +392,9 @@ def check_pool(pool: str, N: int, L: int, dtype_name: str, device) -> dict:
         torch.cuda.synchronize()
         err = (got.float() - want).abs()
         zero_rows = mask.sum(dim=1) == 0
-        res = {"pool": pool, "N": N, "L": L, "D": D, "H": H,
+        res = {"pool": pool, "N": N, "L": L, "D": D, "H": h,
                "dtype": dtype_name,
-               "kernel": pool_kernel(dtype, L, D, H)[0],
+               "kernel": pool_kernel(dtype, L, D, h)[0],
                "max_abs_err": float(err.max()),
                "rel_err": float(err.max() / want.abs().max()),
                "all_masked_rows": int(zero_rows.sum()),
@@ -377,8 +402,8 @@ def check_pool(pool: str, N: int, L: int, dtype_name: str, device) -> dict:
                "ms": time_ms(lambda: additive_pool(*args),
                               iters=pool_iters(N)),
                "plain_ms": time_ms(lambda: additive_pool_reference(*args),
-                                   iters=5)}
-    res["bound_ms"], res["bound_by"] = bound(N, L, dtype_name)
+                                   iters=plain_iters)}
+    res["bound_ms"], res["bound_by"] = bound(N, L, dtype_name, h)
     res["bound_peak"] = f"{dtype_name} {PEAK[dtype_name] / 1e12:g} TFLOP/s"
     ok = (res["max_abs_err"] <= F32_TOL if dtype_name == "f32"
           else res["rel_err"] <= BF16_REL_TOL)
@@ -798,14 +823,17 @@ def _counts() -> dict:
 
 
 def _train_steps(m, data, device, n_steps: int) -> dict:
-    """1 warm step, then n_steps timed ones with every launch count set to
-    0 before them; the record of the timed steps (losses, step ms,
-    impressions/s, launches per step, peak memory) and the pipeline."""
+    """1 warm step, then n_steps each timed to the device's end of it, with
+    every launch count set to 0 before them; the record of the timed steps
+    (losses, step ms at the median, impressions/s at that median, launches
+    per step, peak memory, the catalog-grad plans of the last step) after
+    one more under torch.profiler, and the pipeline."""
     import numpy as np
     import torch
     from legommenders_tpu_torch.data.device_pipeline import (
         DeviceTrainPipeline,
     )
+    from legommenders_tpu_torch.ops import catalog_grad
     from legommenders_tpu_torch.runtime import steps
 
     cfg = m.lego_cfg
@@ -823,18 +851,25 @@ def _train_steps(m, data, device, n_steps: int) -> dict:
     t0 = time.perf_counter()
     rec["warm_loss"] = step(next(stream), 0).item()
     rec["warm_step_s"] = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
-    _zero_counts()
-    t0 = time.perf_counter()
-    losses = [step(next(stream), i + 1) for i in range(n_steps)]
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    catalog_grad.record_trace((), ())
+    catalog_grad.record_history(False)
+    _zero_counts()
+    losses, times = [], []
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        losses.append(step(next(stream), i + 1))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
     rec["launches"] = _counts()
     rec["launches_per_step"] = {k: v / n_steps
                                 for k, v in rec["launches"].items()}
+    rec["plans"] = _plans_live(m.model)
     rec["losses"] = [x.item() for x in losses]
-    rec["step_ms"] = dt / n_steps * 1e3
-    rec["impressions_per_s"] = TRAIN_BATCH * n_steps / dt
+    rec["step_ms_each"] = [t * 1e3 for t in times]
+    rec["step_ms"] = statistics.median(times) * 1e3
+    rec["impressions_per_s"] = TRAIN_BATCH / statistics.median(times)
     rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
     if not all(np.isfinite(rec["losses"] + [rec["warm_loss"]])):
         raise RuntimeError(f"training losses not finite: {rec}")
@@ -1074,6 +1109,9 @@ def run_naml_training(data, device) -> dict:
         "packed_attention_backward": 0, "dropout_keep_mask": 0}
     if rec["launches_per_step"] != rec["expected_launches_per_step"]:
         raise RuntimeError(f"naml training launches: {rec}")
+    if not rec["plans"]["all_live"]:
+        raise RuntimeError(f"naml training: catalog-grad plans not live: "
+                           f"{rec['plans']}")
     del m, dp
     torch.cuda.empty_cache()
     return rec
@@ -1387,11 +1425,16 @@ def run_loop_lm(data, device) -> dict:
     return rec
 
 
+# the models 6.6 trains through the CLI: the flagship and one of the news
+# zoo (its GRU user encoder on cuDNN)
+CLI_MODELS = ("naml", "lstur")
+
+
 def run_cli(tmp) -> dict:
     """6.6: the CLI at `make smoke`'s geometry on the card: process, then
-    train (2 epochs of 4 batches of 16, hidden 16), from a temporary
-    working directory; the result CSV must exist. Needs PyYAML (the
-    configs are YAML)."""
+    train NAML and LSTUR (2 epochs of 4 batches of 16, hidden 16), from a
+    temporary working directory; a result CSV each must exist. Needs
+    PyYAML (the configs are YAML)."""
     import importlib.util
 
     rec = {"path": "CLI (make smoke geometry)"}
@@ -1407,21 +1450,259 @@ def run_cli(tmp) -> dict:
         t0 = time.perf_counter()
         data_dir = os.path.join(tmp, "data", "synthetic")
         process.main(["--data", "synthetic", "--save_dir", data_dir])
-        rec["results"] = trainer.main([
-            "--data", "synthetic", "--model", "naml", "--epoch", "2",
-            "--epoch_batch", "4", "--batch_size", "16", "--hidden_size",
-            "16", "--data_dir", data_dir])
+        rec["results"] = {}
+        for model in CLI_MODELS:
+            rec["results"][model] = trainer.main([
+                "--data", "synthetic", "--model", model, "--epoch", "2",
+                "--epoch_batch", "4", "--batch_size", "16",
+                "--hidden_size", "16", "--data_dir", data_dir])
         rec["s"] = time.perf_counter() - t0
-        csvs = [os.path.join(d, f) for d, _, fs in
-                os.walk(os.path.join(tmp, "checkpoints")) for f in fs
-                if f.endswith(".csv")]
+        csvs = sorted(os.path.join(d, f) for d, _, fs in
+                      os.walk(os.path.join(tmp, "checkpoints")) for f in fs
+                      if f.endswith(".csv"))
     finally:
         os.chdir(cwd)
-    if len(csvs) != 1:
-        raise RuntimeError(f"CLI: expected one result CSV, found {csvs}")
-    with open(csvs[0]) as f:
-        rec["csv"] = f.read().splitlines()
+    if len(csvs) != len(CLI_MODELS):
+        raise RuntimeError(f"CLI: expected {len(CLI_MODELS)} result CSVs, "
+                           f"found {csvs}")
+    rec["csv"] = {}
+    for path in csvs:
+        with open(path) as f:
+            rec["csv"][os.path.basename(os.path.dirname(path))] = \
+                f.read().splitlines()
     rec["outcome"] = "ran"
+    return rec
+
+
+# phase 7: the news zoo and the catalog gradient plans
+ZOO_MODELS = ("nrms", "lstur", "fastformer", "miner")
+ZOO_STEPS = 4
+# each zoo path's pool shapes at full width (D 64), L as the inputers give
+# it: LSTUR pools each column alone (category L 1, title 30) at H 256; NRMS's
+# items carry a [SEP] after each column (30 + 1 + 1 + 1 = 33), H 256, and
+# its users are NAML's user pool (50, 256); Fastformer's and MINER's items
+# are the two columns' 31 slots and Fastformer's users 50, at H 64
+ZOO_POOLS = {"lstur category": (1, 256, "item"),
+             "lstur title": (30, 256, "item"),
+             "nrms item": (33, 256, "item"),
+             "fastformer/miner item": (31, 64, "item"),
+             "fastformer user": (50, 64, "user")}
+# the zoo models train and evaluate at the training batch: eval batches of
+# 8,192, so MINER's full forwards encode the catalog once a page
+ZOO_EXP = {"policy": {"dtype": "bf16", "batch_size": TRAIN_BATCH}}
+# the NAML gradient with the plans against without them: f32 within 1e-5 of
+# each tensor's largest value (the sums' order differs), bf16 within 2e-2
+PLAN_F32_TOL, PLAN_BF16_TOL = 1e-5, 2e-2
+PLAN_PROFILE_STEPS = 3
+
+
+def zoo_cfg(name: str) -> dict:
+    """config/model/<name>.yaml at its defaults, through the port's parser
+    (hidden 64, 8 heads, 3 layers, 32 context codes of 200, 4 negatives)."""
+    from legommenders_tpu_torch.config import parser
+
+    return parser.parse_four_way(
+        {"model": name}, config_root=os.path.join(ROOT, "config")
+    ).raw()["model"]
+
+
+def _pools_of(module) -> int:
+    """The pool launches one call of `module` makes: its AdditiveAttention
+    modules, each called once."""
+    from legommenders_tpu_torch.models.common import AdditiveAttention
+
+    return sum(isinstance(m, AdditiveAttention) for m in module.modules())
+
+
+def _plans_live(model) -> dict:
+    from legommenders_tpu_torch.ops import catalog_grad
+
+    t = catalog_grad.last_trace
+    return {"live": sorted(t["live"]), "dead": list(t["dead"]),
+            "history": t["history"],
+            "all_live": (set(t["live"]) == set(model.catalog_plans or ())
+                         and not t["dead"] and t["history"])}
+
+
+def run_zoo_model(name: str, data, device) -> dict:
+    """7.2: one zoo model from its YAML at full width, bf16: Tester.test()
+    (the caches, or full forwards for MINER, whose user operator refuses
+    caching), the first 2,048 served item reprs against the same model with
+    its kernels patched out, 4 fused training steps; every pool launch
+    held against the count the modules give; the plans live."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    import legommenders_tpu_torch.models.common as common
+    from legommenders_tpu_torch.ops.additive import additive_pool_reference
+    from legommenders_tpu_torch.runtime.manager import Manager
+    from legommenders_tpu_torch.runtime.tester import Tester
+
+    rec = {"path": name}
+    t0 = time.perf_counter()
+    m = Manager(model_cfg=zoo_cfg(name), exp_cfg=ZOO_EXP, data=data,
+                device=device, seed=0)
+    tester = Tester(m)
+    torch.cuda.synchronize()
+    rec["setup_s"] = time.perf_counter() - t0
+    model = m.model
+    rec["operators"] = [type(model.item_op).__name__,
+                        type(model.user_op).__name__,
+                        type(model.predictor).__name__]
+    item_pools, user_pools = _pools_of(model.item_op), _pools_of(model.user_op)
+    rec["pools_per_encode"] = {"item": item_pools, "user": user_pools}
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    rec["metrics"] = tester.test()
+    torch.cuda.synchronize()
+    rec["test_s"] = time.perf_counter() - t0
+    rec["test_launches"] = _counts()
+    ev = tester.evaluator
+    if m.cache is not None:
+        cache = m.cache
+        rec["eval"] = "cached"
+        rec["item_pages"] = len(cache.pages(cache.num_items))
+        rec["user_pages"] = len(cache.pages(cache.num_users))
+        want_pools = (rec["item_pages"] * item_pools
+                      + rec["user_pages"] * user_pools)
+        item_repr = cache.item_repr[:REPR_ROWS]
+    else:
+        rec["eval"] = "full forward"
+        ph = ev.phase("test")
+        P, S = ev.batch_size, data.history_matrix().shape[1]
+        if data.num_items > 2 * P * (1 + S):
+            raise RuntimeError(f"{name}: full-forward pages were expected "
+                               f"to encode the catalog once each")
+        rec["pages"] = -(-ph.n // P)
+        want_pools = rec["pages"] * (item_pools + user_pools)
+        with torch.inference_mode():
+            item_repr = model.encode_item_content(
+                {c: a[:REPR_ROWS] for c, a in m.contents.columns.items()})
+    rec["expected_test_launches"] = {
+        "additive_pool": want_pools, "packed_attention": 0,
+        "packed_attention_backward": 0, "dropout_keep_mask": 0}
+    with mock.patch.object(common, "additive_pool", additive_pool_reference), \
+            torch.inference_mode():
+        item_ref = torch.cat([
+            model.encode_item_content(
+                {c: a[s:min(s + 512, REPR_ROWS)]
+                 for c, a in m.contents.columns.items()})
+            for s in range(0, REPR_ROWS, 512)])
+    err = (item_repr.float() - item_ref.float()).abs().max()
+    rec["item_repr_shape"] = [data.num_items, int(item_repr.shape[-1])]
+    rec["item_repr_rel_err"] = float(err / item_ref.float().abs().max())
+    rec["item_repr_finite"] = bool(torch.isfinite(item_repr.float()).all())
+    rec["train"], dp = _train_steps(m, data, device, ZOO_STEPS)
+    rec["expected_launches_per_step"] = {
+        "additive_pool": item_pools + user_pools, "packed_attention": 0,
+        "packed_attention_backward": 0, "dropout_keep_mask": 0}
+
+    problems = []
+    if not all(np.isfinite(v) and 0.0 <= v <= 1.0
+               for v in rec["metrics"].values()):
+        problems.append("metrics not finite in [0, 1]")
+    if rec["test_launches"] != rec["expected_test_launches"]:
+        problems.append("test launches")
+    if rec["train"]["launches_per_step"] != rec["expected_launches_per_step"]:
+        problems.append("training launches")
+    if not rec["item_repr_finite"] or rec["item_repr_rel_err"] > BF16_REL_TOL:
+        problems.append("item reprs disagree with the plain path")
+    if not rec["train"]["plans"]["all_live"]:
+        problems.append("catalog-grad plans not live")
+    if (m.cache is None) != (name == "miner"):
+        problems.append("caching")
+    if problems:
+        raise RuntimeError(f"{name} failed ({problems}): {rec}")
+    del m, tester, ev, model, item_repr, item_ref, dp
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _plan_scale(name: str, grads: dict):
+    """The largest value a gradient is held against: its own, or for a
+    bias the larger of its own and its layer's weight's (a pool's
+    proj_kernel for its proj_bias). A pool's proj_bias gradient is zero to
+    first order (the softmax backward's weights sum to zero over the
+    positions, tanh' ~1 near the init): the rounding residue of the terms
+    the weight's gradient sums too, which another order of sums moves by a
+    large share of itself."""
+    ref = name
+    if name.endswith("proj_bias"):
+        ref = name[:-len("proj_bias")] + "proj_kernel"
+    elif name.endswith(".bias"):
+        ref = name[:-len("bias")] + "weight"
+    return max(grads[name].abs().max().item(),
+               grads[ref].abs().max().item(), 1e-30)
+
+
+def run_naml_plans(data, device) -> dict:
+    """7.3: NAML's gradients on one batch with the plans and with
+    catalog_plans and catalog_history_plan set to None, at f32 and bf16
+    (the same dropout generator: the plans draw nothing); then the bf16
+    training step both ways, timed and profiled."""
+    import torch
+    from legommenders_tpu_torch.data.device_pipeline import (
+        DeviceTrainPipeline, step_generator,
+    )
+    from legommenders_tpu_torch.runtime import steps
+    from legommenders_tpu_torch.runtime.manager import Manager
+
+    rec = {"path": "naml catalog-grad plans"}
+    problems = []
+    for dtype, tol in (("f32", PLAN_F32_TOL), ("bf16", PLAN_BF16_TOL)):
+        m = Manager(model_cfg=MODEL_CFG,
+                    exp_cfg={"policy": {"dtype": dtype}}, data=data,
+                    device=device, seed=0)
+        dp = DeviceTrainPipeline(data, batch_size=TRAIN_BATCH, seed=0,
+                                 device=device)
+        batch = dp.assemble(next(dp.epoch_indices(shuffle=False)),
+                            step_generator(0, 0, device))
+        model = m.model
+        loss_fn = steps.make_loss_fn(model, m.contents.columns, True)
+        grads, losses = {}, {}
+        plans = model.catalog_plans, model.catalog_history_plan
+        for side in ("plans", "plain"):
+            if side == "plain":
+                model.catalog_plans = model.catalog_history_plan = None
+            model.zero_grad(set_to_none=True)
+            loss = loss_fn(batch, step_generator(0, 1, device))
+            loss.backward()
+            losses[side] = loss.item()
+            grads[side] = {n: p.grad.float().clone()
+                           for n, p in model.named_parameters()
+                           if p.grad is not None}
+            if side == "plans":
+                rec[f"{dtype}_plans"] = _plans_live(model)
+        model.catalog_plans, model.catalog_history_plan = plans
+        errs = {n: (g - grads["plain"][n]).abs().max().item()
+                / _plan_scale(n, grads["plain"])
+                for n, g in grads["plans"].items()}
+        own = {n: (g - grads["plain"][n]).abs().max().item()
+               / max(grads["plain"][n].abs().max().item(), 1e-30)
+               for n, g in grads["plans"].items()}
+        rec[f"{dtype}_loss"] = losses
+        rec[f"{dtype}_rel_err"] = errs
+        rec[f"{dtype}_rel_err_own_max"] = own
+        rec[f"{dtype}_max_rel_err"] = max(errs.values())
+        if grads["plans"].keys() != grads["plain"].keys():
+            problems.append(f"{dtype}: gradients of different tensors")
+        problems += [f"{dtype} {n}" for n, e in errs.items() if e > tol]
+        if not rec[f"{dtype}_plans"]["all_live"]:
+            problems.append(f"{dtype}: plans not live")
+        if dtype == "bf16":
+            for side in ("plans", "plain"):
+                if side == "plain":
+                    model.catalog_plans = model.catalog_history_plan = None
+                rec[f"step_{side}"], _ = _train_steps(m, data, device,
+                                                      PLAN_PROFILE_STEPS)
+            model.catalog_plans, model.catalog_history_plan = plans
+        del m, dp, model, grads, batch
+        torch.cuda.empty_cache()
+    if problems:
+        raise RuntimeError(f"NAML with the plans disagrees with the plain "
+                           f"backward ({problems}): {rec}")
     return rec
 
 
@@ -1513,6 +1794,29 @@ def main() -> int:
         cli = run_cli(tmp)
         log(f"[loop] cli: {cli['outcome']}: {json.dumps(cli)}")
 
+    # 7. the news zoo and the catalog gradient plans
+    zoo_checks = []
+    for pool, (L, h, side) in ZOO_POOLS.items():
+        for n, where in ((POOLS[side][0], side), (PAGE_N, "page")):
+            for dtype in ("f32", "bf16"):
+                res = check_pool(f"{pool} ({where})", n, L, dtype, device,
+                                 h=h, plain_iters=2)
+                zoo_checks.append(res)
+                log(f"[zoo] kernel {json.dumps(res)}")
+    zoo = {}
+    for name in ZOO_MODELS:
+        zoo[name] = run_zoo_model(name, data, device)
+        log(f"[zoo] {json.dumps(zoo[name])}")
+    plans = run_naml_plans(data, device)
+    log(f"[zoo] {json.dumps(plans)}")
+    for name, rec in zoo.items():
+        log(f"[zoo] {name}: Tester.test() {rec['test_s']:.3f} s "
+            f"({rec['eval']}), step {rec['train']['step_ms']:.2f} ms "
+            f"({rec['train']['impressions_per_s']:.0f} impressions/s, peak "
+            f"{rec['train']['peak_memory_gb']:.2f} GB) ({card})")
+    log(f"[zoo] naml step: plans {plans['step_plans']['step_ms']:.2f} ms, "
+        f"no plans {plans['step_plain']['step_ms']:.2f} ms ({card})")
+
     # launches of each kernel on each main path: the serving passes, the
     # cache build and the timed training steps
     runs = {p: rec["launches"] for p, rec in paths.items()}
@@ -1526,9 +1830,19 @@ def main() -> int:
     runs["naml latency (full)"] = latency["full_launches"]
     runs["bert-naml Trainer lm cache"] = lm_loop["cache_launches"]
     runs["bert-naml Trainer"] = lm_loop["launches"]
+    for name, rec in zoo.items():
+        runs[f"{name} Tester.test()"] = rec["test_launches"]
+        runs[f"{name} training"] = rec["train"]["launches"]
+    for side in ("plans", "plain"):
+        runs[f"naml training ({side})"] = plans[f"step_{side}"]["launches"]
     profiles = {p: rec["profile"] for p, rec in paths.items()}
     profiles["bert-naml training step"] = lm_train["profile"]
     profiles["naml training step"] = naml_train["profile"]
+    for name, rec in zoo.items():
+        profiles[f"{name} training step"] = rec["train"]["profile"]
+    for side in ("plans", "plain"):
+        profiles[f"naml training step ({side})"] = plans[
+            f"step_{side}"]["profile"]
 
     def by_path(key):
         return {p: c.get(key, 0) for p, c in runs.items()}
@@ -1569,11 +1883,16 @@ def main() -> int:
         "pages": {c["L"]: {k: c[k] for k in (
             "kernel", "max_abs_err", "rel_err", "ms", "plain_ms",
             "bound_ms", "bound_by")} for c in page_bf16},
+        # the news zoo's pool shapes (phase 7), bf16
+        "zoo_shapes": {c["pool"]: {k: c[k] for k in (
+            "N", "L", "H", "kernel", "max_abs_err", "rel_err", "ms",
+            "plain_ms", "bound_ms", "bound_by")}
+            for c in zoo_checks if c["dtype"] == "bf16"},
         # device time summed over the kernel's launches in each profiled
         # window, at the shapes the path gives it
         "main_path_ms": main_path("additive_pool"),
         "main_path_by_path": profiled("additive_pool"),
-        "checks": checks,
+        "checks": checks + zoo_checks,
     }, {
         "name": "packed_attention",
         "route": "cuda",

@@ -12,8 +12,15 @@ no JAX. Conversions:
     with the flax module name `AdditiveAttention_0` -> `attention`;
   * LayerNorm `scale`             -> `weight`;
   * LoRA `lora_A` (D, r) / `lora_B` (r, F) -> (r, D) / (F, r);
-  * BERT `position_embeddings`, `token_type_embeddings` and the
-    ConcatInputer's `special_tokens` as they are. Module paths keep their
+  * BERT's, Fastformer's and the Transformer's `position_embeddings`,
+    `token_type_embeddings`, the ConcatInputer's `special_tokens` and
+    PolyAttention's `context_codes` as they are;
+  * the GRU cell's gates `GRUCell_<i>/{ir,iz,in,hr,hz,hn}` as Dense
+    layers (`hr` and `hz` have no bias, as in flax);
+  * flax's automatic names (`Dense_0`, `LayerNorm_0`,
+    `MultiHeadSelfAttention_0`, `FastSelfAttention_0`, `GRUCell_0`,
+    `layer_i/attn/{q,k,v,out}`) as they are: the port names its
+    submodules as flax does. Module paths keep their
     names (`item_op/lm/layer_3/attention/query` ->
     `item_op.lm.layer_3.attention.query`); in layer-split mode the frozen
     lower slice `item_op/lm_lower/{embedding stage, layer_0..k-1}` and the
@@ -31,7 +38,7 @@ import torch
 _MODULE_NAMES = {"AdditiveAttention_0": "attention"}
 _AS_THEY_ARE = ("bias", "proj_kernel", "proj_bias", "query",
                 "position_embeddings", "token_type_embeddings",
-                "special_tokens")
+                "special_tokens", "context_codes")
 
 
 def _flatten(tree: Mapping, prefix=()):

@@ -10,9 +10,10 @@ loader/embedding_hub.py:121-385:
     after lookup when the table dim differs from the model dim or the
     policy is 'linear';
   * token ids clipped into the table (UNSET = -1 reads row 0; the caller
-    masks pad positions).
-The training-only gradient plans (PlannedTables / catalog_grad) are not
-part of the port.
+    masks pad positions);
+  * `embed(..., plan=)` and `PlannedTables`: a static full-catalog lookup
+    takes its column's ops/catalog_grad.CatalogGradPlan (the same forward,
+    a scatter-free backward; JAX embedding.py:87-141).
 """
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
@@ -95,17 +96,44 @@ class EmbeddingTables(nn.Module):
 
     def embed(self, ids: torch.Tensor, vocab_name: str,
               col_name: Optional[str] = None,
-              rng: Optional[torch.Generator] = None) -> torch.Tensor:
+              rng: Optional[torch.Generator] = None,
+              plan=None) -> torch.Tensor:
+        """Lookup with UNSET-safe clipping; the caller masks pad positions.
+        `plan` (ops/catalog_grad.CatalogGradPlan) routes the backward of a
+        static full-catalog lookup through its gather-reduce segment sum;
+        it applies only to a trainable table of the shape it was built for
+        (the content was checked by the caller, `matches_source`)."""
         spec = self._spec(vocab_name, col_name)
         table = self.tables[spec.param_name]
-        safe = ids.clamp(0, spec.size - 1)
-        out = nn.functional.embedding(safe, table).to(self.dtype)
+        if (plan is not None and not spec.frozen
+                and plan.matches(ids.shape, spec.size)):
+            out = plan.take(table).to(self.dtype)
+        else:
+            safe = ids.clamp(0, spec.size - 1)
+            out = nn.functional.embedding(safe, table).to(self.dtype)
         if spec.transform:
             layer = self.transforms[spec.param_name]
             out = nn.functional.linear(out, layer.weight.to(self.dtype),
                                        layer.bias.to(self.dtype))
             out = dropout(out, spec.transform_dropout, rng)
         return out
+
+
+class PlannedTables:
+    """A view of EmbeddingTables that hands each column's catalog gradient
+    plan to `embed`: the inputers stay unaware of plans, and Legommender
+    passes this view on the full-catalog encode only."""
+
+    def __init__(self, eh: EmbeddingTables, plans: Dict[str, object]):
+        self._eh = eh
+        self._plans = plans or {}
+
+    def embed(self, ids, vocab_name, col_name=None, rng=None):
+        return self._eh.embed(ids, vocab_name, col_name, rng,
+                              plan=self._plans.get(col_name))
+
+    def dim_of(self, vocab_name, col_name=None):
+        return self._eh.dim_of(vocab_name, col_name)
 
 
 class EmbeddingHub:

@@ -9,9 +9,13 @@ layer-split mode is item_config's `tune_from`), instantiates the
 operator/predictor classes with merged configs (`lm_dtype` given as a
 string, "bf16"/"f32"), builds the item inputer at the embedding width (its
 special tokens are parameters), runs the matching/ranking compatibility
-checks and registers the inputer vocabs into the embedding hub. The
-training-side gradient plans (catalog_plans, HistoryGradPlan) are not
-built: they change only how the backward sums, not what it computes.
+checks and registers the inputer vocabs into the embedding hub. Unless
+`full_catalog_encode` is "off" it builds the catalog gradient plans
+(ops/catalog_grad.py, JAX :251-282) from the content columns on the
+device, the very tensors the Manager hands to the training and evaluation
+entry points, and the HistoryGradPlan from the history matrix. An item
+operator that declares `num_cols` / `cols` gets the item columns' count /
+specs (CNNCat builds a block per column).
 """
 import inspect
 import logging
@@ -25,6 +29,9 @@ from legommenders_tpu_torch.data.dataset import LegoData
 from legommenders_tpu_torch.models.embedding import EmbeddingHub
 from legommenders_tpu_torch.models.item_table import ItemContentTable
 from legommenders_tpu_torch.models.legommender import Legommender
+from legommenders_tpu_torch.ops.catalog_grad import (
+    HistoryGradPlan, build_catalog_plans,
+)
 from legommenders_tpu_torch.utils.function import combine_config
 from legommenders_tpu_torch.utils.registry import OPERATORS, PREDICTORS
 
@@ -33,7 +40,8 @@ import legommenders_tpu_torch.models.operators  # noqa: F401
 import legommenders_tpu_torch.models.predictors  # noqa: F401
 
 # keys combine_config injects; their absence from a class is expected
-_INJECTED_KEYS = ("hidden_size", "input_dim", "lm_dtype")
+_INJECTED_KEYS = ("hidden_size", "input_dim", "num_cols", "cols",
+                  "lm_dtype")
 # dtype names of the configs (policy dtype, item_config.lm_dtype)
 DTYPE_NAMES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
                "f32": torch.float32, "float32": torch.float32,
@@ -163,6 +171,11 @@ class LegoConfig:
              if k != "inputer_config"},
             hidden_size=item_hidden, input_dim=emb_dim)
         icfg = _filter_fields(icfg, item_op_cls, "item_config")
+        op_params = inspect.signature(item_op_cls.__init__).parameters
+        if "num_cols" in op_params:
+            icfg["num_cols"] = len(item_cols)
+        if "cols" in op_params:
+            icfg["cols"] = item_cols
         # YAML configs express dtypes as strings ("bf16")
         if isinstance(icfg.get("lm_dtype"), str):
             icfg["lm_dtype"] = DTYPE_NAMES[icfg["lm_dtype"].lower()]
@@ -187,6 +200,9 @@ class LegoConfig:
         pcfg = combine_config(dict(self.predictor_config),
                               hidden_size=self.hidden_size)
         pcfg = _filter_fields(pcfg, pred_cls, "predictor_config")
+        if "input_dim" in inspect.signature(pred_cls.__init__).parameters:
+            # a head with its own layers over the user repr (MINER)
+            pcfg["input_dim"] = user_op.output_dim
         predictor = pred_cls(dtype=self.dtype, **pcfg)
 
         # compatibility checks (reference lego_config.py:217-224)
@@ -197,6 +213,19 @@ class LegoConfig:
         if not self.use_neg_sampling and not predictor.allow_ranking:
             raise ValueError(f"{self.predictor} does not support ranking mode")
 
+        # the gather-reduce embedding backward of the whole-catalog encode,
+        # and the history gather's, built on the contents' device
+        catalog_plans = history_plan = None
+        if self.full_catalog_encode != "off":
+            catalog_plans = build_catalog_plans(
+                {c: contents.columns[c] for c, _, _ in item_cols},
+                contents.col_vocabs, eh.specs) or None
+            hm = data.history_matrix()
+            if hm is not None and getattr(hm, "ndim", 0) == 2:
+                history_plan = HistoryGradPlan(np.asarray(hm),
+                                               contents.num_items,
+                                               device=device)
+
         model = Legommender(
             eh=eh,
             item_op=item_op,
@@ -206,5 +235,7 @@ class LegoConfig:
             item_page_size=self.item_page_size,
             item_page_remat=self.item_page_remat,
             full_catalog_encode=self.full_catalog_encode,
+            catalog_plans=catalog_plans,
+            catalog_history_plan=history_plan,
         )
         return model, contents

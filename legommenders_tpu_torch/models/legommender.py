@@ -28,25 +28,35 @@ eval mode (JAX `training=False`). A paged forward draws one seed per page
 from it before the page runs and gives the page a generator of its own
 made from that seed: torch.utils.checkpoint restores only torch's default
 generators, so a page that drew from `rng` itself would draw other masks
-when it is recomputed in the backward. The JAX training-side gradient
-plans (catalog_grad's PlannedTables and HistoryGradPlan) rewrite only the
-backward's summation and are not ported: the port's gradients are autograd's
-own.
+when it is recomputed in the backward.
+
+The catalog gradient plans (ops/catalog_grad.py, JAX :71-80, 91-122,
+312-343): `catalog_plans` ({col: CatalogGradPlan}) route the embedding
+backward of the whole-catalog encode through gather-reduce segment sums
+for each column whose runtime tensor is the one its plan was built from
+(the others take the plain lookup, with a warning);
+`catalog_history_plan` (HistoryGradPlan) carries the history gather of a
+training forward (a dropout generator given) whose batch has `user_id`.
+Neither changes a forward's values; neither applies to a paged encode.
 """
 import functools
+import logging
 from typing import Dict, Optional
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from legommenders_tpu_torch.models.embedding import EmbeddingTables
+from legommenders_tpu_torch.models.embedding import (
+    EmbeddingTables, PlannedTables,
+)
 from legommenders_tpu_torch.models.inputers.base import BaseInputer
 from legommenders_tpu_torch.models.operators.base import BaseOperator
 from legommenders_tpu_torch.models.operators.lm_ops import (
     LM_HIDDEN_KEY, LM_MASK_KEY,
 )
 from legommenders_tpu_torch.models.predictors.base import BasePredictor
+from legommenders_tpu_torch.ops import catalog_grad
 
 REMAT_POLICIES = ("full", "none")
 LM_REMAT_POLICIES = ("dots", "ffn")
@@ -57,7 +67,9 @@ class Legommender(nn.Module):
                  user_op: BaseOperator, predictor: BasePredictor,
                  item_inputer: BaseInputer, item_page_size: int = 0,
                  item_page_remat: str = "full",
-                 full_catalog_encode: str = "auto"):
+                 full_catalog_encode: str = "auto",
+                 catalog_plans: Optional[dict] = None,
+                 catalog_history_plan=None):
         super().__init__()
         if item_page_remat in LM_REMAT_POLICIES:
             raise NotImplementedError(
@@ -77,6 +89,9 @@ class Legommender(nn.Module):
         self.item_page_size = int(item_page_size or 0)
         self.item_page_remat = item_page_remat
         self.full_catalog_encode = full_catalog_encode
+        self.catalog_plans = catalog_plans
+        self.catalog_history_plan = catalog_history_plan
+        self._warned_dead = set()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         self.eh.reset_parameters(generator)
@@ -89,33 +104,56 @@ class Legommender(nn.Module):
     # item side                                                          #
     # ------------------------------------------------------------------ #
     def _encode_flat(self, flat: Dict[str, torch.Tensor],
-                     rng: Optional[torch.Generator] = None) -> torch.Tensor:
-        """One inputer + item-operator pass over flattened (M, ...) rows."""
+                     rng: Optional[torch.Generator] = None,
+                     catalog: bool = False) -> torch.Tensor:
+        """One inputer + item-operator pass over flattened (M, ...) rows;
+        `catalog`: the rows are the whole catalog, as the plans were built
+        from it."""
         if LM_HIDDEN_KEY in flat:
             return self.item_op(flat[LM_HIDDEN_KEY], flat[LM_MASK_KEY],
                                 rng=rng)
-        emb, mask = self.item_inputer.get_embeddings(self.eh, flat, rng)
+        eh = self.eh
+        if catalog and self.catalog_plans:
+            # a plan applies only where the runtime column is the matrix
+            # it was built from; a swapped column takes the plain lookup
+            live = {c: p for c, p in self.catalog_plans.items()
+                    if c in flat and p.matches_source(flat[c])}
+            dead = tuple(c for c in self.catalog_plans
+                         if c in flat and c not in live)
+            catalog_grad.record_trace(live, dead)
+            if dead and dead not in self._warned_dead:
+                self._warned_dead.add(dead)
+                logging.getLogger("legommenders_tpu_torch").warning(
+                    f"catalog-grad plan INACTIVE for columns {list(dead)}: "
+                    f"runtime column is not the baked matrix — embedding "
+                    f"backward falls back to the plain lookup")
+            if live:
+                eh = PlannedTables(self.eh, live)
+        emb, mask = self.item_inputer.get_embeddings(eh, flat, rng)
         return self.item_op(emb, mask, rng=rng)
 
     def encode_item_content(self, contents: Dict[str, torch.Tensor],
-                            rng: Optional[torch.Generator] = None
-                            ) -> torch.Tensor:
+                            rng: Optional[torch.Generator] = None,
+                            catalog: bool = False) -> torch.Tensor:
         """contents: {col: (..., L)} token ids (and, in layer-split mode,
         LM_HIDDEN_KEY (..., L, D) / LM_MASK_KEY (..., L)) -> (..., D) item
         vectors. Leading dims are flattened for the operator pass and
-        restored."""
+        restored; contents with one leading dim pass as they are (the
+        catalog plans know their tensors by identity). `catalog`: the
+        contents are the whole catalog (the plans apply unless paged)."""
         lm_mode = LM_HIDDEN_KEY in contents
         first = (contents[LM_HIDDEN_KEY] if lm_mode
                  else next(iter(contents.values())))
         lead = first.shape[:-2] if lm_mode else first.shape[:-1]
-        flat = {c: a.reshape((-1,) + tuple(a.shape[len(lead):]))
+        flat = {c: a if len(lead) == 1
+                else a.reshape((-1,) + tuple(a.shape[len(lead):]))
                 for c, a in contents.items()}
         M = flat[LM_HIDDEN_KEY if lm_mode else next(iter(flat))].shape[0]
         P = self.item_page_size
         if P > 0 and M > P:
             out = self._encode_paged(flat, M, P, rng)
         else:
-            out = self._encode_flat(flat, rng)
+            out = self._encode_flat(flat, rng, catalog)
         return out.reshape(*lead, *out.shape[1:])
 
     def _encode_page(self, flat: Dict[str, torch.Tensor], M: int, P: int,
@@ -189,9 +227,20 @@ class Legommender(nn.Module):
             and num_items <= 2 * B * (K + S))
         if use_catalog:
             # every item encoded once, occurrences gathered
-            all_reprs = self.encode_item_content(item_contents, rng)
+            all_reprs = self.encode_item_content(item_contents, rng,
+                                                 catalog=True)
             item_repr = all_reprs[safe_cand]
-            clicks = all_reprs[safe_hist]
+            hp = self.catalog_history_plan
+            uid = batch.get("user_id")
+            use_hp = (hp is not None and rng is not None and uid is not None
+                      and hp.matches(hist_ids.shape, num_items))
+            catalog_grad.record_history(use_hp)
+            if use_hp:
+                # the ids of batch["history"], read from the plan's matrix;
+                # its backward sums by user, then by the static ids
+                clicks = hp.take(all_reprs, uid)
+            else:
+                clicks = all_reprs[safe_hist]
         else:
             # one item-operator pass over candidates + clicks
             all_ids = torch.cat([safe_cand.reshape(-1), safe_hist.reshape(-1)])

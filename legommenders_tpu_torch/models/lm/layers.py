@@ -28,8 +28,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from legommenders_tpu_torch.models.common import (
-    cached_casts, dropout, lecun_normal_,
+from legommenders_tpu_torch.models.common import (  # noqa: F401
+    FrozenableLayerNorm, cached_casts, dropout, lecun_normal_,
 )
 from legommenders_tpu_torch.ops.attention import MAX_T, packed_attention
 
@@ -94,41 +94,6 @@ class LoRADense(nn.Module):
             a, bb = self.lora_A.to(self.dtype), self.lora_B.to(self.dtype)
             y = y + ((h @ a.t()) @ bb.t()) * (self.lora_alpha / self.lora_r)
         return y
-
-
-class FrozenableLayerNorm(nn.Module):
-    """LayerNorm with f32 statistics. Parameters `weight` and `bias` (the
-    JAX `scale` and `bias`). By default the normalisation runs in f32 and
-    the result is cast to `dtype`; with `bf16_apply` (and a `dtype` other
-    than f32) only the statistics are f32 and the rest runs in `dtype`.
-    `freeze` freezes both parameters."""
-
-    def __init__(self, dim: int, epsilon: float = 1e-12,
-                 bf16_apply: bool = False, freeze: bool = False,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__()
-        self.epsilon = epsilon
-        self.bf16_apply = bf16_apply
-        self.dtype = dtype
-        self.weight = nn.Parameter(torch.ones(dim), requires_grad=not freeze)
-        self.bias = nn.Parameter(torch.zeros(dim), requires_grad=not freeze)
-
-    def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        with torch.no_grad():
-            self.weight.fill_(1.0)
-            self.bias.zero_()
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.bf16_apply and self.dtype != torch.float32:
-            var, mean = torch.var_mean(x.float(), dim=-1, keepdim=True,
-                                       correction=0)
-            inv = torch.rsqrt(var + self.epsilon).to(self.dtype)
-            y = (x.to(self.dtype) - mean.to(self.dtype)) * inv
-            return y * self.weight.to(self.dtype) + self.bias.to(self.dtype)
-        # f32 in and out: torch's CUDA layer_norm refuses a bf16 x with f32
-        # weights
-        return F.layer_norm(x.float(), x.shape[-1:], self.weight, self.bias,
-                            self.epsilon).to(self.dtype)
 
 
 class SharedBitsDropout:

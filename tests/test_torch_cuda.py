@@ -20,7 +20,8 @@ forward and the backward apply is read back from their outputs and must
 equal the mask kernel's bit for bit. The bf16 tensor-core pool (whole items
 per 128-row tile) is held at every main-path L with N around one tile, a
 page and more tiles than the grid, with all-masked and single-position
-items, an f32 W1, one item per tile and every hidden width; the profiler's
+items, an f32 W1, one item per tile and every hidden width, and at the news
+zoo's pools (L 1 and 30 at H 256, L 32-34 and 50 at H 64); the profiler's
 kernel names must show it took those and the CUDA-core pool f32 and the
 odd shapes. The run loop on the card (a 150-item NAML fixture, f32): four
 Trainer steps on host batches and on device batches, a checkpoint round
@@ -234,6 +235,21 @@ def test_tc_pool_other_hidden_widths(device, H):
     """The kernel's other instances: H / 64 groups of 64 columns."""
     assert pool_kernel(torch.bfloat16, 31, 64, H)[0] == TC_KERNEL
     _pool_tc_check(_pool_tc_inputs(300, 31, device, H=H))
+
+
+# the news zoo's pools (D 64): LSTUR's category (L 1, 128 items a tile)
+# and title (L 30) at H 256; Fastformer's and MINER's items (L 31-34
+# around the ConcatInputer's slots) and Fastformer's users (L 50) at H 64;
+# N around one tile, a page and more tiles than the grid
+ZOO_POOL_CASES = ([(N, L, 256) for L in (1, 30) for N in _pool_tc_ns(L)]
+                  + [(N, L, 64) for L in (32, 33, 34, 50)
+                     for N in _pool_tc_ns(L)])
+
+
+@pytest.mark.parametrize("N,L,H", ZOO_POOL_CASES)
+def test_tc_pool_zoo_shapes_match_plain(device, N, L, H):
+    assert pool_kernel(torch.bfloat16, L, 64, H) == (TC_KERNEL, 128 // L)
+    _pool_tc_check(_pool_tc_inputs(N, L, device, H=H))
 
 
 def test_pool_kernels_by_profiled_name(device):
@@ -706,3 +722,115 @@ def test_full_forward_matches_cached_on_card(device):
     cached = ev.score_phase_device("test")
     assert full.shape == cached.shape == (720,)
     assert (full - cached).abs().max().item() <= 1e-5
+
+
+ZOO_DATA = dict(num_items=150, num_users=60, title_len=12, history_len=10,
+                vocab_size=300, inters_per_user=6)
+
+
+def _zoo_manager(name, device, dtype="f32"):
+    from legommenders_tpu_torch.config import parser
+    from legommenders_tpu_torch.data.processors.synthetic import (
+        SyntheticProcessor,
+    )
+    from legommenders_tpu_torch.runtime.manager import Manager
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = parser.parse_four_way(
+        {"model": name, "item_layers": 1, "user_layers": 1},
+        config_root=os.path.join(root, "config")).raw()["model"]
+    return Manager(model_cfg=cfg, device=device,
+                   exp_cfg={"policy": {"batch_size": 16, "dtype": dtype}},
+                   data=SyntheticProcessor(**ZOO_DATA).as_lego_data())
+
+
+def _weight_of(name: str) -> str:
+    """A bias's layer's weight (a pool's proj_kernel for its proj_bias).
+    Some biases get a gradient that is zero, exactly or to first order:
+    an attention key's (softmax does not see a shift common to every
+    key), a pool's (its softmax backward's weights sum to zero, tanh' ~1
+    near the init). What is left is the rounding residue of the terms the
+    weight's gradient sums too, so a bias is held against the larger of
+    its own largest value and its weight's."""
+    if name.endswith("proj_bias"):
+        return name[:-len("proj_bias")] + "proj_kernel"
+    if name.endswith(".bias"):
+        return name[:-len("bias")] + "weight"
+    return name
+
+
+def _zoo_grads(m, batch):
+    from legommenders_tpu_torch.runtime import steps
+
+    m.model.zero_grad(set_to_none=True)
+    gen = torch.Generator(device=m.device).manual_seed(0)
+    loss_fn = steps.make_loss_fn(m.model, m.contents.columns, True)
+    loss_fn(batch, gen).backward()
+    return {n: p.grad.detach().cpu() for n, p in m.model.named_parameters()
+            if p.grad is not None}
+
+
+@pytest.mark.parametrize("name", ["nrms", "lstur", "fastformer", "miner"])
+def test_zoo_models_on_card_match_cpu(device, name):
+    """A news-zoo YAML (hidden 64, 1 layer) at f32 on the card against the
+    same weights on the CPU: Tester.test() metrics within 1e-4; one
+    batch's gradients with the catalog plans live, at dropout 0 (the two
+    devices' generators draw other masks), within 1e-4 of each tensor's
+    largest value (a bias: or of its weight's, see _weight_of), and no
+    tensor held tighter than 1e-4 of the model's largest gradient: at the
+    init NRMS's self-attention scores are ~1e-3, its softmax uniform, so
+    every position of an item leaves it as the same vector and the item
+    pool's gradients are zero to first order (1e-14 here); then one bf16
+    fused step on the card: finite, its plans live. TF32 off throughout.
+    """
+    # cuDNN's GRU and convolution otherwise take TF32 products
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        _zoo_on_card_vs_cpu(device, name)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _zoo_on_card_vs_cpu(device, name):
+    from legommenders_tpu_torch.data.device_pipeline import (
+        DeviceTrainPipeline,
+    )
+    from legommenders_tpu_torch.ops import catalog_grad
+    from legommenders_tpu_torch.runtime import steps
+    from legommenders_tpu_torch.runtime.tester import Tester
+
+    gpu, cpu = _zoo_manager(name, device), _zoo_manager(name, "cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               gpu.model.state_dict().items()})
+    got, want = Tester(gpu).test(), Tester(cpu).test()
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-4, (k, got[k], want[k])
+
+    for m in (gpu, cpu):
+        for mod in m.model.modules():
+            for attr in ("dropout", "hidden_dropout_prob"):
+                if isinstance(getattr(mod, attr, None), float):
+                    setattr(mod, attr, 0.0)
+    dp = DeviceTrainPipeline(cpu.data, batch_size=16, seed=0, device="cpu")
+    batch = dp.assemble(next(dp.epoch_indices(shuffle=False)),
+                        torch.Generator().manual_seed(0))
+    g_cpu = _zoo_grads(cpu, batch)
+    g_gpu = _zoo_grads(gpu, {k: v.to(device) for k, v in batch.items()})
+    assert set(catalog_grad.last_trace["live"]) == {"title", "category"}
+    assert catalog_grad.last_trace["history"]
+    assert g_gpu.keys() == g_cpu.keys()
+    floor = 1e-4 * max(w.abs().max().item() for w in g_cpu.values())
+    for n, w in g_cpu.items():
+        scale = max(w.abs().max().item(),
+                    g_cpu[_weight_of(n)].abs().max().item(), floor)
+        assert (g_gpu[n] - w).abs().max().item() <= 1e-4 * scale, n
+
+    m16 = _zoo_manager(name, device, "bf16")
+    dp16 = DeviceTrainPipeline(m16.data, batch_size=16, seed=0, device=device)
+    step = dp16.make_fused_train_step(m16.model, m16.contents.columns,
+                                      steps.adam(m16.model, 1e-3))
+    catalog_grad.record_trace((), ())
+    loss = step(next(dp16.epoch_indices()), 0)
+    assert torch.isfinite(loss).item()
+    assert set(catalog_grad.last_trace["live"]) == {"title", "category"}
