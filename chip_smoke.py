@@ -121,7 +121,34 @@ and exits non-zero when any phase fails:
         against the larger of its own and its weight's: a pool's
         proj_bias gradient is cancellation residue); then the bf16 step
         both ways, 3 timed steps each and one profiled;
-  8. prints one JSON line of kernels, the card line, and
+  8. the CTR zoo (ranking mode, the id-only item path, the Pooling and
+     null operators), on the same fixture, bf16, random weights from seed
+     0:
+     1. the pool kernel against its plain version (f32 and bf16) at the
+        user pools of the steps and test pages (CTR_POOLS): the id models'
+        Ada pool, L 50, D 64, H 256 over a training step's 2,048 users and
+        a full-forward test page's 8,192; bst_text's Transformer pool,
+        L 50, D 64, H 64 over a training step's 2,048 users;
+     2. each of the 24 YAMLs (CTR_MODELS: the ten heads DNN, PNN, DeepFM,
+        DCN, DCNv2, GDCN, AutoInt, MaskNet, FinalMLP and DIN, each _id and
+        _text; naml_id, nrms_id, miner_id, bst_text) at its defaults
+        (hidden 64, MLPs of [1000, 1000, 1000], cross_num 3, DCNv2
+        stacked_parallel with the low-rank mixture r 32 of 4 experts,
+        AutoInt 3 layers of 8 heads at 64, MaskNet 1 block of 64, DIN
+        attention units [64] with Dice): Tester.test() on the 240,000 test
+        rows (through the caches where both operators allow them, else by
+        full forwards, pages of 8,192), 1 warm and 4 fused training steps
+        of 2,048 (median step ms, impressions/s, peak memory, the device's
+        idle share from one more profiled step); every pool launch held
+        against the count the modules give (one a test page or cache page
+        and one a step for an Ada or Attention user, none for a Pooling or
+        null user); the 240,000 test scores of each model that pools
+        (the _id models but din_id, bst_text) against the same model with
+        its kernels patched out (2e-2 of the largest; bst_text's caches
+        rebuilt without them); one `[ctr]` line each;
+     3. the CLI trains dcn_id and din_text (`make smoke`'s geometry) on the
+        card, as 6.6 does NAML and LSTUR;
+  9. prints one JSON line of kernels, the card line, and
      {"ok": true, "device": {...}} as the last line.
 """
 import itertools
@@ -1430,14 +1457,14 @@ def run_loop_lm(data, device) -> dict:
 CLI_MODELS = ("naml", "lstur")
 
 
-def run_cli(tmp) -> dict:
-    """6.6: the CLI at `make smoke`'s geometry on the card: process, then
-    train NAML and LSTUR (2 epochs of 4 batches of 16, hidden 16), from a
-    temporary working directory; a result CSV each must exist. Needs
-    PyYAML (the configs are YAML)."""
+def run_cli(tmp, models=CLI_MODELS) -> dict:
+    """6.6 and 8.3: the CLI at `make smoke`'s geometry on the card:
+    process, then train each of `models` (2 epochs of 4 batches of 16,
+    hidden 16), from a temporary working directory; a result CSV each must
+    exist. Needs PyYAML (the configs are YAML)."""
     import importlib.util
 
-    rec = {"path": "CLI (make smoke geometry)"}
+    rec = {"path": "CLI (make smoke geometry)", "models": list(models)}
     rec["yaml"] = importlib.util.find_spec("yaml") is not None
     if not rec["yaml"]:
         rec["outcome"] = "not run: PyYAML is not installed here"
@@ -1451,7 +1478,7 @@ def run_cli(tmp) -> dict:
         data_dir = os.path.join(tmp, "data", "synthetic")
         process.main(["--data", "synthetic", "--save_dir", data_dir])
         rec["results"] = {}
-        for model in CLI_MODELS:
+        for model in models:
             rec["results"][model] = trainer.main([
                 "--data", "synthetic", "--model", model, "--epoch", "2",
                 "--epoch_batch", "4", "--batch_size", "16",
@@ -1462,8 +1489,8 @@ def run_cli(tmp) -> dict:
                       if f.endswith(".csv"))
     finally:
         os.chdir(cwd)
-    if len(csvs) != len(CLI_MODELS):
-        raise RuntimeError(f"CLI: expected {len(CLI_MODELS)} result CSVs, "
+    if len(csvs) != len(models):
+        raise RuntimeError(f"CLI: expected {len(models)} result CSVs, "
                            f"found {csvs}")
     rec["csv"] = {}
     for path in csvs:
@@ -1706,6 +1733,124 @@ def run_naml_plans(data, device) -> dict:
     return rec
 
 
+# phase 8: the CTR zoo
+CTR_HEADS = ("dnn", "pnn", "deepfm", "dcn", "dcnv2", "gdcn", "autoint",
+             "masknet", "finalmlp", "din")
+CTR_MODELS = tuple(f"{h}_{side}" for h in CTR_HEADS
+                   for side in ("id", "text")) + (
+    "naml_id", "nrms_id", "miner_id", "bst_text")
+CTR_STEPS = 4
+# (N, H) of the user pools at L 50, D 64: the id models' Ada pool (H 256)
+# over a training step's users and over a full-forward test page's (the
+# eval batch, 4 x 2,048); bst_text's Transformer pool (H 64) over a
+# training step's users (its test pools pages of 512 users, phase 7.1)
+CTR_POOLS = {"ctr step users": (TRAIN_BATCH, 256),
+             "ctr test page users": (4 * TRAIN_BATCH, 256),
+             "bst_text step users": (TRAIN_BATCH, 64)}
+CTR_CLI_MODELS = ("dcn_id", "din_text")
+
+
+def run_ctr_model(name: str, data, device) -> dict:
+    """8.2: one CTR-zoo YAML at its defaults, bf16: Tester.test() (the
+    caches, or full forwards for the id-only models and the null user
+    operator), a pooling model's test scores against the same model with
+    its kernels patched out, 4 fused training steps; every pool launch held
+    against the count the modules give."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    import legommenders_tpu_torch.models.common as common
+    from legommenders_tpu_torch.ops.additive import additive_pool_reference
+    from legommenders_tpu_torch.runtime.manager import Manager
+    from legommenders_tpu_torch.runtime.tester import Tester
+
+    rec = {"path": name}
+    t0 = time.perf_counter()
+    m = Manager(model_cfg=zoo_cfg(name), exp_cfg=ZOO_EXP, data=data,
+                device=device, seed=0)
+    tester = Tester(m)
+    torch.cuda.synchronize()
+    rec["setup_s"] = time.perf_counter() - t0
+    model = m.model
+    rec["operators"] = [type(x).__name__ if x is not None else None
+                        for x in (model.item_op, model.user_op,
+                                  model.predictor)]
+    rec["ranking"] = not m.lego_cfg.use_neg_sampling
+    item_pools = _pools_of(model.item_op) if model.item_op else 0
+    user_pools = _pools_of(model.user_op)
+    rec["pools_per_encode"] = {"item": item_pools, "user": user_pools}
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    rec["metrics"] = tester.test()
+    torch.cuda.synchronize()
+    rec["test_s"] = time.perf_counter() - t0
+    rec["test_launches"] = _counts()
+    ev = tester.evaluator
+    ph = ev.phase("test")
+    rec["rows"] = ph.n
+    if m.cache is not None:
+        cache = m.cache
+        rec["eval"] = "cached"
+        rec["item_pages"] = len(cache.pages(cache.num_items))
+        rec["user_pages"] = len(cache.pages(cache.num_users))
+        want_pools = (rec["item_pages"] * item_pools
+                      + rec["user_pages"] * user_pools)
+    else:
+        rec["eval"] = "full forward"
+        P, S = ev.batch_size, data.history_matrix().shape[1]
+        if item_pools and data.num_items > 2 * P * (1 + S):
+            raise RuntimeError(f"{name}: full-forward pages were expected "
+                               f"to encode the catalog once each")
+        rec["pages"] = -(-ph.n // P)
+        want_pools = rec["pages"] * (item_pools + user_pools)
+    rec["expected_test_launches"] = {
+        "additive_pool": want_pools, "packed_attention": 0,
+        "packed_attention_backward": 0, "dropout_keep_mask": 0}
+    score = (ev.score_phase_device if m.cache is not None
+             else ev.score_phase_device_full)
+    scores = score("test").float()
+    rec["scores_finite"] = bool(torch.isfinite(scores).all())
+    if item_pools + user_pools:
+        # the caches are rebuilt without the kernel; nothing reads them
+        # after this
+        with mock.patch.object(common, "additive_pool",
+                               additive_pool_reference):
+            if m.cache is not None:
+                m.cache.cache()
+            plain = score("test").float()
+        rec["score_rel_err"] = float((scores - plain).abs().max()
+                                     / plain.abs().max())
+    rec["train"], dp = _train_steps(m, data, device, CTR_STEPS)
+    rec["expected_launches_per_step"] = {
+        "additive_pool": item_pools + user_pools, "packed_attention": 0,
+        "packed_attention_backward": 0, "dropout_keep_mask": 0}
+
+    problems = []
+    if not all(np.isfinite(v) and 0.0 <= v <= 1.0
+               for v in rec["metrics"].values()):
+        problems.append("metrics not finite in [0, 1]")
+    if rec["test_launches"] != rec["expected_test_launches"]:
+        problems.append("test launches")
+    if rec["train"]["launches_per_step"] != rec["expected_launches_per_step"]:
+        problems.append("training launches")
+    if not rec["scores_finite"]:
+        problems.append("scores not finite")
+    if rec.get("score_rel_err", 0.0) > BF16_REL_TOL:
+        problems.append("scores disagree with the plain path")
+    if model.use_item_content and not rec["train"]["plans"]["all_live"]:
+        problems.append("catalog-grad plans not live")
+    if rec["ranking"] != (name not in ("naml_id", "nrms_id", "miner_id",
+                                       "bst_text")):
+        problems.append("training mode")
+    if problems:
+        raise RuntimeError(f"{name} failed ({problems}): {rec}")
+    del m, tester, ev, model, dp
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -1817,6 +1962,30 @@ def main() -> int:
     log(f"[zoo] naml step: plans {plans['step_plans']['step_ms']:.2f} ms, "
         f"no plans {plans['step_plain']['step_ms']:.2f} ms ({card})")
 
+    # 8. the CTR zoo
+    ctr_checks = []
+    for pool, (n, h) in CTR_POOLS.items():
+        for dtype in ("f32", "bf16"):
+            res = check_pool(pool, n, 50, dtype, device, h=h)
+            ctr_checks.append(res)
+            log(f"[ctr] kernel {json.dumps(res)}")
+    ctr = {}
+    for name in CTR_MODELS:
+        ctr[name] = rec = run_ctr_model(name, data, device)
+        log(f"[ctr] {json.dumps(rec)}")
+        step = rec["train"]
+        log(f"[ctr] {name}: Tester.test() {rec['test_s']:.3f} s "
+            f"({rec['eval']}, {rec['test_launches']['additive_pool']} pool "
+            f"launches), step {step['step_ms']:.2f} ms "
+            f"({step['impressions_per_s']:.0f} impressions/s, peak "
+            f"{step['peak_memory_gb']:.2f} GB, idle share "
+            f"{step['profile']['device_idle_share']}, "
+            f"{step['launches_per_step']['additive_pool']:g} pool launches "
+            f"a step) ({card})")
+    with tempfile.TemporaryDirectory() as tmp:
+        ctr_cli = run_cli(tmp, CTR_CLI_MODELS)
+    log(f"[ctr] cli: {ctr_cli['outcome']}: {json.dumps(ctr_cli)}")
+
     # launches of each kernel on each main path: the serving passes, the
     # cache build and the timed training steps
     runs = {p: rec["launches"] for p, rec in paths.items()}
@@ -1835,6 +2004,9 @@ def main() -> int:
         runs[f"{name} training"] = rec["train"]["launches"]
     for side in ("plans", "plain"):
         runs[f"naml training ({side})"] = plans[f"step_{side}"]["launches"]
+    for name, rec in ctr.items():
+        runs[f"{name} Tester.test()"] = rec["test_launches"]
+        runs[f"{name} training"] = rec["train"]["launches"]
     profiles = {p: rec["profile"] for p, rec in paths.items()}
     profiles["bert-naml training step"] = lm_train["profile"]
     profiles["naml training step"] = naml_train["profile"]
@@ -1843,6 +2015,8 @@ def main() -> int:
     for side in ("plans", "plain"):
         profiles[f"naml training step ({side})"] = plans[
             f"step_{side}"]["profile"]
+    for name, rec in ctr.items():
+        profiles[f"{name} training step"] = rec["train"]["profile"]
 
     def by_path(key):
         return {p: c.get(key, 0) for p, c in runs.items()}
@@ -1888,11 +2062,20 @@ def main() -> int:
             "N", "L", "H", "kernel", "max_abs_err", "rel_err", "ms",
             "plain_ms", "bound_ms", "bound_by")}
             for c in zoo_checks if c["dtype"] == "bf16"},
+        # the CTR zoo's user pools (phase 8), f32 and bf16, with the
+        # launches a step and a test page give them
+        "ctr_shapes": {f"{c['pool']} {c['dtype']}": {k: c[k] for k in (
+            "N", "L", "H", "kernel", "max_abs_err", "rel_err", "ms",
+            "plain_ms", "bound_ms", "bound_by")} for c in ctr_checks},
+        "ctr_launches": {name: {
+            "test": rec["test_launches"]["additive_pool"],
+            "per_step": rec["train"]["launches_per_step"]["additive_pool"]}
+            for name, rec in ctr.items()},
         # device time summed over the kernel's launches in each profiled
         # window, at the shapes the path gives it
         "main_path_ms": main_path("additive_pool"),
         "main_path_by_path": profiled("additive_pool"),
-        "checks": checks + zoo_checks,
+        "checks": checks + zoo_checks + ctr_checks,
     }, {
         "name": "packed_attention",
         "route": "cuda",

@@ -15,6 +15,10 @@ no JAX. Conversions:
   * BERT's, Fastformer's and the Transformer's `position_embeddings`,
     `token_type_embeddings`, the ConcatInputer's `special_tokens` and
     PolyAttention's `context_codes` as they are;
+  * the CTR heads' own leaves as they are, by name: CrossNet's and
+    GateCrossLayer's `b_<i>`, CrossNetMix's `U_<i>` / `V_<i>` (E, D, r),
+    `C_<i>` (E, r, r) and `bias_<i>`, FinalMLP's `w_xy`, Dice's `alpha`
+    (a StatelessBatchNorm's `scale` -> `weight` as LayerNorm's);
   * the GRU cell's gates `GRUCell_<i>/{ir,iz,in,hr,hz,hn}` as Dense
     layers (`hr` and `hz` have no bias, as in flax);
   * flax's automatic names (`Dense_0`, `LayerNorm_0`,
@@ -30,6 +34,7 @@ parameter names.
 Raises on any key it cannot place and on any parameter of the port that
 the tree leaves unset.
 """
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -38,7 +43,10 @@ import torch
 _MODULE_NAMES = {"AdditiveAttention_0": "attention"}
 _AS_THEY_ARE = ("bias", "proj_kernel", "proj_bias", "query",
                 "position_embeddings", "token_type_embeddings",
-                "special_tokens", "context_codes")
+                "special_tokens", "context_codes", "w_xy", "alpha")
+# numbered leaves of the cross layers: CrossNet / GateCrossLayer `b_<i>`,
+# CrossNetMix `U_<i>`, `V_<i>`, `C_<i>`, `bias_<i>`
+_NUMBERED = re.compile(r"(b|U|V|C|bias)_\d+")
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -68,7 +76,7 @@ def _place(path, arr):
         leaf = "weight"
     elif leaf in ("lora_A", "lora_B"):
         arr = arr.T
-    elif leaf not in _AS_THEY_ARE:
+    elif leaf not in _AS_THEY_ARE and not _NUMBERED.fullmatch(leaf):
         raise KeyError(f"bridge: no rule for JAX parameter {'/'.join(path)}")
     return ".".join(names + [leaf]), arr
 

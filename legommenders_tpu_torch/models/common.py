@@ -1,5 +1,7 @@
 """Shared blocks: AdditiveAttention, MultiHeadSelfAttention,
-FrozenableLayerNorm, dropout, dense and flax-equivalent initialisers.
+FrozenableLayerNorm, the CTR building blocks (StatelessBatchNorm, Dice,
+get_activation, MLPLayer, LRLayer), dropout, dense and flax-equivalent
+initialisers.
 
 AdditiveAttention mirrors the JAX package's models/common.py:16-66 without
 its sequence-parallel branch. Parameters keep the JAX names and layouts:
@@ -7,12 +9,19 @@ proj_kernel (D, H), proj_bias (H,), query (H, 1). MultiHeadSelfAttention
 is the local path of JAX common.py:69-168 (plain einsums there too, no
 Pallas kernel); its submodules keep flax's names.
 
+The CTR blocks are JAX common.py:171-266 (plain Dense layers and jnp
+there too). They keep flax's rounding points at bf16: a Dense casts its
+input and weights to the compute dtype; a batch norm's statistics are
+taken in f32 and rounded to the input's dtype; an f32 parameter that JAX
+applies uncast (a batch norm's scale, Dice's alpha) promotes the result
+to f32, as jnp's promotion does.
+
 Dropout draws from an explicit torch.Generator handed down with the
 forward (`rng`), never from torch's global generator; `rng=None` is eval
 mode, as `training=False` is in JAX.
 """
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -38,6 +47,19 @@ def lecun_normal_(t: torch.Tensor, fan_in: int,
                                      generator=generator)
 
 
+def glorot_normal_(t: torch.Tensor,
+                   generator: Optional[torch.Generator] = None):
+    """flax's xavier_normal (jax glorot_normal): a normal truncated at two
+    standard deviations with variance 2 / (fan_in + fan_out), the fans of
+    the last two axes times the product of the leading ones."""
+    receptive = math.prod(t.shape[:-2])
+    fan_in, fan_out = t.shape[-2] * receptive, t.shape[-1] * receptive
+    std = math.sqrt(2.0 / (fan_in + fan_out)) / _TRUNC_STD
+    with torch.no_grad():
+        return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                                     generator=generator)
+
+
 def reset_linear(layer: nn.Module, generator: Optional[torch.Generator]):
     """flax Dense/Conv defaults: lecun_normal kernel, zero bias. The fan-in
     of a Linear (out, in) or Conv1d (out, in, k) weight is in * k."""
@@ -47,12 +69,33 @@ def reset_linear(layer: nn.Module, generator: Optional[torch.Generator]):
             layer.bias.zero_()
 
 
+def reset_children(module: nn.Module,
+                   generator: Optional[torch.Generator] = None):
+    """Draw every direct submodule anew: a Linear by flax's Dense defaults,
+    any other by its own reset_parameters."""
+    for mod in module.children():
+        if isinstance(mod, nn.Linear):
+            reset_linear(mod, generator)
+        else:
+            mod.reset_parameters(generator)
+
+
 def dense(layer: nn.Linear, x: torch.Tensor,
           dtype: torch.dtype) -> torch.Tensor:
     """flax's Dense(dtype=...): x and the kernel cast to dtype, the bias
     added in dtype."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def einsum(eq: str, *ts: torch.Tensor) -> torch.Tensor:
+    """torch.einsum in the operands' promoted dtype: jnp.einsum promotes
+    (bf16 with an f32 parameter gives f32), torch's refuses mixed
+    dtypes."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return torch.einsum(eq, *(t.to(dt) for t in ts))
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -240,3 +283,147 @@ class MultiHeadSelfAttention(nn.Module):
         if self.relu_out:
             out = torch.relu(out)
         return out
+
+
+class StatelessBatchNorm(nn.Module):
+    """Batch normalization by the current batch's statistics over every
+    axis but the last, at training and at evaluation alike (JAX
+    common.py:171-194): no running averages, the population variance.
+    Parameters `weight` and `bias` (flax's `scale` and `bias`), each where
+    its flag is on, applied in f32 as JAX applies them."""
+
+    def __init__(self, dim: int, use_scale: bool = True,
+                 use_bias: bool = True, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(dim)) if use_scale else None
+        self.bias = nn.Parameter(torch.zeros(dim)) if use_bias else None
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            if self.weight is not None:
+                self.weight.fill_(1.0)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        axes = tuple(range(x.ndim - 1))
+        var, mean = torch.var_mean(x.float(), dim=axes, keepdim=True,
+                                   correction=0)
+        y = (x - mean.to(x.dtype)) * torch.rsqrt(var.to(x.dtype) + self.eps)
+        if self.weight is not None:
+            y = y * self.weight
+        if self.bias is not None:
+            y = y + self.bias
+        return y
+
+
+class Dice(nn.Module):
+    """Dice activation (JAX common.py:197-208): p = sigmoid of the batch
+    norm (eps 1e-9, no scale or bias), p x + (1 - p) alpha x; parameter
+    `alpha` (dim,)."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.norm = StatelessBatchNorm(dim, use_scale=False, use_bias=False,
+                                       eps=1e-9, dtype=dtype)
+        self.alpha = nn.Parameter(torch.zeros(dim))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            self.alpha.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p = torch.sigmoid(self.norm(x))
+        return p * x + (1.0 - p) * self.alpha * x
+
+
+_ACTIVATIONS = {
+    "relu": torch.relu,
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    # the exact erf form (FuxiCTR's nn.GELU())
+    "gelu": gelu,
+    "identity": lambda x: x,
+    "none": lambda x: x,
+}
+
+
+def get_activation(name: Optional[str]):
+    """JAX common.py:211-221: relu (the default), tanh, sigmoid, gelu (exact
+    erf), identity / none."""
+    return _ACTIVATIONS[(name or "relu").lower()]
+
+
+class MLPLayer(nn.Module):
+    """The configurable MLP (JAX common.py:224-256): per hidden width a
+    Dense `dense_<i>`, a StatelessBatchNorm `StatelessBatchNorm_<i>` (with
+    `batch_norm`), the activation or a Dice `dice_<i>` (with `use_dice`)
+    and dropout; then `dense_out` (with `output_dim`) and the output
+    activation. `out_dim` is the width it returns."""
+
+    def __init__(self, input_dim: int, hidden_units: Sequence[int] = (),
+                 output_dim: Optional[int] = None, activation: str = "relu",
+                 dropout: float = 0.0, batch_norm: bool = False,
+                 use_bias: bool = True,
+                 output_activation: Optional[str] = None,
+                 use_dice: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.hidden_units = tuple(int(w) for w in hidden_units)
+        self.act = get_activation(activation)
+        self.out_act = (get_activation(output_activation)
+                        if output_activation else None)
+        self.dropout = dropout
+        self.batch_norm, self.use_dice = batch_norm, use_dice
+        self.dtype = dtype
+        width = input_dim
+        for i, w in enumerate(self.hidden_units):
+            self.add_module(f"dense_{i}", nn.Linear(width, w, bias=use_bias))
+            if batch_norm:
+                self.add_module(f"StatelessBatchNorm_{i}",
+                                StatelessBatchNorm(w, dtype=dtype))
+            if use_dice:
+                self.add_module(f"dice_{i}", Dice(w, dtype))
+            width = w
+        self.dense_out = (nn.Linear(width, output_dim, bias=use_bias)
+                          if output_dim is not None else None)
+        self.out_dim = width if output_dim is None else output_dim
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        reset_children(self, generator)
+
+    def forward(self, x: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        for i in range(len(self.hidden_units)):
+            x = dense(getattr(self, f"dense_{i}"), x, self.dtype)
+            if self.batch_norm:
+                x = getattr(self, f"StatelessBatchNorm_{i}")(x)
+            x = getattr(self, f"dice_{i}")(x) if self.use_dice else self.act(x)
+            x = dropout(x, self.dropout, rng)
+        if self.dense_out is not None:
+            x = dense(self.dense_out, x, self.dtype)
+            if self.out_act is not None:
+                x = self.out_act(x)
+        return x
+
+
+class LRLayer(nn.Module):
+    """Logistic-regression sum (JAX common.py:259-266): Dense_0 to one
+    value, squeezed."""
+
+    def __init__(self, input_dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.Dense_0 = nn.Linear(input_dim, 1)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        reset_linear(self.Dense_0, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(self.Dense_0, x, self.dtype).squeeze(-1)

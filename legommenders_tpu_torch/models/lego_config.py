@@ -1,21 +1,29 @@
 """LegoConfig — component wiring: configs -> a ready Legommender module.
 
 The port of the JAX package's models/lego_config.py:53-297 (reference
-model/lego_config.py:57-256) for content-based models whose user operator
-pools click vectors (NAML: CNN / Ada / Dot; bert-naml: BertBase / Ada /
-Dot). It holds the hyper-parameters (the training ones too: neg_count,
+model/lego_config.py:57-256) for models whose user operator pools click
+vectors: content-based ones (NAML: CNN / Ada / Dot; bert-naml: BertBase /
+Ada / Dot; the news zoo; the CTR heads over the Pooling item operator)
+and, with `use_item_content: false`, the id-only ones, whose items are
+rows of an item-id table (JAX :146-150, 166-181: no item operator or
+inputer, the table `data.cm.col_vocabs[history_col]` or "item_id" with
+`data.num_items` rows, the user's input width the embedding width). It
+holds the hyper-parameters (the training ones too: neg_count,
 use_neg_sampling, item_page_size, item_page_remat, full_catalog_encode;
 layer-split mode is item_config's `tune_from`), instantiates the
 operator/predictor classes with merged configs (`lm_dtype` given as a
 string, "bf16"/"f32"), builds the item inputer at the embedding width (its
 special tokens are parameters), runs the matching/ranking compatibility
-checks and registers the inputer vocabs into the embedding hub. Unless
-`full_catalog_encode` is "off" it builds the catalog gradient plans
-(ops/catalog_grad.py, JAX :251-282) from the content columns on the
-device, the very tensors the Manager hands to the training and evaluation
-entry points, and the HistoryGradPlan from the history matrix. An item
-operator that declares `num_cols` / `cols` gets the item columns' count /
-specs (CNNCat builds a block per column).
+checks and registers the inputer vocabs into the embedding hub. For a
+content model, unless `full_catalog_encode` is "off", it builds the
+catalog gradient plans (ops/catalog_grad.py, JAX :244-262) from the
+content columns on the device, the very tensors the Manager hands to the
+training and evaluation entry points, and the HistoryGradPlan from the
+history matrix. An item operator that declares `num_cols` / `cols` gets
+the item columns' count / specs (CNNCat builds a block per column); a
+predictor that declares `input_dim` gets the user representation's width
+(MINER's projection, the CTR heads' layers), which must then equal the
+item representation's.
 """
 import inspect
 import logging
@@ -117,10 +125,8 @@ class LegoConfig:
         """The model (on the CPU, parameters from the default init) and the
         item content table on `device`."""
         data = self.data
-        if not self.use_item_content or not self.item_operator:
-            raise NotImplementedError(
-                "the port builds content-based models only "
-                "(use_item_content with meta.item)")
+        if self.use_item_content and not self.item_operator:
+            raise ValueError("use_item_content requires meta.item")
         item_hidden = int(self.item_hidden_size or self.hidden_size)
         emb_dim = int(self.embedding_dim or self.hidden_size)
 
@@ -157,6 +163,9 @@ class LegoConfig:
                     f"pretrained embedding for vocab '{vocab}' has "
                     f"{hub.size_of(vocab)} rows but the fitted vocab has "
                     f"{fitted_size} tokens; re-export the embedding")
+        item_id_vocab = data.cm.col_vocabs.get(data.cm.history_col, "item_id")
+        if not self.use_item_content and not hub.has(item_id_vocab):
+            hub.register_vocab(item_id_vocab, data.num_items)
 
         user_op_cls = OPERATORS[self.user_operator]
         pred_cls = PREDICTORS[self.predictor]
@@ -164,36 +173,20 @@ class LegoConfig:
             raise NotImplementedError(
                 f"flatten-mode user operator {self.user_operator} is not "
                 f"ported yet")
-
-        item_op_cls = OPERATORS[self.item_operator]
-        icfg = combine_config(
-            {k: v for k, v in self.item_config.items()
-             if k != "inputer_config"},
-            hidden_size=item_hidden, input_dim=emb_dim)
-        icfg = _filter_fields(icfg, item_op_cls, "item_config")
-        op_params = inspect.signature(item_op_cls.__init__).parameters
-        if "num_cols" in op_params:
-            icfg["num_cols"] = len(item_cols)
-        if "cols" in op_params:
-            icfg["cols"] = item_cols
-        # YAML configs express dtypes as strings ("bf16")
-        if isinstance(icfg.get("lm_dtype"), str):
-            icfg["lm_dtype"] = DTYPE_NAMES[icfg["lm_dtype"].lower()]
-        item_op = item_op_cls(dtype=self.dtype, **icfg)
         eh = hub.build(self.dtype)
-        inputer_cfg = dict(self.item_config.get("inputer_config") or {})
-        inputer_cfg = _filter_fields(inputer_cfg, item_op_cls.inputer_class,
-                                     "item_config.inputer_config")
-        # an inputer with parameters (special tokens) needs its width
-        col, vocab, _ = item_cols[0]
-        item_inputer = item_op_cls.inputer_class(
-            cols=item_cols, dtype=self.dtype, dim=eh.dim_of(vocab, col),
-            **inputer_cfg)
+
+        item_op = item_inputer = None
+        if self.use_item_content:
+            item_op, item_inputer = self._item_side(item_cols, item_hidden,
+                                                    emb_dim, eh)
+            item_dim = item_op.output_dim
+        else:
+            item_dim = eh.dim_of(item_id_vocab, "history")
 
         ucfg = combine_config(
             {k: v for k, v in self.user_config.items()
              if k != "inputer_config"},
-            hidden_size=self.hidden_size, input_dim=item_op.output_dim)
+            hidden_size=self.hidden_size, input_dim=item_dim)
         ucfg = _filter_fields(ucfg, user_op_cls, "user_config")
         user_op = user_op_cls(dtype=self.dtype, **ucfg)
 
@@ -201,7 +194,11 @@ class LegoConfig:
                               hidden_size=self.hidden_size)
         pcfg = _filter_fields(pcfg, pred_cls, "predictor_config")
         if "input_dim" in inspect.signature(pred_cls.__init__).parameters:
-            # a head with its own layers over the user repr (MINER)
+            # a head with its own layers over the user and item reprs
+            if user_op.output_dim != item_dim:
+                raise ValueError(
+                    f"{self.predictor}: the user repr is "
+                    f"{user_op.output_dim} wide, the item repr {item_dim}")
             pcfg["input_dim"] = user_op.output_dim
         predictor = pred_cls(dtype=self.dtype, **pcfg)
 
@@ -216,7 +213,7 @@ class LegoConfig:
         # the gather-reduce embedding backward of the whole-catalog encode,
         # and the history gather's, built on the contents' device
         catalog_plans = history_plan = None
-        if self.full_catalog_encode != "off":
+        if self.use_item_content and self.full_catalog_encode != "off":
             catalog_plans = build_catalog_plans(
                 {c: contents.columns[c] for c, _, _ in item_cols},
                 contents.col_vocabs, eh.specs) or None
@@ -237,5 +234,33 @@ class LegoConfig:
             full_catalog_encode=self.full_catalog_encode,
             catalog_plans=catalog_plans,
             catalog_history_plan=history_plan,
+            item_id_vocab=item_id_vocab,
         )
         return model, contents
+
+    def _item_side(self, item_cols, item_hidden: int, emb_dim: int, eh):
+        """The item operator and its inputer (at the embedding width: its
+        special tokens are parameters)."""
+        item_op_cls = OPERATORS[self.item_operator]
+        icfg = combine_config(
+            {k: v for k, v in self.item_config.items()
+             if k != "inputer_config"},
+            hidden_size=item_hidden, input_dim=emb_dim)
+        icfg = _filter_fields(icfg, item_op_cls, "item_config")
+        op_params = inspect.signature(item_op_cls.__init__).parameters
+        if "num_cols" in op_params:
+            icfg["num_cols"] = len(item_cols)
+        if "cols" in op_params:
+            icfg["cols"] = item_cols
+        # YAML configs express dtypes as strings ("bf16")
+        if isinstance(icfg.get("lm_dtype"), str):
+            icfg["lm_dtype"] = DTYPE_NAMES[icfg["lm_dtype"].lower()]
+        item_op = item_op_cls(dtype=self.dtype, **icfg)
+        inputer_cfg = dict(self.item_config.get("inputer_config") or {})
+        inputer_cfg = _filter_fields(inputer_cfg, item_op_cls.inputer_class,
+                                     "item_config.inputer_config")
+        col, vocab, _ = item_cols[0]
+        item_inputer = item_op_cls.inputer_class(
+            cols=item_cols, dtype=self.dtype, dim=eh.dim_of(vocab, col),
+            **inputer_cfg)
+        return item_op, item_inputer

@@ -18,11 +18,14 @@ embedding tables (reference model/legommender.py:55-263).
   * `encode_item_lower`: the offline split of layer-split mode (:215-223);
   * `encode_user`: click vectors (B, S, D) + mask (B, S) -> (B, D);
   * `score_cached`: precomputed reprs -> scores (B, K);
-  * `forward`: the JAX `__call__` (:281-352) for content models: with
+  * `forward`: the JAX `__call__` (:281-357). For content models: with
     `full_catalog_encode` "on", or "auto" while num_items <= 2 B (K + S),
     the whole catalog is encoded once and candidates and clicks are
     gathered from it; otherwise candidates and clicks are encoded per
-    occurrence in one pass.
+    occurrence in one pass. Without item content (`use_item_content`
+    false: no item operator or inputer) candidates and clicks are rows of
+    the item-id table (`item_id_embedding`, ids clipped into it); the
+    clicks are not masked before the user operator, as in JAX.
 `rng` is the explicit dropout generator of a training forward; None is
 eval mode (JAX `training=False`). A paged forward draws one seed per page
 from it before the page runs and gives the page a generator of its own
@@ -63,13 +66,13 @@ LM_REMAT_POLICIES = ("dots", "ffn")
 
 
 class Legommender(nn.Module):
-    def __init__(self, eh: EmbeddingTables, item_op: BaseOperator,
+    def __init__(self, eh: EmbeddingTables, item_op: Optional[BaseOperator],
                  user_op: BaseOperator, predictor: BasePredictor,
-                 item_inputer: BaseInputer, item_page_size: int = 0,
+                 item_inputer: Optional[BaseInputer], item_page_size: int = 0,
                  item_page_remat: str = "full",
                  full_catalog_encode: str = "auto",
                  catalog_plans: Optional[dict] = None,
-                 catalog_history_plan=None):
+                 catalog_history_plan=None, item_id_vocab: str = "item_id"):
         super().__init__()
         if item_page_remat in LM_REMAT_POLICIES:
             raise NotImplementedError(
@@ -91,14 +94,20 @@ class Legommender(nn.Module):
         self.full_catalog_encode = full_catalog_encode
         self.catalog_plans = catalog_plans
         self.catalog_history_plan = catalog_history_plan
+        self.item_id_vocab = item_id_vocab
         self._warned_dead = set()
 
+    @property
+    def use_item_content(self) -> bool:
+        """Items are encoded from their content; else they are rows of the
+        item-id table."""
+        return self.item_op is not None
+
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        self.eh.reset_parameters(generator)
-        self.item_inputer.reset_parameters(generator)
-        self.item_op.reset_parameters(generator)
-        self.user_op.reset_parameters(generator)
-        self.predictor.reset_parameters(generator)
+        for part in (self.eh, self.item_inputer, self.item_op, self.user_op,
+                     self.predictor):
+            if part is not None:
+                part.reset_parameters(generator)
 
     # ------------------------------------------------------------------ #
     # item side                                                          #
@@ -196,6 +205,14 @@ class Legommender(nn.Module):
         emb, mask = self.item_inputer.get_embeddings(self.eh, contents)
         return self.item_op.encode_lower(emb, mask), mask
 
+    def item_id_embedding(self, item_ids: torch.Tensor,
+                          rng: Optional[torch.Generator] = None
+                          ) -> torch.Tensor:
+        """Rows of the item-id table (JAX :229-231), ids clipped into it;
+        the column is the batch key "history", as JAX's LegoConfig fixes
+        it (lego_config.py:278-281) whatever the data names the column."""
+        return self.eh.embed(item_ids, self.item_id_vocab, "history", rng)
+
     # ------------------------------------------------------------------ #
     # user side and scoring                                              #
     # ------------------------------------------------------------------ #
@@ -218,6 +235,11 @@ class Legommender(nn.Module):
         cand_ids = batch["candidates"]                  # (B, K)
         hist_ids = batch["history"]                     # (B, S)
         click_mask = batch["mask"]                      # (B, S)
+        if not self.use_item_content:
+            item_repr = self.item_id_embedding(cand_ids, rng)
+            clicks = self.item_id_embedding(hist_ids, rng)
+            user_repr = self.encode_user(clicks, click_mask, rng)
+            return self.predictor(user_repr, item_repr, rng)
         (B, K), S = cand_ids.shape, hist_ids.shape[1]
         num_items = next(iter(item_contents.values())).shape[0]
         safe_cand = cand_ids.clamp(0, num_items - 1)
@@ -249,4 +271,4 @@ class Legommender(nn.Module):
             item_repr = reprs[:B * K].reshape(B, K, -1)
             clicks = reprs[B * K:].reshape(B, S, -1)
         user_repr = self.encode_user(clicks, click_mask, rng)
-        return self.predictor(user_repr, item_repr)
+        return self.predictor(user_repr, item_repr, rng)

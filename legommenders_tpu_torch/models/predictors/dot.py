@@ -9,5 +9,5 @@ from legommenders_tpu_torch.utils.registry import PREDICTORS
 @PREDICTORS.register
 class DotPredictor(BasePredictor):
 
-    def forward(self, user, items):
+    def forward(self, user, items, rng=None):
         return torch.einsum("...d,...kd->...k", user, items)

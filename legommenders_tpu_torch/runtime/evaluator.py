@@ -190,11 +190,14 @@ class Evaluator:
     @torch.inference_mode()
     def score_phase_device_full(self, phase: str) -> torch.Tensor:
         """(n,) scores of a whole phase through the model's forward, on the
-        device: pages of the eval batch size, the tail page padded with row
-        0 (user 0, item 0) and its padded scores dropped."""
+        device: pages of the eval batch size (of max(8, n) rows where the
+        phase is smaller), the tail page padded with row 0 (user 0, item 0)
+        and its padded scores dropped, as JAX pages (evaluator.py:112-120):
+        a head whose scores depend on the batch (DIN's batch norm) scores
+        as it does in JAX."""
         ph = self.phase(phase)
         sub = self.substrate()
-        P = self.batch_size
+        P = min(self.batch_size, max(8, ph.n))
         out = []
         for s in range(0, ph.n, P):
             u, i = ph.users[s:s + P], ph.items[s:s + P]

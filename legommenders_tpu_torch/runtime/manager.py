@@ -90,8 +90,14 @@ class Manager:
         return True
 
     def _caching_allowed(self) -> bool:
-        return bool(type(self.model.item_op).allow_caching
-                    and type(self.model.user_op).allow_caching)
+        """JAX manager.py:146-151: every operator allows caching, the
+        items have content (an id-only model's item reprs are its table)
+        and the user operator is not flatten-mode."""
+        model = self.model
+        user_cls = type(model.user_op)
+        return bool(model.use_item_content
+                    and type(model.item_op).allow_caching
+                    and user_cls.allow_caching and not user_cls.flatten_mode)
 
     # ------------------------------------------------------------------ #
     def train_batcher(self, seed: int = 2023) -> TrainBatcher:

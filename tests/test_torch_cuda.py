@@ -834,3 +834,71 @@ def _zoo_on_card_vs_cpu(device, name):
     loss = step(next(dp16.epoch_indices()), 0)
     assert torch.isfinite(loss).item()
     assert set(catalog_grad.last_trace["live"]) == {"title", "category"}
+
+
+# ---------------------------------------------------------------------------
+# the CTR zoo's user pools at L 50, D 64: the id models' Ada pool (H 256)
+# over a training step's users (2,048) and a full-forward test page's
+# (8,192); bst_text's Transformer pool (H 64) over a training step's users
+# ---------------------------------------------------------------------------
+CTR_POOL_SHAPES = ((2048, 256), (8192, 256), (2048, 64))
+
+
+@pytest.mark.parametrize("N,H", CTR_POOL_SHAPES)
+def test_tc_pool_ctr_shapes_match_plain(device, N, H):
+    assert pool_kernel(torch.bfloat16, 50, 64, H) == (TC_KERNEL, 2)
+    _pool_tc_check(_pool_tc_inputs(N, 50, device, H=H))
+
+
+@pytest.mark.parametrize("N,H", CTR_POOL_SHAPES)
+def test_simt_pool_ctr_shapes_match_plain(device, N, H):
+    assert pool_kernel(torch.float32, 50, 64, H)[0] == SIMT_KERNEL
+    args = _inputs(N, 50, 64, H, device)
+    with torch.no_grad():
+        got = additive_pool(*args)
+        want = additive_pool_reference(*args)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5
+    assert (got[0] == 0).all()
+
+
+CTR_ID_MODELS = ("dnn_id", "pnn_id", "deepfm_id", "dcn_id", "dcnv2_id",
+                 "gdcn_id", "autoint_id", "masknet_id", "finalmlp_id",
+                 "din_id", "naml_id", "nrms_id", "miner_id")
+
+
+def _ctr_manager(name, device):
+    from legommenders_tpu_torch.config import parser
+    from legommenders_tpu_torch.data.processors.synthetic import (
+        SyntheticProcessor,
+    )
+    from legommenders_tpu_torch.runtime.manager import Manager
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = parser.parse_four_way(
+        {"model": name}, config_root=os.path.join(root, "config")
+    ).raw()["model"]
+    return Manager(model_cfg=cfg, device=device,
+                   exp_cfg={"policy": {"batch_size": 16, "dtype": "bf16"}},
+                   data=SyntheticProcessor(**ZOO_DATA).as_lego_data())
+
+
+@pytest.mark.parametrize("name", CTR_ID_MODELS)
+def test_ctr_id_models_on_card_match_cpu(device, name):
+    """An id-only YAML at its defaults (hidden 64, MLPs of 1,000), bf16,
+    on the card against the same weights on the CPU: every test score by
+    full forwards (the pool kernel on the card, its plain version on the
+    CPU; the same pages, so DIN's batch norm sees the same batches) within
+    2e-2 of the largest; the metrics finite in [0, 1]."""
+    from legommenders_tpu_torch.runtime.tester import Tester
+
+    gpu, cpu = _ctr_manager(name, device), _ctr_manager(name, "cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               gpu.model.state_dict().items()})
+    assert gpu.cache is None and cpu.cache is None
+    got = gpu.evaluator().score_phase_device_full("test").float().cpu()
+    want = cpu.evaluator().score_phase_device_full("test").float()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 2e-2 * want.abs().max()
+    res = Tester(gpu).test()
+    assert all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in res.values())
