@@ -54,7 +54,8 @@ and exits non-zero when any phase fails:
      the device metrics against the numpy MetricPool on the same scores.
      One more warm pass of each runs under torch.profiler for device time
      by kernel and the device's idle share; in every profiled window each
-     port kernel's profiled launches must equal its wrapper's count;
+     port kernel's profiled launches must equal its wrapper's count, less
+     only launches whose device record the trace shows the tracer lost;
   5. training paths on the same fixture, bf16, Adam (lr 1e-4), batches of
      2,048 impressions (1 positive + 4 negatives) assembled on the device
      by DeviceTrainPipeline; launch counts set to 0 before the timed steps:
@@ -148,9 +149,34 @@ and exits non-zero when any phase fails:
         rebuilt without them); one `[ctr]` line each;
      3. the CLI trains dcn_id and din_text (`make smoke`'s geometry) on the
         card, as 6.6 does NAML and LSTUR;
-  9. prints one JSON line of kernels, the card line, and
+  9. the decoder LMs, on the same fixture, bf16, random weights from seed
+     0 drawn on the card:
+     1. the attention forward (and at a training page the backward) at
+        dropout 0 against the plain versions (f32 1e-5, the f32 backward
+        where the CUDA-core kernel's shared memory holds it; bf16 2e-2 of
+        the largest), at the decoder pages (DECODER_PAGES: 512 items of
+        the compact title + category, L 31, 4 to a row, T 124, serving;
+        the cache's L 32, T 128, training; 128 rows; Llama / GLM 32 heads
+        of 128, OPT 12 of 64) with the causal packed biases of random
+        lengths, timed beside the plain versions, SDPA with the float mask
+        and the bounds;
+     2. llama-naml at the Llama-7B geometry (32 layers, d 4096, 32 heads,
+        SwiGLU 10,922, LoRA r 32 folded, fused attention): Tester.test()
+        in full-LM mode (all 65,000 items through the 32 layers; the first
+        2,048 reprs against the model with its kernels patched out, 2e-2;
+        8 pages profiled; peak memory); then layer-split at tune_from 30:
+        the cache, 1 warm and 2 timed fused steps of 2,048 under `full`
+        remat (one more profiled) and the trainable slice's gradients
+        against the plain path (decoder_precision_check);
+     3. glm-naml at GLM's full width cut to 4 layers at tune_from 2, and
+        opt-naml (OPTBase, 12 layers) at tune_from 10 with hidden dropout
+        0.1: the cache, Tester.test() through the caches (reprs against
+        the plain path), 2 timed steps;
+     every launch count held against the code's; `[decoder]` lines;
+ 10. prints one JSON line of kernels, the card line, and
      {"ok": true, "device": {...}} as the last line.
 """
+import bisect
 import itertools
 import json
 import math
@@ -633,13 +659,89 @@ def _is(name, key):
     return any(k in key for k in KERNEL_NAMES[name])
 
 
+# the runtime and driver calls that enqueue a kernel, as the tracer names
+# them (cudaLaunchKernelExC and cuLaunchKernelEx start with these)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel",
+                "cudaLaunchCooperativeKernel")
+
+
+def trace_records(events) -> dict:
+    """What a trace's raw events (`prof.profiler.kineto_results.events()`)
+    say of its kernel launch calls: how many there are, how many device
+    records, which calls have no device record under their correlation id
+    (records the tracer lost), and of those how many lie inside each port
+    wrapper's launch range (`ops.build.launch_range`), and how many launch
+    calls each wrapper's ranges hold."""
+    from torch.autograd import DeviceType
+
+    calls, ran, ranges = {}, set(), []
+    for e in events:
+        if e.device_type() == DeviceType.CUDA:
+            if e.name() not in KERNEL_NAMES:  # a range's device side
+                ran.add(e.correlation_id())
+        elif e.name() in KERNEL_NAMES:
+            ranges.append((e.name(), e.start_ns(), e.end_ns()))
+        elif e.name().startswith(LAUNCH_CALLS) and e.correlation_id():
+            calls[e.correlation_id()] = (e.start_ns(), e.end_ns())
+
+    # the ranges do not nest: the one a call lies in starts last before it
+    ranges.sort(key=lambda r: r[1])
+    starts = [lo for _, lo, _ in ranges]
+
+    def wrapper(call):
+        i = bisect.bisect_right(starts, call[0]) - 1
+        if i >= 0 and call[1] <= ranges[i][2]:
+            return ranges[i][0]
+        return None
+
+    in_range = {n: 0 for n in KERNEL_NAMES}
+    lost = {n: 0 for n in KERNEL_NAMES}
+    n_lost = 0
+    for corr, call in calls.items():
+        n = wrapper(call)
+        if n:
+            in_range[n] += 1
+        if corr not in ran:
+            n_lost += 1
+            if n:
+                lost[n] += 1
+    return {"launch_calls": len(calls), "device_records": len(ran),
+            "lost": n_lost, "calls_by_wrapper": in_range,
+            "lost_by_wrapper": lost}
+
+
+def check_profiled_launches(listed: dict, counted: dict,
+                            trace: dict) -> int:
+    """Hold each port kernel's profiled launches (`listed`) against its
+    wrapper's count over the same window: raises where the profiler lists
+    more, and where it lists fewer unless the trace holds, inside that
+    wrapper's launch ranges, as many launch calls whose device record the
+    tracer lost (`trace_records`). Returns the port's launches missing
+    from the trace."""
+    short = {n: counted[n] - listed[n] for n in listed}
+    if any(d < 0 or d > trace["lost_by_wrapper"][n]
+           for n, d in short.items()):
+        raise RuntimeError(
+            f"the profiler lists {listed} launches of the port's kernels, "
+            f"their wrappers counted {counted} in the same window; the "
+            f"trace has {trace['launch_calls']} launch calls "
+            f"({trace['calls_by_wrapper']} in the wrappers' ranges), "
+            f"{trace['device_records']} device records, and "
+            f"{trace['lost']} launch calls without their device record "
+            f"({trace['lost_by_wrapper']} in the wrappers' ranges)")
+    return sum(short.values())
+
+
 def profile_window(fn) -> dict:
     """torch.profiler over one call of fn: device time by kernel and the
     device's idle share of the window's wall time (the profiler's own host
     cost included), and each port kernel's device time and launches.
     Raises when a port kernel's profiled launches differ from its wrapper's
     count over the same window (a kernel whose name the profiler lists
-    otherwise would read 0 ms), and when a pool launch is not the
+    otherwise would read 0 ms), unless the trace itself shows the tracer
+    lost the device records of that many of the wrapper's launch calls
+    (`check_profiled_launches`; the record keeps the count of lost
+    records, `lost_records`), and when a pool launch is not the
     tensor-core kernel's (every window is a main path at bf16)."""
     import torch
     from torch.autograd import DeviceType
@@ -653,8 +755,10 @@ def profile_window(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # the wrappers' launch ranges show on the device too: not kernels
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA
+               and e.key not in KERNEL_NAMES]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     ours = {}
@@ -665,11 +769,13 @@ def profile_window(fn) -> dict:
                       "launches": sum(e.count for e in evs),
                       "by_kernel": {k: sum(e.count for e in evs if k in e.key)
                                     for k in KERNEL_NAMES[name]}}
-        if ours[name]["launches"] != counted[name]:
-            raise RuntimeError(
-                f"{name}: the profiler lists {ours[name]['launches']} "
-                f"launches of {KERNEL_NAMES[name]}, its wrapper counted "
-                f"{counted[name]} in the same window")
+    trace = trace_records(prof.profiler.kineto_results.events())
+    lost = check_profiled_launches(
+        {n: r["launches"] for n, r in ours.items()}, counted, trace)
+    if lost:
+        log(f"[profile] the tracer lost {trace['lost']} of "
+            f"{trace['launch_calls']} kernel records, of them the port's "
+            f"{trace['lost_by_wrapper']}: {counted} counted")
     pool = ours["additive_pool"]
     if pool["by_kernel"][MAIN_POOL_KERNEL] != pool["launches"]:
         raise RuntimeError(f"additive_pool: of {pool['launches']} profiled "
@@ -680,6 +786,9 @@ def profile_window(fn) -> dict:
             # no device time in the trace means the share was not measured
             "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
             "kernel_launches": sum(e.count for e in kernels),
+            "launch_calls": trace["launch_calls"],
+            "lost_records": trace["lost"],
+            "port_calls": trace["calls_by_wrapper"],
             "top_kernels": [{"name": e.key[:60], "count": e.count,
                              "ms": e.self_device_time_total / 1e3}
                             for e in top]}
@@ -723,15 +832,9 @@ def run_path(name: str, model_cfg: dict, data, device,
     Every kernel's launch count is set to 0 just before Tester.test() and
     read just after: the pool must launch once per item and user page, the
     attention `attention_per_item_page` times per item page."""
-    from unittest import mock
-
     import numpy as np
     import torch
-    import legommenders_tpu_torch.models.common as common
-    import legommenders_tpu_torch.models.lm.layers as lm_layers
-    from legommenders_tpu_torch.ops.additive import (
-        additive_pool, additive_pool_reference,
-    )
+    from legommenders_tpu_torch.ops.additive import additive_pool
     from legommenders_tpu_torch.ops.attention import packed_attention
     from legommenders_tpu_torch.runtime.manager import Manager
     from legommenders_tpu_torch.runtime.tester import Tester
@@ -782,28 +885,7 @@ def run_path(name: str, model_cfg: dict, data, device,
     rec["profile"] = profile_window(lambda: (
         cache.cache(), ev.metrics("test", ev.score_phase_device("test"))))
 
-    # reprs of the first rows vs the same model with every kernel patched
-    # out for its plain version, on the card, page by page
-    item_repr, user_repr = cache.item_repr, cache.user_repr
-    rec["item_repr_shape"] = list(item_repr.shape)
-    rec["user_repr_shape"] = list(user_repr.shape)
-    with mock.patch.object(common, "additive_pool", additive_pool_reference), \
-            mock.patch.object(lm_layers, "packed_attention",
-                              _plain_attention()), \
-            torch.inference_mode():
-        item_ref = torch.cat([
-            m.model.encode_item_page(
-                {c: a[s:e] for c, a in cache.item_contents.items()})
-            for s, e in cache.pages(min(REPR_ROWS, cache.num_items))])
-        user_ref = torch.cat([
-            m.model.encode_user(item_repr[cache.hist_safe[s:e]],
-                                cache.hist_mask[s:e])
-            for s, e in cache.pages(min(REPR_ROWS, cache.num_users))])
-    for part, got, want in (("item", item_repr, item_ref),
-                            ("user", user_repr, user_ref)):
-        err = (got[:len(want)].float() - want.float()).abs().max()
-        rec[f"{part}_repr_rel_err"] = float(err / want.float().abs().max())
-        rec[f"{part}_repr_finite"] = bool(torch.isfinite(got).all())
+    _repr_check(m, cache, rec)
 
     problems = []
     if rec["item_repr_shape"] != [data.num_items, 64] or \
@@ -828,6 +910,40 @@ def run_path(name: str, model_cfg: dict, data, device,
     return rec
 
 
+def _repr_check(m, cache, rec):
+    """The served reprs of the first REPR_ROWS items and users against the
+    same model with every kernel patched out for its plain version, on the
+    card, page by page: each part's largest error over its largest value
+    and whether it is finite, into `rec`."""
+    from unittest import mock
+
+    import torch
+    import legommenders_tpu_torch.models.common as common
+    import legommenders_tpu_torch.models.lm.layers as lm_layers
+    from legommenders_tpu_torch.ops.additive import additive_pool_reference
+
+    item_repr, user_repr = cache.item_repr, cache.user_repr
+    rec["item_repr_shape"] = list(item_repr.shape)
+    rec["user_repr_shape"] = list(user_repr.shape)
+    with mock.patch.object(common, "additive_pool", additive_pool_reference), \
+            mock.patch.object(lm_layers, "packed_attention",
+                              _plain_attention()), \
+            torch.inference_mode():
+        item_ref = torch.cat([
+            m.model.encode_item_page(
+                {c: a[s:e] for c, a in cache.item_contents.items()})
+            for s, e in cache.pages(min(REPR_ROWS, cache.num_items))])
+        user_ref = torch.cat([
+            m.model.encode_user(item_repr[cache.hist_safe[s:e]],
+                                cache.hist_mask[s:e])
+            for s, e in cache.pages(min(REPR_ROWS, cache.num_users))])
+    for part, got, want in (("item", item_repr, item_ref),
+                            ("user", user_repr, user_ref)):
+        err = (got[:len(want)].float() - want.float()).abs().max()
+        rec[f"{part}_repr_rel_err"] = float(err / want.float().abs().max())
+        rec[f"{part}_repr_finite"] = bool(torch.isfinite(got).all())
+
+
 def _counters():
     from legommenders_tpu_torch.ops.additive import additive_pool
     from legommenders_tpu_torch.ops.attention import (
@@ -849,12 +965,14 @@ def _counts() -> dict:
     return {k: fn.launches for k, fn in _counters().items()}
 
 
-def _train_steps(m, data, device, n_steps: int) -> dict:
+def _train_steps(m, data, device, n_steps: int, profile: bool = True) -> dict:
     """1 warm step, then n_steps each timed to the device's end of it, with
     every launch count set to 0 before them; the record of the timed steps
     (losses, step ms at the median, impressions/s at that median, launches
     per step, peak memory, the catalog-grad plans of the last step) after
-    one more under torch.profiler, and the pipeline."""
+    one more under torch.profiler (with `profile`: the profiler's own
+    summary of a step of ~80,000 launches takes the host tens of
+    seconds), and the pipeline."""
     import numpy as np
     import torch
     from legommenders_tpu_torch.data.device_pipeline import (
@@ -900,7 +1018,9 @@ def _train_steps(m, data, device, n_steps: int) -> dict:
     rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
     if not all(np.isfinite(rec["losses"] + [rec["warm_loss"]])):
         raise RuntimeError(f"training losses not finite: {rec}")
-    rec["profile"] = profile_window(lambda: step(next(stream), n_steps + 1))
+    if profile:
+        rec["profile"] = profile_window(
+            lambda: step(next(stream), n_steps + 1))
     return rec, dp
 
 
@@ -1851,6 +1971,399 @@ def run_ctr_model(name: str, data, device) -> dict:
     return rec
 
 
+# phase 9: the decoder LMs
+# llama-naml (config/model/llama-naml.yaml at its defaults: Llama1, 32 layers
+# of 32 heads of 128, d 4096, SwiGLU int(4096 * 8 / 3) = 10,922, rope theta
+# 1e4, bf16, LoRA r 32 folded, fused attention, compact inputer): serving in
+# full-LM mode; training layer-split at tune_from 30 (layers 30-31 trained),
+# pages of 512 under full remat, as bench_lm.py trains BERT at 10 of 12.
+# glm-naml at GLM's full width (d 4096, 32 heads over 2 kv heads, SwiGLU
+# 13,696) cut from 28 layers to 4 at tune_from 2 to fit the time limit;
+# opt-naml at OPTBase (12 layers, d 768, 12 heads) at tune_from 10 with
+# hidden dropout 0.1 (dropout_reuse).
+LLAMA_TUNE_FROM = 30
+GLM_LAYERS, GLM_TUNE_FROM = 4, 2
+OPT_TUNE_FROM = 10
+DECODER_STEPS = 2
+DECODER_EXP = {"policy": {"dtype": "bf16", "batch_size": TRAIN_BATCH}}
+# the decoders' attention pages: 512 items of the compact inputer's
+# title + category (L 31: 4 items a row, T 124) and of the layer-split
+# cache, padded to L 32 (T 128): 128 rows; Llama and GLM 32 heads of 128,
+# OPT 12 of 64 (tests/test_torch_decoder_models.py checks these against
+# the models)
+DECODER_PAGES = {
+    "llama serving": dict(items=512, L=31, D=4096, heads=32, train=False),
+    "llama training": dict(items=512, L=32, D=4096, heads=32, train=True),
+    "opt serving": dict(items=512, L=31, D=768, heads=12, train=False),
+    "opt training": dict(items=512, L=32, D=768, heads=12, train=True),
+}
+# gradients of the trainable slice on one batch of this many impressions,
+# every candidate and click encoded per occurrence
+PRECISION_BATCH = 64
+
+
+def decoder_cfg(name: str, **item_config) -> dict:
+    """config/model/<name>.yaml at its defaults through the port's parser,
+    with `item_config` over its item_config."""
+    cfg = zoo_cfg(name)
+    cfg["config"]["item_config"].update(item_config)
+    return cfg
+
+
+def decoder_attention_inputs(page: dict, dtype, device, seed: int):
+    """q, k, v ~ N(0, 1) at a decoder page and the causal block-diagonal
+    bias packed_mask_bias(..., causal=True) makes for items whose valid
+    lengths are the fixture's (15..30 title tokens + category, first)."""
+    import torch
+    from legommenders_tpu_torch.models.lm.layers import (
+        pack_items, packed_mask_bias,
+    )
+
+    items, L, Dm = page["items"], page["L"], page["D"]
+    g = torch.Generator(device=device).manual_seed(seed)
+    lens = torch.randint(16, 32, (items,), generator=g, device=device)
+    mask = (torch.arange(L, device=device)[None] < lens[:, None]).int()
+    _, mask_p, _ = pack_items(torch.zeros(items, L, 1, device=device), mask,
+                              128 // L)
+    B, T = mask_p.shape
+    q, k, v, gr = (torch.randn(B, T, Dm, generator=g, device=device).to(dtype)
+                   for _ in range(4))
+    return q, k, v, packed_mask_bias(mask_p, L, dtype, causal=True)[:, 0], gr
+
+
+def check_decoder_attention(name: str, device) -> dict:
+    """9.1: the attention forward (and at a training page the backward) at
+    a decoder page, dropout 0, against the plain versions in f32 (1e-5;
+    the backward where the CUDA-core kernel's shared memory holds it) and
+    bf16 (2e-2 of the largest output), the bf16 kernels timed beside the
+    plain versions, torch's SDPA with the float mask and the bounds."""
+    import torch
+    from torch.nn import functional as F
+    from legommenders_tpu_torch.ops.attention import (
+        MAX_SMEM_BYTES, packed_attention, packed_attention_backward,
+        reference_attention, reference_attention_backward,
+    )
+
+    page = DECODER_PAGES[name]
+    heads, train = page["heads"], page["train"]
+    res = {"page": name, "heads": heads}
+    problems = []
+    for dtype_name in ("f32", "bf16"):
+        dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
+        q, k, v, bias, g = decoder_attention_inputs(page, dtype, device, 13)
+        B, T, Dm = q.shape
+        res.update(B=B, T=T, D=Dm)
+        dh = Dm // heads
+        # the CUDA-core backward's shared memory: K, V rows padded to
+        # dh + 1, two T x T tiles, four dh vectors (f32)
+        simt_bytes = (2 * T * (dh + 1) + 2 * T * T + 8 * dh) * 4
+        backward = train and (dtype_name == "bf16"
+                              or simt_bytes <= MAX_SMEM_BYTES)
+        with torch.no_grad():
+            pairs = [("out", packed_attention(heads, 0.0, q, k, v, bias),
+                      reference_attention(heads, 0.0, q, k, v, bias))]
+            if backward:
+                pairs += list(zip(("dq", "dk", "dv"),
+                                  packed_attention_backward(
+                                      heads, 0.0, q, k, v, bias, None, g),
+                                  reference_attention_backward(
+                                      heads, 0.0, q, k, v, bias, g)))
+            torch.cuda.synchronize()
+        for part, got, want in pairs:
+            err = (got.float() - want.float()).abs().max().item()
+            rel = err / want.float().abs().max().item()
+            res[f"{dtype_name}_{part}_max_abs_err"] = err
+            res[f"{dtype_name}_{part}_rel_err"] = rel
+            if not bool(torch.isfinite(got.float()).all()) or (
+                    err > F32_TOL if dtype_name == "f32"
+                    else rel > BF16_REL_TOL):
+                problems.append(f"{dtype_name} {part}")
+        if train and not backward:
+            res["f32_backward"] = (f"not run: the CUDA-core backward needs "
+                                   f"{simt_bytes} B of shared memory")
+        del pairs
+    if problems:
+        raise RuntimeError(f"decoder attention disagrees with its plain "
+                           f"version ({problems}): {res}")
+    qh, kh, vh = (t.view(B, T, heads, dh).transpose(1, 2).detach()
+                  .requires_grad_(train) for t in (q, k, v))
+    gh = g.view(B, T, heads, dh).transpose(1, 2)
+    mask4 = bias[:, None]
+    with torch.no_grad():
+        res["ms"] = time_ms(lambda: packed_attention(heads, 0.0, q, k, v,
+                                                     bias), iters=20)
+        res["plain_ms"] = time_ms(lambda: reference_attention(
+            heads, 0.0, q, k, v, bias), iters=3)
+        res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask4), iters=20)
+    xb, bb = q.element_size(), bias.element_size()
+    res["bound_ms"], res["bound_by"] = roof(
+        4.0 * B * T * T * Dm, 4 * B * T * Dm * xb + B * T * T * bb, "bf16")
+    res["bound_bytes"] = 4 * B * T * Dm * xb + B * T * T * bb
+    if train:
+        with torch.no_grad():
+            res["bwd_ms"] = time_ms(lambda: packed_attention_backward(
+                heads, 0.0, q, k, v, bias, None, g), iters=20)
+            res["bwd_plain_ms"] = time_ms(
+                lambda: reference_attention_backward(heads, 0.0, q, k, v,
+                                                     bias, g), iters=3)
+
+        def sdpa_fwd_bwd():
+            F.scaled_dot_product_attention(qh, kh, vh,
+                                           attn_mask=mask4).backward(gh)
+
+        res["library_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd, iters=10)
+        res["bwd_bound_ms"], res["bwd_bound_by"] = roof(
+            10.0 * B * T * T * Dm, 7 * B * T * Dm * xb + B * T * T * bb,
+            "bf16")
+        res["bwd_bound_bytes"] = 7 * B * T * Dm * xb + B * T * T * bb
+    del q, k, v, bias, g, qh, kh, vh, gh
+    torch.cuda.empty_cache()
+    return res
+
+
+def _page_profile(m, cache, pages: int) -> dict:
+    """torch.profiler over `pages` item pages of the serving cache build
+    (the Tester's own encode, page by page): the device's idle share and
+    the top kernels of a decoder's serving pass."""
+    import torch
+
+    def run():
+        with torch.inference_mode():
+            for s, e in cache.pages(cache.num_items)[:pages]:
+                m.model.encode_item_page(
+                    {c: a[s:e] for c, a in cache.item_contents.items()})
+
+    return profile_window(run)
+
+
+def run_llama_serving(data, device) -> dict:
+    """9.2: llama-naml in full-LM mode through Manager + Tester.test():
+    every item through the 32 layers; the launch counts against the code's
+    (attention 32 a page, the pool once a page); the first 2,048 served
+    reprs against the same model with its kernels patched out; one
+    profiled stretch of 8 pages; peak memory."""
+    import numpy as np
+    import torch
+    from legommenders_tpu_torch.runtime.manager import Manager
+    from legommenders_tpu_torch.runtime.tester import Tester
+
+    rec = {"path": "llama-naml serving (full LM)"}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = Manager(model_cfg=decoder_cfg("llama-naml"), exp_cfg=EXP_CFG,
+                data=data, device=device, seed=0)
+    tester = Tester(m)
+    torch.cuda.synchronize()
+    rec["setup_s"] = time.perf_counter() - t0
+    op = m.model.item_op
+    rec["layers"], rec["params"] = op.num_hidden_layers, sum(
+        p.numel() for p in m.model.parameters())
+    rec["param_gb"] = torch.cuda.memory_allocated() / 2 ** 30
+    _zero_counts()
+    t0 = time.perf_counter()
+    rec["metrics"] = tester.test()
+    torch.cuda.synchronize()
+    rec["test_s"] = time.perf_counter() - t0
+    rec["launches"] = _counts()
+    cache = m.cache
+    rec["item_pages"] = len(cache.pages(cache.num_items))
+    rec["user_pages"] = len(cache.pages(cache.num_users))
+    rec["expected_launches"] = {
+        "additive_pool": rec["item_pages"] + rec["user_pages"],
+        "packed_attention": op.num_hidden_layers * rec["item_pages"],
+        "packed_attention_backward": 0, "dropout_keep_mask": 0}
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    _repr_check(m, cache, rec)
+    rec["profile"] = _page_profile(m, cache, 8)
+    problems = []
+    if rec["item_repr_shape"] != [data.num_items, 64] or \
+            rec["user_repr_shape"] != [data.num_users, 64]:
+        problems.append("repr shapes")
+    if not all(np.isfinite(v) and 0.0 <= v <= 1.0
+               for v in rec["metrics"].values()):
+        problems.append("metrics not finite in [0, 1]")
+    for part in ("item", "user"):
+        if not rec[f"{part}_repr_finite"]:
+            problems.append(f"{part} reprs not finite")
+        if rec[f"{part}_repr_rel_err"] > BF16_REL_TOL:
+            problems.append(f"{part} reprs disagree with the plain path")
+    if rec["launches"] != rec["expected_launches"]:
+        problems.append("kernel launches")
+    if problems:
+        raise RuntimeError(f"llama-naml serving failed ({problems}): {rec}")
+    del m, tester, cache, op
+    torch.cuda.empty_cache()
+    return rec
+
+
+class _TrainableDtype:
+    """Every module of a model but the frozen lower slice computing in
+    `dtype` for the time of the block (the cached hidden states are cast
+    to it as the upper slice reads them)."""
+
+    def __init__(self, model, dtype):
+        import torch
+
+        lower = getattr(model.item_op, "lm_lower", None)
+        skip = set(map(id, lower.modules())) if lower is not None else set()
+        self.mods = [mod for mod in model.modules() if id(mod) not in skip
+                     and isinstance(getattr(mod, "dtype", None), torch.dtype)]
+        self.dtype = dtype
+
+    def __enter__(self):
+        self.saved = [mod.dtype for mod in self.mods]
+        for mod in self.mods:
+            mod.dtype = self.dtype
+
+    def __exit__(self, *exc):
+        for mod, dt in zip(self.mods, self.saved):
+            mod.dtype = dt
+
+
+def decoder_precision_check(m, dp, device) -> dict:
+    """The trainable slice's gradients of a layer-split decoder (as trained
+    by the timed steps, lora_B drawn non-zero) on one batch of
+    PRECISION_BATCH impressions at dropout 0, every candidate and click
+    encoded per occurrence through the upper layers, in three runs: the
+    kernels (K16, twice) and their plain versions (P16) at bf16, and the
+    plain versions with the trained part at f32 (P32, over the bf16 cache).
+    Gate per tensor: K16 within 2e-2 of P16, or within half the plain
+    path's own bf16 error (P16 against P32) where that is larger (see
+    precision_check). The kernels at f32 (K32) do not run: the CUDA-core
+    backward's shared memory holds dh 128 only up to T 117, and the
+    training page's T is 128."""
+    import torch
+    from legommenders_tpu_torch.runtime.steps import step_generator
+
+    t0 = time.perf_counter()
+    model = m.model
+    g = torch.Generator(device=device).manual_seed(5)
+    with torch.no_grad():
+        for mod in model.modules():
+            if getattr(mod, "lora_r", 0) > 0:
+                mod.lora_B.normal_(0.0, 0.05, generator=g)
+    idx = next(dp.epoch_indices(shuffle=False))[:PRECISION_BATCH]
+    batch = dp.assemble(idx, step_generator(0, 10 ** 6, device))
+    saved = model.full_catalog_encode
+    model.full_catalog_encode = "off"
+    rec = {"batch": PRECISION_BATCH, "loss": {}}
+    grads = {}
+    try:
+        for name, plain in (("K16", False), ("K16_again", False),
+                            ("P16", True)):
+            rec["loss"][name], grads[name] = _grads(m, batch, plain)
+        with _TrainableDtype(model, torch.float32):
+            rec["loss"]["P32"], grads["P32"] = _grads(m, batch, True)
+    finally:
+        model.full_catalog_encode = saved
+    pairs = {"K16_vs_P16": ("K16", "P16"), "P16_vs_P32": ("P16", "P32"),
+             "K16_vs_P32": ("K16", "P32"),
+             "K16_vs_K16_again": ("K16_again", "K16")}
+    rec["rel_err"] = {k: _rel_errs(grads[a], grads[b])
+                      for k, (a, b) in pairs.items()}
+    rec["max_rel_err"] = {k: max(v.values())
+                          for k, v in rec["rel_err"].items()}
+    rec["bf16_limit"] = {n: max(BF16_REL_TOL, 0.5 * e) for n, e in
+                         rec["rel_err"]["P16_vs_P32"].items()}
+    rec["tensors"] = len(grads["P16"])
+    rec["s"] = time.perf_counter() - t0
+    problems = [n for n, e in rec["rel_err"]["K16_vs_P16"].items()
+                if e > rec["bf16_limit"][n]]
+    if problems:
+        raise RuntimeError(f"decoder training gradients disagree with the "
+                           f"plain path ({problems}): {rec}")
+    return rec
+
+
+def run_decoder_training(name: str, cfg: dict, data, device,
+                         test: bool, precision: bool) -> dict:
+    """9.2 / 9.3: a decoder YAML in layer-split mode: the lower slice's
+    cache (timed; tune_from launches of the attention a page), with `test`
+    Tester.test() through the caches (the upper slice over the cached
+    states) and its reprs against the plain path, then 1 warm and
+    DECODER_STEPS timed fused steps of 2,048 with pages of 512 under full
+    remat, and with `precision` one profiled; the launches per step
+    against the code's (as bert-naml's); with `precision`
+    decoder_precision_check."""
+    import numpy as np
+    import torch
+    from legommenders_tpu_torch.models.operators.lm_ops import LM_HIDDEN_KEY
+    from legommenders_tpu_torch.runtime.manager import Manager
+    from legommenders_tpu_torch.runtime.tester import Tester
+
+    rec = {"path": f"{name} layer-split"}
+    cfg["config"].update(item_page_size=512, item_page_remat="full",
+                         use_fast_eval=test)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = Manager(model_cfg=cfg, exp_cfg=DECODER_EXP, data=data,
+                device=device, seed=0)
+    torch.cuda.synchronize()
+    rec["setup_s"] = time.perf_counter() - t0
+    op = m.model.item_op
+    upper = op.num_hidden_layers - op.resolved_tune_from
+    rec.update(operator=type(op).__name__, layers=op.num_hidden_layers,
+               tune_from=op.resolved_tune_from)
+    _zero_counts()
+    t0 = time.perf_counter()
+    assert m.prepare_lm_cache(root=None)
+    torch.cuda.synchronize()
+    rec["cache_s"] = time.perf_counter() - t0
+    rec["cache_launches"] = _counts()
+    hid = m.contents.columns[LM_HIDDEN_KEY]
+    rec["cache_shape"], rec["cache_dtype"] = list(hid.shape), str(hid.dtype)
+    rec["cache_gb"] = hid.numel() * hid.element_size() / 2 ** 30
+    del hid
+    pages = -(-data.num_items // m.lego_cfg.cache_page_size)
+    rec["expected_cache_launches"] = op.resolved_tune_from * pages
+    problems = []
+    if rec["cache_launches"]["packed_attention"] != \
+            rec["expected_cache_launches"]:
+        problems.append("cache-build launches")
+    if test:
+        _zero_counts()
+        t0 = time.perf_counter()
+        rec["metrics"] = Tester(m).test()
+        torch.cuda.synchronize()
+        rec["test_s"] = time.perf_counter() - t0
+        rec["test_launches"] = _counts()
+        cache = m.cache
+        item_pages = len(cache.pages(cache.num_items))
+        rec["expected_test_launches"] = {
+            "additive_pool": item_pages + len(cache.pages(cache.num_users)),
+            "packed_attention": upper * item_pages,
+            "packed_attention_backward": 0, "dropout_keep_mask": 0}
+        _repr_check(m, cache, rec)
+        if rec["test_launches"] != rec["expected_test_launches"]:
+            problems.append("test launches")
+        if not all(np.isfinite(v) and 0.0 <= v <= 1.0
+                   for v in rec["metrics"].values()):
+            problems.append("metrics not finite in [0, 1]")
+        for part in ("item", "user"):
+            if not rec[f"{part}_repr_finite"] or \
+                    rec[f"{part}_repr_rel_err"] > BF16_REL_TOL:
+                problems.append(f"{part} reprs")
+        del cache
+    rec["train"], dp = _train_steps(m, data, device, DECODER_STEPS,
+                                    profile=precision)
+    n_pages = -(-data.num_items // m.model.item_page_size)
+    rec["expected_launches_per_step"] = {
+        "packed_attention": 2 * upper * n_pages,
+        "packed_attention_backward": upper * n_pages,
+        "additive_pool": 2 * n_pages + 1, "dropout_keep_mask": 0}
+    if rec["train"]["launches_per_step"] != \
+            rec["expected_launches_per_step"]:
+        problems.append("launches per step")
+    if precision:
+        rec["grad_check"] = decoder_precision_check(m, dp, device)
+    del m, dp, op
+    torch.cuda.empty_cache()
+    if problems:
+        raise RuntimeError(f"{name} failed ({problems}): {rec}")
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -1986,6 +2499,37 @@ def main() -> int:
         ctr_cli = run_cli(tmp, CTR_CLI_MODELS)
     log(f"[ctr] cli: {ctr_cli['outcome']}: {json.dumps(ctr_cli)}")
 
+    # 9. the decoder LMs
+    decoder_checks = {}
+    for name in DECODER_PAGES:
+        decoder_checks[name] = check_decoder_attention(name, device)
+        log(f"[decoder] kernel {json.dumps(decoder_checks[name])}")
+    llama_serve = run_llama_serving(data, device)
+    log(f"[decoder] {json.dumps(llama_serve)}")
+    decoders = {}
+    for name, item_config, test, precision in (
+            ("llama-naml", dict(tune_from=LLAMA_TUNE_FROM), False, True),
+            ("glm-naml", dict(num_hidden_layers=GLM_LAYERS,
+                              tune_from=GLM_TUNE_FROM), True, False),
+            ("opt-naml", dict(tune_from=OPT_TUNE_FROM), True, False)):
+        decoders[name] = rec = run_decoder_training(
+            name, decoder_cfg(name, **item_config), data, device, test,
+            precision)
+        log(f"[decoder] {json.dumps(rec)}")
+        step = rec["train"]
+        log(f"[decoder] {name} ({rec['layers']} layers, tune_from "
+            f"{rec['tune_from']}): cache {rec['cache_s']:.2f} s, "
+            f"{'Tester.test() %.3f s, ' % rec['test_s'] if test else ''}"
+            f"step {step['step_ms']:.1f} ms ({step['impressions_per_s']:.0f}"
+            f" impressions/s, peak {step['peak_memory_gb']:.2f} GB, idle "
+            f"share {step.get('profile', {}).get('device_idle_share')}) "
+            f"({card})")
+    log(f"[decoder] llama-naml serving: Tester.test() "
+        f"{llama_serve['test_s']:.2f} s over {data.num_items} items x "
+        f"{llama_serve['layers']} layers, peak "
+        f"{llama_serve['peak_memory_gb']:.2f} GB, idle share of 8 pages "
+        f"{llama_serve['profile']['device_idle_share']} ({card})")
+
     # launches of each kernel on each main path: the serving passes, the
     # cache build and the timed training steps
     runs = {p: rec["launches"] for p, rec in paths.items()}
@@ -2007,6 +2551,13 @@ def main() -> int:
     for name, rec in ctr.items():
         runs[f"{name} Tester.test()"] = rec["test_launches"]
         runs[f"{name} training"] = rec["train"]["launches"]
+    decoder_runs = {"llama-naml Tester.test()": llama_serve["launches"]}
+    for name, rec in decoders.items():
+        decoder_runs[f"{name} lm cache"] = rec["cache_launches"]
+        if "test_launches" in rec:
+            decoder_runs[f"{name} Tester.test()"] = rec["test_launches"]
+        decoder_runs[f"{name} training"] = rec["train"]["launches"]
+    runs.update(decoder_runs)
     profiles = {p: rec["profile"] for p, rec in paths.items()}
     profiles["bert-naml training step"] = lm_train["profile"]
     profiles["naml training step"] = naml_train["profile"]
@@ -2017,6 +2568,9 @@ def main() -> int:
             f"step_{side}"]["profile"]
     for name, rec in ctr.items():
         profiles[f"{name} training step"] = rec["train"]["profile"]
+    profiles["llama-naml serving (8 pages)"] = llama_serve["profile"]
+    profiles["llama-naml training step"] = decoders["llama-naml"]["train"][
+        "profile"]
 
     def by_path(key):
         return {p: c.get(key, 0) for p, c in runs.items()}
@@ -2071,6 +2625,8 @@ def main() -> int:
             "test": rec["test_launches"]["additive_pool"],
             "per_step": rec["train"]["launches_per_step"]["additive_pool"]}
             for name, rec in ctr.items()},
+        "decoder_launches": {p: c["additive_pool"]
+                             for p, c in decoder_runs.items()},
         # device time summed over the kernel's launches in each profiled
         # window, at the shapes the path gives it
         "main_path_ms": main_path("additive_pool"),
@@ -2097,6 +2653,14 @@ def main() -> int:
             "T", "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")},
         "main_path_ms": main_path("packed_attention"),
         "main_path_by_path": profiled("packed_attention"),
+        # phase 9: the decoder pages (bf16, dropout 0, causal packed bias)
+        "decoder_shapes": {n: {k: c[k] for k in (
+            "B", "T", "D", "heads", "bf16_out_max_abs_err",
+            "bf16_out_rel_err", "f32_out_max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")}
+            for n, c in decoder_checks.items()},
+        "decoder_launches": {p: c["packed_attention"]
+                             for p, c in decoder_runs.items()},
         "checks": attn_checks,
     }, {
         "name": "packed_attention_backward",
@@ -2118,6 +2682,19 @@ def main() -> int:
         "train_p0": {"ms": tr0["bwd_ms"]},
         "main_path_ms": main_path("packed_attention_backward"),
         "main_path_by_path": profiled("packed_attention_backward"),
+        "decoder_shapes": {n: {
+            "B": c["B"], "T": c["T"], "D": c["D"], "heads": c["heads"],
+            "bf16_max_abs_err": max(c[f"bf16_{g}_max_abs_err"]
+                                    for g in ("dq", "dk", "dv")),
+            "bf16_rel_err": max(c[f"bf16_{g}_rel_err"]
+                                for g in ("dq", "dk", "dv")),
+            "ms": c["bwd_ms"], "plain_ms": c["bwd_plain_ms"],
+            "bound_ms": c["bwd_bound_ms"], "bound_by": c["bwd_bound_by"],
+            "library_ms": c["library_fwd_bwd_ms"],
+            "fwd_plus_bwd_ms": c["ms"] + c["bwd_ms"]}
+            for n, c in decoder_checks.items() if "bwd_ms" in c},
+        "decoder_launches": {p: c["packed_attention_backward"]
+                             for p, c in decoder_runs.items()},
         "checks": train_checks,
     }, {
         "name": "dropout_keep_mask",

@@ -11,8 +11,11 @@ no JAX. Conversions:
   * AdditiveAttention `proj_kernel` / `proj_bias` / `query` as they are,
     with the flax module name `AdditiveAttention_0` -> `attention`;
   * LayerNorm `scale`             -> `weight`;
+  * the decoders' RMSNorm `weight` (modules `input_norm`, `post_norm`,
+    `final_norm`) as it is;
   * LoRA `lora_A` (D, r) / `lora_B` (r, F) -> (r, D) / (F, r);
-  * BERT's, Fastformer's and the Transformer's `position_embeddings`,
+  * BERT's, OPT's, Fastformer's and the Transformer's
+    `position_embeddings`,
     `token_type_embeddings`, the ConcatInputer's `special_tokens` and
     PolyAttention's `context_codes` as they are;
   * the CTR heads' own leaves as they are, by name: CrossNet's and
@@ -23,8 +26,10 @@ no JAX. Conversions:
     layers (`hr` and `hz` have no bias, as in flax);
   * flax's automatic names (`Dense_0`, `LayerNorm_0`,
     `MultiHeadSelfAttention_0`, `FastSelfAttention_0`, `GRUCell_0`,
-    `layer_i/attn/{q,k,v,out}`) as they are: the port names its
-    submodules as flax does. Module paths keep their
+    `layer_i/attn/{q,k,v,out}`) and the decoders' (`attn_norm`,
+    `ffn_norm`, `{q,k,v,o,gate,up,down}_proj`, `out_proj`, `fc1`, `fc2`)
+    as they are: the port names its submodules as flax does. Module paths
+    keep their
     names (`item_op/lm/layer_3/attention/query` ->
     `item_op.lm.layer_3.attention.query`); in layer-split mode the frozen
     lower slice `item_op/lm_lower/{embedding stage, layer_0..k-1}` and the
@@ -47,6 +52,8 @@ _AS_THEY_ARE = ("bias", "proj_kernel", "proj_bias", "query",
 # numbered leaves of the cross layers: CrossNet / GateCrossLayer `b_<i>`,
 # CrossNetMix `U_<i>`, `V_<i>`, `C_<i>`, `bias_<i>`
 _NUMBERED = re.compile(r"(b|U|V|C|bias)_\d+")
+# the decoders' RMSNorms, whose one parameter flax names `weight`
+_RMS_NORMS = ("input_norm", "post_norm", "final_norm")
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -74,6 +81,9 @@ def _place(path, arr):
         leaf, arr = "weight", arr.transpose(2, 1, 0)
     elif leaf == "scale":
         leaf = "weight"
+    elif leaf == "weight" and arr.ndim == 1 and mods and \
+            mods[-1] in _RMS_NORMS:
+        pass
     elif leaf in ("lora_A", "lora_B"):
         arr = arr.T
     elif leaf not in _AS_THEY_ARE and not _NUMBERED.fullmatch(leaf):

@@ -122,19 +122,31 @@ def cached_casts(module: nn.Module, params, make):
     change between pages) and kept on `module`; made anew when a parameter
     is replaced or written in place (its data pointer or version counter
     moves) or `module.dtype` changes; every call while a gradient can reach
-    them. A cast that is a view of a parameter (a cast to its own dtype of
-    a slice) is kept as a copy: a view made in inference mode whose base
-    the optimizer then writes in place cannot be copied or pickled with
-    the module."""
+    them. The kept casts are made outside inference mode: a training
+    forward after an evaluation (which runs in inference mode) saves a
+    frozen weight's cast for its backward, and autograd refuses to save an
+    inference tensor. A cast that is a view of a parameter (a cast to its
+    own dtype of a slice) is kept as a copy: a view whose base the
+    optimizer then writes in place cannot be copied or pickled with the
+    module."""
     if torch.is_grad_enabled() and any(p.requires_grad for p in params):
         return make()
     key = (module.dtype,) + tuple((p.data_ptr(), p._version) for p in params)
     cache = getattr(module, "_cast_cache", None)
     if cache is None or cache[0] != key:
-        made = tuple(t.clone() if t._base is not None else t for t in make())
+        with torch.inference_mode(False), torch.no_grad():
+            made = tuple(t.clone() if t._base is not None else t
+                         for t in make())
         module._cast_cache = cache = (key, made)
     return cache[1]
 
+
+
+def drop_cached_casts(module: nn.Module):
+    """Free the casts `cached_casts` keeps on `module` and its children
+    (a slice that nothing runs any more)."""
+    for mod in module.modules():
+        mod.__dict__.pop("_cast_cache", None)
 
 class AdditiveAttention(nn.Module):
     """exp-softmax additive pooling (..., L, D) -> (..., D), through the

@@ -56,10 +56,25 @@ DTYPE_NAMES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
                "f16": torch.float16, "float16": torch.float16}
 
 
+def init_fields(cls) -> set:
+    """The keyword arguments `cls.__init__` takes: its own, and those of
+    its bases' `__init__` where it passes on `**kwargs`."""
+    known = set()
+    for c in cls.__mro__:
+        if "__init__" not in vars(c):
+            continue
+        params = inspect.signature(c.__init__).parameters.values()
+        known |= {p.name for p in params if p.kind not in (
+            p.VAR_KEYWORD, p.VAR_POSITIONAL)} - {"self"}
+        if not any(p.kind == p.VAR_KEYWORD for p in params):
+            break
+    return known
+
+
 def _filter_fields(cfg: dict, cls, what: str) -> dict:
     """Keep the keys `cls.__init__` takes; WARN about the rest — a silently
     dropped YAML key is a config no-op the user can't see otherwise."""
-    known = set(inspect.signature(cls.__init__).parameters) - {"self"}
+    known = init_fields(cls)
     dropped = [k for k in cfg if k not in known and k not in _INJECTED_KEYS]
     if dropped:
         logging.getLogger("legommenders_tpu_torch").warning(
@@ -122,8 +137,9 @@ class LegoConfig:
 
     # ------------------------------------------------------------------ #
     def build(self, device="cpu") -> Tuple[Legommender, ItemContentTable]:
-        """The model (on the CPU, parameters from the default init) and the
-        item content table on `device`."""
+        """The model (on the CPU but for the item operator, which is on
+        `device`; parameters from the default init) and the item content
+        table on `device`."""
         data = self.data
         if self.use_item_content and not self.item_operator:
             raise ValueError("use_item_content requires meta.item")
@@ -178,7 +194,7 @@ class LegoConfig:
         item_op = item_inputer = None
         if self.use_item_content:
             item_op, item_inputer = self._item_side(item_cols, item_hidden,
-                                                    emb_dim, eh)
+                                                    emb_dim, eh, device)
             item_dim = item_op.output_dim
         else:
             item_dim = eh.dim_of(item_id_vocab, "history")
@@ -238,16 +254,18 @@ class LegoConfig:
         )
         return model, contents
 
-    def _item_side(self, item_cols, item_hidden: int, emb_dim: int, eh):
-        """The item operator and its inputer (at the embedding width: its
-        special tokens are parameters)."""
+    def _item_side(self, item_cols, item_hidden: int, emb_dim: int, eh,
+                   device):
+        """The item operator, built on `device` (an LM's constructor draws
+        its weights, a decoder's billions of them), and its inputer (at
+        the embedding width: its special tokens are parameters)."""
         item_op_cls = OPERATORS[self.item_operator]
         icfg = combine_config(
             {k: v for k, v in self.item_config.items()
              if k != "inputer_config"},
             hidden_size=item_hidden, input_dim=emb_dim)
         icfg = _filter_fields(icfg, item_op_cls, "item_config")
-        op_params = inspect.signature(item_op_cls.__init__).parameters
+        op_params = init_fields(item_op_cls)
         if "num_cols" in op_params:
             icfg["num_cols"] = len(item_cols)
         if "cols" in op_params:
@@ -255,7 +273,8 @@ class LegoConfig:
         # YAML configs express dtypes as strings ("bf16")
         if isinstance(icfg.get("lm_dtype"), str):
             icfg["lm_dtype"] = DTYPE_NAMES[icfg["lm_dtype"].lower()]
-        item_op = item_op_cls(dtype=self.dtype, **icfg)
+        with torch.device(device):
+            item_op = item_op_cls(dtype=self.dtype, **icfg)
         inputer_cfg = dict(self.item_config.get("inputer_config") or {})
         inputer_cfg = _filter_fields(inputer_cfg, item_op_cls.inputer_class,
                                      "item_config.inputer_config")

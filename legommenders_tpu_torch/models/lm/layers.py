@@ -1,26 +1,38 @@
-"""BERT encoder slices, for serving and for training.
+"""The LM slices, for serving and for training: BERT's encoder and the
+Llama / GLM and OPT decoders.
 
-The port of the BERT part of the JAX package's models/lm/layers.py:33-618:
-LoRADense, FrozenableLayerNorm, SharedBitsDropout, attention packing
+The port of the JAX package's models/lm/layers.py:33-1067: LoRADense,
+FrozenableLayerNorm, SharedBitsDropout, attention packing
 (pack_group_size, pack_items, packed_mask_bias), BertSelfAttention,
-BertLayer and BertEncoderSlice, which runs layers [start, start +
-num_layers) over hidden states; at start 0 with `embed` it first applies
-BERT's embedding stage (position + token-type embeddings + LayerNorm +
-dropout) to the inputer's word embeddings.
+BertLayer and BertEncoderSlice; RMSNorm, the rotary tables (the full
+half-split form and GLM's partial interleaved form), LlamaDecoderLayer and
+LlamaDecoderSlice; OPTDecoderLayer and OPTDecoderSlice. A slice runs
+layers [start, start + num_layers) over hidden states. BERT's, at start 0
+with `embed`, first applies the embedding stage (position + token-type
+embeddings + LayerNorm + dropout) to the inputer's word embeddings; OPT's,
+at start 0 with `embed_positions`, adds its learned positions (offset 2,
+following the count of valid tokens). The decoders are causal; the
+trainable slice ends with `final_norm`.
 
 bf16 rounds where the JAX package rounds: a dense layer casts x and its
 kernel (with the LoRA delta folded in f32) to `dtype` before the product
 and adds the bias in `dtype`; a LayerNorm takes its statistics in f32 and
-returns `dtype`; attention packs G = 128 // L items into one block-diagonal
-call of `ops/attention.packed_attention` when `fused`.
+returns `dtype`; an RMSNorm takes them in f32 and, without `bf16_apply`,
+returns the normalised x rounded to `dtype` times its f32 weight, which
+is f32 (jnp's promotion), as JAX does; the rotary tables are computed in
+f32 and rounded to `dtype`. Attention packs G = 128 // L items into one
+block-diagonal (causal for the decoders) call of
+`ops/attention.packed_attention` when `fused` and the packed length is at
+most 128; the decoders pass it dropout 0, and a grouped-query k and v are
+repeated per head (`repeat_interleave`, JAX's `jnp.repeat`) before it.
 
 Training. `freeze_base` freezes the base weights (requires_grad False,
-where JAX applies stop_gradient); the LoRA factors stay trainable, their
-gradient flowing through the fold. Every dropout site (hidden, attention
-probabilities, LoRA input, embedding stage) and the attention kernel's
-seed draw from the explicit generator `rng` handed to `forward`; `rng=None`
-is eval mode. `fused_qkv`, `pipeline_stages`, `collect_pooled` and the
-Llama/OPT/GLM slices raise NotImplementedError.
+where JAX applies stop_gradient); the LoRA factors (q and v) stay
+trainable, their gradient flowing through the fold. Every dropout site
+(hidden, attention probabilities, LoRA input, embedding stage) and the
+attention kernel's seed draw from the explicit generator `rng` handed to
+`forward`; `rng=None` is eval mode. `fused_qkv`, `pipeline_stages` and
+`collect_pooled` (IISAN) raise NotImplementedError.
 """
 from typing import Optional
 
@@ -39,17 +51,17 @@ LM_KNOBS = "not ported yet (ROADMAP.md, queue 1, 'LM knobs')"
 class LoRADense(nn.Module):
     """y = x @ (W + (B A) * alpha / r)^T + b, computed in `dtype`.
 
-    Parameters: weight (F, D), bias (F,), and with lora_r > 0 lora_A
-    (r, D) and lora_B (F, r): the JAX kernel (D, F), lora_A (D, r) and
-    lora_B (r, F) transposed. With `lora_fold` the delta is added to W in
-    f32 before the cast; otherwise it is a second, low-rank product
-    (dropout(x) A^T) B^T in `dtype`, as in JAX. `freeze_base` freezes W and
-    b."""
+    Parameters: weight (F, D), bias (F,) unless `use_bias` is False, and
+    with lora_r > 0 lora_A (r, D) and lora_B (F, r): the JAX kernel (D, F),
+    lora_A (D, r) and lora_B (r, F) transposed. With `lora_fold` the delta
+    is added to W in f32 before the cast; otherwise it is a second,
+    low-rank product (dropout(x) A^T) B^T in `dtype`, as in JAX.
+    `freeze_base` freezes W and b."""
 
     def __init__(self, in_features: int, features: int, lora_r: int = 0,
                  lora_alpha: int = 16, lora_dropout: float = 0.0,
                  lora_fold: bool = False, freeze_base: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.lora_r = lora_r
         self.lora_alpha = lora_alpha
@@ -60,8 +72,9 @@ class LoRADense(nn.Module):
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(features, in_features),
                                    requires_grad=not freeze_base)
-        self.bias = nn.Parameter(torch.zeros(features),
-                                 requires_grad=not freeze_base)
+        self.bias = (nn.Parameter(torch.zeros(features),
+                                  requires_grad=not freeze_base)
+                     if use_bias else None)
         if lora_r > 0:
             self.lora_A = nn.Parameter(torch.empty(lora_r, in_features))
             self.lora_B = nn.Parameter(torch.zeros(features, lora_r))
@@ -70,25 +83,31 @@ class LoRADense(nn.Module):
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         lecun_normal_(self.weight, self.weight.shape[1], generator)
         with torch.no_grad():
-            self.bias.zero_()
+            if self.bias is not None:
+                self.bias.zero_()
             if self.lora_r > 0:
                 self.lora_A.normal_(0.0, 0.02, generator=generator)
                 self.lora_B.zero_()
 
     def weights(self):
-        """(kernel (F, D), bias) in `dtype`, the LoRA delta folded in."""
+        """(kernel (F, D), bias or None) in `dtype`, the LoRA delta folded
+        in."""
         def make():
             w = self.weight
             if self.fold:
                 w = w + (self.lora_B @ self.lora_A) * (
                     self.lora_alpha / self.lora_r)
+            if self.bias is None:
+                return (w.to(self.dtype),)
             return w.to(self.dtype), self.bias.to(self.dtype)
         return cached_casts(self, list(self.parameters()), make)
 
     def forward(self, x: torch.Tensor,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
-        w, b = self.weights()
-        y = x.to(self.dtype) @ w.t() + b
+        w, *b = self.weights()
+        y = x.to(self.dtype) @ w.t()
+        if b:
+            y = y + b[0]
         if self.lora_r > 0 and not self.fold:
             h = dropout(x, self.lora_dropout, rng).to(self.dtype)
             a, bb = self.lora_A.to(self.dtype), self.lora_B.to(self.dtype)
@@ -158,14 +177,16 @@ def pack_items(x: torch.Tensor, mask: torch.Tensor, group: int):
             mask.reshape(Bp, group * L), pad)
 
 
-def packed_mask_bias(mask_p: torch.Tensor, L: int,
-                     dtype: torch.dtype) -> torch.Tensor:
+def packed_mask_bias(mask_p: torch.Tensor, L: int, dtype: torch.dtype,
+                     causal: bool = False) -> torch.Tensor:
     """Block-diagonal attention bias (Bp, 1, G*L, G*L) in `dtype`: token i
-    may attend j only within the same L-token block and j valid;
-    disallowed pairs get `finfo(dtype).min`. (The JAX package's `causal`
-    form serves the decoder slices, which are not ported.)"""
-    blk = torch.arange(mask_p.shape[1], device=mask_p.device) // L
+    may attend j only within the same L-token block, j valid (and j <= i
+    when `causal`); disallowed pairs get `finfo(dtype).min`."""
+    pos = torch.arange(mask_p.shape[1], device=mask_p.device)
+    blk = pos // L
     same = blk[:, None] == blk[None, :]
+    if causal:
+        same = same & (pos[:, None] >= pos[None, :])
     allowed = same[None, None] & mask_p.bool()[:, None, None, :]
     zero = torch.zeros((), dtype=dtype, device=mask_p.device)
     neg = torch.full((), torch.finfo(dtype).min, dtype=dtype,
@@ -357,15 +378,407 @@ class BertEncoderSlice(nn.Module):
         return x
 
 
-class LlamaDecoderSlice(nn.Module):
-    """Llama / GLM decoder slice (JAX models/lm/layers.py:798)."""
+# ---------------------------------------------------------------------------
+# Llama / GLM (RMSNorm + rotary + SwiGLU, causal)
+# ---------------------------------------------------------------------------
+class RMSNorm(nn.Module):
+    """x * rsqrt(mean(x^2) + eps) * weight with f32 statistics (JAX
+    layers.py:624-640). Without `bf16_apply` the normalised x is rounded to
+    `dtype` and multiplied by the f32 weight: the result is f32. With it
+    (and a `dtype` other than f32) everything after the statistics runs in
+    `dtype`. Parameter `weight` (JAX `weight`); `freeze` freezes it."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"the Llama/GLM decoder slice is {LM_KNOBS}")
+    def __init__(self, dim: int, eps: float = 1e-6, freeze: bool = False,
+                 bf16_apply: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.bf16_apply = bf16_apply
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(dim), requires_grad=not freeze)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        var = x.float().pow(2).mean(dim=-1, keepdim=True)
+        if self.bf16_apply and self.dtype != torch.float32:
+            inv = torch.rsqrt(var + self.eps).to(self.dtype)
+            return x.to(self.dtype) * inv * self.weight.to(self.dtype)
+        return (x * torch.rsqrt(var + self.eps)).to(self.dtype) * self.weight
 
 
-class OPTDecoderSlice(nn.Module):
-    """OPT decoder slice (JAX models/lm/layers.py:972)."""
+def rotary_embedding(L: int, d: int, base: float = 10000.0,
+                     dtype: torch.dtype = torch.float32, device=None):
+    """(cos, sin), each (L, d) in `dtype`: the angles t / base^(2i/d) of
+    positions t < L, computed in f32, their halves repeated (JAX
+    layers.py:642-647)."""
+    inv_freq = 1.0 / (base ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                            device=device) / d))
+    t = torch.arange(L, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv_freq)
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return emb.cos().to(dtype), emb.sin().to(dtype)
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"the OPT decoder slice is {LM_KNOBS}")
+
+def apply_rotary(x: torch.Tensor, cos: torch.Tensor,
+                 sin: torch.Tensor) -> torch.Tensor:
+    """x (B, L, H, d) rotated by the half-split rule (JAX :650-655)."""
+    d = x.shape[-1]
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    rotated = torch.cat([-x2, x1], dim=-1)
+    return x * cos[None, :, None, :] + rotated * sin[None, :, None, :]
+
+
+def rotary_interleaved_embedding(L: int, rot_dim: int, base: float = 10000.0,
+                                 dtype: torch.dtype = torch.float32,
+                                 device=None):
+    """GLM's partial rotary tables: (cos, sin), each (L, rot_dim / 2), over
+    interleaved (even, odd) pairs (JAX :658-666)."""
+    inv_freq = 1.0 / (base ** (torch.arange(
+        0, rot_dim, 2, dtype=torch.float32, device=device) / rot_dim))
+    t = torch.arange(L, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv_freq)
+    return freqs.cos().to(dtype), freqs.sin().to(dtype)
+
+
+def apply_rotary_partial_interleaved(x: torch.Tensor, cos: torch.Tensor,
+                                     sin: torch.Tensor) -> torch.Tensor:
+    """GLM's rotary: the first rot_dim head dims rotate in (even, odd)
+    pairs, the rest pass through (JAX :669-683). x (B, L, H, d)."""
+    rot = cos.shape[-1] * 2
+    xr, x_pass = x[..., :rot], x[..., rot:]
+    x0, x1 = xr[..., 0::2], xr[..., 1::2]
+    c, s = cos[None, :, None, :], sin[None, :, None, :]
+    rotated = torch.stack([x0 * c - x1 * s, x1 * c + x0 * s],
+                          dim=-1).reshape(xr.shape)
+    return torch.cat([rotated, x_pass], dim=-1)
+
+
+def rotary_tables(interleaved: bool, period: int, L: int, dim: int,
+                  base: float, dtype: torch.dtype, device):
+    """The (cos, sin) a layer applies to L positions whose count restarts
+    every `period` tokens (packed items), the tables tiled L // period
+    times (JAX :745-762)."""
+    make = rotary_interleaved_embedding if interleaved else rotary_embedding
+    cos, sin = make(period, dim, base, dtype, device)
+    if period != L:
+        cos, sin = cos.tile(L // period, 1), sin.tile(L // period, 1)
+    return cos, sin
+
+
+def _attention_core(x_dtype, q, k, v, mask_bias, num_heads, fused: bool):
+    """softmax(q k^T / sqrt(d) + bias) v for q, k, v (B, L, H, d) (k and v
+    already repeated per head): the kernel when `fused` and L <= MAX_T (its
+    scale 1/sqrt(D // H) applied inside), else plain tensor code in the
+    operands' dtype. Returns (B, L, D)."""
+    B, L, H, d = q.shape
+    if fused and L <= MAX_T:
+        bias3 = mask_bias[:, 0].expand(B, L, L)
+        return packed_attention(num_heads, 0.0, q.reshape(B, L, H * d),
+                                k.reshape(B, L, H * d),
+                                v.reshape(B, L, H * d), bias3)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / torch.sqrt(
+        torch.tensor(d, dtype=x_dtype))
+    attn = torch.softmax(scores + mask_bias, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, L, H * d)
+
+
+class LlamaDecoderLayer(nn.Module):
+    """RMSNorm, q/k/v (LoRA on q and v, biases with `qkv_bias`), rotary
+    (GLM's partial interleaved form with `rotary_interleaved` or
+    `rotary_fraction` < 1), grouped-query attention over `num_kv_heads`
+    (None: `num_heads`), o_proj, residual; RMSNorm, SwiGLU
+    (`intermediate_size`, None: int(8 D / 3)), residual (JAX
+    layers.py:685-795). No dropout site but LoRA's input."""
+
+    def __init__(self, dim: int, num_heads: int,
+                 num_kv_heads: Optional[int] = None,
+                 intermediate_size: Optional[int] = None, lora_r: int = 0,
+                 lora_alpha: int = 16, lora_dropout: float = 0.0,
+                 freeze_base: bool = False, rope_theta: float = 10000.0,
+                 qkv_bias: bool = False, rotary_fraction: float = 1.0,
+                 rotary_interleaved: bool = False,
+                 fused_attention: bool = False, lora_fold: bool = False,
+                 norm_bf16: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.num_kv_heads = num_kv_heads or num_heads
+        self.head_dim = dim // num_heads
+        self.rope_theta = rope_theta
+        self.partial = rotary_interleaved or rotary_fraction < 1.0
+        self.rot_dim = (int(self.head_dim * rotary_fraction) // 2 * 2
+                        if self.partial else self.head_dim)
+        self.fused = fused_attention
+        self.dtype = dtype
+        inter = intermediate_size or int(dim * 8 / 3)
+        kv = self.num_kv_heads * self.head_dim
+        lora = dict(lora_r=lora_r, lora_alpha=lora_alpha,
+                    lora_dropout=lora_dropout, lora_fold=lora_fold,
+                    freeze_base=freeze_base, dtype=dtype)
+        frozen = dict(freeze_base=freeze_base, dtype=dtype)
+        norm = dict(freeze=freeze_base, bf16_apply=norm_bf16, dtype=dtype)
+        self.input_norm = RMSNorm(dim, **norm)
+        self.q_proj = LoRADense(dim, dim, use_bias=qkv_bias, **lora)
+        self.k_proj = LoRADense(dim, kv, use_bias=qkv_bias, **frozen)
+        self.v_proj = LoRADense(dim, kv, use_bias=qkv_bias, **lora)
+        self.o_proj = LoRADense(dim, dim, use_bias=False, **frozen)
+        self.post_norm = RMSNorm(dim, **norm)
+        self.gate_proj = LoRADense(dim, inter, use_bias=False, **frozen)
+        self.up_proj = LoRADense(dim, inter, use_bias=False, **frozen)
+        self.down_proj = LoRADense(inter, dim, use_bias=False, **frozen)
+
+    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor,
+                rotary_period: int = 0,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x (B, L, D) in `dtype`; mask_bias (B, 1, L, L) additive;
+        positions restart every `rotary_period` tokens (0: never)."""
+        B, L, D = x.shape
+        H, KV, d = self.num_heads, self.num_kv_heads, self.head_dim
+        h = self.input_norm(x)
+        q = self.q_proj(h, rng).reshape(B, L, H, d)
+        k = self.k_proj(h).reshape(B, L, KV, d)
+        v = self.v_proj(h, rng).reshape(B, L, KV, d)
+        cos, sin = rotary_tables(self.partial, rotary_period or L, L,
+                                 self.rot_dim, self.rope_theta, self.dtype,
+                                 x.device)
+        rotate = (apply_rotary_partial_interleaved if self.partial
+                  else apply_rotary)
+        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
+        if KV != H:
+            k = k.repeat_interleave(H // KV, dim=2)
+            v = v.repeat_interleave(H // KV, dim=2)
+        out = _attention_core(self.dtype, q, k, v, mask_bias, H, self.fused)
+        x = x + self.o_proj(out)
+        h = self.post_norm(x)
+        inter = F.silu(self.gate_proj(h)) * self.up_proj(h)
+        return x + self.down_proj(inter)
+
+
+def causal_mask_bias(mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(B, 1, L, L) in `dtype`: 0 where key j <= query i and j is valid,
+    `finfo(dtype).min` elsewhere."""
+    L = mask.shape[1]
+    causal = torch.ones(L, L, dtype=torch.bool, device=mask.device).tril()
+    allowed = causal[None, None] & mask.bool()[:, None, None, :]
+    return torch.where(allowed, torch.zeros((), dtype=dtype,
+                                            device=mask.device),
+                       torch.full((), torch.finfo(dtype).min, dtype=dtype,
+                                  device=mask.device))
+
+
+class _DecoderSlice(nn.Module):
+    """What the two decoder slices share: the causal bias, packing (the
+    causal block-diagonal bias; positions restart per item), the layer
+    loop, unpacking and `final_norm`."""
+
+    def _check_knobs(self, fused_qkv, pipeline_stages, collect_pooled):
+        if fused_qkv:
+            raise NotImplementedError(f"fused_qkv is {LM_KNOBS}")
+        if pipeline_stages > 1:
+            raise NotImplementedError(f"pipeline_stages is {LM_KNOBS}")
+        if collect_pooled:
+            raise NotImplementedError(f"collect_pooled (IISAN) is {LM_KNOBS}")
+
+    def layers(self):
+        return [getattr(self, f"layer_{i}")
+                for i in range(self.start, self.start + self.num_layers)]
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        for m in self.modules():
+            if m is not self and hasattr(m, "reset_parameters"):
+                m.reset_parameters(generator)
+
+    def _run(self, x: torch.Tensor, mask: torch.Tensor,
+             rng: Optional[torch.Generator]) -> torch.Tensor:
+        B, L, D = x.shape
+        G = (pack_group_size(L, self.attention_pack)
+             if self.attention_pack else 1)
+        if G > 1:
+            x, mask_p, _ = pack_items(x, mask, G)
+            mask_bias = packed_mask_bias(mask_p, L, self.dtype, causal=True)
+        else:
+            mask_bias = causal_mask_bias(mask, self.dtype)
+        for layer in self.layers():
+            x = self._layer(layer, x, mask_bias, L if G > 1 else 0, rng)
+        if G > 1:
+            x = x.reshape(-1, L, D)[:B]
+        if self.final_norm is not None:
+            x = self.final_norm(x)
+        return x
+
+
+class LlamaDecoderSlice(_DecoderSlice):
+    """Layers [start, start + num_layers) of a Llama / GLM decoder over
+    hidden states (B, L, dim) with mask (B, L), then the RMSNorm
+    `final_norm` when asked (the trainable slice) (JAX layers.py:798-888).
+    Parameters under the JAX names: `layer_{start + i}` and `final_norm`."""
+
+    def __init__(self, num_layers: int, dim: int, num_heads: int = 32,
+                 num_kv_heads: Optional[int] = None,
+                 intermediate_size: Optional[int] = None, start: int = 0,
+                 final_norm: bool = True, lora_r: int = 0,
+                 lora_alpha: int = 16, lora_dropout: float = 0.0,
+                 freeze_base: bool = False, rope_theta: float = 10000.0,
+                 qkv_bias: bool = False, rotary_fraction: float = 1.0,
+                 rotary_interleaved: bool = False, attention_pack: int = 0,
+                 lora_fold: bool = False, norm_bf16: bool = False,
+                 fused_attention: bool = False, fused_qkv: bool = False,
+                 pipeline_stages: int = 0, collect_pooled: bool = False,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self._check_knobs(fused_qkv, pipeline_stages, collect_pooled)
+        self.num_layers = num_layers
+        self.start = start
+        self.attention_pack = attention_pack
+        self.dtype = dtype
+        for i in range(start, start + num_layers):
+            self.add_module(f"layer_{i}", LlamaDecoderLayer(
+                dim, num_heads, num_kv_heads, intermediate_size, lora_r,
+                lora_alpha, lora_dropout, freeze_base, rope_theta,
+                qkv_bias=qkv_bias, rotary_fraction=rotary_fraction,
+                rotary_interleaved=rotary_interleaved,
+                fused_attention=fused_attention, lora_fold=lora_fold,
+                norm_bf16=norm_bf16, dtype=dtype))
+        self.final_norm = (RMSNorm(dim, freeze=freeze_base,
+                                   bf16_apply=norm_bf16, dtype=dtype)
+                           if final_norm else None)
+        self.reset_parameters()
+
+    @staticmethod
+    def _layer(layer, x, mask_bias, period, rng):
+        return layer(x, mask_bias, period, rng)
+
+    def forward(self, hidden_states: torch.Tensor, mask: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self._run(hidden_states.to(self.dtype), mask, rng)
+
+
+# ---------------------------------------------------------------------------
+# OPT (learned positions at offset 2, pre-LN, causal)
+# ---------------------------------------------------------------------------
+class OPTDecoderLayer(nn.Module):
+    """Pre-LN: LayerNorm (eps 1e-5), q/k/v with biases (LoRA on q and v),
+    attention, out_proj, hidden dropout, residual; LayerNorm, fc1, ReLU,
+    fc2, hidden dropout, residual (JAX layers.py:891-969). The two hidden
+    dropout sites share one SharedBitsDropout draw with `dropout_reuse`.
+    The kernel takes q unscaled (it scales by 1/sqrt(d) itself); the plain
+    path scales q in `dtype` first, as JAX does."""
+
+    def __init__(self, dim: int, num_heads: int, ffn_dim: Optional[int] = None,
+                 lora_r: int = 0, lora_alpha: int = 16,
+                 lora_dropout: float = 0.0, freeze_base: bool = False,
+                 dropout: float = 0.0, fused_attention: bool = False,
+                 lora_fold: bool = False, norm_bf16: bool = False,
+                 dropout_reuse: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dropout = dropout
+        self.fused = fused_attention
+        self.dtype = dtype
+        self.shared = SharedBitsDropout(dropout) if dropout_reuse else None
+        lora = dict(lora_r=lora_r, lora_alpha=lora_alpha,
+                    lora_dropout=lora_dropout, lora_fold=lora_fold,
+                    freeze_base=freeze_base, dtype=dtype)
+        frozen = dict(freeze_base=freeze_base, dtype=dtype)
+        norm = dict(epsilon=1e-5, bf16_apply=norm_bf16, freeze=freeze_base,
+                    dtype=dtype)
+        self.attn_norm = FrozenableLayerNorm(dim, **norm)
+        self.q_proj = LoRADense(dim, dim, **lora)
+        self.k_proj = LoRADense(dim, dim, **frozen)
+        self.v_proj = LoRADense(dim, dim, **lora)
+        self.out_proj = LoRADense(dim, dim, **frozen)
+        self.ffn_norm = FrozenableLayerNorm(dim, **norm)
+        self.fc1 = LoRADense(dim, ffn_dim or 4 * dim, **frozen)
+        self.fc2 = LoRADense(ffn_dim or 4 * dim, dim, **frozen)
+
+    def _drop(self, x, site, bits, rng):
+        if self.shared is not None:
+            return self.shared(x, site, bits, rng)
+        return dropout(x, self.dropout, rng), bits
+
+    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        B, L, D = x.shape
+        H = self.num_heads
+        d = D // H
+        h = self.attn_norm(x)
+        q, k, v = self.q_proj(h, rng), self.k_proj(h), self.v_proj(h, rng)
+        if self.fused and L <= MAX_T:
+            out = packed_attention(H, 0.0, q, k, v,
+                                   mask_bias[:, 0].expand(B, L, L))
+        else:
+            q = q.reshape(B, L, H, d) * (d ** -0.5)
+            k, v = k.reshape(B, L, H, d), v.reshape(B, L, H, d)
+            scores = torch.einsum("bqhd,bkhd->bhqk", q, k) + mask_bias
+            attn = torch.softmax(scores, dim=-1)
+            out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, L, D)
+        out, bits = self._drop(self.out_proj(out), 0, None, rng)
+        x = x + out
+        h = F.relu(self.fc1(self.ffn_norm(x)))
+        h, _ = self._drop(self.fc2(h), 1, bits, rng)
+        return x + h
+
+
+class OPTDecoderSlice(_DecoderSlice):
+    """Layers [start, start + num_layers) of an OPT decoder over hidden
+    states (B, L, dim) with mask (B, L) (JAX layers.py:972-1067). At start
+    0 with `embed_positions` the learned positions are added first: row
+    clip(cumsum(mask) - 1, 0) + 2 of `position_embeddings` (max_position
+    + 2, dim). `final_norm` (the trainable slice) is a LayerNorm of eps
+    1e-5 that, as in JAX, applies in f32 whatever `norm_bf16` says."""
+
+    def __init__(self, num_layers: int, dim: int, num_heads: int = 12,
+                 ffn_dim: Optional[int] = None, start: int = 0,
+                 embed_positions: bool = True, final_norm: bool = True,
+                 max_position: int = 2048, lora_r: int = 0,
+                 lora_alpha: int = 16, lora_dropout: float = 0.0,
+                 freeze_base: bool = False, dropout: float = 0.0,
+                 attention_pack: int = 0, fused_attention: bool = False,
+                 fused_qkv: bool = False, lora_fold: bool = False,
+                 norm_bf16: bool = False, dropout_reuse: bool = False,
+                 pipeline_stages: int = 0, collect_pooled: bool = False,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self._check_knobs(fused_qkv, pipeline_stages, collect_pooled)
+        self.num_layers = num_layers
+        self.start = start
+        self.attention_pack = attention_pack
+        self.dtype = dtype
+        self.embed = embed_positions and start == 0
+        if self.embed:
+            self.position_embeddings = nn.Parameter(
+                torch.empty(max_position + 2, dim),
+                requires_grad=not freeze_base)
+        for i in range(start, start + num_layers):
+            self.add_module(f"layer_{i}", OPTDecoderLayer(
+                dim, num_heads, ffn_dim, lora_r, lora_alpha, lora_dropout,
+                freeze_base, dropout=dropout,
+                fused_attention=fused_attention, lora_fold=lora_fold,
+                norm_bf16=norm_bf16, dropout_reuse=dropout_reuse,
+                dtype=dtype))
+        self.final_norm = (FrozenableLayerNorm(dim, epsilon=1e-5,
+                                               freeze=freeze_base,
+                                               dtype=dtype)
+                           if final_norm else None)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        if self.embed:
+            with torch.no_grad():
+                self.position_embeddings.normal_(0.0, 0.02,
+                                                 generator=generator)
+        super().reset_parameters(generator)
+
+    @staticmethod
+    def _layer(layer, x, mask_bias, period, rng):
+        return layer(x, mask_bias, rng)
+
+    def forward(self, hidden_states: torch.Tensor, mask: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = hidden_states.to(self.dtype)
+        if self.embed:
+            pos = (torch.cumsum(mask.to(torch.int32), dim=1) - 1).clamp_min(0)
+            x = x + self.position_embeddings[pos.long() + 2].to(self.dtype)
+        return self._run(x, mask, rng)

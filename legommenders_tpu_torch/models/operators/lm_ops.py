@@ -13,9 +13,14 @@ model/operators/once_operator.py:41-236 and bert_operator.py):
   * with `use_lora` the trainable slice's query/value projections carry a
     LoRA delta and its base weights are frozen;
   * head: Linear(input_dim -> hidden) + the AdditiveAttention pool.
-The lower slice also takes the fused attention kernel (the JAX lower slice
-runs XLA's attention: the same f32-softmax math at f32). The Llama/OPT/GLM
-families are not ported yet; asking for them raises.
+The families: BERT (BertBase, BertLarge), Llama (Llama1, Llama2, Llama3:
+rope theta 5e5), GLM (GLM, GLM4TH9B: grouped-query attention over 2 kv
+heads, qkv biases, GLM's partial interleaved rotary) and OPT (OPTBase,
+OPTLarge), each at the JAX package's defaults (JAX lm_ops.py:168-304); the
+decoders compute in bf16 unless `lm_dtype` says otherwise. The lower slice
+also takes the fused attention kernel (the JAX lower slice runs XLA's
+attention: the same f32-softmax math at f32). The IISAN operators
+(BertIISAN, LlamaIISAN, OPTIISAN, GLMIISAN) raise NotImplementedError.
 """
 from typing import Optional
 
@@ -26,7 +31,7 @@ from torch.nn import functional as F
 from legommenders_tpu_torch.models.common import AdditiveAttention, reset_linear
 from legommenders_tpu_torch.models.inputers.concat import ConcatInputer
 from legommenders_tpu_torch.models.lm.layers import (
-    BertEncoderSlice, LlamaDecoderSlice, OPTDecoderSlice,
+    LM_KNOBS, BertEncoderSlice, LlamaDecoderSlice, OPTDecoderSlice,
 )
 from legommenders_tpu_torch.models.operators.base import BaseOperator
 from legommenders_tpu_torch.utils.registry import OPERATORS
@@ -43,12 +48,15 @@ class LMOperator(BaseOperator):
     `attention_pack` (items per attention call, -1 auto: 128 // L) are the
     BERT slice's. `dropout` (hidden), `attn_dropout` (attention
     probabilities; None: `dropout`), `lora_dropout` and `dropout_reuse`
-    act only in training."""
+    act only in training. `max_position` and `lm_dtype` left None take
+    the family's defaults."""
 
     inputer_class = ConcatInputer
     hf_family = ""
     num_layers_default = 12
     num_heads_default = 12
+    max_position_default = 512
+    lm_dtype_default = torch.float32
 
     def __init__(self, hidden_size: int = 64, input_dim: int = 768,
                  tune_from: Optional[int] = None, use_lora: bool = True,
@@ -58,8 +66,8 @@ class LMOperator(BaseOperator):
                  additive_hidden_size: int = 256,
                  num_hidden_layers: Optional[int] = None,
                  num_attention_heads: Optional[int] = None,
-                 max_position: int = 512,
-                 lm_dtype: torch.dtype = torch.float32,
+                 max_position: Optional[int] = None,
+                 lm_dtype: Optional[torch.dtype] = None,
                  pipeline_stages: int = 0, fused_attention: bool = False,
                  fused_qkv: bool = False, lora_fold: bool = False,
                  norm_bf16: bool = False, dropout_reuse: bool = False,
@@ -76,26 +84,29 @@ class LMOperator(BaseOperator):
         self.num_hidden_layers = num_hidden_layers or self.num_layers_default
         self.num_attention_heads = (num_attention_heads
                                     or self.num_heads_default)
-        self.lm_dtype = lm_dtype
+        self.lm_dtype = lm_dtype or self.lm_dtype_default
         self.tune_from = tune_from
         self.use_lora = use_lora
         self.lora = dict(lora_r=lora_r, lora_alpha=lora_alpha,
                          lora_dropout=lora_dropout)
         self.gelu_approximate = gelu_approximate
         self.fused_qkv = fused_qkv
-        common = dict(max_position=max_position, dropout=dropout,
+        common = dict(max_position=max_position or self.max_position_default,
+                      dropout=dropout,
                       attn_dropout=attn_dropout, fused_attention=fused_attention,
                       fused_qkv=fused_qkv, norm_bf16=norm_bf16,
                       gelu_approximate=gelu_approximate,
                       attention_pack=attention_pack)
         start = self.resolved_tune_from
         self.lm = self.make_slice(
-            start, self.num_hidden_layers - start, lora_fold=lora_fold,
-            pipeline_stages=pipeline_stages, dropout_reuse=dropout_reuse,
-            **common, **self._lora_kwargs(trainable=True))
+            start, self.num_hidden_layers - start, trainable=True,
+            lora_fold=lora_fold, pipeline_stages=pipeline_stages,
+            dropout_reuse=dropout_reuse, **common,
+            **self._lora_kwargs(trainable=True))
         if start > 0:
             self.lm_lower = self.make_slice(
-                0, start, **common, **self._lora_kwargs(trainable=False))
+                0, start, trainable=False, **common,
+                **self._lora_kwargs(trainable=False))
             self.lm_lower.requires_grad_(False)
         self.linear = nn.Linear(input_dim, hidden_size)
         self.pool = AdditiveAttention(hidden_size, additive_hidden_size,
@@ -123,7 +134,10 @@ class LMOperator(BaseOperator):
             return dict(**self.lora, freeze_base=True)
         return dict(lora_r=0, freeze_base=False)
 
-    def make_slice(self, start: int, num_layers: int, **kw) -> nn.Module:
+    def make_slice(self, start: int, num_layers: int, trainable: bool,
+                   **kw) -> nn.Module:
+        """Layers [start, start + num_layers); `trainable`: the slice
+        trained at run time (the whole LM in full-LM mode)."""
         raise NotImplementedError
 
     def reset_parameters(self, generator=None):
@@ -162,7 +176,7 @@ class LMOperator(BaseOperator):
 class BertOperator(LMOperator):
     hf_family = "bert"
 
-    def make_slice(self, start, num_layers, **kw):
+    def make_slice(self, start, num_layers, trainable, **kw):
         return BertEncoderSlice(
             num_layers, self.input_dim, num_heads=self.num_attention_heads,
             start=start, embed=start == 0, dtype=self.lm_dtype, **kw)
@@ -179,22 +193,131 @@ class BertLargeOperator(BertOperator):
     num_heads_default = 16
 
 
+_NOT_BERT = ("max_position", "attn_dropout", "gelu_approximate")
+
+
 @OPERATORS.register
 class LlamaOperator(LMOperator):
-    hf_family = "llama"
+    """Llama decoders (JAX lm_ops.py:205-232): 32 layers of 32 heads, bf16,
+    `num_kv_heads` (None: every head its own), `intermediate_size` (None:
+    int(8 D / 3)), `rope_theta`, and GLM's geometry knobs `qkv_bias`,
+    `rotary_fraction` and `rotary_interleaved`. The trainable slice ends
+    with the final RMSNorm."""
 
-    def make_slice(self, start, num_layers, **kw):
-        return LlamaDecoderSlice()
+    hf_family = "llama"
+    num_layers_default = 32
+    num_heads_default = 32
+    lm_dtype_default = torch.bfloat16
+
+    def __init__(self, num_kv_heads: Optional[int] = None,
+                 intermediate_size: Optional[int] = None,
+                 rope_theta: float = 10000.0, qkv_bias: bool = False,
+                 rotary_fraction: float = 1.0,
+                 rotary_interleaved: bool = False, **kw):
+        # plain attributes, set before the slices are built
+        self.num_kv_heads = num_kv_heads
+        self.intermediate_size = intermediate_size
+        self.rope_theta = rope_theta
+        self.qkv_bias = qkv_bias
+        self.rotary_fraction = rotary_fraction
+        self.rotary_interleaved = rotary_interleaved
+        super().__init__(**kw)
+
+    def make_slice(self, start, num_layers, trainable, **kw):
+        for k in _NOT_BERT + ("dropout", "dropout_reuse"):
+            kw.pop(k, None)
+        return LlamaDecoderSlice(
+            num_layers, self.input_dim, num_heads=self.num_attention_heads,
+            num_kv_heads=self.num_kv_heads,
+            intermediate_size=self.intermediate_size, start=start,
+            final_norm=trainable, rope_theta=self.rope_theta,
+            qkv_bias=self.qkv_bias, rotary_fraction=self.rotary_fraction,
+            rotary_interleaved=self.rotary_interleaved, dtype=self.lm_dtype,
+            **kw)
+
+
+@OPERATORS.register
+class Llama1Operator(LlamaOperator):
+    pass
+
+
+@OPERATORS.register
+class Llama2Operator(LlamaOperator):
+    pass
+
+
+@OPERATORS.register
+class Llama3Operator(LlamaOperator):
+    def __init__(self, rope_theta: float = 500000.0, **kw):
+        super().__init__(rope_theta=rope_theta, **kw)
 
 
 @OPERATORS.register
 class GLMOperator(LlamaOperator):
+    """ChatGLM2/3 and GLM-4 geometry (JAX lm_ops.py:283-304): 28 layers,
+    2 kv heads, qkv biases, the partial interleaved rotary over the first
+    half of each head, SwiGLU of 13,696."""
+
     hf_family = "glm"
+    num_layers_default = 28
+
+    def __init__(self, num_kv_heads: Optional[int] = 2,
+                 intermediate_size: Optional[int] = 13696,
+                 qkv_bias: bool = True, rotary_fraction: float = 0.5,
+                 rotary_interleaved: bool = True, **kw):
+        super().__init__(num_kv_heads=num_kv_heads,
+                         intermediate_size=intermediate_size,
+                         qkv_bias=qkv_bias, rotary_fraction=rotary_fraction,
+                         rotary_interleaved=rotary_interleaved, **kw)
+
+
+@OPERATORS.register
+class GLM4TH9BOperator(GLMOperator):
+    num_layers_default = 40
 
 
 @OPERATORS.register
 class OPTOperator(LMOperator):
-    hf_family = "opt"
+    """OPT decoders (JAX lm_ops.py:250-281): 12 layers of 12 heads, bf16,
+    `ffn_dim` (None: 4 D), learned positions up to `max_position` 2,048,
+    the hidden dropout `dropout` (the kernel's attention takes none). The
+    trainable slice ends with the final LayerNorm."""
 
-    def make_slice(self, start, num_layers, **kw):
-        return OPTDecoderSlice()
+    hf_family = "opt"
+    max_position_default = 2048
+    lm_dtype_default = torch.bfloat16
+
+    def __init__(self, ffn_dim: Optional[int] = None, **kw):
+        self.ffn_dim = ffn_dim
+        super().__init__(**kw)
+
+    def make_slice(self, start, num_layers, trainable, **kw):
+        for k in _NOT_BERT[1:]:
+            kw.pop(k)
+        return OPTDecoderSlice(
+            num_layers, self.input_dim, num_heads=self.num_attention_heads,
+            ffn_dim=self.ffn_dim, start=start, embed_positions=start == 0,
+            final_norm=trainable, dtype=self.lm_dtype, **kw)
+
+
+@OPERATORS.register
+class OPTBaseOperator(OPTOperator):
+    pass
+
+
+@OPERATORS.register
+class OPTLargeOperator(OPTOperator):
+    num_layers_default = 24
+    num_heads_default = 16
+
+
+class _IISAN(BaseOperator):
+    """The IISAN operators (JAX operators/iisan.py) are not ported."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"{type(self).__name__}: IISAN (collect_pooled) is {LM_KNOBS}")
+
+
+for _family in ("Bert", "Llama", "OPT", "GLM"):
+    OPERATORS.register(type(f"{_family}IISANOperator", (_IISAN,), {}))

@@ -180,18 +180,20 @@ def _forward(x, mask, w1, b1, w2):
     maskf = mask.float().contiguous()
     w1f, b1f, w2f = (t.float().contiguous() for t in (w1, b1, w2))
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if kernel == TC_KERNEL:
-        # held in names until the launch is enqueued: a copy freed earlier
-        # could hand its memory to the next one
-        xa, maska, w1a = _aligned(x), _aligned(maskf), _aligned(w1f)
-        err = lib.additive_pool_tc_forward(
-            xa.data_ptr(), maska.data_ptr(), w1a.data_ptr(), b1f.data_ptr(),
-            w2f.data_ptr(), out.data_ptr(), N, L, H, G, blocks, dev, stream)
-    else:
-        err = lib.additive_pool_forward(
-            x.data_ptr(), maskf.data_ptr(), w1f.data_ptr(), b1f.data_ptr(),
-            w2f.data_ptr(), out.data_ptr(), N, L, D, H, int(bf16), blocks,
-            dev, stream)
+    with build.launch_range("additive_pool"):
+        if kernel == TC_KERNEL:
+            # held in names until the launch is enqueued: a copy freed
+            # earlier could hand its memory to the next one
+            xa, maska, w1a = _aligned(x), _aligned(maskf), _aligned(w1f)
+            err = lib.additive_pool_tc_forward(
+                xa.data_ptr(), maska.data_ptr(), w1a.data_ptr(),
+                b1f.data_ptr(), w2f.data_ptr(), out.data_ptr(), N, L, H, G,
+                blocks, dev, stream)
+        else:
+            err = lib.additive_pool_forward(
+                x.data_ptr(), maskf.data_ptr(), w1f.data_ptr(),
+                b1f.data_ptr(), w2f.data_ptr(), out.data_ptr(), N, L, D, H,
+                int(bf16), blocks, dev, stream)
     _check(lib, err, "kernel launch")
     additive_pool.launches += 1
     return out

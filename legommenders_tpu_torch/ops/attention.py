@@ -311,9 +311,11 @@ def dropout_keep_mask(num_heads: int, dropout_p: float, B: int, T: int, seed,
     lib = _kernel_lib()
     dev = _device_index(seed)
     _prepare(dev)
-    _check(lib, lib.packed_attention_keep_mask(
-        seed.data_ptr(), out.data_ptr(), B, T, num_heads, thresh, dev,
-        torch.cuda.current_stream(device).cuda_stream), "keep-mask launch")
+    with build.launch_range("dropout_keep_mask"):
+        _check(lib, lib.packed_attention_keep_mask(
+            seed.data_ptr(), out.data_ptr(), B, T, num_heads, thresh, dev,
+            torch.cuda.current_stream(device).cuda_stream),
+            "keep-mask launch")
     dropout_keep_mask.launches += 1
     return out
 
@@ -338,12 +340,14 @@ def _forward(num_heads: int, dropout_p: float, q, k, v, bias, seed):
     lib = _kernel_lib()
     dev = _device_index(q)
     _prepare(dev)
-    _check(lib, lib.packed_attention_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), B, T, num_heads, dh, 1.0 / math.sqrt(dh),
-        bias.stride(0), bias.stride(1), int(bf16),
-        int(bias.dtype == torch.bfloat16), *_drop_args(dropout_p, seed), dev,
-        torch.cuda.current_stream(q.device).cuda_stream), "kernel launch")
+    with build.launch_range("packed_attention"):
+        _check(lib, lib.packed_attention_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), B, T, num_heads, dh, 1.0 / math.sqrt(dh),
+            bias.stride(0), bias.stride(1), int(bf16),
+            int(bias.dtype == torch.bfloat16), *_drop_args(dropout_p, seed),
+            dev, torch.cuda.current_stream(q.device).cuda_stream),
+            "kernel launch")
     packed_attention.launches += 1
     return out
 
@@ -371,14 +375,15 @@ def packed_attention_backward(num_heads: int, dropout_p: float, q, k, v,
     lib = _kernel_lib()
     dev = _device_index(q)
     _prepare(dev)
-    _check(lib, lib.packed_attention_backward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T,
-        num_heads, dh, 1.0 / math.sqrt(dh), bias.stride(0), bias.stride(1),
-        int(bf16), int(bias.dtype == torch.bfloat16),
-        *_drop_args(dropout_p, seed), dev,
-        torch.cuda.current_stream(q.device).cuda_stream),
-        "backward kernel launch")
+    with build.launch_range("packed_attention_backward"):
+        _check(lib, lib.packed_attention_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T,
+            num_heads, dh, 1.0 / math.sqrt(dh), bias.stride(0),
+            bias.stride(1), int(bf16), int(bias.dtype == torch.bfloat16),
+            *_drop_args(dropout_p, seed), dev,
+            torch.cuda.current_stream(q.device).cuda_stream),
+            "backward kernel launch")
     packed_attention_backward.launches += 1
     return dq, dk, dv
 

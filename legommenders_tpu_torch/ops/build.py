@@ -13,8 +13,10 @@ through the runtime (`cudaGetDriverEntryPointByVersion`), so nothing links
 libcuda. `library(name)` builds on
 first use and loads; `build(name)` only builds and returns nvcc's output;
 `build_all(names)` runs one nvcc for each source, all at once.
-Nothing is compiled or loaded at import time.
+Nothing is compiled or loaded at import time. `launch_range(name)` marks
+a wrapper's launch for a profiler's trace.
 """
+import contextlib
 import ctypes
 import os
 import re
@@ -122,3 +124,14 @@ def library(name: str) -> ctypes.CDLL:
         build(name)
         _loaded[name] = ctypes.CDLL(lib_path(name))
     return _loaded[name]
+
+
+def launch_range(name: str):
+    """A profiler range named `name` around a wrapper's kernel launch while
+    a profiler runs (nothing otherwise), so that a trace ties the
+    runtime's launch call to the wrapper that made it."""
+    import torch
+
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()

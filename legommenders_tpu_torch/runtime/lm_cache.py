@@ -14,7 +14,11 @@ weights and its output-affecting knobs. Rows with NaNs are replaced by
 random values and their mask reduced to the first position (reference
 once_operator.py:118-123). On the device the token dim is padded to a
 multiple of 8 with mask 0 (JAX :141-152): L = 34 becomes 40, so the upper
-slice packs 3 items into T = 120, as in JAX.
+slice packs 3 items into T = 120, as in JAX; L = 31 (a decoder's title +
+category) becomes 32, T = 128. Built on the device, the pages are written
+into one buffer of the padded shape, and the NaN scrub reads it a block
+of rows at a time: the Llama-7B geometry's cache is 17 GB, and a second
+copy of it (a concatenation, a pad) would not fit beside the model.
 """
 import hashlib
 import os
@@ -55,45 +59,62 @@ def arch_key(op) -> str:
             f"fused_qkv={bool(getattr(op, 'fused_qkv', False))}")
 
 
-def scrub_nans(hidden: torch.Tensor, mask: torch.Tensor, seed: int = 0):
-    """Rows with a NaN get random values in [0, 1); an item with such a
-    row keeps only its first position in the mask. In place."""
-    nan_pos = torch.isnan(hidden).any(dim=-1)
-    if bool(nan_pos.any()):
-        rng = np.random.default_rng(seed)
+def scrub_nans(hidden: torch.Tensor, mask: torch.Tensor, seed: int = 0,
+               rows: int = 4096):
+    """Rows with a NaN get random values in [0, 1) (drawn in row order);
+    an item with such a row keeps only its first position in the mask. In
+    place, `rows` items at a time."""
+    rng = np.random.default_rng(seed)
+    for s in range(0, hidden.shape[0], rows):
+        block, block_mask = hidden[s:s + rows], mask[s:s + rows]
+        nan_pos = torch.isnan(block).any(dim=-1)
+        if not bool(nan_pos.any()):
+            continue
         n = int(nan_pos.sum())
-        hidden[nan_pos] = torch.as_tensor(
+        block[nan_pos] = torch.as_tensor(
             rng.random((n, hidden.shape[-1])), dtype=hidden.dtype,
             device=hidden.device)
         nan_item = nan_pos.any(dim=-1)
-        mask[nan_item] = 0
-        mask[nan_item, 0] = 1
+        block_mask[nan_item] = 0
+        block_mask[nan_item, 0] = 1
     return hidden, mask
 
 
 @torch.no_grad()
 def build_lm_hidden(model, contents: Dict[str, torch.Tensor],
-                    page_size: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
+                    page_size: int = 256,
+                    align: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """The lower slice over every item, `page_size` items at a time on the
-    contents' device: (hidden (N, L, D) in the slice's dtype, mask (N, L)
-    int32), NaNs scrubbed."""
+    contents' device, each page written into one buffer: (hidden (N, L',
+    D) in the slice's dtype, mask (N, L') int32), L' the slice's L rounded
+    up to a multiple of `align` (zeros, mask 0), NaNs scrubbed."""
     n = next(iter(contents.values())).shape[0]
-    hidden, masks = [], []
+    hidden = mask = None
     for s in range(0, n, page_size):
         h, m = model.encode_item_lower(
             {c: a[s:s + page_size] for c, a in contents.items()})
-        hidden.append(h)
-        masks.append(m.to(torch.int32))
-    return scrub_nans(torch.cat(hidden), torch.cat(masks))
+        if hidden is None:
+            L = h.shape[1]
+            padded = -(-L // align) * align
+            hidden = h.new_zeros((n, padded, h.shape[2]))
+            mask = torch.zeros((n, padded), dtype=torch.int32,
+                               device=h.device)
+        hidden[s:s + len(h), :L] = h
+        mask[s:s + len(h), :L] = m.to(torch.int32)
+    return scrub_nans(hidden, mask)
 
 
 def device_entries(hidden: torch.Tensor, mask: torch.Tensor,
                    dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
     """{LM_HIDDEN_KEY, LM_MASK_KEY} on `device`, the hidden states in
-    `dtype`, the token dim padded to a multiple of TOKEN_ALIGN (mask 0)."""
+    `dtype`, the token dim padded to a multiple of TOKEN_ALIGN (mask 0);
+    tensors already so are taken as they are."""
     pad = (-hidden.shape[1]) % TOKEN_ALIGN
-    hidden = F.pad(hidden.to(device=device, dtype=dtype), (0, 0, 0, pad))
-    mask = F.pad(mask.to(device=device, dtype=torch.int32), (0, pad))
+    hidden = hidden.to(device=device, dtype=dtype)
+    mask = mask.to(device=device, dtype=torch.int32)
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        mask = F.pad(mask, (0, pad))
     return {LM_HIDDEN_KEY: hidden.contiguous(), LM_MASK_KEY: mask}
 
 
@@ -109,7 +130,8 @@ def load_or_build_lm_cache(model, contents: Dict[str, torch.Tensor],
     written."""
     device = next(iter(contents.values())).device
     if root is None:
-        hidden, mask = build_lm_hidden(model, contents, page_size)
+        hidden, mask = build_lm_hidden(model, contents, page_size,
+                                       align=TOKEN_ALIGN)
         return device_entries(hidden, mask, device_dtype, device)
     sig = weights_fingerprint(model.item_op, extra=arch_key(model.item_op))
     d = cache_dir(data_name, operator_name, root)

@@ -2,11 +2,14 @@
 
 The port of the JAX package's runtime/manager.py without the mesh and
 pipeline parts (reference loader/manager.py:121-431). It builds the
-dataset, the model from the model config (parameters drawn from a seeded
-torch.Generator, then placed on `device`), the repr cache, the host
-batchers and evaluators, and, for a layer-split LM item operator, the
-lower slice's cache (`prepare_lm_cache`). The policy is the exp config's
-`policy` over DEFAULT_POLICY; the dev metric and the patience come from
+dataset, the model from the model config (the item operator built on
+`device`, where a decoder's billions of parameters are drawn fast, and
+every parameter then drawn on `device` from a torch.Generator of that
+device seeded with `seed`), the repr cache, the host batchers and
+evaluators, for a layer-split LM item operator the lower slice's cache
+(`prepare_lm_cache`), and an LM's weights from a local HF checkpoint
+(`load_lm_weights`). The policy is the exp config's `policy` over
+DEFAULT_POLICY; the dev metric and the patience come from
 its `store`. A mesh policy raises: multi-device runs are ROADMAP queue 1,
 item 8.
 """
@@ -18,6 +21,8 @@ import torch
 from legommenders_tpu_torch.config.dotfiles import ModelInit
 from legommenders_tpu_torch.data.dataset import LegoData
 from legommenders_tpu_torch.data.pipeline import EvalBatcher, TrainBatcher
+from legommenders_tpu_torch.models.common import drop_cached_casts
+from legommenders_tpu_torch.models.lm import hf_loader
 from legommenders_tpu_torch.models.lego_config import DTYPE_NAMES, LegoConfig
 from legommenders_tpu_torch.models.operators.lm_ops import LMOperator
 from legommenders_tpu_torch.runtime.cacher import ReprCache
@@ -59,8 +64,9 @@ class Manager:
         self.lego_cfg = LegoConfig.from_configs(
             self.data, dict(model_cfg or {}), embed_cfg, dtype=dtype)
         self.model, self.contents = self.lego_cfg.build(self.device)
-        self.model.reset_parameters(torch.Generator().manual_seed(seed))
         self.model.to(self.device).eval()
+        self.model.reset_parameters(
+            torch.Generator(device=self.device).manual_seed(seed))
 
         self.cache = None
         if self.lego_cfg.use_fast_eval and self._caching_allowed():
@@ -87,6 +93,8 @@ class Manager:
         self.contents.columns.update(extra)
         if self.cache is not None:
             self.cache.item_contents.update(extra)
+        # nothing runs the lower slice after this: its kept casts go
+        drop_cached_casts(op.lm_lower)
         return True
 
     def _caching_allowed(self) -> bool:
@@ -125,11 +133,12 @@ class Manager:
     def load_lm_weights(self, log=None) -> bool:
         """Pretrained LM weights for the item operator, from the local
         checkpoint the `.model` dotfile names under the operator's
-        transformer_key (JAX manager.py:175-238). Without an entry the LM
-        runs from its random init, with a warning, as in JAX; a named
-        checkpoint raises, because the HF weight maps are not ported yet
-        (ROADMAP.md, queue 1, item 5). Returns whether weights were
-        loaded."""
+        transformer_key (JAX manager.py:175-238): the family's map
+        (models/lm/hf_loader.py) into the trainable slice `lm` and, in
+        layer-split mode, the lower slice `lm_lower`; the LoRA factors and
+        the head keep their init. Without an entry the LM runs from its
+        random init, with a warning, as in JAX. Returns whether weights
+        were loaded."""
         log = log or get_logger("manager")
         op = self.model.item_op
         if not isinstance(op, LMOperator):
@@ -140,7 +149,27 @@ class Manager:
                 f"no local HF checkpoint for '{op.transformer_key}' "
                 f"(.model dotfile) — LM runs from RANDOM init")
             return False
-        raise NotImplementedError(
-            f"loading the HF checkpoint {path} for '{op.transformer_key}': "
-            f"the HF weight maps are not ported yet (ROADMAP.md, queue 1, "
-            f"item 5)")
+        sd = hf_loader.load_torch_state_dict(path)
+        # (start, layers, trainable slice) -> that slice's parameters
+        maps = {
+            "bert": lambda s, k, top: hf_loader.bert_slice_params(
+                sd, s, k, embed=s == 0),
+            "llama": lambda s, k, top: hf_loader.llama_slice_params(
+                sd, s, k, final_norm=top),
+            "opt": lambda s, k, top: hf_loader.opt_slice_params(
+                sd, s, k, embed_positions=s == 0, final_norm=top),
+            "glm": lambda s, k, top: hf_loader.glm_slice_params(
+                sd, s, k, op.num_attention_heads,
+                op.num_kv_heads or op.num_attention_heads, final_norm=top)}
+        if op.hf_family not in maps:
+            log.warning(f"no HF mapping for family {type(op).__name__}")
+            return False
+        start, n = op.resolved_tune_from, op.num_hidden_layers
+        slice_params = maps[op.hf_family]
+        hf_loader.merge_lm_params(self.model, slice_params(
+            start, n - start, True), "item_op.lm")
+        if start > 0:
+            hf_loader.merge_lm_params(self.model, slice_params(
+                0, start, False), "item_op.lm_lower")
+        log.info(f"loaded HF weights for {op.transformer_key} from {path}")
+        return True

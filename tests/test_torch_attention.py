@@ -249,7 +249,11 @@ def test_unported_knobs_raise():
     with pytest.raises(NotImplementedError, match="LM knobs"):
         layers.BertEncoderSlice(num_layers=1, dim=8, num_heads=2,
                                 collect_pooled=True)
+    # the decoder slices are ported (tests/test_torch_decoder.py); their
+    # knobs of a later slice raise as BERT's do
     with pytest.raises(NotImplementedError, match="LM knobs"):
-        layers.LlamaDecoderSlice(num_layers=1)
+        layers.LlamaDecoderSlice(num_layers=1, dim=8, num_heads=2,
+                                 pipeline_stages=2)
     with pytest.raises(NotImplementedError, match="LM knobs"):
-        layers.OPTDecoderSlice(num_layers=1)
+        layers.OPTDecoderSlice(num_layers=1, dim=8, num_heads=2,
+                               collect_pooled=True)

@@ -249,8 +249,9 @@ def test_bridge_places_bert_names_and_rejects_strays(pair):
 
 def test_unported_modes_raise():
     """The LM knobs of a later slice raise: the `ffn`/`dots` page remat
-    policies and the Llama family. (Layer-split mode, `tune_from`, is
-    ported: tests/test_torch_lm_train.py.)"""
+    policies and, on the Llama family (ported:
+    tests/test_torch_decoder_models.py), `pipeline_stages`. (Layer-split
+    mode, `tune_from`, is ported: tests/test_torch_lm_train.py.)"""
     op = BertBaseOperator(hidden_size=8, input_dim=16, num_hidden_layers=2,
                           num_attention_heads=2, tune_from=1)
     assert op.use_lm_cache and op.resolved_tune_from == 1
@@ -264,5 +265,6 @@ def test_unported_modes_raise():
     cfg = model_cfg("f32")
     cfg["meta"]["item"] = "Llama"
     del cfg["config"]["item_config"]["dropout_reuse"]   # BERT/OPT only
+    cfg["config"]["item_config"]["pipeline_stages"] = 2
     with pytest.raises(NotImplementedError, match="LM knobs"):
         Manager(model_cfg=cfg, data=data, device="cpu")

@@ -434,3 +434,86 @@ def test_int_rates_count_each_kernels_loop_by_kind():
     assert set(name for name, _ in int_rates.OPS.values()) == {
         "imad_wide", "imad_hi", "imad", "lop3", "lop3_isetp", "philox_mix",
         "imad_lop3", "philox_mix_2"}
+
+
+class _Event:
+    """A raw trace event as `trace_records` reads it."""
+
+    def __init__(self, name, corr, device, start=0, end=0):
+        self._name, self._corr, self._device = name, corr, device
+        self._span = start, end
+
+    def name(self):
+        return self._name
+
+    def correlation_id(self):
+        return self._corr
+
+    def device_type(self):
+        return self._device
+
+    def start_ns(self):
+        return self._span[0]
+
+    def end_ns(self):
+        return self._span[1]
+
+
+def test_trace_records_tie_lost_launch_calls_to_their_wrappers():
+    """A launch call (runtime or driver API) whose correlation id no device
+    record carries is a record the tracer lost; one inside a port
+    wrapper's launch range is that wrapper's; the range's own record on
+    the device is not a kernel's. torch's own ops and other runtime calls
+    are not launches."""
+    from torch.autograd import DeviceType
+    cpu, gpu = DeviceType.CPU, DeviceType.CUDA
+    events = [_Event("aten::mm", 1, cpu, 0, 50),
+              _Event("additive_pool", 3, cpu, 100, 200),
+              _Event("cudaLaunchKernel", 7, cpu, 120, 130),
+              _Event("additive_pool_tc<8>", 7, gpu),
+              _Event("additive_pool", 4, cpu, 300, 400),
+              _Event("additive_pool", 11, gpu),
+              _Event("cudaLaunchKernel", 11, cpu, 310, 320),
+              _Event("cudaLaunchKernelExC", 8, cpu, 10, 20),
+              _Event("gemm", 8, gpu),
+              _Event("cuLaunchKernel", 9, cpu, 500, 510),
+              _Event("packed_attention", 5, cpu, 600, 700),
+              _Event("cudaMemcpyAsync", 10, cpu, 610, 620),
+              _Event("aten::add", 2, cpu, 800, 900)]
+    got = chip_smoke.trace_records(events)
+    assert (got["launch_calls"], got["device_records"], got["lost"]) == (
+        4, 2, 2)
+    assert got["calls_by_wrapper"] == {
+        "additive_pool": 2, "packed_attention": 0,
+        "packed_attention_backward": 0, "dropout_keep_mask": 0}
+    assert got["lost_by_wrapper"] == {
+        "additive_pool": 1, "packed_attention": 0,
+        "packed_attention_backward": 0, "dropout_keep_mask": 0}
+
+
+@pytest.mark.parametrize("listed,counted,lost,outcome", [
+    ((2, 1), (2, 1), (0, 0), 0),
+    ((1, 1), (2, 1), (1, 0), 1),
+    ((1, 0), (2, 1), (2, 1), 2),
+    ((1, 1), (2, 1), (0, 1), RuntimeError),
+    ((0, 1), (2, 1), (1, 0), RuntimeError),
+    ((3, 1), (2, 1), (0, 0), RuntimeError),
+])
+def test_profiled_launches_differ_only_by_records_the_tracer_lost(
+        listed, counted, lost, outcome):
+    """A port kernel's profiled launches may fall short of its wrapper's
+    count only by launch calls inside that wrapper's ranges whose device
+    record the trace lacks; a shortfall the trace does not show there, or
+    more profiled launches than counted, raises."""
+    names = ("additive_pool", "packed_attention")
+    trace = {"launch_calls": 9, "device_records": 9 - sum(lost),
+             "lost": sum(lost) + 1, "calls_by_wrapper": dict(zip(names,
+                                                                 counted)),
+             "lost_by_wrapper": dict(zip(names, lost))}
+    listed, counted = dict(zip(names, listed)), dict(zip(names, counted))
+    if outcome is RuntimeError:
+        with pytest.raises(RuntimeError, match="launch calls"):
+            chip_smoke.check_profiled_launches(listed, counted, trace)
+    else:
+        assert chip_smoke.check_profiled_launches(listed, counted,
+                                                  trace) == outcome

@@ -902,3 +902,134 @@ def test_ctr_id_models_on_card_match_cpu(device, name):
     assert (got - want).abs().max() <= 2e-2 * want.abs().max()
     res = Tester(gpu).test()
     assert all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in res.values())
+
+
+# ---------------------------------------------------------------------------
+# the decoders (Llama / GLM, OPT): causal packed biases at head width 128
+# (32 heads, D 4096) and 64 (OPT, 12 heads, D 768)
+# ---------------------------------------------------------------------------
+# (B, T, heads, dh, L): the decoder pages of llama-naml and opt-naml on the
+# synthetic MIND-small fixture (title 30 + category: L 31, 4 items a row,
+# T 124; the layer-split cache pads L to 32: T 128; a page of 512 items is
+# 128 rows), and the 3-item rows of L 34 and 40 (T 102, 120) of 171 rows
+DECODER_ATTN_CASES = [(128, 124, 32, 128, 31), (128, 128, 32, 128, 32),
+                      (171, 102, 32, 128, 34), (171, 120, 32, 128, 40),
+                      (128, 124, 12, 64, 31), (171, 120, 12, 64, 40),
+                      (5, 117, 4, 128, 39), (3, 9, 2, 128, 9)]
+
+
+def _causal_inputs(B, T, heads, dh, L, device, dtype=torch.bfloat16):
+    """q, k, v ~ N(0, 1) and the causal block-diagonal bias
+    packed_mask_bias(..., causal=True) makes for items of random valid
+    lengths (valid tokens first, as the compact inputer puts them)."""
+    g = torch.Generator(device="cpu").manual_seed(B + T + heads * dh)
+    q, k, v = (torch.randn(B, T, heads * dh, generator=g).to(device, dtype)
+               for _ in range(3))
+    G = T // L
+    lens = torch.randint(1, L + 1, (B * G,), generator=g)
+    mask = (torch.arange(L)[None] < lens[:, None]).int()
+    _, mask_p, _ = pack_items(torch.zeros(B * G, L, 1), mask, G)
+    bias = packed_mask_bias(mask_p, L, dtype, causal=True)[:, 0]
+    return q, k, v, bias.to(device)
+
+
+@pytest.mark.parametrize("B,T,heads,dh,L", DECODER_ATTN_CASES)
+def test_decoder_attention_matches_plain(device, B, T, heads, dh, L):
+    """bf16 forward and backward at dropout 0 (the decoders pass 0) with
+    causal packed biases, within 2e-2 of the largest output of the plain
+    versions; f32 (forward, and the backward where the CUDA-core kernel's
+    shared memory holds it) within 1e-5."""
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        q, k, v, bias = _causal_inputs(B, T, heads, dh, L, device, dtype)
+        g = torch.randn(q.shape, generator=torch.Generator().manual_seed(T)
+                        ).to(device, dtype)
+        with torch.no_grad():
+            got = packed_attention(heads, 0.0, q, k, v, bias)
+            want = reference_attention(heads, 0.0, q, k, v, bias)
+            assert torch.isfinite(got.float()).all()
+            assert _close(got, want, name), name
+            if name == "f32" and _bwd_simt_bytes(T, dh) > MAX_SMEM_BYTES:
+                continue
+            grads = packed_attention_backward(heads, 0.0, q, k, v, bias,
+                                              None, g)
+            wgrads = reference_attention_backward(heads, 0.0, q, k, v, bias,
+                                                  g)
+        for a, b in zip(grads, wgrads):
+            assert torch.isfinite(a.float()).all()
+            assert _close(a, b, name), name
+        del q, k, v, bias, g, got, want
+        torch.cuda.empty_cache()
+
+
+DECODER_MODELS = ("llama-naml", "glm-naml", "opt-naml")
+
+
+def _decoder_manager(name, device, lm_dtype="bf16", tune_from=None):
+    """A decoder YAML cut to 2 layers of D 64 (4 heads of 16; Llama's SwiGLU
+    32 wide, GLM's 2 kv heads), over the zoo's 150-item fixture."""
+    from legommenders_tpu_torch.config import parser
+    from legommenders_tpu_torch.data.processors.synthetic import (
+        SyntheticProcessor,
+    )
+    from legommenders_tpu_torch.runtime.manager import Manager
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = parser.parse_four_way(
+        {"model": name, "lm_dtype": lm_dtype, "tune_from": tune_from},
+        config_root=os.path.join(root, "config")).raw()["model"]
+    cfg["config"]["embedding_dim"] = 64
+    cfg["config"]["item_config"].update(num_hidden_layers=2,
+                                        num_attention_heads=4)
+    if not name.startswith("opt"):
+        cfg["config"]["item_config"]["intermediate_size"] = 32
+    return Manager(model_cfg=cfg, device=device,
+                   exp_cfg={"policy": {"batch_size": 16, "dtype": "bf16"}},
+                   data=SyntheticProcessor(**ZOO_DATA).as_lego_data())
+
+
+@pytest.mark.parametrize("name", DECODER_MODELS)
+def test_decoder_models_on_card_match_cpu(device, name):
+    """A decoder YAML (2 layers, D 64), bf16, on the card (the attention
+    and pool kernels) against the same weights on the CPU (their plain
+    versions): the served item and user reprs within 2e-2 of the largest;
+    then, layer-split at tune_from 1, the cache within 2e-2 and one fused
+    training step on the card: finite, the attention forward and backward
+    launched."""
+    from legommenders_tpu_torch.data.device_pipeline import (
+        DeviceTrainPipeline,
+    )
+    from legommenders_tpu_torch.runtime import steps
+    from legommenders_tpu_torch.runtime.tester import Tester
+    from legommenders_tpu_torch.models.operators.lm_ops import LM_HIDDEN_KEY
+
+    gpu, cpu = _decoder_manager(name, device), _decoder_manager(name, "cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               gpu.model.state_dict().items()})
+    before = packed_attention.launches
+    res = Tester(gpu).test()
+    Tester(cpu).test()
+    assert packed_attention.launches > before
+    assert all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in res.values())
+    for attr in ("item_repr", "user_repr"):
+        got = getattr(gpu.cache, attr).float().cpu()
+        want = getattr(cpu.cache, attr).float()
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max() <= 2e-2 * want.abs().max(), attr
+
+    gpu = _decoder_manager(name, device, tune_from=1)
+    cpu = _decoder_manager(name, "cpu", tune_from=1)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               gpu.model.state_dict().items()})
+    assert gpu.prepare_lm_cache(root=None) and cpu.prepare_lm_cache(root=None)
+    got = gpu.contents.columns[LM_HIDDEN_KEY].float().cpu()
+    want = cpu.contents.columns[LM_HIDDEN_KEY].float()
+    assert (got - want).abs().max() <= 2e-2 * want.abs().max()
+    dp = DeviceTrainPipeline(gpu.data, batch_size=16, seed=0, device=device)
+    step = dp.make_fused_train_step(gpu.model, gpu.contents.columns,
+                                    steps.adam(gpu.model, 1e-3))
+    f0 = packed_attention.launches
+    b0 = packed_attention_backward.launches
+    loss = step(next(dp.epoch_indices()), 0)
+    assert torch.isfinite(loss).item()
+    assert packed_attention.launches > f0
+    assert packed_attention_backward.launches > b0
