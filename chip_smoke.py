@@ -1,8 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (legommenders_tpu_torch) on one card.
 
-Run from the root of a checkout: `python3 chip_smoke.py`. It needs one
-CUDA card and nvcc (on PATH, or under CUDA_HOME), imports nothing of JAX,
+Run from the root of a checkout: `python3 chip_smoke.py` runs every phase;
+`python3 chip_smoke.py --phases 3,10` runs the device, the build, the data
+and those phases only (for iterating on them). It needs one CUDA card and
+nvcc (on PATH, or under CUDA_HOME), imports nothing of JAX, prints a
+`[phase]` line with the wall seconds of each phase (the build and the
+host data build too, and the share of the profiler's host-side summaries)
 and exits non-zero when any phase fails:
   1. device: requires CUDA, prints the card's name and power limit, turns
      TF32 off for the parity phases;
@@ -153,8 +157,9 @@ and exits non-zero when any phase fails:
      0 drawn on the card:
      1. the attention forward (and at a training page the backward) at
         dropout 0 against the plain versions (f32 1e-5, the f32 backward
-        where the CUDA-core kernel's shared memory holds it; bf16 2e-2 of
-        the largest), at the decoder pages (DECODER_PAGES: 512 items of
+        at the training page timed beside its bound, and at dh 128 at
+        T 116 and 117 with and without dropout; bf16 2e-2 of the
+        largest), at the decoder pages (DECODER_PAGES: 512 items of
         the compact title + category, L 31, 4 to a row, T 124, serving;
         the cache's L 32, T 128, training; 128 rows; Llama / GLM 32 heads
         of 128, OPT 12 of 64) with the causal packed biases of random
@@ -162,19 +167,44 @@ and exits non-zero when any phase fails:
         and the bounds;
      2. llama-naml at the Llama-7B geometry (32 layers, d 4096, 32 heads,
         SwiGLU 10,922, LoRA r 32 folded, fused attention): Tester.test()
-        in full-LM mode (all 65,000 items through the 32 layers; the first
-        2,048 reprs against the model with its kernels patched out, 2e-2;
+        in full-LM mode cut to 16 layers (all 65,000 items through them;
+        the first 2,048 reprs against the model with its kernels patched
+        out, 2e-2;
         8 pages profiled; peak memory); then layer-split at tune_from 30:
         the cache, 1 warm and 2 timed fused steps of 2,048 under `full`
         remat (one more profiled) and the trainable slice's gradients
-        against the plain path (decoder_precision_check);
+        against the plain path at bf16 and at f32 (decoder_precision_check);
      3. glm-naml at GLM's full width cut to 4 layers at tune_from 2, and
         opt-naml (OPTBase, 12 layers) at tune_from 10 with hidden dropout
         0.1: the cache, Tester.test() through the caches (reprs against
         the plain path), 2 timed steps;
      every launch count held against the code's; `[decoder]` lines;
- 10. prints one JSON line of kernels, the card line, and
-     {"ok": true, "device": {...}} as the last line.
+ 10. IISAN, the BERT zoo and the flatten user paths, on the same fixture,
+     bf16, random weights from seed 0:
+     1. the long-sequence pool (additive_pool_long) against its plain
+        version (f32 and bf16) at the flatten user pools (FLATTEN_POOLS:
+        L 1,023 and 495, D 64, H 64) over a step's users and a test page;
+     2. bert-iisan-naml at its YAML's defaults (BERT-base, selected layers
+        1, 3, ..., 11) and llama-iisan-naml at the Llama-7B width cut to 4
+        layers: the IISAN cache over all 65,000 items (the attention
+        launched once a layer a page; its states against the plain
+        attention's, 2e-2), Tester.test() through the caches (the served
+        reprs against the patched-out model, 2e-2), 4 fused steps of 2,048
+        (the user pool only); bert-iisan-naml through one Trainer run;
+     3. bert-nrms, -lstur, -miner, -fastformer and -dcn layer-split at
+        tune_from 10: the cache, Tester.test() (MINER by full forwards),
+        2 fused steps of 2,048;
+     4. flatten_transformer and flatten_fastformer at their defaults over
+        the fixture's histories cut to 31 and 15 clicks (L 1,023 and 495,
+        the positions their user operators have): Tester.test() by full
+        forwards at the largest eval batch that fits, two pages' scores
+        against the patched-out model (2e-2), 4 fused steps at the largest
+        batch that fits; peak memory;
+     5. the CLI trains bert-iisan-naml and flatten_transformer;
+     every launch count held against the code's; `[iisan]`, `[bert-zoo]`
+     and `[flatten]` lines.
+Then it prints one JSON line of kernels, the card line, and
+{"ok": true, "device": {...}} as the last line.
 """
 import bisect
 import itertools
@@ -276,6 +306,9 @@ TRAIN_PAGE = dict(items=512, L=40, D=768, heads=12)
 TRAIN_DROPOUT = 0.1
 EXP_CFG = {"policy": {"dtype": "bf16"}}
 F32_TOL, BF16_REL_TOL = 1e-5, 2e-2
+# a decoder's gradient through the kernels at f32 against the plain path's,
+# over each tensor's largest value (the sums run in another order)
+F32_GRAD_TOL = 1e-4
 # a sleep kernel of this many cycles (~10 ms) ahead of each timed loop
 HEAD_START_CYCLES = 20_000_000
 REPR_ROWS = 2048
@@ -592,7 +625,16 @@ def check_attention_train(dtype_name: str, p: float, device,
     if problems:
         raise RuntimeError(f"attention training kernels disagree with "
                            f"their plain versions ({problems}): {res}")
+    xb, bb = q.element_size(), bias.element_size()
+    # recompute S, then dPd, dV, dQ, dK: five T x T x dh products per head
+    res["bwd_bound_ms"], res["bwd_bound_by"] = roof(
+        10.0 * B * T * T * Dm, 7 * B * T * Dm * xb + B * T * T * bb,
+        dtype_name)
     if not timed:
+        # the f32 backward (the CUDA-core kernel) beside its bound
+        with torch.no_grad():
+            res["bwd_ms"] = time_ms(lambda: packed_attention_backward(
+                heads, p, q, k, v, bias, seed, g), iters=10)
         return res
 
     def fwd():
@@ -630,13 +672,8 @@ def check_attention_train(dtype_name: str, p: float, device,
                 heads, B, T, 20231, device) >= keep_threshold(p), iters=2)
     res["sdpa_fwd_ms"] = time_ms(sdpa_fwd, iters=50)
     res["sdpa_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd, iters=20)
-    xb, bb = q.element_size(), bias.element_size()
     res["fwd_bound_ms"], res["fwd_bound_by"] = roof(
         4.0 * B * T * T * Dm, 4 * B * T * Dm * xb + B * T * T * bb,
-        dtype_name)
-    # recompute S, then dPd, dV, dQ, dK: five T x T x dh products per head
-    res["bwd_bound_ms"], res["bwd_bound_by"] = roof(
-        10.0 * B * T * T * Dm, 7 * B * T * Dm * xb + B * T * T * bb,
         dtype_name)
     res["mask_bound_ms"], res["mask_bound_by"] = mask_bound(B, heads, T)
     return res
@@ -644,14 +681,18 @@ def check_attention_train(dtype_name: str, p: float, device,
 
 # each kernel's device-side names, as the profiler lists them (no name is
 # part of another)
-KERNEL_NAMES = {"additive_pool": ("additive_pool_tc", "additive_pool_kernel"),
+KERNEL_NAMES = {"additive_pool": ("additive_pool_tc", "additive_pool_kernel",
+                                  "additive_pool_long"),
                 "packed_attention": ("attention_fwd_tc", "attention_simt"),
                 "packed_attention_backward": ("attention_bwd_tc",
                                               "attention_bwd_simt"),
                 "dropout_keep_mask": ("dropout_mask",)}
 
-# the pool kernel of every main path (all run at the bf16 policy)
+# the pool kernel of every main path (all run at the bf16 policy), and the
+# one of the paths that pool over more than 128 positions (the flatten
+# user operators)
 MAIN_POOL_KERNEL = "additive_pool_tc"
+LONG_POOL_KERNEL = "additive_pool_long"
 
 
 def _is(name, key):
@@ -732,6 +773,10 @@ def check_profiled_launches(listed: dict, counted: dict,
     return sum(short.values())
 
 
+# the host's seconds in profile_window's summaries since the run began
+PROFILE_SUMMARY_S = [0.0]
+
+
 def profile_window(fn) -> dict:
     """torch.profiler over one call of fn: device time by kernel and the
     device's idle share of the window's wall time (the profiler's own host
@@ -742,7 +787,8 @@ def profile_window(fn) -> dict:
     lost the device records of that many of the wrapper's launch calls
     (`check_profiled_launches`; the record keeps the count of lost
     records, `lost_records`), and when a pool launch is not the
-    tensor-core kernel's (every window is a main path at bf16)."""
+    tensor-core kernel's (every window is a main path at bf16) or, over a
+    flattened history (L > 128), the long-sequence kernel's."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -755,6 +801,7 @@ def profile_window(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    t_summary = time.perf_counter()
     # the wrappers' launch ranges show on the device too: not kernels
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
@@ -772,16 +819,20 @@ def profile_window(fn) -> dict:
     trace = trace_records(prof.profiler.kineto_results.events())
     lost = check_profiled_launches(
         {n: r["launches"] for n, r in ours.items()}, counted, trace)
+    summary_s = time.perf_counter() - t_summary
+    PROFILE_SUMMARY_S[0] += summary_s
     if lost:
         log(f"[profile] the tracer lost {trace['lost']} of "
             f"{trace['launch_calls']} kernel records, of them the port's "
             f"{trace['lost_by_wrapper']}: {counted} counted")
     pool = ours["additive_pool"]
-    if pool["by_kernel"][MAIN_POOL_KERNEL] != pool["launches"]:
+    main = (pool["by_kernel"][MAIN_POOL_KERNEL]
+            + pool["by_kernel"][LONG_POOL_KERNEL])
+    if main != pool["launches"]:
         raise RuntimeError(f"additive_pool: of {pool['launches']} profiled "
-                           f"launches on a main path, only "
-                           f"{pool['by_kernel'][MAIN_POOL_KERNEL]} are "
-                           f"{MAIN_POOL_KERNEL}'s: {pool['by_kernel']}")
+                           f"launches on a main path, only {main} are "
+                           f"{MAIN_POOL_KERNEL}'s or {LONG_POOL_KERNEL}'s: "
+                           f"{pool['by_kernel']}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "kernels": ours,
             # no device time in the trace means the share was not measured
             "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
@@ -789,6 +840,8 @@ def profile_window(fn) -> dict:
             "launch_calls": trace["launch_calls"],
             "lost_records": trace["lost"],
             "port_calls": trace["calls_by_wrapper"],
+            # the host's seconds summarising the trace, after the window
+            "summary_s": summary_s,
             "top_kernels": [{"name": e.key[:60], "count": e.count,
                              "ms": e.self_device_time_total / 1e3}
                             for e in top]}
@@ -965,14 +1018,15 @@ def _counts() -> dict:
     return {k: fn.launches for k, fn in _counters().items()}
 
 
-def _train_steps(m, data, device, n_steps: int, profile: bool = True) -> dict:
+def _train_steps(m, data, device, n_steps: int, profile: bool = True,
+                 batch: int = TRAIN_BATCH) -> dict:
     """1 warm step, then n_steps each timed to the device's end of it, with
     every launch count set to 0 before them; the record of the timed steps
     (losses, step ms at the median, impressions/s at that median, launches
     per step, peak memory, the catalog-grad plans of the last step) after
     one more under torch.profiler (with `profile`: the profiler's own
     summary of a step of ~80,000 launches takes the host tens of
-    seconds), and the pipeline."""
+    seconds), and the pipeline; `batch` impressions a step."""
     import numpy as np
     import torch
     from legommenders_tpu_torch.data.device_pipeline import (
@@ -982,7 +1036,7 @@ def _train_steps(m, data, device, n_steps: int, profile: bool = True) -> dict:
     from legommenders_tpu_torch.runtime import steps
 
     cfg = m.lego_cfg
-    dp = DeviceTrainPipeline(data, batch_size=TRAIN_BATCH,
+    dp = DeviceTrainPipeline(data, batch_size=batch,
                              neg_count=cfg.neg_count,
                              use_neg_sampling=cfg.use_neg_sampling, seed=0,
                              device=device)
@@ -990,7 +1044,7 @@ def _train_steps(m, data, device, n_steps: int, profile: bool = True) -> dict:
     step = dp.make_fused_train_step(m.model, m.contents.columns, opt, seed=0)
     # row-index slices, epoch after epoch
     stream = itertools.chain.from_iterable(iter(dp.epoch_indices, None))
-    rec = {"batch": TRAIN_BATCH, "rows": dp.n, "trainable_tensors": len(
+    rec = {"batch": batch, "rows": dp.n, "trainable_tensors": len(
         steps.trainable_parameters(m.model)), "trainable_values": sum(
         p.numel() for p in steps.trainable_parameters(m.model))}
     t0 = time.perf_counter()
@@ -1014,7 +1068,7 @@ def _train_steps(m, data, device, n_steps: int, profile: bool = True) -> dict:
     rec["losses"] = [x.item() for x in losses]
     rec["step_ms_each"] = [t * 1e3 for t in times]
     rec["step_ms"] = statistics.median(times) * 1e3
-    rec["impressions_per_s"] = TRAIN_BATCH / statistics.median(times)
+    rec["impressions_per_s"] = batch / statistics.median(times)
     rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
     if not all(np.isfinite(rec["losses"] + [rec["warm_loss"]])):
         raise RuntimeError(f"training losses not finite: {rec}")
@@ -1975,13 +2029,15 @@ def run_ctr_model(name: str, data, device) -> dict:
 # llama-naml (config/model/llama-naml.yaml at its defaults: Llama1, 32 layers
 # of 32 heads of 128, d 4096, SwiGLU int(4096 * 8 / 3) = 10,922, rope theta
 # 1e4, bf16, LoRA r 32 folded, fused attention, compact inputer): serving in
-# full-LM mode; training layer-split at tune_from 30 (layers 30-31 trained),
+# full-LM mode cut from 32 layers to 16 (the time limit: with phase 10 the
+# whole run passed 900 s); training layer-split at tune_from 30 of the 32
+# layers (layers 30-31 trained),
 # pages of 512 under full remat, as bench_lm.py trains BERT at 10 of 12.
 # glm-naml at GLM's full width (d 4096, 32 heads over 2 kv heads, SwiGLU
 # 13,696) cut from 28 layers to 4 at tune_from 2 to fit the time limit;
 # opt-naml at OPTBase (12 layers, d 768, 12 heads) at tune_from 10 with
 # hidden dropout 0.1 (dropout_reuse).
-LLAMA_TUNE_FROM = 30
+LLAMA_TUNE_FROM, LLAMA_SERVING_LAYERS = 30, 16
 GLM_LAYERS, GLM_TUNE_FROM = 4, 2
 OPT_TUNE_FROM = 10
 DECODER_STEPS = 2
@@ -2031,17 +2087,61 @@ def decoder_attention_inputs(page: dict, dtype, device, seed: int):
     return q, k, v, packed_mask_bias(mask_p, L, dtype, causal=True)[:, 0], gr
 
 
+# the f32 backward at head width 128 around the T its shared memory once
+# capped (T 116 was taken, T 117 was not): 5 packed rows of 4 items of 29
+# and of 3 items of 39, 4 heads of 128
+F32_BWD_PAGES = {"T 116": dict(items=20, L=29, D=512, heads=4),
+                 "T 117": dict(items=15, L=39, D=512, heads=4)}
+
+
+def check_f32_backward_edges(device) -> list:
+    """9.1: the f32 backward (attention_bwd_simt) at F32_BWD_PAGES with the
+    causal packed biases, at dropout 0 and TRAIN_DROPOUT (the plain
+    backward given the mask kernel's mask), within F32_TOL."""
+    import torch
+    from legommenders_tpu_torch.ops.attention import (
+        dropout_keep_mask, packed_attention_backward,
+        reference_attention_backward,
+    )
+
+    out = []
+    for name, page in F32_BWD_PAGES.items():
+        q, k, v, bias, g = decoder_attention_inputs(page, torch.float32,
+                                                    device, 17)
+        (B, T, Dm), heads = q.shape, page["heads"]
+        seed = torch.tensor([4242], dtype=torch.int32, device=device)
+        for p in (0.0, TRAIN_DROPOUT):
+            keep = dropout_keep_mask(heads, p, B, T, seed) if p else None
+            with torch.no_grad():
+                got = packed_attention_backward(heads, p, q, k, v, bias,
+                                                seed, g)
+                want = reference_attention_backward(heads, p, q, k, v, bias,
+                                                    g, keep)
+            rec = {"page": name, "B": B, "T": T, "heads": heads,
+                   "dh": Dm // heads, "dropout": p,
+                   "max_abs_err": max((a - b).abs().max().item()
+                                      for a, b in zip(got, want)),
+                   "finite": all(bool(torch.isfinite(a).all())
+                                 for a in got)}
+            out.append(rec)
+            if not rec["finite"] or rec["max_abs_err"] > F32_TOL:
+                raise RuntimeError(f"the f32 backward disagrees with its "
+                                   f"plain version: {rec}")
+    return out
+
+
 def check_decoder_attention(name: str, device) -> dict:
     """9.1: the attention forward (and at a training page the backward) at
-    a decoder page, dropout 0, against the plain versions in f32 (1e-5;
-    the backward where the CUDA-core kernel's shared memory holds it) and
-    bf16 (2e-2 of the largest output), the bf16 kernels timed beside the
-    plain versions, torch's SDPA with the float mask and the bounds."""
+    a decoder page, dropout 0, against the plain versions in f32 (1e-5)
+    and bf16 (2e-2 of the largest output), the bf16 kernels timed beside
+    the plain versions, torch's SDPA with the float mask and the bounds;
+    at a training page the f32 backward (the CUDA-core kernel, dh 128 at
+    T 128) timed beside its bound too."""
     import torch
     from torch.nn import functional as F
     from legommenders_tpu_torch.ops.attention import (
-        MAX_SMEM_BYTES, packed_attention, packed_attention_backward,
-        reference_attention, reference_attention_backward,
+        packed_attention, packed_attention_backward, reference_attention,
+        reference_attention_backward,
     )
 
     page = DECODER_PAGES[name]
@@ -2054,15 +2154,10 @@ def check_decoder_attention(name: str, device) -> dict:
         B, T, Dm = q.shape
         res.update(B=B, T=T, D=Dm)
         dh = Dm // heads
-        # the CUDA-core backward's shared memory: K, V rows padded to
-        # dh + 1, two T x T tiles, four dh vectors (f32)
-        simt_bytes = (2 * T * (dh + 1) + 2 * T * T + 8 * dh) * 4
-        backward = train and (dtype_name == "bf16"
-                              or simt_bytes <= MAX_SMEM_BYTES)
         with torch.no_grad():
             pairs = [("out", packed_attention(heads, 0.0, q, k, v, bias),
                       reference_attention(heads, 0.0, q, k, v, bias))]
-            if backward:
+            if train:
                 pairs += list(zip(("dq", "dk", "dv"),
                                   packed_attention_backward(
                                       heads, 0.0, q, k, v, bias, None, g),
@@ -2078,9 +2173,13 @@ def check_decoder_attention(name: str, device) -> dict:
                     err > F32_TOL if dtype_name == "f32"
                     else rel > BF16_REL_TOL):
                 problems.append(f"{dtype_name} {part}")
-        if train and not backward:
-            res["f32_backward"] = (f"not run: the CUDA-core backward needs "
-                                   f"{simt_bytes} B of shared memory")
+        if train and dtype_name == "f32":
+            with torch.no_grad():
+                res["f32_bwd_ms"] = time_ms(lambda: packed_attention_backward(
+                    heads, 0.0, q, k, v, bias, None, g), iters=5)
+            res["f32_bwd_bound_ms"], res["f32_bwd_bound_by"] = roof(
+                10.0 * B * T * T * Dm,
+                7 * B * T * Dm * 4 + B * T * T * bias.element_size(), "f32")
         del pairs
     if problems:
         raise RuntimeError(f"decoder attention disagrees with its plain "
@@ -2139,8 +2238,9 @@ def _page_profile(m, cache, pages: int) -> dict:
 
 def run_llama_serving(data, device) -> dict:
     """9.2: llama-naml in full-LM mode through Manager + Tester.test():
-    every item through the 32 layers; the launch counts against the code's
-    (attention 32 a page, the pool once a page); the first 2,048 served
+    every item through LLAMA_SERVING_LAYERS layers; the launch counts
+    against the code's (attention once a layer a page, the pool once a
+    page); the first 2,048 served
     reprs against the same model with its kernels patched out; one
     profiled stretch of 8 pages; peak memory."""
     import numpy as np
@@ -2151,7 +2251,9 @@ def run_llama_serving(data, device) -> dict:
     rec = {"path": "llama-naml serving (full LM)"}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    m = Manager(model_cfg=decoder_cfg("llama-naml"), exp_cfg=EXP_CFG,
+    m = Manager(model_cfg=decoder_cfg(
+        "llama-naml", num_hidden_layers=LLAMA_SERVING_LAYERS),
+                exp_cfg=EXP_CFG,
                 data=data, device=device, seed=0)
     tester = Tester(m)
     torch.cuda.synchronize()
@@ -2225,14 +2327,14 @@ def decoder_precision_check(m, dp, device) -> dict:
     """The trainable slice's gradients of a layer-split decoder (as trained
     by the timed steps, lora_B drawn non-zero) on one batch of
     PRECISION_BATCH impressions at dropout 0, every candidate and click
-    encoded per occurrence through the upper layers, in three runs: the
+    encoded per occurrence through the upper layers, in four runs: the
     kernels (K16, twice) and their plain versions (P16) at bf16, and the
-    plain versions with the trained part at f32 (P32, over the bf16 cache).
-    Gate per tensor: K16 within 2e-2 of P16, or within half the plain
-    path's own bf16 error (P16 against P32) where that is larger (see
-    precision_check). The kernels at f32 (K32) do not run: the CUDA-core
-    backward's shared memory holds dh 128 only up to T 117, and the
-    training page's T is 128."""
+    kernels (K32) and their plain versions (P32) with the trained part at
+    f32 (over the bf16 cache; K32 runs the CUDA-core kernels, the backward
+    at dh 128 and the training page's T 128). Gate per tensor: K16 within
+    2e-2 of P16, or within half the plain path's own bf16 error (P16
+    against P32) where that is larger (see precision_check); K32 within
+    F32_GRAD_TOL (1e-4) of P32."""
     import torch
     from legommenders_tpu_torch.runtime.steps import step_generator
 
@@ -2254,10 +2356,12 @@ def decoder_precision_check(m, dp, device) -> dict:
                             ("P16", True)):
             rec["loss"][name], grads[name] = _grads(m, batch, plain)
         with _TrainableDtype(model, torch.float32):
+            rec["loss"]["K32"], grads["K32"] = _grads(m, batch, False)
             rec["loss"]["P32"], grads["P32"] = _grads(m, batch, True)
     finally:
         model.full_catalog_encode = saved
     pairs = {"K16_vs_P16": ("K16", "P16"), "P16_vs_P32": ("P16", "P32"),
+             "K32_vs_P32": ("K32", "P32"),
              "K16_vs_P32": ("K16", "P32"),
              "K16_vs_K16_again": ("K16_again", "K16")}
     rec["rel_err"] = {k: _rel_errs(grads[a], grads[b])
@@ -2270,6 +2374,8 @@ def decoder_precision_check(m, dp, device) -> dict:
     rec["s"] = time.perf_counter() - t0
     problems = [n for n, e in rec["rel_err"]["K16_vs_P16"].items()
                 if e > rec["bf16_limit"][n]]
+    problems += [f"{n} (f32)" for n, e in rec["rel_err"]["K32_vs_P32"].items()
+                 if e > F32_GRAD_TOL]
     if problems:
         raise RuntimeError(f"decoder training gradients disagree with the "
                            f"plain path ({problems}): {rec}")
@@ -2364,35 +2470,417 @@ def run_decoder_training(name: str, cfg: dict, data, device,
     return rec
 
 
-def main() -> int:
-    try:
-        import torch
-    except ImportError:
-        print("chip_smoke: torch is not installed", file=sys.stderr)
-        return 1
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    # fails outside a checkout: the port is part of the repository
-    from legommenders_tpu_torch.data.processors.synthetic import (
-        SyntheticProcessor,
+# phase 10: IISAN, the BERT zoo and the flatten (BST) user paths
+# bert-iisan-naml at its YAML's defaults (BERT-base, 12 layers, d 768,
+# layer_selection_step 2: layers 1, 3, ..., 11); llama-iisan-naml at the
+# Llama-7B width (d 4096, 32 heads of 128, SwiGLU 10,922) cut from 32
+# layers to 4 for the time limit (2 selected layers)
+IISAN_MODELS = {"bert-iisan-naml": {}, "llama-iisan-naml":
+                {"num_hidden_layers": 4}}
+IISAN_STEPS = 4
+# the BERT zoo at tune_from 10 of 12, as bert-naml trains in phase 5
+BERT_ZOO_MODELS = ("bert-nrms", "bert-lstur", "bert-miner",
+                   "bert-fastformer", "bert-dcn")
+BERT_ZOO_TUNE_FROM, BERT_ZOO_STEPS, BERT_ZOO_PAGE = 10, 2, 512
+# the flatten paths at their YAML defaults (hidden 64, 3 item and 3 user
+# layers): the history cut to the clicks the user operator's positions
+# take (33 slots a click: title 30, category, [ATTR_SEP], [SEP]; 1,024
+# positions for the Transformer, 512 for Fastformer), and the largest
+# training and eval batches that fit: (clicks, batch, eval batch)
+FLATTEN_MODELS = {"flatten_transformer": (31, 128, 512),
+                  "flatten_fastformer": (15, TRAIN_BATCH, 4 * TRAIN_BATCH)}
+FLATTEN_STEPS = 4
+# the flatten user pools (D 64, H 64) over a step's users and a test page
+FLATTEN_POOLS = {f"{name} user": (slots, h) for name, slots, h in (
+    ("flatten_transformer", 1023, 64), ("flatten_fastformer", 495, 64))}
+PHASE10_CLI_MODELS = ("bert-iisan-naml", "flatten_transformer")
+
+
+def cut_history(data, clicks: int):
+    """The fixture with every history cut to its first `clicks` clicks, as
+    a data config's user-column spec cuts it (LegoData.from_config); the
+    item and interaction stores are shared."""
+    from legommenders_tpu_torch.data.dataset import LegoData
+
+    hist = data.cm.history_col
+    users = data.users.view().truncate(hist, clicks)
+    return LegoData(data.items, users, data.inters, data.cm,
+                    data.item_inputs, user_inputs=[(hist, clicks)],
+                    name=data.name)
+
+
+def _expected_lm_test_launches(m, upper: int) -> dict:
+    """A layer-split LM model's Tester.test() launches: through the repr
+    caches (the upper layers once an item page, its pools once a page),
+    or by full forwards (each eval page encodes the catalog in pages of
+    item_page_size through the upper layers, and its users)."""
+    model = m.model
+    item_pools, user_pools = _pools_of(model.item_op), _pools_of(model.user_op)
+    cache, P = m.cache, model.item_page_size
+    if cache is not None:
+        # a cache page longer than item_page_size is encoded in pages
+        item_pages = sum(-(-(e - s) // P) if 0 < P < e - s else 1
+                         for s, e in cache.pages(cache.num_items))
+        user_pages = len(cache.pages(cache.num_users))
+        return {"additive_pool": item_pages * item_pools
+                + user_pages * user_pools,
+                "packed_attention": upper * item_pages,
+                "packed_attention_backward": 0, "dropout_keep_mask": 0}
+    ev = m.evaluator()
+    pages = -(-ev.phase("test").n // ev.batch_size)
+    n_pages = -(-m.data.num_items // P)
+    return {"additive_pool": pages * (n_pages * item_pools + user_pools),
+            "packed_attention": pages * upper * n_pages,
+            "packed_attention_backward": 0, "dropout_keep_mask": 0}
+
+
+def _iisan_states_check(m, rec):
+    """The IISAN cache's first REPR_ROWS items' states against the same
+    frozen LM with its attention kernel patched out for the plain version:
+    the largest error over the largest value."""
+    from unittest import mock
+
+    import torch
+    import legommenders_tpu_torch.models.lm.layers as lm_layers
+    from legommenders_tpu_torch.models.operators.lm_ops import (
+        LM_HIDDEN_KEY, LM_MASK_KEY,
     )
-    from legommenders_tpu_torch.ops import additive, build
+    from legommenders_tpu_torch.runtime.lm_cache import build_iisan_states
 
-    device = torch.device("cuda", 0)
-    card = card_line()
-    log(f"[device] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    cols = {c: a[:REPR_ROWS] for c, a in m.contents.columns.items()
+            if c not in (LM_HIDDEN_KEY, LM_MASK_KEY)}
+    sel = m.model.item_op.get_selected_layers()
+    with mock.patch.object(lm_layers, "packed_attention",
+                           _plain_attention()), torch.inference_mode():
+        want = build_iisan_states(m.model, cols,
+                                  m.lego_cfg.cache_page_size)[:, sel]
+    got = m.contents.columns[LM_HIDDEN_KEY][:REPR_ROWS]
+    rec["states_rel_err"] = float((got - want).abs().max()
+                                  / want.abs().max())
+    rec["states_finite"] = bool(torch.isfinite(got).all())
 
+
+def run_iisan_model(name: str, data, device) -> dict:
+    """10.2: an IISAN YAML (bf16, seed 0): the cache build over every item
+    through all the LM's layers (its attention launches counted), its
+    states against the plain attention's, Tester.test() through the caches
+    (the side network over the cached states; the served reprs against
+    the patched-out model), IISAN_STEPS fused steps of 2,048 (the LM never
+    runs: the user pool only) and, for bert-iisan-naml, one Trainer run."""
+    import numpy as np
+    import torch
+    from legommenders_tpu_torch.models.operators.lm_ops import LM_HIDDEN_KEY
+    from legommenders_tpu_torch.runtime.manager import Manager
+    from legommenders_tpu_torch.runtime.tester import Tester
+
+    rec = {"path": name}
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    texts = build.build_all(["additive_pool", "packed_attention"])
-    log(f"[build] additive_pool + packed_attention, one nvcc each at once, "
-        f"in {time.perf_counter() - t0:.2f} s")
-    for name, text in texts.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+    m = Manager(model_cfg=decoder_cfg(name, **IISAN_MODELS[name]),
+                exp_cfg=DECODER_EXP, data=data, device=device, seed=0)
+    torch.cuda.synchronize()
+    rec["setup_s"] = time.perf_counter() - t0
+    op = m.model.item_op
+    rec.update(operator=type(op).__name__, layers=op.num_hidden_layers,
+               selected=op.get_selected_layers(), width=op.input_dim)
+    _zero_counts()
+    t0 = time.perf_counter()
+    assert m.prepare_lm_cache(root=None)
+    torch.cuda.synchronize()
+    rec["cache_s"] = time.perf_counter() - t0
+    rec["cache_launches"] = _counts()
+    states = m.contents.columns[LM_HIDDEN_KEY]
+    rec["cache_shape"], rec["cache_dtype"] = (list(states.shape),
+                                              str(states.dtype))
+    del states
+    pages = -(-data.num_items // m.lego_cfg.cache_page_size)
+    rec["expected_cache_launches"] = {
+        "packed_attention": op.num_hidden_layers * pages,
+        "additive_pool": 0, "packed_attention_backward": 0,
+        "dropout_keep_mask": 0}
+    _iisan_states_check(m, rec)
+    _zero_counts()
+    t0 = time.perf_counter()
+    rec["metrics"] = Tester(m).test()
+    torch.cuda.synchronize()
+    rec["test_s"] = time.perf_counter() - t0
+    rec["test_launches"] = _counts()
+    rec["expected_test_launches"] = _expected_lm_test_launches(m, 0)
+    _repr_check(m, m.cache, rec)
+    rec["train"], dp = _train_steps(m, data, device, IISAN_STEPS)
+    rec["expected_launches_per_step"] = {
+        "additive_pool": _pools_of(m.model.user_op), "packed_attention": 0,
+        "packed_attention_backward": 0, "dropout_keep_mask": 0}
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    problems = []
+    if rec["cache_launches"] != rec["expected_cache_launches"]:
+        problems.append("cache-build launches")
+    if rec["cache_shape"] != [data.num_items, len(rec["selected"]),
+                              op.input_dim]:
+        problems.append("cache shape")
+    if not rec["states_finite"] or rec["states_rel_err"] > BF16_REL_TOL:
+        problems.append("states disagree with the plain attention's")
+    if rec["test_launches"] != rec["expected_test_launches"]:
+        problems.append("test launches")
+    if rec["train"]["launches_per_step"] != rec["expected_launches_per_step"]:
+        problems.append("launches per step")
+    if not all(np.isfinite(v) and 0.0 <= v <= 1.0
+               for v in rec["metrics"].values()):
+        problems.append("metrics not finite in [0, 1]")
+    for part in ("item", "user"):
+        if not rec[f"{part}_repr_finite"] or \
+                rec[f"{part}_repr_rel_err"] > BF16_REL_TOL:
+            problems.append(f"{part} reprs")
+    if problems:
+        raise RuntimeError(f"{name} failed ({problems}): {rec}")
+    del dp
+    if name == "bert-iisan-naml":
+        rec["trainer"] = _iisan_trainer(m)
+    del m, op
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _iisan_trainer(m) -> dict:
+    """One Trainer run of an IISAN model: LM_TRAINER_STEPS steps of 2,048
+    on device batches, dev through the caches (the Trainer builds the
+    IISAN cache again, on the device)."""
+    import numpy as np
+    import torch
+
+    m.policy.update(RUN_POLICY, epoch=1, epoch_batch=LM_TRAINER_STEPS,
+                    device_batching=True)
+    tr, timer = _timed_trainer(m, lm_cache_root=None)
+    _zero_counts()
+    t0 = time.perf_counter()
+    tr.init()
+    out = tr.train()
+    torch.cuda.synchronize()
+    rec = {"s": time.perf_counter() - t0, "launches": _counts(),
+           "best_dev": out["best_dev"], "steps": tr.global_step,
+           "step_ms": [x * 1e3 for x in timer.samples["step"]]}
+    # the cache is built once more from the same weights (its attention
+    # launches), then steps (the user pool) and the dev pass
+    pages = -(-m.data.num_items // m.lego_cfg.cache_page_size)
+    rec["expected_launches"] = {
+        "packed_attention": m.model.item_op.num_hidden_layers * pages,
+        "additive_pool": tr.global_step * _pools_of(m.model.user_op)
+        + len(m.cache.pages(m.cache.num_users)),
+        "packed_attention_backward": 0, "dropout_keep_mask": 0}
+    if rec["launches"] != rec["expected_launches"] or not np.isfinite(
+            rec["best_dev"]) or tr.global_step != LM_TRAINER_STEPS:
+        raise RuntimeError(f"IISAN Trainer failed: {rec}")
+    return rec
+
+
+def run_bert_zoo_model(name: str, data, device) -> dict:
+    """10.3: a BERT zoo YAML (bf16, seed 0) layer-split at tune_from 10:
+    the cache (10 layers), Tester.test() (through the caches, or by full
+    forwards for MINER, whose user operator refuses caching), the served
+    item reprs against the patched-out model, BERT_ZOO_STEPS fused steps of
+    2,048 with pages of 512 under full remat; every launch count against
+    the code's."""
+    import numpy as np
+    import torch
+    from legommenders_tpu_torch.runtime.manager import Manager
+    from legommenders_tpu_torch.runtime.tester import Tester
+
+    cfg = zoo_cfg(name)
+    cfg["config"]["item_config"]["tune_from"] = BERT_ZOO_TUNE_FROM
+    cfg["config"].update(item_page_size=BERT_ZOO_PAGE,
+                         item_page_remat="full")
+    rec = {"path": name}
+    torch.cuda.reset_peak_memory_stats()
+    m = Manager(model_cfg=cfg, exp_cfg=ZOO_EXP, data=data, device=device,
+                seed=0)
+    model, op = m.model, m.model.item_op
+    upper = op.num_hidden_layers - op.resolved_tune_from
+    rec["operators"] = [type(x).__name__ for x in (
+        model.item_op, model.user_op, model.predictor)]
+    _zero_counts()
+    t0 = time.perf_counter()
+    assert m.prepare_lm_cache(root=None)
+    torch.cuda.synchronize()
+    rec["cache_s"] = time.perf_counter() - t0
+    rec["cache_launches"] = _counts()["packed_attention"]
+    pages = -(-data.num_items // m.lego_cfg.cache_page_size)
+    rec["expected_cache_launches"] = op.resolved_tune_from * pages
+    _zero_counts()
+    t0 = time.perf_counter()
+    rec["metrics"] = Tester(m).test()
+    torch.cuda.synchronize()
+    rec["test_s"] = time.perf_counter() - t0
+    rec["eval"] = "cached" if m.cache is not None else "full forward"
+    rec["test_launches"] = _counts()
+    rec["expected_test_launches"] = _expected_lm_test_launches(m, upper)
+    if m.cache is not None:
+        _repr_check(m, m.cache, rec)
+    rec["train"], dp = _train_steps(m, data, device, BERT_ZOO_STEPS,
+                                    profile=False)
+    n_pages = -(-data.num_items // model.item_page_size)
+    rec["expected_launches_per_step"] = {
+        "packed_attention": 2 * upper * n_pages,
+        "packed_attention_backward": upper * n_pages,
+        "additive_pool": 2 * n_pages * _pools_of(op)
+        + _pools_of(model.user_op), "dropout_keep_mask": 0}
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    problems = []
+    if rec["cache_launches"] != rec["expected_cache_launches"]:
+        problems.append("cache-build launches")
+    if rec["test_launches"] != rec["expected_test_launches"]:
+        problems.append("test launches")
+    if rec["train"]["launches_per_step"] != rec["expected_launches_per_step"]:
+        problems.append("launches per step")
+    if not all(np.isfinite(v) and 0.0 <= v <= 1.0
+               for v in rec["metrics"].values()):
+        problems.append("metrics not finite in [0, 1]")
+    for part in ("item", "user") if m.cache is not None else ():
+        if not rec[f"{part}_repr_finite"] or \
+                rec[f"{part}_repr_rel_err"] > BF16_REL_TOL:
+            problems.append(f"{part} reprs")
+    if (m.cache is None) != (name == "bert-miner"):
+        problems.append("caching")
+    if problems:
+        raise RuntimeError(f"{name} failed ({problems}): {rec}")
+    del m, model, op, dp
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_flatten_model(name: str, data, device) -> dict:
+    """10.4: a flatten YAML at its defaults (bf16, seed 0) over the fixture
+    with its history cut (FLATTEN_MODELS): Tester.test() by full forwards
+    (a page of the eval batch encodes its candidates and its users'
+    flattened histories: two pools a page, the user pool over L = clicks x
+    33 on the long-sequence kernel), the first two pages' scores against
+    the same model with its kernels patched out, FLATTEN_STEPS fused steps
+    (two pools a step); peak memory."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    import legommenders_tpu_torch.models.common as common
+    from legommenders_tpu_torch.ops.additive import additive_pool_reference
+    from legommenders_tpu_torch.runtime.manager import Manager
+    from legommenders_tpu_torch.runtime.tester import Tester
+
+    clicks, batch, eval_batch = FLATTEN_MODELS[name]
+    cut = cut_history(data, clicks)
+    rec = {"path": name, "clicks": clicks, "batch": batch,
+           "eval_batch": eval_batch}
+    exp = {"policy": {"dtype": "bf16", "batch_size": batch,
+                      "eval_batch_size": eval_batch}}
+    torch.cuda.reset_peak_memory_stats()
+    m = Manager(model_cfg=zoo_cfg(name), exp_cfg=exp, data=cut,
+                device=device, seed=0)
+    model = m.model
+    rec["operators"] = [type(x).__name__ for x in (
+        model.item_op, model.user_op, model.predictor)]
+    rec["seq_len"] = model.user_inputer.seq_len(clicks)
+    _zero_counts()
+    t0 = time.perf_counter()
+    rec["metrics"] = Tester(m).test()
+    torch.cuda.synchronize()
+    rec["test_s"] = time.perf_counter() - t0
+    rec["test_launches"] = _counts()
+    rec["test_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    ev = m.evaluator()
+    rec["pages"] = -(-ev.phase("test").n // eval_batch)
+    pools = _pools_of(model.item_op) + _pools_of(model.user_op)
+    rec["expected_test_launches"] = {
+        "additive_pool": rec["pages"] * pools, "packed_attention": 0,
+        "packed_attention_backward": 0, "dropout_keep_mask": 0}
+    # the first two pages' scores through the kernels and without them
+    sub = ev.phase("test")
+    n = min(2 * eval_batch, sub.n)
+    sub.n = n
+    with torch.inference_mode():
+        scores = ev.score_phase_device_full("test").float()
+        with mock.patch.object(common, "additive_pool",
+                               additive_pool_reference):
+            plain = ev.score_phase_device_full("test").float()
+    rec["score_rows"] = n
+    rec["score_rel_err"] = float((scores - plain).abs().max()
+                                 / plain.abs().max())
+    rec["scores_finite"] = bool(torch.isfinite(scores).all())
+    del ev, sub, scores, plain
+    rec["train"], dp = _train_steps(m, cut, device, FLATTEN_STEPS,
+                                    batch=batch)
+    rec["expected_launches_per_step"] = {
+        "additive_pool": pools, "packed_attention": 0,
+        "packed_attention_backward": 0, "dropout_keep_mask": 0}
+    problems = []
+    if rec["test_launches"] != rec["expected_test_launches"]:
+        problems.append("test launches")
+    if rec["train"]["launches_per_step"] != rec["expected_launches_per_step"]:
+        problems.append("launches per step")
+    if not all(np.isfinite(v) and 0.0 <= v <= 1.0
+               for v in rec["metrics"].values()):
+        problems.append("metrics not finite in [0, 1]")
+    if not rec["scores_finite"] or rec["score_rel_err"] > BF16_REL_TOL:
+        problems.append("scores disagree with the plain path")
+    if m.cache is not None:
+        problems.append("caching")
+    if problems:
+        raise RuntimeError(f"{name} failed ({problems}): {rec}")
+    del m, model, dp, cut
+    torch.cuda.empty_cache()
+    return rec
+
+
+# the phases `--phases` may name (the device, the build and the data run
+# always)
+PHASES = {3: "kernels", 4: "serving", 5: "training", 6: "run loop",
+          7: "news zoo", 8: "CTR zoo", 9: "decoders",
+          10: "IISAN, BERT zoo, flatten"}
+
+
+class phase_timer:
+    """Logs a `[phase]` line with the wall seconds of its block and the
+    share of them the profiler's host-side summaries took."""
+
+    def __init__(self, number, name: str):
+        self.number, self.name = number, name
+
+    def __enter__(self):
+        self.t0, self.s0 = time.perf_counter(), PROFILE_SUMMARY_S[0]
+        return self
+
+    def __exit__(self, *exc):
+        s = time.perf_counter() - self.t0
+        summ = PROFILE_SUMMARY_S[0] - self.s0
+        log(f"[phase] {self.number} {self.name}: {s:.2f} s (profiler "
+            f"summaries {summ:.2f} s){' FAILED' if exc[0] else ''}")
+        TIMES[str(self.number)] = s
+
+
+TIMES = {}
+
+
+def parse_phases(argv) -> set:
+    """The phases to run: all without arguments, else `--phases 3,9`."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                 "CUDA card.")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phase numbers of "
+                         f"{sorted(PHASES)} (default: all); the device, the "
+                         "build and the data always run")
+    args = ap.parse_args(argv)
+    if args.phases is None:
+        return set(PHASES)
+    chosen = {int(x) for x in args.phases.split(",") if x.strip()}
+    unknown = chosen - set(PHASES) - {1, 2}
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+    return chosen & set(PHASES)
+
+
+def run_kernel_checks(device) -> dict:
+    """Phase 3: every kernel against its plain version at the shapes of
+    the main paths of phases 4-6."""
+    from legommenders_tpu_torch.ops import additive
 
     checks = []
     shapes = list(POOLS.items()) + [(f"page L{L}", (PAGE_N, L))
@@ -2416,23 +2904,39 @@ def main() -> int:
                                         timed=dtype == "bf16")
             train_checks.append(res)
             log(f"[kernel] attention training page {json.dumps(res)}")
+    f32 = [c for c in train_checks if c["dtype"] == "f32"]
+    log(f"[kernel] f32 backward (attention_bwd_simt) at the training page: "
+        + ", ".join(f"p {c['dropout']} {c['bwd_ms'] * 1e3:.1f} us (bound "
+                    f"{c['bwd_bound_ms'] * 1e3:.1f} us, {c['bwd_bound_by']})"
+                    for c in f32))
+    return {"checks": checks, "attn_checks": attn_checks,
+            "train_checks": train_checks}
 
-    t0 = time.perf_counter()
-    data = SyntheticProcessor(**DATA_KW).as_lego_data()
-    log(f"[data] host data build {time.perf_counter() - t0:.2f} s, shared "
-        f"by every path")
+
+def run_serving(data, device) -> dict:
+    """Phase 4: NAML and bert-naml serving."""
     paths = {}
     for name, cfg, per_page in (("naml", MODEL_CFG, 0),
                                 ("bert-naml", BERT_CFG, BERT_LAYERS)):
         paths[name] = run_path(name, cfg, data, device, per_page)
         log(f"[main] {json.dumps(paths[name])}")
+    return {"paths": paths}
+
+
+def run_training(data, device) -> dict:
+    """Phase 5: bert-naml layer-split and NAML training."""
     lm_train = run_lm_training(data, device)
     log(f"[main] {json.dumps(lm_train)}")
     naml_train = run_naml_training(data, device)
     log(f"[main] {json.dumps(naml_train)}")
+    return {"lm_train": lm_train, "naml_train": naml_train}
 
-    # 6. the run loop
+
+def run_loop(data, device, card) -> dict:
+    """Phase 6: the run loop."""
     import tempfile
+
+    import torch
 
     with tempfile.TemporaryDirectory() as tmp:
         loop, m_loop, tr_loop = run_loop_naml(data, device, tmp)
@@ -2451,8 +2955,12 @@ def main() -> int:
         log(f"[loop] {json.dumps(lm_loop)}")
         cli = run_cli(tmp)
         log(f"[loop] cli: {cli['outcome']}: {json.dumps(cli)}")
+    return {"loop": loop, "full": full, "latency": latency,
+            "dev_loop": dev_loop, "lm_loop": lm_loop}
 
-    # 7. the news zoo and the catalog gradient plans
+
+def run_news_zoo(data, device, card) -> dict:
+    """Phase 7: the news zoo and the catalog gradient plans."""
     zoo_checks = []
     for pool, (L, h, side) in ZOO_POOLS.items():
         for n, where in ((POOLS[side][0], side), (PAGE_N, "page")):
@@ -2474,8 +2982,13 @@ def main() -> int:
             f"{rec['train']['peak_memory_gb']:.2f} GB) ({card})")
     log(f"[zoo] naml step: plans {plans['step_plans']['step_ms']:.2f} ms, "
         f"no plans {plans['step_plain']['step_ms']:.2f} ms ({card})")
+    return {"zoo_checks": zoo_checks, "zoo": zoo, "plans": plans}
 
-    # 8. the CTR zoo
+
+def run_ctr_zoo(data, device, card) -> dict:
+    """Phase 8: the CTR zoo."""
+    import tempfile
+
     ctr_checks = []
     for pool, (n, h) in CTR_POOLS.items():
         for dtype in ("f32", "bf16"):
@@ -2498,12 +3011,27 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ctr_cli = run_cli(tmp, CTR_CLI_MODELS)
     log(f"[ctr] cli: {ctr_cli['outcome']}: {json.dumps(ctr_cli)}")
+    return {"ctr_checks": ctr_checks, "ctr": ctr}
 
-    # 9. the decoder LMs
+
+def run_decoders(data, device, card) -> dict:
+    """Phase 9: the decoder LMs."""
     decoder_checks = {}
     for name in DECODER_PAGES:
         decoder_checks[name] = check_decoder_attention(name, device)
         log(f"[decoder] kernel {json.dumps(decoder_checks[name])}")
+    f32_edges = check_f32_backward_edges(device)
+    log("[decoder] f32 backward (attention_bwd_simt) at dh 128: " + ", ".join(
+        f"{c['page']} p {c['dropout']} max abs err {c['max_abs_err']:.3g}"
+        for c in f32_edges) + f" (gate {F32_TOL:g})")
+    c = decoder_checks["llama training"]
+    log(f"[decoder] f32 backward (attention_bwd_simt) at the Llama training "
+        f"page ({c['B']} x {c['T']}, {c['heads']} heads of "
+        f"{c['D'] // c['heads']}, p 0): {c['f32_bwd_ms'] * 1e3:.1f} us, "
+        f"bound {c['f32_bwd_bound_ms'] * 1e3:.1f} us "
+        f"({c['f32_bwd_bound_by']}), max abs err "
+        f"{max(c[f'f32_{g}_max_abs_err'] for g in ('dq', 'dk', 'dv')):.3g} "
+        f"({card})")
     llama_serve = run_llama_serving(data, device)
     log(f"[decoder] {json.dumps(llama_serve)}")
     decoders = {}
@@ -2524,53 +3052,149 @@ def main() -> int:
             f" impressions/s, peak {step['peak_memory_gb']:.2f} GB, idle "
             f"share {step.get('profile', {}).get('device_idle_share')}) "
             f"({card})")
+    gc = decoders["llama-naml"]["grad_check"]["max_rel_err"]
+    log(f"[decoder] llama-naml gradients: K16 vs P16 {gc['K16_vs_P16']:.3g}, "
+        f"K32 vs P32 {gc['K32_vs_P32']:.3g} (gate {F32_GRAD_TOL:g}) "
+        f"({card})")
     log(f"[decoder] llama-naml serving: Tester.test() "
         f"{llama_serve['test_s']:.2f} s over {data.num_items} items x "
         f"{llama_serve['layers']} layers, peak "
         f"{llama_serve['peak_memory_gb']:.2f} GB, idle share of 8 pages "
         f"{llama_serve['profile']['device_idle_share']} ({card})")
+    return {"decoder_checks": decoder_checks, "llama_serve": llama_serve,
+            "decoders": decoders, "f32_edges": f32_edges}
 
-    # launches of each kernel on each main path: the serving passes, the
-    # cache build and the timed training steps
-    runs = {p: rec["launches"] for p, rec in paths.items()}
-    runs["bert-naml lm cache"] = lm_train["cache_launches"]
-    runs["bert-naml training"] = lm_train["launches"]
-    runs["naml training"] = naml_train["launches"]
-    runs["naml Trainer (host batches)"] = loop["launches"]
-    runs["naml Trainer (device batches)"] = dev_loop["launches"]
-    runs["naml full-forward test"] = full["launches"]
-    runs["naml latency (cached)"] = latency["cached_launches"]
-    runs["naml latency (full)"] = latency["full_launches"]
-    runs["bert-naml Trainer lm cache"] = lm_loop["cache_launches"]
-    runs["bert-naml Trainer"] = lm_loop["launches"]
-    for name, rec in zoo.items():
-        runs[f"{name} Tester.test()"] = rec["test_launches"]
-        runs[f"{name} training"] = rec["train"]["launches"]
-    for side in ("plans", "plain"):
-        runs[f"naml training ({side})"] = plans[f"step_{side}"]["launches"]
-    for name, rec in ctr.items():
-        runs[f"{name} Tester.test()"] = rec["test_launches"]
-        runs[f"{name} training"] = rec["train"]["launches"]
-    decoder_runs = {"llama-naml Tester.test()": llama_serve["launches"]}
-    for name, rec in decoders.items():
-        decoder_runs[f"{name} lm cache"] = rec["cache_launches"]
-        if "test_launches" in rec:
-            decoder_runs[f"{name} Tester.test()"] = rec["test_launches"]
-        decoder_runs[f"{name} training"] = rec["train"]["launches"]
+
+def run_phase10(data, device, card) -> dict:
+    """Phase 10: the long-sequence pool, IISAN, the BERT zoo, the flatten
+    paths and the CLI."""
+    import tempfile
+
+    flatten_checks = []
+    for pool, (L, h) in FLATTEN_POOLS.items():
+        name = pool.split()[0]
+        _, batch, eval_batch = FLATTEN_MODELS[name]
+        for n, where in ((batch, "step"), (eval_batch, "test page")):
+            for dtype in ("f32", "bf16"):
+                res = check_pool(f"{pool} ({where})", n, L, dtype, device,
+                                 h=h, plain_iters=2)
+                flatten_checks.append(res)
+                log(f"[flatten] kernel {json.dumps(res)}")
+    iisan = {}
+    for name in IISAN_MODELS:
+        iisan[name] = rec = run_iisan_model(name, data, device)
+        log(f"[iisan] {json.dumps(rec)}")
+        step = rec["train"]
+        log(f"[iisan] {name} ({rec['layers']} layers, selected "
+            f"{rec['selected']}): cache {rec['cache_s']:.2f} s "
+            f"({rec['cache_launches']['packed_attention']} attention "
+            f"launches, the code's "
+            f"{rec['expected_cache_launches']['packed_attention']}),"
+            f" Tester.test() {rec['test_s']:.3f} s, step "
+            f"{step['step_ms']:.2f} ms ({step['impressions_per_s']:.0f} "
+            f"impressions/s, peak {rec['peak_memory_gb']:.2f} GB, idle share "
+            f"{step['profile']['device_idle_share']}, "
+            f"{step['launches_per_step']['additive_pool']:g} pool launches "
+            f"a step, the code's "
+            f"{rec['expected_launches_per_step']['additive_pool']}) ({card})")
+    bert_zoo = {}
+    for name in BERT_ZOO_MODELS:
+        bert_zoo[name] = rec = run_bert_zoo_model(name, data, device)
+        log(f"[bert-zoo] {json.dumps(rec)}")
+        step = rec["train"]
+        log(f"[bert-zoo] {name} (tune_from {BERT_ZOO_TUNE_FROM}): cache "
+            f"{rec['cache_s']:.2f} s, Tester.test() {rec['test_s']:.3f} s "
+            f"({rec['eval']}), step {step['step_ms']:.1f} ms "
+            f"({step['impressions_per_s']:.0f} impressions/s, peak "
+            f"{rec['peak_memory_gb']:.2f} GB), launches a step "
+            f"{step['launches_per_step']} = the code's ({card})")
+    flatten = {}
+    for name in FLATTEN_MODELS:
+        flatten[name] = rec = run_flatten_model(name, data, device)
+        log(f"[flatten] {json.dumps(rec)}")
+        step = rec["train"]
+        log(f"[flatten] {name} ({rec['clicks']} clicks, L "
+            f"{rec['seq_len']}): Tester.test() {rec['test_s']:.2f} s "
+            f"({rec['pages']} full-forward pages of {rec['eval_batch']}, "
+            f"peak {rec['test_peak_memory_gb']:.2f} GB, "
+            f"{rec['test_launches']['additive_pool']} pool launches, the "
+            f"code's {rec['expected_test_launches']['additive_pool']}), step "
+            f"{step['step_ms']:.2f} ms at batch {rec['batch']} "
+            f"({step['impressions_per_s']:.0f} impressions/s, peak "
+            f"{step['peak_memory_gb']:.2f} GB, idle share "
+            f"{step['profile']['device_idle_share']}) ({card})")
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = run_cli(tmp, PHASE10_CLI_MODELS)
+    log(f"[iisan] cli: {cli['outcome']}: {json.dumps(cli)}")
+    return {"flatten_checks": flatten_checks, "iisan": iisan,
+            "bert_zoo": bert_zoo, "flatten": flatten}
+
+
+def _kernel_line(R: dict) -> list:
+    """The `kernels` JSON: each kernel's headline check (phase 3's where it
+    ran, else the first check of its kind from the phases that ran), its
+    launches by main path, and the shape checks of each phase."""
+    runs, profiles = {}, {}
+    for p, rec in R.get("paths", {}).items():
+        runs[p] = rec["launches"]
+        profiles[p] = rec["profile"]
+    if "lm_train" in R:
+        runs["bert-naml lm cache"] = R["lm_train"]["cache_launches"]
+        runs["bert-naml training"] = R["lm_train"]["launches"]
+        runs["naml training"] = R["naml_train"]["launches"]
+        profiles["bert-naml training step"] = R["lm_train"]["profile"]
+        profiles["naml training step"] = R["naml_train"]["profile"]
+    if "loop" in R:
+        runs["naml Trainer (host batches)"] = R["loop"]["launches"]
+        runs["naml Trainer (device batches)"] = R["dev_loop"]["launches"]
+        runs["naml full-forward test"] = R["full"]["launches"]
+        runs["naml latency (cached)"] = R["latency"]["cached_launches"]
+        runs["naml latency (full)"] = R["latency"]["full_launches"]
+        runs["bert-naml Trainer lm cache"] = R["lm_loop"]["cache_launches"]
+        runs["bert-naml Trainer"] = R["lm_loop"]["launches"]
+    for key in ("zoo", "ctr"):
+        for name, rec in R.get(key, {}).items():
+            runs[f"{name} Tester.test()"] = rec["test_launches"]
+            runs[f"{name} training"] = rec["train"]["launches"]
+            profiles[f"{name} training step"] = rec["train"]["profile"]
+    if "plans" in R:
+        for side in ("plans", "plain"):
+            runs[f"naml training ({side})"] = R["plans"][
+                f"step_{side}"]["launches"]
+            profiles[f"naml training step ({side})"] = R["plans"][
+                f"step_{side}"]["profile"]
+    decoder_runs = {}
+    if "llama_serve" in R:
+        decoder_runs["llama-naml Tester.test()"] = R["llama_serve"][
+            "launches"]
+        for name, rec in R["decoders"].items():
+            decoder_runs[f"{name} lm cache"] = rec["cache_launches"]
+            if "test_launches" in rec:
+                decoder_runs[f"{name} Tester.test()"] = rec["test_launches"]
+            decoder_runs[f"{name} training"] = rec["train"]["launches"]
+        profiles["llama-naml serving (8 pages)"] = R["llama_serve"][
+            "profile"]
+        profiles["llama-naml training step"] = R["decoders"]["llama-naml"][
+            "train"]["profile"]
+    phase10_runs = {}
+    for name, rec in R.get("iisan", {}).items():
+        phase10_runs[f"{name} iisan cache"] = rec["cache_launches"]
+        phase10_runs[f"{name} Tester.test()"] = rec["test_launches"]
+        phase10_runs[f"{name} training"] = rec["train"]["launches"]
+        profiles[f"{name} training step"] = rec["train"]["profile"]
+        if "trainer" in rec:
+            phase10_runs[f"{name} Trainer"] = rec["trainer"]["launches"]
+    for name, rec in R.get("bert_zoo", {}).items():
+        phase10_runs[f"{name} lm cache"] = {
+            "packed_attention": rec["cache_launches"]}
+        phase10_runs[f"{name} Tester.test()"] = rec["test_launches"]
+        phase10_runs[f"{name} training"] = rec["train"]["launches"]
+    for name, rec in R.get("flatten", {}).items():
+        phase10_runs[f"{name} Tester.test()"] = rec["test_launches"]
+        phase10_runs[f"{name} training"] = rec["train"]["launches"]
+        profiles[f"{name} training step"] = rec["train"]["profile"]
     runs.update(decoder_runs)
-    profiles = {p: rec["profile"] for p, rec in paths.items()}
-    profiles["bert-naml training step"] = lm_train["profile"]
-    profiles["naml training step"] = naml_train["profile"]
-    for name, rec in zoo.items():
-        profiles[f"{name} training step"] = rec["train"]["profile"]
-    for side in ("plans", "plain"):
-        profiles[f"naml training step ({side})"] = plans[
-            f"step_{side}"]["profile"]
-    for name, rec in ctr.items():
-        profiles[f"{name} training step"] = rec["train"]["profile"]
-    profiles["llama-naml serving (8 pages)"] = llama_serve["profile"]
-    profiles["llama-naml training step"] = decoders["llama-naml"]["train"][
-        "profile"]
+    runs.update(phase10_runs)
 
     def by_path(key):
         return {p: c.get(key, 0) for p, c in runs.items()}
@@ -2578,141 +3202,233 @@ def main() -> int:
     def profiled(key):
         return {p: pr["kernels"][key] for p, pr in profiles.items()}
 
-    def main_path(key):
-        return sum(v["ms"] for v in profiled(key).values())
+    def of(key, res, **extra):
+        src = "additive_pool" if key == "additive_pool" else "packed_attention"
+        return {"name": key, "route": "cuda",
+                "source": f"legommenders_tpu_torch/csrc/{src}.cu",
+                "launches": sum(by_path(key).values()),
+                "launches_by_path": by_path(key), **res,
+                "main_path_ms": sum(v["ms"] for v in profiled(key).values()),
+                "main_path_by_path": profiled(key), **extra}
 
+    def shapes(checks):
+        return {f"{c['pool']} {c['dtype']}": {k: c[k] for k in (
+            "N", "L", "H", "kernel", "max_abs_err", "rel_err", "ms",
+            "plain_ms", "bound_ms", "bound_by")} for c in checks}
+
+    kernels = []
+    checks = R.get("checks", [])
+    pool_all = (checks + R.get("zoo_checks", []) + R.get("ctr_checks", [])
+                + R.get("flatten_checks", []))
     pool_bf16 = [c for c in checks
                  if c["dtype"] == "bf16" and c["pool"] in POOLS]
-    page_bf16 = [c for c in checks
-                 if c["dtype"] == "bf16" and c["pool"] not in POOLS]
-    attn_bf16 = next(c for c in attn_checks if c["dtype"] == "bf16")
-    tr = next(c for c in train_checks
-              if c["dtype"] == "bf16" and c["dropout"] == TRAIN_DROPOUT)
-    tr0 = next(c for c in train_checks
-               if c["dtype"] == "bf16" and c["dropout"] == 0.0)
+    if not pool_bf16:
+        pool_bf16 = [c for c in pool_all if c["dtype"] == "bf16"][:1]
+    if pool_bf16:
+        kernels.append(of("additive_pool", {
+            "replaces": "legommenders_tpu/ops/pallas_additive.py:34",
+            # item + user pool at NAML's full width, bf16 (the main dtype),
+            # or the first pool shape of the phases that ran
+            "max_abs_err": max(c["max_abs_err"] for c in pool_bf16),
+            "ms": sum(c["ms"] for c in pool_bf16),
+            "plain_ms": sum(c["plain_ms"] for c in pool_bf16),
+            "bound_ms": sum(c["bound_ms"] for c in pool_bf16),
+            "bound_by": "bytes" if all(c["bound_by"] == "bytes"
+                                       for c in pool_bf16) else "operations",
+            "library_ms": None},
+            pages={c["L"]: {k: c[k] for k in (
+                "kernel", "max_abs_err", "rel_err", "ms", "plain_ms",
+                "bound_ms", "bound_by")} for c in checks
+                if c["dtype"] == "bf16" and c["pool"] not in POOLS},
+            zoo_shapes=shapes(R.get("zoo_checks", [])),
+            ctr_shapes=shapes(R.get("ctr_checks", [])),
+            flatten_shapes=shapes(R.get("flatten_checks", [])),
+            ctr_launches={name: {
+                "test": rec["test_launches"]["additive_pool"],
+                "per_step": rec["train"]["launches_per_step"][
+                    "additive_pool"]} for name, rec in R.get("ctr", {})
+                .items()},
+            decoder_launches={p: c["additive_pool"]
+                              for p, c in decoder_runs.items()},
+            phase10_launches={p: c.get("additive_pool", 0)
+                              for p, c in phase10_runs.items()},
+            checks=pool_all))
     sdpa = "torch.nn.functional.scaled_dot_product_attention"
-    kernels = [{
-        "name": "additive_pool",
-        "route": "cuda",
-        "source": "legommenders_tpu_torch/csrc/additive_pool.cu",
-        "replaces": "legommenders_tpu/ops/pallas_additive.py:34",
-        "launches": sum(by_path("additive_pool").values()),
-        "launches_by_path": by_path("additive_pool"),
-        # item + user pool at NAML's full width, bf16 (the main dtype)
-        "max_abs_err": max(c["max_abs_err"] for c in pool_bf16),
-        "ms": sum(c["ms"] for c in pool_bf16),
-        "plain_ms": sum(c["plain_ms"] for c in pool_bf16),
-        "bound_ms": sum(c["bound_ms"] for c in pool_bf16),
-        "bound_us": sum(c["bound_ms"] for c in pool_bf16) * 1e3,
-        "bound_by": "bytes" if all(c["bound_by"] == "bytes"
-                                   for c in pool_bf16) else "operations",
-        "library_ms": None,
-        # one page of 512 at each main-path L, bf16
-        "pages": {c["L"]: {k: c[k] for k in (
-            "kernel", "max_abs_err", "rel_err", "ms", "plain_ms",
-            "bound_ms", "bound_by")} for c in page_bf16},
-        # the news zoo's pool shapes (phase 7), bf16
-        "zoo_shapes": {c["pool"]: {k: c[k] for k in (
-            "N", "L", "H", "kernel", "max_abs_err", "rel_err", "ms",
-            "plain_ms", "bound_ms", "bound_by")}
-            for c in zoo_checks if c["dtype"] == "bf16"},
-        # the CTR zoo's user pools (phase 8), f32 and bf16, with the
-        # launches a step and a test page give them
-        "ctr_shapes": {f"{c['pool']} {c['dtype']}": {k: c[k] for k in (
-            "N", "L", "H", "kernel", "max_abs_err", "rel_err", "ms",
-            "plain_ms", "bound_ms", "bound_by")} for c in ctr_checks},
-        "ctr_launches": {name: {
-            "test": rec["test_launches"]["additive_pool"],
-            "per_step": rec["train"]["launches_per_step"]["additive_pool"]}
-            for name, rec in ctr.items()},
-        "decoder_launches": {p: c["additive_pool"]
-                             for p, c in decoder_runs.items()},
-        # device time summed over the kernel's launches in each profiled
-        # window, at the shapes the path gives it
-        "main_path_ms": main_path("additive_pool"),
-        "main_path_by_path": profiled("additive_pool"),
-        "checks": checks + zoo_checks + ctr_checks,
-    }, {
-        "name": "packed_attention",
-        "route": "cuda",
-        "source": "legommenders_tpu_torch/csrc/packed_attention.cu",
-        "replaces": "legommenders_tpu/ops/pallas_attention.py:53",
-        "launches": sum(by_path("packed_attention").values()),
-        "launches_by_path": by_path("packed_attention"),
-        # one training page at dropout 0.1, bf16 (the main dtype)
-        "max_abs_err": tr["out_max_abs_err"],
-        "ms": tr["fwd_ms"],
-        "plain_ms": tr["fwd_plain_ms"],
-        "bound_ms": tr["fwd_bound_ms"],
-        "bound_by": tr["fwd_bound_by"],
-        "library_ms": tr["sdpa_fwd_ms"],
-        "library": f"{sdpa} (forward, float mask, dropout_p)",
-        "train_p0": {"ms": tr0["fwd_ms"], "library_ms": tr0["sdpa_fwd_ms"]},
-        # the serving page at dropout 0
-        "serving_page": {k: attn_bf16[k] for k in (
-            "T", "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")},
-        "main_path_ms": main_path("packed_attention"),
-        "main_path_by_path": profiled("packed_attention"),
-        # phase 9: the decoder pages (bf16, dropout 0, causal packed bias)
-        "decoder_shapes": {n: {k: c[k] for k in (
-            "B", "T", "D", "heads", "bf16_out_max_abs_err",
-            "bf16_out_rel_err", "f32_out_max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")}
-            for n, c in decoder_checks.items()},
-        "decoder_launches": {p: c["packed_attention"]
-                             for p, c in decoder_runs.items()},
-        "checks": attn_checks,
-    }, {
-        "name": "packed_attention_backward",
-        "route": "cuda",
-        "source": "legommenders_tpu_torch/csrc/packed_attention.cu",
-        "replaces": "legommenders_tpu/ops/pallas_attention.py:84",
-        "launches": sum(by_path("packed_attention_backward").values()),
-        "launches_by_path": by_path("packed_attention_backward"),
-        "max_abs_err": max(tr[f"{g}_max_abs_err"] for g in ("dq", "dk", "dv")),
-        "ms": tr["bwd_ms"],
-        "plain_ms": tr["bwd_plain_ms"],
-        "bound_ms": tr["bwd_bound_ms"],
-        "bound_by": tr["bwd_bound_by"],
-        # torch has no backward-only call: its forward + backward, beside
-        # the port's forward + backward
-        "library_ms": tr["sdpa_fwd_bwd_ms"],
-        "library": f"{sdpa} (forward + backward, float mask, dropout_p)",
-        "fwd_plus_bwd_ms": tr["fwd_ms"] + tr["bwd_ms"],
-        "train_p0": {"ms": tr0["bwd_ms"]},
-        "main_path_ms": main_path("packed_attention_backward"),
-        "main_path_by_path": profiled("packed_attention_backward"),
-        "decoder_shapes": {n: {
-            "B": c["B"], "T": c["T"], "D": c["D"], "heads": c["heads"],
-            "bf16_max_abs_err": max(c[f"bf16_{g}_max_abs_err"]
-                                    for g in ("dq", "dk", "dv")),
-            "bf16_rel_err": max(c[f"bf16_{g}_rel_err"]
-                                for g in ("dq", "dk", "dv")),
-            "ms": c["bwd_ms"], "plain_ms": c["bwd_plain_ms"],
-            "bound_ms": c["bwd_bound_ms"], "bound_by": c["bwd_bound_by"],
-            "library_ms": c["library_fwd_bwd_ms"],
-            "fwd_plus_bwd_ms": c["ms"] + c["bwd_ms"]}
-            for n, c in decoder_checks.items() if "bwd_ms" in c},
-        "decoder_launches": {p: c["packed_attention_backward"]
-                             for p, c in decoder_runs.items()},
-        "checks": train_checks,
-    }, {
-        "name": "dropout_keep_mask",
-        "route": "cuda",
-        "source": "legommenders_tpu_torch/csrc/packed_attention.cu",
-        "replaces": "legommenders_tpu/ops/pallas_attention.py:272",
-        # as in JAX, the mask is drawn only to hold the forward and the
-        # backward against their plain versions: no main path launches it
-        "on_main_path": False,
-        "launches": sum(by_path("dropout_keep_mask").values()),
-        "launches_by_path": by_path("dropout_keep_mask"),
-        "max_abs_err": 0.0 if tr["mask_equals_plain"] else 1.0,
-        "ms": tr["mask_ms"],
-        "plain_ms": tr["mask_plain_ms"],
-        "bound_ms": tr["mask_bound_ms"],
-        "bound_by": tr["mask_bound_by"],
-        "library_ms": None,
-    }]
+    train = R.get("train_checks", [])
+    tr = next((c for c in train if c["dtype"] == "bf16"
+               and c["dropout"] == TRAIN_DROPOUT), None)
+    tr0 = next((c for c in train if c["dtype"] == "bf16"
+                and c["dropout"] == 0.0), None)
+    dec = R.get("decoder_checks", {})
+    dtrain = dec.get("llama training")
+    fwd = bwd = None
+    if tr is not None:
+        fwd = {"max_abs_err": tr["out_max_abs_err"], "ms": tr["fwd_ms"],
+               "plain_ms": tr["fwd_plain_ms"],
+               "bound_ms": tr["fwd_bound_ms"],
+               "bound_by": tr["fwd_bound_by"],
+               "library_ms": tr["sdpa_fwd_ms"],
+               "library": f"{sdpa} (forward, float mask, dropout_p)"}
+        bwd = {"max_abs_err": max(tr[f"{g}_max_abs_err"]
+                                  for g in ("dq", "dk", "dv")),
+               "ms": tr["bwd_ms"], "plain_ms": tr["bwd_plain_ms"],
+               "bound_ms": tr["bwd_bound_ms"],
+               "bound_by": tr["bwd_bound_by"],
+               # torch has no backward-only call: its forward + backward,
+               # beside the port's forward + backward
+               "library_ms": tr["sdpa_fwd_bwd_ms"],
+               "library": f"{sdpa} (forward + backward, float mask, "
+                          f"dropout_p)",
+               "fwd_plus_bwd_ms": tr["fwd_ms"] + tr["bwd_ms"],
+               "train_p0": {"ms": tr0["bwd_ms"]},
+               "f32_training_page": {p: {k: c[k] for k in (
+                   "bwd_ms", "bwd_bound_ms", "bwd_bound_by",
+                   "dq_max_abs_err", "dk_max_abs_err", "dv_max_abs_err")}
+                   for p, c in ((c["dropout"], c) for c in train
+                                if c["dtype"] == "f32")}}
+    elif dtrain is not None:
+        fwd = {"max_abs_err": dtrain["bf16_out_max_abs_err"],
+               "ms": dtrain["ms"], "plain_ms": dtrain["plain_ms"],
+               "bound_ms": dtrain["bound_ms"],
+               "bound_by": dtrain["bound_by"],
+               "library_ms": dtrain["library_ms"]}
+        bwd = {"max_abs_err": max(dtrain[f"bf16_{g}_max_abs_err"]
+                                  for g in ("dq", "dk", "dv")),
+               "ms": dtrain["bwd_ms"], "plain_ms": dtrain["bwd_plain_ms"],
+               "bound_ms": dtrain["bwd_bound_ms"],
+               "bound_by": dtrain["bwd_bound_by"],
+               "library_ms": dtrain["library_fwd_bwd_ms"]}
+    decoder_launches = {}
+    if fwd is not None:
+        if tr0 is not None:
+            fwd["train_p0"] = {"ms": tr0["fwd_ms"],
+                               "library_ms": tr0["sdpa_fwd_ms"]}
+        attn = next((c for c in R.get("attn_checks", [])
+                     if c["dtype"] == "bf16"), None)
+        if attn is not None:
+            fwd["serving_page"] = {k: attn[k] for k in (
+                "T", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "library_ms")}
+        kernels.append(of("packed_attention", dict(
+            replaces="legommenders_tpu/ops/pallas_attention.py:53", **fwd),
+            decoder_shapes={n: {k: c[k] for k in (
+                "B", "T", "D", "heads", "bf16_out_max_abs_err",
+                "bf16_out_rel_err", "f32_out_max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                for n, c in dec.items()},
+            decoder_launches={p: c["packed_attention"]
+                              for p, c in decoder_runs.items()},
+            phase10_launches={p: c.get("packed_attention", 0)
+                              for p, c in phase10_runs.items()},
+            checks=R.get("attn_checks", [])))
+        decoder_launches = {p: c["packed_attention_backward"]
+                            for p, c in decoder_runs.items()}
+        kernels.append(of("packed_attention_backward", dict(
+            replaces="legommenders_tpu/ops/pallas_attention.py:84", **bwd),
+            decoder_shapes={n: {
+                "B": c["B"], "T": c["T"], "D": c["D"], "heads": c["heads"],
+                "bf16_max_abs_err": max(c[f"bf16_{g}_max_abs_err"]
+                                        for g in ("dq", "dk", "dv")),
+                "f32_max_abs_err": max(c[f"f32_{g}_max_abs_err"]
+                                       for g in ("dq", "dk", "dv")),
+                "ms": c["bwd_ms"], "plain_ms": c["bwd_plain_ms"],
+                "bound_ms": c["bwd_bound_ms"],
+                "bound_by": c["bwd_bound_by"],
+                "library_ms": c["library_fwd_bwd_ms"],
+                "fwd_plus_bwd_ms": c["ms"] + c["bwd_ms"],
+                "f32_ms": c["f32_bwd_ms"],
+                "f32_bound_ms": c["f32_bwd_bound_ms"],
+                "f32_bound_by": c["f32_bwd_bound_by"]}
+                for n, c in dec.items() if "bwd_ms" in c},
+            decoder_launches=decoder_launches,
+            phase10_launches={p: c.get("packed_attention_backward", 0)
+                              for p, c in phase10_runs.items()},
+            f32_dh128_edges=R.get("f32_edges", []),
+            checks=train))
+    if tr is not None:
+        kernels.append(of("dropout_keep_mask", {
+            "replaces": "legommenders_tpu/ops/pallas_attention.py:272",
+            # as in JAX, the mask is drawn only to hold the forward and the
+            # backward against their plain versions: no main path launches
+            # it
+            "on_main_path": False,
+            "max_abs_err": 0.0 if tr["mask_equals_plain"] else 1.0,
+            "ms": tr["mask_ms"], "plain_ms": tr["mask_plain_ms"],
+            "bound_ms": tr["mask_bound_ms"],
+            "bound_by": tr["mask_bound_by"], "library_ms": None}))
+    return kernels
+
+
+def main(argv=None) -> int:
+    phases = parse_phases(argv)
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    # fails outside a checkout, before any output: the port is part of the
+    # repository
+    from legommenders_tpu_torch.data.processors.synthetic import (
+        SyntheticProcessor,
+    )
+    from legommenders_tpu_torch.ops import build
+
+    t_run = time.perf_counter()
+    with phase_timer(1, "device"):
+        device = torch.device("cuda", 0)
+        card = card_line()
+        log(f"[device] {card}; torch {torch.__version__} cuda "
+            f"{torch.version.cuda}; phases {sorted(phases)}")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    with phase_timer(2, "build"):
+        t0 = time.perf_counter()
+        texts = build.build_all(["additive_pool", "packed_attention"])
+        log(f"[build] additive_pool + packed_attention, one nvcc each at "
+            f"once, in {time.perf_counter() - t0:.2f} s")
+        for name, text in texts.items():
+            for line in text.splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"[build] {name}: {line.strip()}")
+
+    R = {}
+    if 3 in phases:
+        with phase_timer(3, PHASES[3]):
+            R.update(run_kernel_checks(device))
+    with phase_timer("data", "host data build"):
+        data = SyntheticProcessor(**DATA_KW).as_lego_data()
+    if 4 in phases:
+        with phase_timer(4, PHASES[4]):
+            R.update(run_serving(data, device))
+    if 5 in phases:
+        with phase_timer(5, PHASES[5]):
+            R.update(run_training(data, device))
+    if 6 in phases:
+        with phase_timer(6, PHASES[6]):
+            R.update(run_loop(data, device, card))
+    if 7 in phases:
+        with phase_timer(7, PHASES[7]):
+            R.update(run_news_zoo(data, device, card))
+    if 8 in phases:
+        with phase_timer(8, PHASES[8]):
+            R.update(run_ctr_zoo(data, device, card))
+    if 9 in phases:
+        with phase_timer(9, PHASES[9]):
+            R.update(run_decoders(data, device, card))
+    if 10 in phases:
+        with phase_timer(10, PHASES[10]):
+            R.update(run_phase10(data, device, card))
+
+    kernels = _kernel_line(R)
+    total = time.perf_counter() - t_run
+    log(f"[phase] all: {total:.2f} s; by phase "
+        f"{json.dumps({k: round(v, 2) for k, v in TIMES.items()})}; "
+        f"outside the phases {total - sum(TIMES.values()):.2f} s; profiler "
+        f"summaries {PROFILE_SUMMARY_S[0]:.2f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,11 @@ no JAX. Conversions:
   * LoRA `lora_A` (D, r) / `lora_B` (r, F) -> (r, D) / (F, r);
   * BERT's, OPT's, Fastformer's and the Transformer's
     `position_embeddings`,
-    `token_type_embeddings`, the ConcatInputer's `special_tokens` and
-    PolyAttention's `context_codes` as they are;
+    `token_type_embeddings`, the ConcatInputer's and the
+    FlattenSeqInputer's `special_tokens` (`item_inputer`, `user_inputer`),
+    PolyAttention's `context_codes` and the IISAN operators' `gates` as
+    they are (their `san_<i>/{fc_up,fc_down,LayerNorm_0}`, `global_proj`,
+    `local_proj_<i>` and `linear` are Dense and LayerNorm leaves);
   * the CTR heads' own leaves as they are, by name: CrossNet's and
     GateCrossLayer's `b_<i>`, CrossNetMix's `U_<i>` / `V_<i>` (E, D, r),
     `C_<i>` (E, r, r) and `bias_<i>`, FinalMLP's `w_xy`, Dice's `alpha`
@@ -48,7 +51,7 @@ import torch
 _MODULE_NAMES = {"AdditiveAttention_0": "attention"}
 _AS_THEY_ARE = ("bias", "proj_kernel", "proj_bias", "query",
                 "position_embeddings", "token_type_embeddings",
-                "special_tokens", "context_codes", "w_xy", "alpha")
+                "special_tokens", "context_codes", "w_xy", "alpha", "gates")
 # numbered leaves of the cross layers: CrossNet / GateCrossLayer `b_<i>`,
 # CrossNetMix `U_<i>`, `V_<i>`, `C_<i>`, `bias_<i>`
 _NUMBERED = re.compile(r"(b|U|V|C|bias)_\d+")

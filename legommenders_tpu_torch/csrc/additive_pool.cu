@@ -9,8 +9,8 @@
 //               pool to exactly 0), the denominator adds EPS = 1e-8
 //     out[n]  = sum_l a[l] * x[n, l, :]
 // x is f32 or bf16, mask/W1/b1/w2 are f32, out has x's type; all sums are
-// taken in f32. Two kernels; the wrapper picks one by x's type and widths
-// (ops/additive.py `pool_kernel`), and a failure of either raises.
+// taken in f32. Three kernels; the wrapper picks one by x's type and widths
+// (ops/additive.py `pool_kernel`), and a failure of any raises.
 //
 // additive_pool_tc: bf16 x with D = 64, H a multiple of 64 up to 256 and
 // L <= 128 -- every shape the models run (L 31, 34, 40 or 50, H 256).
@@ -80,6 +80,17 @@
 //   4. warp 0 runs the masked softmax with the reference's guards;
 //   5. threads d < D write sum_l a[l] * x[l, d].
 //
+// additive_pool_long: every L > 128 (the flattened histories of the
+// flatten user operators: L 495 and 1,023 at D 64, H 64), f32 or bf16 x.
+// The Pallas kernel holds a whole item in VMEM; additive_pool_kernel keeps
+// all of an item's x in shared memory, which at L 1,023, D 64 is more than
+// a block may have. This one streams an item's positions in chunks of 64
+// through shared memory with an online softmax (running max, sum and
+// weighted sum, the reference's EPS and all-masked rule kept), so its
+// shared memory does not grow with L. What bounds it: the N*L*H tanh and
+// the N*L*D*H products of the scores on the CUDA cores (f32, as
+// additive_pool_kernel); its bytes (N*L*D once) take less time.
+//
 // The device queries and the shared-memory attributes are set once by the
 // prepare entry points, not on every launch. The C entry points return a
 // cudaError_t; a launch is checked with cudaGetLastError() and never
@@ -130,6 +141,61 @@ __device__ inline float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ inline void store(float* p, float v) { *p = v; }
 __device__ inline void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
+// Scores of Lp staged positions (Lp a multiple of kLT), summed per warp:
+// part[l * kWarps + w] = sum over the hidden units j of warp w of
+// tanh(x[l] . W1[:, j] + b1[j]) * w2[j]. With G = 1 thread t owns j = t,
+// t + 256, ... for every position; with G > 1 (H = 256 / G, a multiple of
+// 32) the threads form G groups of H, group g taking the register tiles
+// g, g + G, ... and thread t of a group hidden unit t, so that every
+// thread scores at H < 256; only the warps of a tile's group write its
+// part entries (group_warps). A thread keeps kLT accumulators, so each W1
+// value read from shared memory feeds kLT FMAs while x is read as
+// broadcast float4s.
+__device__ inline void score_rows(const float* __restrict__ xs,
+                                  const float* __restrict__ w1s,
+                                  const float* __restrict__ b1,
+                                  const float* __restrict__ w2,
+                                  float* __restrict__ part, int Lp, int D,
+                                  int H, int G = 1) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int hs = kThreads / G, g = tid / hs, j0 = tid - g * hs;
+  // scores: s[l] = sum_j tanh(x[l] . W1[:, j] + b1[j]) * w2[j]
+  for (int l0 = g * kLT; l0 < Lp; l0 += G * kLT) {
+    float p[kLT];
+#pragma unroll
+    for (int t = 0; t < kLT; ++t) p[t] = 0.f;
+    for (int j = j0; j < H; j += hs) {
+      float acc[kLT];
+      const float bj = b1[j];
+#pragma unroll
+      for (int t = 0; t < kLT; ++t) acc[t] = 0.f;
+      for (int d = 0; d < D; d += 4) {
+        const float wa = w1s[(d + 0) * H + j];
+        const float wb = w1s[(d + 1) * H + j];
+        const float wc = w1s[(d + 2) * H + j];
+        const float wd = w1s[(d + 3) * H + j];
+#pragma unroll
+        for (int t = 0; t < kLT; ++t) {
+          const float4 xv =
+              *reinterpret_cast<const float4*>(xs + (l0 + t) * D + d);
+          acc[t] = fmaf(xv.x, wa, acc[t]);
+          acc[t] = fmaf(xv.y, wb, acc[t]);
+          acc[t] = fmaf(xv.z, wc, acc[t]);
+          acc[t] = fmaf(xv.w, wd, acc[t]);
+        }
+      }
+      const float qj = w2[j];
+#pragma unroll
+      for (int t = 0; t < kLT; ++t) p[t] = fmaf(tanhf(acc[t] + bj), qj, p[t]);
+    }
+#pragma unroll
+    for (int t = 0; t < kLT; ++t) {
+      const float v = warp_sum(p[t]);
+      if (lane == 0) part[(l0 + t) * kWarps + warp] = v;
+    }
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 additive_pool_kernel(const T* __restrict__ x, const float* __restrict__ mask,
@@ -156,41 +222,7 @@ additive_pool_kernel(const T* __restrict__ x, const float* __restrict__ mask,
     for (int i = tid; i < L * D; i += kThreads) xs[i] = to_f32(xr[i]);
     __syncthreads();
 
-    // scores: s[l] = sum_j tanh(x[l] . W1[:, j] + b1[j]) * w2[j]
-    for (int l0 = 0; l0 < Lp; l0 += kLT) {
-      float p[kLT];
-#pragma unroll
-      for (int t = 0; t < kLT; ++t) p[t] = 0.f;
-      for (int j = tid; j < H; j += kThreads) {
-        float acc[kLT];
-        const float bj = b1[j];
-#pragma unroll
-        for (int t = 0; t < kLT; ++t) acc[t] = 0.f;
-        for (int d = 0; d < D; d += 4) {
-          const float wa = w1s[(d + 0) * H + j];
-          const float wb = w1s[(d + 1) * H + j];
-          const float wc = w1s[(d + 2) * H + j];
-          const float wd = w1s[(d + 3) * H + j];
-#pragma unroll
-          for (int t = 0; t < kLT; ++t) {
-            const float4 xv =
-                *reinterpret_cast<const float4*>(xs + (l0 + t) * D + d);
-            acc[t] = fmaf(xv.x, wa, acc[t]);
-            acc[t] = fmaf(xv.y, wb, acc[t]);
-            acc[t] = fmaf(xv.z, wc, acc[t]);
-            acc[t] = fmaf(xv.w, wd, acc[t]);
-          }
-        }
-        const float qj = w2[j];
-#pragma unroll
-        for (int t = 0; t < kLT; ++t) p[t] = fmaf(tanhf(acc[t] + bj), qj, p[t]);
-      }
-#pragma unroll
-      for (int t = 0; t < kLT; ++t) {
-        const float v = warp_sum(p[t]);
-        if (lane == 0) part[(l0 + t) * kWarps + warp] = v;
-      }
-    }
+    score_rows(xs, w1s, b1, w2, part, Lp, D, H);
     __syncthreads();
 
     // masked softmax over l; lane k owns positions k, k + 32, ...
@@ -264,6 +296,172 @@ int launch(const void* x, const void* mask, const void* w1, const void* b1,
       static_cast<const T*>(x), static_cast<const float*>(mask),
       static_cast<const float*>(w1), static_cast<const float*>(b1),
       static_cast<const float*>(w2), static_cast<T*>(out), N, L, D, H);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Long-sequence kernel (L > 128: the flattened histories), f32 or bf16 x
+// ---------------------------------------------------------------------------
+
+constexpr int kChunk = 64;  // positions staged at once
+
+// shared memory, in floats: W1[D*H] | x[kChunk*D] | partial s[kChunk*kWarps]
+// | e[kChunk] | mask[kChunk] | acc[D] | the chunk's rescale factor and the
+// denominator: independent of L
+__host__ __device__ inline size_t long_smem_floats(int D, int H) {
+  return (size_t)D * H + (size_t)kChunk * D + kChunk * kWarps +
+         2 * kChunk + D + 2;
+}
+
+// The thread groups of the long kernel's scores: 256 / H where H is a
+// multiple of 32 below 256, else 1 (score_rows).
+__host__ __device__ inline int long_groups(int H) {
+  return H % 32 == 0 && H < kThreads && kThreads % H == 0 ? kThreads / H : 1;
+}
+
+// Persistent blocks of 256 threads; block b walks items n = b, b +
+// gridDim.x, ... . W1 is staged once per block. An item's positions are
+// streamed in chunks of kChunk: each chunk (16-byte loads where x's rows
+// allow) and its mask are staged in shared memory as f32, scored as
+// additive_pool_kernel scores (score_rows, every thread busy at H 64:
+// long_groups), and folded into
+// an online softmax: warp 0 keeps the running max m of the masked scores
+// (-FLT_MAX for masked positions) and the running sum of e = exp(s - m') *
+// mask, where m' is m, or 0 while every position so far is masked (the
+// reference's all-masked rule); each chunk rescales the sum and the
+// running weighted sum acc[d] (thread d) by exp(m'_old - m'_new) (0 while
+// nothing was summed) before adding its own terms. out = acc / (sum +
+// EPS): the reference's a = e / (sum + EPS), summed in another order; an
+// all-masked item gives exactly 0.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+additive_pool_long(const T* __restrict__ x, const float* __restrict__ mask,
+                   const float* __restrict__ w1, const float* __restrict__ b1,
+                   const float* __restrict__ w2, T* __restrict__ out, int N,
+                   int L, int D, int H, int G) {
+  extern __shared__ __align__(16) float smem[];
+  float* w1s = smem;
+  float* xs = w1s + (size_t)D * H;
+  float* part = xs + (size_t)kChunk * D;
+  float* es = part + kChunk * kWarps;
+  float* ms = es + kChunk;
+  float* acc = ms + kChunk;
+  float* stat = acc + D;  // [0] rescale, [1] denominator
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float neg = -FLT_MAX;
+  // a tile's partial scores come from the warps of its group
+  const int wpg = kWarps / G;
+  // 16-byte loads of x where its rows are 16-byte multiples
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = (D * (int)sizeof(T)) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  for (int i = tid; i < D * H; i += kThreads) w1s[i] = w1[i];
+
+  for (int n = blockIdx.x; n < N; n += gridDim.x) {
+    const T* xr = x + (size_t)n * L * D;
+    const float* mr = mask + (size_t)n * L;
+    float m_run = neg, sum_run = 0.f;  // warp 0's
+    for (int d = tid; d < D; d += kThreads) acc[d] = 0.f;
+    for (int c0 = 0; c0 < L; c0 += kChunk) {
+      const int nc = min(kChunk, L - c0), ncp = round_up(nc, kLT);
+      const T* xc = xr + (size_t)c0 * D;
+      if (vec) {
+        for (int i = tid * V; i < ncp * D; i += kThreads * V) {
+          if (i < nc * D) {
+            const uint4 u = *reinterpret_cast<const uint4*>(xc + i);
+            const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+            for (int k = 0; k < V; ++k) xs[i + k] = to_f32(e[k]);
+          } else {
+#pragma unroll
+            for (int k = 0; k < V; ++k) xs[i + k] = 0.f;
+          }
+        }
+      } else {
+        for (int i = tid; i < ncp * D; i += kThreads)
+          xs[i] = i < nc * D ? to_f32(xc[i]) : 0.f;
+      }
+      if (tid < nc) ms[tid] = mr[c0 + tid];
+      __syncthreads();
+      score_rows(xs, w1s, b1, w2, part, ncp, D, H, G);
+      __syncthreads();
+      if (warp == 0) {
+        float cm = neg;
+        for (int l = lane; l < nc; l += 32) {
+          const int w0 = ((l / kLT) % G) * wpg;
+          float s = 0.f;
+          for (int w = w0; w < w0 + wpg; ++w) s += part[l * kWarps + w];
+          s = ms[l] > 0.f ? s : neg;
+          es[l] = s;
+          cm = fmaxf(cm, s);
+        }
+        const float m_new = fmaxf(m_run, warp_max(cm));
+        const float m_eff = m_new > neg * 0.5f ? m_new : 0.f;
+        const float scale = m_run > neg * 0.5f ? expf(m_run - m_eff) : 0.f;
+        float sum = 0.f;
+        for (int l = lane; l < nc; l += 32) {
+          const float e = expf(es[l] - m_eff) * ms[l];
+          es[l] = e;
+          sum += e;
+        }
+        sum_run = fmaf(sum_run, scale, warp_sum(sum));
+        m_run = m_new;
+        if (lane == 0) stat[0] = scale;
+      }
+      __syncthreads();
+      const float scale = stat[0];
+      for (int d = tid; d < D; d += kThreads) {
+        float o = acc[d] * scale;
+        for (int l = 0; l < nc; ++l) o = fmaf(es[l], xs[l * D + d], o);
+        acc[d] = o;
+      }
+      __syncthreads();  // xs, es and ms are rewritten by the next chunk
+    }
+    if (tid == 0) stat[1] = sum_run + kEps;
+    __syncthreads();
+    const float denom = stat[1];
+    for (int d = tid; d < D; d += kThreads)
+      store(out + (size_t)n * D + d, acc[d] / denom);
+    __syncthreads();  // acc and stat are rewritten by the next item
+  }
+}
+
+template <typename T>
+cudaError_t prepare_long(int D, int H, int device, int* blocks) {
+  auto kernel = additive_pool_long<T>;
+  const size_t smem = long_smem_floats(D, H) * sizeof(float);
+  int sms = 0, optin = 0, per_sm = 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device);
+  if (err != cudaSuccess) return err;
+  if (smem > (size_t)optin) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = per_sm * sms;
+  return cudaSuccess;
+}
+
+template <typename T>
+int launch_long(const void* x, const void* mask, const void* w1,
+                const void* b1, const void* w2, void* out, int N, int L, int D,
+                int H, int blocks, cudaStream_t stream) {
+  const size_t smem = long_smem_floats(D, H) * sizeof(float);
+  const int grid = N < blocks ? N : blocks;
+  additive_pool_long<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(mask),
+      static_cast<const float*>(w1), static_cast<const float*>(b1),
+      static_cast<const float*>(w2), static_cast<T*>(out), N, L, D, H,
+      long_groups(H));
   return cudaGetLastError();
 }
 
@@ -669,6 +867,38 @@ int additive_pool_tc_forward(const void* x, const void* mask, const void* w1,
     case 3: return launch_tc<3>(mx, mm, w1, b1, w2, out, N, L, G, n_tiles, grid, st);
     default: return launch_tc<4>(mx, mm, w1, b1, w2, out, N, L, G, n_tiles, grid, st);
   }
+}
+
+// Dynamic shared memory one block of the long-sequence kernel needs at
+// these widths, whatever L.
+size_t additive_pool_long_smem_bytes(int D, int H) {
+  return long_smem_floats(D, H) * sizeof(float);
+}
+
+// Readies the long-sequence kernel as additive_pool_prepare readies the
+// CUDA-core one.
+int additive_pool_long_prepare(int D, int H, int x_is_bf16, int device,
+                               int* blocks) {
+  if (x_is_bf16) return prepare_long<__nv_bfloat16>(D, H, device, blocks);
+  return prepare_long<float>(D, H, device, blocks);
+}
+
+// The long-sequence kernel, any L >= 1: the arguments of
+// additive_pool_forward, `blocks` from additive_pool_long_prepare.
+int additive_pool_long_forward(const void* x, const void* mask,
+                               const void* w1, const void* b1, const void* w2,
+                               void* out, int N, int L, int D, int H,
+                               int x_is_bf16, int blocks, int device,
+                               void* stream) {
+  if (N == 0) return cudaSuccess;
+  if (L < 1) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_is_bf16)
+    return launch_long<__nv_bfloat16>(x, mask, w1, b1, w2, out, N, L, D, H,
+                                      blocks, st);
+  return launch_long<float>(x, mask, w1, b1, w2, out, N, L, D, H, blocks, st);
 }
 
 const char* additive_pool_error_string(int err) {

@@ -110,9 +110,12 @@
 //  * f32 (forward and backward): attention_simt / attention_bwd_simt on the
 //    CUDA cores, with the reference's exact expf and division. 4 warps; a
 //    warp takes one query row at a time (lane j owns keys j, j+32, j+64,
-//    j+96), then, in the backward, one key row at a time for dK and dV. K
-//    and V are staged with rows padded to dh + 1 floats, so that both the
-//    lane-per-key and the lane-per-column reads are free of bank conflicts.
+//    j+96), then, in the backward, one key row at a time for dK and dV
+//    (lane i owns queries i, i+32, ...), recomputing that row's p from the
+//    query rows' statistics instead of keeping a T x T tile: its shared
+//    memory grows with T, not T^2 (dh 128 takes every T <= 128). Operands
+//    are staged with rows padded to dh + 1 floats, so that both the
+//    lane-per-row and the lane-per-column reads are free of bank conflicts.
 //  * keep mask: dropout_mask. What bounds it is the integer work of its
 //    Philox draws: of a draw's 20 IMAD.WIDE.U32 only rounds 3-9's 14 take
 //    all of (b, h, i, j) (the split below), on the FMA pipe, which takes
@@ -583,14 +586,43 @@ attention_simt(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// shared memory, in floats: phase 1 K[T][dh+1] | V[T][dh+1] (phase 2 reuses
-// the space for Q[T][dh] | g[T][dh]) | dS[T][T] | pd[T][T] |
-// q and g rows [warps][2 dh]
+// shared memory, in floats: K[T][dh+1] | V[T][dh+1] in phase 1, Q[T][dh+1] |
+// g[T][dh+1] in phase 2 (the same space) | the row statistics m, l and
+// rowsum(dP * P) [3][kMaxT] | one row of two operands a warp [warps][2 dh]
+// | dS and pd of that row a warp [warps][2 kMaxT]: linear in T, 141,824 B
+// at T 128, dh 128
 __host__ __device__ inline size_t bwd_simt_smem_bytes(int T, int dh) {
-  return ((size_t)2 * T * (dh + 1) + (size_t)2 * T * T +
-          (size_t)kSimtWarps * 2 * dh) * sizeof(float);
+  return ((size_t)2 * T * (dh + 1) + (size_t)3 * kMaxT +
+          (size_t)kSimtWarps * 2 * (dh + kMaxT)) * sizeof(float);
 }
 
+// The scores and dP of one (query, key) pair: lane-owned sums over d in
+// order, the same chain in both phases, so that phase 2 recomputes phase
+// 1's p bit for bit.
+__device__ inline void bwd_simt_dots(const float* __restrict__ a,
+                                     const float* __restrict__ b,
+                                     const float* __restrict__ c,
+                                     const float* __restrict__ e, int dh,
+                                     float& s, float& dp) {
+#pragma unroll 4
+  for (int d = 0; d < dh; ++d) {
+    s = fmaf(a[d], b[d], s);
+    dp = fmaf(c[d], e[d], dp);
+  }
+}
+
+// Two phases, each over one operand pair held whole in shared memory
+// (rows padded to dh + 1 floats: both the lane-per-row and the
+// lane-per-column reads are free of bank conflicts):
+//  1. K and V; a warp takes one query row i at a time (lane j owns keys j,
+//     j+32, j+64, j+96): s, p, the keep factors, dP and dS, the row's
+//     max m_i, sum l_i and rs_i = sum_j dP_ij P_ij kept in shared memory,
+//     and dQ_i = dS_i K from the warp's dS row;
+//  2. Q and g; a warp takes one key row j at a time (lane i owns queries
+//     i, i+32, ...): s and dP recomputed by the same sums, p = exp(s -
+//     m_i) / l_i, dS and pd, then dK_j = dS^T Q and dV_j = pd^T g from the
+//     warp's two rows.
+// No T x T tile is kept: the scores are computed twice instead.
 __global__ void __launch_bounds__(kSimtThreads)
 attention_bwd_simt(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ bias,
@@ -601,13 +633,13 @@ attention_bwd_simt(const float* __restrict__ q, const float* __restrict__ k,
                    float keep_scale, int dropout) {
   extern __shared__ __align__(16) float smem[];
   const int KS = dh + 1;
-  float* ks = smem;                            // [Tn][KS]
-  float* vs = ks + (size_t)Tn * KS;            // [Tn][KS]
-  float* qs = smem;                            // phase 2: [Tn][dh]
-  float* gs = smem + (size_t)Tn * dh;          // phase 2: [Tn][dh]
-  float* dss = smem + (size_t)2 * Tn * KS;     // [Tn][Tn]
-  float* pds = dss + (size_t)Tn * Tn;          // [Tn][Tn]
-  float* rows = pds + (size_t)Tn * Tn;         // [kSimtWarps][2 dh]
+  float* as = smem;                            // K, then Q: [Tn][KS]
+  float* bs = as + (size_t)Tn * KS;            // V, then g: [Tn][KS]
+  float* row_m = bs + (size_t)Tn * KS;         // [kMaxT]
+  float* row_l = row_m + kMaxT;                // [kMaxT]
+  float* row_rs = row_l + kMaxT;               // [kMaxT]
+  float* rows = row_rs + kMaxT;                // [kSimtWarps][2 dh]
+  float* wrow = rows + kSimtWarps * 2 * dh;    // [kSimtWarps][2 kMaxT]
 
   const int b = blockIdx.x / H, h = blockIdx.x - b * H;
   const int D = H * dh;
@@ -616,42 +648,37 @@ attention_bwd_simt(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = threadIdx.x; i < Tn * dh; i += kSimtThreads) {
     const int j = i / dh, d = i - j * dh;
     const size_t gi = base + (size_t)j * D + d;
-    ks[j * KS + d] = k[gi];
-    vs[j * KS + d] = v[gi];
+    as[j * KS + d] = k[gi];
+    bs[j * KS + d] = v[gi];
   }
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* qw = rows + warp * 2 * dh;
-  float* gw = qw + dh;
+  float* r0 = rows + warp * 2 * dh;   // q_i / k_j
+  float* r1 = r0 + dh;                // g_i / v_j
+  float* dsw = wrow + warp * 2 * kMaxT;
+  float* pdw = dsw + kMaxT;
   const float* bb = bias + b * sb;
   // phase 1: one query row per warp at a time
   for (int i = warp; i < Tn; i += kSimtWarps) {
     for (int d = lane; d < dh; d += 32) {
-      qw[d] = q[base + (size_t)i * D + d];
-      gw[d] = g[base + (size_t)i * D + d];
+      r0[d] = q[base + (size_t)i * D + d];
+      r1[d] = g[base + (size_t)i * D + d];
     }
     __syncwarp();
     float s[kMaxT / 32], dpd[kMaxT / 32];
 #pragma unroll
-    for (int c = 0; c < kMaxT / 32; ++c) s[c] = dpd[c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < dh; ++d) {
-      const float qd = qw[d], gd = gw[d];
-#pragma unroll
-      for (int c = 0; c < kMaxT / 32; ++c) {
-        const int j = lane + 32 * c;
-        if (j < Tn) {
-          s[c] = fmaf(qd, ks[j * KS + d], s[c]);
-          dpd[c] = fmaf(gd, vs[j * KS + d], dpd[c]);
-        }
-      }
+    for (int c = 0; c < kMaxT / 32; ++c) {
+      s[c] = dpd[c] = 0.f;
+      const int j = lane + 32 * c;
+      if (j < Tn)
+        bwd_simt_dots(r0, as + j * KS, r1, bs + j * KS, dh, s[c], dpd[c]);
     }
     float m = -INFINITY;
 #pragma unroll
     for (int c = 0; c < kMaxT / 32; ++c) {
       const int j = lane + 32 * c;
-      s[c] = j < Tn ? s[c] * scale + bb[i * sq + j] : -INFINITY;
+      s[c] = j < Tn ? fmaf(s[c], scale, bb[i * sq + j]) : -INFINITY;
       m = fmaxf(m, s[c]);
     }
     m = warp_max(m);
@@ -672,16 +699,20 @@ attention_bwd_simt(const float* __restrict__ q, const float* __restrict__ k,
         float kf = 1.f;
         if (dropout)
           kf = dropout_bits(key, b, h, i, j) >= thresh ? keep_scale : 0.f;
-        pds[i * Tn + j] = s[c] * kf;           // pd
         dpd[c] *= kf;                          // dp
         rs += dpd[c] * s[c];
       }
     }
     rs = warp_sum(rs);
+    if (lane == 0) {
+      row_m[i] = m;
+      row_l[i] = sum;
+      row_rs[i] = rs;
+    }
 #pragma unroll
     for (int c = 0; c < kMaxT / 32; ++c) {
       const int j = lane + 32 * c;
-      if (j < Tn) dss[i * Tn + j] = s[c] * (dpd[c] - rs) * scale;
+      if (j < Tn) dsw[j] = s[c] * (dpd[c] - rs) * scale;
     }
     __syncwarp();
     // dQ row i: lane d owns columns d, d+32, d+64, d+96 of each 128
@@ -689,8 +720,8 @@ attention_bwd_simt(const float* __restrict__ q, const float* __restrict__ k,
       float o[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 4
       for (int j = 0; j < Tn; ++j) {
-        const float dsj = dss[i * Tn + j];
-        const float* kr = ks + j * KS + d0;
+        const float dsj = dsw[j];
+        const float* kr = as + j * KS + d0;
 #pragma unroll
         for (int c = 0; c < 4; ++c)
           if (d0 + 32 * c < dh) o[c] = fmaf(dsj, kr[32 * c], o[c]);
@@ -699,28 +730,49 @@ attention_bwd_simt(const float* __restrict__ q, const float* __restrict__ k,
       for (int c = 0; c < 4; ++c)
         if (d0 + 32 * c < dh) dq[base + (size_t)i * D + d0 + 32 * c] = o[c];
     }
-    __syncwarp();  // qw and gw are rewritten by the next row
+    __syncwarp();  // the warp's rows are rewritten by the next row
   }
   __syncthreads();
   for (int i = threadIdx.x; i < Tn * dh; i += kSimtThreads) {
     const int j = i / dh, d = i - j * dh;
     const size_t gi = base + (size_t)j * D + d;
-    qs[i] = q[gi];
-    gs[i] = g[gi];
+    as[j * KS + d] = q[gi];
+    bs[j * KS + d] = g[gi];
   }
   __syncthreads();
   // phase 2: one key row per warp at a time
   for (int j = warp; j < Tn; j += kSimtWarps) {
+    for (int d = lane; d < dh; d += 32) {
+      r0[d] = k[base + (size_t)j * D + d];
+      r1[d] = v[base + (size_t)j * D + d];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < kMaxT / 32; ++c) {
+      const int i = lane + 32 * c;
+      if (i < Tn) {
+        float s = 0.f, dpd = 0.f;
+        bwd_simt_dots(as + i * KS, r0, bs + i * KS, r1, dh, s, dpd);
+        s = fmaf(s, scale, bb[i * sq + j]);  // as in phase 1
+        const float p = expf(s - row_m[i]) / row_l[i];
+        float kf = 1.f;
+        if (dropout)
+          kf = dropout_bits(key, b, h, i, j) >= thresh ? keep_scale : 0.f;
+        pdw[i] = p * kf;
+        dsw[i] = p * (dpd * kf - row_rs[i]) * scale;
+      }
+    }
+    __syncwarp();
     for (int d0 = lane; d0 < dh; d0 += 128) {
       float ok[4] = {0.f, 0.f, 0.f, 0.f}, ov[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 4
       for (int i = 0; i < Tn; ++i) {
-        const float dsi = dss[i * Tn + j], pdi = pds[i * Tn + j];
+        const float dsi = dsw[i], pdi = pdw[i];
 #pragma unroll
         for (int c = 0; c < 4; ++c)
           if (d0 + 32 * c < dh) {
-            ok[c] = fmaf(dsi, qs[i * dh + d0 + 32 * c], ok[c]);
-            ov[c] = fmaf(pdi, gs[i * dh + d0 + 32 * c], ov[c]);
+            ok[c] = fmaf(dsi, as[i * KS + d0 + 32 * c], ok[c]);
+            ov[c] = fmaf(pdi, bs[i * KS + d0 + 32 * c], ov[c]);
           }
       }
 #pragma unroll
@@ -730,6 +782,7 @@ attention_bwd_simt(const float* __restrict__ q, const float* __restrict__ k,
           dv[base + (size_t)j * D + d0 + 32 * c] = ov[c];
         }
     }
+    __syncwarp();  // the warp's rows are rewritten by the next key
   }
 }
 

@@ -279,8 +279,10 @@ class MultiHeadSelfAttention(nn.Module):
         if self.use_scale:
             scores = scores / torch.tensor(float(d), dtype=scores.dtype).sqrt()
         if mask is not None:
-            key_mask = mask[..., None, None, :].expand(scores.shape)
-            attn = masked_softmax(scores, key_mask)
+            # broadcast over the heads and queries, not expanded: at a
+            # flattened history's L 1,023 an expanded mask is a (B, 8, L, L)
+            # tensor of its own
+            attn = masked_softmax(scores, mask[..., None, None, :])
         else:
             attn = torch.softmax(scores, dim=-1)
         attn = dropout(attn, self.dropout, rng)

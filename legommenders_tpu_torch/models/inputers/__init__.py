@@ -4,3 +4,4 @@ from legommenders_tpu_torch.models.inputers.simple import SimpleInputer
 from legommenders_tpu_torch.models.inputers.single_column import (
     SingleColumnInputer,
 )
+from legommenders_tpu_torch.models.inputers.flatten import FlattenSeqInputer

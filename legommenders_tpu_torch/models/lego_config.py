@@ -23,7 +23,9 @@ history matrix. An item operator that declares `num_cols` / `cols` gets
 the item columns' count / specs (CNNCat builds a block per column); a
 predictor that declares `input_dim` gets the user representation's width
 (MINER's projection, the CTR heads' layers), which must then equal the
-item representation's.
+item representation's. A flatten-mode user operator (FlattenTransformer,
+FlattenFastformer) gets its own inputer over the item columns (JAX
+:183-229), and the model no history plan.
 """
 import inspect
 import logging
@@ -97,7 +99,7 @@ class LegoConfig:
     use_item_content: bool = True
     use_fast_eval: bool = True
     item_page_size: int = 0
-    item_page_remat: str = "full"   # "full" | "none" ("dots"/"ffn": slice 6)
+    item_page_remat: str = "full"   # "full" | "none" ("dots"/"ffn": LM knobs)
     full_catalog_encode: str = "auto"
     cache_page_size: int = 512
     item_config: dict = field(default_factory=dict)
@@ -185,10 +187,13 @@ class LegoConfig:
 
         user_op_cls = OPERATORS[self.user_operator]
         pred_cls = PREDICTORS[self.predictor]
-        if user_op_cls.flatten_mode:
+        flatten = bool(user_op_cls.flatten_mode)
+        if flatten and getattr(user_op_cls.inputer_class,
+                               "consumes_user_cols", False):
             raise NotImplementedError(
-                f"flatten-mode user operator {self.user_operator} is not "
-                f"ported yet")
+                f"{self.user_operator}: a flatten-mode user operator over "
+                f"user-store columns (the semantic family) is not ported "
+                f"yet (ROADMAP.md, queue 1, item 6c)")
         eh = hub.build(self.dtype)
 
         item_op = item_inputer = None
@@ -205,6 +210,18 @@ class LegoConfig:
             hidden_size=self.hidden_size, input_dim=item_dim)
         ucfg = _filter_fields(ucfg, user_op_cls, "user_config")
         user_op = user_op_cls(dtype=self.dtype, **ucfg)
+
+        user_inputer = None
+        if flatten:
+            # the user operator reads the history's item columns itself,
+            # flattened by its own inputer (JAX :201-229)
+            u_inputer_cfg = _filter_fields(
+                dict(self.user_config.get("inputer_config") or {}),
+                user_op_cls.inputer_class, "user_config.inputer_config")
+            col, vocab, _ = item_cols[0]
+            user_inputer = user_op_cls.inputer_class(
+                cols=item_cols, dtype=self.dtype, dim=eh.dim_of(vocab, col),
+                **u_inputer_cfg)
 
         pcfg = combine_config(dict(self.predictor_config),
                               hidden_size=self.hidden_size)
@@ -233,7 +250,7 @@ class LegoConfig:
             catalog_plans = build_catalog_plans(
                 {c: contents.columns[c] for c, _, _ in item_cols},
                 contents.col_vocabs, eh.specs) or None
-            hm = data.history_matrix()
+            hm = None if flatten else data.history_matrix()
             if hm is not None and getattr(hm, "ndim", 0) == 2:
                 history_plan = HistoryGradPlan(np.asarray(hm),
                                                contents.num_items,
@@ -245,6 +262,7 @@ class LegoConfig:
             user_op=user_op,
             predictor=predictor,
             item_inputer=item_inputer,
+            user_inputer=user_inputer,
             item_page_size=self.item_page_size,
             item_page_remat=self.item_page_remat,
             full_catalog_encode=self.full_catalog_encode,

@@ -25,7 +25,10 @@ embedding tables (reference model/legommender.py:55-263).
     occurrence in one pass. Without item content (`use_item_content`
     false: no item operator or inputer) candidates and clicks are rows of
     the item-id table (`item_id_embedding`, ids clipped into it); the
-    clicks are not masked before the user operator, as in JAX.
+    clicks are not masked before the user operator, as in JAX. In
+    flatten mode (a FlattenTransformer / FlattenFastformer user) the
+    candidates are encoded per occurrence and the user operator reads the
+    clicks' tokens through its own `user_inputer` (`encode_user_flatten`).
 `rng` is the explicit dropout generator of a training forward; None is
 eval mode (JAX `training=False`). A paged forward draws one seed per page
 from it before the page runs and gives the page a generator of its own
@@ -54,6 +57,7 @@ from legommenders_tpu_torch.models.embedding import (
     EmbeddingTables, PlannedTables,
 )
 from legommenders_tpu_torch.models.inputers.base import BaseInputer
+from legommenders_tpu_torch.models.lm.layers import LM_KNOBS
 from legommenders_tpu_torch.models.operators.base import BaseOperator
 from legommenders_tpu_torch.models.operators.lm_ops import (
     LM_HIDDEN_KEY, LM_MASK_KEY,
@@ -68,7 +72,9 @@ LM_REMAT_POLICIES = ("dots", "ffn")
 class Legommender(nn.Module):
     def __init__(self, eh: EmbeddingTables, item_op: Optional[BaseOperator],
                  user_op: BaseOperator, predictor: BasePredictor,
-                 item_inputer: Optional[BaseInputer], item_page_size: int = 0,
+                 item_inputer: Optional[BaseInputer],
+                 user_inputer: Optional[BaseInputer] = None,
+                 item_page_size: int = 0,
                  item_page_remat: str = "full",
                  full_catalog_encode: str = "auto",
                  catalog_plans: Optional[dict] = None,
@@ -76,8 +82,7 @@ class Legommender(nn.Module):
         super().__init__()
         if item_page_remat in LM_REMAT_POLICIES:
             raise NotImplementedError(
-                f"item_page_remat={item_page_remat!r} is an LM knob, not "
-                f"ported yet (ROADMAP.md, queue 1, slice 6)")
+                f"item_page_remat={item_page_remat!r}: {LM_KNOBS}")
         if item_page_remat not in REMAT_POLICIES:
             raise ValueError(f"item_page_remat={item_page_remat!r}: one of "
                              f"{REMAT_POLICIES + LM_REMAT_POLICIES}")
@@ -89,6 +94,7 @@ class Legommender(nn.Module):
         self.user_op = user_op
         self.predictor = predictor
         self.item_inputer = item_inputer
+        self.user_inputer = user_inputer
         self.item_page_size = int(item_page_size or 0)
         self.item_page_remat = item_page_remat
         self.full_catalog_encode = full_catalog_encode
@@ -103,9 +109,15 @@ class Legommender(nn.Module):
         item-id table."""
         return self.item_op is not None
 
+    @property
+    def flatten_mode(self) -> bool:
+        """The user operator reads the flattened click history (its own
+        inputer over the clicks' item columns), not click vectors."""
+        return bool(type(self.user_op).flatten_mode)
+
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        for part in (self.eh, self.item_inputer, self.item_op, self.user_op,
-                     self.predictor):
+        for part in (self.eh, self.item_inputer, self.item_op,
+                     self.user_inputer, self.user_op, self.predictor):
             if part is not None:
                 part.reset_parameters(generator)
 
@@ -221,6 +233,15 @@ class Legommender(nn.Module):
         """clicks (B, S, D) click vectors + mask (B, S) -> user repr."""
         return self.user_op(clicks, mask, rng=rng)
 
+    def encode_user_flatten(self, contents: Dict[str, torch.Tensor],
+                            rng: Optional[torch.Generator] = None
+                            ) -> torch.Tensor:
+        """Flatten mode: the clicks' item columns {col: (B, S, L)}, -1
+        where a click is padded -> the user repr, through the user
+        operator's own inputer (JAX :242-247)."""
+        emb, mask = self.user_inputer.get_embeddings(self.eh, contents, rng)
+        return self.user_op(emb, mask, rng=rng)
+
     def score_cached(self, user_repr: torch.Tensor,
                      item_repr: torch.Tensor) -> torch.Tensor:
         """Fast-eval path: precomputed reprs -> scores (B, K)."""
@@ -244,6 +265,16 @@ class Legommender(nn.Module):
         num_items = next(iter(item_contents.values())).shape[0]
         safe_cand = cand_ids.clamp(0, num_items - 1)
         safe_hist = hist_ids.clamp(0, num_items - 1)
+        if self.flatten_mode:
+            # candidates encoded per occurrence; the user operator reads
+            # the clicks' tokens, padded clicks' all -1 (JAX :295-310)
+            cand = {c: a[safe_cand] for c, a in item_contents.items()}
+            item_repr = self.encode_item_content(cand, rng)
+            hist = {c: torch.where(click_mask[..., None] > 0, a[safe_hist],
+                                   -1)
+                    for c, a in item_contents.items()}
+            user_repr = self.encode_user_flatten(hist, rng)
+            return self.predictor(user_repr, item_repr, rng)
         use_catalog = self.full_catalog_encode == "on" or (
             self.full_catalog_encode == "auto"
             and num_items <= 2 * B * (K + S))

@@ -31,8 +31,14 @@ where JAX applies stop_gradient); the LoRA factors (q and v) stay
 trainable, their gradient flowing through the fold. Every dropout site
 (hidden, attention probabilities, LoRA input, embedding stage) and the
 attention kernel's seed draw from the explicit generator `rng` handed to
-`forward`; `rng=None` is eval mode. `fused_qkv`, `pipeline_stages` and
-`collect_pooled` (IISAN) raise NotImplementedError.
+`forward`; `rng=None` is eval mode. `fused_qkv` and `pipeline_stages`
+raise NotImplementedError.
+
+IISAN. With `collect_pooled` a slice returns, instead of its last hidden
+states, the masked mean of every layer's output over the item's tokens
+(after un-packing), (B, num_layers, D), before any `final_norm`; the mask
+is cast to `dtype` and the sum and the division are taken there, as JAX
+takes them (`LayerMeans`).
 """
 from typing import Optional
 
@@ -159,6 +165,24 @@ def pack_group_size(L: int, requested: int) -> int:
     if requested < 0:
         return max(1, 128 // max(L, 1))
     return max(1, requested)
+
+
+class LayerMeans:
+    """The per-layer masked means of a slice with `collect_pooled` (JAX
+    layers.py:600-617): each layer's output, un-packed to (B, L, D), times
+    the mask in `dtype`, summed over L and divided by max(count, 1)."""
+
+    def __init__(self, mask: torch.Tensor, dtype: torch.dtype):
+        self.m = mask.to(dtype)[:, :, None]
+        self.denom = self.m.sum(dim=1).clamp_min(1.0)
+        self.means = []
+
+    def add(self, x: torch.Tensor, B: int, L: int, packed: bool):
+        xi = x.reshape(-1, L, x.shape[-1])[:B] if packed else x
+        self.means.append((xi * self.m).sum(dim=1) / self.denom)
+
+    def stacked(self) -> torch.Tensor:
+        return torch.stack(self.means, dim=1)
 
 
 def pack_items(x: torch.Tensor, mask: torch.Tensor, group: int):
@@ -314,8 +338,7 @@ class BertEncoderSlice(nn.Module):
         super().__init__()
         if pipeline_stages > 1:
             raise NotImplementedError(f"pipeline_stages is {LM_KNOBS}")
-        if collect_pooled:
-            raise NotImplementedError(f"collect_pooled (IISAN) is {LM_KNOBS}")
+        self.collect_pooled = collect_pooled
         self.num_layers = num_layers
         self.start = start
         self.embed = embed and start == 0
@@ -371,8 +394,13 @@ class BertEncoderSlice(nn.Module):
         if G > 1:
             x, mask_p, _ = pack_items(x, mask, G)
             mask_bias = packed_mask_bias(mask_p, L, self.dtype)
+        means = LayerMeans(mask, self.dtype) if self.collect_pooled else None
         for layer in self.layers():
             x = layer(x, mask_bias, rng)
+            if means is not None:
+                means.add(x, B, L, G > 1)
+        if means is not None:
+            return means.stacked()
         if G > 1:
             x = x.reshape(-1, L, D)[:B]
         return x
@@ -572,13 +600,11 @@ class _DecoderSlice(nn.Module):
     causal block-diagonal bias; positions restart per item), the layer
     loop, unpacking and `final_norm`."""
 
-    def _check_knobs(self, fused_qkv, pipeline_stages, collect_pooled):
+    def _check_knobs(self, fused_qkv, pipeline_stages):
         if fused_qkv:
             raise NotImplementedError(f"fused_qkv is {LM_KNOBS}")
         if pipeline_stages > 1:
             raise NotImplementedError(f"pipeline_stages is {LM_KNOBS}")
-        if collect_pooled:
-            raise NotImplementedError(f"collect_pooled (IISAN) is {LM_KNOBS}")
 
     def layers(self):
         return [getattr(self, f"layer_{i}")
@@ -599,8 +625,13 @@ class _DecoderSlice(nn.Module):
             mask_bias = packed_mask_bias(mask_p, L, self.dtype, causal=True)
         else:
             mask_bias = causal_mask_bias(mask, self.dtype)
+        means = LayerMeans(mask, self.dtype) if self.collect_pooled else None
         for layer in self.layers():
             x = self._layer(layer, x, mask_bias, L if G > 1 else 0, rng)
+            if means is not None:
+                means.add(x, B, L, G > 1)
+        if means is not None:
+            return means.stacked()
         if G > 1:
             x = x.reshape(-1, L, D)[:B]
         if self.final_norm is not None:
@@ -627,7 +658,8 @@ class LlamaDecoderSlice(_DecoderSlice):
                  pipeline_stages: int = 0, collect_pooled: bool = False,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        self._check_knobs(fused_qkv, pipeline_stages, collect_pooled)
+        self._check_knobs(fused_qkv, pipeline_stages)
+        self.collect_pooled = collect_pooled
         self.num_layers = num_layers
         self.start = start
         self.attention_pack = attention_pack
@@ -741,7 +773,8 @@ class OPTDecoderSlice(_DecoderSlice):
                  pipeline_stages: int = 0, collect_pooled: bool = False,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        self._check_knobs(fused_qkv, pipeline_stages, collect_pooled)
+        self._check_knobs(fused_qkv, pipeline_stages)
+        self.collect_pooled = collect_pooled
         self.num_layers = num_layers
         self.start = start
         self.attention_pack = attention_pack

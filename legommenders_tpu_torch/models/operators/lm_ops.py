@@ -19,8 +19,8 @@ heads, qkv biases, GLM's partial interleaved rotary) and OPT (OPTBase,
 OPTLarge), each at the JAX package's defaults (JAX lm_ops.py:168-304); the
 decoders compute in bf16 unless `lm_dtype` says otherwise. The lower slice
 also takes the fused attention kernel (the JAX lower slice runs XLA's
-attention: the same f32-softmax math at f32). The IISAN operators
-(BertIISAN, LlamaIISAN, OPTIISAN, GLMIISAN) raise NotImplementedError.
+attention: the same f32-softmax math at f32). The IISAN operators over
+these families are in models/operators/iisan.py.
 """
 from typing import Optional
 
@@ -31,7 +31,7 @@ from torch.nn import functional as F
 from legommenders_tpu_torch.models.common import AdditiveAttention, reset_linear
 from legommenders_tpu_torch.models.inputers.concat import ConcatInputer
 from legommenders_tpu_torch.models.lm.layers import (
-    LM_KNOBS, BertEncoderSlice, LlamaDecoderSlice, OPTDecoderSlice,
+    BertEncoderSlice, LlamaDecoderSlice, OPTDecoderSlice,
 )
 from legommenders_tpu_torch.models.operators.base import BaseOperator
 from legommenders_tpu_torch.utils.registry import OPERATORS
@@ -97,6 +97,16 @@ class LMOperator(BaseOperator):
                       fused_qkv=fused_qkv, norm_bf16=norm_bf16,
                       gelu_approximate=gelu_approximate,
                       attention_pack=attention_pack)
+        self.build(common, lora_fold=lora_fold,
+                   pipeline_stages=pipeline_stages,
+                   dropout_reuse=dropout_reuse,
+                   additive_hidden_size=additive_hidden_size)
+        self.reset_parameters()
+
+    def build(self, common: dict, lora_fold: bool, pipeline_stages: int,
+              dropout_reuse: bool, additive_hidden_size: int):
+        """The slices and the head (JAX `setup`); `common`: the slices'
+        shared options."""
         start = self.resolved_tune_from
         self.lm = self.make_slice(
             start, self.num_hidden_layers - start, trainable=True,
@@ -108,10 +118,9 @@ class LMOperator(BaseOperator):
                 0, start, trainable=False, **common,
                 **self._lora_kwargs(trainable=False))
             self.lm_lower.requires_grad_(False)
-        self.linear = nn.Linear(input_dim, hidden_size)
-        self.pool = AdditiveAttention(hidden_size, additive_hidden_size,
-                                      dtype)
-        self.reset_parameters()
+        self.linear = nn.Linear(self.input_dim, self.hidden_size)
+        self.pool = AdditiveAttention(self.hidden_size, additive_hidden_size,
+                                      self.dtype)
 
     @property
     def use_lm_cache(self) -> bool:
@@ -310,14 +319,3 @@ class OPTLargeOperator(OPTOperator):
     num_layers_default = 24
     num_heads_default = 16
 
-
-class _IISAN(BaseOperator):
-    """The IISAN operators (JAX operators/iisan.py) are not ported."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{type(self).__name__}: IISAN (collect_pooled) is {LM_KNOBS}")
-
-
-for _family in ("Bert", "Llama", "OPT", "GLM"):
-    OPERATORS.register(type(f"{_family}IISANOperator", (_IISAN,), {}))

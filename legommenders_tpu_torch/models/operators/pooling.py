@@ -3,9 +3,9 @@
 The port of the JAX package's models/operators/pooling.py:22-86
 (reference pooling_operator.py:23-61: a masked mean or max per column,
 then the mean, max or concatenation across columns; null_operator.py:
-12-25: the pass-through dict DIN reads; single_column_operator.py). None
-has parameters. SCFlattenOperator (flatten mode) waits for the flatten
-slice (ROADMAP.md, queue 1, item 6): the registry does not know it.
+12-25: the pass-through dict DIN reads; single_column_operator.py) and
+SCFlattenOperator, the single-column identity in flatten mode (JAX
+:89-91). None has parameters.
 """
 from typing import Dict, Optional, Union
 
@@ -92,3 +92,10 @@ class SCSimpleOperator(_Parameterless):
         if embeddings.ndim == 3 and embeddings.shape[-2] == 1:
             return embeddings[..., 0, :]
         return embeddings
+
+
+@OPERATORS.register
+class SCFlattenOperator(SCSimpleOperator):
+    """SCSimple in flatten mode, never cached (JAX pooling.py:89-91)."""
+    flatten_mode = True
+    allow_caching = False

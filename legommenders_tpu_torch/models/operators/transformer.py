@@ -11,7 +11,7 @@ Submodules keep flax's names (`position_embeddings`, `LayerNorm_0`,
 `layer_<i>` {`attn` {q, k, v, out}, `LayerNorm_0`, `Dense_0`, `Dense_1`,
 `LayerNorm_1`}, `Dense_0`; the pool is `attention`, as the bridge names
 flax's `AdditiveAttention_0`). FlattenTransformerOperator (flatten mode)
-is not ported yet (ROADMAP.md, queue 1, item 6).
+is in models/operators/flatten_ops.py.
 """
 from typing import Optional
 

@@ -10,11 +10,13 @@ The kernels replace the Pallas TPU kernel of the JAX package
 (ops/pallas_additive.py `_kernel`, launched by `_forward_pallas`). In the
 JAX package that kernel is opt-in and the default path is `_forward_jnp`;
 in the port the CUDA kernels are the path on the card. `pool_kernel` says
-which of the two takes a call: `additive_pool_tc` (bf16 x on the tensor
-cores, whole items per 128-row tile: every shape the models run) or
-`additive_pool_kernel` (the CUDA cores: f32 x, and every shape the
-tensor-core kernel does not take). The choice is by dtype and shape only;
-a build or launch error of either raises.
+which of the three takes a call: `additive_pool_tc` (bf16 x on the tensor
+cores, whole items per 128-row tile: every item and click pool the models
+run), `additive_pool_long` (any x with L > 128: the flattened histories of
+the flatten user operators; positions streamed through shared memory with
+an online softmax) or `additive_pool_kernel` (the CUDA cores: f32 x, and
+every other shape the tensor-core kernel does not take). The choice is by
+dtype and shape only; a build or launch error of any raises.
 
 `additive_pool` is a torch.autograd.Function. Its forward takes a CPU
 tensor through `additive_pool_reference` and a CUDA tensor through a
@@ -36,6 +38,7 @@ from legommenders_tpu_torch.ops.core import masked_softmax
 MAX_SMEM_BYTES = 232448
 
 TC_KERNEL, SIMT_KERNEL = "additive_pool_tc", "additive_pool_kernel"
+LONG_KERNEL = "additive_pool_long"
 # the tensor-core kernel's widths: x rows of 64 bf16 (one 128-byte swizzled
 # row), H in 64-column wgmma groups, items packed whole into 128-row tiles
 TC_D, TC_H_STEP, TC_MAX_H, TC_TILE_ROWS = 64, 64, 256, 128
@@ -46,10 +49,13 @@ _grids = {}
 
 def pool_kernel(dtype: torch.dtype, L: int, D: int, H: int):
     """The kernel that pools x of this dtype and these widths on the card,
-    and the items one of its tiles holds: (TC_KERNEL, G = 128 // L) for
-    bf16 x with D = 64, H a multiple of 64 up to 256 and L <= 128;
-    (SIMT_KERNEL, 1) otherwise (f32 x, whose 1e-5 gate neither the tensor
-    cores nor the fast tanh meet, and every other width)."""
+    and the items one of its tiles holds: (LONG_KERNEL, 1) for L > 128, of
+    either dtype; (TC_KERNEL, G = 128 // L) for bf16 x with D = 64, H a
+    multiple of 64 up to 256 and L <= 128; (SIMT_KERNEL, 1) otherwise (f32
+    x, whose 1e-5 gate neither the tensor cores nor the fast tanh meet, and
+    every other width)."""
+    if L > TC_TILE_ROWS:
+        return LONG_KERNEL, 1
     if (dtype == torch.bfloat16 and D == TC_D and 1 <= L <= TC_TILE_ROWS
             and H % TC_H_STEP == 0 and TC_H_STEP <= H <= TC_MAX_H):
         return TC_KERNEL, TC_TILE_ROWS // L
@@ -106,6 +112,14 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.additive_pool_tc_prepare.restype = i
     lib.additive_pool_smem_bytes.argtypes = [i, i, i]
     lib.additive_pool_smem_bytes.restype = ctypes.c_size_t
+    lib.additive_pool_long_forward.argtypes = (
+        lib.additive_pool_forward.argtypes)
+    lib.additive_pool_long_forward.restype = i
+    lib.additive_pool_long_prepare.argtypes = [i, i, i, i,
+                                               ctypes.POINTER(ctypes.c_int)]
+    lib.additive_pool_long_prepare.restype = i
+    lib.additive_pool_long_smem_bytes.argtypes = [i, i]
+    lib.additive_pool_long_smem_bytes.restype = ctypes.c_size_t
     lib.additive_pool_error_string.argtypes = [i]
     lib.additive_pool_error_string.restype = ctypes.c_char_p
     return lib
@@ -127,13 +141,19 @@ def _grid(lib, kernel: str, L: int, D: int, H: int, bf16: bool,
         if kernel == TC_KERNEL:
             err = lib.additive_pool_tc_prepare(H, device, ctypes.byref(blocks))
         else:
-            smem = lib.additive_pool_smem_bytes(L, D, H)
+            long = kernel == LONG_KERNEL
+            smem = (lib.additive_pool_long_smem_bytes(D, H) if long
+                    else lib.additive_pool_smem_bytes(L, D, H))
             if smem > MAX_SMEM_BYTES:
                 raise ValueError(f"additive_pool: L={L} D={D} H={H} need "
                                  f"{smem} B of shared memory, more than "
                                  f"{MAX_SMEM_BYTES}")
-            err = lib.additive_pool_prepare(L, D, H, int(bf16), device,
-                                            ctypes.byref(blocks))
+            if long:
+                err = lib.additive_pool_long_prepare(D, H, int(bf16), device,
+                                                     ctypes.byref(blocks))
+            else:
+                err = lib.additive_pool_prepare(L, D, H, int(bf16), device,
+                                                ctypes.byref(blocks))
         _check(lib, err, "prepare")
         _grids[key] = blocks.value
     return _grids[key]
@@ -190,7 +210,9 @@ def _forward(x, mask, w1, b1, w2):
                 b1f.data_ptr(), w2f.data_ptr(), out.data_ptr(), N, L, H, G,
                 blocks, dev, stream)
         else:
-            err = lib.additive_pool_forward(
+            launch = (lib.additive_pool_long_forward if kernel == LONG_KERNEL
+                      else lib.additive_pool_forward)
+            err = launch(
                 x.data_ptr(), maskf.data_ptr(), w1f.data_ptr(),
                 b1f.data_ptr(), w2f.data_ptr(), out.data_ptr(), N, L, D, H,
                 int(bf16), blocks, dev, stream)

@@ -12,11 +12,12 @@ EPS = 1e-8
 
 def masked_softmax(scores: torch.Tensor, mask: torch.Tensor,
                    dim: int = -1) -> torch.Tensor:
-    """Numerically-stable softmax over `dim` with a 0/1 `mask`; all-masked
-    rows return zeros."""
+    """Numerically-stable softmax over `dim` with a 0/1 `mask` (of the
+    scores' shape, or one that broadcasts to it: a key mask is not
+    expanded over the queries); all-masked rows return zeros."""
     mask = mask.to(scores.dtype)
     neg = torch.finfo(scores.dtype).min
-    masked_scores = torch.where(mask > 0, scores, torch.full_like(scores, neg))
+    masked_scores = scores.masked_fill(~(mask > 0), neg)
     m = masked_scores.amax(dim=dim, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     e = torch.exp(masked_scores - m) * mask

@@ -1,9 +1,10 @@
 """LM layer-split caching: the lower slice's hidden states for every item.
 
-The port of the JAX package's runtime/lm_cache.py:30-154 (reference
-once_operator.py:101-134 and loader/pager/lm_layer_pager.py), without
-IISAN. The frozen lower `tune_from` layers run once over every item, page
-by page on the device under torch.no_grad() at dropout 0; the (N, L, D)
+The port of the JAX package's runtime/lm_cache.py:30-185 (reference
+once_operator.py:101-134, loader/pager/lm_layer_pager.py and, for IISAN,
+iisan_operator.py:115-151). The frozen lower `tune_from` layers run once
+over every item, page by page on the device under torch.no_grad() at
+dropout 0; the (N, L, D)
 hidden states and (N, L) masks stay on the device as content columns
 (LM_HIDDEN_KEY / LM_MASK_KEY) that the train step gathers from.
 
@@ -19,6 +20,12 @@ category) becomes 32, T = 128. Built on the device, the pages are written
 into one buffer of the padded shape, and the NaN scrub reads it a block
 of rows at a time: the Llama-7B geometry's cache is 17 GB, and a second
 copy of it (a concatenation, a pad) would not fit beside the model.
+
+IISAN (`load_or_build_iisan_cache`): the frozen LM's per-layer pooled
+states (N, num_hidden_layers, D) are built in f32 once, page by page into
+one buffer, NaN rows scrubbed, and kept on disk (optional) as
+<op>iisan/torch_states.<sig>.npy; only the selected layers (N, H_sel, D)
+stay on the device, under LM_HIDDEN_KEY, with an (N, 1) mask of ones.
 """
 import hashlib
 import os
@@ -59,14 +66,14 @@ def arch_key(op) -> str:
             f"fused_qkv={bool(getattr(op, 'fused_qkv', False))}")
 
 
-def scrub_nans(hidden: torch.Tensor, mask: torch.Tensor, seed: int = 0,
-               rows: int = 4096):
+def scrub_nans(hidden: torch.Tensor, mask: Optional[torch.Tensor],
+               seed: int = 0, rows: int = 4096):
     """Rows with a NaN get random values in [0, 1) (drawn in row order);
-    an item with such a row keeps only its first position in the mask. In
-    place, `rows` items at a time."""
+    an item with such a row keeps only its first position in the mask (if
+    one is given). In place, `rows` items at a time."""
     rng = np.random.default_rng(seed)
     for s in range(0, hidden.shape[0], rows):
-        block, block_mask = hidden[s:s + rows], mask[s:s + rows]
+        block = hidden[s:s + rows]
         nan_pos = torch.isnan(block).any(dim=-1)
         if not bool(nan_pos.any()):
             continue
@@ -74,9 +81,11 @@ def scrub_nans(hidden: torch.Tensor, mask: torch.Tensor, seed: int = 0,
         block[nan_pos] = torch.as_tensor(
             rng.random((n, hidden.shape[-1])), dtype=hidden.dtype,
             device=hidden.device)
-        nan_item = nan_pos.any(dim=-1)
-        block_mask[nan_item] = 0
-        block_mask[nan_item, 0] = 1
+        if mask is not None:
+            block_mask = mask[s:s + rows]
+            nan_item = nan_pos.any(dim=-1)
+            block_mask[nan_item] = 0
+            block_mask[nan_item, 0] = 1
     return hidden, mask
 
 
@@ -146,3 +155,55 @@ def load_or_build_lm_cache(model, contents: Dict[str, torch.Tensor],
         np.save(hpath, hidden.float().cpu().numpy())
         np.save(mpath, mask.cpu().numpy())
     return device_entries(hidden, mask, device_dtype, device)
+
+
+@torch.no_grad()
+def build_iisan_states(model, contents: Dict[str, torch.Tensor],
+                       page_size: int = 256) -> torch.Tensor:
+    """The IISAN operator's frozen LM over every item, `page_size` items at
+    a time on the contents' device, each page's per-layer pooled states
+    written into one f32 buffer (N, num_hidden_layers, D), NaNs
+    scrubbed."""
+    n = next(iter(contents.values())).shape[0]
+    states = None
+    for s in range(0, n, page_size):
+        pooled, _ = model.encode_item_lower(
+            {c: a[s:s + page_size] for c, a in contents.items()})
+        if states is None:
+            states = torch.empty((n,) + tuple(pooled.shape[1:]),
+                                 dtype=torch.float32, device=pooled.device)
+        states[s:s + len(pooled)] = pooled
+    return scrub_nans(states, None)[0]
+
+
+def load_or_build_iisan_cache(model, contents: Dict[str, torch.Tensor],
+                              data_name: str, operator_name: str,
+                              selected_layers, page_size: int = 256,
+                              root: Optional[str] = "cache",
+                              ) -> Dict[str, torch.Tensor]:
+    """The IISAN cache's content columns on the contents' device (JAX
+    lm_cache.py:157-185): the selected layers' states (N, H_sel, D) f32
+    under LM_HIDDEN_KEY and an (N, 1) mask of ones under LM_MASK_KEY. With
+    `root`, the f32 all-layer states are read from
+    <root>/<data>/<op>iisan/ if present, else built and written there;
+    with root None they are built on the device and nothing is written."""
+    device = next(iter(contents.values())).device
+    states = None
+    if root is not None:
+        sig = weights_fingerprint(model.item_op,
+                                  extra=arch_key(model.item_op))
+        d = cache_dir(data_name, f"{operator_name}iisan", root)
+        spath = os.path.join(d, f"torch_states.{sig}.npy")
+        if os.path.isfile(spath):
+            states = torch.from_numpy(np.load(spath))
+            scrub_nans(states, None)
+    if states is None:
+        states = build_iisan_states(model, contents, page_size)
+        if root is not None:
+            os.makedirs(d, exist_ok=True)
+            np.save(spath, states.cpu().numpy())
+    sel = states[:, list(selected_layers)].to(device).contiguous()
+    del states
+    return {LM_HIDDEN_KEY: sel,
+            LM_MASK_KEY: torch.ones((sel.shape[0], 1), dtype=torch.int32,
+                                    device=device)}

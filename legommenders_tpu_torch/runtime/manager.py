@@ -26,7 +26,9 @@ from legommenders_tpu_torch.models.lm import hf_loader
 from legommenders_tpu_torch.models.lego_config import DTYPE_NAMES, LegoConfig
 from legommenders_tpu_torch.models.operators.lm_ops import LMOperator
 from legommenders_tpu_torch.runtime.cacher import ReprCache
-from legommenders_tpu_torch.runtime.lm_cache import load_or_build_lm_cache
+from legommenders_tpu_torch.runtime.lm_cache import (
+    load_or_build_iisan_cache, load_or_build_lm_cache,
+)
 from legommenders_tpu_torch.runtime.evaluator import Evaluator
 from legommenders_tpu_torch.utils.device import resolve_device
 from legommenders_tpu_torch.utils.logging import get_logger
@@ -79,22 +81,33 @@ class Manager:
         item operator is an LMOperator with `tune_from`, build (or, with a
         cache `root`, load) the lower slice's hidden states and add them to
         `self.contents.columns` (and the repr cache's contents) on the
-        manager's device, in the operator's lm_dtype. `root=None` builds on
-        the device and writes nothing. Returns whether it did."""
+        manager's device, in the operator's lm_dtype; for an IISAN operator
+        its LM's pooled states of the selected layers (f32). `root=None`
+        builds on the device and writes nothing. Returns whether it did."""
         op = self.model.item_op
         if not isinstance(op, LMOperator) or not op.use_lm_cache:
             return False
-        extra = load_or_build_lm_cache(
-            self.model, dict(self.contents.columns),
-            data_name=self.data.name, operator_name=op.transformer_key,
-            layer=op.resolved_tune_from,
-            page_size=self.lego_cfg.cache_page_size, root=root,
-            device_dtype=op.lm_dtype)
+        if getattr(op, "is_iisan", False):
+            # every layer's pooled states once; the selected ones kept
+            extra = load_or_build_iisan_cache(
+                self.model, dict(self.contents.columns),
+                data_name=self.data.name, operator_name=op.transformer_key,
+                selected_layers=op.get_selected_layers(),
+                page_size=self.lego_cfg.cache_page_size, root=root)
+            frozen = op.lm
+        else:
+            extra = load_or_build_lm_cache(
+                self.model, dict(self.contents.columns),
+                data_name=self.data.name, operator_name=op.transformer_key,
+                layer=op.resolved_tune_from,
+                page_size=self.lego_cfg.cache_page_size, root=root,
+                device_dtype=op.lm_dtype)
+            frozen = op.lm_lower
         self.contents.columns.update(extra)
         if self.cache is not None:
             self.cache.item_contents.update(extra)
-        # nothing runs the lower slice after this: its kept casts go
-        drop_cached_casts(op.lm_lower)
+        # nothing runs the frozen slice after this: its kept casts go
+        drop_cached_casts(frozen)
         return True
 
     def _caching_allowed(self) -> bool:
@@ -166,8 +179,11 @@ class Manager:
             return False
         start, n = op.resolved_tune_from, op.num_hidden_layers
         slice_params = maps[op.hf_family]
+        # an IISAN operator's `lm` is its frozen whole LM, without the
+        # trainable slice's final norm
+        top = not getattr(op, "is_iisan", False)
         hf_loader.merge_lm_params(self.model, slice_params(
-            start, n - start, True), "item_op.lm")
+            start, n - start, top), "item_op.lm")
         if start > 0:
             hf_loader.merge_lm_params(self.model, slice_params(
                 0, start, False), "item_op.lm_lower")

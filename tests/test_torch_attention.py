@@ -246,9 +246,11 @@ def test_unported_knobs_raise():
     with pytest.raises(NotImplementedError, match="LM knobs"):
         layers.BertEncoderSlice(num_layers=2, dim=8, num_heads=2,
                                 pipeline_stages=2)
+    # IISAN's collect_pooled is ported (tests/test_torch_iisan.py); JAX
+    # refuses it under pipeline_stages, which raises here first
     with pytest.raises(NotImplementedError, match="LM knobs"):
-        layers.BertEncoderSlice(num_layers=1, dim=8, num_heads=2,
-                                collect_pooled=True)
+        layers.BertEncoderSlice(num_layers=2, dim=8, num_heads=2,
+                                pipeline_stages=2, collect_pooled=True)
     # the decoder slices are ported (tests/test_torch_decoder.py); their
     # knobs of a later slice raise as BERT's do
     with pytest.raises(NotImplementedError, match="LM knobs"):
@@ -256,4 +258,4 @@ def test_unported_knobs_raise():
                                  pipeline_stages=2)
     with pytest.raises(NotImplementedError, match="LM knobs"):
         layers.OPTDecoderSlice(num_layers=1, dim=8, num_heads=2,
-                               collect_pooled=True)
+                               fused_qkv=True, collect_pooled=True)

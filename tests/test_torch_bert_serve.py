@@ -260,7 +260,7 @@ def test_unported_modes_raise():
     for policy in ("ffn", "dots"):
         cfg = model_cfg("f32")
         cfg["config"]["item_page_remat"] = policy
-        with pytest.raises(NotImplementedError, match="slice 6"):
+        with pytest.raises(NotImplementedError, match="'LM knobs'"):
             Manager(model_cfg=cfg, data=data, device="cpu")
     cfg = model_cfg("f32")
     cfg["meta"]["item"] = "Llama"

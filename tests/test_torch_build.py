@@ -89,7 +89,8 @@ def test_profiled_names_are_kernels_of_the_sources():
     # the kernels the main paths launch are the tensor-core ones
     assert chip_smoke.MAIN_POOL_KERNEL == additive.TC_KERNEL
     assert set(chip_smoke.KERNEL_NAMES["additive_pool"]) == {
-        additive.TC_KERNEL, additive.SIMT_KERNEL}
+        additive.TC_KERNEL, additive.SIMT_KERNEL, additive.LONG_KERNEL}
+    assert chip_smoke.LONG_POOL_KERNEL == additive.LONG_KERNEL
     assert "attention_fwd_tc" in chip_smoke.KERNEL_NAMES["packed_attention"]
     assert "attention_bwd_tc" in \
         chip_smoke.KERNEL_NAMES["packed_attention_backward"]
@@ -160,7 +161,19 @@ def test_tensor_core_kernel_takes_whole_items_per_tile(dtype, L, D, H, G):
     (torch.bfloat16, 31, 128, 256),   # D 128
     (torch.float16, 31, 64, 256)])    # a dtype the tensor-core kernel lacks
 def test_other_pools_take_the_cuda_core_kernel(dtype, L, D, H):
-    assert additive.pool_kernel(dtype, L, D, H) == (additive.SIMT_KERNEL, 1)
+    # past one tile, the CUDA-core kernel that streams long sequences
+    want = (additive.LONG_KERNEL if L > additive.TC_TILE_ROWS
+            else additive.SIMT_KERNEL)
+    assert additive.pool_kernel(dtype, L, D, H) == (want, 1)
+
+
+@pytest.mark.parametrize("dtype,L,D,H", [
+    (torch.float32, 129, 64, 256), (torch.bfloat16, 495, 64, 64),
+    (torch.float32, 1023, 64, 64), (torch.bfloat16, 1023, 768, 256)])
+def test_long_pools_take_the_long_kernel(dtype, L, D, H):
+    """Every L > 128, of either dtype and any width: the flattened
+    histories (495, 1,023) and one past a tile."""
+    assert additive.pool_kernel(dtype, L, D, H) == (additive.LONG_KERNEL, 1)
 
 
 def test_pool_timer_times_the_smoke_runs_pool_shapes():

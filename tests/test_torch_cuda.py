@@ -26,7 +26,11 @@ kernel names must show it took those and the CUDA-core pool f32 and the
 odd shapes. The run loop on the card (a 150-item NAML fixture, f32): four
 Trainer steps on host batches and on device batches, a checkpoint round
 trip of CUDA tensors (exact), and full-forward scores against cached ones
-(1e-5).
+(1e-5). The f32 backward (attention_bwd_simt, its operands streamed: no
+T x T tile) at head width 128: T 128 (the Llama training page), 117 and
+116, with and without dropout; the long-sequence pool
+(additive_pool_long) at L 129, 495 and 1,023, f32 and bf16, all-masked
+items exactly 0.
 """
 import os
 import sys
@@ -120,7 +124,7 @@ def test_wrapper_refuses(device):
 # the tensor-core pool (additive_pool_tc): bf16, whole items per 128-row tile
 # ---------------------------------------------------------------------------
 from legommenders_tpu_torch.ops.additive import (  # noqa: E402
-    SIMT_KERNEL, TC_KERNEL, pool_kernel,
+    LONG_KERNEL, SIMT_KERNEL, TC_KERNEL, pool_kernel,
 )
 
 SMS = 132  # the H100's persistent grid
@@ -255,7 +259,8 @@ def test_tc_pool_zoo_shapes_match_plain(device, N, L, H):
 def test_pool_kernels_by_profiled_name(device):
     """Under torch.profiler: every tensor-core case above launches
     additive_pool_tc, and f32 and the odd shapes launch
-    additive_pool_kernel (f32 within 1e-5, bf16 within 2e-2)."""
+    additive_pool_kernel (f32 within 1e-5, bf16 within 2e-2), and L > 128
+    launches additive_pool_long."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -275,9 +280,12 @@ def test_pool_kernels_by_profiled_name(device):
     for args in simt:
         assert pool_kernel(args[0].dtype, *args[0].shape[1:],
                            args[2].shape[1])[0] == SIMT_KERNEL
+    # past one tile, either dtype: the long-sequence kernel
+    long = [_inputs(N, L, 64, H, device, dt) for N, L, H, dt in (
+        (5, 129, 256, torch.bfloat16), (7, 495, 64, torch.float32))]
     torch.cuda.synchronize()
     with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
-        outs = [additive_pool(*args) for args in tc + simt]
+        outs = [additive_pool(*args) for args in tc + simt + long]
         torch.cuda.synchronize()
     evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
@@ -286,6 +294,7 @@ def test_pool_kernels_by_profiled_name(device):
 
     assert launches(TC_KERNEL) == len(tc)
     assert launches(SIMT_KERNEL) == len(simt)
+    assert launches(LONG_KERNEL) == len(long)
     with torch.no_grad():
         for args, got in zip(simt, outs[len(tc):]):
             want = additive_pool_reference(args[0].float(), *args[1:])
@@ -303,7 +312,7 @@ from legommenders_tpu_torch.models.lm.layers import (  # noqa: E402
     pack_items, packed_mask_bias,
 )
 from legommenders_tpu_torch.ops.attention import (  # noqa: E402
-    MAX_SMEM_BYTES, dropout_bits_reference, dropout_keep_mask,
+    dropout_bits_reference, dropout_keep_mask,
     keep_threshold, packed_attention, packed_attention_backward,
     reference_attention, reference_attention_backward,
 )
@@ -420,8 +429,11 @@ def test_attention_wrapper_refuses(device):
         wide = torch.zeros(1, 128, 2 * 256, device=device)
         packed_attention(2, 0.0, wide, wide, wide,
                          torch.zeros(1, 128, 128, device=device))
+    # the f32 backward takes dh 128 at every T since its operands stream
+    # (test_f32_backward_at_head_width_128); dh 256 is still past its
+    # shared memory at T 128
     with pytest.raises(ValueError, match="shared memory"):
-        wide = torch.zeros(1, 128, 2 * 128, device=device)
+        wide = torch.zeros(1, 128, 2 * 256, device=device)
         packed_attention_backward(2, 0.0, wide, wide, wide,
                                   torch.zeros(1, 128, 128, device=device),
                                   None, wide)
@@ -430,10 +442,6 @@ def test_attention_wrapper_refuses(device):
 # ---------------------------------------------------------------------------
 # dropout, backward and keep mask
 # ---------------------------------------------------------------------------
-def _bwd_simt_bytes(T, dh):
-    return (2 * T * (dh + 1) + 2 * T * T + 4 * 2 * dh) * 4
-
-
 def _close(got, want, dtype):
     err = (got.float() - want.float()).abs().max().item()
     if dtype == "f32":
@@ -457,10 +465,6 @@ def test_attention_dropout_and_backward_match_plain(device, B, T, heads, dh,
         got = packed_attention(heads, p, q, k, v, bias, seed)
         want = reference_attention(heads, p, q, k, v, bias, keep)
     assert _close(got, want, dtype)
-    if dtype == "f32" and _bwd_simt_bytes(T, dh) > MAX_SMEM_BYTES:
-        with pytest.raises(ValueError, match="shared memory"):
-            packed_attention_backward(heads, p, q, k, v, bias, seed, g)
-        return
     before = packed_attention_backward.launches
     got = packed_attention_backward(heads, p, q, k, v, bias, seed, g)
     want = reference_attention_backward(heads, p, q, k, v, bias, g, keep)
@@ -862,6 +866,46 @@ def test_simt_pool_ctr_shapes_match_plain(device, N, H):
     assert (got[0] == 0).all()
 
 
+# ---------------------------------------------------------------------------
+# the long-sequence pool (additive_pool_long): every L > 128
+# ---------------------------------------------------------------------------
+# (N, L, H): one past a tile, the flattened histories of the flatten
+# Fastformer (15 clicks of 33 slots: 495) and the flatten Transformer (31
+# clicks: 1,023), D 64
+LONG_POOL_CASES = [(37, 129, 256), (64, 495, 64), (300, 1023, 64),
+                   (5, 1023, 256)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("N,L,H", LONG_POOL_CASES)
+def test_long_pool_matches_plain(device, N, L, H, dtype):
+    """additive_pool_long against the plain version: f32 within 1e-5, bf16
+    within 2e-2 of the largest output; item 0 all masked gives exactly 0,
+    one item masked but for its last position, one fully valid (the
+    profiler's name for it: test_pool_kernels_by_profiled_name)."""
+    tdtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    args = _inputs(N, L, 64, H, device, tdtype)
+    x, mask = args[0], args[1]
+    mask[1] = 0.0
+    mask[1, -1] = 1.0
+    mask[2] = 1.0
+    assert pool_kernel(tdtype, L, 64, H) == (LONG_KERNEL, 1)
+    before = additive_pool.launches
+    with torch.no_grad():
+        got = additive_pool(*args)
+        want = additive_pool_reference(x.float(), *args[1:])
+    torch.cuda.synchronize()
+    assert additive_pool.launches == before + 1
+    assert got.dtype == tdtype and got.shape == (N, 64)
+    assert torch.isfinite(got.float()).all()
+    assert (got[0] == 0).all()
+    err = (got.float() - want).abs().max()
+    if dtype == "f32":
+        assert err.item() <= 1e-5
+    else:
+        assert (err / want.abs().max()).item() <= 2e-2
+
+
 CTR_ID_MODELS = ("dnn_id", "pnn_id", "deepfm_id", "dcn_id", "dcnv2_id",
                  "gdcn_id", "autoint_id", "masknet_id", "finalmlp_id",
                  "din_id", "naml_id", "nrms_id", "miner_id")
@@ -915,7 +959,8 @@ def test_ctr_id_models_on_card_match_cpu(device, name):
 DECODER_ATTN_CASES = [(128, 124, 32, 128, 31), (128, 128, 32, 128, 32),
                       (171, 102, 32, 128, 34), (171, 120, 32, 128, 40),
                       (128, 124, 12, 64, 31), (171, 120, 12, 64, 40),
-                      (5, 117, 4, 128, 39), (3, 9, 2, 128, 9)]
+                      (5, 117, 4, 128, 39), (5, 116, 4, 128, 29),
+                      (3, 9, 2, 128, 9)]
 
 
 def _causal_inputs(B, T, heads, dh, L, device, dtype=torch.bfloat16):
@@ -937,8 +982,7 @@ def _causal_inputs(B, T, heads, dh, L, device, dtype=torch.bfloat16):
 def test_decoder_attention_matches_plain(device, B, T, heads, dh, L):
     """bf16 forward and backward at dropout 0 (the decoders pass 0) with
     causal packed biases, within 2e-2 of the largest output of the plain
-    versions; f32 (forward, and the backward where the CUDA-core kernel's
-    shared memory holds it) within 1e-5."""
+    versions; f32 (forward and backward) within 1e-5."""
     for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         q, k, v, bias = _causal_inputs(B, T, heads, dh, L, device, dtype)
         g = torch.randn(q.shape, generator=torch.Generator().manual_seed(T)
@@ -948,8 +992,6 @@ def test_decoder_attention_matches_plain(device, B, T, heads, dh, L):
             want = reference_attention(heads, 0.0, q, k, v, bias)
             assert torch.isfinite(got.float()).all()
             assert _close(got, want, name), name
-            if name == "f32" and _bwd_simt_bytes(T, dh) > MAX_SMEM_BYTES:
-                continue
             grads = packed_attention_backward(heads, 0.0, q, k, v, bias,
                                               None, g)
             wgrads = reference_attention_backward(heads, 0.0, q, k, v, bias,
@@ -959,6 +1001,35 @@ def test_decoder_attention_matches_plain(device, B, T, heads, dh, L):
             assert _close(a, b, name), name
         del q, k, v, bias, g, got, want
         torch.cuda.empty_cache()
+
+
+# (B, T, heads, dh, L): the f32 backward at head width 128 at the Llama
+# training page (T 128), at T 117 and at T 116 (the last T the kernel took
+# before it streamed its operands)
+F32_BWD_CASES = [(128, 128, 32, 128, 32), (5, 117, 4, 128, 39),
+                 (5, 116, 4, 128, 29)]
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("B,T,heads,dh,L", F32_BWD_CASES)
+def test_f32_backward_at_head_width_128(device, B, T, heads, dh, L, p):
+    """attention_bwd_simt (f32, shared memory linear in T) at dh 128 with
+    causal packed biases, with and without dropout (the mask kernel's
+    mask given to the plain backward), within 1e-5."""
+    q, k, v, bias = _causal_inputs(B, T, heads, dh, L, device, torch.float32)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(T)
+                    ).to(device)
+    seed = torch.tensor([77 + T], dtype=torch.int32, device=device)
+    keep = dropout_keep_mask(heads, p, B, T, seed) if p > 0 else None
+    before = packed_attention_backward.launches
+    grads = packed_attention_backward(heads, p, q, k, v, bias, seed, g)
+    want = reference_attention_backward(heads, p, q, k, v, bias, g, keep)
+    torch.cuda.synchronize()
+    assert packed_attention_backward.launches == before + 1
+    for a, b in zip(grads, want):
+        assert a.dtype == torch.float32 and a.shape == q.shape
+        assert torch.isfinite(a).all()
+        assert _close(a, b, "f32")
 
 
 DECODER_MODELS = ("llama-naml", "glm-naml", "opt-naml")

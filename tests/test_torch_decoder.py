@@ -259,7 +259,9 @@ def test_opt_positions_follow_valid_tokens():
 @pytest.mark.parametrize("cls", [layers.LlamaDecoderSlice,
                                  layers.OPTDecoderSlice])
 def test_decoder_knobs_not_ported_raise(cls):
+    # collect_pooled (IISAN) is ported; JAX refuses it under
+    # pipeline_stages, which raises
     for knob in (dict(fused_qkv=True), dict(pipeline_stages=2),
-                 dict(collect_pooled=True)):
+                 dict(pipeline_stages=2, collect_pooled=True)):
         with pytest.raises(NotImplementedError, match="LM knobs"):
             cls(num_layers=1, dim=D, num_heads=2, **knob)

@@ -15,8 +15,7 @@ and 2 cross layers), over a 60-item catalog (title 8), eval mode:
     and the Pooling user of llama-dcn as JAX decides, full forwards;
   * the forward's scores on one training batch within 1e-5;
   * the registry builds every YAML's operator class under its YAML name,
-    and the IISAN YAMLs raise NotImplementedError naming their ROADMAP
-    item.
+    the IISAN YAMLs' too.
 """
 import copy
 import os
@@ -167,7 +166,16 @@ def test_bf16_reprs_match_jax(name, jdata, tdata):
                                   "llama-iisan-lstur", "llama-iisan-miner",
                                   "bert-iisan-naml"])
 def test_iisan_yamls_raise(name, tdata):
-    cfg = parser.parse_four_way({"model": name},
-                                config_root=os.path.join(ROOT, "config"))
-    with pytest.raises(NotImplementedError, match="IISAN.*LM knobs"):
-        Manager(model_cfg=cfg.raw()["model"], data=tdata, device="cpu")
+    """The IISAN YAMLs raised until IISAN was ported; they build now
+    (their parity with JAX: tests/test_torch_iisan_models.py), and what
+    JAX refuses with them, `pipeline_stages` over the pooled states,
+    raises."""
+    cfg = model_cfg(name)
+    tm = Manager(model_cfg=cfg, data=tdata, device="cpu")
+    op = tm.model.item_op
+    assert type(op).__name__ == name.split("-")[0].title().replace(
+        "Bert", "BertIISAN").replace("Llama", "LlamaIISAN") + "Operator"
+    assert op.is_iisan and op.get_selected_layers() == [1]
+    cfg["config"]["item_config"]["pipeline_stages"] = 2
+    with pytest.raises(NotImplementedError, match="LM knobs"):
+        Manager(model_cfg=cfg, data=tdata, device="cpu")

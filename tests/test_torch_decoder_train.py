@@ -13,13 +13,14 @@ pipeline fed to both frameworks:
   * 20 Adam steps (lr 1e-3) of the port and of JAX's train step with
     optax.adam, each running free from the same start, in the three
     settings: every loss of the port's steps within 1e-5 relative of JAX's
-    loss at the port's parameters of that step, every parameter within
-    1e-4 of JAX's at the end. (The two runs' losses are not compared with
-    each other: in full-LM mode Adam's per-element normalisation turns f32
+    loss at the port's parameters of that step and, in layer-split mode,
+    of JAX's own free-running loss of that step; every parameter within
+    1e-4 of JAX's at the end. (opt-naml's full-LM run is not held to JAX's
+    free-running loss: there Adam's per-element normalisation turns f32
     rounding in word-table gradients that are cancellations, such as one
     of 2e-5 in a row whose largest is 0.29, into parameter differences of
     ~1e-6 from the second step on, and at a loss of 0.12 that reads as
-    1e-5 relative.)
+    1e-5 relative; FREE_RUN_EXEMPT.)
 Each of the 13 YAMLs runs the port's fused device step (2 steps,
 layer-split at tune_from 1 with pages of 16 under `full` remat, the
 YAML's dropout) and its Trainer (one epoch of 3 steps, dev through the
@@ -64,6 +65,12 @@ BATCH = 8
 # (YAML, tune_from)
 GRADIENTS = [("llama-naml", 1), ("opt-naml", 1), ("opt-naml", None)]
 TRAJECTORIES = GRADIENTS
+# held only against JAX's loss at the port's own parameters of each step:
+# in full-LM mode Adam turns f32 rounding in word-table gradients that are
+# cancellations (2.164e-5 against 2.171e-5 in a row whose largest value is
+# 0.29) into parameter differences of ~1e-6 from step 2 on, and the two
+# free runs' losses drift to 1.01e-5 relative by step 18
+FREE_RUN_EXEMPT = {("opt-naml", None)}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -183,8 +190,11 @@ def test_adam_trajectory_matches_jax(name, tune_from, pairs):
                            jax.random.PRNGKey(i)))
         got = step(bt, torch.Generator().manual_seed(i)).item()
         assert abs(got - want) <= 1e-5 * abs(want), (i, got, want)
-        jparams, opt_state, _ = jstep(jparams, opt_state, bj,
-                                      jax.random.PRNGKey(i))
+        jparams, opt_state, free = jstep(jparams, opt_state, bj,
+                                         jax.random.PRNGKey(i))
+        if (name, tune_from) not in FREE_RUN_EXEMPT:
+            free = float(free)
+            assert abs(got - free) <= 1e-5 * abs(free), (i, got, free)
     final = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
                             model)
     moved = 0
