@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (legommenders_tpu_torch) on one card.
 
 Run from the root of a checkout: `python3 chip_smoke.py` runs every phase;
-`python3 chip_smoke.py --phases 3,10` runs the device, the build, the data
+`python3 chip_smoke.py --phases 3,11` runs the device, the build, the data
 and those phases only (for iterating on them). It needs one CUDA card and
 nvcc (on PATH, or under CUDA_HOME), imports nothing of JAX, prints a
 `[phase]` line with the wall seconds of each phase (the build and the
@@ -67,19 +67,24 @@ and exits non-zero when any phase fails:
        device, 1,270 attention launches; layers 10-11 trained with LoRA
        r 32 folded, hidden and attention dropout 0.1 through
        SharedBitsDropout and the kernel, the 65,000-item catalog encoded
-       every step in 127 pages of 512 under `full` remat): per step 508
-       attention forwards, 254 backwards and 255 pools; 1 warm and 5 timed
-       steps, each to the device's end of it (finite losses, median
-       step ms, impressions/s, peak memory), one more under
-       torch.profiler; then the gradient of every trainable tensor on
-       one batch at dropout 0 (lora_B made non-zero), through
-       the kernels and with every kernel patched out for its plain version
-       (plain forward and plain backward), at bf16 and, with the same
-       weights, at f32: at f32 the kernels' within 2e-2 of each tensor's
-       largest plain gradient; at bf16 within 2e-2, or within half the
-       plain path's own bf16-vs-f32 error where that is larger (see
-       precision_check); and the bf16 cache built through the kernel and
-       through the plain unfused attention, each against the f32 cache;
+       every step in 127 pages of 512 under the `ffn` remat policy,
+       bench_lm.py's): per step 508 attention forwards, 254 backwards and
+       255 pools; 1 warm and 5 timed steps, each to the device's end of it
+       (finite losses, median step ms, impressions/s, peak memory), one
+       more under torch.profiler; the same weights and batches under
+       `full` remat (2 timed steps, one profiled: step ms, peak memory,
+       the profiled matrix-product launches of each policy; the losses
+       the two runs share within 2e-2 of each other); then the gradient
+       of every trainable tensor on one batch at dropout 0 (lora_B made
+       non-zero), through the kernels and with every kernel patched out
+       for its plain version (plain forward and plain backward), at bf16
+       and, with the same weights, at f32: at f32 the kernels' within 2e-2
+       of each tensor's largest plain gradient; at bf16 within 2e-2, or
+       within half the plain path's own bf16-vs-f32 error where that is
+       larger (see precision_check), and by the same rule under `ffn`
+       against `full` remat; and the bf16 cache built through the kernel
+       and through the plain unfused attention, each against the f32
+       cache;
      - NAML: 1 warm and 3 timed steps, 2 pool launches per step, the
        catalog-grad plans live;
   6. the run loop on the same fixture, bf16, through the entry points a
@@ -202,7 +207,35 @@ and exits non-zero when any phase fails:
         batch that fits; peak memory;
      5. the CLI trains bert-iisan-naml and flatten_transformer;
      every launch count held against the code's; `[iisan]`, `[bert-zoo]`
-     and `[flatten]` lines.
+     and `[flatten]` lines;
+ 11. the LM knobs, the semantic-ID family and processed MIND, bf16, random
+     weights from seed 0:
+     1. bert-naml layer-split as phase 5 trains it, on a catalog of 16,384
+        items (DOTS_DATA_KW: `dots` keeps ~72 GB at 65,000): the same
+        weights and batches under `full`, `dots`, `full` with fused_qkv
+        and `full` with norm_bf16, 2 timed steps and one profiled each
+        (step ms, peak memory, idle share, matrix-product launches,
+        launches a step = the code's, the losses each shares with `full`
+        within 2e-2); the gradients on one batch at dropout 0 with each
+        knob against the knob off under `full` (knob_grad_check: fused_qkv
+        at f32 within 1e-4 of each tensor's largest, fused_qkv and `dots`
+        at bf16 by precision_check's rule; norm_bf16 against f32 within 3
+        times the knob-off bf16 path's error); one page of 512 items
+        through glm-naml cut to 4 layers with fused_qkv off and on (GQA,
+        qkv biases) and through llama-naml cut to 2 layers with norm_bf16
+        off and on: the item vectors within 2e-2 of the largest, each side
+        timed;
+     2. the semantic family on the fixture with 4 codes an item and a
+        user from codebooks of 256 (semantic_data; TIGER's shape): the
+        pool at L 4 over the 65,000 items against its plain version; Ada /
+        Semantic (return_stack) / Poly, Ada / Semantic / Dot and SCSimple /
+        SCMix / SemanticMix: Tester.test() by full forwards over the
+        240,000 test rows, 4 fused steps of 2,048, the pool's launches a
+        page and a step against the modules' count;
+     3. a fake MIND raw layout at `make smoke`'s geometry, `process --data
+        mind --tokenizers glove:<file>`, NAML trained and tested through
+        the CLI on the processed stores;
+     `[knobs]` and `[semantic]` lines.
 Then it prints one JSON line of kernels, the card line, and
 {"ok": true, "device": {...}} as the last line.
 """
@@ -287,17 +320,19 @@ BERT_CFG = {
 }
 BERT_LAYERS = 12
 # layer-split training: bench_lm.py's configuration (tune_from 10, pages
-# of 512 under full remat, 4 negatives) with item-bert.yaml's dropout
-# defaults (hidden and attention 0.1, dropout_reuse)
+# of 512 under the `ffn` remat policy, 4 negatives) with item-bert.yaml's
+# dropout defaults (hidden and attention 0.1, dropout_reuse)
 BERT_TRAIN_CFG = {
     "meta": BERT_CFG["meta"],
     "config": {**BERT_CFG["config"], "use_fast_eval": False,
                "neg_count": 4, "item_page_size": 512,
-               "item_page_remat": "full", "full_catalog_encode": "auto",
+               "item_page_remat": "ffn", "full_catalog_encode": "auto",
                "item_config": {**BERT_CFG["config"]["item_config"],
                                "tune_from": 10}},
 }
 TRAIN_BATCH, TRAIN_LR, LM_STEPS, NAML_STEPS = 2048, 1e-4, 5, 3
+# timed steps of each side of a remat or knob A/B (phases 5 and 11)
+AB_STEPS = 2
 # bert-naml's attention pages: 512 items of L = 1 + 30 + 1 + 1 + 1 = 34
 # tokens (serving) or of the cached 34 padded to L = 40 (training), packed
 # G = 128 // L = 3 to a row: 171 rows of T = 102 or 120
@@ -707,19 +742,26 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel",
 
 
 def trace_records(events) -> dict:
-    """What a trace's raw events (`prof.profiler.kineto_results.events()`)
-    say of its kernel launch calls: how many there are, how many device
-    records, which calls have no device record under their correlation id
-    (records the tracer lost), and of those how many lie inside each port
-    wrapper's launch range (`ops.build.launch_range`), and how many launch
-    calls each wrapper's ranges hold."""
+    """One walk over a trace's raw events
+    (`prof.profiler.kineto_results.events()`): the device time and count
+    of each kernel (every device-side event but the port wrappers' own
+    launch ranges, which show on the device side too, under the names of
+    KERNEL_NAMES' keys), and what the trace says of its kernel launch
+    calls: how many there are, how many device records, which calls have
+    no device record under their correlation id (records the tracer
+    lost), and of those how many lie inside each port wrapper's launch
+    range (`ops.build.launch_range`), and how many launch calls each
+    wrapper's ranges hold."""
     from torch.autograd import DeviceType
 
-    calls, ran, ranges = {}, set(), []
+    calls, ran, ranges, by_name = {}, set(), [], {}
     for e in events:
         if e.device_type() == DeviceType.CUDA:
             if e.name() not in KERNEL_NAMES:  # a range's device side
                 ran.add(e.correlation_id())
+                tally = by_name.setdefault(e.name(), [0, 0])
+                tally[0] += 1
+                tally[1] += e.end_ns() - e.start_ns()
         elif e.name() in KERNEL_NAMES:
             ranges.append((e.name(), e.start_ns(), e.end_ns()))
         elif e.name().startswith(LAUNCH_CALLS) and e.correlation_id():
@@ -748,7 +790,45 @@ def trace_records(events) -> dict:
                 lost[n] += 1
     return {"launch_calls": len(calls), "device_records": len(ran),
             "lost": n_lost, "calls_by_wrapper": in_range,
-            "lost_by_wrapper": lost}
+            "lost_by_wrapper": lost,
+            "kernels": {k: {"count": c, "ms": ns / 1e6}
+                        for k, (c, ns) in by_name.items()}}
+
+
+# what cuBLAS names its matrix-product kernels on the H100 (cuBLASLt's
+# nvjet, the xmma and CUTLASS kernels). A split-K product's partial-product
+# kernel is one (`nvjet_..._splitK_NTT`, `xmma_..._split_k_kernel`); its
+# reduction (`cublasLt::splitKreduce_kernel`) is not
+GEMM_MARKERS = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def _is_gemm(name: str) -> bool:
+    low = name.lower()
+    return any(m in low for m in GEMM_MARKERS) and "reduce" not in low
+
+
+def summarize_kernels(kernels: dict) -> dict:
+    """From {kernel name: {"count", "ms"}} (`trace_records`): the device's
+    busy ms, the launches, the ten longest kernels, the matrix products'
+    launches and ms (`GEMM_MARKERS`), and each port kernel's ms, launches
+    and launches by device-side name."""
+    ours = {}
+    for name in KERNEL_NAMES:
+        evs = {k: r for k, r in kernels.items() if _is(name, k)}
+        ours[name] = {"ms": sum(r["ms"] for r in evs.values()),
+                      "launches": sum(r["count"] for r in evs.values()),
+                      "by_kernel": {k: sum(r["count"] for key, r in
+                                           evs.items() if k in key)
+                                    for k in KERNEL_NAMES[name]}}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:10]
+    gemms = {k: r for k, r in kernels.items() if _is_gemm(k)}
+    return {"busy_ms": sum(r["ms"] for r in kernels.values()),
+            "kernel_launches": sum(r["count"] for r in kernels.values()),
+            "gemm_launches": sum(r["count"] for r in gemms.values()),
+            "gemm_ms": sum(r["ms"] for r in gemms.values()),
+            "kernels": ours,
+            "top_kernels": [{"name": k[:60], "count": r["count"],
+                             "ms": r["ms"]} for k, r in top]}
 
 
 def check_profiled_launches(listed: dict, counted: dict,
@@ -788,9 +868,9 @@ def profile_window(fn) -> dict:
     (`check_profiled_launches`; the record keeps the count of lost
     records, `lost_records`), and when a pool launch is not the
     tensor-core kernel's (every window is a main path at bf16) or, over a
-    flattened history (L > 128), the long-sequence kernel's."""
+    flattened history (L > 128), the long-sequence kernel's. The summary
+    is one walk over the trace's events (`trace_records`)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     before = _counts()
@@ -802,21 +882,10 @@ def profile_window(fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     t_summary = time.perf_counter()
-    # the wrappers' launch ranges show on the device too: not kernels
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.key not in KERNEL_NAMES]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    ours = {}
     counted = {k: v - before[k] for k, v in _counts().items()}
-    for name in KERNEL_NAMES:
-        evs = [e for e in kernels if _is(name, e.key)]
-        ours[name] = {"ms": sum(e.self_device_time_total for e in evs) / 1e3,
-                      "launches": sum(e.count for e in evs),
-                      "by_kernel": {k: sum(e.count for e in evs if k in e.key)
-                                    for k in KERNEL_NAMES[name]}}
     trace = trace_records(prof.profiler.kineto_results.events())
+    summary = summarize_kernels(trace["kernels"])
+    ours, busy_ms = summary["kernels"], summary["busy_ms"]
     lost = check_profiled_launches(
         {n: r["launches"] for n, r in ours.items()}, counted, trace)
     summary_s = time.perf_counter() - t_summary
@@ -836,15 +905,15 @@ def profile_window(fn) -> dict:
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "kernels": ours,
             # no device time in the trace means the share was not measured
             "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
-            "kernel_launches": sum(e.count for e in kernels),
+            "kernel_launches": summary["kernel_launches"],
+            "gemm_launches": summary["gemm_launches"],
+            "gemm_ms": summary["gemm_ms"],
             "launch_calls": trace["launch_calls"],
             "lost_records": trace["lost"],
             "port_calls": trace["calls_by_wrapper"],
             # the host's seconds summarising the trace, after the window
             "summary_s": summary_s,
-            "top_kernels": [{"name": e.key[:60], "count": e.count,
-                             "ms": e.self_device_time_total / 1e3}
-                            for e in top]}
+            "top_kernels": summary["top_kernels"]}
 
 
 def _plain_attention():
@@ -1164,11 +1233,13 @@ def precision_check(m16, dp, data, device) -> dict:
     terms cancel (they sum to 0 over each row or item), so rounding flips
     upstream move them by a large share of their size. The kernels round
     where the plain versions round; what they change is the order of f32
-    sums, a fraction of that spread (at most 0.29 of it, H100). Recorded
-    besides: K16 against P32, K16 run twice, and the bf16 cache built
-    through the kernel (as the port builds it) and through the plain
-    unfused attention (as the JAX package builds it), each against the f32
-    cache."""
+    sums, a fraction of that spread (at most 0.29 of it, H100). Also
+    gated by the bf16 rule: K16 against K16 under `full` remat (the
+    model's policy, `ffn` in phase 5, keeps some of a page's outputs and
+    recomputes the rest; it changes no value). Recorded besides: K16
+    against P32, K16 run twice, and the bf16 cache built through the
+    kernel (as the port builds it) and through the plain unfused attention
+    (as the JAX package builds it), each against the f32 cache."""
     import copy
 
     import torch
@@ -1187,11 +1258,15 @@ def precision_check(m16, dp, data, device) -> dict:
                 mod.lora_B.normal_(0.0, 0.05, generator=g)
     idx = next(dp.epoch_indices(shuffle=False))
     batch = dp.assemble(idx, step_generator(0, 10 ** 6, device))
-    rec = {"loss": {}}
+    rec = {"loss": {}, "remat": m16.model.item_page_remat}
     grads = {}
     for name, m, plain in (("K16", m16, False), ("K16_again", m16, False),
                            ("P16", m16, True)):
         rec["loss"][name], grads[name] = _grads(m, batch, plain)
+    # the same gradients with every page recomputed whole
+    m16.model.item_page_remat = "full"
+    rec["loss"]["K16_full"], grads["K16_full"] = _grads(m16, batch, False)
+    m16.model.item_page_remat = rec["remat"]
 
     # the lower slice at bf16 through the plain unfused attention
     attn = [mod for mod in m16.model.item_op.lm_lower.modules()
@@ -1227,7 +1302,8 @@ def precision_check(m16, dp, data, device) -> dict:
 
     pairs = {"K32_vs_P32": ("K32", "P32"), "K16_vs_P16": ("K16", "P16"),
              "P16_vs_P32": ("P16", "P32"), "K16_vs_P32": ("K16", "P32"),
-             "K16_vs_K16_again": ("K16_again", "K16")}
+             "K16_vs_K16_again": ("K16_again", "K16"),
+             "K16_vs_K16_full": ("K16", "K16_full")}
     rec["rel_err"] = {k: _rel_errs(grads[a], grads[b])
                       for k, (a, b) in pairs.items()}
     rec["max_rel_err"] = {k: max(v.values())
@@ -1240,9 +1316,12 @@ def precision_check(m16, dp, data, device) -> dict:
                 if e > BF16_REL_TOL]
     problems += [f"bf16 {n}" for n, e in rec["rel_err"]["K16_vs_P16"].items()
                  if e > rec["bf16_limit"][n]]
+    problems += [f"{rec['remat']} remat {n}" for n, e in
+                 rec["rel_err"]["K16_vs_K16_full"].items()
+                 if e > rec["bf16_limit"][n]]
     if problems:
         raise RuntimeError(f"training gradients disagree with the plain "
-                           f"path ({problems}): {rec}")
+                           f"path or with full remat ({problems}): {rec}")
     return rec
 
 
@@ -1270,8 +1349,18 @@ def run_lm_training(data, device) -> dict:
     rec["cache_gb"] = hid.numel() * hid.element_size() / 2 ** 30
     pages = -(-data.num_items // m.lego_cfg.cache_page_size)
     rec["expected_cache_launches"] = op.resolved_tune_from * pages
+    start = _snapshot(m.model)
     train, dp = _train_steps(m, data, device, LM_STEPS)
     rec.update(train)
+    # the same model and batches under `full` remat: the A/B of the policy
+    trained = _snapshot(m.model)
+    m.model.load_state_dict(start)
+    m.model.item_page_remat = "full"
+    rec["full_remat"], _ = _train_steps(m, data, device, AB_STEPS)
+    m.model.item_page_remat = "ffn"
+    m.model.load_state_dict(trained)
+    del start, trained
+    rec["remat_loss_rel_err"] = shared_loss_err(rec, rec["full_remat"])
     n_pages = -(-data.num_items // m.model.item_page_size)
     upper = op.num_hidden_layers - op.resolved_tune_from
     rec["expected_launches_per_step"] = {
@@ -1289,9 +1378,45 @@ def run_lm_training(data, device) -> dict:
         problems.append("cache-build launches")
     if rec["launches_per_step"] != rec["expected_launches_per_step"]:
         problems.append("launches per step")
+    if rec["full_remat"]["launches_per_step"] != \
+            rec["expected_launches_per_step"]:
+        problems.append("launches per step under full remat")
+    if rec["remat_loss_rel_err"] > BF16_REL_TOL:
+        problems.append("losses under ffn against full remat")
     if problems:
         raise RuntimeError(f"bert-naml training failed ({problems}): {rec}")
     return rec
+
+
+def _snapshot(model) -> dict:
+    """A copy of the model's state on its device."""
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def shared_loss_err(a: dict, b: dict) -> float:
+    """The largest relative difference between the losses two `_train_steps`
+    runs share (the warm step's and the timed steps' of the shorter), run
+    from one state with one pipeline and step seeds: a remat policy or a
+    knob that computes the same function gives the same losses, up to
+    rounding."""
+    n = min(len(a["losses"]), len(b["losses"]))
+    pairs = zip([a["warm_loss"]] + a["losses"][:n],
+                [b["warm_loss"]] + b["losses"][:n])
+    return max(abs(x - y) / max(abs(y), 1e-30) for x, y in pairs)
+
+
+def remat_ab_line(rec: dict, other: dict, names=("ffn", "full")) -> str:
+    """One line of a remat A/B: step ms, peak GB, idle share and the
+    profiled matrix-product launches a step of each side."""
+    def side(r):
+        pr = r.get("profile", {})
+        return (f"step {r['step_ms']:.1f} ms, peak "
+                f"{r['peak_memory_gb']:.2f} GB, idle share "
+                f"{pr.get('device_idle_share')}, GEMM launches "
+                f"{pr.get('gemm_launches')} ({pr.get('gemm_ms', 0):.1f} ms)")
+    return (f"{names[0]}: {side(rec)}; {names[1]}: {side(other)}; shared "
+            f"losses within {shared_loss_err(rec, other):.3g} (gate "
+            f"{BF16_REL_TOL:g})")
 
 
 def run_naml_training(data, device) -> dict:
@@ -2832,7 +2957,8 @@ def run_flatten_model(name: str, data, device) -> dict:
 # always)
 PHASES = {3: "kernels", 4: "serving", 5: "training", 6: "run loop",
           7: "news zoo", 8: "CTR zoo", 9: "decoders",
-          10: "IISAN, BERT zoo, flatten"}
+          10: "IISAN, BERT zoo, flatten",
+          11: "LM knobs, semantic IDs, processed MIND"}
 
 
 class phase_timer:
@@ -2923,10 +3049,12 @@ def run_serving(data, device) -> dict:
     return {"paths": paths}
 
 
-def run_training(data, device) -> dict:
+def run_training(data, device, card="") -> dict:
     """Phase 5: bert-naml layer-split and NAML training."""
     lm_train = run_lm_training(data, device)
     log(f"[main] {json.dumps(lm_train)}")
+    log(f"[main] bert-naml remat A/B, same weights and batches: "
+        f"{remat_ab_line(lm_train, lm_train['full_remat'])} ({card})")
     naml_train = run_naml_training(data, device)
     log(f"[main] {json.dumps(naml_train)}")
     return {"lm_train": lm_train, "naml_train": naml_train}
@@ -3130,6 +3258,542 @@ def run_phase10(data, device, card) -> dict:
             "bert_zoo": bert_zoo, "flatten": flatten}
 
 
+# phase 11: the LM knobs, the semantic-ID family, processed MIND
+# the `dots` A/B's catalog: at 65,000 items `dots` keeps 9 D a token and
+# trainable layer (q, k, v, o, the 4 D intermediate, the FFN output), about
+# 72 GB beside the 4 GB cache; 16,384 items (32 pages of 512) keep ~18 GB.
+# Users cut to 5,000 with it (the host data build; a step draws 2,048).
+DOTS_DATA_KW = dict(DATA_KW, num_items=16384, num_users=5000)
+# one page of each decoder knob check: 512 items, as the cache pages
+KNOB_PAGE = 512
+# norm_bf16's bf16 gradients lie at most 2.31 times as far from f32 as the
+# knob-off bf16 path's, tensor by tensor (H100, seed 0, 16,384 items):
+# the bound its gate holds them to
+NORM_BF16_GRAD_RATIO = 3.0
+LLAMA_NORM_LAYERS = 2
+SEMANTIC_STEPS = 4
+# TIGER's semantic IDs (Rajput et al., NeurIPS 2023): three RQ-VAE levels of
+# 256 codes plus one collision code, 4 codes an item; a user has 4 too
+SEMANTIC_CODES, SEMANTIC_BOOK = 4, 256
+SEMANTIC_BASE = {"use_item_content": True, "hidden_size": 64,
+                 "cache_page_size": 512}
+SEMANTIC_MODELS = {
+    "ada-semantic-poly": {
+        "meta": {"item": "Ada", "user": "Semantic", "predictor": "Poly"},
+        "config": {**SEMANTIC_BASE,
+                   "user_config": {"base_operator": "Ada",
+                                   "return_stack": True},
+                   "predictor_config": {"base_predictor": "Dot",
+                                        "num_layers": SEMANTIC_CODES}}},
+    "ada-semantic-dot": {
+        "meta": {"item": "Ada", "user": "Semantic", "predictor": "Dot"},
+        "config": {**SEMANTIC_BASE,
+                   "user_config": {"base_operator": "Ada"}}},
+    "scsimple-scmix-semanticmix": {
+        "meta": {"item": "SCSimple", "user": "SCMix",
+                 "predictor": "SemanticMix"},
+        "config": {**SEMANTIC_BASE,
+                   "predictor_config": {"base_predictor": "Dot"}}},
+}
+# the semantic item pool: Ada over an item's 4 codes, the whole catalog,
+# at Ada's default H
+SEMANTIC_POOLS = {"semantic items": (65000, SEMANTIC_CODES, H)}
+# the processed-MIND CLI run: a fake MIND raw layout at `make smoke`'s
+# geometry (400 news, 200 users), GloVe words of width 50
+MIND_RAW = dict(news=400, users=200, behaviors=600, history=10,
+                impressions=8, glove_dim=50)
+
+
+def _bert_knob_model(data, device, policy="full"):
+    """bert-naml layer-split (BERT_TRAIN_CFG under `policy`) with its
+    cache built."""
+    import copy
+
+    from legommenders_tpu_torch.runtime.manager import Manager
+
+    cfg = copy.deepcopy(BERT_TRAIN_CFG)
+    cfg["config"]["item_page_remat"] = policy
+    m = Manager(model_cfg=cfg, exp_cfg=EXP_CFG, data=data, device=device,
+                seed=0)
+    assert m.prepare_lm_cache(root=None)
+    return m
+
+
+def _set_knob(model, knob: str, on: bool):
+    """Turn fused_qkv or norm_bf16 on or off in every module that has it;
+    returns how many modules it set."""
+    from legommenders_tpu_torch.models.common import FrozenableLayerNorm
+    from legommenders_tpu_torch.models.lm.layers import RMSNorm
+
+    n = 0
+    for mod in model.modules():
+        if knob == "fused_qkv" and hasattr(mod, "fused_qkv"):
+            mod.fused_qkv = on
+            n += 1
+        elif knob == "norm_bf16" and isinstance(
+                mod, (FrozenableLayerNorm, RMSNorm)):
+            mod.bf16_apply = on
+            n += 1
+    return n
+
+
+def run_knob_steps(m, data, device, expected: dict) -> dict:
+    """11.1: the same model and batches under `full`, `dots`, and `full`
+    with fused_qkv, then with norm_bf16: AB_STEPS timed steps and one
+    profiled each, the weights restored before each. Raises unless every
+    run's launches a step are the code's and its losses lie within
+    BF16_REL_TOL of `full`'s (`shared_loss_err`)."""
+    start = _snapshot(m.model)
+    runs = {}
+    for label, policy, knob in (("full", "full", None),
+                                ("dots", "dots", None),
+                                ("fused_qkv", "full", "fused_qkv"),
+                                ("norm_bf16", "full", "norm_bf16")):
+        m.model.load_state_dict(start)
+        m.model.item_page_remat = policy
+        if knob:
+            _set_knob(m.model, knob, True)
+        runs[label], _ = _train_steps(m, data, device, AB_STEPS)
+        if knob:
+            _set_knob(m.model, knob, False)
+        runs[label]["launches_equal_code"] = (
+            runs[label]["launches_per_step"] == expected)
+        if label != "full":
+            runs[label]["loss_rel_err_vs_full"] = shared_loss_err(
+                runs[label], runs["full"])
+    m.model.load_state_dict(start)
+    m.model.item_page_remat = "full"
+    problems = [f"{k} launches" for k, r in runs.items()
+                if not r["launches_equal_code"]]
+    problems += [f"{k} losses" for k, r in runs.items()
+                 if r.get("loss_rel_err_vs_full", 0.0) > BF16_REL_TOL]
+    if problems:
+        raise RuntimeError(f"knob steps failed ({problems}): {runs}")
+    return runs
+
+
+def knob_grad_check(m16, data, device) -> dict:
+    """11.1: the gradient of every trainable tensor on one batch at dropout
+    0 with fused_qkv, with norm_bf16 and under the `dots` remat, against
+    the same weights with the knob off under `full`: fused_qkv at f32
+    (F32_GRAD_TOL of each tensor's largest; a cuBLAS product of width 3 D
+    sums in another order than three of D) and at bf16, and `dots` at
+    bf16, each by precision_check's rule against the knob-off bf16
+    gradients. norm_bf16 rounds each norm's output to bf16 before its
+    scale and shift: the item vectors of the first page (eval) within 2e-2
+    of the largest of the knob-off ones, the loss within 2e-2, and each
+    tensor's bf16 gradient against the knob-off f32 one within
+    NORM_BF16_GRAD_RATIO times the knob-off bf16 path's own error (bf16
+    gradients lie up to 0.45 of their largest from f32 ones:
+    precision_check), or 2e-2 where that is larger."""
+    import copy
+
+    import torch
+    from legommenders_tpu_torch.data.device_pipeline import (
+        DeviceTrainPipeline, step_generator,
+    )
+    from legommenders_tpu_torch.runtime.manager import Manager
+
+    dp = DeviceTrainPipeline(data, batch_size=TRAIN_BATCH, neg_count=4,
+                             seed=0, device=device)
+    idx = next(dp.epoch_indices(shuffle=False))
+    batch = dp.assemble(idx, step_generator(0, 10 ** 6, device))
+    g = torch.Generator(device=device).manual_seed(5)
+    with torch.no_grad():
+        for mod in m16.model.modules():
+            if getattr(mod, "lora_r", 0) > 0:
+                mod.lora_B.normal_(0.0, 0.05, generator=g)
+    rec = {"loss": {}}
+    page = {c: a[:KNOB_PAGE] for c, a in m16.contents.columns.items()}
+    vecs = {}
+    with torch.inference_mode():
+        for on in (False, True):
+            _set_knob(m16.model, "norm_bf16", on)
+            vecs[on] = m16.model.encode_item_content(page).float()
+    _set_knob(m16.model, "norm_bf16", False)
+    rec["norm_bf16_item_rel_err"] = float(
+        (vecs[True] - vecs[False]).abs().max() / vecs[False].abs().max())
+    grads = {}
+    for name, knob in (("U16", None), ("F16", "fused_qkv"),
+                       ("N16", "norm_bf16")):
+        if knob:
+            _set_knob(m16.model, knob, True)
+        rec["loss"][name], grads[name] = _grads(m16, batch, False)
+        if knob:
+            _set_knob(m16.model, knob, False)
+    policy = m16.model.item_page_remat
+    m16.model.item_page_remat = "dots"
+    rec["loss"]["D16"], grads["D16"] = _grads(m16, batch, False)
+    m16.model.item_page_remat = policy
+    cfg = copy.deepcopy(BERT_TRAIN_CFG)
+    cfg["config"]["item_page_remat"] = "full"
+    cfg["config"]["item_config"]["lm_dtype"] = "f32"
+    m32 = Manager(model_cfg=cfg, exp_cfg={"policy": {"dtype": "f32"}},
+                  data=data, device=device, seed=0)
+    m32.model.load_state_dict(m16.model.state_dict())
+    assert m32.prepare_lm_cache(root=None)
+    for name, knob in (("U32", None), ("F32", "fused_qkv")):
+        if knob:
+            _set_knob(m32.model, knob, True)
+        rec["loss"][name], grads[name] = _grads(m32, batch, False)
+    del m32
+    torch.cuda.empty_cache()
+    err = {k: _rel_errs(grads[a], grads[b]) for k, (a, b) in {
+        "F32_vs_U32": ("F32", "U32"), "F16_vs_U16": ("F16", "U16"),
+        "U16_vs_U32": ("U16", "U32"), "N16_vs_U32": ("N16", "U32"),
+        "N16_vs_U16": ("N16", "U16"), "D16_vs_U16": ("D16", "U16")}.items()}
+    rec["max_rel_err"] = {k: max(v.values()) for k, v in err.items()}
+    # precision_check's bf16 rule: within 2e-2 of each tensor's largest, or
+    # half the bf16 path's own error against f32 where that is larger
+    fused_limit = {n: max(BF16_REL_TOL, 0.5 * e)
+                   for n, e in err["U16_vs_U32"].items()}
+    rec["tensors"] = len(grads["U32"])
+    problems = [f"fused f32 {n}" for n, e in err["F32_vs_U32"].items()
+                if e > F32_GRAD_TOL]
+    problems += [f"fused bf16 {n}" for n, e in err["F16_vs_U16"].items()
+                 if e > fused_limit[n]]
+    problems += [f"dots {n}" for n, e in err["D16_vs_U16"].items()
+                 if e > fused_limit[n]]
+    # norm_bf16 adds a rounding to bf16 before each norm's scale and shift:
+    # each tensor's error against f32 within NORM_BF16_GRAD_RATIO times the
+    # knob-off bf16 path's own, or BF16_REL_TOL where that is larger
+    norm_limit = {n: max(BF16_REL_TOL, NORM_BF16_GRAD_RATIO * e)
+                  for n, e in err["U16_vs_U32"].items()}
+    problems += [f"norm_bf16 {n}" for n, e in err["N16_vs_U32"].items()
+                 if not e <= norm_limit[n]]
+    loss_err = abs(rec["loss"]["N16"] - rec["loss"]["U16"]) / abs(
+        rec["loss"]["U16"])
+    rec["norm_bf16_loss_rel_err"] = loss_err
+    if loss_err > BF16_REL_TOL:
+        problems.append("norm_bf16 loss")
+    if rec["norm_bf16_item_rel_err"] > BF16_REL_TOL:
+        problems.append("norm_bf16 item vectors")
+    # the norm_bf16 gradients' error against f32 over the knob-off bf16
+    # path's, per tensor
+    rec["norm_bf16_grad_ratio"] = max(
+        e / max(err["U16_vs_U32"][n], 1e-30)
+        for n, e in err["N16_vs_U32"].items())
+    rec["max_over_limit"] = {
+        "fused_bf16": max(e / fused_limit[n]
+                          for n, e in err["F16_vs_U16"].items()),
+        "dots_bf16": max(e / fused_limit[n]
+                         for n, e in err["D16_vs_U16"].items()),
+        "norm_bf16": max(e / norm_limit[n]
+                         for n, e in err["N16_vs_U32"].items())}
+    if problems:
+        raise RuntimeError(f"knob gradients disagree ({problems}): {rec}")
+    return rec
+
+
+def decoder_page_knob(name: str, cfg: dict, knob: str, data, device) -> dict:
+    """11.1: one page of KNOB_PAGE items through a decoder in full-LM mode
+    (`cfg`), bf16, with `knob` off and on: the item vectors within 2e-2 of
+    the largest, each side timed and profiled once (its matrix-product
+    launches: fused_qkv makes one of a layer's three)."""
+    import torch
+    from legommenders_tpu_torch.runtime.manager import Manager
+
+    rec = {"path": f"{name} page, {knob}"}
+    m = Manager(model_cfg=cfg, exp_cfg=DECODER_EXP, data=data,
+                device=device, seed=0)
+    op = m.model.item_op
+    rec.update(layers=op.num_hidden_layers, operator=type(op).__name__)
+    page = {c: a[:KNOB_PAGE] for c, a in m.contents.columns.items()}
+    out = {}
+    with torch.inference_mode():
+        for on in (False, True):
+            rec["modules_set"] = _set_knob(m.model, knob, on)
+            _zero_counts()
+            out[on] = m.model.encode_item_content(page).float()
+            rec[f"launches_{'on' if on else 'off'}"] = _counts()
+            side = "on" if on else "off"
+            rec[f"ms_{side}"] = time_ms(
+                lambda: m.model.encode_item_content(page), iters=5,
+                warmup=1)
+            pr = profile_window(lambda: m.model.encode_item_content(page))
+            rec[f"gemm_launches_{side}"] = pr["gemm_launches"]
+            rec[f"gemm_ms_{side}"] = pr["gemm_ms"]
+    rec["rel_err"] = float((out[True] - out[False]).abs().max()
+                           / out[False].abs().max())
+    rec["finite"] = bool(torch.isfinite(out[True]).all())
+    rec["expected_launches"] = op.num_hidden_layers
+    del m, op, page, out
+    torch.cuda.empty_cache()
+    if not rec["finite"] or rec["rel_err"] > BF16_REL_TOL or any(
+            rec[f"launches_{s}"]["packed_attention"]
+            != rec["expected_launches"] for s in ("on", "off")):
+        raise RuntimeError(f"{name} {knob} page failed: {rec}")
+    return rec
+
+
+def semantic_data(data):
+    """The fixture with a semantic-code column of SEMANTIC_CODES codes an
+    item and a user-code column of as many codes a user, each from a
+    codebook of SEMANTIC_BOOK entries drawn from seeds 0 and 1, as the
+    data's only item and user inputs (a copy of `data`; the stores gain
+    the columns)."""
+    import copy
+
+    import numpy as np
+    from legommenders_tpu_torch.data.vocab import Vocab
+
+    out = copy.copy(data)
+    for store, n, seed in ((data.items, data.num_items, 0),
+                           (data.users, data.num_users, 1)):
+        if "semantic" not in store:
+            codes = np.random.default_rng(seed).integers(
+                0, SEMANTIC_BOOK, size=(n, SEMANTIC_CODES), dtype=np.int32)
+            store.add_seq_column("semantic", codes.tolist(), Vocab(
+                "semantic", tokens=None).set_size(SEMANTIC_BOOK),
+                SEMANTIC_CODES)
+    out.item_inputs = [("semantic", SEMANTIC_CODES)]
+    out.user_inputs = [("semantic", SEMANTIC_CODES)]
+    return out
+
+
+def run_semantic_model(name: str, data, device) -> dict:
+    """11.2: one semantic composition at the fixture's geometry, bf16:
+    Tester.test() by full forwards over the test rows (the user operators
+    refuse caching), SEMANTIC_STEPS fused training steps of 2,048; the
+    pool's launches per page and per step against the modules' count."""
+    import numpy as np
+    import torch
+    from legommenders_tpu_torch.runtime.manager import Manager
+    from legommenders_tpu_torch.runtime.tester import Tester
+
+    rec = {"path": name}
+    t0 = time.perf_counter()
+    m = Manager(model_cfg=SEMANTIC_MODELS[name], exp_cfg=ZOO_EXP, data=data,
+                device=device, seed=0)
+    tester = Tester(m)
+    torch.cuda.synchronize()
+    rec["setup_s"] = time.perf_counter() - t0
+    model = m.model
+    rec["operators"] = [type(x).__name__ for x in (
+        model.item_op, model.user_op, model.predictor)]
+    pools = _pools_of(model.item_op) + _pools_of(model.user_op)
+    rec["pools_per_forward"] = pools
+    _zero_counts()
+    t0 = time.perf_counter()
+    rec["metrics"] = tester.test()
+    torch.cuda.synchronize()
+    rec["test_s"] = time.perf_counter() - t0
+    rec["test_launches"] = _counts()
+    ev = tester.evaluator
+    rec["rows"] = ev.phase("test").n
+    rec["pages"] = -(-rec["rows"] // ev.batch_size)
+    rec["eval"] = "full forward" if m.cache is None else "cached"
+    rec["expected_test_launches"] = {
+        "additive_pool": rec["pages"] * pools, "packed_attention": 0,
+        "packed_attention_backward": 0, "dropout_keep_mask": 0}
+    rec["train"], dp = _train_steps(m, data, device, SEMANTIC_STEPS)
+    rec["expected_launches_per_step"] = {
+        "additive_pool": pools, "packed_attention": 0,
+        "packed_attention_backward": 0, "dropout_keep_mask": 0}
+    problems = []
+    if m.cache is not None:
+        problems.append("a flatten user operator was cached")
+    if not all(np.isfinite(v) and 0.0 <= v <= 1.0
+               for v in rec["metrics"].values()):
+        problems.append("metrics not finite in [0, 1]")
+    if rec["test_launches"] != rec["expected_test_launches"]:
+        problems.append("test launches")
+    if rec["train"]["launches_per_step"] != rec["expected_launches_per_step"]:
+        problems.append("training launches")
+    del m, tester, ev, model, dp
+    torch.cuda.empty_cache()
+    if problems:
+        raise RuntimeError(f"{name} failed ({problems}): {rec}")
+    return rec
+
+
+def write_fake_mind(root: str, seed: int = 0) -> dict:
+    """A fake MIND raw layout under `root` (train/ and dev/, each with
+    news.tsv and behaviors.tsv, MIND_RAW's geometry) and a GloVe text file
+    over its words; returns their paths."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    g = MIND_RAW
+    words = [f"w{i}" for i in range(300)]
+    cats = ["news", "sports", "finance", "lifestyle", "health"]
+    nids = [f"N{i}" for i in range(g["news"])]
+    for split in ("train", "dev"):
+        d = os.path.join(root, split)
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "news.tsv"), "w") as f:
+            for i, nid in enumerate(nids):
+                title = " ".join(rng.choice(words, int(rng.integers(5, 20))))
+                abstract = " ".join(rng.choice(words, 30))
+                f.write(f"{nid}\t{cats[i % 5]}\tsub{i % 17}\t{title}\t"
+                        f"{abstract}\t\t\t\n")
+        with open(os.path.join(d, "behaviors.tsv"), "w") as f:
+            for b in range(g["behaviors"]):
+                hist = " ".join(rng.choice(nids, g["history"],
+                                           replace=False))
+                imps = " ".join(f"{n}-{int(rng.random() < 0.2)}" for n in
+                                rng.choice(nids, g["impressions"],
+                                           replace=False))
+                f.write(f"{b + 1}\tU{b % g['users']}\t11/11/2019 9:05:58 AM"
+                        f"\t{hist}\t{imps}\n")
+    glove = os.path.join(root, "glove.txt")
+    with open(glove, "w") as f:
+        for w in words:
+            vec = rng.standard_normal(g["glove_dim"]).round(5)
+            f.write(w + " " + " ".join(str(x) for x in vec) + "\n")
+    return {"raw": root, "glove": glove}
+
+
+def run_processed_mind(tmp, device) -> dict:
+    """11.3: `process --data mind --tokenizers glove:<file>` over a fake
+    MIND raw layout, then NAML trained and tested through the port's CLI
+    on the processed stores (`make smoke`'s steps: 2 epochs of 4 batches
+    of 16, hidden 16); the pool's launches over the run."""
+    from legommenders_tpu_torch import process, trainer
+
+    rec = {"path": "processed MIND through the CLI"}
+    paths = write_fake_mind(os.path.join(tmp, "mind_raw"))
+    save = os.path.join(tmp, "data", "mind")
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        t0 = time.perf_counter()
+        stores = process.main(["--data", "mind", "--raw_dir", paths["raw"],
+                               "--save_dir", save, "--tokenizers",
+                               f"glove:{paths['glove']}"])
+        rec["process_s"] = time.perf_counter() - t0
+        rec["stores"] = {k: [len(v), sorted(v.col_names())]
+                         for k, v in stores.items()}
+        _zero_counts()
+        t0 = time.perf_counter()
+        argv = ["--data", "mind", "--model", "naml", "--epoch", "2",
+                "--epoch_batch", "4", "--batch_size", "16",
+                "--hidden_size", "16", "--data_dir", save]
+        if str(device) == "cpu":
+            argv += ["--device", "cpu"]
+        rec["results"] = trainer.main(argv)
+        rec["train_test_s"] = time.perf_counter() - t0
+        rec["launches"] = _counts()
+    finally:
+        os.chdir(cwd)
+    if "title@glove" not in stores["items"] or not rec["launches"][
+            "additive_pool"] or not all(
+            math.isfinite(v) for v in rec["results"].values()):
+        raise RuntimeError(f"processed MIND failed: {rec}")
+    rec["outcome"] = "ran"
+    return rec
+
+
+def run_phase11(data, device, card) -> dict:
+    """Phase 11: the LM knobs (the `dots` remat, fused_qkv, norm_bf16), the
+    semantic-ID family, processed MIND through the CLI."""
+    import tempfile
+
+    import torch
+    from legommenders_tpu_torch.data.processors.synthetic import (
+        SyntheticProcessor,
+    )
+
+    # 11.1 the LM knobs
+    t0 = time.perf_counter()
+    data16 = SyntheticProcessor(**DOTS_DATA_KW).as_lego_data()
+    knobs = {"data_s": time.perf_counter() - t0,
+             "catalog": data16.num_items}
+    m = _bert_knob_model(data16, device)
+    op = m.model.item_op
+    n_pages = -(-data16.num_items // m.model.item_page_size)
+    upper = op.num_hidden_layers - op.resolved_tune_from
+    expected = {"packed_attention": 2 * upper * n_pages,
+                "packed_attention_backward": upper * n_pages,
+                "additive_pool": 2 * n_pages + 1, "dropout_keep_mask": 0}
+    knobs["expected_launches_per_step"] = expected
+    knobs["steps"] = steps = run_knob_steps(m, data16, device, expected)
+    knobs["grads"] = knob_grad_check(m, data16, device)
+    del m, op
+    torch.cuda.empty_cache()
+    for label, r in steps.items():
+        pr = r["profile"]
+        log(f"[knobs] bert-naml {label} ({data16.num_items} items, "
+            f"{n_pages} pages): step {r['step_ms']:.1f} ms, peak "
+            f"{r['peak_memory_gb']:.2f} GB, idle share "
+            f"{pr['device_idle_share']}, GEMM launches {pr['gemm_launches']}"
+            f" ({pr['gemm_ms']:.1f} ms), launches a step "
+            f"{r['launches_per_step']} = the code's: "
+            f"{r['launches_equal_code']} ({card})")
+    log(f"[knobs] dots vs full: "
+        f"{remat_ab_line(steps['dots'], steps['full'], ('dots', 'full'))}")
+    gr = knobs["grads"]
+    log(f"[knobs] gradients: fused_qkv f32 "
+        f"{gr['max_rel_err']['F32_vs_U32']:.3g} (gate {F32_GRAD_TOL:g}), "
+        f"bf16 {gr['max_rel_err']['F16_vs_U16']:.3g} "
+        f"({gr['max_over_limit']['fused_bf16']:.3g} of its limit); "
+        f"dots bf16 {gr['max_rel_err']['D16_vs_U16']:.3g} "
+        f"({gr['max_over_limit']['dots_bf16']:.3g} of its limit); "
+        f"norm_bf16: item vectors {gr['norm_bf16_item_rel_err']:.3g}, loss "
+        f"{gr['norm_bf16_loss_rel_err']:.3g} (gate {BF16_REL_TOL:g}), "
+        f"gradients against f32 {gr['max_rel_err']['N16_vs_U32']:.3g} "
+        f"(knob off {gr['max_rel_err']['U16_vs_U32']:.3g}; at most "
+        f"{gr['norm_bf16_grad_ratio']:.3g}x a tensor's knob-off error, "
+        f"gate {NORM_BF16_GRAD_RATIO:g}x: "
+        f"{gr['max_over_limit']['norm_bf16']:.3g} of its limit), against "
+        f"the knob off at bf16 {gr['max_rel_err']['N16_vs_U16']:.3g} "
+        f"({card})")
+    knobs["glm_fused_qkv"] = decoder_page_knob(
+        "glm-naml", decoder_cfg("glm-naml", num_hidden_layers=GLM_LAYERS,
+                                tune_from=None),
+        "fused_qkv", data, device)
+    knobs["llama_norm_bf16"] = decoder_page_knob(
+        "llama-naml", decoder_cfg("llama-naml",
+                                  num_hidden_layers=LLAMA_NORM_LAYERS,
+                                  tune_from=None),
+        "norm_bf16", data, device)
+    for key in ("glm_fused_qkv", "llama_norm_bf16"):
+        r = knobs[key]
+        log(f"[knobs] {r['path']} ({r['layers']} layers, {KNOB_PAGE} "
+            f"items): off {r['ms_off']:.2f} ms, on {r['ms_on']:.2f} ms, "
+            f"GEMM launches {r['gemm_launches_off']} / "
+            f"{r['gemm_launches_on']}, rel err {r['rel_err']:.3g} (gate "
+            f"{BF16_REL_TOL:g}), "
+            f"attention launches {r['launches_on']['packed_attention']} = "
+            f"the code's {r['expected_launches']} ({card})")
+    log(f"[knobs] {json.dumps(knobs)}")
+    del data16
+
+    # 11.2 the semantic-ID family
+    sdata = semantic_data(data)
+    semantic_checks = []
+    for pool, (n, L, h) in SEMANTIC_POOLS.items():
+        for dtype in ("f32", "bf16"):
+            res = check_pool(pool, n, L, dtype, device, h=h)
+            semantic_checks.append(res)
+            log(f"[semantic] kernel {json.dumps(res)}")
+    semantic = {}
+    for name in SEMANTIC_MODELS:
+        semantic[name] = rec = run_semantic_model(name, sdata, device)
+        log(f"[semantic] {json.dumps(rec)}")
+        st = rec["train"]
+        log(f"[semantic] {name} ({' / '.join(rec['operators'])}): "
+            f"Tester.test() {rec['test_s']:.2f} s by {rec['pages']} full "
+            f"forwards ({rec['test_launches']['additive_pool']} pool "
+            f"launches, the code's "
+            f"{rec['expected_test_launches']['additive_pool']}: "
+            f"{rec['pools_per_forward']} a page), step {st['step_ms']:.2f} "
+            f"ms ({st['impressions_per_s']:.0f} impressions/s, peak "
+            f"{st['peak_memory_gb']:.2f} GB, idle share "
+            f"{st['profile']['device_idle_share']}, "
+            f"{st['launches_per_step']['additive_pool']:g} pool launches a "
+            f"step, the code's "
+            f"{rec['expected_launches_per_step']['additive_pool']}) "
+            f"({card})")
+
+    # 11.3 processed MIND through the CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        mind = run_processed_mind(tmp, device)
+    log(f"[semantic] processed MIND: {mind['outcome']}: {json.dumps(mind)}")
+    return {"knobs": knobs, "semantic_checks": semantic_checks,
+            "semantic": semantic, "processed_mind": mind}
+
+
 def _kernel_line(R: dict) -> list:
     """The `kernels` JSON: each kernel's headline check (phase 3's where it
     ran, else the first check of its kind from the phases that ran), its
@@ -3144,6 +3808,10 @@ def _kernel_line(R: dict) -> list:
         runs["naml training"] = R["naml_train"]["launches"]
         profiles["bert-naml training step"] = R["lm_train"]["profile"]
         profiles["naml training step"] = R["naml_train"]["profile"]
+        runs["bert-naml training (full remat)"] = R["lm_train"][
+            "full_remat"]["launches"]
+        profiles["bert-naml training step (full remat)"] = R["lm_train"][
+            "full_remat"]["profile"]
     if "loop" in R:
         runs["naml Trainer (host batches)"] = R["loop"]["launches"]
         runs["naml Trainer (device batches)"] = R["dev_loop"]["launches"]
@@ -3193,8 +3861,26 @@ def _kernel_line(R: dict) -> list:
         phase10_runs[f"{name} Tester.test()"] = rec["test_launches"]
         phase10_runs[f"{name} training"] = rec["train"]["launches"]
         profiles[f"{name} training step"] = rec["train"]["profile"]
+    phase11_runs = {}
+    knobs = R.get("knobs")
+    if knobs:
+        for label, r in knobs["steps"].items():
+            key = f"bert-naml {label} ({knobs['catalog']} items)"
+            phase11_runs[f"{key} training"] = r["launches"]
+            profiles[f"{key} training step"] = r["profile"]
+        for page in ("glm_fused_qkv", "llama_norm_bf16"):
+            r = knobs[page]
+            for side in ("off", "on"):
+                phase11_runs[f"{r['path']} {side}"] = r[f"launches_{side}"]
+    for name, rec in R.get("semantic", {}).items():
+        phase11_runs[f"{name} Tester.test()"] = rec["test_launches"]
+        phase11_runs[f"{name} training"] = rec["train"]["launches"]
+        profiles[f"{name} training step"] = rec["train"]["profile"]
+    if "processed_mind" in R:
+        phase11_runs["processed MIND CLI"] = R["processed_mind"]["launches"]
     runs.update(decoder_runs)
     runs.update(phase10_runs)
+    runs.update(phase11_runs)
 
     def by_path(key):
         return {p: c.get(key, 0) for p, c in runs.items()}
@@ -3219,7 +3905,7 @@ def _kernel_line(R: dict) -> list:
     kernels = []
     checks = R.get("checks", [])
     pool_all = (checks + R.get("zoo_checks", []) + R.get("ctr_checks", [])
-                + R.get("flatten_checks", []))
+                + R.get("flatten_checks", []) + R.get("semantic_checks", []))
     pool_bf16 = [c for c in checks
                  if c["dtype"] == "bf16" and c["pool"] in POOLS]
     if not pool_bf16:
@@ -3243,6 +3929,13 @@ def _kernel_line(R: dict) -> list:
             zoo_shapes=shapes(R.get("zoo_checks", [])),
             ctr_shapes=shapes(R.get("ctr_checks", [])),
             flatten_shapes=shapes(R.get("flatten_checks", [])),
+            semantic_shapes=shapes(R.get("semantic_checks", [])),
+            semantic_launches={name: {
+                "test": rec["test_launches"]["additive_pool"],
+                "pages": rec["pages"],
+                "per_step": rec["train"]["launches_per_step"][
+                    "additive_pool"]} for name, rec in R.get(
+                "semantic", {}).items()},
             ctr_launches={name: {
                 "test": rec["test_launches"]["additive_pool"],
                 "per_step": rec["train"]["launches_per_step"][
@@ -3252,6 +3945,8 @@ def _kernel_line(R: dict) -> list:
                               for p, c in decoder_runs.items()},
             phase10_launches={p: c.get("additive_pool", 0)
                               for p, c in phase10_runs.items()},
+            phase11_launches={p: c.get("additive_pool", 0)
+                              for p, c in phase11_runs.items()},
             checks=pool_all))
     sdpa = "torch.nn.functional.scaled_dot_product_attention"
     train = R.get("train_checks", [])
@@ -3320,6 +4015,8 @@ def _kernel_line(R: dict) -> list:
                               for p, c in decoder_runs.items()},
             phase10_launches={p: c.get("packed_attention", 0)
                               for p, c in phase10_runs.items()},
+            phase11_launches={p: c.get("packed_attention", 0)
+                              for p, c in phase11_runs.items()},
             checks=R.get("attn_checks", [])))
         decoder_launches = {p: c["packed_attention_backward"]
                             for p, c in decoder_runs.items()}
@@ -3343,6 +4040,8 @@ def _kernel_line(R: dict) -> list:
             decoder_launches=decoder_launches,
             phase10_launches={p: c.get("packed_attention_backward", 0)
                               for p, c in phase10_runs.items()},
+            phase11_launches={p: c.get("packed_attention_backward", 0)
+                              for p, c in phase11_runs.items()},
             f32_dh128_edges=R.get("f32_edges", []),
             checks=train))
     if tr is not None:
@@ -3406,7 +4105,7 @@ def main(argv=None) -> int:
             R.update(run_serving(data, device))
     if 5 in phases:
         with phase_timer(5, PHASES[5]):
-            R.update(run_training(data, device))
+            R.update(run_training(data, device, card))
     if 6 in phases:
         with phase_timer(6, PHASES[6]):
             R.update(run_loop(data, device, card))
@@ -3422,6 +4121,9 @@ def main(argv=None) -> int:
     if 10 in phases:
         with phase_timer(10, PHASES[10]):
             R.update(run_phase10(data, device, card))
+    if 11 in phases:
+        with phase_timer(11, PHASES[11]):
+            R.update(run_phase11(data, device, card))
 
     kernels = _kernel_line(R)
     total = time.perf_counter() - t_run

@@ -36,7 +36,9 @@ no JAX. Conversions:
     names (`item_op/lm/layer_3/attention/query` ->
     `item_op.lm.layer_3.attention.query`); in layer-split mode the frozen
     lower slice `item_op/lm_lower/{embedding stage, layer_0..k-1}` and the
-    trained upper slice `item_op/lm/layer_k..` map the same way.
+    trained upper slice `item_op/lm/layer_k..` map the same way; so do
+    the semantic operator's level clones `user_op/base_<i>/...` and its
+    `pool`, and SemanticMixPredictor's `mix_linear` (a Dense).
 The same conversion maps a tree of JAX gradients onto the port's
 parameter names.
 Raises on any key it cannot place and on any parameter of the port that

@@ -5,3 +5,6 @@ from legommenders_tpu_torch.models.inputers.single_column import (
     SingleColumnInputer,
 )
 from legommenders_tpu_torch.models.inputers.flatten import FlattenSeqInputer
+from legommenders_tpu_torch.models.inputers.semantic import (
+    SemanticInputer, SemanticMixInputer,
+)

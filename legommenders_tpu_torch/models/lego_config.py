@@ -24,8 +24,14 @@ the item columns' count / specs (CNNCat builds a block per column); a
 predictor that declares `input_dim` gets the user representation's width
 (MINER's projection, the CTR heads' layers), which must then equal the
 item representation's. A flatten-mode user operator (FlattenTransformer,
-FlattenFastformer) gets its own inputer over the item columns (JAX
-:183-229), and the model no history plan.
+FlattenFastformer, Semantic) gets its own inputer over the item columns
+(JAX :183-229), and the model no history plan; one whose inputer reads
+user-store columns (SCMix) gets it over `data.user_inputs`, whose columns
+the batches carry (`user_batch_cols`), at the embedding width. A semantic
+operator gets a level per code of the first item column
+(`num_semantic_layers`), SemanticMixPredictor the count of its pair
+scores (`num_pairs`: the item operator's output levels times the user's
+codes).
 """
 import inspect
 import logging
@@ -99,7 +105,7 @@ class LegoConfig:
     use_item_content: bool = True
     use_fast_eval: bool = True
     item_page_size: int = 0
-    item_page_remat: str = "full"   # "full" | "none" ("dots"/"ffn": LM knobs)
+    item_page_remat: str = "full"   # "full" | "none" | "ffn" | "dots"
     full_catalog_encode: str = "auto"
     cache_page_size: int = 512
     item_config: dict = field(default_factory=dict)
@@ -188,12 +194,26 @@ class LegoConfig:
         user_op_cls = OPERATORS[self.user_operator]
         pred_cls = PREDICTORS[self.predictor]
         flatten = bool(user_op_cls.flatten_mode)
-        if flatten and getattr(user_op_cls.inputer_class,
-                               "consumes_user_cols", False):
-            raise NotImplementedError(
-                f"{self.user_operator}: a flatten-mode user operator over "
-                f"user-store columns (the semantic family) is not ported "
-                f"yet (ROADMAP.md, queue 1, item 6c)")
+        user_from_user_cols = flatten and bool(getattr(
+            user_op_cls.inputer_class, "consumes_user_cols", False))
+        user_cols = ()
+        if user_from_user_cols:
+            # the user operator reads user-store columns of the batch
+            # (SemanticMix), registered as the item columns are (JAX
+            # :209-224)
+            if not getattr(data, "user_inputs", None):
+                raise ValueError(f"{self.user_operator} needs user-side "
+                                 f"input columns (data config user.inputs)")
+            cols = []
+            for col, _ in data.user_inputs:
+                v = data.users.vocab_of(col)
+                vocab = v.name if v else col
+                arr = data.users[col]
+                cols.append((col, vocab, arr.shape[1] if arr.ndim > 1 else 1))
+                if not hub.has(vocab):
+                    hub.register_vocab(vocab, len(v) if v
+                                       else int(arr.max()) + 1)
+            user_cols = tuple(cols)
         eh = hub.build(self.dtype)
 
         item_op = item_inputer = None
@@ -207,20 +227,27 @@ class LegoConfig:
         ucfg = combine_config(
             {k: v for k, v in self.user_config.items()
              if k != "inputer_config"},
-            hidden_size=self.hidden_size, input_dim=item_dim)
+            hidden_size=self.hidden_size,
+            input_dim=emb_dim if user_from_user_cols else item_dim)
         ucfg = _filter_fields(ucfg, user_op_cls, "user_config")
+        if ("num_semantic_layers" in init_fields(user_op_cls)
+                and "num_semantic_layers" not in ucfg and item_cols):
+            # a semantic operator has a level per code of an item
+            ucfg["num_semantic_layers"] = item_cols[0][2]
         user_op = user_op_cls(dtype=self.dtype, **ucfg)
 
         user_inputer = None
         if flatten:
             # the user operator reads the history's item columns itself,
-            # flattened by its own inputer (JAX :201-229)
+            # flattened by its own inputer, or the batch's user columns
+            # (JAX :201-229)
             u_inputer_cfg = _filter_fields(
                 dict(self.user_config.get("inputer_config") or {}),
                 user_op_cls.inputer_class, "user_config.inputer_config")
-            col, vocab, _ = item_cols[0]
+            u_cols = user_cols or item_cols
+            col, vocab, _ = u_cols[0]
             user_inputer = user_op_cls.inputer_class(
-                cols=item_cols, dtype=self.dtype, dim=eh.dim_of(vocab, col),
+                cols=u_cols, dtype=self.dtype, dim=eh.dim_of(vocab, col),
                 **u_inputer_cfg)
 
         pcfg = combine_config(dict(self.predictor_config),
@@ -233,6 +260,10 @@ class LegoConfig:
                     f"{self.predictor}: the user repr is "
                     f"{user_op.output_dim} wide, the item repr {item_dim}")
             pcfg["input_dim"] = user_op.output_dim
+        if "num_pairs" in init_fields(pred_cls):
+            # SemanticMix: (item levels) x (user codes) pair scores
+            levels = item_op.output_levels(item_cols) if item_op else 1
+            pcfg["num_pairs"] = levels * (user_cols[0][2] if user_cols else 1)
         predictor = pred_cls(dtype=self.dtype, **pcfg)
 
         # compatibility checks (reference lego_config.py:217-224)
@@ -269,6 +300,7 @@ class LegoConfig:
             catalog_plans=catalog_plans,
             catalog_history_plan=history_plan,
             item_id_vocab=item_id_vocab,
+            user_batch_cols=tuple(c for c, _, _ in user_cols),
         )
         return model, contents
 

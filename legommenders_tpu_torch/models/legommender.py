@@ -13,7 +13,12 @@ embedding tables (reference model/legommender.py:55-263).
     flattened rows are encoded in pages; under `item_page_remat: full`
     each page is a torch.utils.checkpoint region (recomputed in the
     backward, only its output kept), under `none` every page keeps its
-    activations (JAX `_encode_paged`, :163-213). A page gathers its rows
+    activations, under `ffn` a page's checkpoint keeps the outputs of
+    the FFN's second dense layers (`lm.remat.FFNStash`, JAX
+    `save_only_these_names(FFN_OUT_TAG)`) and under `dots` it is a
+    selective checkpoint that keeps every matrix product's (`DOT_OPS`,
+    JAX `dots_saveable`); the rest is recomputed, the attention kernel
+    included (JAX `_encode_paged`, :163-213). A page gathers its rows
     inside the region, as JAX gathers inside the scan body;
   * `encode_item_lower`: the offline split of layer-split mode (:215-223);
   * `encode_user`: click vectors (B, S, D) + mask (B, S) -> (B, D);
@@ -26,9 +31,12 @@ embedding tables (reference model/legommender.py:55-263).
     false: no item operator or inputer) candidates and clicks are rows of
     the item-id table (`item_id_embedding`, ids clipped into it); the
     clicks are not masked before the user operator, as in JAX. In
-    flatten mode (a FlattenTransformer / FlattenFastformer user) the
-    candidates are encoded per occurrence and the user operator reads the
-    clicks' tokens through its own `user_inputer` (`encode_user_flatten`).
+    flatten mode (a FlattenTransformer / FlattenFastformer / Semantic
+    user) the candidates are encoded per occurrence and the user operator
+    reads the clicks' tokens through its own `user_inputer`
+    (`encode_user_flatten`), or, with `user_batch_cols` (SCMix), those
+    columns of the batch (JAX :295-310). An item operator's output may be
+    a stack (SCSimple over the codes: (..., C, D)); its rank is kept.
 `rng` is the explicit dropout generator of a training forward; None is
 eval mode (JAX `training=False`). A paged forward draws one seed per page
 from it before the page runs and gives the page a generator of its own
@@ -51,13 +59,15 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from legommenders_tpu_torch.models.embedding import (
     EmbeddingTables, PlannedTables,
 )
 from legommenders_tpu_torch.models.inputers.base import BaseInputer
-from legommenders_tpu_torch.models.lm.layers import LM_KNOBS
+from legommenders_tpu_torch.models.lm.remat import FFN_DENSE_OP, FFNStash
 from legommenders_tpu_torch.models.operators.base import BaseOperator
 from legommenders_tpu_torch.models.operators.lm_ops import (
     LM_HIDDEN_KEY, LM_MASK_KEY,
@@ -65,8 +75,26 @@ from legommenders_tpu_torch.models.operators.lm_ops import (
 from legommenders_tpu_torch.models.predictors.base import BasePredictor
 from legommenders_tpu_torch.ops import catalog_grad
 
-REMAT_POLICIES = ("full", "none")
-LM_REMAT_POLICIES = ("dots", "ffn")
+REMAT_POLICIES = ("full", "none", "dots", "ffn")
+_aten = torch.ops.aten
+# the matrix products a `dots` page keeps (JAX dots_saveable keeps every
+# dot_general); the attention kernel launches outside the dispatcher and
+# is recomputed, as JAX recomputes the Pallas call
+DOT_OPS = frozenset((_aten.mm.default, _aten.addmm.default,
+                     _aten.bmm.default, _aten.baddbmm.default,
+                     FFN_DENSE_OP))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+# each page checkpoint's `context_fn` by policy (`full`: none)
+PAGE_CONTEXTS = {
+    "ffn": lambda: FFNStash().contexts(),
+    "dots": functools.partial(create_selective_checkpoint_contexts,
+                              _dots_policy)}
 
 
 class Legommender(nn.Module):
@@ -78,14 +106,12 @@ class Legommender(nn.Module):
                  item_page_remat: str = "full",
                  full_catalog_encode: str = "auto",
                  catalog_plans: Optional[dict] = None,
-                 catalog_history_plan=None, item_id_vocab: str = "item_id"):
+                 catalog_history_plan=None, item_id_vocab: str = "item_id",
+                 user_batch_cols: tuple = ()):
         super().__init__()
-        if item_page_remat in LM_REMAT_POLICIES:
-            raise NotImplementedError(
-                f"item_page_remat={item_page_remat!r}: {LM_KNOBS}")
         if item_page_remat not in REMAT_POLICIES:
             raise ValueError(f"item_page_remat={item_page_remat!r}: one of "
-                             f"{REMAT_POLICIES + LM_REMAT_POLICIES}")
+                             f"{REMAT_POLICIES}")
         if full_catalog_encode not in ("auto", "on", "off"):
             raise ValueError(f"full_catalog_encode={full_catalog_encode!r}: "
                              f"auto, on or off")
@@ -101,6 +127,7 @@ class Legommender(nn.Module):
         self.catalog_plans = catalog_plans
         self.catalog_history_plan = catalog_history_plan
         self.item_id_vocab = item_id_vocab
+        self.user_batch_cols = tuple(user_batch_cols)
         self._warned_dead = set()
 
     @property
@@ -197,12 +224,15 @@ class Legommender(nn.Module):
         if rng is not None:
             seeds = torch.randint(0, 2 ** 62, (n_pages,), generator=rng,
                                   device=rng.device).tolist()
-        remat = self.item_page_remat == "full" and torch.is_grad_enabled()
+        policy = self.item_page_remat
+        remat = policy != "none" and torch.is_grad_enabled()
+        kw = ({"context_fn": PAGE_CONTEXTS[policy]}
+              if policy in PAGE_CONTEXTS else {})
         outs = []
         for page, seed in enumerate(seeds):
             fn = functools.partial(self._encode_page, flat, M, P, page, seed)
             outs.append(checkpoint(fn, use_reentrant=False,
-                                   preserve_rng_state=False)
+                                   preserve_rng_state=False, **kw)
                         if remat else fn())
         return torch.cat(outs)[:M]
 
@@ -270,9 +300,13 @@ class Legommender(nn.Module):
             # the clicks' tokens, padded clicks' all -1 (JAX :295-310)
             cand = {c: a[safe_cand] for c, a in item_contents.items()}
             item_repr = self.encode_item_content(cand, rng)
-            hist = {c: torch.where(click_mask[..., None] > 0, a[safe_hist],
-                                   -1)
-                    for c, a in item_contents.items()}
+            if self.user_batch_cols:
+                # the user side reads its own batch columns (SemanticMix)
+                hist = {c: batch[c] for c in self.user_batch_cols}
+            else:
+                hist = {c: torch.where(click_mask[..., None] > 0,
+                                       a[safe_hist], -1)
+                        for c, a in item_contents.items()}
             user_repr = self.encode_user_flatten(hist, rng)
             return self.predictor(user_repr, item_repr, rng)
         use_catalog = self.full_catalog_encode == "on" or (

@@ -31,8 +31,20 @@ where JAX applies stop_gradient); the LoRA factors (q and v) stay
 trainable, their gradient flowing through the fold. Every dropout site
 (hidden, attention probabilities, LoRA input, embedding stage) and the
 attention kernel's seed draw from the explicit generator `rng` handed to
-`forward`; `rng=None` is eval mode. `fused_qkv` and `pipeline_stages`
-raise NotImplementedError.
+`forward`; `rng=None` is eval mode. `pipeline_stages` raises
+NotImplementedError (a multi-device path).
+
+The FFN's second dense layer of every layer (BERT `ffn_output`, Llama
+`down_proj`, OPT `fc2`; `LoRADense(ffn_out=True)`) runs through
+`remat.ffn_out`, the operator the `ffn` and `dots` page remat policies
+keep (the JAX package tags that output `FFN_OUT_TAG`).
+
+`fused_qkv` (JAX `_fused_qkv_proj`, layers.py:196-251): q, k and v come
+from one product against the concatenation of the three base weights
+(each projection's LoRA delta folded into its block first with
+`lora_fold`), then each unfolded LoRA delta is added with its own dropout
+draw. The parameters stay those of the three LoRADense modules. Without a
+trainable parameter in it the concatenation is kept (`cached_casts`).
 
 IISAN. With `collect_pooled` a slice returns, instead of its last hidden
 states, the masked mean of every layer's output over the item's tokens
@@ -49,9 +61,11 @@ from torch.nn import functional as F
 from legommenders_tpu_torch.models.common import (  # noqa: F401
     FrozenableLayerNorm, cached_casts, dropout, lecun_normal_,
 )
+from legommenders_tpu_torch.models.lm.remat import ffn_out
 from legommenders_tpu_torch.ops.attention import MAX_T, packed_attention
 
-LM_KNOBS = "not ported yet (ROADMAP.md, queue 1, 'LM knobs')"
+PIPELINE_STAGES = ("pipeline_stages is a multi-device path, not ported yet "
+                   "(ROADMAP.md, queue 1, item 8)")
 
 
 class LoRADense(nn.Module):
@@ -62,13 +76,18 @@ class LoRADense(nn.Module):
     lora_A (D, r) and lora_B (r, F) transposed. With `lora_fold` the delta
     is added to W in f32 before the cast; otherwise it is a second,
     low-rank product (dropout(x) A^T) B^T in `dtype`, as in JAX.
-    `freeze_base` freezes W and b."""
+    `freeze_base` freezes W and b. `ffn_out` (a layer's FFN output, no
+    LoRA) runs the product and the bias through `remat.ffn_out`."""
 
     def __init__(self, in_features: int, features: int, lora_r: int = 0,
                  lora_alpha: int = 16, lora_dropout: float = 0.0,
                  lora_fold: bool = False, freeze_base: bool = False,
-                 use_bias: bool = True, dtype: torch.dtype = torch.float32):
+                 use_bias: bool = True, ffn_out: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        if ffn_out and lora_r > 0:
+            raise ValueError("an FFN output layer takes no LoRA")
+        self.ffn_out = ffn_out
         self.lora_r = lora_r
         self.lora_alpha = lora_alpha
         self.lora_dropout = lora_dropout
@@ -111,6 +130,8 @@ class LoRADense(nn.Module):
     def forward(self, x: torch.Tensor,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
         w, *b = self.weights()
+        if self.ffn_out:
+            return ffn_out(x.to(self.dtype), w, b[0] if b else None)
         y = x.to(self.dtype) @ w.t()
         if b:
             y = y + b[0]
@@ -119,6 +140,48 @@ class LoRADense(nn.Module):
             a, bb = self.lora_A.to(self.dtype), self.lora_B.to(self.dtype)
             y = y + ((h @ a.t()) @ bb.t()) * (self.lora_alpha / self.lora_r)
         return y
+
+
+def fused_qkv_weights(owner: nn.Module, projs):
+    """(kernel (sum F, D), bias or None) in `owner.dtype`: the base weights
+    of `projs` (q, k, v) concatenated, each folded LoRA delta added to its
+    block in f32 first (JAX `_fused_qkv_proj`); see `cached_casts`."""
+    if len({p.bias is not None for p in projs}) != 1:
+        raise ValueError("fused_qkv needs use_bias alike on q, k and v")
+    params = [t for p in projs for t in p.parameters()
+              if p.fold or t is p.weight or t is p.bias]
+
+    def make():
+        blocks = []
+        for p in projs:
+            w = p.weight
+            if p.fold:
+                w = w + (p.lora_B @ p.lora_A) * (p.lora_alpha / p.lora_r)
+            blocks.append(w)
+        w = torch.cat(blocks).to(owner.dtype)
+        if projs[0].bias is None:
+            return (w,)
+        return w, torch.cat([p.bias for p in projs]).to(owner.dtype)
+    return cached_casts(owner, params, make)
+
+
+def fused_qkv(owner: nn.Module, projs, x: torch.Tensor,
+              rng: Optional[torch.Generator] = None):
+    """[q, k, v] of x through one product against `fused_qkv_weights`,
+    then each unfolded LoRA delta, its dropout drawn in q, k, v order as
+    the separate projections draw it; each output contiguous."""
+    w, *b = fused_qkv_weights(owner, projs)
+    y = x.to(owner.dtype) @ w.t()
+    if b:
+        y = y + b[0]
+    outs = list(y.split([p.weight.shape[0] for p in projs], dim=-1))
+    for i, p in enumerate(projs):
+        if p.lora_r > 0 and not p.fold:
+            h = dropout(x, p.lora_dropout, rng).to(p.dtype)
+            a, bb = p.lora_A.to(p.dtype), p.lora_B.to(p.dtype)
+            outs[i] = outs[i] + ((h @ a.t()) @ bb.t()) * (p.lora_alpha
+                                                          / p.lora_r)
+    return [o.contiguous() for o in outs]
 
 
 class SharedBitsDropout:
@@ -232,11 +295,10 @@ class BertSelfAttention(nn.Module):
                  fused: bool = False, fused_qkv: bool = False,
                  lora_fold: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if fused_qkv:
-            raise NotImplementedError(f"fused_qkv is {LM_KNOBS}")
         self.num_heads = num_heads
         self.dropout = dropout
         self.fused = fused
+        self.fused_qkv = fused_qkv
         self.dtype = dtype
         lora = dict(lora_r=lora_r, lora_alpha=lora_alpha,
                     lora_dropout=lora_dropout, lora_fold=lora_fold,
@@ -253,7 +315,11 @@ class BertSelfAttention(nn.Module):
         B, L, D = x.shape
         H = self.num_heads
         d = D // H
-        q, k, v = self.query(x, rng), self.key(x), self.value(x, rng)
+        if self.fused_qkv:
+            q, k, v = fused_qkv(self, (self.query, self.key, self.value), x,
+                                rng)
+        else:
+            q, k, v = self.query(x, rng), self.key(x), self.value(x, rng)
         if self.fused and L <= MAX_T:
             bias3 = mask_bias[:, 0].expand(B, L, L)
             p = self.dropout if rng is not None else 0.0
@@ -298,7 +364,7 @@ class BertLayer(nn.Module):
         frozen = dict(freeze_base=freeze_base, dtype=dtype)
         self.attention_norm = FrozenableLayerNorm(dim, **norm)
         self.intermediate = LoRADense(dim, 4 * dim, **frozen)
-        self.ffn_output = LoRADense(4 * dim, dim, **frozen)
+        self.ffn_output = LoRADense(4 * dim, dim, ffn_out=True, **frozen)
         self.output_norm = FrozenableLayerNorm(dim, **norm)
 
     def _drop(self, x, site, bits, rng):
@@ -337,7 +403,7 @@ class BertEncoderSlice(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if pipeline_stages > 1:
-            raise NotImplementedError(f"pipeline_stages is {LM_KNOBS}")
+            raise NotImplementedError(PIPELINE_STAGES)
         self.collect_pooled = collect_pooled
         self.num_layers = num_layers
         self.start = start
@@ -527,9 +593,11 @@ class LlamaDecoderLayer(nn.Module):
                  freeze_base: bool = False, rope_theta: float = 10000.0,
                  qkv_bias: bool = False, rotary_fraction: float = 1.0,
                  rotary_interleaved: bool = False,
-                 fused_attention: bool = False, lora_fold: bool = False,
-                 norm_bf16: bool = False, dtype: torch.dtype = torch.float32):
+                 fused_attention: bool = False, fused_qkv: bool = False,
+                 lora_fold: bool = False, norm_bf16: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.fused_qkv = fused_qkv
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads or num_heads
         self.head_dim = dim // num_heads
@@ -554,7 +622,8 @@ class LlamaDecoderLayer(nn.Module):
         self.post_norm = RMSNorm(dim, **norm)
         self.gate_proj = LoRADense(dim, inter, use_bias=False, **frozen)
         self.up_proj = LoRADense(dim, inter, use_bias=False, **frozen)
-        self.down_proj = LoRADense(inter, dim, use_bias=False, **frozen)
+        self.down_proj = LoRADense(inter, dim, use_bias=False, ffn_out=True,
+                                   **frozen)
 
     def forward(self, x: torch.Tensor, mask_bias: torch.Tensor,
                 rotary_period: int = 0,
@@ -564,9 +633,13 @@ class LlamaDecoderLayer(nn.Module):
         B, L, D = x.shape
         H, KV, d = self.num_heads, self.num_kv_heads, self.head_dim
         h = self.input_norm(x)
-        q = self.q_proj(h, rng).reshape(B, L, H, d)
-        k = self.k_proj(h).reshape(B, L, KV, d)
-        v = self.v_proj(h, rng).reshape(B, L, KV, d)
+        if self.fused_qkv:
+            q, k, v = fused_qkv(self, (self.q_proj, self.k_proj, self.v_proj),
+                                h, rng)
+        else:
+            q, k, v = self.q_proj(h, rng), self.k_proj(h), self.v_proj(h, rng)
+        q = q.reshape(B, L, H, d)
+        k, v = k.reshape(B, L, KV, d), v.reshape(B, L, KV, d)
         cos, sin = rotary_tables(self.partial, rotary_period or L, L,
                                  self.rot_dim, self.rope_theta, self.dtype,
                                  x.device)
@@ -600,11 +673,9 @@ class _DecoderSlice(nn.Module):
     causal block-diagonal bias; positions restart per item), the layer
     loop, unpacking and `final_norm`."""
 
-    def _check_knobs(self, fused_qkv, pipeline_stages):
-        if fused_qkv:
-            raise NotImplementedError(f"fused_qkv is {LM_KNOBS}")
+    def _check_knobs(self, pipeline_stages):
         if pipeline_stages > 1:
-            raise NotImplementedError(f"pipeline_stages is {LM_KNOBS}")
+            raise NotImplementedError(PIPELINE_STAGES)
 
     def layers(self):
         return [getattr(self, f"layer_{i}")
@@ -658,7 +729,7 @@ class LlamaDecoderSlice(_DecoderSlice):
                  pipeline_stages: int = 0, collect_pooled: bool = False,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        self._check_knobs(fused_qkv, pipeline_stages)
+        self._check_knobs(pipeline_stages)
         self.collect_pooled = collect_pooled
         self.num_layers = num_layers
         self.start = start
@@ -670,8 +741,8 @@ class LlamaDecoderSlice(_DecoderSlice):
                 lora_alpha, lora_dropout, freeze_base, rope_theta,
                 qkv_bias=qkv_bias, rotary_fraction=rotary_fraction,
                 rotary_interleaved=rotary_interleaved,
-                fused_attention=fused_attention, lora_fold=lora_fold,
-                norm_bf16=norm_bf16, dtype=dtype))
+                fused_attention=fused_attention, fused_qkv=fused_qkv,
+                lora_fold=lora_fold, norm_bf16=norm_bf16, dtype=dtype))
         self.final_norm = (RMSNorm(dim, freeze=freeze_base,
                                    bf16_apply=norm_bf16, dtype=dtype)
                            if final_norm else None)
@@ -701,13 +772,14 @@ class OPTDecoderLayer(nn.Module):
                  lora_r: int = 0, lora_alpha: int = 16,
                  lora_dropout: float = 0.0, freeze_base: bool = False,
                  dropout: float = 0.0, fused_attention: bool = False,
-                 lora_fold: bool = False, norm_bf16: bool = False,
-                 dropout_reuse: bool = False,
+                 fused_qkv: bool = False, lora_fold: bool = False,
+                 norm_bf16: bool = False, dropout_reuse: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.dropout = dropout
         self.fused = fused_attention
+        self.fused_qkv = fused_qkv
         self.dtype = dtype
         self.shared = SharedBitsDropout(dropout) if dropout_reuse else None
         lora = dict(lora_r=lora_r, lora_alpha=lora_alpha,
@@ -723,7 +795,7 @@ class OPTDecoderLayer(nn.Module):
         self.out_proj = LoRADense(dim, dim, **frozen)
         self.ffn_norm = FrozenableLayerNorm(dim, **norm)
         self.fc1 = LoRADense(dim, ffn_dim or 4 * dim, **frozen)
-        self.fc2 = LoRADense(ffn_dim or 4 * dim, dim, **frozen)
+        self.fc2 = LoRADense(ffn_dim or 4 * dim, dim, ffn_out=True, **frozen)
 
     def _drop(self, x, site, bits, rng):
         if self.shared is not None:
@@ -736,7 +808,11 @@ class OPTDecoderLayer(nn.Module):
         H = self.num_heads
         d = D // H
         h = self.attn_norm(x)
-        q, k, v = self.q_proj(h, rng), self.k_proj(h), self.v_proj(h, rng)
+        if self.fused_qkv:
+            q, k, v = fused_qkv(self, (self.q_proj, self.k_proj, self.v_proj),
+                                h, rng)
+        else:
+            q, k, v = self.q_proj(h, rng), self.k_proj(h), self.v_proj(h, rng)
         if self.fused and L <= MAX_T:
             out = packed_attention(H, 0.0, q, k, v,
                                    mask_bias[:, 0].expand(B, L, L))
@@ -773,7 +849,7 @@ class OPTDecoderSlice(_DecoderSlice):
                  pipeline_stages: int = 0, collect_pooled: bool = False,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        self._check_knobs(fused_qkv, pipeline_stages)
+        self._check_knobs(pipeline_stages)
         self.collect_pooled = collect_pooled
         self.num_layers = num_layers
         self.start = start
@@ -788,9 +864,9 @@ class OPTDecoderSlice(_DecoderSlice):
             self.add_module(f"layer_{i}", OPTDecoderLayer(
                 dim, num_heads, ffn_dim, lora_r, lora_alpha, lora_dropout,
                 freeze_base, dropout=dropout,
-                fused_attention=fused_attention, lora_fold=lora_fold,
-                norm_bf16=norm_bf16, dropout_reuse=dropout_reuse,
-                dtype=dtype))
+                fused_attention=fused_attention, fused_qkv=fused_qkv,
+                lora_fold=lora_fold, norm_bf16=norm_bf16,
+                dropout_reuse=dropout_reuse, dtype=dtype))
         self.final_norm = (FrozenableLayerNorm(dim, epsilon=1e-5,
                                                freeze=freeze_base,
                                                dtype=dtype)

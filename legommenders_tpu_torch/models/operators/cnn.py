@@ -22,6 +22,7 @@ from torch import nn
 from legommenders_tpu_torch.models.common import (
     AdditiveAttention, dense, dropout, reset_linear,
 )
+from legommenders_tpu_torch.models.inputers.simple import SimpleInputer
 from legommenders_tpu_torch.models.operators.base import BaseOperator
 from legommenders_tpu_torch.utils.registry import OPERATORS
 
@@ -39,6 +40,7 @@ def conv_same(conv: nn.Conv1d, emb: torch.Tensor,
 
 @OPERATORS.register
 class CNNOperator(BaseOperator):
+    inputer_class = SimpleInputer
 
     def __init__(self, hidden_size: int = 64, input_dim: int = 64,
                  kernel_size: int = 3, dropout: float = 0.1,
@@ -78,6 +80,7 @@ class CNNOperator(BaseOperator):
 
 @OPERATORS.register
 class CNNCatOperator(BaseOperator):
+    inputer_class = SimpleInputer
 
     def __init__(self, hidden_size: int = 64, input_dim: int = 64,
                  kernel_size: int = 3, dropout: float = 0.1,

@@ -87,6 +87,10 @@ class SCSimpleOperator(_Parameterless):
     (N, 1, D) input loses its length axis."""
     inputer_class = SingleColumnInputer
 
+    def output_levels(self, cols) -> int:
+        """A column of L > 1 tokens stays a stack of L vectors."""
+        return max(1, int(cols[0][2]))
+
     def forward(self, embeddings: torch.Tensor, mask=None,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
         if embeddings.ndim == 3 and embeddings.shape[-2] == 1:

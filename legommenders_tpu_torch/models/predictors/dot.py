@@ -9,5 +9,8 @@ from legommenders_tpu_torch.utils.registry import PREDICTORS
 @PREDICTORS.register
 class DotPredictor(BasePredictor):
 
+    def score_pair(self, user, item, rng=None):
+        return (user * item).sum(dim=-1)
+
     def forward(self, user, items, rng=None):
         return torch.einsum("...d,...kd->...k", user, items)

@@ -1,8 +1,8 @@
 """Small IO helpers (json/jsonl/yaml).
 
-The port's copy of the JAX package's utils/io.py JSON helpers. `yaml` is
-imported inside `yaml_load` only, so that a machine without PyYAML can
-import the port.
+The port's copy of the JAX package's utils/io.py JSON and YAML helpers.
+`yaml` is imported inside `yaml_load` and `yaml_save` only, so that a
+machine without PyYAML can import the port.
 """
 import json
 import os
@@ -47,3 +47,11 @@ def yaml_load(path):
 
     with open(path, "r") as f:
         return yaml.safe_load(f)
+
+
+def yaml_save(obj, path):
+    import yaml
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(obj, f, sort_keys=False)

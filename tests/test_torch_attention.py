@@ -240,22 +240,27 @@ def test_bert_slice_matches_jax(fused, pack, gelu_approx, fold):
 
 
 def test_unported_knobs_raise():
-    with pytest.raises(NotImplementedError, match="LM knobs"):
+    # fused_qkv is ported (tests/test_torch_lm_knobs.py): it builds, and
+    # beside pipeline_stages, a multi-device path, the slice raises
+    assert layers.BertEncoderSlice(num_layers=1, dim=8, num_heads=2,
+                                   fused_qkv=True).layer_0.attention.fused_qkv
+    with pytest.raises(NotImplementedError, match="item 8"):
         layers.BertEncoderSlice(num_layers=1, dim=8, num_heads=2,
-                                fused_qkv=True)
-    with pytest.raises(NotImplementedError, match="LM knobs"):
+                                fused_qkv=True, pipeline_stages=2)
+    with pytest.raises(NotImplementedError, match="item 8"):
         layers.BertEncoderSlice(num_layers=2, dim=8, num_heads=2,
                                 pipeline_stages=2)
     # IISAN's collect_pooled is ported (tests/test_torch_iisan.py); JAX
     # refuses it under pipeline_stages, which raises here first
-    with pytest.raises(NotImplementedError, match="LM knobs"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         layers.BertEncoderSlice(num_layers=2, dim=8, num_heads=2,
                                 pipeline_stages=2, collect_pooled=True)
     # the decoder slices are ported (tests/test_torch_decoder.py); their
-    # knobs of a later slice raise as BERT's do
-    with pytest.raises(NotImplementedError, match="LM knobs"):
+    # multi-device knob raises as BERT's does
+    with pytest.raises(NotImplementedError, match="item 8"):
         layers.LlamaDecoderSlice(num_layers=1, dim=8, num_heads=2,
                                  pipeline_stages=2)
-    with pytest.raises(NotImplementedError, match="LM knobs"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         layers.OPTDecoderSlice(num_layers=1, dim=8, num_heads=2,
-                               fused_qkv=True, collect_pooled=True)
+                               fused_qkv=True, collect_pooled=True,
+                               pipeline_stages=2)

@@ -248,10 +248,11 @@ def test_bridge_places_bert_names_and_rejects_strays(pair):
 
 
 def test_unported_modes_raise():
-    """The LM knobs of a later slice raise: the `ffn`/`dots` page remat
-    policies and, on the Llama family (ported:
-    tests/test_torch_decoder_models.py), `pipeline_stages`. (Layer-split
-    mode, `tune_from`, is ported: tests/test_torch_lm_train.py.)"""
+    """The `ffn`/`dots` page remat policies build since the LM knobs were
+    ported (their parity: tests/test_torch_lm_knobs.py); on the Llama
+    family (ported: tests/test_torch_decoder_models.py) `pipeline_stages`,
+    a multi-device path, raises. (Layer-split mode, `tune_from`, is
+    ported: tests/test_torch_lm_train.py.)"""
     op = BertBaseOperator(hidden_size=8, input_dim=16, num_hidden_layers=2,
                           num_attention_heads=2, tune_from=1)
     assert op.use_lm_cache and op.resolved_tune_from == 1
@@ -260,11 +261,11 @@ def test_unported_modes_raise():
     for policy in ("ffn", "dots"):
         cfg = model_cfg("f32")
         cfg["config"]["item_page_remat"] = policy
-        with pytest.raises(NotImplementedError, match="'LM knobs'"):
-            Manager(model_cfg=cfg, data=data, device="cpu")
+        tm = Manager(model_cfg=cfg, data=data, device="cpu")
+        assert tm.model.item_page_remat == policy
     cfg = model_cfg("f32")
     cfg["meta"]["item"] = "Llama"
     del cfg["config"]["item_config"]["dropout_reuse"]   # BERT/OPT only
     cfg["config"]["item_config"]["pipeline_stages"] = 2
-    with pytest.raises(NotImplementedError, match="LM knobs"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         Manager(model_cfg=cfg, data=data, device="cpu")

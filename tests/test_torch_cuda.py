@@ -30,7 +30,10 @@ trip of CUDA tensors (exact), and full-forward scores against cached ones
 T x T tile) at head width 128: T 128 (the Llama training page), 117 and
 116, with and without dropout; the long-sequence pool
 (additive_pool_long) at L 129, 495 and 1,023, f32 and bf16, all-masked
-items exactly 0.
+items exactly 0. The LM knobs: fused_qkv and norm_bf16 in the BERT,
+Llama and OPT slices at bf16 against the CPU (2e-2), the `ffn` and `dots`
+page remat against `full` (1e-5, the attention launched twice a page);
+the pool at L 4 (an item's semantic codes).
 """
 import os
 import sys
@@ -1104,3 +1107,111 @@ def test_decoder_models_on_card_match_cpu(device, name):
     assert torch.isfinite(loss).item()
     assert packed_attention.launches > f0
     assert packed_attention_backward.launches > b0
+
+
+@pytest.mark.parametrize("cls", ["bert", "llama", "opt"])
+@pytest.mark.parametrize("knob", ["fused_qkv", "norm_bf16"])
+def test_lm_knobs_on_card_match_cpu(device, cls, knob):
+    """A 2-layer slice (D 64) with fused_qkv or norm_bf16 on the card, bf16,
+    against the same slice on the CPU (f32 weights, bf16 compute), within
+    2e-2 of the largest output: the fused product and the port's own bf16
+    norm (which never hands torch's CUDA layer_norm a bf16 input with f32
+    weights) run there."""
+    from legommenders_tpu_torch.models.lm import layers
+
+    torch.manual_seed(0)
+    kw = dict(num_layers=2, dim=64, num_heads=4, dtype=torch.bfloat16,
+              lora_r=4, freeze_base=True, attention_pack=-1,
+              fused_attention=True, **{knob: True})
+    if cls == "bert":
+        mod = layers.BertEncoderSlice(embed=False, dropout=0.0, **kw)
+    elif cls == "llama":
+        mod = layers.LlamaDecoderSlice(num_kv_heads=2, qkv_bias=True,
+                                       intermediate_size=96, **kw)
+    else:
+        mod = layers.OPTDecoderSlice(embed_positions=False, **kw)
+    with torch.no_grad():
+        for n, p in mod.named_parameters():
+            if "lora_B" in n:
+                p.normal_(0.0, 0.05)
+    x = torch.randn(9, 12, 64)
+    mask = torch.ones(9, 12, dtype=torch.int32)
+    mask[::2, 7:] = 0
+    with torch.no_grad():
+        want = mod(x, mask).float()
+        got = mod.to(device)(x.to(device), mask.to(device)).float().cpu()
+    valid = mask.bool()
+    err = (got[valid] - want[valid]).abs().max()
+    assert torch.isfinite(got).all()
+    assert err <= 2e-2 * want[valid].abs().max(), float(err)
+
+
+@pytest.mark.parametrize("policy", ["ffn", "dots"])
+def test_selective_remat_on_card_matches_full(device, policy):
+    """A paged layer-split BERT (2 layers at D 64, tune_from 1, 3 pages) on
+    the card at f32: `ffn` and `dots` give `full`'s loss and gradients
+    (1e-5 of each tensor's largest) at dropout 0.1 from one step seed; the
+    attention forward launches twice a page under each (its output is not
+    a matrix product: recomputed)."""
+    from legommenders_tpu_torch.data.device_pipeline import (
+        DeviceTrainPipeline,
+    )
+    from legommenders_tpu_torch.data.processors.synthetic import (
+        SyntheticProcessor,
+    )
+    from legommenders_tpu_torch.ops.attention import packed_attention
+    from legommenders_tpu_torch.runtime import steps
+    from legommenders_tpu_torch.runtime.manager import Manager
+
+    cfg = {"meta": {"item": "Bert", "user": "Ada", "predictor": "Dot"},
+           "config": {"use_item_content": True, "hidden_size": 16,
+                      "embedding_dim": 64, "item_page_size": 24,
+                      "item_config": {
+                          "lm_dtype": "f32", "num_hidden_layers": 2,
+                          "num_attention_heads": 4, "max_position": 64,
+                          "tune_from": 1, "lora_r": 4, "lora_fold": True,
+                          "lora_dropout": 0.0,
+                          "fused_attention": True, "dropout": 0.1,
+                          "inputer_config": {"use_cls_token": True,
+                                             "use_sep_token": True,
+                                             "compact": True}}}}
+    data = SyntheticProcessor(num_items=60, num_users=30, title_len=8,
+                              history_len=6, vocab_size=200,
+                              inters_per_user=6).as_lego_data()
+    m = Manager(model_cfg=cfg, data=data, device=device, seed=0)
+    assert m.prepare_lm_cache(root=None)
+    dp = DeviceTrainPipeline(data, batch_size=8, neg_count=4, seed=0,
+                             device=device)
+    batch = dp.assemble(next(dp.epoch_indices(shuffle=False)),
+                        torch.Generator(device=device).manual_seed(1))
+    out = {}
+    for pol in ("full", policy):
+        m.model.item_page_remat = pol
+        m.model.zero_grad(set_to_none=True)
+        packed_attention.launches = 0
+        loss = steps.make_loss_fn(m.model, m.contents.columns, True)(
+            batch, torch.Generator(device=device).manual_seed(5))
+        loss.backward()
+        out[pol] = (loss.item(), packed_attention.launches,
+                    {n: p.grad.clone() for n, p in m.model.named_parameters()
+                     if p.grad is not None})
+    assert abs(out[policy][0] - out["full"][0]) <= 1e-6
+    assert out[policy][1] == out["full"][1] == 2 * 3
+    for n, g in out["full"][2].items():
+        scale = max(g.abs().max().item(), 1e-6)
+        assert (out[policy][2][n] - g).abs().max().item() <= 1e-5 * scale, n
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_pool_at_semantic_code_width_matches_plain(device, dtype):
+    """The pool at L 4 (an item's semantic codes) over a few tiles, with
+    all-masked items exactly 0."""
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    x, mask, w1, b1, q = _inputs(1001, 4, 64, 256, device, dt)
+    mask[::7] = 0
+    got = additive_pool(x, mask, w1, b1, q)
+    want = additive_pool_reference(x.float(), mask, w1, b1, q)
+    err = (got.float() - want).abs().max()
+    tol = 1e-5 if dtype == "f32" else 2e-2 * want.abs().max()
+    assert err <= tol
+    assert (got[::7] == 0).all()

@@ -259,9 +259,13 @@ def test_opt_positions_follow_valid_tokens():
 @pytest.mark.parametrize("cls", [layers.LlamaDecoderSlice,
                                  layers.OPTDecoderSlice])
 def test_decoder_knobs_not_ported_raise(cls):
-    # collect_pooled (IISAN) is ported; JAX refuses it under
-    # pipeline_stages, which raises
-    for knob in (dict(fused_qkv=True), dict(pipeline_stages=2),
+    # collect_pooled (IISAN) and fused_qkv (tests/test_torch_lm_knobs.py)
+    # are ported; pipeline_stages, a multi-device path, raises, with them
+    # too (JAX refuses collect_pooled under it)
+    assert cls(num_layers=1, dim=D, num_heads=2,
+               fused_qkv=True).layer_0.fused_qkv
+    for knob in (dict(fused_qkv=True, pipeline_stages=2),
+                 dict(pipeline_stages=2),
                  dict(pipeline_stages=2, collect_pooled=True)):
-        with pytest.raises(NotImplementedError, match="LM knobs"):
+        with pytest.raises(NotImplementedError, match="item 8"):
             cls(num_layers=1, dim=D, num_heads=2, **knob)

@@ -177,5 +177,5 @@ def test_iisan_yamls_raise(name, tdata):
         "Bert", "BertIISAN").replace("Llama", "LlamaIISAN") + "Operator"
     assert op.is_iisan and op.get_selected_layers() == [1]
     cfg["config"]["item_config"]["pipeline_stages"] = 2
-    with pytest.raises(NotImplementedError, match="LM knobs"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         Manager(model_cfg=cfg, data=tdata, device="cpu")

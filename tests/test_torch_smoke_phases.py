@@ -7,6 +7,8 @@ most clicks each user operator's positions take (33 slots a click: title
 its IISAN and BERT-zoo models are the YAMLs it names, its CLI models
 exist; a history cut as a data config cuts it keeps every other store.
 Phase 9.1's f32-backward pages are T 116 and 117 at head width 128.
+The remat and knob A/Bs compare the losses both runs took
+(`shared_loss_err`).
 """
 import os
 import sys
@@ -32,8 +34,10 @@ def test_phases_select(argv, want):
 
 
 def test_unknown_phase_is_refused():
+    # phase 11 exists since the LM knobs and the semantic family
+    assert chip_smoke.parse_phases(["--phases", "11"]) == {11}
     with pytest.raises(SystemExit):
-        chip_smoke.parse_phases(["--phases", "11"])
+        chip_smoke.parse_phases(["--phases", "12"])
 
 
 @pytest.mark.parametrize("name", list(chip_smoke.FLATTEN_MODELS))
@@ -84,3 +88,54 @@ def test_f32_backward_edge_pages_are_t116_and_t117_at_dh128():
         assert name == f"T {T}" and q.shape[-1] // page["heads"] == 128
         assert bias.shape == (q.shape[0], T, T)
     assert sorted(chip_smoke.F32_BWD_PAGES) == ["T 116", "T 117"]
+
+
+def test_phase11_semantic_compositions_build():
+    """Phase 11.2's compositions over the fixture with its code columns:
+    flatten users (never cached), the pools a forward launches (the item
+    Ada over the codes, a level each, the stack's pool), SemanticMix's
+    pairs (4 item codes x 4 user codes)."""
+    kw = dict(chip_smoke.DATA_KW, num_items=120, num_users=12,
+              vocab_size=300, inters_per_user=4)
+    data = chip_smoke.semantic_data(
+        SyntheticProcessor(**kw).as_lego_data())
+    assert data.items["semantic"].shape == (120, chip_smoke.SEMANTIC_CODES)
+    assert data.users["semantic"].shape == (12, chip_smoke.SEMANTIC_CODES)
+    assert data.items["semantic"].max() < chip_smoke.SEMANTIC_BOOK
+    pools = {}
+    for name, cfg in chip_smoke.SEMANTIC_MODELS.items():
+        tm = Manager(model_cfg=cfg, data=data, device="cpu")
+        assert tm.cache is None and tm.model.flatten_mode
+        pools[name] = (chip_smoke._pools_of(tm.model.item_op)
+                       + chip_smoke._pools_of(tm.model.user_op))
+        if name.endswith("semanticmix"):
+            assert tm.model.predictor.mix_linear.in_features == 16
+    assert pools == {"ada-semantic-poly": 5, "ada-semantic-dot": 6,
+                     "scsimple-scmix-semanticmix": 0}
+
+
+def test_phase11_processed_mind_on_cpu(tmp_path, monkeypatch):
+    """Phase 11.3 on the CPU: the fake MIND layout, `process --tokenizers
+    glove:<file>`, NAML trained and tested through the CLI (the wrappers
+    count no launch on the CPU: the count is stubbed)."""
+    monkeypatch.setattr(chip_smoke, "_counts", lambda: {
+        "additive_pool": 1, "packed_attention": 0,
+        "packed_attention_backward": 0, "dropout_keep_mask": 0})
+    rec = chip_smoke.run_processed_mind(str(tmp_path), "cpu")
+    assert rec["outcome"] == "ran"
+    items = rec["stores"]["items"]
+    assert items[0] == chip_smoke.MIND_RAW["news"]
+    assert "title@glove" in items[1]
+    assert 0.0 <= rec["results"]["GAUC"] <= 1.0
+
+
+def test_shared_loss_err_compares_the_steps_both_runs_took():
+    """A remat or knob A/B holds the warm loss and the timed losses the two
+    runs share, as a relative difference; a longer run's extra steps are
+    not compared."""
+    a = {"warm_loss": 2.0, "losses": [1.0, 0.5, 9.0, 9.0]}
+    b = {"warm_loss": 2.0, "losses": [1.01, 0.5]}
+    assert chip_smoke.shared_loss_err(a, b) == pytest.approx(0.01 / 1.01)
+    assert chip_smoke.shared_loss_err(a, dict(a)) == 0.0
+    c = {"warm_loss": 3.0, "losses": [1.0, 0.5]}
+    assert chip_smoke.shared_loss_err(c, b) == pytest.approx(0.5)
