@@ -172,10 +172,11 @@ and exits non-zero when any phase fails:
         and the bounds;
      2. llama-naml at the Llama-7B geometry (32 layers, d 4096, 32 heads,
         SwiGLU 10,922, LoRA r 32 folded, fused attention): Tester.test()
-        in full-LM mode cut to 16 layers (all 65,000 items through them;
+        in full-LM mode cut to 8 layers (all 65,000 items through them;
         the first 2,048 reprs against the model with its kernels patched
         out, 2e-2;
-        8 pages profiled; peak memory); then layer-split at tune_from 30:
+        8 pages profiled; peak memory); then layer-split, cut to 16 layers
+        at tune_from 14:
         the cache, 1 warm and 2 timed fused steps of 2,048 under `full`
         remat (one more profiled) and the trainable slice's gradients
         against the plain path at bf16 and at f32 (decoder_precision_check);
@@ -235,7 +236,34 @@ and exits non-zero when any phase fails:
      3. a fake MIND raw layout at `make smoke`'s geometry, `process --data
         mind --tokenizers glove:<file>`, NAML trained and tested through
         the CLI on the processed stores;
-     `[knobs]` and `[semantic]` lines.
+     `[knobs]` and `[semantic]` lines;
+ 12. the offline drivers, the worker and the dp axis, bf16, random weights
+     from seed 0 (`[drivers]` lines), each in a temporary directory:
+     1. NAML's Trainer (2 steps of 2,048, a dev pass) writes its best
+        checkpoint; `extractor.extract` loads it into a Manager of another
+        seed and exports the repr caches (65,000 x 64 items, 20,000
+        users): equal to Tester's cache on the trained weights bit for
+        bit, one pool launch a cache page (167);
+     2. the splitter (`--layers -2`, which wraps to 10) writes bert-naml's
+        lower-slice cache over the 16,384-item catalog (32 pages: 320
+        attention launches; its bytes printed); a bert-naml Trainer
+        reading it launches no lower-slice attention in its init, one
+        building it in memory launches 320; each takes a step and a dev
+        pass from the same weights (the steps `deterministic`): caches and
+        losses equal bit for bit, repr caches within 1e-3 of the largest;
+        3. the sizer's count at full width;
+     4. an HF-layout BERT checkpoint (a random 30,522 x 768 table) through
+        `embed --model bertbase`: the exported table equals it; a NAML
+        Manager given the exported config holds it frozen and serves;
+     5. the worker runs one small NAML job over 2 seeds (trainer processes
+        on the card, each under a timeout) against a lego-server stub on a
+        local thread: each seed registered and completed with its metrics
+        as JSON; a second run skips both;
+     6. NAML through the Trainer, 5 host batches of 16,384 (5 epochs of
+        one step and a dev pass), plain and under `exp.policy.mesh: true`
+        in an NCCL group of one, both `deterministic`: losses, weights and
+        dev values equal bit for bit, the same launches (the pool 2 a step, one a cache page),
+        both step times; the group destroyed.
 Then it prints one JSON line of kernels, the card line, and
 {"ok": true, "device": {...}} as the last line.
 """
@@ -1064,6 +1092,30 @@ def _repr_check(m, cache, rec):
         err = (got[:len(want)].float() - want.float()).abs().max()
         rec[f"{part}_repr_rel_err"] = float(err / want.float().abs().max())
         rec[f"{part}_repr_finite"] = bool(torch.isfinite(got).all())
+
+
+class deterministic:
+    """torch.use_deterministic_algorithms for a block (warn_only: the
+    port's own kernels launch outside the dispatcher), the setting before
+    it restored after. Two backward passes on the card otherwise differ in
+    their last bits: index_add_ (HistoryGradPlan's backward) adds by
+    atomics, in no fixed order (NAML's plans against themselves:
+    legommenders_tpu_torch/tools/plan_grad_noise.py)."""
+
+    def __enter__(self):
+        import torch
+
+        self.prev = (torch.are_deterministic_algorithms_enabled(),
+                     torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.use_deterministic_algorithms(self.prev[0],
+                                           warn_only=self.prev[1])
+        return False
 
 
 def _counters():
@@ -1966,8 +2018,10 @@ def _plan_scale(name: str, grads: dict):
 def run_naml_plans(data, device) -> dict:
     """7.3: NAML's gradients on one batch with the plans and with
     catalog_plans and catalog_history_plan set to None, at f32 and bf16
-    (the same dropout generator: the plans draw nothing); then the bf16
-    training step both ways, timed and profiled."""
+    (the same dropout generator: the plans draw nothing; both backward
+    passes `deterministic`, so the comparison holds the two sums' orders,
+    not the atomics' order of the run); then the bf16 training step both
+    ways, timed and profiled."""
     import torch
     from legommenders_tpu_torch.data.device_pipeline import (
         DeviceTrainPipeline, step_generator,
@@ -1993,8 +2047,9 @@ def run_naml_plans(data, device) -> dict:
             if side == "plain":
                 model.catalog_plans = model.catalog_history_plan = None
             model.zero_grad(set_to_none=True)
-            loss = loss_fn(batch, step_generator(0, 1, device))
-            loss.backward()
+            with deterministic():
+                loss = loss_fn(batch, step_generator(0, 1, device))
+                loss.backward()
             losses[side] = loss.item()
             grads[side] = {n: p.grad.float().clone()
                            for n, p in model.named_parameters()
@@ -2155,14 +2210,16 @@ def run_ctr_model(name: str, data, device) -> dict:
 # of 32 heads of 128, d 4096, SwiGLU int(4096 * 8 / 3) = 10,922, rope theta
 # 1e4, bf16, LoRA r 32 folded, fused attention, compact inputer): serving in
 # full-LM mode cut from 32 layers to 16 (the time limit: with phase 10 the
-# whole run passed 900 s); training layer-split at tune_from 30 of the 32
-# layers (layers 30-31 trained),
-# pages of 512 under full remat, as bench_lm.py trains BERT at 10 of 12.
+# whole run passed 900 s) and to 8 since phase 12; training layer-split
+# cut to 16 layers at tune_from 14 (the two trained layers and the
+# trainable slice's shapes as at 32 layers and tune_from 30; the cache
+# builds 14 layers, not 30, since phase 12), pages of 512 under full
+# remat, as bench_lm.py trains BERT at 10 of 12.
 # glm-naml at GLM's full width (d 4096, 32 heads over 2 kv heads, SwiGLU
 # 13,696) cut from 28 layers to 4 at tune_from 2 to fit the time limit;
 # opt-naml at OPTBase (12 layers, d 768, 12 heads) at tune_from 10 with
 # hidden dropout 0.1 (dropout_reuse).
-LLAMA_TUNE_FROM, LLAMA_SERVING_LAYERS = 30, 16
+LLAMA_TRAIN_LAYERS, LLAMA_TUNE_FROM, LLAMA_SERVING_LAYERS = 16, 14, 8
 GLM_LAYERS, GLM_TUNE_FROM = 4, 2
 OPT_TUNE_FROM = 10
 DECODER_STEPS = 2
@@ -2958,7 +3015,8 @@ def run_flatten_model(name: str, data, device) -> dict:
 PHASES = {3: "kernels", 4: "serving", 5: "training", 6: "run loop",
           7: "news zoo", 8: "CTR zoo", 9: "decoders",
           10: "IISAN, BERT zoo, flatten",
-          11: "LM knobs, semantic IDs, processed MIND"}
+          11: "LM knobs, semantic IDs, processed MIND",
+          12: "drivers and data parallel"}
 
 
 class phase_timer:
@@ -3164,7 +3222,8 @@ def run_decoders(data, device, card) -> dict:
     log(f"[decoder] {json.dumps(llama_serve)}")
     decoders = {}
     for name, item_config, test, precision in (
-            ("llama-naml", dict(tune_from=LLAMA_TUNE_FROM), False, True),
+            ("llama-naml", dict(num_hidden_layers=LLAMA_TRAIN_LAYERS,
+                                tune_from=LLAMA_TUNE_FROM), False, True),
             ("glm-naml", dict(num_hidden_layers=GLM_LAYERS,
                               tune_from=GLM_TUNE_FROM), True, False),
             ("opt-naml", dict(tune_from=OPT_TUNE_FROM), True, False)):
@@ -3794,6 +3853,472 @@ def run_phase11(data, device, card) -> dict:
             "semantic": semantic, "processed_mind": mind}
 
 
+# phase 12: the offline drivers, the embedders, the lego-server and the dp
+# axis. The splitter's cache: bert-naml's layers 0-9 (`--layers -2` wraps
+# to 10 of 12, bench_lm.py's tune_from) over the 16,384-item catalog of
+# phase 11 (32 pages of 512); NAML's dp run takes host batches of 16,384.
+SPLIT_LAYERS = "-2"
+# the two bert-naml Trainers' repr caches after their step and dev pass,
+# over the largest value (both steps under `deterministic`: bit-equal is
+# expected and printed; the gate leaves room for a kernel's own order)
+SPLIT_REPR_TOL = 1e-3
+DP_BATCH, DP_STEPS = 16384, 5
+# BERT-base's word-piece vocabulary: the table the embed check exports
+BERT_VOCAB = 30522
+# the worker's job: make smoke's geometry through the CLI, 2 seeds
+WORKER_JOB = ("--data synthetic --data_dir {data_dir} --model naml --epoch 1 "
+              "--epoch_batch 2 --batch_size 16 --hidden_size 16")
+WORKER_SEEDS = 2
+WORKER_TIMEOUT_S = 120
+PHASE12_POLICY = {"dtype": "bf16", "batch_size": TRAIN_BATCH,
+                  "lr": TRAIN_LR, "epoch": 1}
+
+
+def _bit_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def run_extractor_check(data, device, tmp) -> dict:
+    """12.1: NAML's Trainer (2 steps of 2,048, a dev pass) writes its best
+    checkpoint; the extractor loads it into a Manager of another seed and
+    exports the repr caches, which must equal Tester's cache on the
+    trained weights bit for bit, from one pool launch a cache page."""
+    import numpy as np
+    import torch
+    from legommenders_tpu_torch import extractor
+    from legommenders_tpu_torch.runtime.manager import Manager
+    from legommenders_tpu_torch.runtime.tester import Tester
+    from legommenders_tpu_torch.runtime.trainer import Trainer
+
+    exp = {"policy": {**PHASE12_POLICY, "epoch_batch": 2}}
+    ckpt = os.path.join(tmp, "naml.ckpt")
+    m = Manager(model_cfg=MODEL_CFG, exp_cfg=exp, data=data, device=device,
+                seed=0)
+    Trainer(m, seed=0, ckpt_path=ckpt, lm_cache_root=None).train()
+    Tester(m).test()
+    want = (m.cache.item_repr.float().cpu(), m.cache.user_repr.float().cpu())
+    m2 = Manager(model_cfg=MODEL_CFG, exp_cfg=exp, data=data, device=device,
+                 seed=1)
+    _zero_counts()
+    t0 = time.perf_counter()
+    paths = extractor.extract(m2, os.path.join(tmp, "export"), "phase12",
+                              load_path=ckpt)
+    torch.cuda.synchronize()
+    rec = {"path": "extractor (NAML)", "s": time.perf_counter() - t0,
+           "launches": _counts(), "expected_pool_launches": _eval_pages(m2)}
+    got = [torch.from_numpy(np.load(p)) for p in paths]
+    rec["shapes"] = [list(g.shape) for g in got]
+    rec["bit_equal"] = [_bit_equal(g, w) for g, w in zip(got, want)]
+    problems = []
+    if not all(rec["bit_equal"]):
+        problems.append("the exported reprs are not Tester's")
+    if got[0].shape != (data.num_items, D):
+        problems.append("item reprs' shape")
+    if (rec["launches"]["additive_pool"] != rec["expected_pool_launches"]
+            or rec["launches"]["packed_attention"]):
+        problems.append("kernel launches")
+    if problems:
+        raise RuntimeError(f"extractor failed ({problems}): {rec}")
+    del m, m2
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_splitter_check(data16, device, tmp) -> dict:
+    """12.2 and 12.3: the splitter writes bert-naml's lower-slice cache at
+    `--layers -2` (10) over `data16`; a Trainer reading it (no lower-slice
+    attention launch in its init) and one building its cache in memory
+    each take a step (`deterministic`) and a dev pass from the same
+    weights: the caches and the losses must be equal bit for bit, the
+    repr caches within SPLIT_REPR_TOL. Then the sizer's count at full
+    width."""
+    import copy
+
+    import torch
+    from legommenders_tpu_torch import sizer, splitter
+    from legommenders_tpu_torch.models.operators.lm_ops import LM_HIDDEN_KEY
+    from legommenders_tpu_torch.runtime.manager import Manager
+    from legommenders_tpu_torch.runtime.trainer import Trainer
+
+    cfg = copy.deepcopy(BERT_TRAIN_CFG)
+    cfg["config"]["use_fast_eval"] = True
+    exp = {"policy": {**PHASE12_POLICY, "epoch_batch": 1}}
+    root = os.path.join(tmp, "cache")
+
+    def make_manager(layer):
+        return Manager(model_cfg=splitter.with_tune_from(cfg, layer),
+                       exp_cfg=exp, data=data16, device=device, seed=0)
+
+    layers = splitter.resolve_layers(SPLIT_LAYERS, BERT_LAYERS)
+    n_pages = -(-data16.num_items // cfg["config"]["cache_page_size"])
+    rec = {"path": "splitter (bert-naml)", "layers": layers,
+           "catalog": data16.num_items}
+    _zero_counts()
+    t0 = time.perf_counter()
+    files = splitter.split(make_manager, layers, root=root, log=log)
+    torch.cuda.synchronize()
+    rec["s"] = time.perf_counter() - t0
+    rec["launches"] = _counts()
+    rec["expected_attention_launches"] = layers[0] * n_pages
+    d = os.path.dirname(files[layers[0]][0])
+    rec["bytes"] = sum(os.path.getsize(os.path.join(d, f))
+                       for f in os.listdir(d))
+    trainers = {}
+    for side, cache_root in (("disk", root), ("memory", None)):
+        m = make_manager(layers[0])
+        tr = Trainer(m, seed=0, lm_cache_root=cache_root)
+        _zero_counts()
+        t0 = time.perf_counter()
+        tr.init()
+        torch.cuda.synchronize()
+        init = {"s": time.perf_counter() - t0, "launches": _counts()}
+        _zero_counts()
+        with deterministic():
+            tr.train()
+        trainers[side] = (m, tr)
+        rec[side] = {"init": init, "train_launches": _counts(),
+                     "losses": tr.losses, "dev": tr.epochs[0]["dev"]}
+    (md, td), (mm, tm) = trainers["disk"], trainers["memory"]
+    rec["cache_bit_equal"] = _bit_equal(md.contents.columns[LM_HIDDEN_KEY],
+                                        mm.contents.columns[LM_HIDDEN_KEY])
+    rec["losses_equal"] = td.losses == tm.losses and len(td.losses) == 1
+    reprs = ((md.cache.item_repr, mm.cache.item_repr),
+             (md.cache.user_repr, mm.cache.user_repr))
+    rec["reprs_bit_equal"] = [_bit_equal(a, b) for a, b in reprs]
+    rec["reprs_rel_err"] = [float((a.float() - b.float()).abs().max())
+                            / max(float(b.float().abs().max()), 1e-30)
+                            for a, b in reprs]
+    rows, total = sizer.count(md.model)
+    rec["sizer"] = {"parameters": len(rows), "total": total,
+                    "trainable": sum(p.numel() for p in md.model.parameters()
+                                     if p.requires_grad)}
+    problems = []
+    if rec["launches"]["packed_attention"] != rec[
+            "expected_attention_launches"]:
+        problems.append("the splitter's attention launches")
+    if rec["disk"]["init"]["launches"]["packed_attention"]:
+        problems.append("the Trainer rebuilt the splitter's cache")
+    if rec["memory"]["init"]["launches"]["packed_attention"] != rec[
+            "expected_attention_launches"]:
+        problems.append("the in-memory cache's attention launches")
+    if not (rec["cache_bit_equal"] and rec["losses_equal"]
+            and max(rec["reprs_rel_err"]) <= SPLIT_REPR_TOL):
+        problems.append("the Trainers differ")
+    if total != sum(p.numel() for p in md.model.parameters()):
+        problems.append("the sizer's total")
+    if rec["bytes"] > 4e9:
+        problems.append("the cache's disk bytes")
+    if problems:
+        raise RuntimeError(f"splitter failed ({problems}): {rec}")
+    del trainers, md, mm, td, tm
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_embed_check(data, device, tmp) -> dict:
+    """12.4: an HF-layout BERT checkpoint (`pytorch_model.bin` holding a
+    random 30,522 x 768 word-embedding table under BERT's names) through
+    `embed --model bertbase`; the exported table must equal it, and a NAML
+    Manager given the exported config (vocab_name set to the fixture's
+    `word`) holds it frozen and serves through Tester.test()."""
+    import numpy as np
+    import torch
+    from legommenders_tpu_torch import embed
+    from legommenders_tpu_torch.runtime.manager import Manager
+    from legommenders_tpu_torch.runtime.tester import Tester
+    from legommenders_tpu_torch.utils.io import yaml_load
+
+    ckpt = os.path.join(tmp, "bert-base")
+    os.makedirs(ckpt)
+    g = torch.Generator().manual_seed(0)
+    table = torch.randn((BERT_VOCAB, 768), generator=g) * 0.02
+    torch.save({"bert.embeddings.word_embeddings.weight": table,
+                "bert.embeddings.position_embeddings.weight":
+                    torch.zeros(512, 768)},
+               os.path.join(ckpt, "pytorch_model.bin"))
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        t0 = time.perf_counter()
+        path, cfg_path = embed.main(["--model", "bertbase", "--model_path",
+                                     ckpt])
+        rec = {"path": "embed (bertbase)", "s": time.perf_counter() - t0}
+        exported = np.load(path)
+        embed_cfg = yaml_load(cfg_path)
+        embed_cfg["embeddings"][0]["vocab_name"] = "word"
+        embed_cfg["embeddings"][0]["path"] = os.path.abspath(path)
+    finally:
+        os.chdir(cwd)
+    rec["bit_equal"] = exported.tobytes() == table.numpy().tobytes()
+    m = Manager(model_cfg=MODEL_CFG, embed_cfg=embed_cfg, exp_cfg=EXP_CFG,
+                data=data, device=device, seed=0)
+    held = m.model.eh.tables["vocab__word"]
+    rec["frozen"] = not held.requires_grad
+    rec["loaded_equal"] = _bit_equal(held.detach().cpu(), table)
+    _zero_counts()
+    res = Tester(m).test()
+    rec["test"] = res
+    rec["launches"] = _counts()
+    if not (rec["bit_equal"] and rec["frozen"] and rec["loaded_equal"]
+            and all(math.isfinite(v) for v in res.values())
+            and rec["launches"]["additive_pool"] == _eval_pages(m)):
+        raise RuntimeError(f"embed failed: {rec}")
+    del m
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _stub_server():
+    """A lego-server stub on a local thread (the wire contract of
+    utils/server.py); returns (uri, state, shutdown)."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, HTTPServer
+    from urllib.parse import parse_qs, urlparse
+
+    state = {"evaluations": {}, "experiments": {}, "next": 100}
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def _send(self, body, identifier="OK"):
+            payload = json.dumps({"identifier": identifier,
+                                  "body": body}).encode()
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(payload)))
+            self.end_headers()
+            self.wfile.write(payload)
+
+        def _data(self):
+            n = int(self.headers.get("Content-Length", 0))
+            return json.loads(self.rfile.read(n)) if n else {}
+
+        def do_POST(self):
+            path, data = urlparse(self.path).path, self._data()
+            evals, exps = state["evaluations"], state["experiments"]
+            if path == "/evaluations/":
+                evals.setdefault(data["signature"], {
+                    "signature": data["signature"],
+                    "command": data["command"], "experiments": []})
+                return self._send(evals[data["signature"]])
+            if path == "/experiments/":
+                ev = evals[data["signature"]]
+                for e in ev["experiments"]:
+                    if e["seed"] == data["seed"]:
+                        return self._send(e["session"])
+                session = str(state["next"])
+                state["next"] += 1
+                exps[session] = {"signature": data["signature"],
+                                 "seed": data["seed"], "session": session,
+                                 "is_completed": False, "pid": None}
+                ev["experiments"].append(exps[session])
+                return self._send(session)
+            if path.endswith("/register"):
+                exps[path.split("/")[2]]["pid"] = data["pid"]
+                return self._send(None)
+            return self._send(None, "NOT_FOUND")
+
+        def do_GET(self):
+            parsed = urlparse(self.path)
+            query = {k: v[0] for k, v in parse_qs(parsed.query).items()}
+            if parsed.path == "/evaluations/":
+                return self._send({"total_page": 1, "evaluations": list(
+                    state["evaluations"].values())})
+            exp = state["experiments"].get(query.get("session"))
+            return self._send(exp, "OK" if exp else "NOT_FOUND")
+
+        def do_PUT(self):
+            data = self._data()
+            state["experiments"][data["session"]].update(
+                is_completed=True, log=data["log"],
+                performance=data["performance"])
+            return self._send(None)
+
+    httpd = HTTPServer(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+
+    def stop():
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join()
+
+    return f"http://127.0.0.1:{httpd.server_port}", state, stop
+
+
+def run_worker_check(tmp) -> dict:
+    """12.5: the worker runs one NAML job over 2 seeds (each a trainer
+    process on the card, under a timeout) against the stub server: each
+    seed is registered and completed with its metrics as JSON; a second
+    run skips both."""
+    from legommenders_tpu_torch import process, worker
+    from legommenders_tpu_torch.config.dotfiles import AuthInit
+
+    uri, state, stop = _stub_server()
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    real_call = worker.subprocess.call
+    worker.subprocess.call = lambda cmd, env: real_call(
+        cmd, env=env, timeout=WORKER_TIMEOUT_S)
+    try:
+        with open(".auth", "w") as f:
+            f.write(f"lego_uri: {uri}\nlego_auth: smoke\n")
+        AuthInit.reload()
+        data_dir = os.path.join(tmp, "data", "synthetic")
+        process.main(["--data", "synthetic", "--save_dir", data_dir])
+        with open("jobs.txt", "w") as f:
+            f.write(WORKER_JOB.format(data_dir=data_dir) + "\n")
+        argv = ["--jobs", "jobs.txt", "--replicate", str(WORKER_SEEDS)]
+        t0 = time.perf_counter()
+        ran = worker.main(argv)
+        rec = {"path": "worker + lego-server stub",
+               "s": time.perf_counter() - t0, "ran": ran}
+        rec["again"] = worker.main(argv)
+    finally:
+        worker.subprocess.call = real_call
+        if os.path.exists(".auth"):
+            os.remove(".auth")
+        AuthInit.reload()
+        os.chdir(cwd)
+        stop()
+    exps = [e for ev in state["evaluations"].values()
+            for e in ev["experiments"]]
+    rec["experiments"] = [
+        {"seed": e["seed"], "registered": e["pid"] is not None,
+         "completed": e["is_completed"],
+         "performance": json.loads(e.get("performance") or "{}")}
+        for e in exps]
+    ok = (len(ran) == WORKER_SEEDS and all(r == 0 for _, _, r in ran)
+          and rec["again"] == [] and len(exps) == WORKER_SEEDS
+          and all(e["registered"] and e["completed"]
+                  and "GAUC" in e["performance"]
+                  for e in rec["experiments"]))
+    if not ok:
+        raise RuntimeError(f"worker failed: {rec}")
+    return rec
+
+
+def run_dp_check(data, device, tmp) -> dict:
+    """12.6: NAML at the fixture through the Trainer, DP_STEPS host
+    batches of DP_BATCH (an epoch of one step each, with its dev pass),
+    plain and under `exp.policy.mesh: true` in an NCCL group of one, both
+    `deterministic`: losses, weights and dev values equal bit for bit, the
+    same launches (the pool 2 a step and one a cache page), each step
+    timed to the card's end; the group destroyed after."""
+    import torch
+    import torch.distributed as dist
+    from legommenders_tpu_torch.parallel import mesh
+    from legommenders_tpu_torch.runtime.manager import Manager
+
+    # the fixture holds 38,943 positive training rows: 2 batches of 16,384
+    # an epoch; DP_STEPS epochs of one step each, a dev pass after each
+    policy = {**PHASE12_POLICY, "batch_size": DP_BATCH, "epoch": DP_STEPS,
+              "epoch_batch": 1}
+    rec = {"path": f"NAML Trainer, dp 1 (NCCL) vs plain, {DP_STEPS} steps "
+                   f"of {DP_BATCH}"}
+    runs = {}
+    for side in ("plain", "dp"):
+        if side == "dp":
+            rank, size = mesh.initialize_multihost(
+                f"file://{tmp}/nccl_group", 1, 0, device=device)
+            rec["group"] = {"rank": rank, "size": size,
+                            "backend": dist.get_backend()}
+        try:
+            p = {**policy, "mesh": True} if side == "dp" else policy
+            m = Manager(model_cfg=MODEL_CFG, exp_cfg={"policy": p},
+                        data=data, device=device, seed=0)
+            tr, timer = _timed_trainer(m)
+            _zero_counts()
+            with deterministic():
+                tr.train()
+            torch.cuda.synchronize()
+            runs[side] = (m, tr)
+            step_s = timer.samples["step"]
+            rec[side] = {"launches": _counts(), "losses": tr.losses,
+                         "dev": [e["dev"] for e in tr.epochs],
+                         "step_ms": statistics.median(step_s[1:]) * 1e3,
+                         "step_ms_all": [s * 1e3 for s in step_s],
+                         "mesh": dict(m.mesh.shape) if m.mesh else None}
+        finally:
+            if side == "dp":
+                mesh.shutdown()
+    rec["group_destroyed"] = not dist.is_initialized()
+    (mp, tp), (md, td) = runs["plain"], runs["dp"]
+    sd_p, sd_d = mp.model.state_dict(), md.model.state_dict()
+    rec["weights_bit_equal"] = all(_bit_equal(sd_p[k], sd_d[k])
+                                   for k in sd_p)
+    rec["losses_equal"] = tp.losses == td.losses
+    rec["dev_equal"] = rec["plain"]["dev"] == rec["dp"]["dev"]
+    rec["expected_pool_launches"] = DP_STEPS * (2 + _eval_pages(mp))
+    if not (rec["weights_bit_equal"] and rec["losses_equal"]
+            and rec["dev_equal"] and rec["group_destroyed"]
+            and rec["dp"]["launches"] == rec["plain"]["launches"]
+            and rec["dp"]["launches"]["additive_pool"]
+            == rec["expected_pool_launches"]
+            and len(td.losses) == DP_STEPS):
+        raise RuntimeError(f"dp failed: {rec}")
+    del runs, mp, md, tp, td
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_phase12(data, device, card) -> dict:
+    """Phase 12: the drivers (extractor, splitter, sizer, embed), the worker
+    with a lego-server stub, and the dp axis."""
+    import tempfile
+
+    from legommenders_tpu_torch.data.processors.synthetic import (
+        SyntheticProcessor,
+    )
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["extractor"] = r = run_extractor_check(data, device, tmp)
+        log(f"[drivers] {json.dumps(r)}")
+        log(f"[drivers] extractor: {r['shapes']} reprs in {r['s']:.2f} s, "
+            f"bit-equal to Tester's cache {r['bit_equal']}, pool launches "
+            f"{r['launches']['additive_pool']} (the code's "
+            f"{r['expected_pool_launches']}) ({card})")
+    with tempfile.TemporaryDirectory() as tmp:
+        data16 = SyntheticProcessor(**DOTS_DATA_KW).as_lego_data()
+        out["splitter"] = r = run_splitter_check(data16, device, tmp)
+        del data16
+        log(f"[drivers] {json.dumps(r)}")
+        log(f"[drivers] splitter --layers {SPLIT_LAYERS} -> {r['layers']} "
+            f"over {r['catalog']} items: {r['s']:.2f} s, {r['bytes']} bytes "
+            f"on disk, attention launches {r['launches']['packed_attention']}"
+            f" (the code's {r['expected_attention_launches']}); the Trainer "
+            f"reading it: init {r['disk']['init']['s']:.2f} s with "
+            f"{r['disk']['init']['launches']['packed_attention']} attention "
+            f"launches, building it: {r['memory']['init']['s']:.2f} s with "
+            f"{r['memory']['init']['launches']['packed_attention']}; caches "
+            f"and losses equal: {r['cache_bit_equal']}, {r['losses_equal']};"
+            f" reprs bit-equal {r['reprs_bit_equal']}, rel err "
+            f"{r['reprs_rel_err']} (gate {SPLIT_REPR_TOL:g}); sizer "
+            f"{r['sizer']['total']} parameters ({r['sizer']['trainable']} "
+            f"trainable) ({card})")
+    with tempfile.TemporaryDirectory() as tmp:
+        out["embed"] = r = run_embed_check(data, device, tmp)
+        log(f"[drivers] embed: {json.dumps(r)} ({card})")
+    with tempfile.TemporaryDirectory() as tmp:
+        out["worker"] = r = run_worker_check(tmp)
+        log(f"[drivers] worker: {json.dumps(r)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out["dp"] = r = run_dp_check(data, device, tmp)
+        log(f"[drivers] {json.dumps(r)}")
+        log(f"[drivers] dp 1 over NCCL vs plain ({DP_STEPS} steps of "
+            f"{DP_BATCH}): step {r['dp']['step_ms']:.1f} ms vs "
+            f"{r['plain']['step_ms']:.1f} ms, losses / weights / dev equal "
+            f"{r['losses_equal']} / {r['weights_bit_equal']} / "
+            f"{r['dev_equal']}, pool launches "
+            f"{r['dp']['launches']['additive_pool']} (the code's "
+            f"{r['expected_pool_launches']}), group destroyed "
+            f"{r['group_destroyed']} ({card})")
+    return {"phase12": out}
+
+
 def _kernel_line(R: dict) -> list:
     """The `kernels` JSON: each kernel's headline check (phase 3's where it
     ran, else the first check of its kind from the phases that ran), its
@@ -3878,9 +4403,25 @@ def _kernel_line(R: dict) -> list:
         profiles[f"{name} training step"] = rec["train"]["profile"]
     if "processed_mind" in R:
         phase11_runs["processed MIND CLI"] = R["processed_mind"]["launches"]
+    phase12_runs = {}
+    p12 = R.get("phase12")
+    if p12:
+        phase12_runs["extractor (NAML)"] = p12["extractor"]["launches"]
+        phase12_runs["splitter (bert-naml)"] = p12["splitter"]["launches"]
+        for side in ("disk", "memory"):
+            r = p12["splitter"][side]
+            key = f"bert-naml Trainer, its cache from {side}"
+            phase12_runs[f"{key} (init)"] = r["init"]["launches"]
+            phase12_runs[f"{key} (step + dev)"] = r["train_launches"]
+        phase12_runs["NAML with the embedded table Tester.test()"] = p12[
+            "embed"]["launches"]
+        for side in ("plain", "dp"):
+            phase12_runs[f"NAML Trainer ({side}, batch {DP_BATCH})"] = p12[
+                "dp"][side]["launches"]
     runs.update(decoder_runs)
     runs.update(phase10_runs)
     runs.update(phase11_runs)
+    runs.update(phase12_runs)
 
     def by_path(key):
         return {p: c.get(key, 0) for p, c in runs.items()}
@@ -3947,6 +4488,8 @@ def _kernel_line(R: dict) -> list:
                               for p, c in phase10_runs.items()},
             phase11_launches={p: c.get("additive_pool", 0)
                               for p, c in phase11_runs.items()},
+            phase12_launches={p: c.get("additive_pool", 0)
+                              for p, c in phase12_runs.items()},
             checks=pool_all))
     sdpa = "torch.nn.functional.scaled_dot_product_attention"
     train = R.get("train_checks", [])
@@ -4017,6 +4560,8 @@ def _kernel_line(R: dict) -> list:
                               for p, c in phase10_runs.items()},
             phase11_launches={p: c.get("packed_attention", 0)
                               for p, c in phase11_runs.items()},
+            phase12_launches={p: c.get("packed_attention", 0)
+                              for p, c in phase12_runs.items()},
             checks=R.get("attn_checks", [])))
         decoder_launches = {p: c["packed_attention_backward"]
                             for p, c in decoder_runs.items()}
@@ -4042,6 +4587,8 @@ def _kernel_line(R: dict) -> list:
                               for p, c in phase10_runs.items()},
             phase11_launches={p: c.get("packed_attention_backward", 0)
                               for p, c in phase11_runs.items()},
+            phase12_launches={p: c.get("packed_attention_backward", 0)
+                              for p, c in phase12_runs.items()},
             f32_dh128_edges=R.get("f32_edges", []),
             checks=train))
     if tr is not None:
@@ -4124,6 +4671,9 @@ def main(argv=None) -> int:
     if 11 in phases:
         with phase_timer(11, PHASES[11]):
             R.update(run_phase11(data, device, card))
+    if 12 in phases:
+        with phase_timer(12, PHASES[12]):
+            R.update(run_phase12(data, device, card))
 
     kernels = _kernel_line(R)
     total = time.perf_counter() - t_run

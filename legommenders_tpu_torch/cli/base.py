@@ -4,15 +4,24 @@ The port of the JAX package's cli/base.py (reference base_lego.py:68-437):
 4-way config parse, seeding, PathHub + signature, logging, Manager/model
 construction. It adds `--device` (default `cuda`): without a card it
 raises unless the caller passes `--device cpu`. Configs are read from the
-checkout's `config/` unless `config_root` names another directory. The
-multi-host options (`--coordinator`, `--distributed`) raise: multi-device
-runs are ROADMAP.md, queue 1, item 8.
+checkout's `config/` unless `config_root` names another directory.
+
+Several processes (JAX cli/base.py:28-41): `--distributed true`, or a
+`torchrun` launch, opens the process group from that launcher's
+environment, `--coordinator host:port
+--num_processes N --process_id i` is the manual launch; each process then
+runs on `cuda:LOCAL_RANK` (gloo on the CPU), and rank 0 alone writes the
+config JSON, the log file and the result CSV. `exp.policy.mesh` lays the
+dp axis over the group.
 """
 import os
 import sys
 from typing import Dict, Optional
 
 from legommenders_tpu_torch.config.parser import parse_four_way
+from legommenders_tpu_torch.parallel.mesh import (
+    initialize_multihost, process_device, shutdown, world,
+)
 from legommenders_tpu_torch.runtime.manager import Manager
 from legommenders_tpu_torch.utils.device import resolve_device
 from legommenders_tpu_torch.utils.function import (
@@ -35,6 +44,15 @@ def write_results(path: str, results: Dict[str, float]):
         f.write(",".join(f"{v:.6f}" for v in results.values()) + "\n")
 
 
+def run_cli(cls, argv=None):
+    """`cls(argv).run()`, then the process group the run opened (if any)
+    destroyed."""
+    try:
+        return cls(argv).run()
+    finally:
+        shutdown()
+
+
 class BaseLego:
     required = ("data", "model")
 
@@ -46,11 +64,19 @@ class BaseLego:
             if key not in cli:
                 raise SystemExit(f"--{key} is required")
         cli.setdefault("exp", "default")
-        if cli.get("coordinator") or cli.get("distributed"):
-            raise NotImplementedError(
-                "multi-host runs (--coordinator/--distributed) are not "
-                "ported yet (ROADMAP.md, queue 1, item 8)")
-        self.device = resolve_device(cli.pop("device", "cuda"))
+        device = resolve_device(cli.pop("device", "cuda"))
+        if cli.get("coordinator") and (
+                cli.get("num_processes") is None
+                or cli.get("process_id") is None):
+            raise SystemExit("--coordinator needs --num_processes and "
+                             "--process_id")
+        if (cli.get("coordinator") or cli.get("distributed")
+                or "WORLD_SIZE" in os.environ):
+            initialize_multihost(
+                cli.get("coordinator"), cli.get("num_processes"),
+                cli.get("process_id"), device=device)
+        self.device = process_device(device)
+        self.is_main = world()[0] == 0
         self.cli = cli
         self.cfg = parse_four_way(cli, config_root=config_root)
 
@@ -64,16 +90,23 @@ class BaseLego:
 
         signature = get_signature(data_cfg, model_cfg, embed_cfg, exp_cfg,
                                   {"seed": self.seed})
+        # the evaluation's signature: the configs without the seed, as the
+        # worker registers it on the lego-server
+        self.config_signature = get_signature(data_cfg, model_cfg,
+                                              embed_cfg, exp_cfg)
         self.ph = PathHub(
             data_cfg.get("name", cli.get("data", "data")),
             model_cfg.get("name", cli.get("model", "model")),
             signature)
-        self.log = get_logger("lego", self.ph.log_path)
+        self.log = get_logger("lego",
+                              self.ph.log_path if self.is_main else None)
         self.log.info(f"signature: {signature}, device: {self.device}")
 
-        json_save({"data": data_cfg, "model": model_cfg,
-                   "embed": embed_cfg, "exp": exp_cfg, "seed": self.seed},
-                  self.ph.cfg_path)
+        self.raw_configs = {"data": data_cfg, "model": model_cfg,
+                            "embed": embed_cfg, "exp": exp_cfg}
+        if self.is_main:
+            json_save({**self.raw_configs, "seed": self.seed},
+                      self.ph.cfg_path)
 
         self.manager = Manager(data_cfg, model_cfg, embed_cfg, exp_cfg,
                                device=self.device, seed=self.seed)

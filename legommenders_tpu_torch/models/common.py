@@ -30,6 +30,7 @@ from torch.nn import functional as F
 
 from legommenders_tpu_torch.ops.additive import additive_pool
 from legommenders_tpu_torch.ops.core import masked_softmax
+from legommenders_tpu_torch.parallel.mesh import global_var_mean, split_mesh
 
 SEQUENCE_PARALLEL = ("sequence_parallel is a multi-device path, not ported "
                      "yet (ROADMAP.md, queue 1, item 8)")
@@ -304,7 +305,10 @@ class StatelessBatchNorm(nn.Module):
     axis but the last, at training and at evaluation alike (JAX
     common.py:171-194): no running averages, the population variance.
     Parameters `weight` and `bias` (flax's `scale` and `bias`), each where
-    its flag is on, applied in f32 as JAX applies them."""
+    its flag is on, applied in f32 as JAX applies them. Inside a dp train
+    step or evaluation page whose rows are split over ranks
+    (`parallel.mesh.split_batch`) the statistics are the whole batch's,
+    as JAX's over a dp-sharded batch are."""
 
     def __init__(self, dim: int, use_scale: bool = True,
                  use_bias: bool = True, eps: float = 1e-5,
@@ -324,8 +328,11 @@ class StatelessBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         axes = tuple(range(x.ndim - 1))
-        var, mean = torch.var_mean(x.float(), dim=axes, keepdim=True,
-                                   correction=0)
+        if split_mesh() is not None:
+            var, mean = global_var_mean(x.float(), axes)
+        else:
+            var, mean = torch.var_mean(x.float(), dim=axes, keepdim=True,
+                                       correction=0)
         y = (x - mean.to(x.dtype)) * torch.rsqrt(var.to(x.dtype) + self.eps)
         if self.weight is not None:
             y = y * self.weight

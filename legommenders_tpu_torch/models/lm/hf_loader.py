@@ -36,6 +36,28 @@ def load_torch_state_dict(model_path: str) -> StateDict:
         f"no model.safetensors / pytorch_model.bin under {model_path}")
 
 
+# the prefixes a family's checkpoint may put before the names its map reads
+# (a bare model's state dict has none, a model with a head has its own)
+PREFIXES = {
+    "bert": ("", "bert."),
+    "llama": ("", "model."),
+    "opt": ("", "model.", "model.decoder.", "decoder."),
+    "glm": ("transformer.encoder.", "encoder.", "transformer.", ""),
+}
+# the word-embedding table of each family, under those prefixes
+WORD_EMBEDDINGS = {
+    "bert": "embeddings.word_embeddings.weight",
+    "llama": "embed_tokens.weight",
+    "opt": "embed_tokens.weight",
+    "glm": "embedding.word_embeddings.weight",
+}
+
+
+def word_embeddings(sd: StateDict, family: str) -> torch.Tensor:
+    """The (vocab, dim) token-embedding table of a `family` checkpoint."""
+    return _getter(sd, PREFIXES[family])(WORD_EMBEDDINGS[family])
+
+
 def _getter(sd: StateDict, prefixes: Iterable[str]):
     prefixes = tuple(prefixes)
 
@@ -50,7 +72,7 @@ def _getter(sd: StateDict, prefixes: Iterable[str]):
 def bert_slice_params(sd: StateDict, start: int, num_layers: int,
                       embed: bool) -> StateDict:
     """HF `bert.*` names -> a BertEncoderSlice's parameters."""
-    g = _getter(sd, ("", "bert."))
+    g = _getter(sd, PREFIXES["bert"])
     out = {}
     if embed and start == 0:
         out["position_embeddings"] = g("embeddings.position_embeddings.weight")
@@ -77,7 +99,7 @@ def bert_slice_params(sd: StateDict, start: int, num_layers: int,
 def llama_slice_params(sd: StateDict, start: int, num_layers: int,
                        final_norm: bool) -> StateDict:
     """HF Llama names -> a LlamaDecoderSlice's parameters."""
-    g = _getter(sd, ("", "model."))
+    g = _getter(sd, PREFIXES["llama"])
     names = {"input_norm": "input_layernorm",
              "q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj",
              "v_proj": "self_attn.v_proj", "o_proj": "self_attn.o_proj",
@@ -95,7 +117,7 @@ def llama_slice_params(sd: StateDict, start: int, num_layers: int,
 def opt_slice_params(sd: StateDict, start: int, num_layers: int,
                      embed_positions: bool, final_norm: bool) -> StateDict:
     """HF OPT names -> an OPTDecoderSlice's parameters."""
-    g = _getter(sd, ("", "model.", "model.decoder.", "decoder."))
+    g = _getter(sd, PREFIXES["opt"])
     out = {}
     if embed_positions and start == 0:
         out["position_embeddings"] = g("embed_positions.weight")
@@ -123,7 +145,7 @@ def glm_slice_params(sd: StateDict, start: int, num_layers: int,
     groups) and the SwiGLU's gate and up into `mlp.dense_h_to_4h` (gate
     first); `self_attention.dense` is o_proj; a checkpoint without the qkv
     bias (GLM-4-9B) maps without one."""
-    g = _getter(sd, ("transformer.encoder.", "encoder.", "transformer.", ""))
+    g = _getter(sd, PREFIXES["glm"])
     out = {}
     for i in range(start, start + num_layers):
         p, o = f"layers.{i}.", f"layer_{i}."

@@ -7,6 +7,10 @@ two gathers and the predictor (reference base_lego.py:349-398,
 repr_cacher.py:35-142). Both builds are a Python loop over pages of
 `page_size` rows under `torch.inference_mode()`; contents and the history
 matrix are placed on the device once.
+
+Under a dp mesh (JAX cacher.py:148-298, the dp axis) each rank encodes its
+block of ceil(n / dp) rows, page by page from its block's start, and the
+blocks are gathered into the whole cache on every rank.
 """
 from typing import Dict, Optional
 
@@ -14,6 +18,7 @@ import numpy as np
 import torch
 
 from legommenders_tpu_torch.data.token_store import UNSET
+from legommenders_tpu_torch.parallel.mesh import all_gather_rows
 from legommenders_tpu_torch.utils.device import resolve_device
 
 
@@ -21,8 +26,10 @@ class ReprCache:
     """Holds item/user representation caches for one model."""
 
     def __init__(self, model, item_contents: Dict[str, torch.Tensor],
-                 history: np.ndarray, page_size: int = 512, device="cuda"):
+                 history: np.ndarray, page_size: int = 512, device="cuda",
+                 mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.model = model
         self.item_contents = {c: torch.as_tensor(a, device=self.device)
                               for c, a in item_contents.items()}
@@ -43,16 +50,38 @@ class ReprCache:
         return self.item_repr is not None and self.user_repr is not None
 
     def pages(self, n: int):
-        """(start, stop) of each page over n rows."""
+        """(start, stop) of each page over n rows (of this rank's block of
+        them under a dp mesh)."""
         P = self.page_size
-        return [(s, min(s + P, n)) for s in range(0, n, P)]
+        lo, hi = self._block(n)
+        return [(s, min(s + P, hi)) for s in range(lo, hi, P)]
+
+    def _block(self, n: int):
+        if self.mesh is None:
+            return 0, n
+        k = -(-n // self.mesh.dp)
+        return min(self.mesh.rank * k, n), min((self.mesh.rank + 1) * k, n)
+
+    def _gather(self, outs, n: int) -> torch.Tensor:
+        """This rank's pages -> the whole (n, ...) cache on every rank."""
+        if self.mesh is None:
+            return torch.cat(outs)
+        k = -(-n // self.mesh.dp)
+        lo, hi = self._block(n)
+        if not outs:
+            raise RuntimeError(f"{n} rows leave a dp rank without any")
+        block = torch.cat(outs)
+        if hi - lo < k:
+            block = torch.cat([block, block.new_zeros(
+                (k - (hi - lo),) + tuple(block.shape[1:]))])
+        return all_gather_rows(block, self.mesh)[:n]
 
     @torch.inference_mode()
     def build_item_cache(self) -> torch.Tensor:
         outs = [self.model.encode_item_page(
                     {c: a[s:e] for c, a in self.item_contents.items()})
                 for s, e in self.pages(self.num_items)]
-        self.item_repr = torch.cat(outs)
+        self.item_repr = self._gather(outs, self.num_items)
         return self.item_repr
 
     @torch.inference_mode()
@@ -62,7 +91,7 @@ class ReprCache:
         outs = [self.model.encode_user(self.item_repr[self.hist_safe[s:e]],
                                        self.hist_mask[s:e])
                 for s, e in self.pages(self.num_users)]
-        self.user_repr = torch.cat(outs)
+        self.user_repr = self._gather(outs, self.num_users)
         return self.user_repr
 
     def cache(self):

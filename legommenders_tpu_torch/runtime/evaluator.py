@@ -19,6 +19,13 @@ base_lego.py:349-427 and the fast-eval flow of tester.py:54-77):
 When every metric is device-supported the scores of the device paths never
 leave the device and the torch metric engine returns a handful of scalars;
 otherwise one (n,) copy feeds the numpy pool.
+
+Under a dp mesh (JAX evaluator.py:32-50, 102-125, 196-203) each page of
+both device paths is padded to a multiple of dp, each rank scores its
+rows of it (a full forward's batch statistics are the page's,
+`parallel.mesh.split_batch`) and the scores are gathered, so every rank
+holds every score and computes the same metrics. The host-batched path
+runs every batch whole on each rank.
 """
 from typing import Callable, Dict, Optional
 
@@ -30,6 +37,9 @@ from legommenders_tpu_torch.data.pipeline import (
     on_current_stream,
 )
 from legommenders_tpu_torch.data.token_store import UNSET
+from legommenders_tpu_torch.parallel.mesh import (
+    all_gather_rows, row_slice, split_batch,
+)
 from legommenders_tpu_torch.runtime.device_metrics import compute_device
 from legommenders_tpu_torch.runtime.metrics import MetricPool
 from legommenders_tpu_torch.runtime.steps import make_eval_step
@@ -110,12 +120,14 @@ class Evaluator:
 
     def __init__(self, model, data, metrics, cache=None, device="cuda", *,
                  item_contents: Optional[Dict[str, torch.Tensor]] = None,
-                 batch_size: int = 256):
+                 batch_size: int = 256, mesh=None):
         """`item_contents` (the model's content columns, by reference: a
         layer-split LM cache added later is seen) feed the full-forward and
         host-batched paths; `batch_size` is the eval batch size, the page
-        of the full-forward path."""
+        of the full-forward path; `mesh` a dp mesh whose ranks split the
+        pages."""
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.model = model
         self.data = data
         self.item_contents = item_contents
@@ -144,10 +156,33 @@ class Evaluator:
         out = []
         for s in range(0, ph.n, self.DEVICE_EVAL_PAGE):
             e = s + self.DEVICE_EVAL_PAGE
-            u = user_repr[ph.users[s:e].clamp(0, nu - 1)]
-            i = item_repr[ph.items[s:e].clamp(0, ni - 1)][:, None, :]
-            out.append(self.model.score_cached(u, i).reshape(-1))
+            users, items, n = self._split(ph.users[s:e], ph.items[s:e])
+            u = user_repr[users.clamp(0, nu - 1)]
+            i = item_repr[items.clamp(0, ni - 1)][:, None, :]
+            with split_batch(self.mesh):
+                scores = self.model.score_cached(u, i).reshape(-1)
+            out.append(self._gather(scores, n))
         return torch.cat(out)
+
+    def _split(self, users: torch.Tensor, items: torch.Tensor):
+        """A page's (users, items) -> this rank's rows of it, padded with
+        row 0 to a multiple of dp, and the page's real length."""
+        n = len(users)
+        if self.mesh is None:
+            return users, items, n
+        pad = (-n) % self.mesh.dp
+        if pad:
+            zeros = users.new_zeros(pad)
+            users, items = torch.cat([users, zeros]), torch.cat([items,
+                                                                 zeros])
+        rows = row_slice(len(users), self.mesh)
+        return users[rows], items[rows], n
+
+    def _gather(self, scores: torch.Tensor, n: int) -> torch.Tensor:
+        """This rank's scores of a page -> the page's n scores."""
+        if self.mesh is None:
+            return scores[:n]
+        return all_gather_rows(scores, self.mesh)[:n]
 
     def cached_step(self) -> Callable:
         """step(batch) -> (B, K) scores from the caches (JAX
@@ -198,18 +233,24 @@ class Evaluator:
         ph = self.phase(phase)
         sub = self.substrate()
         P = min(self.batch_size, max(8, ph.n))
+        if self.mesh is not None:
+            # page rows split over dp: the width must divide evenly
+            P = -(-P // self.mesh.dp) * self.mesh.dp
         out = []
         for s in range(0, ph.n, P):
             u, i = ph.users[s:s + P], ph.items[s:s + P]
             if len(u) < P:
                 pad = u.new_zeros(P - len(u))
                 u, i = torch.cat([u, pad]), torch.cat([i, pad])
+            u, i, n = self._split(u, i)
             ul = u.long()
             batch = {"history": sub["hist"][ul], "mask": sub["mask"][ul],
                      "candidates": i[:, None], "user_id": u}
             for c, m in sub["extra"].items():
                 batch[c] = m[ul]
-            out.append(self.model(batch, self.item_contents).reshape(-1))
+            with split_batch(self.mesh):
+                scores = self.model(batch, self.item_contents).reshape(-1)
+            out.append(self._gather(scores, n))
         return torch.cat(out)[:ph.n]
 
     # ------------------------------------------------------------------ #

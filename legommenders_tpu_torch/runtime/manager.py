@@ -10,8 +10,12 @@ evaluators, for a layer-split LM item operator the lower slice's cache
 (`prepare_lm_cache`), and an LM's weights from a local HF checkpoint
 (`load_lm_weights`). The policy is the exp config's `policy` over
 DEFAULT_POLICY; the dev metric and the patience come from
-its `store`. A mesh policy raises: multi-device runs are ROADMAP queue 1,
-item 8.
+its `store`. `exp.policy.mesh` (JAX manager.py:47-80) gives the dp axis
+over the process group (`parallel/mesh.py`; launched by `torchrun`, the
+group is opened here from its environment): every rank builds the same
+model from the same seed on its own card, and the repr cache and the
+evaluator split their rows over the ranks. Its other axes raise
+(ROADMAP.md, queue 1, item 8).
 """
 import os
 from typing import Optional
@@ -25,6 +29,9 @@ from legommenders_tpu_torch.models.common import drop_cached_casts
 from legommenders_tpu_torch.models.lm import hf_loader
 from legommenders_tpu_torch.models.lego_config import DTYPE_NAMES, LegoConfig
 from legommenders_tpu_torch.models.operators.lm_ops import LMOperator
+from legommenders_tpu_torch.parallel.mesh import (
+    initialize_multihost, mesh_from_policy, process_device, world,
+)
 from legommenders_tpu_torch.runtime.cacher import ReprCache
 from legommenders_tpu_torch.runtime.lm_cache import (
     load_or_build_iisan_cache, load_or_build_lm_cache,
@@ -48,13 +55,15 @@ class Manager:
                  data: Optional[LegoData] = None,
                  dtype: torch.dtype = torch.float32,
                  device="cuda", seed: int = 0):
-        self.device = resolve_device(device)
         self.exp_cfg = dict(exp_cfg or {})
         self.policy = {**DEFAULT_POLICY, **(self.exp_cfg.get("policy") or {})}
-        if self.policy.get("mesh"):
-            raise NotImplementedError(
-                "exp.policy.mesh: multi-device runs are not ported yet "
-                "(ROADMAP.md, queue 1, item 8)")
+        self.mesh = None
+        mesh_cfg = self.policy.get("mesh")
+        if mesh_cfg:
+            if "WORLD_SIZE" in os.environ and world()[1] == 1:
+                initialize_multihost(device=resolve_device(device))
+            self.mesh = mesh_from_policy(mesh_cfg)
+        self.device = process_device(resolve_device(device))
         store = self.exp_cfg.get("store") or {}
         self.dev_metric = store.get("metric", "GAUC")
         self.patience = int(store.get("patience", 5))
@@ -74,7 +83,8 @@ class Manager:
         if self.lego_cfg.use_fast_eval and self._caching_allowed():
             self.cache = ReprCache(
                 self.model, self.contents.columns, self.data.history_matrix(),
-                page_size=self.lego_cfg.cache_page_size, device=self.device)
+                page_size=self.lego_cfg.cache_page_size, device=self.device,
+                mesh=self.mesh)
 
     def prepare_lm_cache(self, root: Optional[str] = "cache") -> bool:
         """Layer-split LM caching (JAX runtime/manager.py:116-144): if the
@@ -141,7 +151,7 @@ class Manager:
         return Evaluator(self.model, self.data, self.metrics,
                          cache=self.cache, device=self.device,
                          item_contents=self.contents.columns,
-                         batch_size=self.eval_batch_size)
+                         batch_size=self.eval_batch_size, mesh=self.mesh)
 
     def load_lm_weights(self, log=None) -> bool:
         """Pretrained LM weights for the item operator, from the local

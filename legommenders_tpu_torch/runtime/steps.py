@@ -30,11 +30,17 @@ def ranking_loss(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
                                               labels.reshape(-1).to(s.dtype))
 
 
-def step_generator(seed: int, step_idx: int, device) -> torch.Generator:
+def step_generator(seed: int, step_idx: int, device,
+                   rank: int = 0) -> torch.Generator:
     """The generator of one step: seeded from (seed, step_idx), as JAX
-    folds the step index into its key."""
+    folds the step index into its key. A dp rank above 0 folds its rank in
+    too, so that ranks draw different dropout for different rows; rank 0
+    draws what one process draws."""
     g = torch.Generator(device=device)
-    g.manual_seed((int(seed) << 32) + int(step_idx))
+    key = (int(seed) << 32) + int(step_idx)
+    if rank:
+        key ^= (int(rank) * 0x9E3779B97F4A7C15) & (2 ** 63 - 1)
+    g.manual_seed(key)
     return g
 
 

@@ -24,10 +24,23 @@ optax semantics the port keeps:
 Training takes host batches by default (TrainBatcher, the native negative
 sampler, a Prefetcher that moves each batch to the device in its thread,
 `steps.make_train_step_folded`), or, with the policy's `device_batching`,
-the device pipeline (`DeviceTrainPipeline.make_fused_train_step`). The
-lego-server session (ROADMAP.md, queue 1, item 7) and the mesh policies
-(item 8) are not ported and raise.
+the device pipeline (`DeviceTrainPipeline.make_fused_train_step`).
+
+`session` (JAX trainer.py:45-75, 410-425) ties the run to a lego-server
+experiment: looked up at init (its signature and seed must be the run's,
+and it must not be completed, or the run stops), registered with this
+pid, and completed by `test()` with the log and the metrics as JSON; an
+unreachable server leaves the run offline.
+
+Under the Manager's dp mesh (JAX trainer.py:132-175, 225-236) every rank
+builds the same global batch from the same seed and trains on its rows
+(`parallel/train.make_dp_train_step_folded`: gradients averaged over the
+group before the replicated optimizer step); the batch size must divide
+by dp. Rank 0 alone writes checkpoints (the others wait at a barrier) and
+talks to the lego-server; the dev metric is the same on every rank, so
+early stopping decides alike.
 """
+import json
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -42,6 +55,8 @@ from legommenders_tpu_torch.runtime.checkpoint import (
     load_checkpoint, save_checkpoint,
 )
 from legommenders_tpu_torch.runtime.manager import Manager
+from legommenders_tpu_torch.parallel.mesh import barrier, shard_rows
+from legommenders_tpu_torch.parallel.train import make_dp_train_step_folded
 from legommenders_tpu_torch.runtime.metrics import MetricPool
 from legommenders_tpu_torch.utils.logging import get_logger
 from legommenders_tpu_torch.utils.meaner import Meaner
@@ -166,22 +181,28 @@ class Trainer:
                  ckpt_path: Optional[str] = None, log=None,
                  session: Optional[str] = None,
                  lm_cache_root: Optional[str] = "cache",
-                 timer: Optional[Timer] = None):
+                 timer: Optional[Timer] = None,
+                 signature: Optional[str] = None):
         """Runs on its Manager's device. `lm_cache_root` is where a
         layer-split LM's lower-slice cache is kept (None: built on the
         device, nothing written). With a `timer`, every step is timed up
         to the device's end of it ("step"): the device is synchronized
         after each step. `prefetch_wait_s` sums the time the loop waited
         for host batches; `epochs` holds each epoch's mean loss, dev value
-        and seconds."""
-        if session:
-            raise NotImplementedError(
-                "--session (lego-server experiment sync) is not ported yet "
-                "(ROADMAP.md, queue 1, item 7)")
+        and seconds, `losses` every step's loss (read where the loop reads
+        them, once per logging interval). `session` is a lego-server
+        experiment, whose signature must equal `signature` where one is
+        given."""
         self.m = manager
         self.seed = seed
         self.ckpt_path = ckpt_path
         self.log = log or get_logger("trainer")
+        self.mesh = manager.mesh
+        self.is_main = self.mesh is None or self.mesh.is_main
+        self.server = None
+        self.session = session
+        if session and self.is_main:
+            self._connect(session, signature)
         self.lm_cache_root = lm_cache_root
         self.timer = timer
         policy = self.m.policy
@@ -197,6 +218,34 @@ class Trainer:
         self.global_step = 0
         self.prefetch_wait_s = 0.0
         self.epochs: List[dict] = []
+        self.losses: List[float] = []
+
+    def _connect(self, session: str, signature: Optional[str]):
+        """Look the experiment up, check it and register this pid
+        (reference trainer.py:88-121)."""
+        from legommenders_tpu_torch.utils.server import (
+            ExperimentBody, Server,
+        )
+        server = Server.auto_auth()
+        if not server.active:
+            return
+        resp = server.get_experiment_info(session)
+        if not resp.ok:
+            self.log.warning(
+                f"lego-server lookup for session {session} failed "
+                f"({resp.msg}); continuing offline")
+            return
+        exp = ExperimentBody(resp.body)
+        if signature and exp.signature != signature:
+            raise SystemExit(f"signature mismatch: local {signature} != "
+                             f"server {exp.signature}")
+        if exp.seed is not None and int(exp.seed) != self.seed:
+            raise SystemExit(f"seed mismatch: local {self.seed} != "
+                             f"server {exp.seed}")
+        if exp.is_completed:
+            raise SystemExit(f"experiment {session} is already completed")
+        server.register_experiment(session)
+        self.server = server
 
     # ------------------------------------------------------------------ #
     def init(self):
@@ -206,7 +255,14 @@ class Trainer:
         if self.initialized:
             return
         self.m.load_lm_weights(log=self.log)
-        if self.m.prepare_lm_cache(root=self.lm_cache_root):
+        # under dp, rank 0 builds (and writes) a cache on disk first and
+        # the others then read it
+        first = self.is_main or self.lm_cache_root is None
+        prepared = first and self.m.prepare_lm_cache(root=self.lm_cache_root)
+        barrier(self.mesh)
+        if not first:
+            prepared = self.m.prepare_lm_cache(root=self.lm_cache_root)
+        if prepared:
             self.log.info("LM layer-split cache prepared")
         n_params = sum(p.numel() for p in self.m.model.parameters())
         self.log.info(f"initialized {n_params / 1e6:.2f}M params")
@@ -251,13 +307,24 @@ class Trainer:
         self.init()
         model, device = self.m.model, self.m.device
         cfg = self.m.lego_cfg
+        mesh = self.mesh
         device_batching = bool(policy.get("device_batching"))
+        if mesh is not None and int(policy["batch_size"]) % mesh.dp:
+            raise SystemExit(
+                f"policy.batch_size {policy['batch_size']} must divide by "
+                f"mesh dp={mesh.dp}")
         if device_batching:
             dpipe = DeviceTrainPipeline(
                 self.m.data, int(policy["batch_size"]),
                 neg_count=cfg.neg_count,
                 use_neg_sampling=cfg.use_neg_sampling, seed=self.seed,
                 device=device)
+        if mesh is not None:
+            step_fn = make_dp_train_step_folded(
+                model, self.m.contents.columns, self.optimizer, mesh,
+                cfg.use_neg_sampling, seed=self.seed,
+                assemble=dpipe.assemble if device_batching else None)
+        elif device_batching:
             step_fn = dpipe.make_fused_train_step(
                 model, self.m.contents.columns, self.optimizer,
                 seed=self.seed)
@@ -282,8 +349,11 @@ class Trainer:
             else:
                 batcher = self.m.train_batcher(self.seed + epoch)
                 num_batches = len(batcher)
+                batches = batcher.epoch()
+                if mesh is not None:
+                    batches = (shard_rows(b, mesh) for b in batches)
                 step_inputs = Prefetcher(
-                    device_batches(batcher.epoch(), device), depth=4)
+                    device_batches(batches, device), depth=4)
             if epoch_batch:
                 num_batches = min(num_batches, epoch_batch)
             interval = (num_batches // (-check_interval)
@@ -306,16 +376,13 @@ class Trainer:
                     timer.stop("step")
                 pending.append(loss)
                 if (i + 1) % interval == 0:
-                    for loss_i in pending:
-                        meaner.add(float(loss_i))
-                    pending.clear()
+                    self._read(pending, meaner)
                     self.log.info(
                         f"epoch {epoch} [{i + 1}/{num_batches}] "
                         f"loss {meaner.mean:.4f}")
             if isinstance(step_inputs, Prefetcher):
                 self.prefetch_wait_s += step_inputs.wait_s
-            for loss_i in pending:
-                meaner.add(float(loss_i))
+            self._read(pending, meaner)
             dt = time.time() - t0
             dev_value = self.dev()
             self.log.info(
@@ -328,9 +395,12 @@ class Trainer:
             if signal == Signal.BEST:
                 best_dev = dev_value
                 if self.ckpt_path:
-                    save_checkpoint(self.ckpt_path, model, self.optimizer,
-                                    meta={"epoch": epoch,
-                                          "dev": float(dev_value)})
+                    if self.is_main:
+                        save_checkpoint(self.ckpt_path, model,
+                                        self.optimizer,
+                                        meta={"epoch": epoch,
+                                              "dev": float(dev_value)})
+                    barrier(mesh)
                 else:
                     # the optimizer updates the parameters in place: keep
                     # copies, not the state_dict's references
@@ -348,12 +418,36 @@ class Trainer:
         return {"best_dev": best_dev if best_dev is not None
                 else float("nan")}
 
+    def _read(self, pending: list, meaner: Meaner):
+        """The pending device-side losses into `losses` and the mean."""
+        for loss_i in pending:
+            self.losses.append(float(loss_i))
+            meaner.add(self.losses[-1])
+        pending.clear()
+
     # ------------------------------------------------------------------ #
     def test(self) -> Dict[str, float]:
         res = self.evaluator.evaluate("test")
         self.log.info("test: " + ", ".join(
             f"{k} {v:.4f}" for k, v in res.items()))
+        if self.server is not None:
+            # the performance rides as a JSON string (reference
+            # trainer.py:269-273)
+            self.server.complete_experiment(
+                self.session, self._log_text(), json.dumps(res))
         return res
+
+    def _log_text(self) -> str:
+        """The run's log file, where the logger mirrors to one."""
+        for h in self.log.handlers:
+            path = getattr(h, "baseFilename", None)
+            if path:
+                try:
+                    with open(path) as f:
+                        return f.read()
+                except OSError:
+                    pass
+        return ""
 
     def run(self) -> Dict[str, float]:
         self.train()

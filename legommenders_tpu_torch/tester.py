@@ -12,7 +12,7 @@ trace of the evaluation to DIR/trace.json.
 import os
 import sys
 
-from legommenders_tpu_torch.cli.base import BaseLego, write_results
+from legommenders_tpu_torch.cli.base import BaseLego, run_cli, write_results
 from legommenders_tpu_torch.runtime.checkpoint import load_auto
 from legommenders_tpu_torch.runtime.tester import Tester
 
@@ -49,12 +49,13 @@ class TesterCLI(BaseLego):
             self.log.info(f"profiler trace written to {path}")
         else:
             results = self._evaluate(tester)
-        write_results(self.ph.result_path, results)
+        if self.is_main:
+            write_results(self.ph.result_path, results)
         return results
 
 
 def main(argv=None):
-    return TesterCLI(argv).run()
+    return run_cli(TesterCLI, argv)
 
 
 if __name__ == "__main__":

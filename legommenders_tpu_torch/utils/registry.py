@@ -1,4 +1,5 @@
-"""Plugin registries for operators / predictors / inputers / processors.
+"""Plugin registries for operators / predictors / inputers / processors /
+embedders.
 
 The port's own copy of the JAX package's utils/registry.py: torch classes
 register here and never in the JAX registries.
@@ -61,3 +62,4 @@ OPERATORS = Registry("operator", suffix="Operator")
 PREDICTORS = Registry("predictor", suffix="Predictor")
 PROCESSORS = Registry("processor", suffix="Processor")
 INPUTERS = Registry("inputer", suffix="Inputer")
+EMBEDDERS = Registry("embedder", suffix="Embedder")

@@ -108,8 +108,31 @@ def test_cli_requires_cuda_unless_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         trainer.main(SMOKE)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # a manual multi-process launch names its size and rank (the launch
+    # itself: tests/test_torch_dp.py)
+    with pytest.raises(SystemExit, match="--num_processes and --process_id"):
         trainer.main(SMOKE + ["--device", "cpu", "--coordinator",
                               "localhost:1234"])
     with pytest.raises(SystemExit, match="--model is required"):
         trainer.main(["--data", "synthetic", "--device", "cpu"])
+
+
+def test_cli_process_group_opens_and_closes(tmp_path, monkeypatch):
+    """A manual launch of one process (`--coordinator` with its size and
+    rank) under `exp.policy.mesh: true`: the run trains at dp 1 in a gloo
+    group, rank 0 writes the result CSV, and the group is destroyed at the
+    run's end."""
+    import torch.distributed as dist
+
+    monkeypatch.chdir(tmp_path)
+    data_dir = str(tmp_path / "data" / "synthetic")
+    process.main(["--data", "synthetic", "--save_dir", data_dir])
+    results = trainer.main(SMOKE + [
+        "--data_dir", data_dir, "--device", "cpu", "--coordinator",
+        f"file://{tmp_path}/group", "--num_processes", "1",
+        "--process_id", "0", "--exp.policy.mesh", "true"])
+    assert not dist.is_initialized()
+    assert set(results) >= {"GAUC", "MRR"}
+    csvs = [f for _, _, fs in os.walk(tmp_path / "checkpoints") for f in fs
+            if f.endswith(".csv")]
+    assert len(csvs) == 1

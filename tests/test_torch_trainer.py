@@ -428,14 +428,20 @@ def test_trainer_device_batching_runs(data_pair):
     assert len(tt.epochs) == 2 and tt.prefetch_wait_s == 0.0
 
 
-def test_trainer_session_and_mesh_raise(data_pair):
-    tm = Manager(model_cfg=NAML_CFG, exp_cfg=EXP, data=data_pair[1],
-                 device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        trainer.Trainer(tm, session="abc")
+@pytest.mark.parametrize("what", ["mp", "sp", "pp", "catalog_parallel",
+                                  "pipeline_stages"])
+def test_trainer_session_and_mesh_raise(data_pair, what):
+    """What stays unported of the multi-device policies raises, naming
+    ROADMAP's item 8 (the session and the mesh's dp axis run since they
+    were ported: tests/test_torch_server.py, tests/test_torch_dp.py)."""
+    cfg, mesh = NAML_CFG, {what: 2 if what != "catalog_parallel" else True}
+    if what == "pipeline_stages":
+        cfg = copy.deepcopy(BERT_CFG)
+        cfg["config"]["item_config"]["pipeline_stages"] = 2
+        mesh = True
     with pytest.raises(NotImplementedError, match="item 8"):
-        Manager(model_cfg=NAML_CFG, data=data_pair[1], device="cpu",
-                exp_cfg={"policy": {"mesh": {"dp": 2}}})
+        Manager(model_cfg=cfg, data=data_pair[1], device="cpu",
+                exp_cfg={"policy": {"mesh": mesh}})
 
 
 def test_trainer_requires_cuda_unless_cpu(data_pair, monkeypatch):
