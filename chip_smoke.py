@@ -263,11 +263,53 @@ and exits non-zero when any phase fails:
         one step and a dev pass), plain and under `exp.policy.mesh: true`
         in an NCCL group of one, both `deterministic`: losses, weights and
         dev values equal bit for bit, the same launches (the pool 2 a step, one a cache page),
-        both step times; the group destroyed.
+        both step times; the group destroyed;
+ 13. the model-parallel axis and catalog_parallel on the 16,384-item
+     catalog (DOTS_DATA_KW: the one cut, for the time limit), bf16, random
+     weights from seed 0: two rank processes of this script
+     (`--phase13-rank`) share the card over gloo (NCCL refuses two ranks
+     on one device; gloo's all-gathers go through host memory, the model,
+     the kernels and the optimizer stay on the card) while this process
+     runs each case in one process from the same weights and batches;
+     each case is Manager + Trainer.train(), one step of 2,048 on device
+     batches and a dev pass through the caches, `deterministic`, every
+     launch count set to 0 just before and read just after, in each
+     process:
+     - bert-naml (phase 5's layer-split training, hidden and attention
+       dropout 0.1) at mp 2: Megatron TP of the upper slice, 6 heads a
+       rank, the attention kernels at head offset 0 and 6; the best
+       checkpoint written as the sharded directory;
+     - the same at f32 (its LM too) on a 2,048-item catalog
+       (P13_SMALL_DATA_KW, for the time limit): TP's own error, apart
+       from bf16's;
+     - dcnv2_id at its YAML (CrossNetMix, 4 experts: 2 a rank) at mp 2;
+     - NAML at mp 2 with its tables row-sharded (min_rows_to_shard 0: the
+       30,000-word table 15,000 rows a rank);
+     - bert-naml catalog_parallel (dropout 0: the ranks' encode masks
+       differ by construction), each rank holding 8,192 rows of the
+       layer-split cache, then Trainer.test();
+     the gathered gradients and the loss within 2e-2 of one process's
+     (of each tensor's largest, a bias's against the larger of its own
+     and its weight's, as phase 7.3 holds them; the f32 case within
+     F32_GRAD_TOL; bf16 bert-naml's TP gradients within 2e-2 or within
+     one process's own bf16 error against its f32 run where larger,
+     `_p13_bf16_rule`), each parameter's update (after less before)
+     within 2e-2 of lr of one process's on every element whose gradient
+     lies beyond its gradient's gate of zero and beyond 50 Adam eps
+     (`_p13_update_errs`: a skipped or doubled step reads 1, a flipped
+     one 2), the dev value and the test metrics within 2e-2; each rank's
+     keep mask at its head offset equal to the 12-head mask's slice
+     exactly; the attention forward and backward at half the heads and
+     their offset (bert-naml's training page, bf16 and f32; the Llama
+     training page, bf16; dropout 0.1) equal to the whole page's call's
+     head slice bit for bit and to their plain versions at the kernels'
+     gates (`p13_attention_offsets`); the sharded checkpoint read in one
+     process equal to the gathered weights bit for bit; `[mp]` lines.
 Then it prints one JSON line of kernels, the card line, and
 {"ok": true, "device": {...}} as the last line.
 """
 import bisect
+import collections
 import itertools
 import json
 import math
@@ -968,7 +1010,8 @@ def _plain_attention():
                                                       k, v, bias, g)
             return None, dq, dk, dv, None
 
-    def stand_in(num_heads, dropout_p, q, k, v, bias, seed=None):
+    def stand_in(num_heads, dropout_p, q, k, v, bias, seed=None,
+                 head_offset=0):
         if dropout_p:
             raise ValueError("the plain stand-in runs at dropout 0")
         return Plain.apply(num_heads, q, k, v, bias)
@@ -1563,7 +1606,7 @@ def run_loop_naml(data, device, tmp) -> dict:
     ckpt = os.path.join(tmp, "naml.ckpt")
     tr, timer = _timed_trainer(m, ckpt_path=ckpt)
     saved, io_s = {}, {"save": [], "load": []}
-    save, load = trainer_mod.save_checkpoint, trainer_mod.load_checkpoint
+    save, load = trainer_mod.save_auto, trainer_mod.load_auto
 
     def timed_save(path, model, *a, **k):
         torch.cuda.synchronize()
@@ -1581,8 +1624,8 @@ def run_loop_naml(data, device, tmp) -> dict:
         return out
 
     rec = {"path": "naml Trainer, host batches", "policy": RUN_POLICY}
-    trainer_mod.save_checkpoint = timed_save
-    trainer_mod.load_checkpoint = timed_load
+    trainer_mod.save_auto = timed_save
+    trainer_mod.load_auto = timed_load
     try:
         _zero_counts()
         t0 = time.perf_counter()
@@ -1594,7 +1637,7 @@ def run_loop_naml(data, device, tmp) -> dict:
         rec["test_s"] = time.perf_counter() - t0
         rec["launches"] = _counts()
     finally:
-        trainer_mod.save_checkpoint, trainer_mod.load_checkpoint = save, load
+        trainer_mod.save_auto, trainer_mod.load_auto = save, load
     rec.update(_step_record(tr, timer))
     rec["best_dev"] = out["best_dev"]
     rec["sampler"] = native.backend()
@@ -3016,7 +3059,8 @@ PHASES = {3: "kernels", 4: "serving", 5: "training", 6: "run loop",
           7: "news zoo", 8: "CTR zoo", 9: "decoders",
           10: "IISAN, BERT zoo, flatten",
           11: "LM knobs, semantic IDs, processed MIND",
-          12: "drivers and data parallel"}
+          12: "drivers and data parallel",
+          13: "model parallel and catalog_parallel"}
 
 
 class phase_timer:
@@ -4319,6 +4363,517 @@ def run_phase12(data, device, card) -> dict:
     return {"phase12": out}
 
 
+# --------------------------------------------------------------------- #
+# phase 13: the model-parallel axis and catalog_parallel                 #
+# --------------------------------------------------------------------- #
+# two rank processes share the one card over gloo (NCCL refuses two ranks
+# on one device); each case one step (an epoch of one batch) and a dev pass
+P13_RANKS = 2
+P13_TIMEOUT_S = 420
+P13_POLICY = {"dtype": "bf16", "batch_size": TRAIN_BATCH, "lr": TRAIN_LR,
+              "epoch": 1, "epoch_batch": 1, "device_batching": True}
+# the attention page whose keep masks the ranks draw at their head offsets
+P13_MASK_SEED = 20261017
+# the f32 TP case's catalog: DOTS_DATA_KW's at 2,048 items (4 pages of
+# 512), for the time limit (the bf16 cases take its 16,384); its 5,000
+# users fill a batch of 2,048 clicks
+P13_SMALL_DATA_KW = dict(DOTS_DATA_KW, num_items=2048)
+# Adam's eps (runtime/steps.adam): a gradient past 50 eps takes a first
+# step within 2 % of +-lr
+ADAM_EPS = 1e-8
+
+
+# (model config, exp.policy.mesh, test after training, dtype, data:
+# "catalog" the 16,384-item catalog or "small" P13_SMALL_DATA_KW's)
+P13Case = collections.namedtuple("P13Case", "cfg mesh test dtype data",
+                                 defaults=(False, "bf16", "catalog"))
+
+
+def _p13_bert(dropout: float, lm_dtype=None) -> dict:
+    """bert-naml layer-split as phase 5 trains it (tune_from 10, `ffn`
+    remat, pages of 512), evaluated through its caches, at `dropout`
+    (hidden and attention), its LM in `lm_dtype` where given."""
+    import copy
+
+    cfg = copy.deepcopy(BERT_TRAIN_CFG)
+    cfg["config"]["use_fast_eval"] = True
+    cfg["config"]["item_config"].update(dropout=dropout, attn_dropout=dropout)
+    if lm_dtype:
+        cfg["config"]["item_config"]["lm_dtype"] = lm_dtype
+    return cfg
+
+
+def p13_cases() -> dict:
+    """name -> P13Case. "bert-naml mp 2 f32" is the bf16 case at f32 on
+    the small catalog: TP's own error, apart from bf16's."""
+    return {
+        "bert-naml mp 2": P13Case(_p13_bert(TRAIN_DROPOUT), {"mp": 2}),
+        "bert-naml mp 2 f32": P13Case(_p13_bert(TRAIN_DROPOUT, "f32"),
+                                      {"mp": 2}, dtype="f32", data="small"),
+        "dcnv2_id mp 2": P13Case(zoo_cfg("dcnv2_id"), {"mp": 2}),
+        "naml mp 2": P13Case(MODEL_CFG, {"mp": 2, "min_rows_to_shard": 0}),
+        "bert-naml catalog_parallel": P13Case(
+            _p13_bert(0.0), {"catalog_parallel": True}, test=True),
+    }
+
+
+def _p13_data(case: P13Case) -> dict:
+    """The SyntheticProcessor arguments of a case's data."""
+    return DOTS_DATA_KW if case.data == "catalog" else P13_SMALL_DATA_KW
+
+
+def _p13_params(m) -> dict:
+    """The trainable tensors (this rank's slices), f32 on the host."""
+    return {n: p.detach().float().cpu()
+            for n, p in m.model.named_parameters() if p.requires_grad}
+
+
+def p13_run(name: str, case: P13Case, mesh_cfg, data, device, tmp) -> dict:
+    """One case through Manager + Trainer (train: one step and a dev pass;
+    `case.test`: Trainer.test() after), `deterministic`, its launch counts
+    set to 0 just before and read just after; without `mesh_cfg` one
+    process. Returns the trainable tensors before the step and after it
+    and their gradients (this rank's slices), the losses, the dev value,
+    the launches and the plan."""
+    import torch
+    from legommenders_tpu_torch.parallel.mesh import model_plan
+    from legommenders_tpu_torch.runtime.manager import Manager
+
+    policy = dict(P13_POLICY, dtype=case.dtype)
+    if mesh_cfg is not None:
+        policy["mesh"] = mesh_cfg
+    m = Manager(model_cfg=case.cfg, exp_cfg={"policy": policy}, data=data,
+                device=device, seed=0)
+    ckpt = (os.path.join(tmp, "bert-naml.ckpt")
+            if mesh_cfg is not None and name == "bert-naml mp 2" else None)
+    tr, timer = _timed_trainer(m, ckpt_path=ckpt)
+    rec = {"path": name, "mesh": dict(m.mesh.shape) if m.mesh else None}
+    t0 = time.perf_counter()
+    tr.init()
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t0
+    rec["before"] = _p13_params(m)
+    _zero_counts()
+    t0 = time.perf_counter()
+    with deterministic():
+        tr.train()
+        if case.test:
+            rec["test"] = tr.test()
+    torch.cuda.synchronize()
+    rec["s"] = time.perf_counter() - t0
+    rec["launches"] = _counts()
+    rec["step_ms"] = [s * 1e3 for s in timer.samples["step"]]
+    rec["losses"] = tr.losses
+    rec["dev"] = [e["dev"] for e in tr.epochs]
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    plan = model_plan(m.model)
+    rec["plan"] = dict(plan.sharded) if plan else {}
+    rec["tensors"] = _p13_params(m)
+    rec["grads"] = {n: p.grad.detach().float().cpu()
+                    for n, p in m.model.named_parameters()
+                    if p.requires_grad and p.grad is not None}
+    if m.catalog_parallel:
+        rec["local_rows"] = {c: int(a.shape[0]) for c, a in
+                             m.catalog_contents().items()}
+    rec["ckpt"] = ckpt
+    del tr, m
+    torch.cuda.empty_cache()
+    return rec
+
+
+def p13_masks(device, head_offset: int, heads: int):
+    """The keep mask of the training page's heads [o, o + heads) (171
+    rows of T 120) for P13_MASK_SEED at dropout 0.1."""
+    import torch
+    from legommenders_tpu_torch.ops.attention import dropout_keep_mask
+
+    B, _, T = mask_shape(TRAIN_PAGE)
+    seed = torch.tensor([P13_MASK_SEED], dtype=torch.int32, device=device)
+    return dropout_keep_mask(heads, TRAIN_DROPOUT, B, T, seed,
+                             head_offset=head_offset)
+
+
+def p13_attention_offsets(device) -> dict:
+    """The forward and backward kernels at a TP rank's heads, dropout
+    0.1: bert-naml's training page (12 heads of 64, bf16 and f32) and the
+    Llama training page (32 heads of 128, bf16), each cut in two by heads
+    and each half run at its head offset (0 and H / 2). Every output and
+    gradient must equal the whole page's call's head slice bit for bit
+    (each head is computed alike) and lie within the kernel's gate of the
+    plain versions given the mask kernel's mask at that offset (bf16:
+    BF16_REL_TOL of the largest value, f32: F32_TOL). Comparison launches,
+    counted on no path."""
+    import torch
+    from legommenders_tpu_torch.ops.attention import (
+        dropout_keep_mask, packed_attention, packed_attention_backward,
+        reference_attention, reference_attention_backward,
+    )
+
+    p = TRAIN_DROPOUT
+    seed = torch.tensor([P13_MASK_SEED], dtype=torch.int32, device=device)
+    llama = DECODER_PAGES["llama training"]
+    pages = (
+        ("bert bf16", TRAIN_PAGE["heads"], "bf16", lambda: attention_inputs(
+            torch.bfloat16, device, seed=11, page=TRAIN_PAGE)),
+        ("bert f32", TRAIN_PAGE["heads"], "f32", lambda: attention_inputs(
+            torch.float32, device, seed=11, page=TRAIN_PAGE)),
+        ("llama bf16", llama["heads"], "bf16",
+         lambda: decoder_attention_inputs(llama, torch.bfloat16, device,
+                                          5)[:4]))
+    out, problems = {}, []
+    for label, H, dtype_name, make in pages:
+        q, k, v, bias = make()
+        g = torch.randn(q.shape, generator=torch.Generator(
+            device=device).manual_seed(12), device=device).to(q.dtype)
+        B, T, Dm = q.shape
+        half, width = H // 2, Dm // 2
+        with torch.no_grad():
+            whole = (packed_attention(H, p, q, k, v, bias, seed),) + tuple(
+                packed_attention_backward(H, p, q, k, v, bias, seed, g))
+            for r in range(2):
+                cols = slice(r * width, (r + 1) * width)
+                qr, kr, vr, gr = (t[..., cols].contiguous()
+                                  for t in (q, k, v, g))
+                o = r * half
+                got = (packed_attention(half, p, qr, kr, vr, bias, seed,
+                                        head_offset=o),) + tuple(
+                    packed_attention_backward(half, p, qr, kr, vr, bias,
+                                              seed, gr, head_offset=o))
+                keep = dropout_keep_mask(half, p, B, T, seed, head_offset=o)
+                want = (reference_attention(half, p, qr, kr, vr, bias,
+                                            keep),) + tuple(
+                    reference_attention_backward(half, p, qr, kr, vr, bias,
+                                                 gr, keep))
+                torch.cuda.synchronize()
+                rec = {"B": B, "T": T, "heads": half, "head_offset": o,
+                       "dtype": dtype_name}
+                for name, a, w, ref in zip(("out", "dq", "dk", "dv"), got,
+                                           whole, want):
+                    err = (a.float() - ref.float()).abs().max().item()
+                    rel = err / ref.float().abs().max().item()
+                    equal = torch.equal(a, w[..., cols])
+                    rec[name] = {"equals_whole_slice": equal,
+                                 "max_abs_err": err, "rel_err": rel}
+                    finite = bool(torch.isfinite(a.float()).all())
+                    if not (equal and finite) or (
+                            err > F32_TOL if dtype_name == "f32"
+                            else rel > BF16_REL_TOL):
+                        problems.append(f"{label} offset {o} {name}")
+                out[f"{label} offset {o}"] = rec
+                del got, want, keep
+        del q, k, v, bias, g, whole
+        torch.cuda.empty_cache()
+    if problems:
+        raise RuntimeError(f"phase 13: the attention kernels at a head "
+                           f"offset disagree ({problems}): "
+                           f"{json.dumps(out)[:4000]}")
+    return out
+
+
+def p13_rank(argv) -> int:
+    """A rank of phase 13: <init file> <rank> <tmp dir>. Opens the gloo
+    group on cuda:0, runs every case at its mesh, writes its records."""
+    import pickle
+
+    import torch
+    from legommenders_tpu_torch.parallel import mesh
+
+    init, rank, tmp = argv
+    rank = int(rank)
+    mesh.initialize_multihost(f"file://{init}", P13_RANKS, rank,
+                              device="cuda", backend="gloo")
+    try:
+        device = torch.device("cuda", 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        with open(os.path.join(tmp, "data.pkl"), "rb") as f:
+            datas = pickle.load(f)
+        out = {"group": {"backend": torch.distributed.get_backend(),
+                         "rank": rank}}
+        for name, case in p13_cases().items():
+            out[name] = p13_run(name, case, case.mesh, datas[case.data],
+                                device, tmp)
+        out["mask"] = p13_masks(device, 6 * rank, 6).cpu()
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        mesh.shutdown()
+    return 0
+
+
+def _p13_whole(ranks, name: str, key: str) -> dict:
+    """The mp shards of the two ranks' `key` tensors, whole."""
+    import torch
+
+    plan = ranks[0][name]["plan"]
+    return {k: (torch.cat([r[name][key][k] for r in ranks], dim=plan[k])
+                if k in plan else v)
+            for k, v in ranks[0][name][key].items()}
+
+
+def _p13_worst(errs: dict) -> tuple:
+    """(the largest error, the three worst tensors) of an error dict."""
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+    return (worst[0][1] if worst else 0.0), worst
+
+
+def _p13_scale(k: str, want: dict) -> float:
+    """The largest value tensor k of `want` is held against, by
+    `_plan_scale`'s rule (a bias against the larger of its own and its
+    weight's; its own where the weight is not in `want`)."""
+    ref = k
+    if k.endswith("proj_bias"):
+        ref = k[:-len("proj_bias")] + "proj_kernel"
+    elif k.endswith(".bias"):
+        ref = k[:-len("bias")] + "weight"
+    return _plan_scale(k, want if ref in want else {k: want[k],
+                                                    ref: want[k]})
+
+
+def _p13_errs(got: dict, want: dict) -> dict:
+    """Each tensor's max |got - want| over `_p13_scale`."""
+    return {k: float((got[k] - w).abs().max()) / _p13_scale(k, want)
+            for k, w in want.items()}
+
+
+def _p13_update_errs(got: dict, got0: dict, want: dict, want0: dict,
+                     grads: dict, allow: dict) -> tuple:
+    """Each tensor's largest difference of the two updates (after less
+    before) over lr, and the share of elements left out. Left out: an
+    element whose gradient in `grads` (one process's) is within `allow[k]`
+    of `_p13_scale`, where the gradient gate lets it take the other sign
+    (a zero-initialised lora_B's; the key bias's, zero in exact math), or
+    within 50 Adam eps, where the step is a share of lr that the
+    gradient's error moves: Adam's first step is lr g / (|g| + eps), +-lr
+    beyond those. A skipped or doubled update reads 1, a flipped one 2. A
+    tensor without a gradient: every element."""
+    errs, out, total = {}, 0, 0
+    for k, w in want.items():
+        du = (got[k] - got0[k]) - (w - want0[k])
+        total += du.numel()
+        if k in grads:
+            g = grads[k].abs()
+            keep = g > max(allow[k] * _p13_scale(k, grads), 50 * ADAM_EPS)
+            out += int((~keep).sum())
+            du = du[keep]
+        errs[k] = float(du.abs().max()) / TRAIN_LR if du.numel() else 0.0
+    return errs, out / max(total, 1)
+
+
+def _p13_bf16_rule(got: dict, want16: dict, want32: dict) -> tuple:
+    """The bf16 TP gradients' gate, every tensor: its error against one
+    process's bf16 gradient within BF16_REL_TOL, or within one process's
+    own bf16 error (its bf16 gradient against its f32 one) where that is
+    larger. precision_check allows half that, for kernels that only
+    reorder f32 sums; a TP rank also rounds each row-parallel partial
+    product to bf16 before the all-reduce (Megatron's and GSPMD's bf16
+    do the same), one more rounding a layer than one process: a
+    difference the size of bf16's own error (the softmax-fed tensors:
+    the query LoRA, the item pool: precision_check's notes). TP's own
+    error is held apart from bf16's by the f32 case. Returns ({"excess":
+    the largest error over its allowance, times BF16_REL_TOL (at most
+    BF16_REL_TOL when every tensor passes), "over": every tensor past
+    2e-2 as (error, own error, error against f32)}, each tensor's
+    allowance)."""
+    excess, over, allow = 0.0, {}, {}
+    errs, owns = _p13_errs(got, want16), _p13_errs(want16, want32)
+    to32 = _p13_errs(got, want32)
+    for k, err in errs.items():
+        allow[k] = max(BF16_REL_TOL, owns[k])
+        excess = max(excess, err / allow[k] * BF16_REL_TOL)
+        if err > BF16_REL_TOL:
+            over[k] = (err, owns[k], to32[k])
+    return {"excess": excess, "over": over}, allow
+
+
+def _p13_check(name: str, case: P13Case, ranks, ref: dict,
+               ref32=None) -> tuple:
+    """(record, problems) of one case: the ranks against one process.
+    Gradients and the loss within BF16_REL_TOL (f32: F32_GRAD_TOL; the
+    bf16 bert-naml TP case by `_p13_bf16_rule` against `ref32`), each
+    update within BF16_REL_TOL of lr (`_p13_update_errs`), the dev value
+    and the test metrics within BF16_REL_TOL."""
+    keys = ("losses", "dev", "s", "step_ms", "launches", "init_s",
+            "peak_memory_gb")
+    rec = {"path": name, "mesh": ranks[0][name]["mesh"],
+           "dtype": case.dtype, "data": case.data,
+           "one": {k: ref[k] for k in keys},
+           "ranks": [{k: r[name][k] for k in keys} for r in ranks],
+           "sharded": sorted(ranks[0][name]["plan"])[:8],
+           "n_sharded": len(ranks[0][name]["plan"])}
+    tol = F32_GRAD_TOL if case.dtype == "f32" else BF16_REL_TOL
+    got_g = _p13_whole(ranks, name, "grads")
+    if ref32 is not None:
+        rec["grads_rule"], allow = _p13_bf16_rule(got_g, ref["grads"],
+                                                  ref32["grads"])
+        rec["grads_err"] = rec["grads_rule"]["excess"]
+        rec["grads_worst"] = _p13_worst(_p13_errs(got_g, ref["grads"]))[1]
+    else:
+        rec["grads_err"], rec["grads_worst"] = _p13_worst(
+            _p13_errs(got_g, ref["grads"]))
+        allow = dict.fromkeys(ref["grads"], tol)
+    upd, rec["update_left_out"] = _p13_update_errs(
+        _p13_whole(ranks, name, "tensors"), _p13_whole(ranks, name, "before"),
+        ref["tensors"], ref["before"], ref["grads"], allow)
+    rec["update_err"], rec["update_worst"] = _p13_worst(upd)
+    # no step or no dev pass reads inf
+    rec["loss_err"] = max((abs(a - b) / max(abs(b), 1e-12) for a, b in
+                           zip(ranks[0][name]["losses"], ref["losses"])),
+                          default=math.inf)
+    rec["dev_err"] = max((abs(a - b) for a, b in
+                          zip(ranks[0][name]["dev"], ref["dev"])),
+                         default=math.inf)
+    gates = {"grads_err": tol, "loss_err": tol, "update_err": BF16_REL_TOL,
+             "dev_err": BF16_REL_TOL}
+    if "test" in ref:
+        rec["test"] = ranks[0][name]["test"]
+        rec["test_one"] = ref["test"]
+        rec["test_err"] = max(abs(rec["test"][k] - v)
+                              for k, v in ref["test"].items())
+        gates["test_err"] = BF16_REL_TOL
+    rec["gates"] = gates
+    if "local_rows" in ranks[0][name]:
+        rec["local_rows"] = ranks[0][name]["local_rows"]
+    problems = [f"{name} {k} {rec[k]:.3e} > {g:g}" for k, g in gates.items()
+                if not rec[k] <= g]
+    launches = [r[name]["launches"] for r in ranks]
+    if name.startswith("bert") and not all(
+            c["packed_attention"] and c["packed_attention_backward"]
+            for c in launches):
+        problems.append(f"{name}: no attention launch")
+    if not all(c["additive_pool"] for c in launches):
+        problems.append(f"{name}: no pool launch")
+    if "mp" in case.mesh and not ranks[0][name]["plan"]:
+        problems.append(f"{name}: nothing sharded")
+    return rec, problems
+
+
+def run_phase13(device, card) -> dict:
+    """Phase 13: NAML (row-sharded tables), dcnv2_id (expert-sharded
+    CrossNetMix) and bert-naml (Megatron TP at dropout 0.1, bf16 and f32)
+    at mp 2, and bert-naml catalog-parallel, two ranks on the card over
+    gloo, each held against one process from the same weights and
+    batches, on the 16,384-item catalog (DOTS_DATA_KW; the f32 case on
+    P13_SMALL_DATA_KW's 2,048); the attention kernels at a head offset
+    against the whole page's call and their plain versions."""
+    import pickle
+    import tempfile
+
+    import torch
+    from legommenders_tpu_torch.data.processors.synthetic import (
+        SyntheticProcessor,
+    )
+    from legommenders_tpu_torch.runtime.checkpoint import load_auto
+    from legommenders_tpu_torch.runtime.manager import Manager
+
+    out = {}
+    cases = p13_cases()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        datas = {"catalog": SyntheticProcessor(**DOTS_DATA_KW).as_lego_data(),
+                 "small": SyntheticProcessor(
+                     **P13_SMALL_DATA_KW).as_lego_data()}
+        with open(os.path.join(tmp, "data.pkl"), "wb") as f:
+            pickle.dump(datas, f)
+        out["data_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        env = {**os.environ, "PYTHONPATH": ROOT}
+        init = os.path.join(tmp, "group")
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phase13-rank",
+             init, str(r), tmp], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(P13_RANKS)]
+        one = {}
+        try:
+            t0 = time.perf_counter()
+            for name, case in cases.items():
+                one[name] = p13_run(name, case, None, datas[case.data],
+                                    device, tmp)
+            # the f32 gradients precision_check's bf16 rule measures
+            # bert-naml's own bf16 error by
+            f32 = P13Case(_p13_bert(TRAIN_DROPOUT, "f32"), None, dtype="f32")
+            one32 = p13_run("bert-naml f32", f32, None, datas["catalog"],
+                            device, tmp)
+            whole_mask = p13_masks(device, 0, 12).cpu()
+            out["one_process_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["attention_offsets"] = p13_attention_offsets(device)
+            out["offsets_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            logs = [p.communicate(timeout=P13_TIMEOUT_S)[0] for p in procs]
+            out["ranks_wait_s"] = time.perf_counter() - t0
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, text in enumerate(logs):
+            if procs[r].returncode:
+                for line in text.splitlines()[-60:]:
+                    log(f"[mp rank {r}] {line}")
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"phase 13 ranks failed: "
+                               f"{[p.returncode for p in procs]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(P13_RANKS)]
+        out["group"] = ranks[0]["group"]
+        out["masks_equal"] = all(torch.equal(
+            ranks[r]["mask"], whole_mask[:, 6 * r:6 * r + 6])
+            for r in range(P13_RANKS))
+        problems = [] if out["masks_equal"] else ["keep masks"]
+        for name, case in cases.items():
+            out[name], bad = _p13_check(
+                name, case, ranks, one[name],
+                one32 if name == "bert-naml mp 2" else None)
+            problems += bad
+        # the bert-naml mp 2 best checkpoint, read whole in one process
+        ckpt = ranks[0]["bert-naml mp 2"]["ckpt"]
+        m = Manager(model_cfg=_p13_bert(TRAIN_DROPOUT),
+                    exp_cfg={"policy": dict(P13_POLICY)},
+                    data=datas["catalog"], device=device, seed=1)
+        load_auto(ckpt, m.model, model_only=True)
+        got = _p13_whole(ranks, "bert-naml mp 2", "tensors")
+        named = dict(m.model.named_parameters())
+        out["ckpt_bit_equal"] = all(
+            torch.equal(named[k].detach().float().cpu(), v)
+            for k, v in got.items())
+        out["ckpt_dir_files"] = sorted(os.listdir(ckpt + ".orbax"))
+        if not out["ckpt_bit_equal"]:
+            problems.append("checkpoint read whole")
+        del m
+        torch.cuda.empty_cache()
+        if problems:
+            raise RuntimeError(f"phase 13 failed ({problems}): "
+                               f"{json.dumps(out, default=str)[:6000]}")
+    for name in cases:
+        r = out[name]
+        log(f"[mp] {name} ({r['mesh']}, {r['dtype']}): step "
+            f"{r['ranks'][0]['step_ms']} ms vs one process "
+            f"{r['one']['step_ms']} ms, train + dev "
+            f"{r['ranks'][0]['s']:.2f} s vs {r['one']['s']:.2f} s; grads / "
+            f"update / loss / dev err {r['grads_err']:.2e} / "
+            f"{r['update_err']:.2e} (of lr; {r['update_left_out']:.2%} of "
+            f"elements left out) / {r['loss_err']:.2e} / {r['dev_err']:.2e} "
+            f"(gates {r['gates']}); launches rank 0 "
+            f"{r['ranks'][0]['launches']}, rank 1 "
+            f"{r['ranks'][1]['launches']}, one process "
+            f"{r['one']['launches']} ({card}; two ranks share the card over "
+            f"gloo: no multi-card speed)")
+    offs = out["attention_offsets"]
+    worst = max(v[t]["rel_err"] for v in offs.values()
+                for t in ("out", "dq", "dk", "dv"))
+    log(f"[mp] keep masks at head offsets 0 and 6 equal the 12-head mask's "
+        f"slices: {out['masks_equal']}; the attention forward and backward "
+        f"at a TP rank's heads equal the whole page's head slice bit for "
+        f"bit and their plain versions ({', '.join(offs)}): worst rel err "
+        f"{worst:.2e}; the mp-2 checkpoint ({out['ckpt_dir_files']}) read in "
+        f"one process bit for bit: {out['ckpt_bit_equal']}; data "
+        f"{out['data_s']:.2f} s, one process {out['one_process_s']:.2f} s, "
+        f"the offsets {out['offsets_s']:.2f} s, then the ranks "
+        f"{out['ranks_wait_s']:.2f} s")
+    log(f"[mp] {json.dumps(out, default=str)}")
+    return {"phase13": out}
+
+
 def _kernel_line(R: dict) -> list:
     """The `kernels` JSON: each kernel's headline check (phase 3's where it
     ran, else the first check of its kind from the phases that ran), its
@@ -4418,10 +4973,18 @@ def _kernel_line(R: dict) -> list:
         for side in ("plain", "dp"):
             phase12_runs[f"NAML Trainer ({side}, batch {DP_BATCH})"] = p12[
                 "dp"][side]["launches"]
+    phase13_runs = {}
+    for name, rec in (R.get("phase13") or {}).items():
+        if not isinstance(rec, dict) or "ranks" not in rec:
+            continue
+        phase13_runs[f"{name} (one process)"] = rec["one"]["launches"]
+        for r, rank in enumerate(rec["ranks"]):
+            phase13_runs[f"{name} (rank {r} of 2, gloo)"] = rank["launches"]
     runs.update(decoder_runs)
     runs.update(phase10_runs)
     runs.update(phase11_runs)
     runs.update(phase12_runs)
+    runs.update(phase13_runs)
 
     def by_path(key):
         return {p: c.get(key, 0) for p, c in runs.items()}
@@ -4490,6 +5053,8 @@ def _kernel_line(R: dict) -> list:
                               for p, c in phase11_runs.items()},
             phase12_launches={p: c.get("additive_pool", 0)
                               for p, c in phase12_runs.items()},
+            phase13_launches={p: c.get("additive_pool", 0)
+                              for p, c in phase13_runs.items()},
             checks=pool_all))
     sdpa = "torch.nn.functional.scaled_dot_product_attention"
     train = R.get("train_checks", [])
@@ -4562,6 +5127,8 @@ def _kernel_line(R: dict) -> list:
                               for p, c in phase11_runs.items()},
             phase12_launches={p: c.get("packed_attention", 0)
                               for p, c in phase12_runs.items()},
+            phase13_launches={p: c.get("packed_attention", 0)
+                              for p, c in phase13_runs.items()},
             checks=R.get("attn_checks", [])))
         decoder_launches = {p: c["packed_attention_backward"]
                             for p, c in decoder_runs.items()}
@@ -4589,6 +5156,8 @@ def _kernel_line(R: dict) -> list:
                               for p, c in phase11_runs.items()},
             phase12_launches={p: c.get("packed_attention_backward", 0)
                               for p, c in phase12_runs.items()},
+            phase13_launches={p: c.get("packed_attention_backward", 0)
+                              for p, c in phase13_runs.items()},
             f32_dh128_edges=R.get("f32_edges", []),
             checks=train))
     if tr is not None:
@@ -4606,6 +5175,9 @@ def _kernel_line(R: dict) -> list:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--phase13-rank"]:
+        return p13_rank(argv[1:])
     phases = parse_phases(argv)
     try:
         import torch
@@ -4674,6 +5246,9 @@ def main(argv=None) -> int:
     if 12 in phases:
         with phase_timer(12, PHASES[12]):
             R.update(run_phase12(data, device, card))
+    if 13 in phases:
+        with phase_timer(13, PHASES[13]):
+            R.update(run_phase13(device, card))
 
     kernels = _kernel_line(R)
     total = time.perf_counter() - t_run

@@ -33,7 +33,11 @@
 // `dropout_bits4_at` per column pair; the f32 kernels through
 // `dropout_bits4`), the mask kernel the same rounds split further
 // (`dropout_bits4_split`), so they agree whatever their grid or block
-// shape. An element is kept iff its bits >= floor(dropout * 2^32), as
+// shape. Every kernel takes a `head_offset` added to h in the counter: a
+// call over heads [o, o + H) of a tensor sharded by heads (tensor
+// parallelism) draws what the whole tensor's heads o.. draw, so the shards'
+// masks are slices of one mask. An element is kept iff its bits >=
+// floor(dropout * 2^32), as
 // in the TPU kernels (`_keep_threshold`); the TPU's own draws (seeded per
 // program) cannot be reproduced and are not: the contract is that the same
 // keep mask gives the same output. The seed is read from device memory.
@@ -409,7 +413,8 @@ __host__ __device__ inline int mask_buffer_bytes(int T) {
 template <int W, bool STAGED>
 __global__ void __launch_bounds__(kMaskThreads, kMaskCtasPerSm)
 dropout_mask(const int* __restrict__ seed_ptr, uint8_t* __restrict__ out,
-             int n_items, int Tn, int H, int n_cb, int n_gi, uint32_t thresh) {
+             int n_items, int Tn, int H, int n_cb, int n_gi, uint32_t thresh,
+             int head_offset) {
   constexpr int D = kMaskDraws, kCols = 2 * D;
   static_assert(D == 4, "a unit's keep bytes are two words a row");
   extern __shared__ __align__(16) uint8_t mask_smem[];
@@ -433,7 +438,7 @@ dropout_mask(const int* __restrict__ seed_ptr, uint8_t* __restrict__ out,
       if (threadIdx.x == 0) hopper::bulk_wait_read<1>();
       __syncthreads();
     }
-    const PhiloxHead head = philox_head(static_cast<uint32_t>(h));
+    const PhiloxHead head = philox_head(static_cast<uint32_t>(h + head_offset));
     for (int c = c_first; c < n_cb; c += c_step) {
       PhiloxCol col[D];
       PhiloxColItem ci[D];
@@ -502,7 +507,7 @@ attention_simt(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ bias,
                float* __restrict__ out, int Tn, int H, int dh, float scale,
                long long sb, long long sq, const int* __restrict__ seed_ptr,
-               uint32_t thresh, float keep_scale, int dropout) {
+               uint32_t thresh, float keep_scale, int dropout, int head_offset) {
   extern __shared__ __align__(16) float smem[];
   float* kt = smem;                        // [dh][Tn]
   float* vs = kt + (size_t)dh * Tn;        // [Tn][dh]
@@ -562,7 +567,7 @@ attention_simt(const float* __restrict__ q, const float* __restrict__ k,
       const int j = lane + 32 * c;
       if (j < Tn) {
         float p = s[c] / sum;
-        if (dropout) p = drop(p, dropout_bits(key, b, h, i, j), thresh, keep_scale);
+        if (dropout) p = drop(p, dropout_bits(key, b, h + head_offset, i, j), thresh, keep_scale);
         pw[j] = p;
       }
     }
@@ -630,7 +635,7 @@ attention_bwd_simt(const float* __restrict__ q, const float* __restrict__ k,
                    float* __restrict__ dk, float* __restrict__ dv, int Tn,
                    int H, int dh, float scale, long long sb, long long sq,
                    const int* __restrict__ seed_ptr, uint32_t thresh,
-                   float keep_scale, int dropout) {
+                   float keep_scale, int dropout, int head_offset) {
   extern __shared__ __align__(16) float smem[];
   const int KS = dh + 1;
   float* as = smem;                            // K, then Q: [Tn][KS]
@@ -698,7 +703,7 @@ attention_bwd_simt(const float* __restrict__ q, const float* __restrict__ k,
         s[c] = s[c] / sum;                     // p
         float kf = 1.f;
         if (dropout)
-          kf = dropout_bits(key, b, h, i, j) >= thresh ? keep_scale : 0.f;
+          kf = dropout_bits(key, b, h + head_offset, i, j) >= thresh ? keep_scale : 0.f;
         dpd[c] *= kf;                          // dp
         rs += dpd[c] * s[c];
       }
@@ -757,7 +762,7 @@ attention_bwd_simt(const float* __restrict__ q, const float* __restrict__ k,
         const float p = expf(s - row_m[i]) / row_l[i];
         float kf = 1.f;
         if (dropout)
-          kf = dropout_bits(key, b, h, i, j) >= thresh ? keep_scale : 0.f;
+          kf = dropout_bits(key, b, h + head_offset, i, j) >= thresh ? keep_scale : 0.f;
         pdw[i] = p * kf;
         dsw[i] = p * (dpd * kf - row_rs[i]) * scale;
       }
@@ -1152,7 +1157,7 @@ attention_fwd_tc(const __grid_constant__ CUtensorMap tq,
                  float scale, long long sb, long long sq, int bias_mode,
                  int bias_copy, int bias_pairs, int stages,
                  const int* __restrict__ seed_ptr, uint32_t thresh,
-                 float keep_scale) {
+                 float keep_scale, int head_offset) {
   using G = Tile<DH>;
   constexpr int kORegion = 64 * G::kRowBytes;  // one box of a warpgroup's O
   extern __shared__ unsigned char smem_raw[];
@@ -1264,7 +1269,7 @@ attention_fwd_tc(const __grid_constant__ CUtensorMap tq,
         // P (with its dropout) rounded to bf16, packed in place as the A
         // fragments of P.V: 16 keys per k-step; the lane's draws all share
         // rows r0 and r0 + 8
-        const PhiloxRow prow = philox_row(key, b, h, r0);
+        const PhiloxRow prow = philox_row(key, b, h + head_offset, r0);
         uint32_t pa[8][4];
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk) {
@@ -1395,7 +1400,8 @@ attention_bwd_tc(const __grid_constant__ CUtensorMap tq,
                  int Tn, int H, float scale, long long sb, long long sq,
                  int bias_mode, int bias_copy, int bias_pairs, int bias_smem,
                  int stages, const int* __restrict__ seed_ptr,
-                 uint32_t thresh, float keep_scale, int dropout) {
+                 uint32_t thresh, float keep_scale, int dropout,
+                 int head_offset) {
   using G = Tile<DH>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
@@ -1542,7 +1548,7 @@ attention_bwd_tc(const __grid_constant__ CUtensorMap tq,
       for (int c = 0; c < 16; ++c) {
         float kf[4] = {1.f, 1.f, 1.f, 1.f};
         if (dropout) {
-          const uint4 r = dropout_bits4(key, b, h, r0, 8 * c + qc);
+          const uint4 r = dropout_bits4(key, b, h + head_offset, r0, 8 * c + qc);
           kf[0] = r.x >= thresh ? keep_scale : 0.f;
           kf[1] = r.y >= thresh ? keep_scale : 0.f;
           kf[2] = r.z >= thresh ? keep_scale : 0.f;
@@ -1660,6 +1666,7 @@ struct Drop {
   uint32_t thresh;
   float keep_scale;
   int on;
+  int head_offset;  // added to h in the Philox counter
 };
 
 // per device, set by packed_attention_prepare
@@ -1758,11 +1765,13 @@ int launch_fwd_tc(const void* q, const void* k, const void* v,
   if (dr.on)
     attention_fwd_tc<DH, TB, true><<<grid, kTcThreads, smem, st>>>(
         mq, mk, mv, mo, static_cast<const TB*>(bias), n_items, T_, H, scale,
-        sb, sq, mode, cb, pairs, stages, dr.seed, dr.thresh, dr.keep_scale);
+        sb, sq, mode, cb, pairs, stages, dr.seed, dr.thresh, dr.keep_scale,
+        dr.head_offset);
   else
     attention_fwd_tc<DH, TB, false><<<grid, kTcThreads, smem, st>>>(
         mq, mk, mv, mo, static_cast<const TB*>(bias), n_items, T_, H, scale,
-        sb, sq, mode, cb, pairs, stages, dr.seed, dr.thresh, dr.keep_scale);
+        sb, sq, mode, cb, pairs, stages, dr.seed, dr.thresh, dr.keep_scale,
+        dr.head_offset);
   return cudaGetLastError();
 }
 
@@ -1794,7 +1803,7 @@ int launch_bwd_tc(const void* q, const void* k, const void* v,
       mq, mk, mv, mg, mdq, mdk, mdv, static_cast<const TB*>(bias), n_items,
       T_, H, scale,
       sb, sq, mode, bias_copy_bytes<TB>(bias, T_, sb, sq), pairs, in_smem,
-      stages, dr.seed, dr.thresh, dr.keep_scale, dr.on);
+      stages, dr.seed, dr.thresh, dr.keep_scale, dr.on, dr.head_offset);
   return cudaGetLastError();
 }
 
@@ -1850,7 +1859,8 @@ constexpr int kMaskStageBytes = 48 * 1024;
 // when T is a multiple of 8; else byte stores, staged in shared memory
 // where the two copies fit (T up to 156), straight to device memory above.
 int keep_mask_launch(const int* seed, uint8_t* out, int B, int T, int H,
-                     uint32_t thresh, int sms, cudaStream_t st) {
+                     uint32_t thresh, int head_offset, int sms,
+                     cudaStream_t st) {
   constexpr int kCols = 2 * kMaskDraws;
   const int n_cb = (T + kCols - 1) / kCols;               // column blocks
   const int n_gi = (T >> 4) * 8 + ((T & 15) < 8 ? (T & 15) : 8);  // rows, bit 3 clear
@@ -1859,13 +1869,13 @@ int keep_mask_launch(const int* seed, uint8_t* out, int B, int T, int H,
   const int smem = 2 * mask_buffer_bytes(T);
   if (T % 8 == 0)
     dropout_mask<8, false><<<grid, kMaskThreads, 0, st>>>(
-        seed, out, n_items, T, H, n_cb, n_gi, thresh);
+        seed, out, n_items, T, H, n_cb, n_gi, thresh, head_offset);
   else if (smem <= kMaskStageBytes)
     dropout_mask<1, true><<<grid, kMaskThreads, smem, st>>>(
-        seed, out, n_items, T, H, n_cb, n_gi, thresh);
+        seed, out, n_items, T, H, n_cb, n_gi, thresh, head_offset);
   else
     dropout_mask<1, false><<<grid, kMaskThreads, 0, st>>>(
-        seed, out, n_items, T, H, n_cb, n_gi, thresh);
+        seed, out, n_items, T, H, n_cb, n_gi, thresh, head_offset);
   return cudaGetLastError();
 }
 
@@ -1924,8 +1934,8 @@ int packed_attention_prepare(int device) {
 // 64 or 128) or all f32; bias (B, T, T) with element strides (sb, sq, 1),
 // bf16 (bias_is_bf16) or f32 (f32 when q is); T <= 128; q, k, v, out
 // 16-byte aligned; with `dropout`, `seed` points to one int32 on the device
-// and an element is kept iff its bits >= thresh, then scaled by keep_scale;
-// enough shared memory (packed_attention_smem_bytes) and
+// and an element is kept iff its bits >= thresh, then scaled by keep_scale,
+// the bits those of head head_offset + h; enough shared memory (packed_attention_smem_bytes) and
 // packed_attention_prepare called on `device`. Enqueued on `stream`;
 // returns a cudaError_t.
 int packed_attention_forward(const void* q, const void* k, const void* v,
@@ -1933,8 +1943,8 @@ int packed_attention_forward(const void* q, const void* k, const void* v,
                              int dh, float scale, long long sb, long long sq,
                              int qkv_is_bf16, int bias_is_bf16,
                              const void* seed, unsigned int thresh,
-                             float keep_scale, int dropout, int device,
-                             void* stream) {
+                             float keep_scale, int dropout, int head_offset,
+                             int device, void* stream) {
   if (B == 0 || T == 0) return cudaSuccess;
   if (T > kMaxT || (!qkv_is_bf16 && bias_is_bf16) || (dropout && !seed))
     return cudaErrorInvalidValue;
@@ -1942,13 +1952,14 @@ int packed_attention_forward(const void* q, const void* k, const void* v,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Drop dr = {static_cast<const int*>(seed), thresh, keep_scale, dropout};
+  const Drop dr = {static_cast<const int*>(seed), thresh, keep_scale, dropout,
+                   head_offset};
   if (!qkv_is_bf16) {
     attention_simt<<<B * H, kSimtThreads, simt_smem_bytes(T, dh), st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(bias),
         static_cast<float*>(out), T, H, dh, scale, sb, sq, dr.seed, thresh,
-        keep_scale, dropout);
+        keep_scale, dropout, head_offset);
     return cudaGetLastError();
   }
   if (bias_is_bf16)
@@ -1966,8 +1977,8 @@ int packed_attention_backward(const void* q, const void* k, const void* v,
                               float scale, long long sb, long long sq,
                               int qkv_is_bf16, int bias_is_bf16,
                               const void* seed, unsigned int thresh,
-                              float keep_scale, int dropout, int device,
-                              void* stream) {
+                              float keep_scale, int dropout, int head_offset,
+                              int device, void* stream) {
   if (B == 0 || T == 0) return cudaSuccess;
   if (T > kMaxT || (!qkv_is_bf16 && bias_is_bf16) || (dropout && !seed))
     return cudaErrorInvalidValue;
@@ -1975,14 +1986,15 @@ int packed_attention_backward(const void* q, const void* k, const void* v,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Drop dr = {static_cast<const int*>(seed), thresh, keep_scale, dropout};
+  const Drop dr = {static_cast<const int*>(seed), thresh, keep_scale, dropout,
+                   head_offset};
   if (!qkv_is_bf16) {
     attention_bwd_simt<<<B * H, kSimtThreads, bwd_simt_smem_bytes(T, dh), st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(bias),
         static_cast<const float*>(g), static_cast<float*>(dq),
         static_cast<float*>(dk), static_cast<float*>(dv), T, H, dh, scale,
-        sb, sq, dr.seed, thresh, keep_scale, dropout);
+        sb, sq, dr.seed, thresh, keep_scale, dropout, head_offset);
     return cudaGetLastError();
   }
   if (bias_is_bf16)
@@ -1991,12 +2003,12 @@ int packed_attention_backward(const void* q, const void* k, const void* v,
 }
 
 // The (B, H, T, T) keep mask (one byte per element, 1 = kept) that the
-// forward and the backward draw for the int32 at `seed` and `thresh`, for
-// any T; packed_attention_prepare called on `device`. Enqueued on
+// forward and the backward draw for the int32 at `seed`, `thresh` and
+// `head_offset`, for any T; packed_attention_prepare called on `device`. Enqueued on
 // `stream`; returns a cudaError_t.
 int packed_attention_keep_mask(const void* seed, void* out, int B, int T,
-                               int H, unsigned int thresh, int device,
-                               void* stream) {
+                               int H, unsigned int thresh, int head_offset,
+                               int device, void* stream) {
   if (B == 0 || T == 0 || H == 0) return cudaSuccess;
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   if (g_sms[device] <= 0) return cudaErrorInitializationError;
@@ -2005,7 +2017,8 @@ int packed_attention_keep_mask(const void* seed, void* out, int B, int T,
   if ((long long)T * T > INT_MAX) return cudaErrorInvalidValue;
   return keep_mask_launch(static_cast<const int*>(seed),
                           static_cast<uint8_t*>(out), B, T, H, thresh,
-                          g_sms[device], static_cast<cudaStream_t>(stream));
+                          head_offset, g_sms[device],
+                          static_cast<cudaStream_t>(stream));
 }
 
 const char* packed_attention_error_string(int err) {

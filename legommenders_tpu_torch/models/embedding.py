@@ -13,7 +13,14 @@ loader/embedding_hub.py:121-385:
     masks pad positions);
   * `embed(..., plan=)` and `PlannedTables`: a static full-catalog lookup
     takes its column's ops/catalog_grad.CatalogGradPlan (the same forward,
-    a scatter-free backward; JAX embedding.py:87-141).
+    a scatter-free backward; JAX embedding.py:87-141);
+  * `shard_rows` (JAX `shard_axis`, :55-70): under the mesh's mp axis a
+    table holds rows / n_mp rows (parallel/mesh.place_model) and `embed`
+    looks it up owner-computes (parallel/embed_sharded.sharded_lookup),
+    its backward adding into the owned rows only. A sharded table takes
+    no catalog gradient plan: a plan's per-row sums span the whole table,
+    so its lookup takes the plain transpose, as JAX's catalog-parallel
+    step does (parallel/catalog.py:144).
 """
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
@@ -23,6 +30,8 @@ import torch
 from torch import nn
 
 from legommenders_tpu_torch.models.common import dropout, reset_linear
+from legommenders_tpu_torch.parallel.embed_sharded import sharded_lookup
+from legommenders_tpu_torch.parallel.mesh import shard_slice
 
 
 @dataclass(frozen=True)
@@ -63,6 +72,8 @@ class EmbeddingTables(nn.Module):
                 self.transforms[spec.param_name] = nn.Linear(
                     spec.dim, spec.target_dim)
         self._by_name = {(s.kind, s.name): s for s in self.specs}
+        # param_name -> the mp axis its rows are sharded over
+        self.row_shards = {}
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -81,6 +92,14 @@ class EmbeddingTables(nn.Module):
                     table.normal_(0.0, 0.02, generator=generator)
         for layer in self.transforms.values():
             reset_linear(layer, generator)
+
+    def shard_rows(self, keys, axis):
+        """Keep this rank's rows of each table in `keys` (param names) and
+        look them up owner-computes over `axis` from now on."""
+        for key in keys:
+            table = self.tables[key]
+            table.data = shard_slice(table.data, 0, axis)
+            self.row_shards[key] = axis
 
     def _spec(self, vocab_name: str, col_name: Optional[str]) -> EmbedSpec:
         if col_name is not None and ("feature", col_name) in self._by_name:
@@ -105,7 +124,11 @@ class EmbeddingTables(nn.Module):
         (the content was checked by the caller, `matches_source`)."""
         spec = self._spec(vocab_name, col_name)
         table = self.tables[spec.param_name]
-        if (plan is not None and not spec.frozen
+        axis = self.row_shards.get(spec.param_name)
+        if axis is not None:
+            out = sharded_lookup(table, ids.clamp(0, spec.size - 1),
+                                 axis).to(self.dtype)
+        elif (plan is not None and not spec.frozen
                 and plan.matches(ids.shape, spec.size)):
             out = plan.take(table).to(self.dtype)
         else:

@@ -46,6 +46,23 @@ from one product against the concatenation of the three base weights
 draw. The parameters stay those of the three LoRADense modules. Without a
 trainable parameter in it the concatenation is kept (`cached_casts`).
 
+Tensor parallelism (JAX's Megatron shardings over mp, mesh.py:221-278;
+parallel/mesh.shard_plan and place_model). `shard_tp` on a BertLayer,
+LlamaDecoderLayer or OPTDecoderLayer keeps this rank's H / n query heads
+(KV / n key/value heads) and FFN columns: q, k, v and the FFN's first
+products are column-parallel (output features and biases sharded, their
+input through Megatron's f, `copy_to_mp`), the attention output and the
+FFN's second product row-parallel (input features sharded; the partial
+products summed by g, `reduce_from_mp`, then the whole bias added).
+LoRA factors stay whole: a column-parallel product uses its rows of B, a
+row-parallel one its columns of A, and both factors' gradients are
+partial on each rank. The attention kernel runs on the rank's heads with
+`head_offset` = its first head, so its dropout masks are slices of the
+mask one process draws; the plain path's attention dropout draws the
+whole (B, H, L, L) noise and keeps the rank's heads. Every other draw
+(LoRA input, hidden dropout, the kernel's seed) is of a replicated shape,
+the same on every mp rank.
+
 IISAN. With `collect_pooled` a slice returns, instead of its last hidden
 states, the masked mean of every layer's output over the item's tokens
 (after un-packing), (B, num_layers, D), before any `final_norm`; the mask
@@ -63,6 +80,9 @@ from legommenders_tpu_torch.models.common import (  # noqa: F401
 )
 from legommenders_tpu_torch.models.lm.remat import ffn_out
 from legommenders_tpu_torch.ops.attention import MAX_T, packed_attention
+from legommenders_tpu_torch.parallel.mesh import (
+    copy_to_mp, reduce_from_mp, shard_slice,
+)
 
 PIPELINE_STAGES = ("pipeline_stages is a multi-device path, not ported yet "
                    "(ROADMAP.md, queue 1, item 8)")
@@ -103,6 +123,9 @@ class LoRADense(nn.Module):
         if lora_r > 0:
             self.lora_A = nn.Parameter(torch.empty(lora_r, in_features))
             self.lora_B = nn.Parameter(torch.zeros(features, lora_r))
+        # (mode "col" | "row", mp axis, first and last+1 global index of
+        # the sharded features) once `shard_tp` ran
+        self.tp = None
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -114,14 +137,36 @@ class LoRADense(nn.Module):
                 self.lora_A.normal_(0.0, 0.02, generator=generator)
                 self.lora_B.zero_()
 
+    def shard_tp(self, mode: str, axis):
+        """Keep this rank's output features ("col": the weight's rows and
+        the bias) or input features ("row": the weight's columns)."""
+        dim = 0 if mode == "col" else 1
+        k = self.weight.shape[dim] // axis.size
+        self.weight.data = shard_slice(self.weight.data, dim, axis)
+        if mode == "col" and self.bias is not None:
+            self.bias.data = shard_slice(self.bias.data, 0, axis)
+        self.tp = (mode, axis, axis.index * k, (axis.index + 1) * k)
+
+    def lora_factors(self):
+        """(A, B) as this rank applies them: B's rows of its output
+        features (col), A's columns of its input features (row)."""
+        a, b = self.lora_A, self.lora_B
+        if self.tp is not None:
+            mode, _, lo, hi = self.tp
+            if mode == "col":
+                b = b[lo:hi]
+            else:
+                a = a[:, lo:hi]
+        return a, b
+
     def weights(self):
         """(kernel (F, D), bias or None) in `dtype`, the LoRA delta folded
         in."""
         def make():
             w = self.weight
             if self.fold:
-                w = w + (self.lora_B @ self.lora_A) * (
-                    self.lora_alpha / self.lora_r)
+                a, b = self.lora_factors()
+                w = w + (b @ a) * (self.lora_alpha / self.lora_r)
             if self.bias is None:
                 return (w.to(self.dtype),)
             return w.to(self.dtype), self.bias.to(self.dtype)
@@ -130,15 +175,22 @@ class LoRADense(nn.Module):
     def forward(self, x: torch.Tensor,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
         w, *b = self.weights()
+        row = self.tp is not None and self.tp[0] == "row"
+        bias = b[0] if b and not row else None
         if self.ffn_out:
-            return ffn_out(x.to(self.dtype), w, b[0] if b else None)
-        y = x.to(self.dtype) @ w.t()
-        if b:
-            y = y + b[0]
+            y = ffn_out(x.to(self.dtype), w, bias)
+        else:
+            y = x.to(self.dtype) @ w.t()
+            if bias is not None:
+                y = y + bias
         if self.lora_r > 0 and not self.fold:
             h = dropout(x, self.lora_dropout, rng).to(self.dtype)
-            a, bb = self.lora_A.to(self.dtype), self.lora_B.to(self.dtype)
+            a, bb = (t.to(self.dtype) for t in self.lora_factors())
             y = y + ((h @ a.t()) @ bb.t()) * (self.lora_alpha / self.lora_r)
+        if row:
+            y = reduce_from_mp(y, self.tp[1])
+            if b:
+                y = y + b[0]
         return y
 
 
@@ -156,7 +208,8 @@ def fused_qkv_weights(owner: nn.Module, projs):
         for p in projs:
             w = p.weight
             if p.fold:
-                w = w + (p.lora_B @ p.lora_A) * (p.lora_alpha / p.lora_r)
+                a, b = p.lora_factors()
+                w = w + (b @ a) * (p.lora_alpha / p.lora_r)
             blocks.append(w)
         w = torch.cat(blocks).to(owner.dtype)
         if projs[0].bias is None:
@@ -178,7 +231,7 @@ def fused_qkv(owner: nn.Module, projs, x: torch.Tensor,
     for i, p in enumerate(projs):
         if p.lora_r > 0 and not p.fold:
             h = dropout(x, p.lora_dropout, rng).to(p.dtype)
-            a, bb = p.lora_A.to(p.dtype), p.lora_B.to(p.dtype)
+            a, bb = (t.to(p.dtype) for t in p.lora_factors())
             outs[i] = outs[i] + ((h @ a.t()) @ bb.t()) * (p.lora_alpha
                                                           / p.lora_r)
     return [o.contiguous() for o in outs]
@@ -220,6 +273,30 @@ def attention_seed(rng: torch.Generator, device) -> torch.Tensor:
     the device (no host round trip)."""
     return torch.randint(-2 ** 31, 2 ** 31, (1,), dtype=torch.int32,
                          generator=rng, device=device)
+
+
+def heads_dropout(attn: torch.Tensor, p: float,
+                  rng: Optional[torch.Generator], num_heads: int,
+                  head_offset: int) -> torch.Tensor:
+    """`dropout` of attention probabilities (B, H_local, L, L) holding
+    heads head_offset.. of num_heads: the whole (B, num_heads, L, L) noise
+    is drawn and the rank's heads kept, so the draw is one process's."""
+    if rng is None or p <= 0.0 or attn.shape[1] == num_heads:
+        return dropout(attn, p, rng)
+    B, h, L, M = attn.shape
+    keep = torch.rand((B, num_heads, L, M), generator=rng,
+                      device=attn.device)[:, head_offset:head_offset + h]
+    keep = keep < 1.0 - p
+    return torch.where(keep, attn / (1.0 - p),
+                       torch.zeros((), dtype=attn.dtype, device=attn.device))
+
+
+def _tp_heads(axis, heads: int) -> tuple:
+    """(local heads, first head) of a rank on `axis` (None: all, 0)."""
+    if axis is None:
+        return heads, 0
+    k = heads // axis.size
+    return k, axis.index * k
 
 
 def pack_group_size(L: int, requested: int) -> int:
@@ -308,29 +385,32 @@ class BertSelfAttention(nn.Module):
         self.key = LoRADense(dim, dim, **frozen)
         self.value = LoRADense(dim, dim, **lora)
         self.output = LoRADense(dim, dim, **frozen)
+        self.tp = None  # the mp axis once the heads are sharded
 
     def forward(self, x: torch.Tensor, mask_bias: torch.Tensor,
                 rng: Optional[torch.Generator] = None):
         """x (B, L, D); mask_bias (B, 1, 1|L, L) additive, in `dtype`."""
-        B, L, D = x.shape
-        H = self.num_heads
-        d = D // H
+        B, L, _ = x.shape
+        H, h0 = _tp_heads(self.tp, self.num_heads)
+        x = copy_to_mp(x, self.tp)
         if self.fused_qkv:
             q, k, v = fused_qkv(self, (self.query, self.key, self.value), x,
                                 rng)
         else:
             q, k, v = self.query(x, rng), self.key(x), self.value(x, rng)
+        D = q.shape[-1]
+        d = D // H
         if self.fused and L <= MAX_T:
             bias3 = mask_bias[:, 0].expand(B, L, L)
             p = self.dropout if rng is not None else 0.0
             seed = attention_seed(rng, x.device) if p > 0.0 else None
-            out = packed_attention(H, p, q, k, v, bias3, seed)
+            out = packed_attention(H, p, q, k, v, bias3, seed, head_offset=h0)
         else:
             q, k, v = (t.reshape(B, L, H, d) for t in (q, k, v))
             scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / torch.sqrt(
                 torch.tensor(d, dtype=self.dtype))
             attn = torch.softmax(scores + mask_bias, dim=-1)
-            attn = dropout(attn, self.dropout, rng)
+            attn = heads_dropout(attn, self.dropout, rng, self.num_heads, h0)
             out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, L, D)
         return self.output(out)
 
@@ -366,6 +446,31 @@ class BertLayer(nn.Module):
         self.intermediate = LoRADense(dim, 4 * dim, **frozen)
         self.ffn_output = LoRADense(4 * dim, dim, ffn_out=True, **frozen)
         self.output_norm = FrozenableLayerNorm(dim, **norm)
+        self.ffn_tp = None
+
+    def tp_pairs(self, n: int):
+        """The attention's and the FFN's (name, LoRADense) pairs and
+        whether each divides over n ranks."""
+        a = self.attention
+        attn = [("attention.query", a.query), ("attention.key", a.key),
+                ("attention.value", a.value), ("attention.output", a.output)]
+        ffn = [("intermediate", self.intermediate),
+               ("ffn_output", self.ffn_output)]
+        return (attn, ffn, a.num_heads % n == 0,
+                self.intermediate.weight.shape[0] % n == 0)
+
+    def shard_tp(self, axis, attention: bool, ffn: bool):
+        """Megatron TP over `axis` of the attention and / or the FFN."""
+        if attention:
+            a = self.attention
+            for dense in (a.query, a.key, a.value):
+                dense.shard_tp("col", axis)
+            a.output.shard_tp("row", axis)
+            a.tp = axis
+        if ffn:
+            self.intermediate.shard_tp("col", axis)
+            self.ffn_output.shard_tp("row", axis)
+            self.ffn_tp = axis
 
     def _drop(self, x, site, bits, rng):
         if self.shared is not None:
@@ -377,7 +482,8 @@ class BertLayer(nn.Module):
         attn, bits = self._drop(self.attention(x, mask_bias, rng), 0, None,
                                 rng)
         x = self.attention_norm(x + attn)
-        inter = F.gelu(self.intermediate(x), approximate=self.gelu)
+        inter = F.gelu(self.intermediate(copy_to_mp(x, self.ffn_tp)),
+                       approximate=self.gelu)
         out, _ = self._drop(self.ffn_output(inter), 1, bits, rng)
         return self.output_norm(x + out)
 
@@ -624,6 +730,31 @@ class LlamaDecoderLayer(nn.Module):
         self.up_proj = LoRADense(dim, inter, use_bias=False, **frozen)
         self.down_proj = LoRADense(inter, dim, use_bias=False, ffn_out=True,
                                    **frozen)
+        self.attn_tp = self.ffn_tp = None
+
+    def tp_pairs(self, n: int):
+        """The attention's and the FFN's (name, LoRADense) pairs and
+        whether each divides over n ranks (heads and kv heads alike)."""
+        attn = [(k, getattr(self, k)) for k in ("q_proj", "k_proj", "v_proj",
+                                                "o_proj")]
+        ffn = [(k, getattr(self, k)) for k in ("gate_proj", "up_proj",
+                                               "down_proj")]
+        return (attn, ffn,
+                self.num_heads % n == 0 and self.num_kv_heads % n == 0,
+                self.gate_proj.weight.shape[0] % n == 0)
+
+    def shard_tp(self, axis, attention: bool, ffn: bool):
+        """Megatron TP over `axis` of the attention and / or the FFN."""
+        if attention:
+            for k in ("q_proj", "k_proj", "v_proj"):
+                getattr(self, k).shard_tp("col", axis)
+            self.o_proj.shard_tp("row", axis)
+            self.attn_tp = axis
+        if ffn:
+            self.gate_proj.shard_tp("col", axis)
+            self.up_proj.shard_tp("col", axis)
+            self.down_proj.shard_tp("row", axis)
+            self.ffn_tp = axis
 
     def forward(self, x: torch.Tensor, mask_bias: torch.Tensor,
                 rotary_period: int = 0,
@@ -631,8 +762,10 @@ class LlamaDecoderLayer(nn.Module):
         """x (B, L, D) in `dtype`; mask_bias (B, 1, L, L) additive;
         positions restart every `rotary_period` tokens (0: never)."""
         B, L, D = x.shape
-        H, KV, d = self.num_heads, self.num_kv_heads, self.head_dim
-        h = self.input_norm(x)
+        H, _ = _tp_heads(self.attn_tp, self.num_heads)
+        KV, _ = _tp_heads(self.attn_tp, self.num_kv_heads)
+        d = self.head_dim
+        h = copy_to_mp(self.input_norm(x), self.attn_tp)
         if self.fused_qkv:
             q, k, v = fused_qkv(self, (self.q_proj, self.k_proj, self.v_proj),
                                 h, rng)
@@ -651,7 +784,7 @@ class LlamaDecoderLayer(nn.Module):
             v = v.repeat_interleave(H // KV, dim=2)
         out = _attention_core(self.dtype, q, k, v, mask_bias, H, self.fused)
         x = x + self.o_proj(out)
-        h = self.post_norm(x)
+        h = copy_to_mp(self.post_norm(x), self.ffn_tp)
         inter = F.silu(self.gate_proj(h)) * self.up_proj(h)
         return x + self.down_proj(inter)
 
@@ -796,6 +929,28 @@ class OPTDecoderLayer(nn.Module):
         self.ffn_norm = FrozenableLayerNorm(dim, **norm)
         self.fc1 = LoRADense(dim, ffn_dim or 4 * dim, **frozen)
         self.fc2 = LoRADense(ffn_dim or 4 * dim, dim, ffn_out=True, **frozen)
+        self.attn_tp = self.ffn_tp = None
+
+    def tp_pairs(self, n: int):
+        """The attention's and the FFN's (name, LoRADense) pairs and
+        whether each divides over n ranks."""
+        attn = [(k, getattr(self, k)) for k in ("q_proj", "k_proj", "v_proj",
+                                                "out_proj")]
+        ffn = [("fc1", self.fc1), ("fc2", self.fc2)]
+        return (attn, ffn, self.num_heads % n == 0,
+                self.fc1.weight.shape[0] % n == 0)
+
+    def shard_tp(self, axis, attention: bool, ffn: bool):
+        """Megatron TP over `axis` of the attention and / or the FFN."""
+        if attention:
+            for k in ("q_proj", "k_proj", "v_proj"):
+                getattr(self, k).shard_tp("col", axis)
+            self.out_proj.shard_tp("row", axis)
+            self.attn_tp = axis
+        if ffn:
+            self.fc1.shard_tp("col", axis)
+            self.fc2.shard_tp("row", axis)
+            self.ffn_tp = axis
 
     def _drop(self, x, site, bits, rng):
         if self.shared is not None:
@@ -804,15 +959,16 @@ class OPTDecoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, mask_bias: torch.Tensor,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
-        B, L, D = x.shape
-        H = self.num_heads
-        d = D // H
-        h = self.attn_norm(x)
+        B, L, _ = x.shape
+        H, _ = _tp_heads(self.attn_tp, self.num_heads)
+        h = copy_to_mp(self.attn_norm(x), self.attn_tp)
         if self.fused_qkv:
             q, k, v = fused_qkv(self, (self.q_proj, self.k_proj, self.v_proj),
                                 h, rng)
         else:
             q, k, v = self.q_proj(h, rng), self.k_proj(h), self.v_proj(h, rng)
+        D = q.shape[-1]
+        d = D // H
         if self.fused and L <= MAX_T:
             out = packed_attention(H, 0.0, q, k, v,
                                    mask_bias[:, 0].expand(B, L, L))
@@ -824,7 +980,7 @@ class OPTDecoderLayer(nn.Module):
             out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, L, D)
         out, bits = self._drop(self.out_proj(out), 0, None, rng)
         x = x + out
-        h = F.relu(self.fc1(self.ffn_norm(x)))
+        h = F.relu(self.fc1(copy_to_mp(self.ffn_norm(x), self.ffn_tp)))
         h, _ = self._drop(self.fc2(h), 1, bits, rng)
         return x + h
 
@@ -891,3 +1047,7 @@ class OPTDecoderSlice(_DecoderSlice):
             pos = (torch.cumsum(mask.to(torch.int32), dim=1) - 1).clamp_min(0)
             x = x + self.position_embeddings[pos.long() + 2].to(self.dtype)
         return self._run(x, mask, rng)
+
+
+# the layers `parallel/mesh.shard_plan` shards by Megatron TP
+TP_LAYERS = (BertLayer, LlamaDecoderLayer, OPTDecoderLayer)

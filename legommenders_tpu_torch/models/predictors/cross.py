@@ -21,6 +21,9 @@ from legommenders_tpu_torch.models.common import (
     MLPLayer, dense, einsum, glorot_normal_, reset_children, reset_linear,
 )
 from legommenders_tpu_torch.models.predictors.base import BasePredictor
+from legommenders_tpu_torch.parallel.mesh import (
+    copy_to_mp, reduce_from_mp, shard_slice,
+)
 from legommenders_tpu_torch.utils.registry import PREDICTORS
 
 STRUCTURES = ("crossnet_only", "stacked", "parallel", "stacked_parallel")
@@ -77,7 +80,16 @@ class CrossNetMix(nn.Module):
     """The low-rank mixture-of-experts cross (DCNv2 paper; reference
     dcnv2_predictor.py:80-137): per layer and expert e, v = tanh(V_e^T x),
     v = tanh(C_e v), x0 * (U_e v + bias), mixed by a softmax over the
-    gates <g_e, x>."""
+    gates <g_e, x>.
+
+    Expert parallelism (JAX's mp sharding of U / V / C, GSPMD's combine):
+    after `shard_experts` this rank holds experts [r E/n, (r+1) E/n). It
+    computes every gate logit (the gates stay whole) and the outputs of
+    its own experts weighted by the softmax over all experts; one
+    all-reduce over mp sums the weighted outputs. x and x0 enter the
+    experts through `copy_to_mp`, so their gradient sums the ranks'
+    parts; the gates' and the bias's gradients are partial on each rank
+    (parallel/mesh.ShardPlan.partial)."""
 
     def __init__(self, dim: int, num_layers: int = 2, low_rank: int = 32,
                  num_experts: int = 4, dtype: torch.dtype = torch.float32):
@@ -94,6 +106,7 @@ class CrossNetMix(nn.Module):
                                     nn.Parameter(torch.zeros(dim)))
             for e in range(E):
                 self.add_module(f"gate_{i}_{e}", nn.Linear(dim, 1, bias=False))
+        self.mp_axis = None
         self.reset_parameters()
 
     def reset_parameters(self, generator=None):
@@ -105,20 +118,35 @@ class CrossNetMix(nn.Module):
             for e in range(self.num_experts):
                 reset_linear(getattr(self, f"gate_{i}_{e}"), generator)
 
+    def shard_experts(self, axis):
+        """Keep this rank's experts of every layer's U, V and C."""
+        for i in range(self.num_layers):
+            for n in ("U", "V", "C"):
+                p = getattr(self, f"{n}_{i}")
+                p.data = shard_slice(p.data, 0, axis)
+        self.mp_axis = axis
+
     def forward(self, x0):
+        axis = self.mp_axis
         x = x0
         for i in range(self.num_layers):
             U, V, C = (getattr(self, f"{n}_{i}") for n in ("U", "V", "C"))
+            xe, x0e = copy_to_mp(x, axis), copy_to_mp(x0, axis)
             gates = torch.stack(
-                [dense(getattr(self, f"gate_{i}_{e}"), x, self.dtype)[..., 0]
+                [dense(getattr(self, f"gate_{i}_{e}"), xe, self.dtype)[..., 0]
                  for e in range(self.num_experts)], dim=-1)
             gates = torch.softmax(gates, dim=-1)
-            v_x = torch.tanh(einsum("...d,edr->...er", x, V))
+            if axis is not None:
+                k = U.shape[0]
+                gates = gates[..., axis.index * k:(axis.index + 1) * k]
+            v_x = torch.tanh(einsum("...d,edr->...er", xe, V))
             # C @ v (rows r, columns s): out[r] = sum_s C[r, s] v[s]
             v_x = torch.tanh(einsum("ers,...es->...er", C, v_x))
             uv_x = einsum("...er,edr->...ed", v_x, U)
-            expert_out = x0[..., None, :] * (uv_x + getattr(self, f"bias_{i}"))
-            x = x + einsum("...ed,...e->...d", expert_out, gates)
+            expert_out = x0e[..., None, :] * (uv_x
+                                              + getattr(self, f"bias_{i}"))
+            x = x + reduce_from_mp(
+                einsum("...ed,...e->...d", expert_out, gates), axis)
         return x
 
 

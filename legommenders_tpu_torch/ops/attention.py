@@ -45,6 +45,10 @@ The dropout bits are Philox4x32-10, a pure function of (seed, b, h, i, j)
 (see the source's header); `dropout_bits_reference` computes the same
 function in PyTorch, so the CPU and the card draw the same mask from the
 same seed. An element is kept iff its bits >= floor(dropout_p * 2^32).
+Every entry point takes a `head_offset` (default 0) added to h
+in the counter: under tensor parallelism a rank holding heads
+[o, o + H_local) of H passes o, and its mask is exactly heads o.. of the
+mask one process draws over all H.
 The three kernels share one draw; the keep-mask kernel `dropout_mask`,
 bound by the draws' wide products, walks the (b, h) items with a
 persistent grid, eight draws per thread and unit of work found by shifts
@@ -108,14 +112,15 @@ def _philox4x32_10(c, key):
 
 
 def dropout_bits_reference(num_heads: int, B: int, T: int, seed: int,
-                           device="cpu") -> torch.Tensor:
+                           device="cpu", head_offset: int = 0
+                           ) -> torch.Tensor:
     """Plain version of the kernels' dropout bits: (B, H, T, T) int64
     holding uint32 values. Element (b, h, i, j) is word
     (i >> 3 & 1) * 2 + (j & 1) of Philox4x32-10 at counter
-    (j // 2, i with bit 3 cleared, h, b) and key (seed, 0)."""
+    (j // 2, i with bit 3 cleared, head_offset + h, b) and key (seed, 0)."""
     ar = functools.partial(torch.arange, dtype=torch.int64, device=device)
     b = ar(B)[:, None, None, None]
-    h = ar(num_heads)[None, :, None, None]
+    h = ar(num_heads)[None, :, None, None] + int(head_offset)
     i = ar(T)[None, None, :, None]
     j = ar(T)[None, None, None, :]
     shape = (B, num_heads, T, T)
@@ -183,13 +188,14 @@ def _kernel_lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ll, u = ctypes.c_longlong, ctypes.c_uint
     lib.packed_attention_forward.argtypes = [p, p, p, p, p, i, i, i, i, f,
-                                             ll, ll, i, i, p, u, f, i, i, p]
+                                             ll, ll, i, i, p, u, f, i, i, i,
+                                             p]
     lib.packed_attention_forward.restype = i
     lib.packed_attention_backward.argtypes = [p, p, p, p, p, p, p, p, i, i,
                                               i, i, f, ll, ll, i, i, p, u, f,
-                                              i, i, p]
+                                              i, i, i, p]
     lib.packed_attention_backward.restype = i
-    lib.packed_attention_keep_mask.argtypes = [p, p, i, i, i, u, i, p]
+    lib.packed_attention_keep_mask.argtypes = [p, p, i, i, i, u, i, i, p]
     lib.packed_attention_keep_mask.restype = i
     lib.packed_attention_smem_bytes.argtypes = [i, i, i, i]
     lib.packed_attention_smem_bytes.restype = ctypes.c_size_t
@@ -291,15 +297,18 @@ def _drop_args(dropout_p: float, seed):
 
 
 def dropout_keep_mask(num_heads: int, dropout_p: float, B: int, T: int, seed,
-                      device=None) -> torch.Tensor:
+                      device=None, head_offset: int = 0) -> torch.Tensor:
     """The (B, num_heads, T, T) bool keep mask that the forward and the
-    backward draw for `seed` ((1,) int32) at dropout_p. On the CPU the
-    PyTorch Philox; on the card the mask kernel (the counterpart of
+    backward draw for `seed` ((1,) int32) at dropout_p, of heads
+    head_offset .. head_offset + num_heads - 1. On the CPU the PyTorch
+    Philox; on the card the mask kernel (the counterpart of
     ops/pallas_attention.py `dropout_keep_mask`)."""
     device = torch.device(device) if device is not None else seed.device
     thresh = keep_threshold(dropout_p)
     if device.type == "cpu":
-        bits = dropout_bits_reference(num_heads, B, T, int(seed.reshape(-1)[0]))
+        bits = dropout_bits_reference(num_heads, B, T,
+                                      int(seed.reshape(-1)[0]),
+                                      head_offset=head_offset)
         return bits >= thresh
     if device.type != "cuda":
         raise ValueError(f"dropout_keep_mask: unsupported device {device}")
@@ -313,7 +322,8 @@ def dropout_keep_mask(num_heads: int, dropout_p: float, B: int, T: int, seed,
     _prepare(dev)
     with build.launch_range("dropout_keep_mask"):
         _check(lib, lib.packed_attention_keep_mask(
-            seed.data_ptr(), out.data_ptr(), B, T, num_heads, thresh, dev,
+            seed.data_ptr(), out.data_ptr(), B, T, num_heads, thresh,
+            int(head_offset), dev,
             torch.cuda.current_stream(device).cuda_stream),
             "keep-mask launch")
     dropout_keep_mask.launches += 1
@@ -323,10 +333,11 @@ def dropout_keep_mask(num_heads: int, dropout_p: float, B: int, T: int, seed,
 dropout_keep_mask.launches = 0
 
 
-def _forward(num_heads: int, dropout_p: float, q, k, v, bias, seed):
+def _forward(num_heads: int, dropout_p: float, q, k, v, bias, seed,
+             head_offset: int = 0):
     if q.device.type == "cpu":
         keep = (dropout_keep_mask(num_heads, dropout_p, q.shape[0],
-                                  q.shape[1], seed)
+                                  q.shape[1], seed, head_offset=head_offset)
                 if dropout_p > 0.0 else None)
         return reference_attention(num_heads, dropout_p, q, k, v, bias, keep)
     if q.device.type != "cuda":
@@ -346,20 +357,21 @@ def _forward(num_heads: int, dropout_p: float, q, k, v, bias, seed):
             out.data_ptr(), B, T, num_heads, dh, 1.0 / math.sqrt(dh),
             bias.stride(0), bias.stride(1), int(bf16),
             int(bias.dtype == torch.bfloat16), *_drop_args(dropout_p, seed),
-            dev, torch.cuda.current_stream(q.device).cuda_stream),
+            int(head_offset), dev,
+            torch.cuda.current_stream(q.device).cuda_stream),
             "kernel launch")
     packed_attention.launches += 1
     return out
 
 
 def packed_attention_backward(num_heads: int, dropout_p: float, q, k, v,
-                              bias, seed, g):
+                              bias, seed, g, head_offset: int = 0):
     """(dq, dk, dv) of `packed_attention` for the output gradient g
     (B, T, D): the plain backward on the CPU (with the mask the seed
     draws), the backward kernel on the card."""
     if q.device.type == "cpu":
         keep = (dropout_keep_mask(num_heads, dropout_p, q.shape[0],
-                                  q.shape[1], seed)
+                                  q.shape[1], seed, head_offset=head_offset)
                 if dropout_p > 0.0 else None)
         return reference_attention_backward(num_heads, dropout_p, q, k, v,
                                             bias, g, keep)
@@ -381,7 +393,7 @@ def packed_attention_backward(num_heads: int, dropout_p: float, q, k, v,
             g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T,
             num_heads, dh, 1.0 / math.sqrt(dh), bias.stride(0),
             bias.stride(1), int(bf16), int(bias.dtype == torch.bfloat16),
-            *_drop_args(dropout_p, seed), dev,
+            *_drop_args(dropout_p, seed), int(head_offset), dev,
             torch.cuda.current_stream(q.device).cuda_stream),
             "backward kernel launch")
     packed_attention_backward.launches += 1
@@ -396,26 +408,31 @@ class _PackedAttention(torch.autograd.Function):
     backward regenerates the dropout bits from the seed."""
 
     @staticmethod
-    def forward(ctx, num_heads, dropout_p, q, k, v, bias, seed):
+    def forward(ctx, num_heads, dropout_p, q, k, v, bias, seed, head_offset):
         ctx.num_heads, ctx.dropout_p = num_heads, dropout_p
+        ctx.head_offset = head_offset
         ctx.save_for_backward(q, k, v, bias, seed)
-        return _forward(num_heads, dropout_p, q, k, v, bias, seed)
+        return _forward(num_heads, dropout_p, q, k, v, bias, seed,
+                        head_offset)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, seed = ctx.saved_tensors
         dq, dk, dv = packed_attention_backward(
-            ctx.num_heads, ctx.dropout_p, q, k, v, bias, seed, g)
-        return None, None, dq, dk, dv, None, None
+            ctx.num_heads, ctx.dropout_p, q, k, v, bias, seed, g,
+            ctx.head_offset)
+        return None, None, dq, dk, dv, None, None, None
 
 
 def packed_attention(num_heads: int, dropout_p: float, q, k, v, bias,
-                     seed=None):
+                     seed=None, head_offset: int = 0):
     """q, k, v (B, T, D) f32 or bf16 with D = num_heads * dh, T <= 128 and,
     in bf16, dh in BF16_HEAD_WIDTHS; bias (B, T, T) additive, in q's dtype
     or f32 (its last dimension contiguous; broadcast views with stride 0
     are read as they are); `seed` the (1,) int32 dropout seed on q's
-    device, needed when dropout_p > 0 and unused otherwise.
+    device, needed when dropout_p > 0 and unused otherwise; `head_offset`
+    the index of q's first head among the heads of a tensor sharded by
+    heads (the dropout bits are those heads').
     Returns (B, T, D) in q's dtype; differentiable in q, k and v.
 
     CPU tensors take the plain versions. CUDA tensors launch the kernels.
@@ -427,7 +444,7 @@ def packed_attention(num_heads: int, dropout_p: float, q, k, v, bias,
     if dropout_p > 0.0 and seed is None:
         raise ValueError("packed_attention: dropout_p > 0 needs a seed")
     return _PackedAttention.apply(num_heads, float(dropout_p), q, k, v, bias,
-                                  seed)
+                                  seed, int(head_offset))
 
 
 packed_attention.launches = 0

@@ -8,9 +8,15 @@ repr_cacher.py:35-142). Both builds are a Python loop over pages of
 `page_size` rows under `torch.inference_mode()`; contents and the history
 matrix are placed on the device once.
 
-Under a dp mesh (JAX cacher.py:148-298, the dp axis) each rank encodes its
-block of ceil(n / dp) rows, page by page from its block's start, and the
-blocks are gathered into the whole cache on every rank.
+Under a mesh (JAX cacher.py:148-298) each rank encodes its block of
+ceil(n / dp) rows over the dp axis, page by page from its block's start,
+and the blocks are gathered into the whole cache on every rank (the mp
+ranks of a dp row encode the same rows together, their TP layers, sharded
+tables and expert shards exchanging over mp). Under catalog_parallel the
+items are instead the rank's own padded catalog rows (`set_local_contents`
+with the Manager's `catalog_contents`, parallel/catalog.py `place_catalog`:
+a layer-split LM cache held by rows), encoded whole and gathered over
+every rank, (dp, mp) flattened.
 """
 from typing import Dict, Optional
 
@@ -44,6 +50,14 @@ class ReprCache:
             device=self.device)
         self.hist_mask = torch.as_tensor(
             (history != UNSET).astype(np.int32), device=self.device)
+        # the item contents are this rank's padded catalog rows
+        self.local_items = False
+
+    def set_local_contents(self, local: Dict[str, torch.Tensor]):
+        """Catalog-parallel: `local` is this rank's padded rows of the
+        catalog; the item cache encodes them whole and gathers."""
+        self.item_contents = dict(local)
+        self.local_items = True
 
     @property
     def active(self) -> bool:
@@ -51,7 +65,7 @@ class ReprCache:
 
     def pages(self, n: int):
         """(start, stop) of each page over n rows (of this rank's block of
-        them under a dp mesh)."""
+        them under a mesh)."""
         P = self.page_size
         lo, hi = self._block(n)
         return [(s, min(s + P, hi)) for s in range(lo, hi, P)]
@@ -59,8 +73,9 @@ class ReprCache:
     def _block(self, n: int):
         if self.mesh is None:
             return 0, n
-        k = -(-n // self.mesh.dp)
-        return min(self.mesh.rank * k, n), min((self.mesh.rank + 1) * k, n)
+        axis = self.mesh.dp_axis
+        k = -(-n // axis.size)
+        return min(axis.index * k, n), min((axis.index + 1) * k, n)
 
     def _gather(self, outs, n: int) -> torch.Tensor:
         """This rank's pages -> the whole (n, ...) cache on every rank."""
@@ -78,6 +93,16 @@ class ReprCache:
 
     @torch.inference_mode()
     def build_item_cache(self) -> torch.Tensor:
+        if self.local_items:
+            k = next(iter(self.item_contents.values())).shape[0]
+            outs = [self.model.encode_item_page(
+                        {c: a[s:s + self.page_size]
+                         for c, a in self.item_contents.items()})
+                    for s in range(0, k, self.page_size)]
+            self.item_repr = all_gather_rows(
+                torch.cat(outs), self.mesh,
+                self.mesh.catalog_axis)[:self.num_items]
+            return self.item_repr
         outs = [self.model.encode_item_page(
                     {c: a[s:e] for c, a in self.item_contents.items()})
                 for s, e in self.pages(self.num_items)]

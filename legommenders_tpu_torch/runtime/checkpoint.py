@@ -16,8 +16,21 @@ past 1 GiB split into `__msgpack_chunked_array__` chunks) and puts the
 params tree through `bridge.params_from_jax`; it imports no flax, and
 `msgpack` only when it runs. The optax state is not read. `load_auto`
 tells the two formats apart by their first bytes (a zip archive against a
-msgpack map), not by the file name. The orbax sharded pair waits for the
-multi-device slice (ROADMAP.md, queue 1, item 8).
+msgpack map), not by the file name.
+
+Sharded checkpoints (JAX `save_sharded` / `load_sharded` / `save_auto` /
+`load_auto` / `params_are_sharded`, :54-130). The card has no orbax, so
+the port writes its own sharded form: a directory `<path>.orbax` where
+each mp rank of dp row 0 writes `shard_<r>.pt`, its slices of the sharded
+parameters and of their Adam state (the replicated ones and the
+optimizer's scalars in shard 0 only), with `index.json` (every
+parameter's global shape and the dim it is split on, and n_mp) and the
+meta at `<path>.orbax.meta.json`, as JAX's orbax path has it. Loading
+reassembles each tensor from the shards and cuts it to the target's
+layout (`parallel/mesh.model_plan`): a checkpoint written at mp 2 loads
+at mp 2, at mp 1 and in one process (the Tester), whole tensors there.
+Reading a directory that JAX's orbax wrote needs orbax's storage format
+and is not done (ROADMAP.md, queue 1, item 8).
 """
 import os
 from typing import Any, Dict, Optional
@@ -26,6 +39,9 @@ import numpy as np
 import torch
 
 from legommenders_tpu_torch.bridge import params_from_jax
+from legommenders_tpu_torch.parallel.mesh import (
+    barrier, model_plan, shard_slice,
+)
 from legommenders_tpu_torch.utils.io import json_load, json_save
 
 _ZIP_MAGIC = b"PK\x03\x04"
@@ -54,8 +70,14 @@ def load_checkpoint(path: str, model: torch.nn.Module, optimizer=None,
     """Restore the port's checkpoint into `model` (and `optimizer` unless
     `model_only`), each on its own device; returns the meta (or None)."""
     blob = torch.load(path, map_location="cpu", weights_only=True)
-    model.load_state_dict(blob["model"])
+    plan = model_plan(model)
+    model.load_state_dict({k: _fit(v, k, plan)
+                           for k, v in blob["model"].items()})
     if not model_only and optimizer is not None and "optimizer" in blob:
+        if plan is not None:
+            raise ValueError(f"{path}: a whole model's optimizer state does "
+                             f"not load into a model placed over mp; load "
+                             f"model_only, or a sharded checkpoint")
         optimizer.load_state_dict(blob["optimizer"])
     return _meta(path)
 
@@ -117,10 +139,188 @@ def load_jax_checkpoint(path: str, model: torch.nn.Module
     return _meta(path)
 
 
+# ---------------------------------------------------------------------------
+# sharded checkpoints
+# ---------------------------------------------------------------------------
+def params_are_sharded(model: torch.nn.Module) -> bool:
+    """Whether the model holds mp slices of any parameter (the signal to
+    write a sharded checkpoint)."""
+    plan = model_plan(model)
+    return plan is not None and bool(plan.sharded)
+
+
+def _optimizer_parts(optimizer):
+    """(torch optimizer, its MultiSteps wrapper or None)."""
+    inner = getattr(optimizer, "optimizer", None)
+    return (inner, optimizer) if inner is not None else (optimizer, None)
+
+
+def _named_optimizer_state(model, optimizer) -> dict:
+    """The optimizer's state by parameter name: per-parameter tensors
+    (Adam's moments, a MultiSteps accumulator) keyed by name, the rest as
+    it is."""
+    inner, multi = _optimizer_parts(optimizer)
+    names = {id(p): n for n, p in model.named_parameters()}
+    order = [names[id(p)] for g in inner.param_groups for p in g["params"]]
+    sd = inner.state_dict()
+    out = {"state": {order[i]: st for i, st in sd["state"].items()},
+           "groups": [{k: v for k, v in g.items() if k != "params"}
+                      for g in sd["param_groups"]]}
+    if multi is not None:
+        out["scheduler"] = (multi.scheduler.state_dict()
+                            if multi.scheduler is not None else None)
+        out["mini_step"] = multi.mini_step
+        out["acc"] = {names[id(p)]: a for p, a in multi.acc.items()}
+    return out
+
+
+def _per_param(tensor: torch.Tensor, shape) -> bool:
+    """A state tensor laid out as its parameter (not Adam's step count)."""
+    return tensor.dim() > 0 and tuple(tensor.shape) == tuple(shape)
+
+
+def save_sharded(path: str, model: torch.nn.Module, optimizer=None,
+                 meta: Optional[Dict[str, Any]] = None, mesh=None):
+    """The sharded checkpoint directory `path`; every rank of the mesh
+    calls it (the mp ranks of dp row 0 write, all wait at a barrier)."""
+    plan = model_plan(model)
+    r = mesh.mp_index if mesh is not None else 0
+    writes = mesh is None or mesh.dp_index == 0
+    if writes:
+        os.makedirs(path, exist_ok=True)
+        named = dict(model.named_parameters())
+        state = model.state_dict()
+        mine = {k: v for k, v in state.items()
+                if r == 0 or k in plan.sharded}
+        blob = {"model": mine}
+        if optimizer is not None:
+            opt = _named_optimizer_state(model, optimizer)
+            opt["state"] = {
+                k: {sk: sv for sk, sv in st.items()
+                    if r == 0 or (k in plan.sharded
+                                  and _per_param(sv, named[k].shape))}
+                for k, st in opt["state"].items()}
+            opt["acc"] = {k: a for k, a in opt.get("acc", {}).items()
+                          if r == 0 or k in plan.sharded}
+            blob["optimizer"] = opt
+        torch.save(blob, os.path.join(path, f"shard_{r}.pt"))
+        if r == 0:
+            shapes = {}
+            for k, v in state.items():
+                dim = plan.sharded.get(k)
+                shape = list(v.shape)
+                if dim is not None:
+                    shape[dim] *= plan.n_mp
+                shapes[k] = {"shape": shape, "dim": dim}
+            json_save({"n_mp": plan.n_mp, "params": shapes},
+                      os.path.join(path, "index.json"))
+            if meta is not None:
+                json_save(meta, path + ".meta.json")
+    barrier(mesh)
+
+
+def _assemble(parts, index: dict, name: str, key=None) -> torch.Tensor:
+    """The whole tensor `name` (its state entry `key`) from the shards."""
+    got = [p for p in parts if p is not None]
+    first = got[0]
+    dim = index["params"].get(name, {}).get("dim")
+    if dim is None or len(got) == 1:
+        return first
+    if key is not None and first.dim() == 0:
+        return first
+    return torch.cat(got, dim=dim)
+
+
+def _fit(whole: torch.Tensor, name: str, plan) -> torch.Tensor:
+    """`whole` cut to the target's slice of `name`."""
+    if plan is None or name not in plan.sharded:
+        return whole
+    return shard_slice(whole, plan.sharded[name], plan.axis)
+
+
+def load_sharded(path: str, model: torch.nn.Module, optimizer=None
+                 ) -> Optional[dict]:
+    """Restore a `save_sharded` directory into `model` (and `optimizer`),
+    resharded to the model's layout; returns the meta."""
+    index = json_load(os.path.join(path, "index.json"))
+    shards = [torch.load(os.path.join(path, f"shard_{r}.pt"),
+                         map_location="cpu", weights_only=True)
+              for r in range(int(index["n_mp"]))]
+    plan = model_plan(model)
+    state = {}
+    for name in shards[0]["model"]:
+        whole = _assemble([s["model"].get(name) for s in shards], index,
+                          name)
+        state[name] = _fit(whole, name, plan)
+    model.load_state_dict(state)
+    if optimizer is not None and "optimizer" in shards[0]:
+        _load_named_optimizer_state(model, optimizer, shards, index, plan)
+    meta_path = path + ".meta.json"
+    return json_load(meta_path) if os.path.isfile(meta_path) else None
+
+
+def _load_named_optimizer_state(model, optimizer, shards, index, plan):
+    inner, multi = _optimizer_parts(optimizer)
+    named = dict(model.named_parameters())
+    names = {id(p): n for n, p in named.items()}
+    first = shards[0]["optimizer"]
+    order = [names[id(p)] for g in inner.param_groups for p in g["params"]]
+    state = {}
+    for i, name in enumerate(order):
+        if name not in first["state"]:
+            continue
+        st = {}
+        for key, v in first["state"][name].items():
+            if _per_param(v, named[name].shape) or (
+                    name in index["params"]
+                    and index["params"][name]["dim"] is not None
+                    and v.dim() > 0):
+                whole = _assemble([s["optimizer"]["state"].get(name, {})
+                                   .get(key) for s in shards], index, name,
+                                  key)
+                st[key] = _fit(whole, name, plan)
+            else:
+                st[key] = v
+        state[i] = st
+    sd = inner.state_dict()
+    groups = [{**g, "params": own["params"]}
+              for g, own in zip(first["groups"], sd["param_groups"])]
+    inner.load_state_dict({"state": state, "param_groups": groups})
+    if multi is not None:
+        if multi.scheduler is not None and first.get("scheduler"):
+            multi.scheduler.load_state_dict(first["scheduler"])
+        multi.mini_step = int(first.get("mini_step", 0))
+        multi.acc = {}
+        for name in first.get("acc", {}):
+            whole = _assemble([s["optimizer"]["acc"].get(name)
+                               for s in shards], index, name)
+            p = named[name]
+            multi.acc[p] = _fit(whole, name, plan).to(p.device)
+
+
+def save_auto(path: str, model: torch.nn.Module, optimizer=None,
+              meta: Optional[Dict[str, Any]] = None, mesh=None) -> str:
+    """A model holding mp slices -> the sharded directory `path`.orbax
+    (every rank calls it); else one file at `path`, written by the main
+    rank. Returns the path written."""
+    if params_are_sharded(model):
+        opath = path + ".orbax"
+        save_sharded(opath, model, optimizer, meta, mesh)
+        return opath
+    if mesh is None or mesh.is_main:
+        save_checkpoint(path, model, optimizer, meta)
+    barrier(mesh)
+    return path
+
+
 def load_auto(path: str, model: torch.nn.Module, optimizer=None,
               model_only: bool = False) -> Optional[dict]:
-    """The port's checkpoint or a JAX one, told apart by the first bytes
-    (a JAX checkpoint gives weights only)."""
+    """`path`.orbax when that directory is there (JAX's rule), resharded to
+    the model; else the port's checkpoint or a JAX one at `path`, told
+    apart by the first bytes (a JAX checkpoint gives weights only)."""
+    if os.path.isdir(path + ".orbax"):
+        return load_sharded(path + ".orbax", model,
+                            None if model_only else optimizer)
     with open(path, "rb") as f:
         head = f.read(4)
     if head == _ZIP_MAGIC:

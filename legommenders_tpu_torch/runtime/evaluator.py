@@ -20,12 +20,15 @@ When every metric is device-supported the scores of the device paths never
 leave the device and the torch metric engine returns a handful of scalars;
 otherwise one (n,) copy feeds the numpy pool.
 
-Under a dp mesh (JAX evaluator.py:32-50, 102-125, 196-203) each page of
-both device paths is padded to a multiple of dp, each rank scores its
-rows of it (a full forward's batch statistics are the page's,
-`parallel.mesh.split_batch`) and the scores are gathered, so every rank
-holds every score and computes the same metrics. The host-batched path
-runs every batch whole on each rank.
+Under a mesh (JAX evaluator.py:32-50, 102-125, 196-203) each page of
+both device paths is padded to a multiple of dp, each dp rank scores its
+rows of it (the mp ranks of a dp row the same rows, together; a full
+forward's batch statistics are the page's, `parallel.mesh.split_batch`)
+and the scores are gathered over dp, so every rank holds every score and
+computes the same metrics. The host-batched path runs every batch whole
+on each rank. Under catalog_parallel a layer-split LM's cache is held by
+rows: its full forwards have no whole cache to read and raise (the cached
+path serves it).
 """
 from typing import Callable, Dict, Optional
 
@@ -230,6 +233,12 @@ class Evaluator:
         and its padded scores dropped, as JAX pages (evaluator.py:112-120):
         a head whose scores depend on the batch (DIN's batch norm) scores
         as it does in JAX."""
+        if (self.mesh is not None and self.mesh.catalog_parallel
+                and getattr(self.model.item_op, "use_lm_cache", False)):
+            raise NotImplementedError(
+                "full-forward evaluation under catalog_parallel: the "
+                "layer-split LM cache is held by rows; evaluate through "
+                "the repr caches (use_fast_eval)")
         ph = self.phase(phase)
         sub = self.substrate()
         P = min(self.batch_size, max(8, ph.n))

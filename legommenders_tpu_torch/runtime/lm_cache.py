@@ -11,7 +11,8 @@ hidden states and (N, L) masks stay on the device as content columns
 On disk (optional) the cache is f32 in JAX's layout, cache/<data>/<op>/,
 under names the JAX package never writes: torch_layer_<k>.<sig>.npy and
 torch_mask.<sig>.npy, keyed by a fingerprint of the item operator's
-weights and its output-affecting knobs. Rows with NaNs are replaced by
+weights, its output-affecting knobs and the contents' shapes (so that a
+catalog of another size under the same data name builds its own). Rows with NaNs are replaced by
 random values and their mask reduced to the first position (reference
 once_operator.py:118-123). On the device the token dim is padded to a
 multiple of 8 with mask 0 (JAX :141-152): L = 34 becomes 40, so the upper
@@ -64,6 +65,12 @@ def arch_key(op) -> str:
     return (f"gelu_approx={bool(getattr(op, 'gelu_approximate', False))},"
             f"lm_dtype={dt},"
             f"fused_qkv={bool(getattr(op, 'fused_qkv', False))}")
+
+
+def contents_key(contents: Dict[str, torch.Tensor]) -> str:
+    """The content columns' names and shapes, for the cache's key."""
+    return ",".join(f"{c}={tuple(a.shape)}"
+                    for c, a in sorted(contents.items()))
 
 
 def scrub_nans(hidden: torch.Tensor, mask: Optional[torch.Tensor],
@@ -142,7 +149,8 @@ def load_or_build_lm_cache(model, contents: Dict[str, torch.Tensor],
         hidden, mask = build_lm_hidden(model, contents, page_size,
                                        align=TOKEN_ALIGN)
         return device_entries(hidden, mask, device_dtype, device)
-    sig = weights_fingerprint(model.item_op, extra=arch_key(model.item_op))
+    sig = weights_fingerprint(model.item_op, extra=arch_key(model.item_op)
+                              + contents_key(contents))
     d = cache_dir(data_name, operator_name, root)
     hpath = os.path.join(d, f"torch_layer_{layer}.{sig}.npy")
     mpath = os.path.join(d, f"torch_mask.{sig}.npy")
@@ -191,7 +199,8 @@ def load_or_build_iisan_cache(model, contents: Dict[str, torch.Tensor],
     states = None
     if root is not None:
         sig = weights_fingerprint(model.item_op,
-                                  extra=arch_key(model.item_op))
+                                  extra=arch_key(model.item_op)
+                                  + contents_key(contents))
         d = cache_dir(data_name, f"{operator_name}iisan", root)
         spath = os.path.join(d, f"torch_states.{sig}.npy")
         if os.path.isfile(spath):

@@ -10,11 +10,15 @@ evaluators, for a layer-split LM item operator the lower slice's cache
 (`prepare_lm_cache`), and an LM's weights from a local HF checkpoint
 (`load_lm_weights`). The policy is the exp config's `policy` over
 DEFAULT_POLICY; the dev metric and the patience come from
-its `store`. `exp.policy.mesh` (JAX manager.py:47-80) gives the dp axis
-over the process group (`parallel/mesh.py`; launched by `torchrun`, the
-group is opened here from its environment): every rank builds the same
-model from the same seed on its own card, and the repr cache and the
-evaluator split their rows over the ranks. Its other axes raise
+its `store`. `exp.policy.mesh` (JAX manager.py:47-80) gives the (dp, mp)
+mesh over the process group (`parallel/mesh.py`; launched by `torchrun`,
+the group is opened here from its environment): every rank builds the
+same whole model from the same seed on its own card (the Trainer then
+places it by `shard_plan` at mp > 1), and the repr cache and the
+evaluator split their rows over the ranks. Under `catalog_parallel`
+(`catalog_parallel` true) the layer-split LM cache is built by rows: rank
+r encodes and holds only its N / n padded rows (`catalog_contents`),
+never the whole cache, and writes nothing to disk. sp and pp raise
 (ROADMAP.md, queue 1, item 8).
 """
 import os
@@ -29,6 +33,7 @@ from legommenders_tpu_torch.models.common import drop_cached_casts
 from legommenders_tpu_torch.models.lm import hf_loader
 from legommenders_tpu_torch.models.lego_config import DTYPE_NAMES, LegoConfig
 from legommenders_tpu_torch.models.operators.lm_ops import LMOperator
+from legommenders_tpu_torch.parallel.catalog import place_catalog
 from legommenders_tpu_torch.parallel.mesh import (
     initialize_multihost, mesh_from_policy, process_device, world,
 )
@@ -63,6 +68,9 @@ class Manager:
             if "WORLD_SIZE" in os.environ and world()[1] == 1:
                 initialize_multihost(device=resolve_device(device))
             self.mesh = mesh_from_policy(mesh_cfg)
+        self.catalog_parallel = bool(self.mesh is not None
+                                     and self.mesh.catalog_parallel)
+        self._catalog_contents = None
         self.device = process_device(resolve_device(device))
         store = self.exp_cfg.get("store") or {}
         self.dev_metric = store.get("metric", "GAUC")
@@ -85,6 +93,8 @@ class Manager:
                 self.model, self.contents.columns, self.data.history_matrix(),
                 page_size=self.lego_cfg.cache_page_size, device=self.device,
                 mesh=self.mesh)
+            if self.catalog_parallel:
+                self.cache.set_local_contents(self.catalog_contents())
 
     def prepare_lm_cache(self, root: Optional[str] = "cache") -> bool:
         """Layer-split LM caching (JAX runtime/manager.py:116-144): if the
@@ -97,28 +107,46 @@ class Manager:
         op = self.model.item_op
         if not isinstance(op, LMOperator) or not op.use_lm_cache:
             return False
+        contents = dict(self.contents.columns)
+        if self.catalog_parallel:
+            # this rank's rows only, built here, nothing on disk
+            contents = dict(self.catalog_contents())
+            root = None
         if getattr(op, "is_iisan", False):
             # every layer's pooled states once; the selected ones kept
             extra = load_or_build_iisan_cache(
-                self.model, dict(self.contents.columns),
+                self.model, contents,
                 data_name=self.data.name, operator_name=op.transformer_key,
                 selected_layers=op.get_selected_layers(),
                 page_size=self.lego_cfg.cache_page_size, root=root)
             frozen = op.lm
         else:
             extra = load_or_build_lm_cache(
-                self.model, dict(self.contents.columns),
+                self.model, contents,
                 data_name=self.data.name, operator_name=op.transformer_key,
                 layer=op.resolved_tune_from,
                 page_size=self.lego_cfg.cache_page_size, root=root,
                 device_dtype=op.lm_dtype)
             frozen = op.lm_lower
-        self.contents.columns.update(extra)
-        if self.cache is not None:
-            self.cache.item_contents.update(extra)
+        if self.catalog_parallel:
+            self._catalog_contents = {**contents, **extra}
+            if self.cache is not None:
+                self.cache.set_local_contents(self._catalog_contents)
+        else:
+            self.contents.columns.update(extra)
+            if self.cache is not None:
+                self.cache.item_contents.update(extra)
         # nothing runs the frozen slice after this: its kept casts go
         drop_cached_casts(frozen)
         return True
+
+    def catalog_contents(self) -> dict:
+        """Catalog-parallel: this rank's padded rows of every content
+        column (with the layer-split LM cache's, where it was prepared)."""
+        if self._catalog_contents is None:
+            self._catalog_contents, _ = place_catalog(
+                dict(self.contents.columns), self.mesh)
+        return self._catalog_contents
 
     def _caching_allowed(self) -> bool:
         """JAX manager.py:146-151: every operator allows caching, the

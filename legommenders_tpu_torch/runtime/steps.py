@@ -31,15 +31,16 @@ def ranking_loss(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def step_generator(seed: int, step_idx: int, device,
-                   rank: int = 0) -> torch.Generator:
+                   fold: int = 0) -> torch.Generator:
     """The generator of one step: seeded from (seed, step_idx), as JAX
-    folds the step index into its key. A dp rank above 0 folds its rank in
-    too, so that ranks draw different dropout for different rows; rank 0
-    draws what one process draws."""
+    folds the step index into its key. A mesh step folds its dp index in
+    too (`fold`), so that dp ranks draw different dropout for different
+    rows while the mp ranks of one dp row draw alike, as JAX's activations
+    replicated over mp do; index 0 draws what one process draws."""
     g = torch.Generator(device=device)
     key = (int(seed) << 32) + int(step_idx)
-    if rank:
-        key ^= (int(rank) * 0x9E3779B97F4A7C15) & (2 ** 63 - 1)
+    if fold:
+        key ^= (int(fold) * 0x9E3779B97F4A7C15) & (2 ** 63 - 1)
     g.manual_seed(key)
     return g
 

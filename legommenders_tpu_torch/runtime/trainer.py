@@ -32,13 +32,21 @@ and it must not be completed, or the run stops), registered with this
 pid, and completed by `test()` with the log and the metrics as JSON; an
 unreachable server leaves the run offline.
 
-Under the Manager's dp mesh (JAX trainer.py:132-175, 225-236) every rank
-builds the same global batch from the same seed and trains on its rows
-(`parallel/train.make_dp_train_step_folded`: gradients averaged over the
-group before the replicated optimizer step); the batch size must divide
-by dp. Rank 0 alone writes checkpoints (the others wait at a barrier) and
-talks to the lego-server; the dev metric is the same on every rank, so
-early stopping decides alike.
+Under the Manager's mesh (JAX trainer.py:132-175, 225-310) every rank
+builds the same global batch from the same seed and trains on its dp rows
+(`parallel/train.make_mesh_train_step_folded`: partial gradients summed
+over mp, then every gradient averaged over dp before the optimizer step);
+the batch size must divide by dp. At mp > 1 `init` places the model by
+`parallel/mesh.shard_plan` (after the layer-split LM cache is built with
+the whole weights, as JAX builds it before `_place_on_mesh`): tables
+row-sharded, CrossNetMix expert-sharded, the LM slices Megatron-TP'd,
+Adam's moments following the slices. `catalog_parallel` routes the step
+through `parallel/catalog.make_catalog_parallel_step` (parameters whole,
+the catalog's rows sharded over every rank). Checkpoints go through
+`save_auto`: a sharded model writes the sharded directory (every mp rank
+of dp row 0 its shard), a whole one a file that rank 0 writes; the others
+wait at a barrier. Rank 0 alone talks to the lego-server; the dev metric
+is the same on every rank, so early stopping decides alike.
 """
 import json
 import time
@@ -51,12 +59,15 @@ from legommenders_tpu_torch.data.pipeline import (
     Prefetcher, TrainBatcher, device_batches, on_current_stream,
 )
 from legommenders_tpu_torch.runtime import steps
-from legommenders_tpu_torch.runtime.checkpoint import (
-    load_checkpoint, save_checkpoint,
-)
+from legommenders_tpu_torch.runtime.checkpoint import load_auto, save_auto
 from legommenders_tpu_torch.runtime.manager import Manager
-from legommenders_tpu_torch.parallel.mesh import barrier, shard_rows
-from legommenders_tpu_torch.parallel.train import make_dp_train_step_folded
+from legommenders_tpu_torch.parallel.catalog import (
+    make_catalog_parallel_step,
+)
+from legommenders_tpu_torch.parallel.mesh import (
+    barrier, place_model, shard_rows,
+)
+from legommenders_tpu_torch.parallel.train import make_mesh_train_step_folded
 from legommenders_tpu_torch.runtime.metrics import MetricPool
 from legommenders_tpu_torch.utils.logging import get_logger
 from legommenders_tpu_torch.utils.meaner import Meaner
@@ -264,6 +275,13 @@ class Trainer:
             prepared = self.m.prepare_lm_cache(root=self.lm_cache_root)
         if prepared:
             self.log.info("LM layer-split cache prepared")
+        mesh = self.mesh
+        if mesh is not None and mesh.mp > 1 and not mesh.catalog_parallel:
+            place_model(self.m.model, mesh)
+        if mesh is not None:
+            self.log.info(f"mesh policy active: {mesh.shape}"
+                          + (" (catalog-parallel)"
+                             if mesh.catalog_parallel else ""))
         n_params = sum(p.numel() for p in self.m.model.parameters())
         self.log.info(f"initialized {n_params / 1e6:.2f}M params")
         self.initialized = True
@@ -278,7 +296,14 @@ class Trainer:
     def _simple_dev_loss(self) -> float:
         """Loss-only dev (reference trainer.py:126-153, simple_dev): the
         training loss over the dev split's batches, with dropout drawn from
-        one fixed generator for every batch, as JAX passes one fixed key."""
+        one fixed generator for every batch, as JAX passes one fixed key.
+        Under catalog_parallel a layer-split LM's cache is held by rows:
+        no rank has the whole catalog this loss encodes, and it raises."""
+        if self.m.catalog_parallel and self.m.model.item_op is not None \
+                and getattr(self.m.model.item_op, "use_lm_cache", False):
+            raise NotImplementedError(
+                "simple_dev under catalog_parallel: the layer-split LM "
+                "cache is held by rows; evaluate through the repr caches")
         if not hasattr(self, "_dev_batcher"):
             self._dev_loss_fn = steps.make_loss_fn(
                 self.m.model, self.m.contents.columns,
@@ -319,11 +344,16 @@ class Trainer:
                 neg_count=cfg.neg_count,
                 use_neg_sampling=cfg.use_neg_sampling, seed=self.seed,
                 device=device)
-        if mesh is not None:
-            step_fn = make_dp_train_step_folded(
+        assemble = dpipe.assemble if device_batching else None
+        if mesh is not None and mesh.catalog_parallel:
+            step_fn = make_catalog_parallel_step(
+                model, self.optimizer, mesh, self.m.catalog_contents(),
+                len(next(iter(self.m.contents.columns.values()))),
+                cfg.use_neg_sampling, seed=self.seed, assemble=assemble)
+        elif mesh is not None:
+            step_fn = make_mesh_train_step_folded(
                 model, self.m.contents.columns, self.optimizer, mesh,
-                cfg.use_neg_sampling, seed=self.seed,
-                assemble=dpipe.assemble if device_batching else None)
+                cfg.use_neg_sampling, seed=self.seed, assemble=assemble)
         elif device_batching:
             step_fn = dpipe.make_fused_train_step(
                 model, self.m.contents.columns, self.optimizer,
@@ -395,12 +425,9 @@ class Trainer:
             if signal == Signal.BEST:
                 best_dev = dev_value
                 if self.ckpt_path:
-                    if self.is_main:
-                        save_checkpoint(self.ckpt_path, model,
-                                        self.optimizer,
-                                        meta={"epoch": epoch,
-                                              "dev": float(dev_value)})
-                    barrier(mesh)
+                    save_auto(self.ckpt_path, model, self.optimizer,
+                              meta={"epoch": epoch, "dev": float(dev_value)},
+                              mesh=mesh)
                 else:
                     # the optimizer updates the parameters in place: keep
                     # copies, not the state_dict's references
@@ -412,7 +439,7 @@ class Trainer:
 
         if best_dev is not None:
             if self.ckpt_path:
-                load_checkpoint(self.ckpt_path, model, model_only=True)
+                load_auto(self.ckpt_path, model, model_only=True)
             elif best_state is not None:
                 model.load_state_dict(best_state)
         return {"best_dev": best_dev if best_dev is not None

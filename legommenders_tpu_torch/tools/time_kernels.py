@@ -22,7 +22,16 @@ max), on chip_smoke.py's inputs taken from this checkout for either tree:
     call waits for the device;
   - mask: the dropout keep-mask kernel at dropout 0.1 over 50 calls, at
     the training page (171 x 12 heads, T = 120, chip_smoke.mask_shape)
-    and at the serving page's T = 102 (byte stores, staged).
+    and at the serving page's T = 102 (byte stores, staged);
+  - tp (a tree whose kernels take `head_offset`): the forward and the
+    backward at the local heads of a rank under tensor parallelism at
+    mp 2, beside the whole page: bert-naml's training page at 6 heads of
+    64 (D 384) at dropout 0.1 and head offsets 0 and 6, and the Llama
+    training page (chip_smoke.DECODER_PAGES: 128 rows of T 128) at 16
+    heads of 128 (D 2048) at dropout 0 and offset 16, against 32 heads;
+    with each case's bound (chip_smoke.roof: the bytes of q, k, v, the
+    output and the bias, and the products, at the local width) under
+    "bounds_us".
 Prints one JSON object (and writes it to --out).
 """
 import argparse
@@ -41,7 +50,7 @@ sys.path.insert(0, CHECKOUT)
 import chip_smoke  # noqa: E402  (no top-level torch or port import)
 
 CALLS, REPS = 50, 5
-KERNELS = ("pool", "attention", "mask")
+KERNELS = ("pool", "attention", "mask", "tp")
 
 
 def _stats(xs):
@@ -137,6 +146,52 @@ def mask_cases(torch, device):
                                 chip_smoke.mask_shape(chip_smoke.ATTN_PAGE))]
 
 
+def _bounds_us(B, T, Dm, xb, bb):
+    """(forward, backward) bound in microseconds of one call at (B, T,
+    Dm), chip_smoke's rule."""
+    fwd, _ = chip_smoke.roof(4.0 * B * T * T * Dm,
+                             4 * B * T * Dm * xb + B * T * T * bb, "bf16")
+    bwd, _ = chip_smoke.roof(10.0 * B * T * T * Dm,
+                             7 * B * T * Dm * xb + B * T * T * bb, "bf16")
+    return fwd * 1e3, bwd * 1e3
+
+
+def tp_cases(torch, device, bounds):
+    """(name, fn, calls) of the attention kernels at a TP rank's heads
+    (and the whole page beside them); fills `bounds`."""
+    from legommenders_tpu_torch.ops import attention as A
+
+    seed = torch.tensor([20231], dtype=torch.int32, device=device)
+    cases = []
+    bert = chip_smoke.TRAIN_PAGE
+    llama = chip_smoke.DECODER_PAGES["llama training"]
+    for label, heads, offsets, p, make in (
+            ("bert 12 heads", 12, (0,), 0.1, lambda: chip_smoke
+             .attention_inputs(torch.bfloat16, device, seed=11, page=bert)),
+            ("bert 6 heads", 6, (0, 6), 0.1, lambda: chip_smoke
+             .attention_inputs(torch.bfloat16, device, seed=11,
+                               page=dict(bert, D=384, heads=6))),
+            ("llama 32 heads", 32, (0,), 0.0, lambda: chip_smoke
+             .decoder_attention_inputs(llama, torch.bfloat16, device, 5)[:4]),
+            ("llama 16 heads", 16, (16,), 0.0, lambda: chip_smoke
+             .decoder_attention_inputs(dict(llama, D=2048, heads=16),
+                                       torch.bfloat16, device, 5)[:4])):
+        q, k, v, bias = make()
+        g = torch.randn(q.shape, generator=torch.Generator(
+            device=device).manual_seed(12), device=device).to(q.dtype)
+        B, T, Dm = q.shape
+        bounds[label] = dict(zip(("fwd", "bwd"), _bounds_us(
+            B, T, Dm, q.element_size(), bias.element_size())))
+        for o in offsets:
+            cases.append((f"{label} offset {o} fwd", functools.partial(
+                A.packed_attention, heads, p, q, k, v, bias, seed,
+                head_offset=o), CALLS))
+            cases.append((f"{label} offset {o} bwd", functools.partial(
+                A.packed_attention_backward, heads, p, q, k, v, bias, seed,
+                g, head_offset=o), CALLS))
+    return cases
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", required=True)
@@ -173,6 +228,9 @@ def main() -> int:
             res["host_us_bwd"] = _host_us(torch, by_name["train p0.1 bwd"])
     if "mask" in kernels:
         cases += mask_cases(torch, device)
+    if "tp" in kernels:
+        res["bounds_us"] = {}
+        cases += tp_cases(torch, device, res["bounds_us"])
     # outside no_grad: the SDPA case runs its backward
     times = {name: [] for name, _, _ in cases}
     for _ in range(REPS):

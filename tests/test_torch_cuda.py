@@ -33,7 +33,9 @@ T x T tile) at head width 128: T 128 (the Llama training page), 117 and
 items exactly 0. The LM knobs: fused_qkv and norm_bf16 in the BERT,
 Llama and OPT slices at bf16 against the CPU (2e-2), the `ffn` and `dots`
 page remat against `full` (1e-5, the attention launched twice a page);
-the pool at L 4 (an item's semantic codes).
+the pool at L 4 (an item's semantic codes). The attention forward and
+backward at a TP rank's heads (half the heads at their head offset) equal
+the whole call's head slice bit for bit and the plain versions.
 """
 import os
 import sys
@@ -477,6 +479,49 @@ def test_attention_dropout_and_backward_match_plain(device, B, T, heads, dh,
         assert a.dtype == tdtype and a.shape == q.shape
         assert torch.isfinite(a.float()).all()
         assert _close(a, b, dtype)
+
+
+# (B, T, heads, dh, packed_L, dtype) of a whole page cut in two by heads, as
+# a TP rank at mp 2 runs it: bert-naml's training page, the Llama one
+HEAD_OFFSET_CASES = [(171, 120, 12, 64, 40, "bf16"),
+                     (171, 120, 12, 64, 40, "f32"),
+                     (5, 128, 32, 128, 32, "bf16")]
+
+
+@pytest.mark.parametrize("B,T,heads,dh,L,dtype", HEAD_OFFSET_CASES)
+def test_attention_at_head_offset_is_the_whole_calls_slice(device, B, T,
+                                                           heads, dh, L,
+                                                           dtype):
+    """Each half of the heads at its head offset, dropout 0.1: the forward
+    and the backward equal the whole call's head slice bit for bit (each
+    head is computed alike) and the plain versions given the mask
+    kernel's mask at that offset."""
+    tdtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    q, k, v, bias = _attn_inputs(B, T, heads * dh, device, tdtype, L, seed=2)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(T)
+                    ).to(device, tdtype)
+    seed = torch.tensor([4321], dtype=torch.int32, device=device)
+    with torch.no_grad():
+        whole = (packed_attention(heads, 0.1, q, k, v, bias, seed),) + tuple(
+            packed_attention_backward(heads, 0.1, q, k, v, bias, seed, g))
+        half, width = heads // 2, heads // 2 * dh
+        for r in range(2):
+            cols = slice(r * width, (r + 1) * width)
+            qr, kr, vr, gr = (t[..., cols].contiguous() for t in (q, k, v, g))
+            keep = dropout_keep_mask(half, 0.1, B, T, seed,
+                                     head_offset=r * half)
+            got = (packed_attention(half, 0.1, qr, kr, vr, bias, seed,
+                                    head_offset=r * half),) + tuple(
+                packed_attention_backward(half, 0.1, qr, kr, vr, bias, seed,
+                                          gr, head_offset=r * half))
+            want = (reference_attention(half, 0.1, qr, kr, vr, bias,
+                                        keep),) + tuple(
+                reference_attention_backward(half, 0.1, qr, kr, vr, bias,
+                                             gr, keep))
+            torch.cuda.synchronize()
+            for a, w, b in zip(got, whole, want):
+                assert torch.equal(a, w[..., cols])
+                assert _close(a, b, dtype)
 
 
 def test_attention_autograd_runs_both_kernels(device):

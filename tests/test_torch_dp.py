@@ -171,9 +171,20 @@ def test_mesh_from_policy_refuses(cfg, monkeypatch):
                                  {"dp": 1, "mp": 2},
                                  {"catalog_parallel": True}])
 def test_other_axes_raise_naming_item_8(cfg, monkeypatch):
+    """sp and pp raise, naming item 8; mp and catalog_parallel build what
+    JAX's mesh_from_policy builds over a group of 2: the (1, 2) mesh, or
+    dp 2 with catalog_parallel set."""
     monkeypatch.setattr(tmesh, "world", lambda: (0, 2))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tmesh.mesh_from_policy(cfg)
+    if "sp" in cfg or "pp" in cfg:
+        with pytest.raises(NotImplementedError, match="item 8"):
+            tmesh.mesh_from_policy(cfg)
+        return
+    mesh = tmesh.mesh_from_policy(cfg)
+    if "mp" in cfg:
+        assert mesh.shape == {"dp": 1, "mp": 2} and mesh.size == 2
+        assert (mesh.dp_index, mesh.mp_index) == (0, 0)
+    else:
+        assert mesh.shape == {"dp": 2} and mesh.catalog_parallel
 
 
 def test_one_process_mesh_is_dp_1():

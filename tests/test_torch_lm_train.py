@@ -184,6 +184,25 @@ def test_lm_cache_matches_jax(bert, tmp_path):
         assert torch.equal(first[key], again[key])
 
 
+def test_lm_cache_on_disk_is_keyed_by_the_catalogs_size(bert, tmp_path):
+    """Two catalogs of another size under one data name and the same
+    weights build a cache each: the first one's file is not read for the
+    second."""
+    tm = bert["tm"]
+    contents = {c: a for c, a in tm.contents.columns.items()
+                if c not in (LM_HIDDEN_KEY, LM_MASK_KEY)}
+    part = {c: a[:17] for c, a in contents.items()}
+    whole = lm_cache.load_or_build_lm_cache(
+        tm.model, contents, "d", "bert", 1, 32, str(tmp_path))
+    cut = lm_cache.load_or_build_lm_cache(
+        tm.model, part, "d", "bert", 1, 32, str(tmp_path))
+    assert whole[LM_HIDDEN_KEY].shape[0] == 60
+    assert cut[LM_HIDDEN_KEY].shape[0] == 17
+    torch.testing.assert_close(cut[LM_HIDDEN_KEY],
+                               whole[LM_HIDDEN_KEY][:17])
+    assert len(list((tmp_path / "d" / "bert").iterdir())) == 4
+
+
 def test_layer_split_modules_and_bridge(bert):
     model = bert["tm"].model
     op = model.item_op

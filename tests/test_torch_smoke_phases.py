@@ -34,10 +34,116 @@ def test_phases_select(argv, want):
 
 
 def test_unknown_phase_is_refused():
-    # phase 12 exists since the drivers and data parallel
-    assert chip_smoke.parse_phases(["--phases", "12"]) == {12}
+    # phase 13 exists since the model-parallel axis and catalog_parallel
+    assert chip_smoke.parse_phases(["--phases", "13"]) == {13}
     with pytest.raises(SystemExit):
-        chip_smoke.parse_phases(["--phases", "13"])
+        chip_smoke.parse_phases(["--phases", "14"])
+
+
+def test_phase13_cases_shard_what_they_name():
+    """Phase 13's cases: bert-naml at mp 2 is phase 5's layer-split
+    training at dropout 0.1 evaluated through its caches, in bf16 on the
+    16,384-item catalog and again with its LM in f32 on 2,048 items;
+    dcnv2_id's CrossNetMix shards its 4 experts 2 a rank; NAML's
+    30,000-word table shards to 15,000 rows a rank at min_rows_to_shard
+    0; the catalog-parallel bert-naml runs at dropout 0 over the two
+    ranks. A rank runs through `--phase13-rank`."""
+    from legommenders_tpu_torch.parallel import mesh as tmesh
+
+    cases = chip_smoke.p13_cases()
+    assert list(cases) == ["bert-naml mp 2", "bert-naml mp 2 f32",
+                           "dcnv2_id mp 2", "naml mp 2",
+                           "bert-naml catalog_parallel"]
+    bert = cases["bert-naml mp 2"]
+    item = bert.cfg["config"]["item_config"]
+    assert bert.mesh == {"mp": 2} and not bert.test
+    assert (bert.dtype, bert.data) == ("bf16", "catalog")
+    assert (item["tune_from"], item["dropout"], item["attn_dropout"]) == (
+        10, chip_smoke.TRAIN_DROPOUT, chip_smoke.TRAIN_DROPOUT)
+    assert bert.cfg["config"]["item_page_remat"] == "ffn"
+    assert bert.cfg["config"]["use_fast_eval"]
+    f32 = cases["bert-naml mp 2 f32"]
+    assert (f32.mesh, f32.dtype, f32.data) == ({"mp": 2}, "f32", "small")
+    item32 = dict(f32.cfg["config"]["item_config"], lm_dtype="bf16")
+    assert f32.cfg["config"]["item_config"]["lm_dtype"] == "f32"
+    assert item32 == item and item["lm_dtype"] == "bf16"
+    assert chip_smoke.P13_SMALL_DATA_KW == dict(chip_smoke.DOTS_DATA_KW,
+                                                num_items=2048)
+    cat = cases["bert-naml catalog_parallel"]
+    assert cat.mesh == {"catalog_parallel": True} and cat.test
+    assert cat.cfg["config"]["item_config"]["dropout"] == 0.0
+    kw = dict(chip_smoke.DATA_KW, num_items=200, num_users=12,
+              inters_per_user=4)
+    data = SyntheticProcessor(**kw).as_lego_data()
+    mesh = tmesh.Mesh(1, 1, 2)
+    for name, want in (("dcnv2_id mp 2", "U_0"), ("naml mp 2", "tables")):
+        cfg, mcfg = cases[name].cfg, cases[name].mesh
+        m = Manager(model_cfg=cfg, data=data, device="cpu")
+        plan = tmesh.shard_plan(m.model, mesh,
+                                mcfg.get("min_rows_to_shard", 0))
+        assert any(want in k for k in plan.sharded), (name, plan.sharded)
+        if name == "naml mp 2":
+            table = m.model.eh.tables["vocab__word"]
+            assert table.shape[0] == 30000
+            tmesh.place_model(m.model, mesh)
+            assert table.shape[0] == 15000
+
+
+def _adam_first_step(w, g):
+    """w after torch's Adam's first step at chip_smoke.TRAIN_LR."""
+    import torch
+
+    p = torch.nn.Parameter(w.clone())
+    p.grad = g.clone()
+    torch.optim.Adam([p], lr=chip_smoke.TRAIN_LR, eps=chip_smoke.ADAM_EPS
+                     ).step()
+    return p.detach()
+
+
+@pytest.mark.parametrize("fault,want", [
+    (None, 0.0), ("skipped", 1.0), ("doubled", 1.0), ("flipped", 2.0)])
+def test_p13_update_check_reads_a_faulty_step(fault, want):
+    """Phase 13's update check: the ranks' Adam step against one process's
+    over lr. A gradient within the gradient gate of zero may take the
+    other sign (a whole step of 2 lr apart) and is left out, as is one
+    within 50 eps; a skipped, doubled or flipped step reads 1, 1 or 2."""
+    import torch
+
+    gen = torch.Generator().manual_seed(0)
+    w0 = torch.randn(64, 8, generator=gen)
+    # every other gradient far from zero: only the three below are small
+    g = torch.randn(64, 8, generator=gen).sign() * (
+        0.5 + torch.rand(64, 8, generator=gen)) * 1e-3
+    g[0, 0], g[1, 0], g[2, 0] = 1e-7, 1e-9, 0.0
+    got_g = g.clone()
+    got_g[0, 0] = -g[0, 0]  # rounding residue of the other sign
+    got_g[1, 0] = -g[1, 0]
+    want_w = _adam_first_step(w0, g)
+    got_w = _adam_first_step(w0, got_g)
+    if fault == "skipped":
+        got_w = w0.clone()
+    elif fault == "doubled":
+        got_w = w0 + 2 * (got_w - w0)
+    elif fault == "flipped":
+        got_w = w0 - (got_w - w0)
+    names = ("layer.weight",)
+    errs, left_out = chip_smoke._p13_update_errs(
+        dict(zip(names, [got_w])), dict(zip(names, [w0])),
+        dict(zip(names, [want_w])), dict(zip(names, [w0])),
+        dict(zip(names, [g])), dict.fromkeys(names, chip_smoke.BF16_REL_TOL))
+    # the updates are differences of f32 weights near 1: ulps of lr
+    assert errs["layer.weight"] == pytest.approx(want, abs=5e-3)
+    assert left_out == pytest.approx(3 / g.numel())
+
+
+def test_p13_update_check_holds_a_tensor_without_gradient_whole():
+    import torch
+
+    w0 = torch.zeros(4)
+    moved = w0 + chip_smoke.TRAIN_LR
+    errs, left_out = chip_smoke._p13_update_errs(
+        {"b": moved}, {"b": w0}, {"b": w0}, {"b": w0}, {}, {})
+    assert errs["b"] == pytest.approx(1.0) and left_out == 0.0
 
 
 @pytest.mark.parametrize("name", list(chip_smoke.FLATTEN_MODELS))

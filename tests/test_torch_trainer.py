@@ -433,15 +433,28 @@ def test_trainer_device_batching_runs(data_pair):
 def test_trainer_session_and_mesh_raise(data_pair, what):
     """What stays unported of the multi-device policies raises, naming
     ROADMAP's item 8 (the session and the mesh's dp axis run since they
-    were ported: tests/test_torch_server.py, tests/test_torch_dp.py)."""
+    were ported: tests/test_torch_server.py, tests/test_torch_dp.py). mp
+    and catalog_parallel are ported: one process asking for mp 2 gets
+    JAX's "only 1 visible", catalog_parallel builds its dp-1 mesh
+    (tests/test_torch_mp.py, tests/test_torch_catalog_parallel.py)."""
     cfg, mesh = NAML_CFG, {what: 2 if what != "catalog_parallel" else True}
     if what == "pipeline_stages":
         cfg = copy.deepcopy(BERT_CFG)
         cfg["config"]["item_config"]["pipeline_stages"] = 2
         mesh = True
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Manager(model_cfg=cfg, data=data_pair[1], device="cpu",
-                exp_cfg={"policy": {"mesh": mesh}})
+
+    def build():
+        return Manager(model_cfg=cfg, data=data_pair[1], device="cpu",
+                       exp_cfg={"policy": {"mesh": mesh}})
+    if what == "mp":
+        with pytest.raises(ValueError, match="only 1 visible"):
+            build()
+    elif what == "catalog_parallel":
+        m = build()
+        assert m.catalog_parallel and m.mesh.shape == {"dp": 1}
+    else:
+        with pytest.raises(NotImplementedError, match="item 8"):
+            build()
 
 
 def test_trainer_requires_cuda_unless_cpu(data_pair, monkeypatch):
