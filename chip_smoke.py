@@ -265,7 +265,8 @@ and exits non-zero when any phase fails:
         dev values equal bit for bit, the same launches (the pool 2 a step, one a cache page),
         both step times; the group destroyed;
  13. the model-parallel axis and catalog_parallel on the 16,384-item
-     catalog (DOTS_DATA_KW: the one cut, for the time limit), bf16, random
+     catalog (DOTS_DATA_KW, for the time limit; the TP cases on 2,048
+     items, P13_SMALL_DATA_KW, since PR 15's phase 14), bf16, random
      weights from seed 0: two rank processes of this script
      (`--phase13-rank`) share the card over gloo (NCCL refuses two ranks
      on one device; gloo's all-gathers go through host memory, the model,
@@ -279,9 +280,8 @@ and exits non-zero when any phase fails:
        dropout 0.1) at mp 2: Megatron TP of the upper slice, 6 heads a
        rank, the attention kernels at head offset 0 and 6; the best
        checkpoint written as the sharded directory;
-     - the same at f32 (its LM too) on a 2,048-item catalog
-       (P13_SMALL_DATA_KW, for the time limit): TP's own error, apart
-       from bf16's;
+     - the same at f32 (its LM too): TP's own error, apart from
+       bf16's;
      - dcnv2_id at its YAML (CrossNetMix, 4 experts: 2 a rank) at mp 2;
      - NAML at mp 2 with its tables row-sharded (min_rows_to_shard 0: the
        30,000-word table 15,000 rows a rank);
@@ -1929,9 +1929,12 @@ def zoo_cfg(name: str) -> dict:
 
 def _pools_of(module) -> int:
     """The pool launches one call of `module` makes: its AdditiveAttention
-    modules, each called once."""
+    modules, each called once (none without a module: an id-only model's
+    item side)."""
     from legommenders_tpu_torch.models.common import AdditiveAttention
 
+    if module is None:
+        return 0
     return sum(isinstance(m, AdditiveAttention) for m in module.modules())
 
 
@@ -2265,7 +2268,9 @@ def run_ctr_model(name: str, data, device) -> dict:
 LLAMA_TRAIN_LAYERS, LLAMA_TUNE_FROM, LLAMA_SERVING_LAYERS = 16, 14, 8
 GLM_LAYERS, GLM_TUNE_FROM = 4, 2
 OPT_TUNE_FROM = 10
-DECODER_STEPS = 2
+# one timed step (2 before), for the time limit: llama-naml's takes
+# 20.8 s at the Llama-7B width (NVIDIA H100 80GB HBM3 at 700 W)
+DECODER_STEPS = 1
 DECODER_EXP = {"policy": {"dtype": "bf16", "batch_size": TRAIN_BATCH}}
 # the decoders' attention pages: 512 items of the compact inputer's
 # title + category (L 31: 4 items a row, T 124) and of the layer-split
@@ -2714,6 +2719,11 @@ BERT_ZOO_TUNE_FROM, BERT_ZOO_STEPS, BERT_ZOO_PAGE = 10, 2, 512
 # training and eval batches that fit: (clicks, batch, eval batch)
 FLATTEN_MODELS = {"flatten_transformer": (31, 128, 512),
                   "flatten_fastformer": (15, TRAIN_BATCH, 4 * TRAIN_BATCH)}
+# flatten_transformer's Tester.test() over the dev and test rows of the
+# first 4,000 of the 20,000 users (94 full-forward pages of 512 at
+# L 1,023: 26.4 s against 469 pages and 131.5 s over all of them on an
+# NVIDIA H100 80GB HBM3 at 700 W), for the time limit: depth, not width
+FLATTEN_TEST_USERS = {"flatten_transformer": 4000}
 FLATTEN_STEPS = 4
 # the flatten user pools (D 64, H 64) over a step's users and a test page
 FLATTEN_POOLS = {f"{name} user": (slots, h) for name, slots, h in (
@@ -2721,15 +2731,24 @@ FLATTEN_POOLS = {f"{name} user": (slots, h) for name, slots, h in (
 PHASE10_CLI_MODELS = ("bert-iisan-naml", "flatten_transformer")
 
 
-def cut_history(data, clicks: int):
+def cut_history(data, clicks: int, users=None):
     """The fixture with every history cut to its first `clicks` clicks, as
     a data config's user-column spec cuts it (LegoData.from_config); the
-    item and interaction stores are shared."""
+    item store and the training rows are shared. With `users`, the dev
+    and test rows are those of the first `users` users only."""
+    import numpy as np
     from legommenders_tpu_torch.data.dataset import LegoData
 
     hist = data.cm.history_col
-    users = data.users.view().truncate(hist, clicks)
-    return LegoData(data.items, users, data.inters, data.cm,
+    cut = data.users.view().truncate(hist, clicks)
+    inters = data.inters
+    if users is not None:
+        inters = dict(inters)
+        for phase in ("dev", "test"):
+            rows = inters[phase]
+            inters[phase] = rows.select(np.flatnonzero(
+                rows[data.cm.user_col] < users))
+    return LegoData(data.items, cut, inters, data.cm,
                     data.item_inputs, user_inputs=[(hist, clicks)],
                     name=data.name)
 
@@ -2990,9 +3009,10 @@ def run_flatten_model(name: str, data, device) -> dict:
     from legommenders_tpu_torch.runtime.tester import Tester
 
     clicks, batch, eval_batch = FLATTEN_MODELS[name]
-    cut = cut_history(data, clicks)
+    cut = cut_history(data, clicks, FLATTEN_TEST_USERS.get(name))
     rec = {"path": name, "clicks": clicks, "batch": batch,
-           "eval_batch": eval_batch}
+           "eval_batch": eval_batch,
+           "test_users": FLATTEN_TEST_USERS.get(name)}
     exp = {"policy": {"dtype": "bf16", "batch_size": batch,
                       "eval_batch_size": eval_batch}}
     torch.cuda.reset_peak_memory_stats()
@@ -3060,7 +3080,8 @@ PHASES = {3: "kernels", 4: "serving", 5: "training", 6: "run loop",
           10: "IISAN, BERT zoo, flatten",
           11: "LM knobs, semantic IDs, processed MIND",
           12: "drivers and data parallel",
-          13: "model parallel and catalog_parallel"}
+          13: "model parallel and catalog_parallel",
+          14: "sequence and pipeline parallel"}
 
 
 class phase_timer:
@@ -4374,9 +4395,9 @@ P13_POLICY = {"dtype": "bf16", "batch_size": TRAIN_BATCH, "lr": TRAIN_LR,
               "epoch": 1, "epoch_batch": 1, "device_batching": True}
 # the attention page whose keep masks the ranks draw at their head offsets
 P13_MASK_SEED = 20261017
-# the f32 TP case's catalog: DOTS_DATA_KW's at 2,048 items (4 pages of
-# 512), for the time limit (the bf16 cases take its 16,384); its 5,000
-# users fill a batch of 2,048 clicks
+# the TP cases' catalog: DOTS_DATA_KW's at 2,048 items (4 pages of 512),
+# for the time limit (the other cases take its 16,384); its 5,000 users
+# fill a batch of 2,048 clicks
 P13_SMALL_DATA_KW = dict(DOTS_DATA_KW, num_items=2048)
 # Adam's eps (runtime/steps.adam): a gradient past 50 eps takes a first
 # step within 2 % of +-lr
@@ -4404,10 +4425,14 @@ def _p13_bert(dropout: float, lm_dtype=None) -> dict:
 
 
 def p13_cases() -> dict:
-    """name -> P13Case. "bert-naml mp 2 f32" is the bf16 case at f32 on
-    the small catalog: TP's own error, apart from bf16's."""
+    """name -> P13Case. "bert-naml mp 2 f32" is the bf16 case at f32:
+    TP's own error, apart from bf16's. Both TP cases run on the small
+    catalog, for the time limit (the bf16 step took 23-38 s a rank over
+    gloo on the 16,384 items, NVIDIA H100 80GB HBM3 at 700 W: ~384
+    all-reduces of 63 MB through host memory)."""
     return {
-        "bert-naml mp 2": P13Case(_p13_bert(TRAIN_DROPOUT), {"mp": 2}),
+        "bert-naml mp 2": P13Case(_p13_bert(TRAIN_DROPOUT), {"mp": 2},
+                                  data="small"),
         "bert-naml mp 2 f32": P13Case(_p13_bert(TRAIN_DROPOUT, "f32"),
                                       {"mp": 2}, dtype="f32", data="small"),
         "dcnv2_id mp 2": P13Case(zoo_cfg("dcnv2_id"), {"mp": 2}),
@@ -4428,18 +4453,23 @@ def _p13_params(m) -> dict:
             for n, p in m.model.named_parameters() if p.requires_grad}
 
 
-def p13_run(name: str, case: P13Case, mesh_cfg, data, device, tmp) -> dict:
+def p13_run(name: str, case: P13Case, mesh_cfg, data, device, tmp,
+            policy=None, pages: int = 0) -> dict:
     """One case through Manager + Trainer (train: one step and a dev pass;
     `case.test`: Trainer.test() after), `deterministic`, its launch counts
     set to 0 just before and read just after; without `mesh_cfg` one
     process. Returns the trainable tensors before the step and after it
     and their gradients (this rank's slices), the losses, the dev value,
-    the launches and the plan."""
+    the launches and the plan; with `pages`, the scores of the first
+    `pages` test pages by full forwards on the initial weights and their
+    launches. `policy` replaces P13_POLICY."""
     import torch
-    from legommenders_tpu_torch.parallel.mesh import model_plan
+    from legommenders_tpu_torch.parallel.mesh import (
+        model_plan, set_pp_mesh, set_sp_mesh,
+    )
     from legommenders_tpu_torch.runtime.manager import Manager
 
-    policy = dict(P13_POLICY, dtype=case.dtype)
+    policy = dict(policy or P13_POLICY, dtype=case.dtype)
     if mesh_cfg is not None:
         policy["mesh"] = mesh_cfg
     m = Manager(model_cfg=case.cfg, exp_cfg={"policy": policy}, data=data,
@@ -4453,6 +4483,17 @@ def p13_run(name: str, case: P13Case, mesh_cfg, data, device, tmp) -> dict:
     torch.cuda.synchronize()
     rec["init_s"] = time.perf_counter() - t0
     rec["before"] = _p13_params(m)
+    if pages:
+        # the first test pages by full forwards on the initial weights,
+        # under the Trainer's meshes
+        sub = tr.evaluator.phase("test")
+        n_all, sub.n = sub.n, min(pages * tr.evaluator.batch_size, sub.n)
+        _zero_counts()
+        with torch.inference_mode():
+            rec["scores"] = tr.evaluator.score_phase_device_full(
+                "test").float().cpu()
+        rec["score_launches"] = _counts()
+        sub.n = n_all
     _zero_counts()
     t0 = time.perf_counter()
     with deterministic():
@@ -4462,12 +4503,15 @@ def p13_run(name: str, case: P13Case, mesh_cfg, data, device, tmp) -> dict:
     torch.cuda.synchronize()
     rec["s"] = time.perf_counter() - t0
     rec["launches"] = _counts()
+    set_sp_mesh(None)
+    set_pp_mesh(None)
     rec["step_ms"] = [s * 1e3 for s in timer.samples["step"]]
     rec["losses"] = tr.losses
     rec["dev"] = [e["dev"] for e in tr.epochs]
     rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
     plan = model_plan(m.model)
     rec["plan"] = dict(plan.sharded) if plan else {}
+    rec["pools"] = (_pools_of(m.model.item_op), _pools_of(m.model.user_op))
     rec["tensors"] = _p13_params(m)
     rec["grads"] = {n: p.grad.detach().float().cpu()
                     for n, p in m.model.named_parameters()
@@ -4752,7 +4796,7 @@ def run_phase13(device, card) -> dict:
     CrossNetMix) and bert-naml (Megatron TP at dropout 0.1, bf16 and f32)
     at mp 2, and bert-naml catalog-parallel, two ranks on the card over
     gloo, each held against one process from the same weights and
-    batches, on the 16,384-item catalog (DOTS_DATA_KW; the f32 case on
+    batches, on the 16,384-item catalog (DOTS_DATA_KW; the TP cases on
     P13_SMALL_DATA_KW's 2,048); the attention kernels at a head offset
     against the whole page's call and their plain versions."""
     import pickle
@@ -4788,11 +4832,9 @@ def run_phase13(device, card) -> dict:
             for name, case in cases.items():
                 one[name] = p13_run(name, case, None, datas[case.data],
                                     device, tmp)
-            # the f32 gradients precision_check's bf16 rule measures
-            # bert-naml's own bf16 error by
-            f32 = P13Case(_p13_bert(TRAIN_DROPOUT, "f32"), None, dtype="f32")
-            one32 = p13_run("bert-naml f32", f32, None, datas["catalog"],
-                            device, tmp)
+            # the f32 gradients the bf16 rule measures bert-naml's own
+            # bf16 error by: the f32 TP case's one process
+            one32 = one["bert-naml mp 2 f32"]
             whole_mask = p13_masks(device, 0, 12).cpu()
             out["one_process_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
@@ -4829,7 +4871,8 @@ def run_phase13(device, card) -> dict:
         ckpt = ranks[0]["bert-naml mp 2"]["ckpt"]
         m = Manager(model_cfg=_p13_bert(TRAIN_DROPOUT),
                     exp_cfg={"policy": dict(P13_POLICY)},
-                    data=datas["catalog"], device=device, seed=1)
+                    data=datas[cases["bert-naml mp 2"].data], device=device,
+                    seed=1)
         load_auto(ckpt, m.model, model_only=True)
         got = _p13_whole(ranks, "bert-naml mp 2", "tensors")
         named = dict(m.model.named_parameters())
@@ -4872,6 +4915,393 @@ def run_phase13(device, card) -> dict:
         f"{out['ranks_wait_s']:.2f} s")
     log(f"[mp] {json.dumps(out, default=str)}")
     return {"phase13": out}
+
+
+# --------------------------------------------------------------------- #
+# phase 14: the sequence-parallel and pipeline-parallel axes             #
+# --------------------------------------------------------------------- #
+# two rank processes share the one card over gloo, as phase 13's do; this
+# process runs every case in one process first, then the ranks run them
+# alone (the flatten steps' attention takes tens of GB a process)
+P14_RANKS = 2
+P14_TIMEOUT_S = 420
+# the sp cases' fixture: DOTS_DATA_KW's catalog and users, the histories
+# cut to 30 clicks (L 990 = 30 x 33: JAX's shard_map needs L % sp == 0;
+# phase 10.4's 31 give 1,023) and 14 (L 462), the dev and test rows those
+# of the first 500 users (6,000 rows: 12 full-forward pages of 512 a dev
+# pass), for the time limit
+P14_SP_USERS = 500
+P14_CLICKS = {"flatten_transformer": 30, "flatten_fastformer": 14}
+# test pages scored after the step, by full forwards
+P14_TEST_PAGES = 2
+# the f32 case's batches: a quarter of phase 10.4's, for memory (one
+# process's bf16 step at batch 128 peaks at 31 GB, NVIDIA H100 80GB HBM3;
+# f32 doubles it, beside the ranks)
+P14_F32_BATCH, P14_F32_EVAL = 32, 128
+# the Llama-7B-width slice of 14.2: 2 layers, d 4,096, 32 heads of 128,
+# SwiGLU 10,922, LoRA r 32 on q and v over a frozen bf16 base; a page of
+# 128 rows at T 128, causal; pp 2 (one layer a stage, 4 microbatches of
+# 32 rows)
+P14_LLAMA = dict(layers=2, dim=4096, heads=32, rows=128, T=128, lora_r=32)
+
+
+def _p14_flatten(name: str, sp_impl: str = "ulysses") -> dict:
+    """A flatten YAML at its defaults with its user operator's
+    `sequence_parallel` (and `sp_impl` for the Transformer)."""
+    import copy
+
+    cfg = copy.deepcopy(zoo_cfg(name))
+    user = cfg["config"].setdefault("user_config", {})
+    user["sequence_parallel"] = True
+    if name == "flatten_transformer":
+        user["sp_impl"] = sp_impl
+    return cfg
+
+
+# name -> (case, train batch, eval batch, the one-process run it is held
+# against)
+P14Spec = collections.namedtuple("P14Spec", "case batch eval_batch ref")
+
+
+def p14_cases() -> dict:
+    """14.1 (sp 2: flatten_transformer under Ulysses and ring, bf16, and
+    under Ulysses at f32; flatten_fastformer, bf16) and 14.2 (bert-naml at
+    pp 2, phase 5's layer-split training at dropout 0: JAX keys a staged
+    stack's draws per microbatch)."""
+    sp = {"sp": 2}
+    tr, ff = "flatten_transformer", "flatten_fastformer"
+    return {
+        "flatten_transformer sp 2 ulysses": P14Spec(
+            P13Case(_p14_flatten(tr), sp, data=tr), 128, 512,
+            "flatten_transformer"),
+        "flatten_transformer sp 2 ring": P14Spec(
+            P13Case(_p14_flatten(tr, "ring"), sp, data=tr), 128, 512,
+            "flatten_transformer"),
+        "flatten_transformer sp 2 ulysses f32": P14Spec(
+            P13Case(_p14_flatten(tr), sp, dtype="f32", data=tr),
+            P14_F32_BATCH, P14_F32_EVAL, "flatten_transformer f32"),
+        "flatten_fastformer sp 2": P14Spec(
+            P13Case(_p14_flatten(ff), sp, data=ff), TRAIN_BATCH,
+            4 * TRAIN_BATCH, "flatten_fastformer"),
+        "bert-naml pp 2": P14Spec(
+            P13Case(_p13_bert(0.0), {"pp": 2}), TRAIN_BATCH, None,
+            "bert-naml"),
+    }
+
+
+def p14_datas() -> dict:
+    """The phase's fixtures: the 16,384-item catalog, and its histories
+    cut for each flatten model with the dev and test rows of
+    P14_SP_USERS users."""
+    from legommenders_tpu_torch.data.processors.synthetic import (
+        SyntheticProcessor,
+    )
+    catalog = SyntheticProcessor(**DOTS_DATA_KW).as_lego_data()
+    out = {"catalog": catalog}
+    for name, clicks in P14_CLICKS.items():
+        out[name] = cut_history(catalog, clicks, P14_SP_USERS)
+    return out
+
+
+def p14_run(name: str, spec: P14Spec, mesh_cfg, datas, device,
+            tmp) -> dict:
+    """One case (p13_run with the spec's batches; the flatten cases score
+    P14_TEST_PAGES test pages after the step), and the pools its
+    operators run through the kernel."""
+    policy = dict(P13_POLICY, batch_size=spec.batch)
+    if spec.eval_batch:
+        policy["eval_batch_size"] = spec.eval_batch
+    flatten = spec.case.data in P14_CLICKS
+    return p13_run(name, spec.case, mesh_cfg, datas[spec.case.data],
+                   device, tmp, policy=policy,
+                   pages=P14_TEST_PAGES if flatten else 0)
+
+
+def p14_llama_slice(device, mesh=None) -> dict:
+    """14.2's Llama-7B-width slice (P14_LLAMA), its weights drawn on the
+    card from seed 0 (every LoRA B too: it starts at 0), one page through
+    it and the backward of a fixed projection of the output; in one
+    process, or staged over `mesh`'s pp axis (the LoRA gradients summed
+    over pp). Returns the output, the LoRA gradients (f32 on the host) and
+    the attention launches."""
+    import torch
+    from legommenders_tpu_torch.models.lm.layers import LlamaDecoderSlice
+    from legommenders_tpu_torch.parallel import mesh as pmesh
+
+    c = P14_LLAMA
+    stages = mesh.pp if mesh is not None else 0
+    with torch.device(device):
+        sl = LlamaDecoderSlice(c["layers"], c["dim"], num_heads=c["heads"],
+                               lora_r=c["lora_r"], freeze_base=True,
+                               fused_attention=True, pipeline_stages=stages,
+                               dtype=torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(0)
+    sl.reset_parameters(gen)
+    with torch.no_grad():
+        for n, p in sl.named_parameters():
+            if n.endswith("lora_B"):
+                p.normal_(0.0, 0.02, generator=gen)
+    x = torch.randn(c["rows"], c["T"], c["dim"], generator=gen,
+                    device=device).to(torch.bfloat16)
+    mask = torch.ones(c["rows"], c["T"], dtype=torch.int32, device=device)
+    proj = torch.randn(c["dim"], generator=gen, device=device)
+    _zero_counts()
+    if mesh is not None:
+        with pmesh.pipeline_parallel(mesh):
+            y = sl(x, mask)
+    else:
+        y = sl(x, mask)
+    loss = (y.float() @ proj).square().mean()
+    loss.backward()
+    if mesh is not None:
+        pmesh.reduce_gradients([], loss.detach(), mesh,
+                               pmesh.partial_params(sl))
+    torch.cuda.synchronize()
+    out = {"y": y.detach().float().cpu(), "launches": _counts(),
+           "grads": {n: p.grad.float().cpu() for n, p in
+                     sl.named_parameters() if p.grad is not None}}
+    del sl, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def p14_gloo_all_to_all(device, axis) -> dict:
+    """Whether gloo takes CUDA tensors in an all-to-all (Ulysses' transfer
+    takes them so): the call on the card against the same call on host
+    copies. (Its send and receive take a tensor's data pointer as host
+    memory, so a CUDA tensor is not tried there: the port sends through
+    host memory.)"""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.arange(8, dtype=torch.float32, device=device) + 100 * axis.index
+    out, host = torch.empty_like(t), torch.empty(8)
+    try:
+        dist.all_to_all_single(out, t, group=axis.group)
+        dist.all_to_all_single(host, t.cpu(), group=axis.group)
+        torch.cuda.synchronize()
+        return {"direct": "ok", "equal": torch.equal(out.cpu(), host)}
+    except Exception as e:  # the probe records what gloo refuses
+        return {"direct": f"{type(e).__name__}: {e}"[:300]}
+
+
+def p14_rank(argv) -> int:
+    """A rank of phase 14: <init file> <rank> <tmp dir>. Opens the gloo
+    group on cuda:0, runs every case at its mesh and the Llama slice at
+    pp 2, writes its records."""
+    import pickle
+
+    import torch
+    from legommenders_tpu_torch.parallel import mesh
+
+    init, rank, tmp = argv
+    rank = int(rank)
+    mesh.initialize_multihost(f"file://{init}", P14_RANKS, rank,
+                              device="cuda", backend="gloo")
+    try:
+        device = torch.device("cuda", 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        with open(os.path.join(tmp, "data.pkl"), "rb") as f:
+            datas = pickle.load(f)
+        out = {"group": {"backend": torch.distributed.get_backend(),
+                         "rank": rank},
+               "gloo_all_to_all": p14_gloo_all_to_all(
+                   device, mesh.mesh_from_policy({"sp": 2}).sp_axis)}
+        for name, spec in p14_cases().items():
+            t0 = time.perf_counter()
+            out[name] = p14_run(name, spec, spec.case.mesh, datas, device,
+                                tmp)
+            out[name]["wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["llama slice"] = p14_llama_slice(
+            device, mesh.mesh_from_policy({"pp": 2}))
+        out["llama slice"]["wall_s"] = time.perf_counter() - t0
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        mesh.shutdown()
+    return 0
+
+
+def _p14_expected(name: str, spec: P14Spec, one: dict, m_item_pools: int,
+                  m_user_pools: int) -> dict:
+    """A rank's launches by the code, from one process's. sp: the user
+    pool is the two-psum pool (JAX bypasses its Pallas pool), so a rank
+    launches the item pools only. pp (bert-naml, tune_from 10: 2 trained
+    layers, pages of 512, `ffn` remat): a stage runs its layers once a
+    microbatch, M = 2 x stages, in each page's forward and again in its
+    recompute (where the catalog is paged), and their backward once a
+    microbatch; the dev pass runs the serial stack on every rank."""
+    want = dict(one)
+    if "sp" in spec.case.mesh:
+        pools = m_item_pools + m_user_pools
+        want["additive_pool"] = one["additive_pool"] * m_item_pools // pools
+        return want
+    cfg = spec.case.cfg["config"]
+    stages, layers = spec.case.mesh["pp"], 2
+    M, per = 2 * stages, layers // stages
+    N, P = DOTS_DATA_KW["num_items"], cfg["item_page_size"]
+    pages = -(-N // P) if N > P else 1
+    # a paged encode recomputes each page in the backward
+    runs = 2 if N > P and cfg["item_page_remat"] != "none" else 1
+    want["packed_attention"] = (one["packed_attention"]
+                                + pages * runs * (M * per - layers))
+    want["packed_attention_backward"] = pages * M * per
+    return want
+
+
+def _p14_slice_errs(got: dict, want: dict) -> dict:
+    """The Llama slice's output error over its largest value, and each
+    LoRA gradient's over its own largest."""
+    errs = {"y": float((got["y"] - want["y"]).abs().max()
+                       / want["y"].abs().max())}
+    for k, w in want["grads"].items():
+        errs[k] = float((got["grads"][k] - w).abs().max()
+                        / max(w.abs().max(), 1e-30))
+    return errs
+
+
+def run_phase14(device, card) -> dict:
+    """Phase 14: flatten_transformer (Ulysses and ring attention, the
+    two-psum pool) and flatten_fastformer (the two-psum pooler) at sp 2,
+    bert-naml's trained slice and a Llama-7B-width slice in GPipe stages
+    at pp 2 (the attention kernels inside each stage), two ranks on the
+    card over gloo, each held against one process from the same weights
+    and batches."""
+    import pickle
+    import tempfile
+
+    import torch
+
+    out = {}
+    cases = p14_cases()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        datas = p14_datas()
+        with open(os.path.join(tmp, "data.pkl"), "wb") as f:
+            pickle.dump(datas, f)
+        out["data_s"] = time.perf_counter() - t0
+        # one process, every case's reference (ulysses and ring share one)
+        t0 = time.perf_counter()
+        one = {}
+        for name, spec in cases.items():
+            if spec.ref not in one:
+                one[spec.ref] = p14_run(spec.ref, spec, None, datas, device,
+                                        tmp)
+        one["llama slice"] = p14_llama_slice(device)
+        out["one_process_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        env = {**os.environ, "PYTHONPATH": ROOT}
+        init = os.path.join(tmp, "group")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phase14-rank",
+             init, str(r), tmp], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(P14_RANKS)]
+        try:
+            logs = [p.communicate(timeout=P14_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        out["ranks_s"] = time.perf_counter() - t0
+        for r, text in enumerate(logs):
+            if procs[r].returncode:
+                for line in text.splitlines()[-60:]:
+                    log(f"[sp/pp rank {r}] {line}")
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"phase 14 ranks failed: "
+                               f"{[p.returncode for p in procs]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(P14_RANKS)]
+    out["group"] = ranks[0]["group"]
+    out["gloo_all_to_all"] = [r["gloo_all_to_all"] for r in ranks]
+    problems = []
+    for name, spec in cases.items():
+        ref = one[spec.ref]
+        rec, bad = _p13_check(name, spec.case, ranks, ref)
+        rec["ref"] = spec.ref
+        rec["wall_s"] = [r[name]["wall_s"] for r in ranks]
+        rec["expected"] = _p14_expected(name, spec, ref["launches"],
+                                        *ref["pools"])
+        for r, rank in enumerate(ranks):
+            if rank[name]["launches"] != rec["expected"]:
+                bad.append(f"{name} rank {r} launches "
+                           f"{rank[name]['launches']} != the code's "
+                           f"{rec['expected']}")
+        if "scores" in ref:
+            rec["score_rows"] = len(ref["scores"])
+            scale = float(ref["scores"].abs().max())
+            rec["score_err"] = max(
+                float((r[name]["scores"] - ref["scores"]).abs().max())
+                / scale for r in ranks)
+            rec["score_launches"] = [r[name]["score_launches"]
+                                     for r in ranks]
+            rec["score_launches_one"] = ref["score_launches"]
+            tol = F32_TOL if spec.case.dtype == "f32" else BF16_REL_TOL
+            if not rec["score_err"] <= tol:
+                bad.append(f"{name} scores {rec['score_err']:.3e} > {tol}")
+        out[name] = rec
+        problems += bad
+    # the Llama slice: each rank's output and LoRA gradients
+    one_sl = one["llama slice"]
+    sl = {"one_launches": one_sl["launches"],
+          "launches": [r["llama slice"]["launches"] for r in ranks],
+          "wall_s": [r["llama slice"]["wall_s"] for r in ranks]}
+    M = 2 * 2
+    per = P14_LLAMA["layers"] // 2
+    sl["expected"] = {"packed_attention": M * per,
+                      "packed_attention_backward": M * per}
+    errs = [_p14_slice_errs(r["llama slice"], one_sl) for r in ranks]
+    sl["y_err"] = max(e["y"] for e in errs)
+    sl["grads_err"], sl["grads_worst"] = _p13_worst(
+        {k: max(e[k] for e in errs) for k in errs[0] if k != "y"})
+    sl["lora_tensors"] = len(one_sl["grads"])
+    out["llama slice"] = sl
+    for r, c in enumerate(sl["launches"]):
+        for k, v in sl["expected"].items():
+            if c[k] != v:
+                problems.append(f"llama slice rank {r} {k} {c[k]} != {v}")
+    if one_sl["launches"]["packed_attention"] != P14_LLAMA["layers"]:
+        problems.append("llama slice: one process's attention launches")
+    for key in ("y_err", "grads_err"):
+        if not sl[key] <= BF16_REL_TOL:
+            problems.append(f"llama slice {key} {sl[key]:.3e}")
+    if problems:
+        raise RuntimeError(f"phase 14 failed ({problems}): "
+                           f"{json.dumps(out, default=str)[:6000]}")
+    for name in cases:
+        r = out[name]
+        tag = "[pp]" if "pp" in r["mesh"] else "[sp]"
+        extra = (f"; {r['score_rows']} test rows' scores err "
+                 f"{r['score_err']:.2e}, pool launches rank 0 "
+                 f"{r['score_launches'][0]['additive_pool']} vs one process "
+                 f"{r['score_launches_one']['additive_pool']}"
+                 if "score_err" in r else "")
+        log(f"{tag} {name} ({r['mesh']}, {r['dtype']}): step "
+            f"{r['ranks'][0]['step_ms']} ms vs one process "
+            f"{r['one']['step_ms']} ms, train + dev "
+            f"{r['ranks'][0]['s']:.2f} s vs {r['one']['s']:.2f} s; grads / "
+            f"update / loss / dev err {r['grads_err']:.2e} / "
+            f"{r['update_err']:.2e} (of lr; {r['update_left_out']:.2%} "
+            f"left out) / {r['loss_err']:.2e} / {r['dev_err']:.2e}{extra}; "
+            f"launches rank 0 {r['ranks'][0]['launches']}, rank 1 "
+            f"{r['ranks'][1]['launches']} (the code's {r['expected']}), one "
+            f"process {r['one']['launches']} ({card}; two ranks share the "
+            f"card over gloo: no multi-card speed)")
+    sl = out["llama slice"]
+    log(f"[pp] Llama-7B-width slice ({P14_LLAMA}) at pp 2: output err "
+        f"{sl['y_err']:.2e}, LoRA grads err {sl['grads_err']:.2e} "
+        f"(worst {sl['grads_worst']}) against one process; attention "
+        f"launches a rank {sl['launches']} (the code's {sl['expected']}), "
+        f"one process {sl['one_launches']}; gloo's all-to-all of CUDA "
+        f"tensors, direct: {out['gloo_all_to_all']}; data "
+        f"{out['data_s']:.2f} s, one "
+        f"process {out['one_process_s']:.2f} s, the ranks "
+        f"{out['ranks_s']:.2f} s ({card})")
+    log(f"[pp] {json.dumps(out, default=str)}")
+    return {"phase14": out}
 
 
 def _kernel_line(R: dict) -> list:
@@ -4980,11 +5410,27 @@ def _kernel_line(R: dict) -> list:
         phase13_runs[f"{name} (one process)"] = rec["one"]["launches"]
         for r, rank in enumerate(rec["ranks"]):
             phase13_runs[f"{name} (rank {r} of 2, gloo)"] = rank["launches"]
+    phase14_runs = {}
+    p14 = R.get("phase14") or {}
+    for name, rec in p14.items():
+        if not isinstance(rec, dict) or "ranks" not in rec:
+            continue
+        phase14_runs[f"{name} (one process)"] = rec["one"]["launches"]
+        for r, rank in enumerate(rec["ranks"]):
+            phase14_runs[f"{name} (rank {r} of 2, gloo)"] = rank["launches"]
+        for r, c in enumerate(rec.get("score_launches", [])):
+            phase14_runs[f"{name} test pages (rank {r})"] = c
+    if "llama slice" in p14:
+        sl = p14["llama slice"]
+        phase14_runs["llama slice (one process)"] = sl["one_launches"]
+        for r, c in enumerate(sl["launches"]):
+            phase14_runs[f"llama slice pp 2 (rank {r})"] = c
     runs.update(decoder_runs)
     runs.update(phase10_runs)
     runs.update(phase11_runs)
     runs.update(phase12_runs)
     runs.update(phase13_runs)
+    runs.update(phase14_runs)
 
     def by_path(key):
         return {p: c.get(key, 0) for p, c in runs.items()}
@@ -5055,6 +5501,8 @@ def _kernel_line(R: dict) -> list:
                               for p, c in phase12_runs.items()},
             phase13_launches={p: c.get("additive_pool", 0)
                               for p, c in phase13_runs.items()},
+            phase14_launches={p: c.get("additive_pool", 0)
+                              for p, c in phase14_runs.items()},
             checks=pool_all))
     sdpa = "torch.nn.functional.scaled_dot_product_attention"
     train = R.get("train_checks", [])
@@ -5129,6 +5577,8 @@ def _kernel_line(R: dict) -> list:
                               for p, c in phase12_runs.items()},
             phase13_launches={p: c.get("packed_attention", 0)
                               for p, c in phase13_runs.items()},
+            phase14_launches={p: c.get("packed_attention", 0)
+                              for p, c in phase14_runs.items()},
             checks=R.get("attn_checks", [])))
         decoder_launches = {p: c["packed_attention_backward"]
                             for p, c in decoder_runs.items()}
@@ -5158,6 +5608,8 @@ def _kernel_line(R: dict) -> list:
                               for p, c in phase12_runs.items()},
             phase13_launches={p: c.get("packed_attention_backward", 0)
                               for p, c in phase13_runs.items()},
+            phase14_launches={p: c.get("packed_attention_backward", 0)
+                              for p, c in phase14_runs.items()},
             f32_dh128_edges=R.get("f32_edges", []),
             checks=train))
     if tr is not None:
@@ -5178,6 +5630,8 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--phase13-rank"]:
         return p13_rank(argv[1:])
+    if argv[:1] == ["--phase14-rank"]:
+        return p14_rank(argv[1:])
     phases = parse_phases(argv)
     try:
         import torch
@@ -5249,6 +5703,9 @@ def main(argv=None) -> int:
     if 13 in phases:
         with phase_timer(13, PHASES[13]):
             R.update(run_phase13(device, card))
+    if 14 in phases:
+        with phase_timer(14, PHASES[14]):
+            R.update(run_phase14(device, card))
 
     kernels = _kernel_line(R)
     total = time.perf_counter() - t_run

@@ -3,11 +3,16 @@ FrozenableLayerNorm, the CTR building blocks (StatelessBatchNorm, Dice,
 get_activation, MLPLayer, LRLayer), dropout, dense and flax-equivalent
 initialisers.
 
-AdditiveAttention mirrors the JAX package's models/common.py:16-66 without
-its sequence-parallel branch. Parameters keep the JAX names and layouts:
-proj_kernel (D, H), proj_bias (H,), query (H, 1). MultiHeadSelfAttention
-is the local path of JAX common.py:69-168 (plain einsums there too, no
-Pallas kernel); its submodules keep flax's names.
+AdditiveAttention mirrors the JAX package's models/common.py:16-66.
+Parameters keep the JAX names and layouts: proj_kernel (D, H), proj_bias
+(H,), query (H, 1). MultiHeadSelfAttention is JAX common.py:69-168 (plain
+einsums there too, no Pallas kernel); its submodules keep flax's names.
+Both take `sequence_parallel`: under an ambient sp mesh
+(parallel/mesh.sequence_parallel) their input is this sp rank's positions
+of a sequence sharded over sp (the operator shards it,
+parallel/mesh.scatter_seq) and they run JAX's sequence-parallel branches
+(ops/sp_additive.py; ops/sp_attention.py or ops/ring_attention.py by
+`sp_impl`) with the local path's parameters.
 
 The CTR blocks are JAX common.py:171-266 (plain Dense layers and jnp
 there too). They keep flax's rounding points at bf16: a Dense casts its
@@ -30,10 +35,12 @@ from torch.nn import functional as F
 
 from legommenders_tpu_torch.ops.additive import additive_pool
 from legommenders_tpu_torch.ops.core import masked_softmax
-from legommenders_tpu_torch.parallel.mesh import global_var_mean, split_mesh
-
-SEQUENCE_PARALLEL = ("sequence_parallel is a multi-device path, not ported "
-                     "yet (ROADMAP.md, queue 1, item 8)")
+from legommenders_tpu_torch.ops.ring_attention import ring_attention
+from legommenders_tpu_torch.ops.sp_additive import sp_additive_attention
+from legommenders_tpu_torch.ops.sp_attention import ulysses_attention
+from legommenders_tpu_torch.parallel.mesh import (
+    get_sp_mesh, global_var_mean, split_mesh,
+)
 
 # flax's lecun_normal draws from a normal truncated at two standard
 # deviations, rescaled so that the variance stays 1 / fan_in
@@ -116,6 +123,29 @@ def dropout(x: torch.Tensor, p: float,
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def seq_dropout(x: torch.Tensor, p: float, rng: Optional[torch.Generator],
+                sp=None) -> torch.Tensor:
+    """`dropout` of this sp rank's positions (dim 1) of a sequence sharded
+    over the axis `sp`: the whole sequence's noise is drawn and the rank's
+    positions kept, so that every sp width draws what one process draws
+    (None: `dropout`)."""
+    if sp is None or rng is None or p <= 0.0:
+        return dropout(x, p, rng)
+    B, l = x.shape[:2]
+    full = (B, l * sp.size) + tuple(x.shape[2:])
+    keep = (torch.rand(full, generator=rng, device=x.device)
+            .narrow(1, sp.index * l, l) < 1.0 - p)
+    return torch.where(keep, x / (1.0 - p),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def sp_axis(sequence_parallel: bool):
+    """The ambient sp mesh's sp axis when `sequence_parallel` is asked
+    and such a mesh is active; else None (the local path)."""
+    mesh = get_sp_mesh() if sequence_parallel else None
+    return None if mesh is None else mesh.sp_axis
+
+
 def cached_casts(module: nn.Module, params, make):
     """`make()`, the compute-dtype copies of `params`, made once per state
     of the parameters while no gradient can reach them (grad off, or every
@@ -154,9 +184,11 @@ class AdditiveAttention(nn.Module):
     CUDA kernel on the card and the plain version on the CPU."""
 
     def __init__(self, input_dim: int, hidden_size: int = 256,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 sequence_parallel: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.sequence_parallel = sequence_parallel
         self.proj_kernel = nn.Parameter(torch.empty(input_dim, hidden_size))
         self.proj_bias = nn.Parameter(torch.zeros(hidden_size))
         self.query = nn.Parameter(torch.empty(hidden_size, 1))
@@ -186,6 +218,17 @@ class AdditiveAttention(nn.Module):
             m = torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
         else:
             m = mask.reshape(-1, L).float()
+        axis = sp_axis(self.sequence_parallel)
+        if axis is not None:
+            # JAX common.py:46-61: the scores in the compute dtype, the
+            # two-psum pool (the fused pool is bypassed)
+            dt = self.dtype
+            xx = x.to(dt)
+            scores = torch.tanh(xx @ self.proj_kernel.to(dt)
+                                + self.proj_bias.to(dt))
+            scores = scores @ self.query[:, 0].to(dt)
+            out = sp_additive_attention(xx, scores, m, axis)
+            return out.reshape(*lead, D)
         out = additive_pool(x.to(self.dtype).contiguous(), m,
                             *self.pool_weights())
         return out.reshape(*lead, D)
@@ -213,8 +256,11 @@ class FrozenableLayerNorm(nn.Module):
             self.weight.fill_(1.0)
             self.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.bf16_apply and self.dtype != torch.float32:
+    def forward(self, x: torch.Tensor,
+                bf16_apply: Optional[bool] = None) -> torch.Tensor:
+        """`bf16_apply`: this call's, in place of the module's."""
+        bf16 = self.bf16_apply if bf16_apply is None else bf16_apply
+        if bf16 and self.dtype != torch.float32:
             var, mean = torch.var_mean(x.float(), dim=-1, keepdim=True,
                                        correction=0)
             inv = torch.rsqrt(var + self.epsilon).to(self.dtype)
@@ -240,11 +286,12 @@ class MultiHeadSelfAttention(nn.Module):
                  use_residual: bool = False, use_scale: bool = True,
                  layer_norm: bool = False, relu_out: bool = False,
                  out_proj: bool = True, sequence_parallel: bool = False,
+                 sp_impl: str = "ulysses",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if sequence_parallel:
-            raise NotImplementedError(
-                f"MultiHeadSelfAttention: {SEQUENCE_PARALLEL}")
+        if sp_impl not in ("ulysses", "ring"):
+            raise ValueError(f"sp_impl {sp_impl!r}: 'ulysses' or 'ring'")
+        self.sequence_parallel, self.sp_impl = sequence_parallel, sp_impl
         D = attention_dim or input_dim
         if D % num_heads:
             raise ValueError(f"attention_dim {D} % heads {num_heads} != 0")
@@ -271,6 +318,35 @@ class MultiHeadSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        axis = sp_axis(self.sequence_parallel and x.dim() == 3)
+        if axis is not None:
+            out = self._sequence_parallel(x, mask, axis)
+        else:
+            out = self._local(x, mask, rng)
+        if self.out is not None:
+            out = dense(self.out, out, self.dtype)
+        if self.use_residual:
+            out = out + (x if self.res is None
+                         else dense(self.res, x, self.dtype))
+        if self.LayerNorm_0 is not None:
+            out = self.LayerNorm_0(out)
+        if self.relu_out:
+            out = torch.relu(out)
+        return out
+
+    def _sequence_parallel(self, x, mask, axis) -> torch.Tensor:
+        """JAX common.py:107-137: this rank's positions through Ulysses or
+        ring attention (scaled, no attention dropout)."""
+        assert self.use_scale and self.dropout == 0.0, \
+            "sp path: scaled attention, no attention dropout"
+        q, k, v = (dense(layer, x, self.dtype)
+                   for layer in (self.q, self.k, self.v))
+        m = (mask if mask is not None else
+             torch.ones(x.shape[:2], dtype=torch.int32, device=x.device))
+        impl = ring_attention if self.sp_impl == "ring" else ulysses_attention
+        return impl(q, k, v, m, axis, num_heads=self.num_heads)
+
+    def _local(self, x, mask, rng) -> torch.Tensor:
         H, D = self.num_heads, self.dim
         d = D // H
         lead = x.shape[:-1]
@@ -287,17 +363,8 @@ class MultiHeadSelfAttention(nn.Module):
         else:
             attn = torch.softmax(scores, dim=-1)
         attn = dropout(attn, self.dropout, rng)
-        out = torch.einsum("...hqk,...khd->...qhd", attn, v).reshape(*lead, D)
-        if self.out is not None:
-            out = dense(self.out, out, self.dtype)
-        if self.use_residual:
-            out = out + (x if self.res is None
-                         else dense(self.res, x, self.dtype))
-        if self.LayerNorm_0 is not None:
-            out = self.LayerNorm_0(out)
-        if self.relu_out:
-            out = torch.relu(out)
-        return out
+        return torch.einsum("...hqk,...khd->...qhd", attn, v).reshape(
+            *lead, D)
 
 
 class StatelessBatchNorm(nn.Module):

@@ -53,6 +53,7 @@ for each column whose runtime tensor is the one its plan was built from
 training forward (a dropout generator given) whose batch has `user_id`.
 Neither changes a forward's values; neither applies to a paged encode.
 """
+import contextlib
 import functools
 import logging
 from typing import Dict, Optional
@@ -61,6 +62,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+    set_checkpoint_early_stop,
 )
 
 from legommenders_tpu_torch.models.embedding import (
@@ -74,6 +76,7 @@ from legommenders_tpu_torch.models.operators.lm_ops import (
 )
 from legommenders_tpu_torch.models.predictors.base import BasePredictor
 from legommenders_tpu_torch.ops import catalog_grad
+from legommenders_tpu_torch.parallel.mesh import get_pp_mesh
 
 REMAT_POLICIES = ("full", "none", "dots", "ffn")
 _aten = torch.ops.aten
@@ -228,12 +231,17 @@ class Legommender(nn.Module):
         remat = policy != "none" and torch.is_grad_enabled()
         kw = ({"context_fn": PAGE_CONTEXTS[policy]}
               if policy in PAGE_CONTEXTS else {})
+        # a staged LM's recompute makes the pp transfers again: every
+        # stage must run it whole, in the same order
+        staged = get_pp_mesh() is not None
         outs = []
         for page, seed in enumerate(seeds):
             fn = functools.partial(self._encode_page, flat, M, P, page, seed)
-            outs.append(checkpoint(fn, use_reentrant=False,
-                                   preserve_rng_state=False, **kw)
-                        if remat else fn())
+            with (set_checkpoint_early_stop(False) if staged
+                  else contextlib.nullcontext()):
+                outs.append(checkpoint(fn, use_reentrant=False,
+                                       preserve_rng_state=False, **kw)
+                            if remat else fn())
         return torch.cat(outs)[:M]
 
     def encode_item_page(self, contents: Dict[str, torch.Tensor]

@@ -31,8 +31,21 @@ where JAX applies stop_gradient); the LoRA factors (q and v) stay
 trainable, their gradient flowing through the fold. Every dropout site
 (hidden, attention probabilities, LoRA input, embedding stage) and the
 attention kernel's seed draw from the explicit generator `rng` handed to
-`forward`; `rng=None` is eval mode. `pipeline_stages` raises
-NotImplementedError (a multi-device path).
+`forward`; `rng=None` is eval mode.
+
+Pipeline parallelism (JAX `_pipelined_stack`, layers.py:262-327). A slice
+with `pipeline_stages` > 1 under an ambient pp mesh
+(parallel/mesh.pipeline_parallel) runs its layer stack through GPipe
+stages (parallel/pipeline.gpipe): `num_layers / stages` consecutive layers
+a stage, stage i on pp rank i, M = `pipeline_microbatches` (0: 2 x
+stages) microbatches, the rows padded to a multiple of M x dp and cut
+after; the dispatch comes before attention packing (none under pp, as in
+JAX) and each stage runs its layers, the attention kernels included, on
+each microbatch. Dropout draws from a generator per microbatch and layer,
+seeded from M draws of `rng` (JAX keys them per microbatch and layer too:
+they differ from the serial stack's draws by construction). The staged
+layers' gradients are each pp rank's own stage's (`pp_partial_parameters`:
+summed over pp by the step). `collect_pooled` (IISAN) refuses it.
 
 The FFN's second dense layer of every layer (BERT `ffn_output`, Llama
 `down_proj`, OPT `fc2`; `LoRADense(ffn_out=True)`) runs through
@@ -81,11 +94,74 @@ from legommenders_tpu_torch.models.common import (  # noqa: F401
 from legommenders_tpu_torch.models.lm.remat import ffn_out
 from legommenders_tpu_torch.ops.attention import MAX_T, packed_attention
 from legommenders_tpu_torch.parallel.mesh import (
-    copy_to_mp, reduce_from_mp, shard_slice,
+    copy_to_mp, get_pp_mesh, reduce_from_mp, shard_slice,
 )
+from legommenders_tpu_torch.parallel.pipeline import gpipe
 
-PIPELINE_STAGES = ("pipeline_stages is a multi-device path, not ported yet "
-                   "(ROADMAP.md, queue 1, item 8)")
+
+class _Staged:
+    """What the three slices share for `pipeline_stages`."""
+
+    def _set_stages(self, pipeline_stages: int,
+                    pipeline_microbatches: int):
+        self.pipeline_stages = int(pipeline_stages or 0)
+        self.pipeline_microbatches = int(pipeline_microbatches or 0)
+
+    def _pp_mesh(self):
+        """The ambient pp mesh when this slice stages its layers."""
+        return get_pp_mesh() if self.pipeline_stages > 1 else None
+
+    def pp_partial_parameters(self):
+        """The staged layers' parameters: a pp rank computes only its
+        stage's gradients."""
+        if self.pipeline_stages <= 1:
+            return []
+        return [p for layer in self.layers() for p in layer.parameters()]
+
+    def _pipelined(self, x: torch.Tensor, mask_bias: torch.Tensor,
+                   rng: Optional[torch.Generator], mesh,
+                   run_layer) -> torch.Tensor:
+        """The layer stack over x (B, L, D) through GPipe stages over the
+        mesh's pp axis (JAX layers.py:262-327); run_layer(layer, h, bias,
+        generator) runs one layer."""
+        if self.collect_pooled:
+            raise ValueError("IISAN pooled collection is not supported "
+                             "under pipeline_stages")
+        axis = mesh.pp_axis
+        stages = self.pipeline_stages
+        if self.num_layers % stages:
+            raise ValueError(f"num_layers {self.num_layers} % "
+                             f"pipeline_stages {stages} != 0")
+        if axis.size != stages:
+            raise ValueError(f"pipeline_stages {stages} != mesh pp "
+                             f"{axis.size}")
+        per = self.num_layers // stages
+        mine = self.layers()[axis.index * per:(axis.index + 1) * per]
+        first = self.start + axis.index * per
+        M = self.pipeline_microbatches or 2 * stages
+        B = x.shape[0]
+        pad = (-B) % (M * mesh.dp)
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+            mask_bias = torch.cat(
+                [mask_bias, mask_bias.new_zeros((pad,) + mask_bias.shape[1:])])
+        seeds = None
+        if rng is not None:
+            seeds = torch.randint(0, 2 ** 62, (M,), generator=rng,
+                                  device=rng.device).tolist()
+
+        def stage(m, h, bias):
+            for j, layer in enumerate(mine):
+                g = None
+                if seeds is not None:
+                    g = torch.Generator(device=h.device)
+                    g.manual_seed((seeds[m] + 1_000_003 * (first + j))
+                                  % 2 ** 63)
+                h = run_layer(layer, h, bias, g)
+            return h
+
+        return gpipe(stage, x, axis, M, extras=(mask_bias,),
+                     rows=mesh.dp_axis)[:B]
 
 
 class LoRADense(nn.Module):
@@ -488,7 +564,7 @@ class BertLayer(nn.Module):
         return self.output_norm(x + out)
 
 
-class BertEncoderSlice(nn.Module):
+class BertEncoderSlice(_Staged, nn.Module):
     """Layers [start, start + num_layers) of a BERT encoder over hidden
     states (B, L, dim) with mask (B, L). With start 0 and `embed` the
     embedding stage runs first, over the inputer's word embeddings.
@@ -505,14 +581,14 @@ class BertEncoderSlice(nn.Module):
                  attention_pack: int = 0, fused_attention: bool = False,
                  fused_qkv: bool = False, lora_fold: bool = False,
                  norm_bf16: bool = False, dropout_reuse: bool = False,
-                 pipeline_stages: int = 0, collect_pooled: bool = False,
+                 pipeline_stages: int = 0, pipeline_microbatches: int = 0,
+                 collect_pooled: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if pipeline_stages > 1:
-            raise NotImplementedError(PIPELINE_STAGES)
         self.collect_pooled = collect_pooled
         self.num_layers = num_layers
         self.start = start
+        self._set_stages(pipeline_stages, pipeline_microbatches)
         self.embed = embed and start == 0
         self.dropout = dropout
         self.attention_pack = attention_pack
@@ -561,6 +637,10 @@ class BertEncoderSlice(nn.Module):
                      + self.token_type_embeddings[None])
             x = self.embeddings_norm(x + extra)
             x = dropout(x, self.dropout, rng)
+        mesh = self._pp_mesh()
+        if mesh is not None:
+            return self._pipelined(x, mask_bias, rng, mesh,
+                                   lambda layer, h, b, g: layer(h, b, g))
         G = (pack_group_size(L, self.attention_pack)
              if self.attention_pack else 1)
         if G > 1:
@@ -600,9 +680,12 @@ class RMSNorm(nn.Module):
         with torch.no_grad():
             self.weight.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                bf16_apply: Optional[bool] = None) -> torch.Tensor:
+        """`bf16_apply`: this call's, in place of the module's."""
+        bf16 = self.bf16_apply if bf16_apply is None else bf16_apply
         var = x.float().pow(2).mean(dim=-1, keepdim=True)
-        if self.bf16_apply and self.dtype != torch.float32:
+        if bf16 and self.dtype != torch.float32:
             inv = torch.rsqrt(var + self.eps).to(self.dtype)
             return x.to(self.dtype) * inv * self.weight.to(self.dtype)
         return (x * torch.rsqrt(var + self.eps)).to(self.dtype) * self.weight
@@ -801,14 +884,12 @@ def causal_mask_bias(mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
                                   device=mask.device))
 
 
-class _DecoderSlice(nn.Module):
+class _DecoderSlice(_Staged, nn.Module):
     """What the two decoder slices share: the causal bias, packing (the
     causal block-diagonal bias; positions restart per item), the layer
-    loop, unpacking and `final_norm`."""
-
-    def _check_knobs(self, pipeline_stages):
-        if pipeline_stages > 1:
-            raise NotImplementedError(PIPELINE_STAGES)
+    loop, unpacking and `final_norm`; under pp the staged stack, before
+    packing, then `final_norm` (JAX applies OPT's with `norm_bf16` there,
+    layers.py:1046-1050)."""
 
     def layers(self):
         return [getattr(self, f"layer_{i}")
@@ -822,6 +903,14 @@ class _DecoderSlice(nn.Module):
     def _run(self, x: torch.Tensor, mask: torch.Tensor,
              rng: Optional[torch.Generator]) -> torch.Tensor:
         B, L, D = x.shape
+        mesh = self._pp_mesh()
+        if mesh is not None:
+            x = self._pipelined(
+                x, causal_mask_bias(mask, self.dtype), rng, mesh,
+                lambda layer, h, b, g: self._layer(layer, h, b, 0, g))
+            if self.final_norm is not None:
+                x = self.final_norm(x, self.norm_bf16)
+            return x
         G = (pack_group_size(L, self.attention_pack)
              if self.attention_pack else 1)
         if G > 1:
@@ -859,14 +948,16 @@ class LlamaDecoderSlice(_DecoderSlice):
                  rotary_interleaved: bool = False, attention_pack: int = 0,
                  lora_fold: bool = False, norm_bf16: bool = False,
                  fused_attention: bool = False, fused_qkv: bool = False,
-                 pipeline_stages: int = 0, collect_pooled: bool = False,
+                 pipeline_stages: int = 0, pipeline_microbatches: int = 0,
+                 collect_pooled: bool = False,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        self._check_knobs(pipeline_stages)
         self.collect_pooled = collect_pooled
         self.num_layers = num_layers
         self.start = start
+        self._set_stages(pipeline_stages, pipeline_microbatches)
         self.attention_pack = attention_pack
+        self.norm_bf16 = norm_bf16
         self.dtype = dtype
         for i in range(start, start + num_layers):
             self.add_module(f"layer_{i}", LlamaDecoderLayer(
@@ -1002,14 +1093,16 @@ class OPTDecoderSlice(_DecoderSlice):
                  attention_pack: int = 0, fused_attention: bool = False,
                  fused_qkv: bool = False, lora_fold: bool = False,
                  norm_bf16: bool = False, dropout_reuse: bool = False,
-                 pipeline_stages: int = 0, collect_pooled: bool = False,
+                 pipeline_stages: int = 0, pipeline_microbatches: int = 0,
+                 collect_pooled: bool = False,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        self._check_knobs(pipeline_stages)
         self.collect_pooled = collect_pooled
         self.num_layers = num_layers
         self.start = start
+        self._set_stages(pipeline_stages, pipeline_microbatches)
         self.attention_pack = attention_pack
+        self.norm_bf16 = norm_bf16
         self.dtype = dtype
         self.embed = embed_positions and start == 0
         if self.embed:

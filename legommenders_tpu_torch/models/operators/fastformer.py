@@ -14,6 +14,13 @@ two softmaxes as an additive -10000. Submodules keep flax's names:
 `proj`. Dtypes promote as in JAX: the -10000 bias is f32, so the softmaxes
 and the pooled query and key run in f32, the Linear layers in the compute
 dtype. Dropout draws from the forward's generator (None: eval).
+
+`sequence_parallel` (JAX fastformer.py:84-86, 113): only the pooler is
+sequence-parallel. Under an ambient sp mesh the mixing layers run over the
+whole sequence on every sp rank (the same draws as one process: their
+gradients are whole), and the pooler takes this rank's positions of their
+output through the two-psum pool; the pooler's gradient is then partial
+on each sp rank (`sp_partial_parameters`).
 """
 from typing import Optional
 
@@ -21,9 +28,11 @@ import torch
 from torch import nn
 
 from legommenders_tpu_torch.models.common import (
-    SEQUENCE_PARALLEL, AdditiveAttention, FrozenableLayerNorm, dense,
-    dropout, gelu, reset_linear,
+    AdditiveAttention, FrozenableLayerNorm, dense, dropout, gelu,
+    reset_linear, sp_axis,
 )
+from legommenders_tpu_torch.ops.sp_attention import check_sequence
+from legommenders_tpu_torch.parallel.mesh import scatter_seq
 from legommenders_tpu_torch.models.inputers.concat import ConcatInputer
 from legommenders_tpu_torch.models.operators.base import BaseOperator
 from legommenders_tpu_torch.utils.registry import OPERATORS
@@ -112,9 +121,7 @@ class FastformerOperator(BaseOperator):
                  sequence_parallel: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__(hidden_size, input_dim, dtype)
-        if sequence_parallel:
-            raise NotImplementedError(
-                f"FastformerOperator: {SEQUENCE_PARALLEL}")
+        self.sequence_parallel = sequence_parallel
         self.num_hidden_layers = int(num_hidden_layers)
         self.hidden_dropout_prob = hidden_dropout_prob
         self.position_embeddings = nn.Parameter(
@@ -123,7 +130,8 @@ class FastformerOperator(BaseOperator):
         for i in range(self.num_hidden_layers):
             self.add_module(f"layer_{i}", FastformerLayer(
                 input_dim, num_attention_heads, hidden_dropout_prob, dtype))
-        self.pooler = AdditiveAttention(input_dim, input_dim, dtype)
+        self.pooler = AdditiveAttention(input_dim, input_dim, dtype,
+                                        sequence_parallel)
         self.proj = nn.Linear(input_dim, hidden_size)
         self.reset_parameters()
 
@@ -153,4 +161,15 @@ class FastformerOperator(BaseOperator):
         x = dropout(x, self.hidden_dropout_prob, rng)
         for layer in self.layers():
             x = layer(x, neg_bias, rng)
+        sp = sp_axis(self.sequence_parallel)
+        if sp is not None:
+            check_sequence(L, sp)
+            x = scatter_seq(x, sp)
+            mask = mask.chunk(sp.size, dim=1)[sp.index]
         return dense(self.proj, self.pooler(x, mask), self.dtype)
+
+    def sp_partial_parameters(self):
+        """Under sp each rank's positions give part of the pooler's
+        gradient."""
+        return (list(self.pooler.parameters()) if self.sequence_parallel
+                else [])

@@ -68,7 +68,8 @@ class LMOperator(BaseOperator):
                  num_attention_heads: Optional[int] = None,
                  max_position: Optional[int] = None,
                  lm_dtype: Optional[torch.dtype] = None,
-                 pipeline_stages: int = 0, fused_attention: bool = False,
+                 pipeline_stages: int = 0, pipeline_microbatches: int = 0,
+                 fused_attention: bool = False,
                  fused_qkv: bool = False, lora_fold: bool = False,
                  norm_bf16: bool = False, dropout_reuse: bool = False,
                  gelu_approximate: bool = False, attention_pack: int = -1,
@@ -99,18 +100,23 @@ class LMOperator(BaseOperator):
                       attention_pack=attention_pack)
         self.build(common, lora_fold=lora_fold,
                    pipeline_stages=pipeline_stages,
+                   pipeline_microbatches=pipeline_microbatches,
                    dropout_reuse=dropout_reuse,
                    additive_hidden_size=additive_hidden_size)
         self.reset_parameters()
 
     def build(self, common: dict, lora_fold: bool, pipeline_stages: int,
-              dropout_reuse: bool, additive_hidden_size: int):
+              pipeline_microbatches: int, dropout_reuse: bool,
+              additive_hidden_size: int):
         """The slices and the head (JAX `setup`); `common`: the slices'
-        shared options."""
+        shared options. Only the trainable slice takes the pipeline knobs:
+        the lower slice runs once over the catalog, serial (JAX
+        lm_ops.py:120-135)."""
         start = self.resolved_tune_from
         self.lm = self.make_slice(
             start, self.num_hidden_layers - start, trainable=True,
             lora_fold=lora_fold, pipeline_stages=pipeline_stages,
+            pipeline_microbatches=pipeline_microbatches,
             dropout_reuse=dropout_reuse, **common,
             **self._lora_kwargs(trainable=True))
         if start > 0:

@@ -12,6 +12,16 @@ Submodules keep flax's names (`position_embeddings`, `LayerNorm_0`,
 `LayerNorm_1`}, `Dense_0`; the pool is `attention`, as the bridge names
 flax's `AdditiveAttention_0`). FlattenTransformerOperator (flatten mode)
 is in models/operators/flatten_ops.py.
+
+`sequence_parallel` (JAX transformer.py:34, 56-81): the layers' attention
+dropout is 0 (with or without an sp mesh, as in JAX), and under an
+ambient sp mesh the operator keeps this sp rank's positions of the
+sequence end to end (its L / sp positions of the embeddings, the mask and
+the position table): every layer's attention runs over the sp group
+(`sp_impl`: "ulysses" or "ring"), the hidden dropout draws the whole
+sequence's noise and keeps the rank's positions, and the pool is the
+two-psum pool. Every parameter's gradient is then partial on each sp rank
+(`sp_partial_parameters`: summed over sp by the step).
 """
 from typing import Optional
 
@@ -19,9 +29,11 @@ import torch
 from torch import nn
 
 from legommenders_tpu_torch.models.common import (
-    SEQUENCE_PARALLEL, AdditiveAttention, FrozenableLayerNorm,
-    MultiHeadSelfAttention, dense, dropout, gelu, reset_linear,
+    AdditiveAttention, FrozenableLayerNorm, MultiHeadSelfAttention, dense,
+    gelu, reset_linear, seq_dropout, sp_axis,
 )
+from legommenders_tpu_torch.ops.sp_attention import check_sequence
+from legommenders_tpu_torch.parallel.mesh import scatter_seq
 from legommenders_tpu_torch.models.inputers.concat import ConcatInputer
 from legommenders_tpu_torch.models.operators.base import BaseOperator
 from legommenders_tpu_torch.utils.registry import OPERATORS
@@ -31,11 +43,14 @@ class TransformerLayer(nn.Module):
 
     def __init__(self, dim: int, num_heads: int = 8,
                  intermediate_size: int = 256, dropout: float = 0.1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 sequence_parallel: bool = False, sp_impl: str = "ulysses"):
         super().__init__()
         self.dropout, self.dtype = dropout, dtype
-        self.attn = MultiHeadSelfAttention(dim, num_heads, dropout=dropout,
-                                           use_scale=True, dtype=dtype)
+        self.attn = MultiHeadSelfAttention(
+            dim, num_heads, dropout=0.0 if sequence_parallel else dropout,
+            use_scale=True, sequence_parallel=sequence_parallel,
+            sp_impl=sp_impl, dtype=dtype)
         self.LayerNorm_0 = FrozenableLayerNorm(dim, 1e-12, dtype=dtype)
         self.Dense_0 = nn.Linear(dim, intermediate_size)
         self.Dense_1 = nn.Linear(intermediate_size, dim)
@@ -49,11 +64,15 @@ class TransformerLayer(nn.Module):
         self.LayerNorm_1.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
-                rng: Optional[torch.Generator] = None) -> torch.Tensor:
-        attn = dropout(self.attn(x, mask, rng), self.dropout, rng)
+                rng: Optional[torch.Generator] = None,
+                sp=None) -> torch.Tensor:
+        """`sp`: the sp axis whose rank's positions x holds (None: the
+        whole sequence)."""
+        attn = seq_dropout(self.attn(x, mask, rng), self.dropout, rng, sp)
         x = self.LayerNorm_0(x + attn)
         ff = gelu(dense(self.Dense_0, x, self.dtype))
-        ff = dropout(dense(self.Dense_1, ff, self.dtype), self.dropout, rng)
+        ff = seq_dropout(dense(self.Dense_1, ff, self.dtype), self.dropout,
+                         rng, sp)
         return self.LayerNorm_1(x + ff)
 
 
@@ -68,9 +87,7 @@ class TransformerOperator(BaseOperator):
                  sequence_parallel: bool = False, sp_impl: str = "ulysses",
                  dtype: torch.dtype = torch.float32):
         super().__init__(hidden_size, input_dim, dtype)
-        if sequence_parallel:
-            raise NotImplementedError(
-                f"TransformerOperator: {SEQUENCE_PARALLEL}")
+        self.sequence_parallel = sequence_parallel
         self.num_hidden_layers = int(num_hidden_layers)
         self.position_embeddings = nn.Parameter(
             torch.empty(max_position_embeddings, input_dim))
@@ -78,9 +95,10 @@ class TransformerOperator(BaseOperator):
         for i in range(self.num_hidden_layers):
             self.add_module(f"layer_{i}", TransformerLayer(
                 input_dim, num_attention_heads, hidden_size * 4,
-                attention_dropout, dtype))
+                attention_dropout, dtype, sequence_parallel, sp_impl))
         self.Dense_0 = nn.Linear(input_dim, hidden_size)
-        self.attention = AdditiveAttention(hidden_size, hidden_size, dtype)
+        self.attention = AdditiveAttention(hidden_size, hidden_size, dtype,
+                                           sequence_parallel)
         self.reset_parameters()
 
     def layers(self):
@@ -103,8 +121,20 @@ class TransformerOperator(BaseOperator):
         if mask is None:
             mask = torch.ones(B, L, dtype=torch.int32,
                               device=embeddings.device)
-        x = embeddings.float() + self.position_embeddings[None, :L, :]
-        x = self.LayerNorm_0(x)
+        positions = self.position_embeddings[None, :L, :]
+        sp = sp_axis(self.sequence_parallel)
+        if sp is not None:
+            check_sequence(L, sp)
+            embeddings = scatter_seq(embeddings, sp)
+            mask = mask.chunk(sp.size, dim=1)[sp.index]
+            positions = positions.chunk(sp.size, dim=1)[sp.index]
+        x = self.LayerNorm_0(embeddings.float() + positions)
         for layer in self.layers():
-            x = layer(x, mask, rng)
+            x = layer(x, mask, rng, sp)
         return self.attention(dense(self.Dense_0, x, self.dtype), mask)
+
+    def sp_partial_parameters(self):
+        """Under sp each rank's positions give part of every parameter's
+        gradient."""
+        return list(self.parameters()) if self.sequence_parallel else []
+

@@ -1,11 +1,12 @@
-"""The experiment mesh over torch.distributed: the data-parallel and the
-model-parallel axes.
+"""The experiment mesh over torch.distributed: the data-parallel, the
+model-parallel, the sequence-parallel and the pipeline-parallel axes.
 
 The port of the JAX package's parallel/mesh.py (its `make_mesh`,
-`mesh_from_policy`, `initialize_multihost`, `shard_batch` and
-`params_shardings`). JAX lays a (dp, mp[, sp][, pp]) `jax.sharding.Mesh`
-over `jax.devices()`; the port runs one process per device in a process
-group, whose size plays the part of `jax.devices()`:
+`mesh_from_policy`, `initialize_multihost`, `shard_batch`,
+`params_shardings` and the ambient sp / pp meshes). JAX lays a
+(dp, mp[, sp][, pp]) `jax.sharding.Mesh` over `jax.devices()`; the port
+runs one process per device in a process group, whose size plays the part
+of `jax.devices()`:
 
   * `initialize_multihost` opens the group: NCCL on `cuda` (each process on
     `cuda:LOCAL_RANK`), gloo on the CPU, or the backend asked for (gloo on
@@ -15,14 +16,16 @@ group, whose size plays the part of `jax.devices()`:
     manual launch; a coordinator with a scheme (`file:///...`,
     `tcp://...`) is taken as the init method itself;
   * `mesh_from_policy` reads `exp.policy.mesh` as JAX does (`true`: every
-    process, pure dp; `mp`, `catalog_parallel`, `min_rows_to_shard`; dp
-    defaults to the rest) and checks it with JAX's messages. JAX reshapes
-    the devices to [dp, mp], so rank = dp_index * mp + mp_index. The mesh
-    holds two families of subgroups (`dist.new_group`, made once per
-    layout by every rank in one order): the mp group of each dp row and
-    the dp group of each mp column;
+    process, pure dp; `mp`, `sp`, `pp`, `catalog_parallel`,
+    `min_rows_to_shard`; dp defaults to the rest) and checks it with JAX's
+    messages. JAX reshapes the devices to [dp, mp, sp, pp] (sp and pp only
+    where above 1), so rank = ((dp_index * mp + mp_index) * sp + sp_index)
+    * pp + pp_index. The mesh holds one family of subgroups an axis
+    (`dist.new_group`, made once per layout by every rank in one order):
+    the ranks that differ only in that axis's index;
   * `shard_rows` is a batch's rows of this rank's dp index, in place of
-    `shard_batch` (the mp ranks of one dp row hold the same rows);
+    `shard_batch` (the mp, sp and pp ranks of one dp row hold the same
+    rows);
   * `split_batch(mesh)` marks a block whose batch rows are split over dp:
     `models/common.StatelessBatchNorm` then takes its statistics over the
     whole batch, by all-reduces over the dp group, as JAX's statistics
@@ -36,19 +39,33 @@ group, whose size plays the part of `jax.devices()`:
     place (the Parameter objects stay, so an optimizer built before keeps
     them, and Adam's moments, made at the first step, follow the slice:
     JAX's `place_opt_state`) and tells the modules their layout;
-  * `copy_to_mp` / `reduce_from_mp` are Megatron's f and g operators;
-    `reduce_gradients` is the (dp, mp) step's gradient reduction.
+  * `copy_to_mp` / `reduce_from_mp` are Megatron's f and g operators (over
+    any axis: sp's and pp's replicated results are g's too);
+    `scatter_seq`, `all_to_all`, `ring_shift` and `gather_grad` are
+    the sp and pp axes' differentiable transfers; `reduce_gradients` is
+    the step's gradient reduction: the partial gradients summed over mp,
+    sp and pp, then every gradient averaged over dp;
+  * `sequence_parallel` / `get_sp_mesh` / `set_sp_mesh` and
+    `pipeline_parallel` / `get_pp_mesh` / `set_pp_mesh` / `no_pipeline`
+    are JAX's ambient meshes: a `sequence_parallel` operator shards its
+    sequence under the first, a slice with `pipeline_stages` stages its
+    layers under the second (parallel/pipeline.py), and evaluation runs
+    the serial stack under `no_pipeline`.
 
-Collectives under gloo: all-reduce and broadcast take CUDA tensors; an
-all-gather of a CUDA tensor goes through host memory (`all_gather_rows`),
-and a reduce-scatter is an all-reduce and a slice (gloo has none). This is
+Collectives under gloo: all-reduce, broadcast and all-to-all take CUDA
+tensors (an all-to-all of CUDA tensors checked on the card: chip_smoke.py
+phase 14); an all-gather and a point-to-point send / receive of a CUDA
+tensor go through host memory (gloo's send takes a tensor's data pointer
+as host memory), and a reduce-scatter is an all-reduce and a slice (gloo
+has none). This is
 transport only: the model, the kernels and the optimizer stay on the
 card. A bf16 tensor is all-reduced in f32 under gloo.
 
-`sp`, `pp` and `pipeline_stages` are ROADMAP.md, queue 1, item 8 and
-raise.
+Two axes above 1 among mp, sp and pp at once, and sp with
+`catalog_parallel`, are ROADMAP.md, queue 1, item 8 and raise.
 """
 import contextlib
+import itertools
 import os
 import re
 from dataclasses import dataclass, field
@@ -60,9 +77,12 @@ import torch.distributed as dist
 
 DP_AXIS = "dp"
 MP_AXIS = "mp"
-NOT_PORTED = ("is a multi-device axis not ported yet (ROADMAP.md, queue 1, "
-              "item 8); the port runs exp.policy.mesh's dp and mp axes and "
-              "catalog_parallel")
+SP_AXIS = "sp"
+PP_AXIS = "pp"
+AXES = (DP_AXIS, MP_AXIS, SP_AXIS, PP_AXIS)
+NOT_PORTED = ("is a multi-device combination not ported yet (ROADMAP.md, "
+              "queue 1, item 8); the port runs each of exp.policy.mesh's "
+              "mp, sp and pp axes beside dp, one at a time")
 
 
 def world() -> tuple:
@@ -126,91 +146,153 @@ def process_device(device) -> torch.device:
 # --------------------------------------------------------------------- #
 # the mesh                                                              #
 # --------------------------------------------------------------------- #
-# (dp, mp) -> (this rank's dp group, its mp group): made once per layout
-_GROUPS: Dict[Tuple[int, int], tuple] = {}
+def _coords(rank: int, dims: Tuple[int, ...]) -> Tuple[int, ...]:
+    """The [dp, mp, sp, pp] indices of `rank` (JAX's reshape order)."""
+    out = []
+    for n in reversed(dims):
+        out.append(rank % n)
+        rank //= n
+    return tuple(reversed(out))
 
 
-def _subgroups(dp: int, mp: int) -> tuple:
-    """This rank's (dp group, mp group) of the [dp, mp] layout. A group
-    that is the whole world is None (the default group); every rank makes
-    every subgroup, in one order (dist.new_group is collective)."""
-    key = (dp, mp)
-    if key not in _GROUPS:
-        groups = [None, None]
-        if dp > 1 and mp > 1:
-            rank = dist.get_rank()
-            for d in range(dp):
-                ranks = [d * mp + m for m in range(mp)]
-                g = dist.new_group(ranks)
+def _rank_of(coords, dims) -> int:
+    r = 0
+    for c, n in zip(coords, dims):
+        r = r * n + c
+    return r
+
+
+# (dp, mp, sp, pp) -> {axis: (this rank's group, its global ranks)}: made
+# once per layout
+_GROUPS: Dict[Tuple[int, ...], Dict[str, tuple]] = {}
+
+
+def _subgroups(dims: Tuple[int, ...]) -> Dict[str, tuple]:
+    """This rank's group of every axis above 1 of the [dp, mp, sp, pp]
+    layout: the ranks that differ from it in that axis's index only. A
+    group that is the whole world is None (the default group); every rank
+    makes every subgroup, in one order (dist.new_group is collective)."""
+    if dims not in _GROUPS:
+        size = int(np.prod(dims))
+        rank = dist.get_rank()
+        groups = {}
+        for a, n in enumerate(dims):
+            if n == 1:
+                continue
+            if n == size:
+                groups[AXES[a]] = (None, tuple(range(size)))
+                continue
+            rest = [range(m) for i, m in enumerate(dims) if i != a]
+            for fixed in itertools.product(*rest):
+                ranks = tuple(_rank_of(fixed[:a] + (c,) + fixed[a:], dims)
+                              for c in range(n))
+                g = dist.new_group(list(ranks))
                 if rank in ranks:
-                    groups[1] = g
-            for m in range(mp):
-                ranks = [d * mp + m for d in range(dp)]
-                g = dist.new_group(ranks)
-                if rank in ranks:
-                    groups[0] = g
-        _GROUPS[key] = tuple(groups)
-    return _GROUPS[key]
+                    groups[AXES[a]] = (g, ranks)
+        _GROUPS[dims] = groups
+    return _GROUPS[dims]
 
 
 @dataclass(frozen=True)
 class Axis:
     """One axis of the mesh as this rank sees it: `size` ranks, this one at
-    `index`, their process group (None: the default group)."""
+    `index`, their process group (None: the default group) and their
+    global ranks in axis order (empty: 0 .. size - 1)."""
     size: int
     index: int
     group: object = field(default=None, compare=False, repr=False)
+    ranks: Tuple[int, ...] = field(default=(), compare=False, repr=False)
+
+    def global_rank(self, i: int) -> int:
+        """The global rank of the axis's member `i` (modulo its size)."""
+        i %= self.size
+        return self.ranks[i] if self.ranks else i
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """The (dp, mp) mesh: `dp * mp` processes, this one at `rank` =
-    dp_index * mp + mp_index; `catalog_parallel` routes the Trainer
-    through parallel/catalog.py; `min_rows_to_shard` is the table-sharding
+    """The [dp, mp, sp, pp] mesh: `dp * mp * sp * pp` processes, this one
+    at `rank` = ((dp_index * mp + mp_index) * sp + sp_index) * pp +
+    pp_index; `catalog_parallel` routes the Trainer through
+    parallel/catalog.py; `min_rows_to_shard` is the table-sharding
     threshold."""
     dp: int
     rank: int
     mp: int = 1
     catalog_parallel: bool = False
     min_rows_to_shard: int = 0
+    sp: int = 1
+    pp: int = 1
+
+    @property
+    def dims(self) -> Tuple[int, int, int, int]:
+        return self.dp, self.mp, self.sp, self.pp
 
     @property
     def shape(self) -> Dict[str, int]:
+        """dp, then every other axis above 1 (JAX's axis names)."""
         out = {DP_AXIS: self.dp}
-        if self.mp > 1:
-            out[MP_AXIS] = self.mp
+        for name, n in zip(AXES[1:], self.dims[1:]):
+            if n > 1:
+                out[name] = n
         return out
 
     @property
     def size(self) -> int:
-        return self.dp * self.mp
+        return int(np.prod(self.dims))
+
+    @property
+    def coords(self) -> Tuple[int, int, int, int]:
+        return _coords(self.rank, self.dims)
 
     @property
     def dp_index(self) -> int:
-        return self.rank // self.mp
+        return self.coords[0]
 
     @property
     def mp_index(self) -> int:
-        return self.rank % self.mp
+        return self.coords[1]
+
+    @property
+    def sp_index(self) -> int:
+        return self.coords[2]
+
+    @property
+    def pp_index(self) -> int:
+        return self.coords[3]
 
     @property
     def is_main(self) -> bool:
         return self.rank == 0
 
-    def _groups(self) -> tuple:
-        if not dist.is_initialized():
-            return None, None
-        return _subgroups(self.dp, self.mp)
+    def axis(self, name: str) -> Axis:
+        """This rank's group along axis `name`."""
+        a = AXES.index(name)
+        n, i = self.dims[a], self.coords[a]
+        if n == 1 or not dist.is_initialized():
+            return Axis(n, i)
+        group, ranks = _subgroups(self.dims)[name]
+        return Axis(n, i, group, ranks)
 
     @property
     def dp_axis(self) -> Axis:
-        """The dp group of this rank's mp column."""
-        return Axis(self.dp, self.dp_index, self._groups()[0])
+        """The dp group of this rank's (mp, sp, pp) column."""
+        return self.axis(DP_AXIS)
 
     @property
     def mp_axis(self) -> Axis:
         """The mp group of this rank's dp row."""
-        return Axis(self.mp, self.mp_index, self._groups()[1])
+        return self.axis(MP_AXIS)
+
+    @property
+    def sp_axis(self) -> Axis:
+        """The sp group of this rank's dp row."""
+        return self.axis(SP_AXIS)
+
+    @property
+    def pp_axis(self) -> Axis:
+        """The pp group of this rank's dp row."""
+        return self.axis(PP_AXIS)
 
     @property
     def catalog_axis(self) -> Axis:
@@ -221,50 +303,124 @@ class Mesh:
 
 def make_mesh(n_dp: Optional[int] = None, n_mp: int = 1,
               catalog_parallel: bool = False,
-              min_rows_to_shard: int = 0) -> Mesh:
-    """The (dp, mp) mesh over the process group (all of it by default),
-    its subgroups made."""
+              min_rows_to_shard: int = 0, n_sp: int = 1,
+              n_pp: int = 1) -> Mesh:
+    """The [dp, mp, sp, pp] mesh over the process group (all of it by
+    default), its subgroups made."""
     rank, size = world()
     if n_dp is None:
-        n_dp = size // n_mp
-    assert n_dp * n_mp == size, f"{n_dp}x{n_mp}x1x1 != {size} devices"
+        n_dp = size // (n_mp * n_sp * n_pp)
+    assert n_dp * n_mp * n_sp * n_pp == size, \
+        f"{n_dp}x{n_mp}x{n_sp}x{n_pp} != {size} devices"
     mesh = Mesh(int(n_dp), rank, int(n_mp), bool(catalog_parallel),
-                int(min_rows_to_shard or 0))
-    mesh._groups()
+                int(min_rows_to_shard or 0), int(n_sp), int(n_pp))
+    if dist.is_initialized():
+        _subgroups(mesh.dims)
     return mesh
 
 
 def mesh_from_policy(cfg) -> Mesh:
     """The experiment mesh from `exp.policy.mesh` (JAX mesh.py:163-205):
     `true` means every process, pure dp; a mapping may set `dp` (the
-    default: the rest of the group), `mp`, `catalog_parallel` and
-    `min_rows_to_shard`. `sp`, `pp` above 1 raise. The processes are the
-    group's (one without a group); a policy that wants more raises JAX's
-    ValueError, and one that leaves processes idle raises too (JAX would
-    use the first devices: a process group has no idle member)."""
+    default: the rest of the group), `mp`, `sp`, `pp`, `catalog_parallel`
+    and `min_rows_to_shard`. The processes are the group's (one without a
+    group); a policy that wants more raises JAX's ValueError, and one that
+    leaves processes idle raises too (JAX would use the first devices: a
+    process group has no idle member). Two of mp, sp and pp above 1, and
+    sp with catalog_parallel, raise NotImplementedError (item 8)."""
     if cfg is True:
         cfg = {}
     if not isinstance(cfg, dict):
         raise ValueError(f"exp.policy.mesh must be a mapping or true, "
                          f"got {cfg!r}")
-    for name in ("sp", "pp"):
-        if int(cfg.get(name) or 1) > 1:
-            raise NotImplementedError(
-                f"exp.policy.mesh: {name}={cfg[name]} {NOT_PORTED}")
     _, n = world()
     n_mp = int(cfg.get("mp") or 1)
-    n_dp = int(cfg.get("dp") or max(1, n // n_mp))
-    need = n_dp * n_mp
+    n_sp = int(cfg.get("sp") or 1)
+    n_pp = int(cfg.get("pp") or 1)
+    wide = [f"{k}={v}" for k, v in (("mp", n_mp), ("sp", n_sp),
+                                    ("pp", n_pp)) if v > 1]
+    if len(wide) > 1:
+        raise NotImplementedError(
+            f"exp.policy.mesh: {' with '.join(wide)} {NOT_PORTED}")
+    if n_sp > 1 and cfg.get("catalog_parallel"):
+        raise NotImplementedError(
+            f"exp.policy.mesh: sp={n_sp} with catalog_parallel "
+            f"{NOT_PORTED}")
+    n_dp = int(cfg.get("dp") or max(1, n // (n_mp * n_sp * n_pp)))
+    need = n_dp * n_mp * n_sp * n_pp
+    shape = f"{n_dp}x{n_mp}x{n_sp}x{n_pp}"
     if need > n:
         raise ValueError(
-            f"mesh policy wants {n_dp}x{n_mp}x1x1={need} devices, only {n} "
-            f"visible")
+            f"mesh policy wants {shape}={need} devices, only {n} visible")
     if need < n:
         raise ValueError(
-            f"mesh policy wants {n_dp}x{n_mp}x1x1={need} devices of a "
-            f"process group of {n}: launch {need} processes")
+            f"mesh policy wants {shape}={need} devices of a process group "
+            f"of {n}: launch {need} processes")
     return make_mesh(n_dp, n_mp, bool(cfg.get("catalog_parallel")),
-                     int(cfg.get("min_rows_to_shard") or 0))
+                     int(cfg.get("min_rows_to_shard") or 0), n_sp, n_pp)
+
+
+# --------------------------------------------------------------------- #
+# the ambient sp and pp meshes (JAX mesh.py:23-113)                     #
+# --------------------------------------------------------------------- #
+_SP_MESH: Optional[Mesh] = None
+_PP_MESH: Optional[Mesh] = None
+
+
+def get_sp_mesh() -> Optional[Mesh]:
+    return _SP_MESH
+
+
+def set_sp_mesh(mesh: Optional[Mesh]):
+    global _SP_MESH
+    _SP_MESH = mesh
+
+
+def get_pp_mesh() -> Optional[Mesh]:
+    return _PP_MESH
+
+
+def set_pp_mesh(mesh: Optional[Mesh]):
+    global _PP_MESH
+    _PP_MESH = mesh
+
+
+@contextlib.contextmanager
+def sequence_parallel(mesh: Mesh):
+    """Operators flagged `sequence_parallel` shard their sequence over the
+    mesh's sp axis inside the block."""
+    assert mesh.sp > 1, f"mesh {mesh.shape} lacks a '{SP_AXIS}' axis"
+    prev = get_sp_mesh()
+    set_sp_mesh(mesh)
+    try:
+        yield mesh
+    finally:
+        set_sp_mesh(prev)
+
+
+@contextlib.contextmanager
+def pipeline_parallel(mesh: Mesh):
+    """LM slices with `pipeline_stages` stage their layers over the mesh's
+    pp axis inside the block."""
+    assert mesh.pp > 1, f"mesh {mesh.shape} lacks a '{PP_AXIS}' axis"
+    prev = get_pp_mesh()
+    set_pp_mesh(mesh)
+    try:
+        yield mesh
+    finally:
+        set_pp_mesh(prev)
+
+
+@contextlib.contextmanager
+def no_pipeline():
+    """The serial layer stack inside the block (evaluation and the cache
+    builds: the same weights and math on every rank)."""
+    prev = get_pp_mesh()
+    set_pp_mesh(None)
+    try:
+        yield None
+    finally:
+        set_pp_mesh(prev)
 
 
 # --------------------------------------------------------------------- #
@@ -309,18 +465,10 @@ def all_reduce_(t: torch.Tensor, axis: Axis) -> torch.Tensor:
 def all_gather_rows(t: torch.Tensor, mesh: Mesh,
                     axis: Optional[Axis] = None) -> torch.Tensor:
     """Every rank's (k, ...) rows along `axis` (the dp axis by default),
-    in axis order: (size * k, ...). Every rank gives as many rows. Under
-    gloo a CUDA tensor goes through host memory (gloo has no CUDA
-    all-gather)."""
-    axis = axis or mesh.dp_axis
-    if axis.size == 1 or not dist.is_initialized():
+    in axis order: (size * k, ...). Every rank gives as many rows."""
+    if not dist.is_initialized():
         return t
-    src = t.contiguous()
-    if src.is_cuda and _gloo(axis.group):
-        src = src.cpu()
-    parts = [torch.empty_like(src) for _ in range(axis.size)]
-    dist.all_gather(parts, src, group=axis.group)
-    return torch.cat(parts).to(t.device)
+    return all_gather_dim(t, axis or mesh.dp_axis, 0)
 
 
 class _CopyToMP(torch.autograd.Function):
@@ -360,6 +508,133 @@ def reduce_from_mp(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
     return x if axis is None else _ReduceFromMP.apply(x, axis)
 
 
+def _via_host(t: torch.Tensor, axis: Axis) -> bool:
+    """Whether a gather or a send of `t` over `axis` goes through host
+    memory (gloo takes them on CPU tensors only: its send reads a tensor's
+    data pointer as host memory)."""
+    return t.is_cuda and _gloo(axis.group)
+
+
+def all_gather_dim(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """Every member's `t` (one shape on all) concatenated along `dim`, in
+    axis order."""
+    if axis.size == 1:
+        return t
+    src = t.contiguous()
+    if _via_host(src, axis):
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(axis.size)]
+    dist.all_gather(parts, src, group=axis.group)
+    return torch.cat(parts, dim=dim).to(t.device)
+
+
+def _all_to_all(t: torch.Tensor, axis: Axis, split: int,
+                cat: int) -> torch.Tensor:
+    """Chunk j of `t` along `split` to member j; the chunks received,
+    concatenated along `cat` in member order."""
+    send = torch.stack(t.chunk(axis.size, dim=split)).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=axis.group)
+    return torch.cat(recv.unbind(0), dim=cat)
+
+
+def _shift(t: torch.Tensor, axis: Axis, offset: int) -> torch.Tensor:
+    """Member i's `t` to member i + offset (modulo the size); returns what
+    member i - offset sent."""
+    src = t.contiguous()
+    if _via_host(src, axis):
+        src = src.cpu()
+    recv = torch.empty_like(src)
+    ops = [dist.P2POp(dist.isend, src,
+                      axis.global_rank(axis.index + offset), axis.group),
+           dist.P2POp(dist.irecv, recv,
+                      axis.global_rank(axis.index - offset), axis.group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return recv.to(t.device)
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """This member's chunk along `dim`; its backward gathers the chunks'
+    gradients (every member's result reaches the whole input)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return x.chunk(axis.size, dim=dim)[axis.index].contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather_dim(grad, ctx.axis, ctx.dim), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """An all-to-all (split along one dim, concatenated along another);
+    its backward is the inverse all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, axis, split, cat):
+        ctx.axis, ctx.split, ctx.cat = axis, split, cat
+        return _all_to_all(x, axis, split, cat)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_all_to_all(grad, ctx.axis, ctx.cat, ctx.split),
+                None, None, None)
+
+
+class _RingShift(torch.autograd.Function):
+    """Member i's tensor to member i + offset; the backward shifts the
+    gradients the other way."""
+
+    @staticmethod
+    def forward(ctx, x, axis, offset):
+        ctx.axis, ctx.offset = axis, offset
+        return _shift(x, axis, offset)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _shift(grad, ctx.axis, -ctx.offset), None, None
+
+
+class _GatherGrad(torch.autograd.Function):
+    """Every member's tensor concatenated along `dim`, in axis order; the
+    backward sums the gradients over the axis and keeps this member's part
+    (each member's loss reads every member's part)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.k = axis, dim, x.shape[dim]
+        return all_gather_dim(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = all_reduce_(grad.contiguous().clone(), ctx.axis)
+        return grad.narrow(ctx.dim, ctx.axis.index * ctx.k, ctx.k), None, None
+
+
+def scatter_seq(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """This sp member's positions of a replicated sequence (B, L, ...)."""
+    return _ScatterSeq.apply(x, axis, 1)
+
+
+def all_to_all(x: torch.Tensor, axis: Axis, split: int,
+               cat: int) -> torch.Tensor:
+    """Differentiable all-to-all over `axis` (JAX lax.all_to_all, tiled)."""
+    return _AllToAll.apply(x, axis, split, cat)
+
+
+def ring_shift(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Differentiable ring shift, member i's tensor to member i + 1 (JAX
+    lax.ppermute over i -> i + 1)."""
+    return _RingShift.apply(x, axis, 1)
+
+
+def gather_grad(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """Differentiable all-gather along `dim` over `axis`."""
+    return x if axis.size == 1 else _GatherGrad.apply(x, axis, dim)
+
+
 def _flat_reduce(grads: List[torch.Tensor], axis: Axis, scale: float):
     """Sum each dtype's grads over the axis in one flat buffer, then
     multiply by `scale`; in place."""
@@ -378,22 +653,35 @@ def _flat_reduce(grads: List[torch.Tensor], axis: Axis, scale: float):
 
 
 def reduce_gradients(params: List[torch.Tensor], loss: torch.Tensor,
-                     mesh: Mesh, partial: Tuple[torch.Tensor, ...] = (),
+                     mesh: Mesh, partial=(),
                      over: Optional[Axis] = None) -> torch.Tensor:
-    """The (dp, mp) step's reduction; returns the mean loss. First the
-    gradients in `partial` (replicated parameters inside a sharded
-    product: each mp rank holds part of their gradient) are summed over
-    the mp group; then every gradient and the loss are averaged over the
-    dp group (`over`: another axis, the catalog-parallel step's whole
+    """The step's reduction; returns the mean loss. First the gradients in
+    `partial` ({axis name: parameters}, `partial_params`'s; a sequence is
+    mp's) are summed over their axis: over mp the replicated parameters
+    inside sharded products, over sp a sequence-sharded operator's (each
+    rank's positions give part of it), over pp a staged slice's layers
+    (each rank computes its stage's; a layer without a gradient on this
+    rank takes zeros). Then every gradient and the loss are averaged over
+    the dp group (`over`: another axis, the catalog-parallel step's whole
     group), one all-reduce of one flat buffer a gradient dtype, the loss
     in the f32 one. A sharded parameter's gradient is averaged with the
     same shard's on the other dp ranks. A parameter without a gradient
     keeps none, as in one process. Nothing here waits for the device."""
     if not dist.is_initialized():
         return loss
-    live_partial = [p.grad for p in partial if p.grad is not None]
-    if live_partial and mesh.mp > 1:
-        _flat_reduce(live_partial, mesh.mp_axis, 1.0)
+    if not isinstance(partial, dict):
+        partial = {MP_AXIS: partial}
+    for name, ps in partial.items():
+        axis = mesh.axis(name)
+        if axis.size == 1:
+            continue
+        if name == PP_AXIS:
+            for p in ps:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        live = [p.grad for p in ps if p.grad is not None]
+        if live:
+            _flat_reduce(live, axis, 1.0)
     axis = over or mesh.dp_axis
     if axis.size == 1:
         return loss
@@ -597,13 +885,27 @@ def model_plan(model: torch.nn.Module) -> Optional[ShardPlan]:
     return plan if isinstance(plan, ShardPlan) and plan.n_mp > 1 else None
 
 
-def partial_params(model: torch.nn.Module) -> Tuple[torch.Tensor, ...]:
-    """The model's parameters whose gradient each mp rank holds part of."""
+def partial_params(model: torch.nn.Module
+                   ) -> Dict[str, Tuple[torch.Tensor, ...]]:
+    """The model's trainable parameters whose gradient each rank of an axis
+    holds part of, by axis: mp's (the plan's replicated parameters inside
+    sharded products), sp's (each module's `sp_partial_parameters()`: a
+    sequence-parallel operator's) and pp's (`pp_partial_parameters()`: a
+    staged slice's layers)."""
+    out = {}
     plan = model_plan(model)
-    if plan is None:
-        return ()
-    named = dict(model.named_parameters())
-    return tuple(named[n] for n in plan.partial if n in named)
+    if plan is not None:
+        named = dict(model.named_parameters())
+        out[MP_AXIS] = tuple(named[n] for n in plan.partial if n in named)
+    for name in (SP_AXIS, PP_AXIS):
+        found = []
+        for mod in model.modules():
+            hook = getattr(mod, f"{name}_partial_parameters", None)
+            if hook is not None:
+                found += [p for p in hook() if p.requires_grad]
+        if found:
+            out[name] = tuple(dict.fromkeys(found))
+    return out
 
 
 def shard_slice(full: torch.Tensor, dim: int, axis: Axis) -> torch.Tensor:

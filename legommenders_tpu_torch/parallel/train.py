@@ -1,4 +1,4 @@
-"""Training over the (dp, mp) mesh.
+"""Training over the [dp, mp, sp, pp] mesh.
 
 The port of the JAX package's parallel/train.py (`place_opt_state`,
 `make_sharded_train_step(_folded)`). JAX shards the batch rows over `dp`,
@@ -7,10 +7,13 @@ collectives; here every rank runs `runtime/steps`' forward and backward
 on its dp rows of the global batch (the mp ranks of one dp row on the
 same rows) over a model placed by `parallel/mesh.place_model` (its
 sharded parameters are this rank's slices, its TP layers, sharded tables
-and expert-sharded mixtures do their own collectives over mp). After the
-backward `mesh.reduce_gradients` sums the partial gradients of the
-replicated parameters inside sharded products over mp, then averages
-every gradient and the loss over dp, before the optimizer step; every
+and expert-sharded mixtures do their own collectives over mp; a
+sequence-parallel operator shards its sequence over sp; a staged LM slice
+runs its stage over pp). After the backward `mesh.reduce_gradients` sums
+the partial gradients over their axis (the replicated parameters inside
+sharded products over mp, a sequence-parallel operator's over sp, the
+staged layers' over pp), then averages every gradient and the loss over
+dp, before the optimizer step; every
 rank applies the same update to the same weights (a sharded parameter's
 to its slice). A sharded parameter is the local shard itself, so Adam's
 moments follow it (JAX's `place_opt_state`): no rank holds a moment of

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from legommenders_tpu_torch.data.token_store import UNSET
-from legommenders_tpu_torch.parallel.mesh import all_gather_rows
+from legommenders_tpu_torch.parallel.mesh import all_gather_rows, no_pipeline
 from legommenders_tpu_torch.utils.device import resolve_device
 
 
@@ -119,6 +119,7 @@ class ReprCache:
         self.user_repr = self._gather(outs, self.num_users)
         return self.user_repr
 
+    @no_pipeline()
     def cache(self):
         self.build_item_cache()
         self.build_user_cache()

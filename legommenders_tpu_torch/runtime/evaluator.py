@@ -22,13 +22,15 @@ otherwise one (n,) copy feeds the numpy pool.
 
 Under a mesh (JAX evaluator.py:32-50, 102-125, 196-203) each page of
 both device paths is padded to a multiple of dp, each dp rank scores its
-rows of it (the mp ranks of a dp row the same rows, together; a full
+rows of it (the mp, sp and pp ranks of a dp row the same rows, together:
+a sequence-parallel user operator shards them over sp; a full
 forward's batch statistics are the page's, `parallel.mesh.split_batch`)
 and the scores are gathered over dp, so every rank holds every score and
 computes the same metrics. The host-batched path runs every batch whole
-on each rank. Under catalog_parallel a layer-split LM's cache is held by
-rows: its full forwards have no whole cache to read and raise (the cached
-path serves it).
+on each rank. Evaluation runs the serial layer stack (`no_pipeline`,
+JAX evaluator.py:325-330). Under catalog_parallel a layer-split LM's
+cache is held by rows: its full forwards have no whole cache to read and
+raise (the cached path serves it).
 """
 from typing import Callable, Dict, Optional
 
@@ -41,7 +43,7 @@ from legommenders_tpu_torch.data.pipeline import (
 )
 from legommenders_tpu_torch.data.token_store import UNSET
 from legommenders_tpu_torch.parallel.mesh import (
-    all_gather_rows, row_slice, split_batch,
+    all_gather_rows, no_pipeline, row_slice, split_batch,
 )
 from legommenders_tpu_torch.runtime.device_metrics import compute_device
 from legommenders_tpu_torch.runtime.metrics import MetricPool
@@ -238,7 +240,8 @@ class Evaluator:
             raise NotImplementedError(
                 "full-forward evaluation under catalog_parallel: the "
                 "layer-split LM cache is held by rows; evaluate through "
-                "the repr caches (use_fast_eval)")
+                "the repr caches (use_fast_eval); not ported yet "
+                "(ROADMAP.md, queue 1, item 8)")
         ph = self.phase(phase)
         sub = self.substrate()
         P = min(self.batch_size, max(8, ph.n))
@@ -272,6 +275,7 @@ class Evaluator:
             return {str(m): vals[str(m)] for m in self.pool.metrics}
         return self.pool(scores.float().cpu().numpy(), ph.labels, ph.groups)
 
+    @no_pipeline()
     def evaluate(self, phase: str, latency_timer: Optional[Timer] = None,
                  use_cache: Optional[bool] = None,
                  max_batches: int = 0) -> Dict[str, float]:

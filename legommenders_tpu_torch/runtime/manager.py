@@ -10,17 +10,20 @@ evaluators, for a layer-split LM item operator the lower slice's cache
 (`prepare_lm_cache`), and an LM's weights from a local HF checkpoint
 (`load_lm_weights`). The policy is the exp config's `policy` over
 DEFAULT_POLICY; the dev metric and the patience come from
-its `store`. `exp.policy.mesh` (JAX manager.py:47-80) gives the (dp, mp)
-mesh over the process group (`parallel/mesh.py`; launched by `torchrun`,
-the group is opened here from its environment): every rank builds the
-same whole model from the same seed on its own card (the Trainer then
-places it by `shard_plan` at mp > 1), and the repr cache and the
-evaluator split their rows over the ranks. Under `catalog_parallel`
-(`catalog_parallel` true) the layer-split LM cache is built by rows: rank
-r encodes and holds only its N / n padded rows (`catalog_contents`),
-never the whole cache, and writes nothing to disk. sp and pp raise
-(ROADMAP.md, queue 1, item 8).
+its `store`. `exp.policy.mesh` (JAX manager.py:47-113) gives the
+[dp, mp, sp, pp] mesh over the process group (`parallel/mesh.py`;
+launched by `torchrun`, the group is opened here from its environment):
+every rank builds the same whole model from the same seed on its own
+card (the Trainer then places it by `shard_plan` at mp > 1), and the
+repr cache and the evaluator split their rows over the ranks. Under
+`catalog_parallel` (`catalog_parallel` true) the layer-split LM cache is
+built by rows: rank r encodes and holds only its N / n padded rows
+(`catalog_contents`), never the whole cache, and writes nothing to
+disk. At pp > 1 the item
+operator's `pipeline_stages` is set to pp (`_apply_pp_policy`, JAX's
+checks and messages).
 """
+import inspect
 import os
 from typing import Optional
 
@@ -79,9 +82,13 @@ class Manager:
         dtype = DTYPE_NAMES.get(str(self.policy.get("dtype") or "").lower(),
                                 dtype)
 
+        model_cfg = dict(model_cfg or {})
+        if self.mesh is not None and self.mesh.pp > 1:
+            model_cfg = self._apply_pp_policy(model_cfg, self.mesh.pp)
+
         self.data = data if data is not None else LegoData.from_config(data_cfg)
         self.lego_cfg = LegoConfig.from_configs(
-            self.data, dict(model_cfg or {}), embed_cfg, dtype=dtype)
+            self.data, model_cfg, embed_cfg, dtype=dtype)
         self.model, self.contents = self.lego_cfg.build(self.device)
         self.model.to(self.device).eval()
         self.model.reset_parameters(
@@ -95,6 +102,37 @@ class Manager:
                 mesh=self.mesh)
             if self.catalog_parallel:
                 self.cache.set_local_contents(self.catalog_contents())
+
+    def _apply_pp_policy(self, model_cfg: dict, n_pp: int) -> dict:
+        """Route `exp.policy.mesh.pp` to the LM slice (JAX
+        manager.py:82-113): the item operator's `pipeline_stages` defaults
+        to pp (an explicit item_config.pipeline_stages must equal it). An
+        operator without the knob, or catalog_parallel, stops the run."""
+        from legommenders_tpu_torch.utils.registry import OPERATORS
+
+        if self.catalog_parallel:
+            raise SystemExit(
+                "exp.policy.mesh: pp > 1 cannot combine with "
+                "catalog_parallel (the catalog shard_map cannot nest the "
+                "pipeline shard_map) — pick one")
+        meta = dict(model_cfg.get("meta") or {})
+        item_name = meta.get("item")
+        item_cls = OPERATORS[item_name] if item_name in OPERATORS else None
+        if (item_cls is None or "pipeline_stages" not in
+                inspect.signature(item_cls.__init__).parameters):
+            raise SystemExit(
+                f"exp.policy.mesh.pp={n_pp} requires an LM item operator "
+                f"with a pipeline_stages knob; meta.item={item_name!r} "
+                f"has none")
+        cfg = dict(model_cfg.get("config") or {})
+        icfg = dict(cfg.get("item_config") or {})
+        stages = int(icfg.get("pipeline_stages") or 0)
+        if stages and stages != n_pp:
+            raise SystemExit(
+                f"item_config.pipeline_stages={stages} != mesh pp={n_pp}")
+        icfg["pipeline_stages"] = n_pp
+        cfg["item_config"] = icfg
+        return {**model_cfg, "config": cfg}
 
     def prepare_lm_cache(self, root: Optional[str] = "cache") -> bool:
         """Layer-split LM caching (JAX runtime/manager.py:116-144): if the

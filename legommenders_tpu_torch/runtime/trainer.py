@@ -42,7 +42,14 @@ the whole weights, as JAX builds it before `_place_on_mesh`): tables
 row-sharded, CrossNetMix expert-sharded, the LM slices Megatron-TP'd,
 Adam's moments following the slices. `catalog_parallel` routes the step
 through `parallel/catalog.make_catalog_parallel_step` (parameters whole,
-the catalog's rows sharded over every rank). Checkpoints go through
+the catalog's rows sharded over every rank). At sp > 1 `init` activates
+the ambient sp mesh (JAX trainer.py:159-163): `sequence_parallel` user
+operators shard their sequence over sp in training and in the
+evaluation that runs under it, and the step sums their partial gradients
+over sp. At pp > 1 it activates the ambient pp mesh: the LM slice's
+layers train in GPipe stages and the step sums their gradients over pp;
+dev, test and the caches run the serial stack (`no_pipeline`).
+Checkpoints go through
 `save_auto`: a sharded model writes the sharded directory (every mp rank
 of dp row 0 its shard), a whole one a file that rank 0 writes; the others
 wait at a barrier. Rank 0 alone talks to the lego-server; the dev metric
@@ -65,7 +72,7 @@ from legommenders_tpu_torch.parallel.catalog import (
     make_catalog_parallel_step,
 )
 from legommenders_tpu_torch.parallel.mesh import (
-    barrier, place_model, shard_rows,
+    barrier, no_pipeline, place_model, set_pp_mesh, set_sp_mesh, shard_rows,
 )
 from legommenders_tpu_torch.parallel.train import make_mesh_train_step_folded
 from legommenders_tpu_torch.runtime.metrics import MetricPool
@@ -278,6 +285,10 @@ class Trainer:
         mesh = self.mesh
         if mesh is not None and mesh.mp > 1 and not mesh.catalog_parallel:
             place_model(self.m.model, mesh)
+        if mesh is not None and mesh.sp > 1:
+            set_sp_mesh(mesh)
+        if mesh is not None and mesh.pp > 1:
+            set_pp_mesh(mesh)
         if mesh is not None:
             self.log.info(f"mesh policy active: {mesh.shape}"
                           + (" (catalog-parallel)"
@@ -293,6 +304,7 @@ class Trainer:
         return self.evaluator.evaluate("dev")[self.m.dev_metric]
 
     @torch.no_grad()
+    @no_pipeline()
     def _simple_dev_loss(self) -> float:
         """Loss-only dev (reference trainer.py:126-153, simple_dev): the
         training loss over the dev split's batches, with dropout drawn from
@@ -303,7 +315,8 @@ class Trainer:
                 and getattr(self.m.model.item_op, "use_lm_cache", False):
             raise NotImplementedError(
                 "simple_dev under catalog_parallel: the layer-split LM "
-                "cache is held by rows; evaluate through the repr caches")
+                "cache is held by rows; evaluate through the repr caches; "
+                "not ported yet (ROADMAP.md, queue 1, item 8)")
         if not hasattr(self, "_dev_batcher"):
             self._dev_loss_fn = steps.make_loss_fn(
                 self.m.model, self.m.contents.columns,

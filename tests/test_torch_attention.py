@@ -240,27 +240,34 @@ def test_bert_slice_matches_jax(fused, pack, gelu_approx, fold):
 
 
 def test_unported_knobs_raise():
-    # fused_qkv is ported (tests/test_torch_lm_knobs.py): it builds, and
-    # beside pipeline_stages, a multi-device path, the slice raises
+    # fused_qkv (tests/test_torch_lm_knobs.py) and pipeline_stages
+    # (tests/test_torch_pp.py) are ported: they build; what JAX refuses
+    # raises: a stack that does not divide into the stages, and IISAN's
+    # collect_pooled (tests/test_torch_iisan.py) staged under a pp mesh
+    from legommenders_tpu_torch.parallel import mesh as tmesh
+
     assert layers.BertEncoderSlice(num_layers=1, dim=8, num_heads=2,
                                    fused_qkv=True).layer_0.attention.fused_qkv
-    with pytest.raises(NotImplementedError, match="item 8"):
-        layers.BertEncoderSlice(num_layers=1, dim=8, num_heads=2,
-                                fused_qkv=True, pipeline_stages=2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        layers.BertEncoderSlice(num_layers=2, dim=8, num_heads=2,
-                                pipeline_stages=2)
-    # IISAN's collect_pooled is ported (tests/test_torch_iisan.py); JAX
-    # refuses it under pipeline_stages, which raises here first
-    with pytest.raises(NotImplementedError, match="item 8"):
-        layers.BertEncoderSlice(num_layers=2, dim=8, num_heads=2,
-                                pipeline_stages=2, collect_pooled=True)
+    x, mask = torch.zeros(2, 3, 8), torch.ones(2, 3)
+    odd = layers.BertEncoderSlice(num_layers=1, dim=8, num_heads=2,
+                                  embed=False, fused_qkv=True,
+                                  pipeline_stages=2)
+    assert odd.pipeline_stages == 2
+    assert odd(x, mask).shape == x.shape  # no pp mesh: the serial stack
+    pooled = layers.BertEncoderSlice(num_layers=2, dim=8, num_heads=2,
+                                     embed=False, pipeline_stages=2,
+                                     collect_pooled=True)
     # the decoder slices are ported (tests/test_torch_decoder.py); their
-    # multi-device knob raises as BERT's does
-    with pytest.raises(NotImplementedError, match="item 8"):
-        layers.LlamaDecoderSlice(num_layers=1, dim=8, num_heads=2,
-                                 pipeline_stages=2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        layers.OPTDecoderSlice(num_layers=1, dim=8, num_heads=2,
-                               fused_qkv=True, collect_pooled=True,
-                               pipeline_stages=2)
+    # stages divide their stack as BERT's do
+    llama = layers.LlamaDecoderSlice(num_layers=1, dim=8, num_heads=2,
+                                     pipeline_stages=2, dtype=torch.float32)
+    opt = layers.OPTDecoderSlice(num_layers=1, dim=8, num_heads=2,
+                                 fused_qkv=True, collect_pooled=True,
+                                 pipeline_stages=2, dtype=torch.float32)
+    with tmesh.pipeline_parallel(tmesh.Mesh(1, 0, pp=2)):
+        for sl in (odd, llama):
+            with pytest.raises(ValueError, match="num_layers 1 % pipeline"):
+                sl(x, mask)
+        for sl in (pooled, opt):
+            with pytest.raises(ValueError, match="IISAN pooled collection"):
+                sl(x, mask)

@@ -250,9 +250,12 @@ def test_bridge_places_bert_names_and_rejects_strays(pair):
 def test_unported_modes_raise():
     """The `ffn`/`dots` page remat policies build since the LM knobs were
     ported (their parity: tests/test_torch_lm_knobs.py); on the Llama
-    family (ported: tests/test_torch_decoder_models.py) `pipeline_stages`,
-    a multi-device path, raises. (Layer-split mode, `tune_from`, is
-    ported: tests/test_torch_lm_train.py.)"""
+    family (ported: tests/test_torch_decoder_models.py) `pipeline_stages`
+    builds since pp was ported (tests/test_torch_pp.py), and a stack
+    that does not divide into the stages raises when it runs staged, as
+    JAX's assert does.
+    (Layer-split mode, `tune_from`, is ported:
+    tests/test_torch_lm_train.py.)"""
     op = BertBaseOperator(hidden_size=8, input_dim=16, num_hidden_layers=2,
                           num_attention_heads=2, tune_from=1)
     assert op.use_lm_cache and op.resolved_tune_from == 1
@@ -267,5 +270,11 @@ def test_unported_modes_raise():
     cfg["meta"]["item"] = "Llama"
     del cfg["config"]["item_config"]["dropout_reuse"]   # BERT/OPT only
     cfg["config"]["item_config"]["pipeline_stages"] = 2
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Manager(model_cfg=cfg, data=data, device="cpu")
+    op = Manager(model_cfg=cfg, data=data, device="cpu").model.item_op
+    assert op.lm.pipeline_stages == 2 and not op.use_lm_cache
+    cfg["config"]["item_config"]["pipeline_stages"] = 3
+    op = Manager(model_cfg=cfg, data=data, device="cpu").model.item_op
+    from legommenders_tpu_torch.parallel import mesh as tmesh
+    with tmesh.pipeline_parallel(tmesh.Mesh(1, 0, pp=3)):
+        with pytest.raises(ValueError, match="pipeline_stages 3 != 0"):
+            op.lm(torch.zeros(1, 3, op.input_dim), torch.ones(1, 3))

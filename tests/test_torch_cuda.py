@@ -35,7 +35,10 @@ Llama and OPT slices at bf16 against the CPU (2e-2), the `ffn` and `dots`
 page remat against `full` (1e-5, the attention launched twice a page);
 the pool at L 4 (an item's semantic codes). The attention forward and
 backward at a TP rank's heads (half the heads at their head offset) equal
-the whole call's head slice bit for bit and the plain versions.
+the whole call's head slice bit for bit and the plain versions. The
+attention kernels on a pp stage's microbatch (bert-naml's trained slice,
+bf16 and f32; the Llama-7B width's causal page) equal the same rows of
+the whole call bit for bit.
 """
 import os
 import sys
@@ -314,7 +317,7 @@ def test_pool_kernels_by_profiled_name(device):
 # packed attention (csrc/packed_attention.cu)
 # ---------------------------------------------------------------------------
 from legommenders_tpu_torch.models.lm.layers import (  # noqa: E402
-    pack_items, packed_mask_bias,
+    causal_mask_bias, pack_items, packed_mask_bias,
 )
 from legommenders_tpu_torch.ops.attention import (  # noqa: E402
     dropout_bits_reference, dropout_keep_mask,
@@ -522,6 +525,44 @@ def test_attention_at_head_offset_is_the_whole_calls_slice(device, B, T,
             for a, w, b in zip(got, whole, want):
                 assert torch.equal(a, w[..., cols])
                 assert _close(a, b, dtype)
+
+
+# (B, T, heads, dh, dtype, causal) of a pp stage's microbatches: bert-naml's
+# trained slice at pp 2 (a page of 512 items of T 40, unpacked, in 4
+# microbatches of 128) and the Llama-7B-width slice's causal page of 128
+# rows of T 128 (4 microbatches of 32)
+PP_CASES = [(512, 40, 12, 64, "bf16", False), (512, 40, 12, 64, "f32", False),
+            (128, 128, 32, 128, "bf16", True)]
+
+
+@pytest.mark.parametrize("B,T,heads,dh,dtype,causal", PP_CASES)
+def test_attention_on_a_pp_microbatch_is_the_whole_calls_rows(
+        device, B, T, heads, dh, dtype, causal):
+    """A pp stage runs the attention kernels on each microbatch's rows:
+    the forward and the backward of each of the 4 microbatches equal the
+    same rows of the whole call bit for bit (each row is computed alike;
+    dropout 0, as a staged stack's parity is held)."""
+    tdtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    q, k, v, bias = _attn_inputs(B, T, heads * dh, device, tdtype, seed=3)
+    if causal:
+        bias = causal_mask_bias(torch.ones(B, T, dtype=torch.int32),
+                                tdtype)[:, 0].contiguous().to(device)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(B)
+                    ).to(device, tdtype)
+    with torch.no_grad():
+        whole = (packed_attention(heads, 0.0, q, k, v, bias),) + tuple(
+            packed_attention_backward(heads, 0.0, q, k, v, bias, None, g))
+        mb = B // 4
+        for m in range(4):
+            rows = slice(m * mb, (m + 1) * mb)
+            qm, km, vm, bm, gm = (t[rows].contiguous()
+                                  for t in (q, k, v, bias, g))
+            got = (packed_attention(heads, 0.0, qm, km, vm, bm),) + tuple(
+                packed_attention_backward(heads, 0.0, qm, km, vm, bm, None,
+                                          gm))
+            torch.cuda.synchronize()
+            for a, w in zip(got, whole):
+                assert torch.equal(a, w[rows])
 
 
 def test_attention_autograd_runs_both_kernels(device):

@@ -259,13 +259,22 @@ def test_opt_positions_follow_valid_tokens():
 @pytest.mark.parametrize("cls", [layers.LlamaDecoderSlice,
                                  layers.OPTDecoderSlice])
 def test_decoder_knobs_not_ported_raise(cls):
-    # collect_pooled (IISAN) and fused_qkv (tests/test_torch_lm_knobs.py)
-    # are ported; pipeline_stages, a multi-device path, raises, with them
-    # too (JAX refuses collect_pooled under it)
+    # collect_pooled (IISAN), fused_qkv (tests/test_torch_lm_knobs.py)
+    # and pipeline_stages (tests/test_torch_pp.py) are ported; a stack
+    # that does not divide into the stages raises, with them too, and
+    # JAX refuses collect_pooled staged under a pp mesh
+    from legommenders_tpu_torch.parallel import mesh as tmesh
+
     assert cls(num_layers=1, dim=D, num_heads=2,
                fused_qkv=True).layer_0.fused_qkv
-    for knob in (dict(fused_qkv=True, pipeline_stages=2),
-                 dict(pipeline_stages=2),
-                 dict(pipeline_stages=2, collect_pooled=True)):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            cls(num_layers=1, dim=D, num_heads=2, **knob)
+    pooled = cls(num_layers=2, dim=D, num_heads=2, pipeline_stages=2,
+                 collect_pooled=True, dtype=torch.float32)
+    with tmesh.pipeline_parallel(tmesh.Mesh(1, 0, pp=2)):
+        for knob in (dict(fused_qkv=True, pipeline_stages=2),
+                     dict(pipeline_stages=2)):
+            odd = cls(num_layers=1, dim=D, num_heads=2, dtype=torch.float32,
+                      **knob)
+            with pytest.raises(ValueError, match="% pipeline_stages 2 != 0"):
+                odd(torch.zeros(2, 3, D), torch.ones(2, 3))
+        with pytest.raises(ValueError, match="IISAN pooled collection"):
+            pooled(torch.zeros(2, 3, D), torch.ones(2, 3))

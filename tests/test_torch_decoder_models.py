@@ -169,13 +169,18 @@ def test_iisan_yamls_raise(name, tdata):
     """The IISAN YAMLs raised until IISAN was ported; they build now
     (their parity with JAX: tests/test_torch_iisan_models.py), and what
     JAX refuses with them, `pipeline_stages` over the pooled states,
-    raises."""
+    raises when the slice runs staged under a pp mesh."""
     cfg = model_cfg(name)
     tm = Manager(model_cfg=cfg, data=tdata, device="cpu")
     op = tm.model.item_op
     assert type(op).__name__ == name.split("-")[0].title().replace(
         "Bert", "BertIISAN").replace("Llama", "LlamaIISAN") + "Operator"
     assert op.is_iisan and op.get_selected_layers() == [1]
+    from legommenders_tpu_torch.parallel import mesh as tmesh
+
     cfg["config"]["item_config"]["pipeline_stages"] = 2
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Manager(model_cfg=cfg, data=tdata, device="cpu")
+    op = Manager(model_cfg=cfg, data=tdata, device="cpu").model.item_op
+    with tmesh.pipeline_parallel(tmesh.Mesh(1, 0, pp=2)):
+        with pytest.raises(ValueError, match="IISAN pooled collection"):
+            op.lm(torch.zeros(1, 3, op.input_dim),
+                  torch.ones(1, 3, dtype=torch.int32))

@@ -171,13 +171,19 @@ def test_mesh_from_policy_refuses(cfg, monkeypatch):
                                  {"dp": 1, "mp": 2},
                                  {"catalog_parallel": True}])
 def test_other_axes_raise_naming_item_8(cfg, monkeypatch):
-    """sp and pp raise, naming item 8; mp and catalog_parallel build what
-    JAX's mesh_from_policy builds over a group of 2: the (1, 2) mesh, or
-    dp 2 with catalog_parallel set."""
+    """mp, sp, pp and catalog_parallel build what JAX's mesh_from_policy
+    builds over a group of 2: the (1, 2) mesh of the axis, or dp 2 with
+    catalog_parallel set (tests/test_torch_mp.py, test_torch_sp.py,
+    test_torch_pp.py); what stays unported raises, naming item 8: sp or pp
+    beside mp."""
     monkeypatch.setattr(tmesh, "world", lambda: (0, 2))
     if "sp" in cfg or "pp" in cfg:
+        axis = "sp" if "sp" in cfg else "pp"
+        mesh = tmesh.mesh_from_policy(cfg)
+        assert mesh.shape == {"dp": 1, axis: 2} and mesh.size == 2
+        assert mesh.coords == (0, 0, 0, 0)
         with pytest.raises(NotImplementedError, match="item 8"):
-            tmesh.mesh_from_policy(cfg)
+            tmesh.mesh_from_policy({**cfg, "mp": 2})
         return
     mesh = tmesh.mesh_from_policy(cfg)
     if "mp" in cfg:

@@ -356,8 +356,23 @@ def test_fused_qkv_keeps_its_frozen_concatenation():
                                  layers.LlamaDecoderSlice,
                                  layers.OPTDecoderSlice])
 def test_pipeline_stages_raises(cls):
+    """pipeline_stages is ported (tests/test_torch_pp.py) and builds with
+    the knobs; JAX's refusals raise: a stack that does not divide into
+    the stages, and collect_pooled staged under a pp mesh."""
+    from legommenders_tpu_torch.parallel import mesh as tmesh
+
+    x, mask = torch.zeros(2, 3, 8), torch.ones(2, 3)
     for knob in (dict(pipeline_stages=2),
-                 dict(pipeline_stages=2, fused_qkv=True),
-                 dict(pipeline_stages=2, collect_pooled=True)):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            cls(num_layers=2, dim=8, num_heads=2, **knob)
+                 dict(pipeline_stages=2, fused_qkv=True)):
+        assert cls(num_layers=2, dim=8, num_heads=2,
+                   **knob).pipeline_stages == 2
+        odd = cls(num_layers=3, dim=8, num_heads=2, dtype=torch.float32,
+                  **knob)
+        with tmesh.pipeline_parallel(tmesh.Mesh(1, 0, pp=2)):
+            with pytest.raises(ValueError, match="num_layers 3 % pipeline"):
+                odd(x, mask)
+    pooled = cls(num_layers=2, dim=8, num_heads=2, pipeline_stages=2,
+                 collect_pooled=True, dtype=torch.float32)
+    with tmesh.pipeline_parallel(tmesh.Mesh(1, 0, pp=2)):
+        with pytest.raises(ValueError, match="IISAN pooled collection"):
+            pooled(x, mask)

@@ -7,6 +7,8 @@ most clicks each user operator's positions take (33 slots a click: title
 its IISAN and BERT-zoo models are the YAMLs it names, its CLI models
 exist; a history cut as a data config cuts it keeps every other store.
 Phase 9.1's f32-backward pages are T 116 and 117 at head width 128.
+Phase 14's cases run what they name, a rank's launch counts are the
+code's, and its fixture keeps the first users' dev and test rows.
 The remat and knob A/Bs compare the losses both runs took
 (`shared_loss_err`).
 """
@@ -34,16 +36,83 @@ def test_phases_select(argv, want):
 
 
 def test_unknown_phase_is_refused():
-    # phase 13 exists since the model-parallel axis and catalog_parallel
-    assert chip_smoke.parse_phases(["--phases", "13"]) == {13}
+    # phase 14 exists since the sequence- and pipeline-parallel axes
+    assert chip_smoke.parse_phases(["--phases", "14"]) == {14}
     with pytest.raises(SystemExit):
-        chip_smoke.parse_phases(["--phases", "14"])
+        chip_smoke.parse_phases(["--phases", "15"])
+
+
+def test_phase14_cases_run_what_they_name():
+    """Phase 14's cases: flatten_transformer at sp 2 under Ulysses and
+    ring (bf16, phase 10.4's batches) and under Ulysses at f32 (a quarter
+    of the batches), flatten_fastformer at sp 2, each with its user
+    operator's sequence_parallel; bert-naml at pp 2 is phase 5's
+    layer-split training at dropout 0; the histories give L 990 and 462,
+    both divisible by sp 2, within the operators' positions."""
+    cases = chip_smoke.p14_cases()
+    assert list(cases) == ["flatten_transformer sp 2 ulysses",
+                           "flatten_transformer sp 2 ring",
+                           "flatten_transformer sp 2 ulysses f32",
+                           "flatten_fastformer sp 2", "bert-naml pp 2"]
+    for name, spec in cases.items():
+        cfg = spec.case.cfg["config"]
+        if "sp" in spec.case.mesh:
+            assert spec.case.mesh == {"sp": 2}
+            assert cfg["user_config"]["sequence_parallel"]
+            L = 33 * chip_smoke.P14_CLICKS[spec.case.data]
+            assert L % 2 == 0 and L <= (1024 if "transformer" in name
+                                        else 512)
+    assert cases["flatten_transformer sp 2 ring"].case.cfg["config"][
+        "user_config"]["sp_impl"] == "ring"
+    assert (cases["flatten_transformer sp 2 ulysses"].batch,
+            cases["flatten_fastformer sp 2"].batch) == (
+        chip_smoke.FLATTEN_MODELS["flatten_transformer"][1],
+        chip_smoke.FLATTEN_MODELS["flatten_fastformer"][1])
+    f32 = cases["flatten_transformer sp 2 ulysses f32"]
+    assert (f32.case.dtype, f32.batch) == ("f32", chip_smoke.P14_F32_BATCH)
+    pp = cases["bert-naml pp 2"]
+    item = pp.case.cfg["config"]["item_config"]
+    assert pp.case.mesh == {"pp": 2} and pp.case.data == "catalog"
+    assert (item["tune_from"], item["dropout"]) == (10, 0.0)
+    assert pp.case.cfg["config"]["item_page_remat"] == "ffn"
+
+
+def test_p14_expected_launches_are_the_codes():
+    """A sp rank launches the item pools only (the user pool is the
+    two-psum pool); a pp 2 rank runs its one layer in 4 microbatches a
+    page of 512, twice (`ffn` recomputes) forward and once backward, and
+    the serial dev pass."""
+    cases = chip_smoke.p14_cases()
+    one = {"additive_pool": 26, "packed_attention": 192,
+           "packed_attention_backward": 64, "dropout_keep_mask": 0}
+    sp = chip_smoke._p14_expected(
+        "flatten_transformer sp 2 ring",
+        cases["flatten_transformer sp 2 ring"], one, 1, 1)
+    assert sp == dict(one, additive_pool=13)
+    pp = chip_smoke._p14_expected("bert-naml pp 2", cases["bert-naml pp 2"],
+                                  one, 1, 1)
+    pages = chip_smoke.DOTS_DATA_KW["num_items"] // 512
+    assert pp == dict(one, packed_attention=192 + pages * 2 * (4 - 2),
+                      packed_attention_backward=pages * 4)
+
+
+def test_cut_history_keeps_the_first_users_eval_rows():
+    kw = dict(chip_smoke.DATA_KW, num_items=200, num_users=12,
+              vocab_size=300, inters_per_user=4)
+    data = SyntheticProcessor(**kw).as_lego_data()
+    cut = chip_smoke.cut_history(data, 3, users=5)
+    for phase in ("dev", "test"):
+        users = cut.inters[phase]["user_id"]
+        assert len(users) and users.max() < 5
+        assert len(users) == int((data.inters[phase]["user_id"] < 5).sum())
+    assert cut.inters["train"] is data.inters["train"]
+    assert chip_smoke.cut_history(data, 3).inters is data.inters
 
 
 def test_phase13_cases_shard_what_they_name():
     """Phase 13's cases: bert-naml at mp 2 is phase 5's layer-split
-    training at dropout 0.1 evaluated through its caches, in bf16 on the
-    16,384-item catalog and again with its LM in f32 on 2,048 items;
+    training at dropout 0.1 evaluated through its caches, in bf16 and
+    again with its LM in f32, both on 2,048 items;
     dcnv2_id's CrossNetMix shards its 4 experts 2 a rank; NAML's
     30,000-word table shards to 15,000 rows a rank at min_rows_to_shard
     0; the catalog-parallel bert-naml runs at dropout 0 over the two
@@ -57,7 +126,7 @@ def test_phase13_cases_shard_what_they_name():
     bert = cases["bert-naml mp 2"]
     item = bert.cfg["config"]["item_config"]
     assert bert.mesh == {"mp": 2} and not bert.test
-    assert (bert.dtype, bert.data) == ("bf16", "catalog")
+    assert (bert.dtype, bert.data) == ("bf16", "small")
     assert (item["tune_from"], item["dropout"], item["attn_dropout"]) == (
         10, chip_smoke.TRAIN_DROPOUT, chip_smoke.TRAIN_DROPOUT)
     assert bert.cfg["config"]["item_page_remat"] == "ffn"

@@ -431,12 +431,14 @@ def test_trainer_device_batching_runs(data_pair):
 @pytest.mark.parametrize("what", ["mp", "sp", "pp", "catalog_parallel",
                                   "pipeline_stages"])
 def test_trainer_session_and_mesh_raise(data_pair, what):
-    """What stays unported of the multi-device policies raises, naming
-    ROADMAP's item 8 (the session and the mesh's dp axis run since they
-    were ported: tests/test_torch_server.py, tests/test_torch_dp.py). mp
-    and catalog_parallel are ported: one process asking for mp 2 gets
-    JAX's "only 1 visible", catalog_parallel builds its dp-1 mesh
-    (tests/test_torch_mp.py, tests/test_torch_catalog_parallel.py)."""
+    """The multi-device policies in one process (the session and the
+    mesh's dp axis run since they were ported: tests/test_torch_server.py,
+    tests/test_torch_dp.py). mp, sp and pp are ported: one process asking
+    for 2 of any gets JAX's "only 1 visible"; catalog_parallel builds its
+    dp-1 mesh (tests/test_torch_mp.py, tests/test_torch_sp.py,
+    tests/test_torch_pp.py, tests/test_torch_catalog_parallel.py);
+    pipeline_stages without a pp mesh builds the staged slice and runs it
+    serial, as JAX does."""
     cfg, mesh = NAML_CFG, {what: 2 if what != "catalog_parallel" else True}
     if what == "pipeline_stages":
         cfg = copy.deepcopy(BERT_CFG)
@@ -446,15 +448,17 @@ def test_trainer_session_and_mesh_raise(data_pair, what):
     def build():
         return Manager(model_cfg=cfg, data=data_pair[1], device="cpu",
                        exp_cfg={"policy": {"mesh": mesh}})
-    if what == "mp":
+    if what in ("mp", "sp", "pp"):
         with pytest.raises(ValueError, match="only 1 visible"):
             build()
     elif what == "catalog_parallel":
         m = build()
         assert m.catalog_parallel and m.mesh.shape == {"dp": 1}
     else:
-        with pytest.raises(NotImplementedError, match="item 8"):
-            build()
+        from legommenders_tpu_torch.parallel.mesh import get_pp_mesh
+        m = build()
+        assert m.model.item_op.lm.pipeline_stages == 2
+        assert m.mesh.pp == 1 and get_pp_mesh() is None
 
 
 def test_trainer_requires_cuda_unless_cpu(data_pair, monkeypatch):

@@ -248,13 +248,23 @@ def test_gru_bridge_fails_loudly_on_unplaced_leaves():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: common.MultiHeadSelfAttention(D, 2, sequence_parallel=True),
-    lambda: transformer.TransformerOperator(sequence_parallel=True),
-    lambda: fastformer.FastformerOperator(sequence_parallel=True),
+    lambda: (common.MultiHeadSelfAttention(6, 3, sequence_parallel=True),
+             torch.zeros(2, 4, 6), "named axis sp"),
+    lambda: (transformer.TransformerOperator(sequence_parallel=True),
+             torch.zeros(2, 5, 64), "not evenly divisible"),
+    lambda: (fastformer.FastformerOperator(sequence_parallel=True),
+             torch.zeros(2, 5, 64), "not evenly divisible"),
 ], ids=["mhsa", "transformer", "fastformer"])
 def test_sequence_parallel_raises(make):
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        make()
+    """sequence_parallel is ported (tests/test_torch_sp.py): the modules
+    build, and under an sp mesh of 2 JAX's refusals raise: Ulysses' heads
+    that do not divide over sp, a sequence that does not."""
+    from legommenders_tpu_torch.parallel import mesh as tmesh
+
+    module, x, message = make()
+    with tmesh.sequence_parallel(tmesh.Mesh(1, 0, sp=2)):
+        with pytest.raises(ValueError, match=message):
+            module(x, torch.ones(x.shape[:2]))
 
 
 def test_ill_formed_options_raise():
