@@ -172,11 +172,11 @@ and exits non-zero when any phase fails:
         and the bounds;
      2. llama-naml at the Llama-7B geometry (32 layers, d 4096, 32 heads,
         SwiGLU 10,922, LoRA r 32 folded, fused attention): Tester.test()
-        in full-LM mode cut to 8 layers (all 65,000 items through them;
+        in full-LM mode cut to 2 layers (all 65,000 items through them;
         the first 2,048 reprs against the model with its kernels patched
         out, 2e-2;
-        8 pages profiled; peak memory); then layer-split, cut to 16 layers
-        at tune_from 14:
+        8 pages profiled; peak memory); then layer-split, cut to 4 layers
+        at tune_from 2:
         the cache, 1 warm and 2 timed fused steps of 2,048 under `full`
         remat (one more profiled) and the trainable slice's gradients
         against the plain path at bf16 and at f32 (decoder_precision_check);
@@ -305,6 +305,25 @@ and exits non-zero when any phase fails:
      head slice bit for bit and to their plain versions at the kernels'
      gates (`p13_attention_offsets`); the sharded checkpoint read in one
      process equal to the gathered weights bit for bit; `[mp]` lines.
+ 14. the sequence-parallel and pipeline-parallel axes (`--phase14-rank`,
+     two ranks over gloo, phase 13's checks): flatten_transformer at sp 2
+     under Ulysses and ring (bf16, and Ulysses at f32), flatten_fastformer
+     at sp 2, bert-naml and a Llama-7B-width slice at pp 2; `[sp]` and
+     `[pp]` lines.
+ 15. the mesh combinations and the catalog-parallel evaluation on 2,048
+     items (P13_SMALL_DATA_KW), bf16, dropout 0, the dev and test rows of
+     the first P15_USERS users (`--phase15-rank`): four ranks over gloo
+     run bert-naml at (mp 2, pp 2) (Megatron TP inside each GPipe stage:
+     the attention kernels at head offset 0 or 6, counted by offset),
+     flatten_transformer at (mp 2, sp 2) under Ulysses (its tables
+     row-sharded) and flatten_transformer's sequence-parallel user
+     operator beside a 2-layer BERT item operator at (sp 2, pp 2); two
+     more ranks at the same time run bert-naml catalog_parallel at dp 2,
+     its dev value by simple_dev and Trainer.test() by full forwards over
+     the reprs each rank encodes of its rows; each case is held against
+     one process from the same weights and batches by phase 13's checks
+     in every (dp, sp, pp) cell, and each rank's launches against the
+     count the code gives (`_p15_expected`); `[mesh15]` lines.
 Then it prints one JSON line of kernels, the card line, and
 {"ok": true, "device": {...}} as the last line.
 """
@@ -1176,10 +1195,19 @@ def _counters():
 def _zero_counts():
     for fn in _counters().values():
         fn.launches = 0
+        if hasattr(fn, "offsets"):
+            fn.offsets.clear()
 
 
 def _counts() -> dict:
     return {k: fn.launches for k, fn in _counters().items()}
+
+
+def _offsets() -> dict:
+    """The attention kernels' launches by head offset since the counts
+    were set to 0."""
+    return {k: dict(fn.offsets) for k, fn in _counters().items()
+            if hasattr(fn, "offsets")}
 
 
 def _train_steps(m, data, device, n_steps: int, profile: bool = True,
@@ -2256,16 +2284,18 @@ def run_ctr_model(name: str, data, device) -> dict:
 # of 32 heads of 128, d 4096, SwiGLU int(4096 * 8 / 3) = 10,922, rope theta
 # 1e4, bf16, LoRA r 32 folded, fused attention, compact inputer): serving in
 # full-LM mode cut from 32 layers to 16 (the time limit: with phase 10 the
-# whole run passed 900 s) and to 8 since phase 12; training layer-split
-# cut to 16 layers at tune_from 14 (the two trained layers and the
-# trainable slice's shapes as at 32 layers and tune_from 30; the cache
-# builds 14 layers, not 30, since phase 12), pages of 512 under full
-# remat, as bench_lm.py trains BERT at 10 of 12.
+# whole run passed 900 s), to 8 since phase 12, to 4 with phase 15 and
+# to 2 since phase 15's f32 pp ranks;
+# training layer-split cut to 4 layers at tune_from 2 (the two trained
+# layers and the trainable slice's shapes as at 32 layers and tune_from
+# 30; the cache builds 2 layers, not 30: 14 from phase 12, 6 while phase
+# 15 was added, 2 since phase 15's f32 pp ranks),
+# pages of 512 under full remat, as bench_lm.py trains BERT at 10 of 12.
 # glm-naml at GLM's full width (d 4096, 32 heads over 2 kv heads, SwiGLU
 # 13,696) cut from 28 layers to 4 at tune_from 2 to fit the time limit;
 # opt-naml at OPTBase (12 layers, d 768, 12 heads) at tune_from 10 with
 # hidden dropout 0.1 (dropout_reuse).
-LLAMA_TRAIN_LAYERS, LLAMA_TUNE_FROM, LLAMA_SERVING_LAYERS = 16, 14, 8
+LLAMA_TRAIN_LAYERS, LLAMA_TUNE_FROM, LLAMA_SERVING_LAYERS = 4, 2, 2
 GLM_LAYERS, GLM_TUNE_FROM = 4, 2
 OPT_TUNE_FROM = 10
 # one timed step (2 before), for the time limit: llama-naml's takes
@@ -2720,10 +2750,10 @@ BERT_ZOO_TUNE_FROM, BERT_ZOO_STEPS, BERT_ZOO_PAGE = 10, 2, 512
 FLATTEN_MODELS = {"flatten_transformer": (31, 128, 512),
                   "flatten_fastformer": (15, TRAIN_BATCH, 4 * TRAIN_BATCH)}
 # flatten_transformer's Tester.test() over the dev and test rows of the
-# first 4,000 of the 20,000 users (94 full-forward pages of 512 at
-# L 1,023: 26.4 s against 469 pages and 131.5 s over all of them on an
+# first 2,000 of the 20,000 users (~47 full-forward pages of 512 at
+# L 1,023; 4,000 users' 94 pages took 26.4 s and all 469 131.5 s on an
 # NVIDIA H100 80GB HBM3 at 700 W), for the time limit: depth, not width
-FLATTEN_TEST_USERS = {"flatten_transformer": 4000}
+FLATTEN_TEST_USERS = {"flatten_transformer": 2000}
 FLATTEN_STEPS = 4
 # the flatten user pools (D 64, H 64) over a step's users and a test page
 FLATTEN_POOLS = {f"{name} user": (slots, h) for name, slots, h in (
@@ -3081,7 +3111,8 @@ PHASES = {3: "kernels", 4: "serving", 5: "training", 6: "run loop",
           11: "LM knobs, semantic IDs, processed MIND",
           12: "drivers and data parallel",
           13: "model parallel and catalog_parallel",
-          14: "sequence and pipeline parallel"}
+          14: "sequence and pipeline parallel",
+          15: "mesh combinations and catalog-parallel evaluation"}
 
 
 class phase_timer:
@@ -4454,7 +4485,7 @@ def _p13_params(m) -> dict:
 
 
 def p13_run(name: str, case: P13Case, mesh_cfg, data, device, tmp,
-            policy=None, pages: int = 0) -> dict:
+            policy=None, pages: int = 0, perturb=None) -> dict:
     """One case through Manager + Trainer (train: one step and a dev pass;
     `case.test`: Trainer.test() after), `deterministic`, its launch counts
     set to 0 just before and read just after; without `mesh_cfg` one
@@ -4462,10 +4493,11 @@ def p13_run(name: str, case: P13Case, mesh_cfg, data, device, tmp,
     and their gradients (this rank's slices), the losses, the dev value,
     the launches and the plan; with `pages`, the scores of the first
     `pages` test pages by full forwards on the initial weights and their
-    launches. `policy` replaces P13_POLICY."""
+    launches. `policy` replaces P13_POLICY; `perturb(m)` runs after the
+    Trainer's init."""
     import torch
     from legommenders_tpu_torch.parallel.mesh import (
-        model_plan, set_pp_mesh, set_sp_mesh,
+        model_plan, no_pipeline, set_pp_mesh, set_sp_mesh,
     )
     from legommenders_tpu_torch.runtime.manager import Manager
 
@@ -4480,16 +4512,19 @@ def p13_run(name: str, case: P13Case, mesh_cfg, data, device, tmp,
     rec = {"path": name, "mesh": dict(m.mesh.shape) if m.mesh else None}
     t0 = time.perf_counter()
     tr.init()
+    if perturb is not None:
+        perturb(m)
     torch.cuda.synchronize()
     rec["init_s"] = time.perf_counter() - t0
     rec["before"] = _p13_params(m)
     if pages:
         # the first test pages by full forwards on the initial weights,
-        # under the Trainer's meshes
+        # under the Trainer's meshes (the serial layer stack, as every
+        # evaluation runs)
         sub = tr.evaluator.phase("test")
         n_all, sub.n = sub.n, min(pages * tr.evaluator.batch_size, sub.n)
         _zero_counts()
-        with torch.inference_mode():
+        with torch.inference_mode(), no_pipeline():
             rec["scores"] = tr.evaluator.score_phase_device_full(
                 "test").float().cpu()
         rec["score_launches"] = _counts()
@@ -4503,6 +4538,7 @@ def p13_run(name: str, case: P13Case, mesh_cfg, data, device, tmp,
     torch.cuda.synchronize()
     rec["s"] = time.perf_counter() - t0
     rec["launches"] = _counts()
+    rec["offsets"] = _offsets()
     set_sp_mesh(None)
     set_pp_mesh(None)
     rec["step_ms"] = [s * 1e3 for s in timer.samples["step"]]
@@ -4730,7 +4766,7 @@ def _p13_bf16_rule(got: dict, want16: dict, want32: dict) -> tuple:
 
 
 def _p13_check(name: str, case: P13Case, ranks, ref: dict,
-               ref32=None) -> tuple:
+               ref32=None, rule=None) -> tuple:
     """(record, problems) of one case: the ranks against one process.
     Gradients and the loss within BF16_REL_TOL (f32: F32_GRAD_TOL; the
     bf16 bert-naml TP case by `_p13_bf16_rule` against `ref32`), each
@@ -4747,8 +4783,8 @@ def _p13_check(name: str, case: P13Case, ranks, ref: dict,
     tol = F32_GRAD_TOL if case.dtype == "f32" else BF16_REL_TOL
     got_g = _p13_whole(ranks, name, "grads")
     if ref32 is not None:
-        rec["grads_rule"], allow = _p13_bf16_rule(got_g, ref["grads"],
-                                                  ref32["grads"])
+        rec["grads_rule"], allow = (rule or _p13_bf16_rule)(
+            got_g, ref["grads"], ref32["grads"])
         rec["grads_err"] = rec["grads_rule"]["excess"]
         rec["grads_worst"] = _p13_worst(_p13_errs(got_g, ref["grads"]))[1]
     else:
@@ -4928,9 +4964,9 @@ P14_TIMEOUT_S = 420
 # the sp cases' fixture: DOTS_DATA_KW's catalog and users, the histories
 # cut to 30 clicks (L 990 = 30 x 33: JAX's shard_map needs L % sp == 0;
 # phase 10.4's 31 give 1,023) and 14 (L 462), the dev and test rows those
-# of the first 500 users (6,000 rows: 12 full-forward pages of 512 a dev
-# pass), for the time limit
-P14_SP_USERS = 500
+# of the first 250 users (~3,000 rows: 6 full-forward pages of 512 a dev
+# pass), for the time limit (500 until phase 15 took its seconds)
+P14_SP_USERS = 250
 P14_CLICKS = {"flatten_transformer": 30, "flatten_fastformer": 14}
 # test pages scored after the step, by full forwards
 P14_TEST_PAGES = 2
@@ -4967,7 +5003,8 @@ def p14_cases() -> dict:
     """14.1 (sp 2: flatten_transformer under Ulysses and ring, bf16, and
     under Ulysses at f32; flatten_fastformer, bf16) and 14.2 (bert-naml at
     pp 2, phase 5's layer-split training at dropout 0: JAX keys a staged
-    stack's draws per microbatch)."""
+    stack's draws per microbatch; on P13_SMALL_DATA_KW's 2,048 items, for
+    the time limit: its gloo step took 11-15 s a rank on 16,384)."""
     sp = {"sp": 2}
     tr, ff = "flatten_transformer", "flatten_fastformer"
     return {
@@ -4984,20 +5021,20 @@ def p14_cases() -> dict:
             P13Case(_p14_flatten(ff), sp, data=ff), TRAIN_BATCH,
             4 * TRAIN_BATCH, "flatten_fastformer"),
         "bert-naml pp 2": P14Spec(
-            P13Case(_p13_bert(0.0), {"pp": 2}), TRAIN_BATCH, None,
-            "bert-naml"),
+            P13Case(_p13_bert(0.0), {"pp": 2}, data="small"), TRAIN_BATCH,
+            None, "bert-naml"),
     }
 
 
 def p14_datas() -> dict:
-    """The phase's fixtures: the 16,384-item catalog, and its histories
-    cut for each flatten model with the dev and test rows of
-    P14_SP_USERS users."""
+    """The phase's fixtures: the 16,384-item catalog's histories cut for
+    each flatten model with the dev and test rows of P14_SP_USERS users,
+    and the 2,048-item catalog (`small`)."""
     from legommenders_tpu_torch.data.processors.synthetic import (
         SyntheticProcessor,
     )
     catalog = SyntheticProcessor(**DOTS_DATA_KW).as_lego_data()
-    out = {"catalog": catalog}
+    out = {"small": SyntheticProcessor(**P13_SMALL_DATA_KW).as_lego_data()}
     for name, clicks in P14_CLICKS.items():
         out[name] = cut_history(catalog, clicks, P14_SP_USERS)
     return out
@@ -5140,7 +5177,7 @@ def _p14_expected(name: str, spec: P14Spec, one: dict, m_item_pools: int,
     cfg = spec.case.cfg["config"]
     stages, layers = spec.case.mesh["pp"], 2
     M, per = 2 * stages, layers // stages
-    N, P = DOTS_DATA_KW["num_items"], cfg["item_page_size"]
+    N, P = _p13_data(spec.case)["num_items"], cfg["item_page_size"]
     pages = -(-N // P) if N > P else 1
     # a paged encode recomputes each page in the backward
     runs = 2 if N > P and cfg["item_page_remat"] != "none" else 1
@@ -5304,6 +5341,478 @@ def run_phase14(device, card) -> dict:
     return {"phase14": out}
 
 
+# --------------------------------------------------------------------- #
+# phase 15: mesh combinations and catalog-parallel evaluation            #
+# --------------------------------------------------------------------- #
+# four rank processes (the mp x pp, mp x sp and sp x pp cases) and two
+# (the catalog-parallel evaluation) share the card over gloo, both groups
+# at once, after this process has run every case in one process
+P15_GROUPS = {"four": 4, "two": 2}
+P15_TIMEOUT_S = 420
+# the fixtures: P13_SMALL_DATA_KW's 2,048 items; the flatten cases' its
+# histories cut to 30 clicks (L 990, as phase 14.1's), the catalog-parallel
+# evaluation's whole; the dev and test rows of the first P15_USERS users
+P15_USERS = 100
+# the catalog-parallel evaluation's train / dev batch and eval page: the
+# first users' 209 dev positives fill 6 batches (TrainBatcher drops a
+# partial tail) and their 1,200 test rows 5 pages
+P15_CATALOG_BATCH, P15_CATALOG_PAGE = 32, 256
+# name -> (case, train batch, eval batch, the one-process run it is held
+# against, the rank group that runs it)
+P15Spec = collections.namedtuple("P15Spec",
+                                 "case batch eval_batch ref group")
+# the pp cases, held by `_p15_bf16_rule` against an f32 run in one
+# process too; their ranks also run them at f32 (`_p15_f32_spec`), held
+# against one process at f32 by `_p15_f32_rule`: what the bf16 rule
+# allows is bf16's rounding, and a dropped microbatch or a missed sum over
+# pp or mp fails there
+P15_F32 = ("bert-naml mp 2 x pp 2", "bert flatten sp 2 x pp 2")
+# how far the f32 ranks' gradient may lie from one process's, in units of
+# that gradient's spread under one ulp of input noise (`_p15_f32_rule`):
+# two roundings, each about that size
+PP_NOISE = 2
+# how much further from the f32 gradient a rank's bf16 gradient may lie
+# than one process's bf16 gradient does, where bf16's own error exceeds
+# BF16_REL_TOL (`_p15_bf16_rule`)
+PP_ROUNDING = 1.25
+
+
+def _p15_sp_pp() -> dict:
+    """15.3: flatten_transformer's sequence-parallel user operator (Ulysses)
+    beside a 2-layer BERT item operator (item-bert.yaml's configuration,
+    the whole LM from its embeddings, dropout 0) at the flatten model's
+    width: the user operator reads the same 64-wide token table, so the
+    BERT is 64 wide, one head of 64 (BERT-base's head width); pp 2 stages
+    its layers one a rank. Dropout 0 on both sides: the staged stack
+    draws its seeds per microbatch from the step's generator (JAX keys
+    them per microbatch too), so every later draw differs from one
+    process's by construction."""
+    cfg = _p14_flatten("flatten_transformer")
+    cfg["config"]["user_config"]["attention_dropout"] = 0.0
+    cfg["meta"] = dict(cfg["meta"], item=BERT_CFG["meta"]["item"])
+    cfg["config"]["embedding_dim"] = cfg["config"]["hidden_size"]
+    cfg["config"]["item_config"] = dict(
+        BERT_CFG["config"]["item_config"], num_hidden_layers=2,
+        num_attention_heads=1, dropout=0.0, attn_dropout=0.0)
+    return cfg
+
+
+def _p15_catalog_eval() -> dict:
+    """15.4: bert-naml as phase 5 trains it (dropout 0), evaluated by full
+    forwards."""
+    cfg = _p13_bert(0.0)
+    cfg["config"]["use_fast_eval"] = False
+    return cfg
+
+
+def p15_cases() -> dict:
+    """15.1 bert-naml at (mp 2, pp 2): Megatron TP inside each GPipe stage,
+    6 heads a rank at head offset 0 or 6; 15.2 flatten_transformer at (mp
+    2, sp 2) under Ulysses, its tables row-sharded; 15.3 the sp x pp
+    composition; 15.4 bert-naml catalog_parallel at dp 2: simple_dev and
+    Trainer.test() by full forwards over the reprs each rank encodes of
+    its rows. bf16; the pp cases held by `_p15_bf16_rule` against an f32
+    one-process run too (P15_F32)."""
+    tr = "flatten_transformer"
+    return {
+        "bert-naml mp 2 x pp 2": P15Spec(
+            P13Case(_p13_bert(0.0), {"mp": 2, "pp": 2}, data="small"),
+            TRAIN_BATCH, None, "bert-naml", "four"),
+        "flatten_transformer mp 2 x sp 2 ulysses": P15Spec(
+            P13Case(_p14_flatten(tr), {"mp": 2, "sp": 2}, data=tr), 128, 512,
+            "flatten_transformer", "four"),
+        "bert flatten sp 2 x pp 2": P15Spec(
+            P13Case(_p15_sp_pp(), {"sp": 2, "pp": 2}, data=tr), 128, 512,
+            "bert flatten", "four"),
+        "bert-naml catalog_parallel dp 2": P15Spec(
+            P13Case(_p15_catalog_eval(), {"dp": 2, "catalog_parallel": True},
+                    test=True, data="eval"),
+            P15_CATALOG_BATCH, P15_CATALOG_PAGE, "bert-naml full forward",
+            "two"),
+    }
+
+
+def p15_datas() -> dict:
+    from legommenders_tpu_torch.data.processors.synthetic import (
+        SyntheticProcessor,
+    )
+    small = SyntheticProcessor(**P13_SMALL_DATA_KW).as_lego_data()
+    return {"small": small,
+            "flatten_transformer": cut_history(
+                small, P14_CLICKS["flatten_transformer"], P15_USERS),
+            "eval": cut_history(small, P13_SMALL_DATA_KW["history_len"],
+                                P15_USERS)}
+
+
+def p15_run(name: str, spec: P15Spec, mesh_cfg, datas, device, tmp,
+            dtype=None, perturb=None) -> dict:
+    """One case (p13_run with the spec's batches; the flatten cases score
+    P14_TEST_PAGES test pages; the catalog-parallel evaluation takes its
+    dev value by simple_dev); `dtype` in place of the case's."""
+    policy = dict(P13_POLICY, batch_size=spec.batch)
+    if spec.eval_batch:
+        policy["eval_batch_size"] = spec.eval_batch
+    if spec.case.test:
+        policy["simple_dev"] = True
+    case = spec.case if dtype is None else spec.case._replace(dtype=dtype)
+    if dtype == "f32":
+        import copy
+        case = case._replace(cfg=copy.deepcopy(case.cfg))
+        case.cfg["config"]["item_config"]["lm_dtype"] = "f32"
+    flatten = spec.case.data == "flatten_transformer"
+    return p13_run(name, case, mesh_cfg, datas[spec.case.data], device, tmp,
+                   policy=policy, pages=P14_TEST_PAGES if flatten else 0,
+                   perturb=perturb)
+
+
+def _p15_f32_spec(spec: P15Spec) -> P15Spec:
+    """A P15_F32 case as its ranks run it at f32: a flatten case at phase
+    14's f32 batches (P14_F32_BATCH, P14_F32_EVAL), for memory (four
+    ranks' f32 attention scores over L 990 at 128 / 512 rows overfill the
+    card)."""
+    if spec.case.data != "flatten_transformer":
+        return spec
+    return spec._replace(batch=P14_F32_BATCH, eval_batch=P14_F32_EVAL)
+
+
+def _p15_ulp_noise(m):
+    """Every float content column (a layer-split LM's cached hidden
+    states, the embeddings) times 1 + 2^-23 n, n standard normal from a
+    fixed seed: about one f32 ulp of noise on what the step reads."""
+    import torch
+
+    g = torch.Generator(device=m.device).manual_seed(P13_MASK_SEED)
+    with torch.no_grad():
+        for a in m.contents.columns.values():
+            if a.is_floating_point():
+                a.mul_(1 + 2.0 ** -23 * torch.randn(
+                    a.shape, generator=g, device=a.device, dtype=a.dtype))
+
+
+def _p15_f32_rule(got: dict, want: dict, noisy: dict) -> tuple:
+    """The f32 ranks' gradients' gate, every tensor: its error against one
+    process's f32 gradient (`want`) within F32_GRAD_TOL, or within
+    PP_NOISE times that gradient's spread under one ulp of noise on what
+    the step reads (`noisy`, `_p15_ulp_noise`) where larger. That spread
+    is one process's own f32 error at this size: at the initial weights
+    the item pool's gradient is a small sum of cancelling terms, and on
+    the CPU (`legommenders_tpu_torch/tools/f32_spread.py`, 256 items) its
+    query and kernel lie 1.7-2.4e-3 of their largest value from f64 and
+    spread 2.0-2.7e-3, tensor by tensor alike. A dropped microbatch or a
+    missed sum over pp or mp moves a gradient by a share of it.
+    Returns ({"excess": the largest error over its allowance, times
+    F32_GRAD_TOL, "over": every tensor past F32_GRAD_TOL as (error,
+    spread)}, each tensor's allowance), as `_p13_bf16_rule`."""
+    excess, over, allow = 0.0, {}, {}
+    errs, spread = _p13_errs(got, want), _p13_errs(noisy, want)
+    for k, err in errs.items():
+        allow[k] = max(F32_GRAD_TOL, PP_NOISE * spread[k])
+        excess = max(excess, err / allow[k] * F32_GRAD_TOL)
+        if err > F32_GRAD_TOL:
+            over[k] = (err, spread[k])
+    return {"excess": excess, "over": over}, allow
+
+
+def p15_runs() -> list:
+    """(label, spec, dtype) of each rank run: every case at its own dtype,
+    then the P15_F32 cases at f32."""
+    cases = p15_cases()
+    return ([(name, spec, None) for name, spec in cases.items()]
+            + [(f"{name} f32", _p15_f32_spec(cases[name]), "f32")
+               for name in P15_F32])
+
+
+def p15_rank(argv) -> int:
+    """A rank of phase 15: <group> <init file> <rank> <tmp dir>. Opens the
+    group's gloo group on cuda:0, runs the group's cases at their meshes,
+    writes its records."""
+    import pickle
+
+    import torch
+    from legommenders_tpu_torch.parallel import mesh
+
+    group, init, rank, tmp = argv
+    rank = int(rank)
+    mesh.initialize_multihost(f"file://{init}", P15_GROUPS[group], rank,
+                              device="cuda", backend="gloo")
+    try:
+        device = torch.device("cuda", 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        with open(os.path.join(tmp, "data.pkl"), "rb") as f:
+            datas = pickle.load(f)
+        out = {}
+        for label, spec, dtype in p15_runs():
+            if spec.group != group:
+                continue
+            t0 = time.perf_counter()
+            out[label] = p15_run(label, spec, spec.case.mesh, datas, device,
+                                 tmp, dtype=dtype)
+            out[label]["wall_s"] = time.perf_counter() - t0
+        torch.save(out, os.path.join(tmp, f"{group}{rank}.pt"))
+    finally:
+        mesh.shutdown()
+    return 0
+
+
+def _p15_bf16_rule(got: dict, want16: dict, want32: dict) -> tuple:
+    """Phase 13's bf16 rule (`_p13_bf16_rule`), where a tensor also passes
+    when its error against one process's f32 gradient is within
+    PP_ROUNDING times its allowance. Under pp the batch runs in
+    microbatches and, under TP, each row-parallel partial product rounds
+    to bf16 before the all-reduce: the ranks round a gradient otherwise
+    than one process, and where bf16's own error dominates a tensor (the
+    item pool's, whose gradient at the initial weights is a small sum of
+    cancelling terms: its bf16 error against f32 is ~30 % of its largest
+    value in one process itself) two bf16 roundings lie up to the sum of
+    their errors apart. The f32 gradient holds both: the ranks' must be
+    about as accurate as one process's."""
+    rule, allow = _p13_bf16_rule(got, want16, want32)
+    to32 = _p13_errs(got, want32)
+    excess = 0.0
+    for k, err in _p13_errs(got, want16).items():
+        excess = max(excess, min(err / allow[k],
+                                 to32[k] / (PP_ROUNDING * allow[k]))
+                     * BF16_REL_TOL)
+    rule["excess"] = excess
+    return rule, allow
+
+
+def _p15_cells(mesh_cfg: dict) -> list:
+    """Each (dp, sp, pp) cell's ranks in mp order (their mp slices make
+    the whole tensors), by JAX's rank order."""
+    from legommenders_tpu_torch.parallel.mesh import AXES, _coords
+
+    dims = tuple(int(mesh_cfg.get(a, 1)) for a in AXES)
+    cells = {}
+    for r in range(int(math.prod(dims))):
+        dp, mp, sp, pp = _coords(r, dims)
+        cells.setdefault((dp, sp, pp), []).append(r)
+    return list(cells.values())
+
+
+def _p15_expected(spec: P15Spec, one: dict, pools: tuple,
+                  counts=None) -> dict:
+    """A rank's launches by the code. sp: the user pool is the two-psum
+    pool, so a rank launches the item pools only (phase 14's rule). pp: a
+    stage runs its `layers / pp` layers once a microbatch (M = 2 x pp) in
+    each training encode of a page (twice where `ffn` recomputes a paged
+    catalog) and their backward once a microbatch; dev and test run the
+    serial stack; mp changes no count (each TP rank launches at its
+    heads). catalog_parallel (`counts`: the dev batches and the test
+    pages): a rank encodes its 1 / dp of the catalog's rows once a step
+    (and again in the recompute), once for simple_dev and once for the
+    test phase, and pools its dp rows' users once a dev batch and a test
+    page."""
+    mesh = spec.case.mesh
+    cfg = spec.case.cfg["config"]
+    item_pools, user_pools = pools
+    P = int(cfg.get("item_page_size") or 0)
+    upper = (BERT_LAYERS - cfg["item_config"]["tune_from"]
+             if cfg["item_config"].get("tune_from") else
+             cfg["item_config"]["num_hidden_layers"])
+    if mesh.get("catalog_parallel"):
+        n_dp = mesh["dp"]
+        local = -(-P13_SMALL_DATA_KW["num_items"] // n_dp)
+        pages = -(-local // P) if 0 < P < local else 1
+        runs = 2 if pages > 1 and cfg["item_page_remat"] != "none" else 1
+        dev_batches, test_pages = counts
+        return dict(one, additive_pool=(
+            pages * item_pools * (runs + 2)
+            + user_pools * (1 + dev_batches + test_pages)),
+            packed_attention=pages * upper * (runs + 2),
+            packed_attention_backward=pages * upper)
+    want = dict(one)
+    if "sp" in mesh:
+        want["additive_pool"] = (one["additive_pool"] * item_pools
+                                 // (item_pools + user_pools))
+    if "pp" in mesh:
+        stages = mesh["pp"]
+        M, per = 2 * stages, upper // stages
+        if spec.case.data == "small":  # the whole catalog, in pages
+            N = P13_SMALL_DATA_KW["num_items"]
+        else:  # a flatten batch's candidates, 1 + the negatives a row
+            N = spec.batch * (1 + int(cfg.get("neg_count") or 4))
+        pages = -(-N // P) if 0 < P < N else 1
+        runs = 2 if pages > 1 and cfg.get(
+            "item_page_remat", "none") != "none" else 1
+        want["packed_attention"] = (one["packed_attention"]
+                                    + pages * runs * (M * per - upper))
+        want["packed_attention_backward"] = pages * M * per
+    return want
+
+
+def _p15_catalog_counts(spec: P15Spec, data) -> tuple:
+    """(dev batches of simple_dev, test pages of the full-forward test) of
+    the catalog-parallel evaluation case (JAX's page rule, rounded up to
+    a multiple of dp)."""
+    from legommenders_tpu_torch.data.pipeline import TrainBatcher
+
+    cfg = spec.case.cfg["config"]
+    dev = TrainBatcher(data, spec.batch, neg_count=cfg["neg_count"],
+                       use_neg_sampling=True, seed=0, phase="dev")
+    n = len(data.inters["test"][data.cm.user_col])
+    n_dp = spec.case.mesh["dp"]
+    page = min(spec.eval_batch or 4 * spec.batch, max(8, n))
+    page = -(-page // n_dp) * n_dp
+    return len(dev), -(-n // page)
+
+
+def run_phase15(device, card) -> dict:
+    """Phase 15: bert-naml at (mp 2, pp 2) on 2,048 items (the attention
+    kernels at each TP rank's head offset inside each stage),
+    flatten_transformer at (mp 2, sp 2) under Ulysses, the sp x pp
+    composition, four ranks on the card over gloo; bert-naml
+    catalog_parallel at dp 2 (simple_dev, Trainer.test() by full forwards
+    over the first P15_USERS users), two ranks at the same time; each held
+    against one process from the same weights and batches (phase 13's
+    gates)."""
+    import pickle
+    import tempfile
+
+    import torch
+
+    out = {}
+    cases = p15_cases()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        datas = p15_datas()
+        with open(os.path.join(tmp, "data.pkl"), "wb") as f:
+            pickle.dump(datas, f)
+        out["data_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        one = {}
+        for name, spec in cases.items():
+            one[spec.ref] = p15_run(spec.ref, spec, None, datas, device, tmp)
+        for name in P15_F32:
+            # the bf16 rule's f32 gradients, at the case's batches; the
+            # f32 ranks' reference, at theirs
+            spec, spec32 = cases[name], _p15_f32_spec(cases[name])
+            one[f"{spec.ref} f32"] = p15_run(f"{spec.ref} f32", spec, None,
+                                             datas, device, tmp, dtype="f32")
+            one[f"{name} f32"] = (
+                one[f"{spec.ref} f32"] if spec32 is spec else p15_run(
+                    f"{name} f32", spec32, None, datas, device, tmp,
+                    dtype="f32"))
+            one[f"{name} f32 noise"] = p15_run(
+                f"{name} f32 noise", spec32, None, datas, device, tmp,
+                dtype="f32", perturb=_p15_ulp_noise)
+            torch.cuda.empty_cache()
+        out["one_process_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        env = {**os.environ, "PYTHONPATH": ROOT}
+        t0 = time.perf_counter()
+        procs = {(g, r): subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phase15-rank", g,
+             os.path.join(tmp, f"group_{g}"), str(r), tmp], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for g, n in P15_GROUPS.items() for r in range(n)}
+        try:
+            logs = {k: p.communicate(timeout=P15_TIMEOUT_S)[0]
+                    for k, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        out["ranks_s"] = time.perf_counter() - t0
+        for (g, r), text in logs.items():
+            if procs[(g, r)].returncode:
+                for line in text.splitlines()[-60:]:
+                    log(f"[mesh15 {g} rank {r}] {line}")
+        if any(p.returncode for p in procs.values()):
+            raise RuntimeError(f"phase 15 ranks failed: "
+                               f"{[p.returncode for p in procs.values()]}")
+        ranks = {g: [torch.load(os.path.join(tmp, f"{g}{r}.pt"),
+                                weights_only=False) for r in range(n)]
+                 for g, n in P15_GROUPS.items()}
+    problems = []
+    runs = p15_runs()
+    for name, spec, dtype in runs:
+        group = ranks[spec.group]
+        if dtype:  # the ranks at f32 against one process at f32
+            ref, ref32 = one[name], one[f"{name} noise"]
+            case, rule = spec.case._replace(dtype=dtype), _p15_f32_rule
+        else:
+            ref, ref32 = one[spec.ref], one.get(f"{spec.ref} f32")
+            case, rule = spec.case, _p15_bf16_rule
+        recs = []
+        for cell in _p15_cells(spec.case.mesh):
+            rec, bad = _p13_check(name, case, [group[r] for r in cell],
+                                  ref, ref32, rule=rule)
+            recs.append(rec)
+            problems += bad
+        rec = recs[0]
+        rec["cells"] = len(recs)
+        for key in ("grads_err", "update_err", "loss_err", "dev_err"):
+            rec[key] = max(c[key] for c in recs)
+        rec["wall_s"] = [r[name]["wall_s"] for r in group]
+        rec["launches"] = [r[name]["launches"] for r in group]
+        rec["offsets"] = [r[name]["offsets"] for r in group]
+        rec["one_launches"] = ref["launches"]
+        counts = None
+        if spec.case.test:
+            counts = rec["dev_batches_test_pages"] = _p15_catalog_counts(
+                spec, datas[spec.case.data])
+            # simple_dev read dev batches: its mean loss is 0 over none
+            if not counts[0] or 0.0 in ref["dev"] or any(
+                    0.0 in r[name]["dev"] for r in group):
+                problems.append(f"{name}: simple_dev ran no dev batch "
+                                f"({counts[0]} batches, dev {ref['dev']})")
+        rec["expected"] = _p15_expected(spec, ref["launches"], ref["pools"],
+                                        counts)
+        for r, c in enumerate(rec["launches"]):
+            if c != rec["expected"]:
+                problems.append(f"{name} rank {r} launches {c} != the "
+                                f"code's {rec['expected']}")
+        if "mp" in spec.case.mesh:
+            # a TP rank at mp index i launches only at its first head,
+            # 12 / mp x i
+            from legommenders_tpu_torch.parallel.mesh import AXES, _coords
+            dims = tuple(int(spec.case.mesh.get(a, 1)) for a in AXES)
+            for r, offs in enumerate(rec["offsets"]):
+                heads = (TRAIN_PAGE["heads"] // spec.case.mesh["mp"]
+                         * _coords(r, dims)[1])
+                for kernel, by in offs.items():
+                    if by and set(by) != {heads}:
+                        problems.append(f"{name} rank {r} {kernel} at head "
+                                        f"offsets {by}, not {heads}")
+        if "scores" in ref:
+            scale = float(ref["scores"].abs().max())
+            rec["score_err"] = max(
+                float((r[name]["scores"] - ref["scores"]).abs().max())
+                / scale for r in group)
+            if not rec["score_err"] <= BF16_REL_TOL:
+                problems.append(f"{name} scores {rec['score_err']:.3e}")
+        out[name] = rec
+    if problems:
+        log(f"[mesh15] {json.dumps(out, default=str)}")
+        worst = {n: out[n].get("grads_rule", out[n].get("grads_worst"))
+                 for n, _, _ in runs}
+        raise RuntimeError(f"phase 15 failed ({problems}); worst gradients "
+                           f"{json.dumps(worst, default=str)[:6000]}")
+    for name, _, _ in runs:
+        r = out[name]
+        extra = (f"; test metrics err {r['test_err']:.2e}"
+                 if "test_err" in r else "")
+        extra += (f"; first test pages' scores err {r['score_err']:.2e}"
+                  if "score_err" in r else "")
+        log(f"[mesh15] {name} ({r['mesh']}, {r['dtype']}, {r['cells']} "
+            f"cells): step {r['ranks'][0]['step_ms']} ms vs one process "
+            f"{r['one']['step_ms']} ms, train + dev "
+            f"{r['ranks'][0]['s']:.2f} s vs {r['one']['s']:.2f} s; grads / "
+            f"update / loss / dev err {r['grads_err']:.2e} / "
+            f"{r['update_err']:.2e} (of lr) / {r['loss_err']:.2e} / "
+            f"{r['dev_err']:.2e}{extra}; launches a rank {r['launches']} "
+            f"(the code's {r['expected']}), by head offset {r['offsets']}; "
+            f"one process {r['one_launches']} ({card}; the ranks share the "
+            f"card over gloo: no multi-card speed)")
+    log(f"[mesh15] data {out['data_s']:.2f} s, one process "
+        f"{out['one_process_s']:.2f} s, the ranks {out['ranks_s']:.2f} s")
+    log(f"[mesh15] {json.dumps(out, default=str)}")
+    return {"phase15": out}
+
+
 def _kernel_line(R: dict) -> list:
     """The `kernels` JSON: each kernel's headline check (phase 3's where it
     ran, else the first check of its kind from the phases that ran), its
@@ -5425,12 +5934,21 @@ def _kernel_line(R: dict) -> list:
         phase14_runs["llama slice (one process)"] = sl["one_launches"]
         for r, c in enumerate(sl["launches"]):
             phase14_runs[f"llama slice pp 2 (rank {r})"] = c
+    phase15_runs = {}
+    for name, rec in (R.get("phase15") or {}).items():
+        if not isinstance(rec, dict) or "launches" not in rec:
+            continue
+        phase15_runs[f"{name} (one process)"] = rec["one_launches"]
+        for r, c in enumerate(rec["launches"]):
+            phase15_runs[f"{name} (rank {r} of {len(rec['launches'])}, "
+                         f"gloo)"] = c
     runs.update(decoder_runs)
     runs.update(phase10_runs)
     runs.update(phase11_runs)
     runs.update(phase12_runs)
     runs.update(phase13_runs)
     runs.update(phase14_runs)
+    runs.update(phase15_runs)
 
     def by_path(key):
         return {p: c.get(key, 0) for p, c in runs.items()}
@@ -5503,6 +6021,8 @@ def _kernel_line(R: dict) -> list:
                               for p, c in phase13_runs.items()},
             phase14_launches={p: c.get("additive_pool", 0)
                               for p, c in phase14_runs.items()},
+            phase15_launches={p: c.get("additive_pool", 0)
+                              for p, c in phase15_runs.items()},
             checks=pool_all))
     sdpa = "torch.nn.functional.scaled_dot_product_attention"
     train = R.get("train_checks", [])
@@ -5579,6 +6099,8 @@ def _kernel_line(R: dict) -> list:
                               for p, c in phase13_runs.items()},
             phase14_launches={p: c.get("packed_attention", 0)
                               for p, c in phase14_runs.items()},
+            phase15_launches={p: c.get("packed_attention", 0)
+                              for p, c in phase15_runs.items()},
             checks=R.get("attn_checks", [])))
         decoder_launches = {p: c["packed_attention_backward"]
                             for p, c in decoder_runs.items()}
@@ -5610,6 +6132,8 @@ def _kernel_line(R: dict) -> list:
                               for p, c in phase13_runs.items()},
             phase14_launches={p: c.get("packed_attention_backward", 0)
                               for p, c in phase14_runs.items()},
+            phase15_launches={p: c.get("packed_attention_backward", 0)
+                              for p, c in phase15_runs.items()},
             f32_dh128_edges=R.get("f32_edges", []),
             checks=train))
     if tr is not None:
@@ -5632,6 +6156,8 @@ def main(argv=None) -> int:
         return p13_rank(argv[1:])
     if argv[:1] == ["--phase14-rank"]:
         return p14_rank(argv[1:])
+    if argv[:1] == ["--phase15-rank"]:
+        return p15_rank(argv[1:])
     phases = parse_phases(argv)
     try:
         import torch
@@ -5706,6 +6232,9 @@ def main(argv=None) -> int:
     if 14 in phases:
         with phase_timer(14, PHASES[14]):
             R.update(run_phase14(device, card))
+    if 15 in phases:
+        with phase_timer(15, PHASES[15]):
+            R.update(run_phase15(device, card))
 
     kernels = _kernel_line(R)
     total = time.perf_counter() - t_run

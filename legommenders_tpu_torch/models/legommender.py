@@ -287,10 +287,13 @@ class Legommender(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 item_contents: Dict[str, torch.Tensor],
-                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                rng: Optional[torch.Generator] = None,
+                item_reprs: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Raw scores (B, K) for a batch of candidates and histories (the
         pipeline's fixed batch keys); K = 1 + negatives (matching) or 1
-        (ranking)."""
+        (ranking). `item_reprs`, the whole catalog's (N, D) reprs encoded
+        beforehand, takes the place of the item encode (catalog-parallel
+        evaluation, where no rank holds the contents they come from)."""
         cand_ids = batch["candidates"]                  # (B, K)
         hist_ids = batch["history"]                     # (B, S)
         click_mask = batch["mask"]                      # (B, S)
@@ -306,8 +309,11 @@ class Legommender(nn.Module):
         if self.flatten_mode:
             # candidates encoded per occurrence; the user operator reads
             # the clicks' tokens, padded clicks' all -1 (JAX :295-310)
-            cand = {c: a[safe_cand] for c, a in item_contents.items()}
-            item_repr = self.encode_item_content(cand, rng)
+            if item_reprs is not None:
+                item_repr = item_reprs[safe_cand]
+            else:
+                cand = {c: a[safe_cand] for c, a in item_contents.items()}
+                item_repr = self.encode_item_content(cand, rng)
             if self.user_batch_cols:
                 # the user side reads its own batch columns (SemanticMix)
                 hist = {c: batch[c] for c in self.user_batch_cols}
@@ -317,17 +323,20 @@ class Legommender(nn.Module):
                         for c, a in item_contents.items()}
             user_repr = self.encode_user_flatten(hist, rng)
             return self.predictor(user_repr, item_repr, rng)
-        use_catalog = self.full_catalog_encode == "on" or (
-            self.full_catalog_encode == "auto"
-            and num_items <= 2 * B * (K + S))
+        use_catalog = item_reprs is not None or (
+            self.full_catalog_encode == "on" or (
+                self.full_catalog_encode == "auto"
+                and num_items <= 2 * B * (K + S)))
         if use_catalog:
             # every item encoded once, occurrences gathered
-            all_reprs = self.encode_item_content(item_contents, rng,
-                                                 catalog=True)
+            all_reprs = (item_reprs if item_reprs is not None
+                         else self.encode_item_content(item_contents, rng,
+                                                       catalog=True))
             item_repr = all_reprs[safe_cand]
             hp = self.catalog_history_plan
             uid = batch.get("user_id")
             use_hp = (hp is not None and rng is not None and uid is not None
+                      and item_reprs is None
                       and hp.matches(hist_ids.shape, num_items))
             catalog_grad.record_history(use_hp)
             if use_hp:

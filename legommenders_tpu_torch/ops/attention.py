@@ -61,7 +61,9 @@ to the bias or the seed. A CPU tensor takes the plain versions
 (`reference_attention`, `reference_attention_backward`, the PyTorch
 Philox); a CUDA tensor launches the kernels; there is no fallback between
 the two. `packed_attention.launches`, `packed_attention_backward.launches`
-and `dropout_keep_mask.launches` count kernel launches.
+and `dropout_keep_mask.launches` count kernel launches;
+`packed_attention.offsets` and `packed_attention_backward.offsets` count
+them by head offset ({head_offset: launches}).
 """
 import ctypes
 import functools
@@ -333,6 +335,11 @@ def dropout_keep_mask(num_heads: int, dropout_p: float, B: int, T: int, seed,
 dropout_keep_mask.launches = 0
 
 
+def _count_offset(fn, head_offset: int):
+    """One launch of `fn`'s kernel at `head_offset`."""
+    fn.offsets[int(head_offset)] = fn.offsets.get(int(head_offset), 0) + 1
+
+
 def _forward(num_heads: int, dropout_p: float, q, k, v, bias, seed,
              head_offset: int = 0):
     if q.device.type == "cpu":
@@ -361,6 +368,7 @@ def _forward(num_heads: int, dropout_p: float, q, k, v, bias, seed,
             torch.cuda.current_stream(q.device).cuda_stream),
             "kernel launch")
     packed_attention.launches += 1
+    _count_offset(packed_attention, head_offset)
     return out
 
 
@@ -397,10 +405,12 @@ def packed_attention_backward(num_heads: int, dropout_p: float, q, k, v,
             torch.cuda.current_stream(q.device).cuda_stream),
             "backward kernel launch")
     packed_attention_backward.launches += 1
+    _count_offset(packed_attention_backward, head_offset)
     return dq, dk, dv
 
 
 packed_attention_backward.launches = 0
+packed_attention_backward.offsets = {}
 
 
 class _PackedAttention(torch.autograd.Function):
@@ -448,3 +458,4 @@ def packed_attention(num_heads: int, dropout_p: float, q, k, v, bias,
 
 
 packed_attention.launches = 0
+packed_attention.offsets = {}

@@ -1,4 +1,5 @@
-"""Catalog-parallel training: the item catalog sharded over every rank.
+"""Catalog-parallel training and evaluation: the item catalog sharded
+over the (dp, mp) ranks.
 
 The port of the JAX package's parallel/catalog.py (`catalog_axes`,
 `pad_catalog`, `place_catalog`, `sharded_catalog_encode`,
@@ -7,25 +8,35 @@ cache of a large catalog need not fit one device (rank r holds only its
 rows), and the whole-catalog encode, replicated under plain dp, costs
 each rank 1/n of it.
 
-  * the catalog rows are split over every rank, (dp, mp) flattened, and
-    padded to a multiple of the group by repeating the last row (the
+  * the catalog rows are split over the catalog axis (`Mesh.catalog_axis`:
+    the (dp, mp) ranks at this rank's sp index, (dp, mp) flattened; JAX's
+    sp and pp stay out, so the sp ranks of one (dp, mp) cell hold the same
+    rows) and padded to a multiple of it by repeating the last row (the
     padded rows encode cleanly and are never gathered: occurrence ids
     stay < N);
   * each rank encodes its own rows with the model's own
     `encode_item_content` (paging and remat apply; the catalog gradient
     plans do not, as in JAX: the lookup takes the plain transpose), its
-    dropout generator folding the flattened index, so masks differ
-    across shards;
-  * `gather_catalog` all-gathers the (N, D) reprs; its backward sums
-    every rank's cotangent into the owner's rows (an all-reduce and a
-    slice: gloo has no reduce-scatter);
-  * the user side and the predictor run on the rank's dp rows (the mp
-    ranks of a dp row alike), their batch statistics over the dp group;
-  * each rank's loss is its own; the gradients and the loss are averaged
-    over the whole group, which gives the gradient of the dp mean loss
-    for the item side (every rank's loss reaches every shard through the
-    gather's backward) and for the user side (each dp row counted mp
-    times over n = dp * mp).
+    dropout generator folding the flattened (dp, mp) index, so masks
+    differ across shards and agree over sp;
+  * `gather_catalog` all-gathers the (N, D) reprs over the catalog axis;
+    its backward sums the axis's cotangents into the owner's rows (an
+    all-reduce and a slice: gloo has no reduce-scatter);
+  * the user side and the predictor run on the rank's dp rows (the mp and
+    sp ranks of a dp row alike; a `sequence_parallel` user operator
+    shards its sequence over sp), their batch statistics over the dp
+    group;
+  * each rank's loss is its own; a sequence-parallel operator's partial
+    gradients are summed over sp, then the gradients and the loss are
+    averaged over the catalog axis, which gives the gradient of the dp
+    mean loss for the item side (every rank's loss reaches every shard
+    through the gather's backward) and for the user side (each dp row
+    counted mp times over n = dp * mp);
+  * evaluation (`runtime/evaluator.py`, `runtime/trainer.py`'s
+    `simple_dev`): where the catalog's contents are held by rows (a
+    layer-split LM's cache), each rank encodes its rows in eval mode and
+    `gather_catalog` gives every rank the whole (N, D) reprs, from which
+    the pages score as in one process.
 Parameters stay whole on every rank (JAX places them replicated).
 With `assemble` (the device pipeline's) the batch is assembled in the
 step from the step's generator, as the fused dp step does (JAX
@@ -37,8 +48,8 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from legommenders_tpu_torch.parallel.mesh import (
-    Mesh, all_gather_rows, all_reduce_, reduce_gradients, shard_rows,
-    split_batch,
+    Mesh, all_gather_rows, all_reduce_, partial_params, reduce_gradients,
+    shard_rows, split_batch,
 )
 from legommenders_tpu_torch.runtime.steps import (
     neg_sampling_loss, ranking_loss, step_generator,
@@ -50,7 +61,8 @@ _ENCODE_FOLD = 1 << 40
 
 
 def catalog_axes(mesh: Mesh) -> Tuple[str, ...]:
-    """The mesh axes the catalog rows shard over: (dp, mp) flattened."""
+    """The mesh axes the catalog rows shard over: (dp, mp) flattened; sp
+    and pp stay out."""
     return ("dp", "mp") if mesh.mp > 1 else ("dp",)
 
 
@@ -67,47 +79,52 @@ def pad_catalog(contents: Dict[str, torch.Tensor], n_dev: int
 
 
 def local_rows(n: int, mesh: Mesh) -> slice:
-    """This rank's rows of a catalog of n rows padded to the group."""
-    k = -(-n // mesh.size)
-    return slice(mesh.rank * k, (mesh.rank + 1) * k)
+    """This rank's rows of a catalog of n rows padded to the catalog
+    axis."""
+    axis = mesh.catalog_axis
+    k = -(-n // axis.size)
+    return slice(axis.index * k, (axis.index + 1) * k)
 
 
 def place_catalog(contents: Dict[str, torch.Tensor], mesh: Mesh
                   ) -> Tuple[Dict[str, torch.Tensor], int]:
     """This rank's rows of every column, padded (copies: the rank keeps
-    only N / n rows). Returns (local contents, original N)."""
-    padded, n = pad_catalog(contents, mesh.size)
+    only N / n rows, n = dp * mp). Returns (local contents, original N)."""
+    padded, n = pad_catalog(contents, mesh.catalog_axis.size)
     rows = local_rows(n, mesh)
     return {c: a[rows].clone() for c, a in padded.items()}, n
 
 
 class _GatherCatalog(torch.autograd.Function):
-    """All-gather of every rank's (k, D) reprs; the backward sums every
-    rank's cotangent and keeps this rank's rows (a reduce-scatter)."""
+    """All-gather of the catalog axis's (k, D) reprs; the backward sums
+    the axis's cotangents and keeps this rank's rows (a reduce-scatter)."""
 
     @staticmethod
-    def forward(ctx, local, mesh):
-        ctx.mesh, ctx.rows = mesh, local.shape[0]
-        return all_gather_rows(local, mesh, mesh.catalog_axis)
+    def forward(ctx, local, axis):
+        ctx.axis, ctx.rows = axis, local.shape[0]
+        return all_gather_rows(local, None, axis)
 
     @staticmethod
     def backward(ctx, grad):
-        grad = all_reduce_(grad.contiguous().clone(), ctx.mesh.catalog_axis)
-        lo = ctx.mesh.rank * ctx.rows
+        grad = all_reduce_(grad.contiguous().clone(), ctx.axis)
+        lo = ctx.axis.index * ctx.rows
         return grad[lo:lo + ctx.rows].contiguous(), None
 
 
 def gather_catalog(local: torch.Tensor, mesh: Mesh, n: int) -> torch.Tensor:
-    """Every rank's reprs, (N, D), the padding dropped."""
-    if mesh.size == 1:
+    """The catalog axis's reprs, (N, D), the padding dropped."""
+    axis = mesh.catalog_axis
+    if axis.size == 1:
         return local[:n]
-    return _GatherCatalog.apply(local, mesh)[:n]
+    return _GatherCatalog.apply(local, axis)[:n]
 
 
 def encode_generator(seed: int, step_idx: int, device, mesh: Mesh
                      ) -> torch.Generator:
-    """The local encode's dropout generator: the flattened index folded."""
-    return step_generator(seed, step_idx, device, _ENCODE_FOLD + mesh.rank)
+    """The local encode's dropout generator: the flattened (dp, mp) index
+    folded."""
+    return step_generator(seed, step_idx, device,
+                          _ENCODE_FOLD + mesh.catalog_axis.index)
 
 
 def sharded_catalog_encode(model, mesh: Mesh) -> Callable:
@@ -119,6 +136,22 @@ def sharded_catalog_encode(model, mesh: Mesh) -> Callable:
         return gather_catalog(model.encode_item_content(local, rng), mesh, n)
 
     return encode
+
+
+def catalog_loss(model, batch: Dict[str, torch.Tensor],
+                 all_reprs: torch.Tensor, use_neg_sampling: bool = True,
+                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The catalog branch of the loss over the whole catalog's reprs (JAX
+    make_catalog_parallel_step's loss_fn): the candidates' and the clicks'
+    rows gathered, the user side and the predictor on them."""
+    n = all_reprs.shape[0]
+    cand = batch["candidates"].clamp(0, n - 1)
+    hist = batch["history"].clamp(0, n - 1)
+    user_repr = model.encode_user(all_reprs[hist], batch["mask"], rng)
+    scores = model.predictor(user_repr, all_reprs[cand], rng)
+    if use_neg_sampling:
+        return neg_sampling_loss(scores)
+    return ranking_loss(scores, batch["label"])
 
 
 def make_catalog_parallel_step(model, optimizer, mesh: Mesh,
@@ -135,17 +168,12 @@ def make_catalog_parallel_step(model, optimizer, mesh: Mesh,
     its update is one process's fused step's."""
     encode = sharded_catalog_encode(model, mesh)
     params = [p for g in optimizer.param_groups for p in g["params"]]
+    partial = partial_params(model)
     fold = mesh.dp_index
 
     def loss_fn(batch, rng, enc_rng):
         all_reprs = encode(local_contents, num_items, enc_rng)
-        cand = batch["candidates"].clamp(0, num_items - 1)
-        hist = batch["history"].clamp(0, num_items - 1)
-        user_repr = model.encode_user(all_reprs[hist], batch["mask"], rng)
-        scores = model.predictor(user_repr, all_reprs[cand], rng)
-        if use_neg_sampling:
-            return neg_sampling_loss(scores)
-        return ranking_loss(scores, batch["label"])
+        return catalog_loss(model, batch, all_reprs, use_neg_sampling, rng)
 
     def step(inputs, step_idx: int):
         if assemble is None:
@@ -163,7 +191,7 @@ def make_catalog_parallel_step(model, optimizer, mesh: Mesh,
             loss = loss_fn(batch, rng,
                            encode_generator(seed, step_idx, device, mesh))
         loss.backward()
-        loss = reduce_gradients(params, loss.detach(), mesh,
+        loss = reduce_gradients(params, loss.detach(), mesh, partial,
                                 over=mesh.catalog_axis)
         optimizer.step()
         return loss

@@ -18,11 +18,14 @@ of `jax.devices()`:
   * `mesh_from_policy` reads `exp.policy.mesh` as JAX does (`true`: every
     process, pure dp; `mp`, `sp`, `pp`, `catalog_parallel`,
     `min_rows_to_shard`; dp defaults to the rest) and checks it with JAX's
-    messages. JAX reshapes the devices to [dp, mp, sp, pp] (sp and pp only
-    where above 1), so rank = ((dp_index * mp + mp_index) * sp + sp_index)
-    * pp + pp_index. The mesh holds one family of subgroups an axis
-    (`dist.new_group`, made once per layout by every rank in one order):
-    the ranks that differ only in that axis's index;
+    messages; any of mp, sp and pp may be above 1 at once. JAX reshapes
+    the devices to [dp, mp, sp, pp] (sp and pp only where above 1), so
+    rank = ((dp_index * mp + mp_index) * sp + sp_index) * pp + pp_index.
+    The mesh holds one family of subgroups an axis (`dist.new_group`,
+    made once per layout by every rank in one order): the ranks that
+    differ only in that axis's index; and the catalog family, the (dp,
+    mp) ranks at one (sp, pp) index (JAX's `catalog_axes`: sp and pp
+    stay out), over which `catalog_parallel` shards the catalog's rows;
   * `shard_rows` is a batch's rows of this rank's dp index, in place of
     `shard_batch` (the mp, sp and pp ranks of one dp row hold the same
     rows);
@@ -61,8 +64,11 @@ has none). This is
 transport only: the model, the kernels and the optimizer stay on the
 card. A bf16 tensor is all-reduced in f32 under gloo.
 
-Two axes above 1 among mp, sp and pp at once, and sp with
-`catalog_parallel`, are ROADMAP.md, queue 1, item 8 and raise.
+The axes compose because each transfer stays inside its own subgroup: a
+row-sharded table's gather and a TP layer's f and g inside the rank's mp
+group, an sp transfer inside its sp group, a pipeline shift inside its pp
+group; the ranks of one group run the same schedule, so their collectives
+meet in one order.
 """
 import contextlib
 import itertools
@@ -80,9 +86,8 @@ MP_AXIS = "mp"
 SP_AXIS = "sp"
 PP_AXIS = "pp"
 AXES = (DP_AXIS, MP_AXIS, SP_AXIS, PP_AXIS)
-NOT_PORTED = ("is a multi-device combination not ported yet (ROADMAP.md, "
-              "queue 1, item 8); the port runs each of exp.policy.mesh's "
-              "mp, sp and pp axes beside dp, one at a time")
+# the catalog family's key in a layout's groups: (dp, mp) at one (sp, pp)
+CATALOG = "catalog"
 
 
 def world() -> tuple:
@@ -162,33 +167,49 @@ def _rank_of(coords, dims) -> int:
     return r
 
 
-# (dp, mp, sp, pp) -> {axis: (this rank's group, its global ranks)}: made
-# once per layout
+# (dp, mp, sp, pp) -> {axis or CATALOG: (this rank's group, its global
+# ranks)}: made once per layout
 _GROUPS: Dict[Tuple[int, ...], Dict[str, tuple]] = {}
+
+
+def _family(dims: Tuple[int, ...], axes: Tuple[int, ...], rank: int):
+    """Every group of ranks that differ only in the indices of `axes` (in
+    the [dp, mp, sp, pp] order, the first axis slowest), made in one order
+    on every rank (dist.new_group is collective); returns this rank's
+    (group, global ranks). A group that is the whole world is None (the
+    default group)."""
+    size = int(np.prod(dims))
+    inner = [range(dims[a]) for a in axes]
+    if int(np.prod([dims[a] for a in axes])) == size:
+        return None, tuple(range(size))
+    rest = [range(m) for i, m in enumerate(dims) if i not in axes]
+    mine = None
+    for fixed in itertools.product(*rest):
+        ranks = []
+        for moving in itertools.product(*inner):
+            coords, f, m = [], iter(fixed), iter(moving)
+            for i in range(len(dims)):
+                coords.append(next(m) if i in axes else next(f))
+            ranks.append(_rank_of(coords, dims))
+        g = dist.new_group(ranks)
+        if rank in ranks:
+            mine = (g, tuple(ranks))
+    return mine
 
 
 def _subgroups(dims: Tuple[int, ...]) -> Dict[str, tuple]:
     """This rank's group of every axis above 1 of the [dp, mp, sp, pp]
-    layout: the ranks that differ from it in that axis's index only. A
-    group that is the whole world is None (the default group); every rank
-    makes every subgroup, in one order (dist.new_group is collective)."""
+    layout (the ranks that differ from it in that axis's index only), and,
+    where dp * mp is above 1, its catalog group (the ranks that differ
+    from it in their (dp, mp) indices only)."""
     if dims not in _GROUPS:
-        size = int(np.prod(dims))
         rank = dist.get_rank()
         groups = {}
         for a, n in enumerate(dims):
-            if n == 1:
-                continue
-            if n == size:
-                groups[AXES[a]] = (None, tuple(range(size)))
-                continue
-            rest = [range(m) for i, m in enumerate(dims) if i != a]
-            for fixed in itertools.product(*rest):
-                ranks = tuple(_rank_of(fixed[:a] + (c,) + fixed[a:], dims)
-                              for c in range(n))
-                g = dist.new_group(list(ranks))
-                if rank in ranks:
-                    groups[AXES[a]] = (g, ranks)
+            if n > 1:
+                groups[AXES[a]] = _family(dims, (a,), rank)
+        if dims[0] * dims[1] > 1:
+            groups[CATALOG] = _family(dims, (0, 1), rank)
         _GROUPS[dims] = groups
     return _GROUPS[dims]
 
@@ -276,29 +297,35 @@ class Mesh:
 
     @property
     def dp_axis(self) -> Axis:
-        """The dp group of this rank's (mp, sp, pp) column."""
+        """The ranks that differ from this one in their dp index only."""
         return self.axis(DP_AXIS)
 
     @property
     def mp_axis(self) -> Axis:
-        """The mp group of this rank's dp row."""
+        """The ranks that differ from this one in their mp index only."""
         return self.axis(MP_AXIS)
 
     @property
     def sp_axis(self) -> Axis:
-        """The sp group of this rank's dp row."""
+        """The ranks that differ from this one in their sp index only."""
         return self.axis(SP_AXIS)
 
     @property
     def pp_axis(self) -> Axis:
-        """The pp group of this rank's dp row."""
+        """The ranks that differ from this one in their pp index only."""
         return self.axis(PP_AXIS)
 
     @property
     def catalog_axis(self) -> Axis:
-        """Every rank, (dp, mp) flattened: the catalog rows' axis (JAX
-        catalog.catalog_axes)."""
-        return Axis(self.size, self.rank, None)
+        """The catalog rows' axis (JAX catalog.catalog_axes): this rank's
+        (dp, mp) ranks at its (sp, pp) index, (dp, mp) flattened, so the
+        sp ranks of one (dp, mp) cell hold the same catalog rows."""
+        n = self.dp * self.mp
+        i = self.dp_index * self.mp + self.mp_index
+        if n == 1 or not dist.is_initialized():
+            return Axis(n, i)
+        group, ranks = _subgroups(self.dims)[CATALOG]
+        return Axis(n, i, group, ranks)
 
 
 def make_mesh(n_dp: Optional[int] = None, n_mp: int = 1,
@@ -326,8 +353,8 @@ def mesh_from_policy(cfg) -> Mesh:
     and `min_rows_to_shard`. The processes are the group's (one without a
     group); a policy that wants more raises JAX's ValueError, and one that
     leaves processes idle raises too (JAX would use the first devices: a
-    process group has no idle member). Two of mp, sp and pp above 1, and
-    sp with catalog_parallel, raise NotImplementedError (item 8)."""
+    process group has no idle member). pp with catalog_parallel is
+    stopped where JAX stops it, by the Manager."""
     if cfg is True:
         cfg = {}
     if not isinstance(cfg, dict):
@@ -337,15 +364,6 @@ def mesh_from_policy(cfg) -> Mesh:
     n_mp = int(cfg.get("mp") or 1)
     n_sp = int(cfg.get("sp") or 1)
     n_pp = int(cfg.get("pp") or 1)
-    wide = [f"{k}={v}" for k, v in (("mp", n_mp), ("sp", n_sp),
-                                    ("pp", n_pp)) if v > 1]
-    if len(wide) > 1:
-        raise NotImplementedError(
-            f"exp.policy.mesh: {' with '.join(wide)} {NOT_PORTED}")
-    if n_sp > 1 and cfg.get("catalog_parallel"):
-        raise NotImplementedError(
-            f"exp.policy.mesh: sp={n_sp} with catalog_parallel "
-            f"{NOT_PORTED}")
     n_dp = int(cfg.get("dp") or max(1, n // (n_mp * n_sp * n_pp)))
     need = n_dp * n_mp * n_sp * n_pp
     shape = f"{n_dp}x{n_mp}x{n_sp}x{n_pp}"

@@ -29,8 +29,18 @@ meta at `<path>.orbax.meta.json`, as JAX's orbax path has it. Loading
 reassembles each tensor from the shards and cuts it to the target's
 layout (`parallel/mesh.model_plan`): a checkpoint written at mp 2 loads
 at mp 2, at mp 1 and in one process (the Tester), whole tensors there.
-Reading a directory that JAX's orbax wrote needs orbax's storage format
-and is not done (ROADMAP.md, queue 1, item 8).
+
+`load_orbax` reads a directory that JAX's `save_sharded` wrote with
+orbax's `StandardCheckpointer`: its `_METADATA` lists every leaf of the
+saved tree by its keys, and each array lies in the directory's OCDBT
+store under its dotted path (`params.params.emb_title`), which
+tensorstore's `zarr` driver over an `ocdbt` kvstore reads whole, however
+the run sharded it. The params tree goes through `bridge.params_from_jax`
+and is cut to the model's layout; the Adam state (optax's count, mu and
+nu), where the directory holds it, becomes the torch optimizer's.
+tensorstore is imported only there; without it the read stops with a
+message that names the package. `load_auto` tells JAX's directory
+(`_METADATA`) from the port's (`index.json`) by what is in it.
 """
 import os
 from typing import Any, Dict, Optional
@@ -182,10 +192,14 @@ def _per_param(tensor: torch.Tensor, shape) -> bool:
 def save_sharded(path: str, model: torch.nn.Module, optimizer=None,
                  meta: Optional[Dict[str, Any]] = None, mesh=None):
     """The sharded checkpoint directory `path`; every rank of the mesh
-    calls it (the mp ranks of dp row 0 write, all wait at a barrier)."""
+    calls it (the mp ranks of the first (dp, sp, pp) cell write, all wait
+    at a barrier)."""
     plan = model_plan(model)
     r = mesh.mp_index if mesh is not None else 0
-    writes = mesh is None or mesh.dp_index == 0
+    # the mp ranks of the first (dp, sp, pp) cell: every other cell holds
+    # the same slices
+    writes = mesh is None or (mesh.dp_index, mesh.sp_index,
+                              mesh.pp_index) == (0, 0, 0)
     if writes:
         os.makedirs(path, exist_ok=True)
         named = dict(model.named_parameters())
@@ -298,6 +312,86 @@ def _load_named_optimizer_state(model, optimizer, shards, index, plan):
             multi.acc[p] = _fit(whole, name, plan).to(p.device)
 
 
+# ---------------------------------------------------------------------------
+# JAX's orbax directories
+# ---------------------------------------------------------------------------
+def _tensorstore():
+    try:
+        import tensorstore
+    except ImportError as e:
+        raise ImportError(
+            "reading a checkpoint directory that JAX's orbax wrote needs "
+            "the `tensorstore` package, which is not installed") from e
+    return tensorstore
+
+
+def read_orbax(path: str) -> dict:
+    """The tree a JAX `save_sharded` wrote at `path` ({"params": ...,
+    "opt_state": ...}), numpy leaves, each array read whole from the
+    directory's OCDBT store; leaves orbax skipped (None) left out."""
+    ts = _tensorstore()
+    path = os.path.abspath(path)
+    kvstore = {"driver": "ocdbt", "base": f"file://{path}/"}
+    tree: dict = {}
+    for leaf in json_load(os.path.join(path, "_METADATA"))[
+            "tree_metadata"].values():
+        if leaf["value_metadata"].get("skip_deserialize"):
+            continue
+        keys = [str(k["key"]) for k in leaf["key_metadata"]]
+        arr = ts.open({"driver": "zarr", "kvstore": kvstore,
+                       "path": ".".join(keys)}, open=True).result()
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = np.asarray(arr.read().result())
+    return tree
+
+
+def _adam_node(tree) -> Optional[dict]:
+    """The optax Adam state ({count, mu, nu}) inside an opt_state tree."""
+    if not isinstance(tree, dict):
+        return None
+    if {"count", "mu", "nu"} <= set(tree):
+        return tree
+    for v in tree.values():
+        found = _adam_node(v)
+        if found is not None:
+            return found
+    return None
+
+
+def _wide(tree):
+    """Every leaf as f32 (bf16 exactly), the tree's shape kept."""
+    if isinstance(tree, dict):
+        return {k: _wide(v) for k, v in tree.items()}
+    return np.asarray(tree).astype(np.float32)
+
+
+def load_orbax(path: str, model: torch.nn.Module, optimizer=None
+               ) -> Optional[dict]:
+    """Restore a directory JAX's orbax wrote into `model` (and, where it
+    holds optax's Adam state, into `optimizer`'s Adam moments and step),
+    cut to the model's layout; returns the meta."""
+    tree = read_orbax(path)
+    plan = model_plan(model)
+    state = params_from_jax(_wide(tree["params"]), model)
+    model.load_state_dict({k: _fit(v, k, plan) for k, v in state.items()})
+    adam = _adam_node(tree.get("opt_state"))
+    if optimizer is not None and adam is not None:
+        inner, _ = _optimizer_parts(optimizer)
+        mu = params_from_jax(_wide(adam["mu"]), model)
+        nu = params_from_jax(_wide(adam["nu"]), model)
+        step = float(np.asarray(adam["count"]))
+        for name, p in model.named_parameters():
+            if not p.requires_grad:
+                continue
+            inner.state[p] = {
+                "step": torch.tensor(step),
+                "exp_avg": _fit(mu[name], name, plan).to(p),
+                "exp_avg_sq": _fit(nu[name], name, plan).to(p)}
+    return _meta(path)
+
+
 def save_auto(path: str, model: torch.nn.Module, optimizer=None,
               meta: Optional[Dict[str, Any]] = None, mesh=None) -> str:
     """A model holding mp slices -> the sharded directory `path`.orbax
@@ -316,11 +410,19 @@ def save_auto(path: str, model: torch.nn.Module, optimizer=None,
 def load_auto(path: str, model: torch.nn.Module, optimizer=None,
               model_only: bool = False) -> Optional[dict]:
     """`path`.orbax when that directory is there (JAX's rule), resharded to
-    the model; else the port's checkpoint or a JAX one at `path`, told
-    apart by the first bytes (a JAX checkpoint gives weights only)."""
-    if os.path.isdir(path + ".orbax"):
-        return load_sharded(path + ".orbax", model,
-                            None if model_only else optimizer)
+    the model: the port's sharded form (`index.json`) or JAX's orbax
+    directory (`_METADATA`), told apart by what is in it; else the port's
+    checkpoint or a JAX one at `path`, told apart by the first bytes (a
+    JAX msgpack checkpoint gives weights only)."""
+    opath = path + ".orbax"
+    if os.path.isdir(opath):
+        optimizer = None if model_only else optimizer
+        if os.path.isfile(os.path.join(opath, "index.json")):
+            return load_sharded(opath, model, optimizer)
+        if os.path.isfile(os.path.join(opath, "_METADATA")):
+            return load_orbax(opath, model, optimizer)
+        raise ValueError(f"{opath}: neither the port's sharded checkpoint "
+                         f"(index.json) nor JAX's orbax one (_METADATA)")
     with open(path, "rb") as f:
         head = f.read(4)
     if head == _ZIP_MAGIC:

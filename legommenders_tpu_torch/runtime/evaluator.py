@@ -29,8 +29,12 @@ and the scores are gathered over dp, so every rank holds every score and
 computes the same metrics. The host-batched path runs every batch whole
 on each rank. Evaluation runs the serial layer stack (`no_pipeline`,
 JAX evaluator.py:325-330). Under catalog_parallel a layer-split LM's
-cache is held by rows: its full forwards have no whole cache to read and
-raise (the cached path serves it).
+cache is held by rows, and no rank has the contents a full forward
+encodes: each rank encodes its own rows once a phase in eval mode, the
+reprs are gathered over the catalog axis (parallel/catalog.py
+`gather_catalog`), and every page's forward reads them in place of its
+item encode (JAX evaluates over its row-sharded cache through GSPMD,
+evaluator.py:246-320); the pages are those of one process.
 """
 from typing import Callable, Dict, Optional
 
@@ -42,6 +46,7 @@ from legommenders_tpu_torch.data.pipeline import (
     on_current_stream,
 )
 from legommenders_tpu_torch.data.token_store import UNSET
+from legommenders_tpu_torch.parallel.catalog import gather_catalog
 from legommenders_tpu_torch.parallel.mesh import (
     all_gather_rows, no_pipeline, row_slice, split_batch,
 )
@@ -125,17 +130,21 @@ class Evaluator:
 
     def __init__(self, model, data, metrics, cache=None, device="cuda", *,
                  item_contents: Optional[Dict[str, torch.Tensor]] = None,
-                 batch_size: int = 256, mesh=None):
+                 batch_size: int = 256, mesh=None,
+                 local_contents: Optional[Callable[[], Dict]] = None):
         """`item_contents` (the model's content columns, by reference: a
         layer-split LM cache added later is seen) feed the full-forward and
         host-batched paths; `batch_size` is the eval batch size, the page
         of the full-forward path; `mesh` a dp mesh whose ranks split the
-        pages."""
+        pages; `local_contents` gives this rank's rows of the catalog
+        where no rank holds the whole catalog (the Manager's
+        `catalog_contents` where `catalog_held_by_rows`)."""
         self.device = resolve_device(device)
         self.mesh = mesh
         self.model = model
         self.data = data
         self.item_contents = item_contents
+        self.local_contents = local_contents
         self.batch_size = int(batch_size)
         self.pool = MetricPool.parse(list(metrics))
         self.cache = cache
@@ -228,20 +237,27 @@ class Evaluator:
         return self._substrate
 
     @torch.inference_mode()
+    def catalog_reprs(self) -> Optional[torch.Tensor]:
+        """The whole catalog's (N, D) reprs where its contents are held by
+        rows (`local_contents`): this rank's rows encoded in eval mode,
+        gathered over the catalog axis; None otherwise (the forward
+        encodes them)."""
+        if self.local_contents is None:
+            return None
+        n = len(next(iter(self.item_contents.values())))
+        local = self.model.encode_item_content(self.local_contents())
+        return gather_catalog(local, self.mesh, n)
+
+    @torch.inference_mode()
     def score_phase_device_full(self, phase: str) -> torch.Tensor:
         """(n,) scores of a whole phase through the model's forward, on the
         device: pages of the eval batch size (of max(8, n) rows where the
         phase is smaller), the tail page padded with row 0 (user 0, item 0)
         and its padded scores dropped, as JAX pages (evaluator.py:112-120):
         a head whose scores depend on the batch (DIN's batch norm) scores
-        as it does in JAX."""
-        if (self.mesh is not None and self.mesh.catalog_parallel
-                and getattr(self.model.item_op, "use_lm_cache", False)):
-            raise NotImplementedError(
-                "full-forward evaluation under catalog_parallel: the "
-                "layer-split LM cache is held by rows; evaluate through "
-                "the repr caches (use_fast_eval); not ported yet "
-                "(ROADMAP.md, queue 1, item 8)")
+        as it does in JAX. Where the catalog is held by rows, the pages
+        read `catalog_reprs`."""
+        reprs = self.catalog_reprs()
         ph = self.phase(phase)
         sub = self.substrate()
         P = min(self.batch_size, max(8, ph.n))
@@ -261,7 +277,8 @@ class Evaluator:
             for c, m in sub["extra"].items():
                 batch[c] = m[ul]
             with split_batch(self.mesh):
-                scores = self.model(batch, self.item_contents).reshape(-1)
+                scores = self.model(batch, self.item_contents,
+                                    item_reprs=reprs).reshape(-1)
             out.append(self._gather(scores, n))
         return torch.cat(out)[:ph.n]
 
@@ -294,7 +311,8 @@ class Evaluator:
             if latency_timer is None and not max_batches:
                 return self.metrics(phase,
                                     self.score_phase_device_full(phase))
-            step = make_eval_step(self.model, self.item_contents)
+            step = make_eval_step(self.model, self.item_contents,
+                                  self.catalog_reprs())
             needed_keys = None
         batcher = EvalBatcher(self.data, phase, self.batch_size)
         scores, labels, groups = collect_scores(

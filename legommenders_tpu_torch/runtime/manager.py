@@ -178,6 +178,19 @@ class Manager:
         drop_cached_casts(frozen)
         return True
 
+    @property
+    def catalog_held_by_rows(self) -> bool:
+        """Whether no rank holds the whole catalog's contents: under
+        catalog_parallel a layer-split LM's cache is built of each rank's
+        own rows only (`catalog_contents`)."""
+        return self.catalog_parallel and bool(
+            getattr(self.model.item_op, "use_lm_cache", False))
+
+    @property
+    def num_items(self) -> int:
+        """The catalog's rows."""
+        return len(next(iter(self.contents.columns.values())))
+
     def catalog_contents(self) -> dict:
         """Catalog-parallel: this rank's padded rows of every content
         column (with the layer-split LM cache's, where it was prepared)."""
@@ -217,7 +230,10 @@ class Manager:
         return Evaluator(self.model, self.data, self.metrics,
                          cache=self.cache, device=self.device,
                          item_contents=self.contents.columns,
-                         batch_size=self.eval_batch_size, mesh=self.mesh)
+                         batch_size=self.eval_batch_size, mesh=self.mesh,
+                         local_contents=(self.catalog_contents
+                                         if self.catalog_held_by_rows
+                                         else None))
 
     def load_lm_weights(self, log=None) -> bool:
         """Pretrained LM weights for the item operator, from the local

@@ -12,7 +12,7 @@ root, no weight decay) over the trainable parameters.
 index) (`step_generator`, as JAX folds the step index into its key);
 `make_eval_step` runs the model in eval mode (no generator).
 """
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 from torch.nn import functional as F
@@ -99,13 +99,14 @@ def make_train_step_folded(model, item_contents: Dict[str, torch.Tensor],
     return step
 
 
-def make_eval_step(model, item_contents: Dict[str, torch.Tensor]
-                   ) -> Callable:
+def make_eval_step(model, item_contents: Dict[str, torch.Tensor],
+                   item_reprs: Optional[torch.Tensor] = None) -> Callable:
     """step(batch) -> scores (B, K): the forward in eval mode (JAX
-    steps.py:96-102)."""
+    steps.py:96-102); `item_reprs`, the catalog's reprs encoded before
+    (catalog-parallel), in place of the item encode."""
 
     @torch.inference_mode()
     def step(batch):
-        return model(batch, item_contents)
+        return model(batch, item_contents, item_reprs=item_reprs)
 
     return step

@@ -42,16 +42,19 @@ the whole weights, as JAX builds it before `_place_on_mesh`): tables
 row-sharded, CrossNetMix expert-sharded, the LM slices Megatron-TP'd,
 Adam's moments following the slices. `catalog_parallel` routes the step
 through `parallel/catalog.make_catalog_parallel_step` (parameters whole,
-the catalog's rows sharded over every rank). At sp > 1 `init` activates
-the ambient sp mesh (JAX trainer.py:159-163): `sequence_parallel` user
-operators shard their sequence over sp in training and in the
-evaluation that runs under it, and the step sums their partial gradients
-over sp. At pp > 1 it activates the ambient pp mesh: the LM slice's
-layers train in GPipe stages and the step sums their gradients over pp;
-dev, test and the caches run the serial stack (`no_pipeline`).
-Checkpoints go through
-`save_auto`: a sharded model writes the sharded directory (every mp rank
-of dp row 0 its shard), a whole one a file that rank 0 writes; the others
+the catalog's rows sharded over the (dp, mp) ranks); where a layer-split
+LM's cache is held by rows, the full-forward evaluation and `simple_dev`
+read the reprs each rank encodes of its rows, gathered. At sp > 1 `init`
+activates the ambient sp mesh (JAX trainer.py:159-163):
+`sequence_parallel` user operators shard their sequence over sp in
+training and in the evaluation that runs under it, and the step sums
+their partial gradients over sp. At pp > 1 it activates the ambient pp
+mesh: the LM slice's layers train in GPipe stages and the step sums
+their gradients over pp; dev, test and the caches run the serial stack
+(`no_pipeline`). The axes compose (mp with sp, mp with pp, sp with pp,
+sp with catalog_parallel). Checkpoints go through `save_auto`: a sharded
+model writes the sharded directory (every mp rank of the first (dp, sp,
+pp) cell its shard), a whole one a file that rank 0 writes; the others
 wait at a barrier. Rank 0 alone talks to the lego-server; the dev metric
 is the same on every rank, so early stopping decides alike.
 """
@@ -69,7 +72,8 @@ from legommenders_tpu_torch.runtime import steps
 from legommenders_tpu_torch.runtime.checkpoint import load_auto, save_auto
 from legommenders_tpu_torch.runtime.manager import Manager
 from legommenders_tpu_torch.parallel.catalog import (
-    make_catalog_parallel_step,
+    catalog_loss, encode_generator, make_catalog_parallel_step,
+    sharded_catalog_encode,
 )
 from legommenders_tpu_torch.parallel.mesh import (
     barrier, no_pipeline, place_model, set_pp_mesh, set_sp_mesh, shard_rows,
@@ -309,14 +313,16 @@ class Trainer:
         """Loss-only dev (reference trainer.py:126-153, simple_dev): the
         training loss over the dev split's batches, with dropout drawn from
         one fixed generator for every batch, as JAX passes one fixed key.
-        Under catalog_parallel a layer-split LM's cache is held by rows:
-        no rank has the whole catalog this loss encodes, and it raises."""
-        if self.m.catalog_parallel and self.m.model.item_op is not None \
-                and getattr(self.m.model.item_op, "use_lm_cache", False):
-            raise NotImplementedError(
-                "simple_dev under catalog_parallel: the layer-split LM "
-                "cache is held by rows; evaluate through the repr caches; "
-                "not ported yet (ROADMAP.md, queue 1, item 8)")
+        Where the catalog is held by rows (catalog_parallel with a
+        layer-split LM's cache) it is the catalog-parallel step's loss
+        without the backward: each rank encodes its rows once, from one
+        fixed generator, the reprs are gathered, and every rank takes the
+        loss of each whole dev batch over them."""
+        reprs = None
+        if self.m.catalog_held_by_rows:
+            reprs = sharded_catalog_encode(self.m.model, self.mesh)(
+                self.m.catalog_contents(), self.m.num_items,
+                encode_generator(0, 0, self.m.device, self.mesh))
         if not hasattr(self, "_dev_batcher"):
             self._dev_loss_fn = steps.make_loss_fn(
                 self.m.model, self.m.contents.columns,
@@ -332,7 +338,12 @@ class Trainer:
                 depth=4):
             on_current_stream(batch)
             rng = steps.step_generator(0, 0, self.m.device)
-            meaner.add(float(self._dev_loss_fn(batch, rng)))
+            if reprs is None:
+                meaner.add(float(self._dev_loss_fn(batch, rng)))
+            else:
+                meaner.add(float(catalog_loss(
+                    self.m.model, batch, reprs,
+                    self.m.lego_cfg.use_neg_sampling, rng)))
         return meaner.mean
 
     # ------------------------------------------------------------------ #
@@ -361,8 +372,8 @@ class Trainer:
         if mesh is not None and mesh.catalog_parallel:
             step_fn = make_catalog_parallel_step(
                 model, self.optimizer, mesh, self.m.catalog_contents(),
-                len(next(iter(self.m.contents.columns.values()))),
-                cfg.use_neg_sampling, seed=self.seed, assemble=assemble)
+                self.m.num_items, cfg.use_neg_sampling, seed=self.seed,
+                assemble=assemble)
         elif mesh is not None:
             step_fn = make_mesh_train_step_folded(
                 model, self.m.contents.columns, self.optimizer, mesh,

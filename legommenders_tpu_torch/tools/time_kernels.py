@@ -3,7 +3,7 @@
 trees can be compared in one run (parent, change, change, parent):
 
     python3 legommenders_tpu_torch/tools/time_kernels.py --root DIR \
-        [--kernels pool,attention,mask] [--out FILE]
+        [--kernels pool,attention,mask,tp,f32] [--out FILE]
 
 Imports legommenders_tpu_torch from DIR (its kernels built there at first
 use) and times, with chip_smoke.time_ms, REPS times each (median, min,
@@ -31,7 +31,13 @@ max), on chip_smoke.py's inputs taken from this checkout for either tree:
     heads of 128 (D 2048) at dropout 0 and offset 16, against 32 heads;
     with each case's bound (chip_smoke.roof: the bytes of q, k, v, the
     output and the bias, and the products, at the local width) under
-    "bounds_us".
+    "bounds_us";
+  - f32: the f32 (CUDA-core) forward and backward at bert-naml's
+    attention pages in f32 (the training page at dropout 0.1 and 0, the
+    serving page at 0; the backward at the training page) and torch's
+    scaled_dot_product_attention at f32 with the float mask and the
+    dropout (forward, and forward + backward), with each page's bound at
+    the f32 rate (chip_smoke.roof) under "bounds_us".
 Prints one JSON object (and writes it to --out).
 """
 import argparse
@@ -50,7 +56,7 @@ sys.path.insert(0, CHECKOUT)
 import chip_smoke  # noqa: E402  (no top-level torch or port import)
 
 CALLS, REPS = 50, 5
-KERNELS = ("pool", "attention", "mask", "tp")
+KERNELS = ("pool", "attention", "mask", "tp", "f32")
 
 
 def _stats(xs):
@@ -146,14 +152,51 @@ def mask_cases(torch, device):
                                 chip_smoke.mask_shape(chip_smoke.ATTN_PAGE))]
 
 
-def _bounds_us(B, T, Dm, xb, bb):
+def _bounds_us(B, T, Dm, xb, bb, precision="bf16"):
     """(forward, backward) bound in microseconds of one call at (B, T,
-    Dm), chip_smoke's rule."""
+    Dm), chip_smoke's rule, at the peak rate of `precision`."""
     fwd, _ = chip_smoke.roof(4.0 * B * T * T * Dm,
-                             4 * B * T * Dm * xb + B * T * T * bb, "bf16")
+                             4 * B * T * Dm * xb + B * T * T * bb, precision)
     bwd, _ = chip_smoke.roof(10.0 * B * T * T * Dm,
-                             7 * B * T * Dm * xb + B * T * T * bb, "bf16")
+                             7 * B * T * Dm * xb + B * T * T * bb, precision)
     return fwd * 1e3, bwd * 1e3
+
+
+def f32_cases(torch, device, bounds):
+    """(name, fn, calls) of the f32 attention kernels and SDPA at f32 at
+    bert-naml's pages; fills `bounds`."""
+    from torch.nn import functional as F
+    from legommenders_tpu_torch.ops import attention as A
+
+    seed = torch.tensor([20231], dtype=torch.int32, device=device)
+    heads = chip_smoke.ATTN_PAGE["heads"]
+    cases = []
+    for page, cfg, s in (("train", chip_smoke.TRAIN_PAGE, 11),
+                         ("serve", chip_smoke.ATTN_PAGE, 7)):
+        q, k, v, bias = chip_smoke.attention_inputs(torch.float32, device,
+                                                    seed=s, page=cfg)
+        B, T, Dm = q.shape
+        bounds[f"f32 {page}"] = dict(zip(("fwd", "bwd"), _bounds_us(
+            B, T, Dm, q.element_size(), bias.element_size(), "f32")))
+        g = torch.randn(q.shape, generator=torch.Generator(
+            device=device).manual_seed(12), device=device)
+        for p in ((0.1, 0.0) if page == "train" else (0.0,)):
+            cases.append((f"f32 {page} p{p} fwd", functools.partial(
+                A.packed_attention, heads, p, q, k, v, bias, seed), CALLS))
+            if page == "train":
+                cases.append((f"f32 {page} p{p} bwd", functools.partial(
+                    A.packed_attention_backward, heads, p, q, k, v, bias,
+                    seed, g), CALLS))
+        p = 0.1 if page == "train" else 0.0
+        qh, kh, vh = (t.view(B, T, heads, Dm // heads).transpose(1, 2)
+                      .detach().requires_grad_(True) for t in (q, k, v))
+        gh = g.view(B, T, heads, Dm // heads).transpose(1, 2)
+        cases.append((f"f32 {page} sdpa fwd", functools.partial(
+            _sdpa_fwd, F, qh, kh, vh, bias[:, None], p), CALLS))
+        if page == "train":
+            cases.append((f"f32 {page} sdpa fwd+bwd", functools.partial(
+                _sdpa_fwd_bwd, F, qh, kh, vh, bias[:, None], p, gh), CALLS))
+    return cases
 
 
 def tp_cases(torch, device, bounds):
@@ -228,9 +271,12 @@ def main() -> int:
             res["host_us_bwd"] = _host_us(torch, by_name["train p0.1 bwd"])
     if "mask" in kernels:
         cases += mask_cases(torch, device)
-    if "tp" in kernels:
+    if "tp" in kernels or "f32" in kernels:
         res["bounds_us"] = {}
+    if "tp" in kernels:
         cases += tp_cases(torch, device, res["bounds_us"])
+    if "f32" in kernels:
+        cases += f32_cases(torch, device, res["bounds_us"])
     # outside no_grad: the SDPA case runs its backward
     times = {name: [] for name, _, _ in cases}
     for _ in range(REPS):

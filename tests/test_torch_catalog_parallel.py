@@ -13,6 +13,13 @@ rank. Tolerances (JAX's test_catalog_parallel.py and
 test_mesh_policy.py): parameters rtol 2e-4, atol 2e-5; losses rel 2e-5;
 test metrics within 5e-3; the sharded encode against the whole one rtol
 1e-5, atol 1e-5.
+
+With sp (tests/torch_mesh_cases.py's case, runs and tolerances; `python
+tests/test_torch_catalog_parallel.py spcat <init> <rank> <tmp>`): the
+flatten Transformer at (dp 2, sp 2) with catalog_parallel, the catalog
+over (dp, mp) only, against the catalog-parallel step in one process and
+JAX's on (2, 1, 2). The evaluation paths under catalog_parallel are
+tests/test_torch_mesh_combos_eval.py's.
 """
 import copy
 import os
@@ -28,6 +35,11 @@ sys.path.insert(0, ROOT)
 
 from legommenders_tpu_torch.parallel import catalog as tcat  # noqa: E402
 from legommenders_tpu_torch.parallel import mesh as tmesh  # noqa: E402
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_mesh_cases as mc  # noqa: E402
+
+GROUPS = {"spcat": ["spcat"]}
 
 DATA_KW = dict(num_users=40, title_len=8, history_len=6, inters_per_user=10)
 NAML_CFG = {
@@ -328,5 +340,43 @@ def test_trainer_catalog_parallel_matches_one_process(runs, case):
                                                     one["test"])
 
 
+# --------------------------------------------------------------------- #
+# with sp, and the evaluation paths                                     #
+# --------------------------------------------------------------------- #
+@pytest.fixture(scope="module")
+def combos(tmp_path_factory):
+    return mc.run_groups(os.path.abspath(__file__), GROUPS,
+                         str(tmp_path_factory.mktemp("catalog_combos")))
+
+
+def test_sp_ranks_of_a_cell_hold_the_same_catalog_rows():
+    """At (dp 2, mp 2, sp 2) the catalog axis is the (dp, mp) ranks at one
+    sp index: the sp ranks of a cell hold the same rows, the four cells
+    the whole catalog."""
+    cols = {"title": torch.arange(98 * 3).reshape(98, 3)}
+    by_cell = {}
+    for r in range(8):
+        mesh = tmesh.Mesh(2, r, 2, True, 0, 2)
+        axis = mesh.catalog_axis
+        assert axis.size == 4
+        assert axis.index == mesh.dp_index * 2 + mesh.mp_index
+        local, n = tcat.place_catalog(cols, mesh)
+        by_cell.setdefault(axis.index, []).append(local["title"])
+    for parts in by_cell.values():
+        assert len(parts) == 2 and torch.equal(parts[0], parts[1])
+    whole = torch.cat([by_cell[i][0] for i in range(4)])
+    assert torch.equal(whole[:98], cols["title"])
+
+
+def test_catalog_parallel_with_sp_matches_one_process_and_jax(combos):
+    """The loss, every gradient, the Adam update, the dev value, the first
+    test pages' scores and Tester.test()."""
+    mc.check_case(combos["ranks"]["spcat"], combos["one"]["spcat"],
+                  combos["jax"]["spcat"], combos["init"]["spcat"])
+
+
 if __name__ == "__main__":
-    rank_main(sys.argv[1:])
+    if len(sys.argv) == 5:
+        mc.rank_main(sys.argv[1:], GROUPS)
+    else:
+        rank_main(sys.argv[1:])

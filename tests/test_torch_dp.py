@@ -167,30 +167,49 @@ def test_mesh_from_policy_refuses(cfg, monkeypatch):
         tmesh.mesh_from_policy(cfg)
 
 
+def jax_layout(cfg, n):
+    """JAX's mesh_from_policy over the first n virtual devices: its shape
+    (mp left out at 1, as the port's `shape` leaves it) and each device's
+    [dp, mp, sp, pp] coordinates (an axis JAX lays not, 0)."""
+    import jax
+
+    from legommenders_tpu.parallel.mesh import mesh_from_policy
+    mesh = mesh_from_policy(cfg, devices=jax.devices()[:n])
+    shape = {k: v for k, v in mesh.shape.items() if k != "mp" or v > 1}
+    coords = {}
+    for idx in np.ndindex(mesh.devices.shape):
+        named = dict(zip(mesh.axis_names, idx))
+        coords[mesh.devices[idx].id] = tuple(
+            named.get(a, 0) for a in ("dp", "mp", "sp", "pp"))
+    return shape, coords
+
+
+def assert_laid_as_jax(cfg, n, monkeypatch):
+    """The port's mesh on each rank of a group of n: JAX's shape and each
+    rank's coordinates."""
+    shape, coords = jax_layout(cfg, n)
+    for r in range(n):
+        monkeypatch.setattr(tmesh, "world", lambda r=r: (r, n))
+        mesh = tmesh.mesh_from_policy(cfg)
+        assert mesh.shape == shape and mesh.size == n
+        assert mesh.coords == coords[r], (r, mesh.coords, coords[r])
+
+
 @pytest.mark.parametrize("cfg", [{"mp": 2}, {"sp": 2}, {"pp": 2},
                                  {"dp": 1, "mp": 2},
                                  {"catalog_parallel": True}])
-def test_other_axes_raise_naming_item_8(cfg, monkeypatch):
+def test_other_axes_lay_as_jax(cfg, monkeypatch):
     """mp, sp, pp and catalog_parallel build what JAX's mesh_from_policy
-    builds over a group of 2: the (1, 2) mesh of the axis, or dp 2 with
-    catalog_parallel set (tests/test_torch_mp.py, test_torch_sp.py,
-    test_torch_pp.py); what stays unported raises, naming item 8: sp or pp
-    beside mp."""
-    monkeypatch.setattr(tmesh, "world", lambda: (0, 2))
+    builds over a group of 2 (the (1, 2) mesh of the axis, or dp 2 with
+    catalog_parallel set), and sp or pp beside mp over a group of 4 JAX's
+    (1, 2, 2) mesh, with JAX's rank order."""
+    import numpy as np  # noqa: F811
+
+    assert_laid_as_jax(cfg, 2, monkeypatch)
+    if "catalog_parallel" in cfg:
+        assert tmesh.mesh_from_policy(cfg).catalog_parallel
     if "sp" in cfg or "pp" in cfg:
-        axis = "sp" if "sp" in cfg else "pp"
-        mesh = tmesh.mesh_from_policy(cfg)
-        assert mesh.shape == {"dp": 1, axis: 2} and mesh.size == 2
-        assert mesh.coords == (0, 0, 0, 0)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tmesh.mesh_from_policy({**cfg, "mp": 2})
-        return
-    mesh = tmesh.mesh_from_policy(cfg)
-    if "mp" in cfg:
-        assert mesh.shape == {"dp": 1, "mp": 2} and mesh.size == 2
-        assert (mesh.dp_index, mesh.mp_index) == (0, 0)
-    else:
-        assert mesh.shape == {"dp": 2} and mesh.catalog_parallel
+        assert_laid_as_jax({**cfg, "mp": 2}, 4, monkeypatch)
 
 
 def test_one_process_mesh_is_dp_1():

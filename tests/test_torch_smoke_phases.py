@@ -7,8 +7,8 @@ most clicks each user operator's positions take (33 slots a click: title
 its IISAN and BERT-zoo models are the YAMLs it names, its CLI models
 exist; a history cut as a data config cuts it keeps every other store.
 Phase 9.1's f32-backward pages are T 116 and 117 at head width 128.
-Phase 14's cases run what they name, a rank's launch counts are the
-code's, and its fixture keeps the first users' dev and test rows.
+Phase 14's and 15's cases run what they name, a rank's launch counts
+are the code's, and the fixture keeps the first users' dev and test rows.
 The remat and knob A/Bs compare the losses both runs took
 (`shared_loss_err`).
 """
@@ -36,10 +36,10 @@ def test_phases_select(argv, want):
 
 
 def test_unknown_phase_is_refused():
-    # phase 14 exists since the sequence- and pipeline-parallel axes
-    assert chip_smoke.parse_phases(["--phases", "14"]) == {14}
+    # phase 15 exists since the mesh combinations
+    assert chip_smoke.parse_phases(["--phases", "15"]) == {15}
     with pytest.raises(SystemExit):
-        chip_smoke.parse_phases(["--phases", "15"])
+        chip_smoke.parse_phases(["--phases", "16"])
 
 
 def test_phase14_cases_run_what_they_name():
@@ -72,7 +72,7 @@ def test_phase14_cases_run_what_they_name():
     assert (f32.case.dtype, f32.batch) == ("f32", chip_smoke.P14_F32_BATCH)
     pp = cases["bert-naml pp 2"]
     item = pp.case.cfg["config"]["item_config"]
-    assert pp.case.mesh == {"pp": 2} and pp.case.data == "catalog"
+    assert pp.case.mesh == {"pp": 2} and pp.case.data == "small"
     assert (item["tune_from"], item["dropout"]) == (10, 0.0)
     assert pp.case.cfg["config"]["item_page_remat"] == "ffn"
 
@@ -91,9 +91,143 @@ def test_p14_expected_launches_are_the_codes():
     assert sp == dict(one, additive_pool=13)
     pp = chip_smoke._p14_expected("bert-naml pp 2", cases["bert-naml pp 2"],
                                   one, 1, 1)
-    pages = chip_smoke.DOTS_DATA_KW["num_items"] // 512
+    pages = chip_smoke.P13_SMALL_DATA_KW["num_items"] // 512
     assert pp == dict(one, packed_attention=192 + pages * 2 * (4 - 2),
                       packed_attention_backward=pages * 4)
+
+
+def test_phase15_cases_run_what_they_name():
+    """Phase 15's cases: bert-naml at (mp 2, pp 2) on 2,048 items (phase
+    5's layer-split training at dropout 0), flatten_transformer at (mp 2,
+    sp 2) under Ulysses, the sp x pp composition (a 2-layer BERT item
+    operator at the flatten model's width, every dropout 0) on four ranks;
+    bert-naml catalog_parallel at dp 2 by full forwards, on two."""
+    cases = chip_smoke.p15_cases()
+    assert [(s.case.mesh, s.group) for s in cases.values()] == [
+        ({"mp": 2, "pp": 2}, "four"), ({"mp": 2, "sp": 2}, "four"),
+        ({"sp": 2, "pp": 2}, "four"),
+        ({"dp": 2, "catalog_parallel": True}, "two")]
+    for spec in cases.values():
+        n = 1
+        for a in ("dp", "mp", "sp", "pp"):
+            n *= spec.case.mesh.get(a, 1)
+        assert n == chip_smoke.P15_GROUPS[spec.group]
+    tp, ms, sppp, cat = cases.values()
+    assert (tp.case.data, tp.case.cfg["config"]["item_config"]["dropout"]) \
+        == ("small", 0.0)
+    assert ms.case.cfg["config"]["user_config"]["sp_impl"] == "ulysses"
+    cfg = sppp.case.cfg["config"]
+    assert cfg["embedding_dim"] == cfg["hidden_size"]
+    assert cfg["item_config"]["num_hidden_layers"] == 2
+    assert cfg["user_config"]["attention_dropout"] == 0.0
+    assert cat.case.test and not cat.case.cfg["config"]["use_fast_eval"]
+
+
+def test_p15_runs_hold_the_pp_cases_at_f32_too():
+    """Every case runs at its own dtype, then each pp case again at f32 (a
+    flatten case at phase 14's f32 batches); the catalog-parallel case's
+    batch is small enough for several dev batches."""
+    runs = chip_smoke.p15_runs()
+    cases = chip_smoke.p15_cases()
+    assert [(label, dtype) for label, _, dtype in runs] == (
+        [(n, None) for n in cases]
+        + [(f"{n} f32", "f32") for n in chip_smoke.P15_F32])
+    by = {label: spec for label, spec, _ in runs}
+    assert by["bert-naml mp 2 x pp 2 f32"] == cases["bert-naml mp 2 x pp 2"]
+    assert (by["bert flatten sp 2 x pp 2 f32"].batch,
+            by["bert flatten sp 2 x pp 2 f32"].eval_batch) == (
+        chip_smoke.P14_F32_BATCH, chip_smoke.P14_F32_EVAL)
+    cat = cases["bert-naml catalog_parallel dp 2"]
+    assert (cat.batch, cat.eval_batch) == (
+        chip_smoke.P15_CATALOG_BATCH, chip_smoke.P15_CATALOG_PAGE)
+
+
+@pytest.mark.parametrize("got,passes", [
+    # a rounding spread: within PP_NOISE times the noise run's
+    (1.0 + 1.5e-3, True),
+    # a tensor whose own spread is below F32_GRAD_TOL, within it
+    (1.0 + 5e-5, True),
+    # a dropped microbatch's share of the sum
+    (1.0 - 1 / 16, False)])
+def test_p15_f32_rule_allows_one_process_own_spread(got, passes):
+    """The f32 ranks' gradient passes within F32_GRAD_TOL of one
+    process's, or within PP_NOISE times the spread one ulp of input noise
+    gives one process (here 1e-3 on w, nothing on b); a microbatch's
+    share of the sum fails."""
+    import torch
+    want = {"w": torch.tensor([1.0, -1.0]), "b": torch.tensor([2.0, 1.0])}
+    noisy = {"w": torch.tensor([1.001, -1.0]), "b": torch.tensor([2.0, 1.0])}
+    tensor = "w" if abs(got - 1.0) > 1e-4 else "b"
+    got_g = {k: v.clone() for k, v in want.items()}
+    got_g[tensor][0] = got * want[tensor][0]
+    rule, allow = chip_smoke._p15_f32_rule(got_g, want, noisy)
+    assert allow["w"] == pytest.approx(chip_smoke.PP_NOISE * 1e-3, rel=1e-3)
+    assert allow["b"] == chip_smoke.F32_GRAD_TOL
+    assert (rule["excess"] <= chip_smoke.F32_GRAD_TOL) == passes
+
+
+def test_p15_ulp_noise_moves_float_columns_by_an_ulp():
+    """The noise run's columns: floats times 1 + 2^-23 n, ids untouched."""
+    import types
+
+    import torch
+    cols = {"ids": torch.arange(6).reshape(2, 3),
+            "h": torch.ones(64, 8)}
+    m = types.SimpleNamespace(device=torch.device("cpu"),
+                              contents=types.SimpleNamespace(columns=cols))
+    ids = cols["ids"].clone()
+    chip_smoke._p15_ulp_noise(m)
+    assert torch.equal(cols["ids"], ids)
+    rel = (cols["h"] - 1).abs()
+    assert 0 < float(rel.max()) < 2.0 ** -23 * 8
+    assert float((rel > 0).float().mean()) > 0.5
+
+
+def test_p15_expected_launches_are_the_codes():
+    """A (mp 2, pp 2) rank runs its one layer in 4 microbatches a page of
+    512 (4 pages of 2,048 items), twice forward (`ffn`) and once backward;
+    the sp x pp rank its one BERT layer in 4 microbatches of the
+    candidates' one encode and only the item pools; a catalog-parallel
+    rank its 1,024 rows (2 pages) once a step (and the recompute), once
+    for simple_dev and once for the test, the user pool once a step, a
+    dev batch and a test page."""
+    cases = chip_smoke.p15_cases()
+    one = {"additive_pool": 26, "packed_attention": 24,
+           "packed_attention_backward": 8, "dropout_keep_mask": 0}
+    tp = chip_smoke._p15_expected(cases["bert-naml mp 2 x pp 2"], one,
+                                  (1, 1))
+    assert tp == dict(one, packed_attention=24 + 4 * 2 * (4 - 2),
+                      packed_attention_backward=4 * 4)
+    sppp = chip_smoke._p15_expected(cases["bert flatten sp 2 x pp 2"], one,
+                                    (1, 1))
+    assert sppp == dict(one, additive_pool=13, packed_attention=24 + 2,
+                        packed_attention_backward=4)
+    cat = chip_smoke._p15_expected(
+        cases["bert-naml catalog_parallel dp 2"], one, (1, 1), (3, 5))
+    assert cat == dict(one, additive_pool=2 * 4 + 1 + 3 + 5,
+                       packed_attention=2 * 2 * 4,
+                       packed_attention_backward=2 * 2)
+
+
+@pytest.mark.parametrize("got,passes", [
+    # within one process's own bf16 error of its bf16 gradient
+    (0.85, True),
+    # further from it, but as near the f32 gradient as PP_ROUNDING allows
+    (1.25, True),
+    # far from both: a missed sum over pp or mp
+    (0.0, False)])
+def test_p15_bf16_rule_anchors_a_rounding_spread_at_f32(got, passes):
+    """A tensor whose bf16 error dominates (one process's bf16 gradient
+    0.7 against f32's 1.0, own error 0.3) passes within that error of the
+    bf16 gradient, or within PP_ROUNDING times it of the f32 gradient; a
+    rank gradient far from both fails."""
+    import torch
+    want32 = {"w": torch.tensor([1.0, -1.0])}
+    want16 = {"w": torch.tensor([0.7, -1.0])}
+    got_g = {"w": torch.tensor([got, -1.0])}
+    rule, allow = chip_smoke._p15_bf16_rule(got_g, want16, want32)
+    assert allow["w"] == pytest.approx(0.3)
+    assert (rule["excess"] <= chip_smoke.BF16_REL_TOL) == passes
 
 
 def test_cut_history_keeps_the_first_users_eval_rows():

@@ -547,17 +547,34 @@ def test_sp_refusals_are_jaxs(runs):
             "sizes" in r["length"]
 
 
-def test_mesh_from_policy_lays_sp_and_pp_as_jax():
-    """rank = ((dp_index * mp + mp_index) * sp + sp_index) * pp + pp_index,
-    and the combinations left to port raise, naming item 8."""
+@pytest.mark.parametrize("cfg", [{"mp": 2, "sp": 2}, {"mp": 2, "pp": 2},
+                                 {"sp": 2, "pp": 2},
+                                 {"sp": 2, "catalog_parallel": True}])
+def test_mesh_from_policy_lays_every_combination_as_jax(cfg, monkeypatch):
+    """rank = ((dp_index * mp + mp_index) * sp + sp_index) * pp + pp_index:
+    two of mp, sp and pp, and sp with catalog_parallel, over a group of 4,
+    in JAX's shape and rank order (the catalog axis the (dp, mp) ranks at
+    one sp index); pp with catalog_parallel stops at the Manager with
+    JAX's message."""
+    from test_torch_dp import assert_laid_as_jax
+
     m = tmesh.Mesh(2, 5, 1, False, 0, 2, 2)
     assert m.coords == (1, 0, 0, 1)
     assert m.shape == {"dp": 2, "sp": 2, "pp": 2}
     assert tmesh.Mesh(1, 3, 1, False, 0, 4).sp_index == 3
-    for cfg in ({"mp": 2, "sp": 2}, {"mp": 2, "pp": 2}, {"sp": 2, "pp": 2},
-                {"sp": 2, "catalog_parallel": True}):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tmesh.mesh_from_policy(cfg)
+    assert_laid_as_jax(cfg, 4, monkeypatch)
+    if cfg.get("catalog_parallel"):
+        mesh = tmesh.mesh_from_policy(cfg)
+        assert mesh.catalog_axis.size == 2
+        assert mesh.catalog_axis.index == mesh.dp_index
+        with pytest.raises(SystemExit, match="pp > 1 cannot combine with "
+                           "catalog_parallel"):
+            from legommenders_tpu_torch.runtime.manager import Manager
+            Manager(model_cfg={"meta": {"item": "Bert"}}, data=_data(),
+                    exp_cfg={"policy": {"mesh": {"pp": 4,
+                                                 "catalog_parallel": True}}},
+                    device="cpu")
+    monkeypatch.setattr(tmesh, "world", lambda: (0, 1))
     with pytest.raises(ValueError, match="2x1x2x1=4 devices, only 1"):
         tmesh.mesh_from_policy({"dp": 2, "sp": 2})
 
