@@ -37,9 +37,11 @@ and exits non-zero when any phase fails:
        mask, the mask kernel against the plain Philox (exactly), the keep
        fraction within 4 sigma of 0.9, the same seed giving the same mask
        and another seed another;
+     in both types (f32 on the 3xTF32 tensor-core kernels, whose bound
+     is taken at 495 / 3 TFLOP/s with the CUDA cores' 67 beside it);
      torch's scaled_dot_product_attention (forward, and forward + backward
-     with the float mask and the dropout) is timed beside them as the
-     yardstick (library_ms) and is never called by the port;
+     with the float mask and the dropout) in the same type is timed beside
+     them as the yardstick (library_ms) and is never called by the port;
   4. serving paths, each through Manager + Tester.test() at full width on
      one synthetic MIND-small-geometry fixture (65,000 items, 20,000 users,
      title 30, history 50, vocab 30,000), random weights from seed 0, bf16;
@@ -341,8 +343,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-# NVIDIA H100 SXM data-sheet peaks (dense)
-PEAK = {"bf16": 989e12, "f32": 67e12}
+# NVIDIA H100 SXM data-sheet peaks (dense): bf16 and TF32 on the tensor
+# cores, f32 on the CUDA cores; the f32 attention kernels take three TF32
+# products for each f32 one (3xTF32), an effective 495 / 3 TFLOP/s
+PEAK = {"bf16": 989e12, "f32": 67e12, "tf32x3": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 # 132 SMs at 1.98 GHz (H100 SXM boost)
 SMS, SM_HZ = 132, 1.98e9
@@ -468,6 +472,12 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def attention_peak(dtype_name: str) -> str:
+    """The PEAK key of the attention kernels in dtype_name: the f32 kernels
+    run their products in 3xTF32 on the tensor cores."""
+    return "tf32x3" if dtype_name == "f32" else dtype_name
 
 
 def roof(flops: float, nbytes: float, dtype: str):
@@ -678,8 +688,12 @@ def check_attention(dtype_name: str, device) -> dict:
                    qh, kh, vh, attn_mask=mask4), iters=50)}
     flops = 4.0 * B * T * T * Dm
     nbytes = 4 * B * T * Dm * q.element_size() + B * T * T * bias.element_size()
-    res["bound_ms"], res["bound_by"] = roof(flops, nbytes, dtype_name)
-    res["bound_peak"] = f"{dtype_name} {PEAK[dtype_name] / 1e12:g} TFLOP/s"
+    peak = attention_peak(dtype_name)
+    res["bound_ms"], res["bound_by"] = roof(flops, nbytes, peak)
+    res["bound_peak"] = f"{peak} {PEAK[peak] / 1e12:g} TFLOP/s"
+    if dtype_name == "f32":
+        # the bound on the CUDA cores, beside it
+        res["cuda_core_bound_ms"] = roof(flops, nbytes, "f32")[0]
     ok = (res["max_abs_err"] <= F32_TOL if dtype_name == "f32"
           else res["rel_err"] <= BF16_REL_TOL)
     if not (ok and res["finite"]):
@@ -688,12 +702,11 @@ def check_attention(dtype_name: str, device) -> dict:
     return res
 
 
-def check_attention_train(dtype_name: str, p: float, device,
-                          timed: bool) -> dict:
+def check_attention_train(dtype_name: str, p: float, device) -> dict:
     """Forward, backward and keep mask at the training page, dropout p,
-    against their plain versions given the mask kernel's mask; with
-    `timed`, each kernel, its plain version and torch's SDPA (forward, and
-    forward + backward) timed with CUDA events."""
+    against their plain versions given the mask kernel's mask; each
+    kernel, its plain version and torch's SDPA (forward, and forward +
+    backward) timed with CUDA events."""
     import torch
     from torch.nn import functional as F
     from legommenders_tpu_torch.ops.attention import (
@@ -750,16 +763,16 @@ def check_attention_train(dtype_name: str, p: float, device,
         raise RuntimeError(f"attention training kernels disagree with "
                            f"their plain versions ({problems}): {res}")
     xb, bb = q.element_size(), bias.element_size()
+    peak = attention_peak(dtype_name)
+    res["bound_peak"] = f"{peak} {PEAK[peak] / 1e12:g} TFLOP/s"
     # recompute S, then dPd, dV, dQ, dK: five T x T x dh products per head
-    res["bwd_bound_ms"], res["bwd_bound_by"] = roof(
-        10.0 * B * T * T * Dm, 7 * B * T * Dm * xb + B * T * T * bb,
-        dtype_name)
-    if not timed:
-        # the f32 backward (the CUDA-core kernel) beside its bound
-        with torch.no_grad():
-            res["bwd_ms"] = time_ms(lambda: packed_attention_backward(
-                heads, p, q, k, v, bias, seed, g), iters=10)
-        return res
+    bwd_work = (10.0 * B * T * T * Dm, 7 * B * T * Dm * xb + B * T * T * bb)
+    res["bwd_bound_ms"], res["bwd_bound_by"] = roof(*bwd_work, peak)
+    fwd_work = (4.0 * B * T * T * Dm, 4 * B * T * Dm * xb + B * T * T * bb)
+    if dtype_name == "f32":
+        # the bounds on the CUDA cores, beside them
+        res["fwd_cuda_core_bound_ms"] = roof(*fwd_work, "f32")[0]
+        res["bwd_cuda_core_bound_ms"] = roof(*bwd_work, "f32")[0]
 
     def fwd():
         packed_attention(heads, p, q, k, v, bias, seed)
@@ -796,9 +809,7 @@ def check_attention_train(dtype_name: str, p: float, device,
                 heads, B, T, 20231, device) >= keep_threshold(p), iters=2)
     res["sdpa_fwd_ms"] = time_ms(sdpa_fwd, iters=50)
     res["sdpa_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd, iters=20)
-    res["fwd_bound_ms"], res["fwd_bound_by"] = roof(
-        4.0 * B * T * T * Dm, 4 * B * T * Dm * xb + B * T * T * bb,
-        dtype_name)
+    res["fwd_bound_ms"], res["fwd_bound_by"] = roof(*fwd_work, peak)
     res["mask_bound_ms"], res["mask_bound_by"] = mask_bound(B, heads, T)
     return res
 
@@ -807,9 +818,9 @@ def check_attention_train(dtype_name: str, p: float, device,
 # part of another)
 KERNEL_NAMES = {"additive_pool": ("additive_pool_tc", "additive_pool_kernel",
                                   "additive_pool_long"),
-                "packed_attention": ("attention_fwd_tc", "attention_simt"),
+                "packed_attention": ("attention_fwd_tc", "attention_fwd_tf32"),
                 "packed_attention_backward": ("attention_bwd_tc",
-                                              "attention_bwd_simt"),
+                                              "attention_bwd_tf32"),
                 "dropout_keep_mask": ("dropout_mask",)}
 
 # the pool kernel of every main path (all run at the bf16 policy), and the
@@ -2355,7 +2366,7 @@ F32_BWD_PAGES = {"T 116": dict(items=20, L=29, D=512, heads=4),
 
 
 def check_f32_backward_edges(device) -> list:
-    """9.1: the f32 backward (attention_bwd_simt) at F32_BWD_PAGES with the
+    """9.1: the f32 backward (attention_bwd_tf32) at F32_BWD_PAGES with the
     causal packed biases, at dropout 0 and TRAIN_DROPOUT (the plain
     backward given the mask kernel's mask), within F32_TOL."""
     import torch
@@ -2395,8 +2406,8 @@ def check_decoder_attention(name: str, device) -> dict:
     a decoder page, dropout 0, against the plain versions in f32 (1e-5)
     and bf16 (2e-2 of the largest output), the bf16 kernels timed beside
     the plain versions, torch's SDPA with the float mask and the bounds;
-    at a training page the f32 backward (the CUDA-core kernel, dh 128 at
-    T 128) timed beside its bound too."""
+    at a training page the f32 kernels (3xTF32, dh 128 at T 128) timed
+    beside their bounds and SDPA at f32 too."""
     import torch
     from torch.nn import functional as F
     from legommenders_tpu_torch.ops.attention import (
@@ -2435,11 +2446,33 @@ def check_decoder_attention(name: str, device) -> dict:
                 problems.append(f"{dtype_name} {part}")
         if train and dtype_name == "f32":
             with torch.no_grad():
+                res["f32_ms"] = time_ms(lambda: packed_attention(
+                    heads, 0.0, q, k, v, bias), iters=20)
                 res["f32_bwd_ms"] = time_ms(lambda: packed_attention_backward(
-                    heads, 0.0, q, k, v, bias, None, g), iters=5)
+                    heads, 0.0, q, k, v, bias, None, g), iters=20)
+            res["f32_bound_ms"], res["f32_bound_by"] = roof(
+                4.0 * B * T * T * Dm,
+                4 * B * T * Dm * 4 + B * T * T * bias.element_size(),
+                "tf32x3")
             res["f32_bwd_bound_ms"], res["f32_bwd_bound_by"] = roof(
                 10.0 * B * T * T * Dm,
-                7 * B * T * Dm * 4 + B * T * T * bias.element_size(), "f32")
+                7 * B * T * Dm * 4 + B * T * T * bias.element_size(),
+                "tf32x3")
+            res["f32_bwd_cuda_core_bound_ms"] = roof(
+                10.0 * B * T * T * Dm,
+                7 * B * T * Dm * 4 + B * T * T * bias.element_size(),
+                "f32")[0]
+            # torch's SDPA at f32 with the float mask, forward + backward:
+            # timed only
+            qh32, kh32, vh32 = (t.view(B, T, heads, dh).transpose(1, 2)
+                                .detach().requires_grad_(True)
+                                for t in (q, k, v))
+            gh32 = g.view(B, T, heads, dh).transpose(1, 2)
+            res["f32_library_fwd_bwd_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qh32, kh32, vh32, attn_mask=bias[:, None]).backward(gh32),
+                iters=5)
+            del qh32, kh32, vh32, gh32
         del pairs
     if problems:
         raise RuntimeError(f"decoder attention disagrees with its plain "
@@ -2590,8 +2623,8 @@ def decoder_precision_check(m, dp, device) -> dict:
     encoded per occurrence through the upper layers, in four runs: the
     kernels (K16, twice) and their plain versions (P16) at bf16, and the
     kernels (K32) and their plain versions (P32) with the trained part at
-    f32 (over the bf16 cache; K32 runs the CUDA-core kernels, the backward
-    at dh 128 and the training page's T 128). Gate per tensor: K16 within
+    f32 (over the bf16 cache; K32 runs the f32 kernels (3xTF32), the
+    backward at dh 128 and the training page's T 128). Gate per tensor: K16 within
     2e-2 of P16, or within half the plain path's own bf16 error (P16
     against P32) where that is larger (see precision_check); K32 within
     F32_GRAD_TOL (1e-4) of P32."""
@@ -3180,15 +3213,19 @@ def run_kernel_checks(device) -> dict:
     train_checks = []
     for dtype in ("f32", "bf16"):
         for p in (TRAIN_DROPOUT, 0.0):
-            res = check_attention_train(dtype, p, device,
-                                        timed=dtype == "bf16")
+            res = check_attention_train(dtype, p, device)
             train_checks.append(res)
             log(f"[kernel] attention training page {json.dumps(res)}")
     f32 = [c for c in train_checks if c["dtype"] == "f32"]
-    log(f"[kernel] f32 backward (attention_bwd_simt) at the training page: "
-        + ", ".join(f"p {c['dropout']} {c['bwd_ms'] * 1e3:.1f} us (bound "
-                    f"{c['bwd_bound_ms'] * 1e3:.1f} us, {c['bwd_bound_by']})"
-                    for c in f32))
+    log("[kernel] f32 (attention_fwd_tf32 / attention_bwd_tf32, 3xTF32) at "
+        "the training page: " + ", ".join(
+            f"p {c['dropout']} forward {c['fwd_ms'] * 1e3:.1f} us (bound "
+            f"{c['fwd_bound_ms'] * 1e3:.1f} us, {c['fwd_bound_by']}; SDPA "
+            f"f32 {c['sdpa_fwd_ms'] * 1e3:.1f} us), backward "
+            f"{c['bwd_ms'] * 1e3:.1f} us (bound {c['bwd_bound_ms'] * 1e3:.1f}"
+            f" us, {c['bwd_bound_by']}), forward + backward "
+            f"{(c['fwd_ms'] + c['bwd_ms']) * 1e3:.1f} us (SDPA f32 "
+            f"{c['sdpa_fwd_bwd_ms'] * 1e3:.1f} us)" for c in f32))
     return {"checks": checks, "attn_checks": attn_checks,
             "train_checks": train_checks}
 
@@ -3303,15 +3340,19 @@ def run_decoders(data, device, card) -> dict:
         decoder_checks[name] = check_decoder_attention(name, device)
         log(f"[decoder] kernel {json.dumps(decoder_checks[name])}")
     f32_edges = check_f32_backward_edges(device)
-    log("[decoder] f32 backward (attention_bwd_simt) at dh 128: " + ", ".join(
+    log("[decoder] f32 backward (attention_bwd_tf32) at dh 128: " + ", ".join(
         f"{c['page']} p {c['dropout']} max abs err {c['max_abs_err']:.3g}"
         for c in f32_edges) + f" (gate {F32_TOL:g})")
     c = decoder_checks["llama training"]
-    log(f"[decoder] f32 backward (attention_bwd_simt) at the Llama training "
-        f"page ({c['B']} x {c['T']}, {c['heads']} heads of "
-        f"{c['D'] // c['heads']}, p 0): {c['f32_bwd_ms'] * 1e3:.1f} us, "
-        f"bound {c['f32_bwd_bound_ms'] * 1e3:.1f} us "
-        f"({c['f32_bwd_bound_by']}), max abs err "
+    log(f"[decoder] f32 (attention_fwd_tf32 / attention_bwd_tf32) at the "
+        f"Llama training page ({c['B']} x {c['T']}, {c['heads']} heads of "
+        f"{c['D'] // c['heads']}, p 0): forward {c['f32_ms'] * 1e3:.1f} us "
+        f"(bound {c['f32_bound_ms'] * 1e3:.1f} us), backward "
+        f"{c['f32_bwd_ms'] * 1e3:.1f} us, bound "
+        f"{c['f32_bwd_bound_ms'] * 1e3:.1f} us ({c['f32_bwd_bound_by']}; "
+        f"{c['f32_bwd_cuda_core_bound_ms'] * 1e3:.1f} us on the CUDA "
+        f"cores), SDPA f32 forward + backward "
+        f"{c['f32_library_fwd_bwd_ms'] * 1e3:.1f} us, max abs err "
         f"{max(c[f'f32_{g}_max_abs_err'] for g in ('dq', 'dk', 'dv')):.3g} "
         f"({card})")
     llama_serve = run_llama_serving(data, device)
@@ -6052,9 +6093,16 @@ def _kernel_line(R: dict) -> list:
                           f"dropout_p)",
                "fwd_plus_bwd_ms": tr["fwd_ms"] + tr["bwd_ms"],
                "train_p0": {"ms": tr0["bwd_ms"]},
-               "f32_training_page": {p: {k: c[k] for k in (
-                   "bwd_ms", "bwd_bound_ms", "bwd_bound_by",
-                   "dq_max_abs_err", "dk_max_abs_err", "dv_max_abs_err")}
+               # the f32 route (attention_bwd_tf32, 3xTF32): its bound at
+               # 3xTF32's 165 TFLOP/s and on the CUDA cores, SDPA at f32
+               "f32_training_page": {p: dict(
+                   {k: c[k] for k in (
+                       "bwd_ms", "bwd_bound_ms", "bwd_bound_by",
+                       "bwd_cuda_core_bound_ms", "bound_peak",
+                       "dq_max_abs_err", "dk_max_abs_err",
+                       "dv_max_abs_err")},
+                   fwd_plus_bwd_ms=c["fwd_ms"] + c["bwd_ms"],
+                   library_ms=c["sdpa_fwd_bwd_ms"])
                    for p, c in ((c["dropout"], c) for c in train
                                 if c["dtype"] == "f32")}}
     elif dtrain is not None:
@@ -6080,6 +6128,21 @@ def _kernel_line(R: dict) -> list:
             fwd["serving_page"] = {k: attn[k] for k in (
                 "T", "max_abs_err", "ms", "plain_ms", "bound_ms",
                 "library_ms")}
+        # the f32 route (attention_fwd_tf32, 3xTF32): its bound at 3xTF32's
+        # 165 TFLOP/s and on the CUDA cores, SDPA at f32
+        fwd["f32_training_page"] = {c["dropout"]: {
+            "ms": c["fwd_ms"], "max_abs_err": c["out_max_abs_err"],
+            "plain_ms": c["fwd_plain_ms"], "bound_ms": c["fwd_bound_ms"],
+            "bound_by": c["fwd_bound_by"],
+            "cuda_core_bound_ms": c["fwd_cuda_core_bound_ms"],
+            "library_ms": c["sdpa_fwd_ms"]}
+            for c in train if c["dtype"] == "f32"}
+        attn32 = next((c for c in R.get("attn_checks", [])
+                       if c["dtype"] == "f32"), None)
+        if attn32 is not None:
+            fwd["f32_serving_page"] = {k: attn32[k] for k in (
+                "T", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "cuda_core_bound_ms", "library_ms")}
         kernels.append(of("packed_attention", dict(
             replaces="legommenders_tpu/ops/pallas_attention.py:53", **fwd),
             decoder_shapes={n: {k: c[k] for k in (
@@ -6117,9 +6180,13 @@ def _kernel_line(R: dict) -> list:
                 "bound_by": c["bwd_bound_by"],
                 "library_ms": c["library_fwd_bwd_ms"],
                 "fwd_plus_bwd_ms": c["ms"] + c["bwd_ms"],
+                "f32_fwd_ms": c["f32_ms"],
+                "f32_fwd_bound_ms": c["f32_bound_ms"],
                 "f32_ms": c["f32_bwd_ms"],
                 "f32_bound_ms": c["f32_bwd_bound_ms"],
-                "f32_bound_by": c["f32_bwd_bound_by"]}
+                "f32_bound_by": c["f32_bwd_bound_by"],
+                "f32_cuda_core_bound_ms": c["f32_bwd_cuda_core_bound_ms"],
+                "f32_library_fwd_bwd_ms": c["f32_library_fwd_bwd_ms"]}
                 for n, c in dec.items() if "bwd_ms" in c},
             decoder_launches=decoder_launches,
             phase10_launches={p: c.get("packed_attention_backward", 0)

@@ -30,8 +30,7 @@
 // (i+8, j), (i+8, j+1) that one lane holds in the m16n8 accumulator layout
 // of mma.sync, which wgmma's m64nN layout repeats per warp and chunk. The
 // forward and the backward call the same draw (`philox_row` once per row,
-// `dropout_bits4_at` per column pair; the f32 kernels through
-// `dropout_bits4`), the mask kernel the same rounds split further
+// `dropout_bits4_at` per column pair, or `dropout_bits4`), the mask kernel the same rounds split further
 // (`dropout_bits4_split`), so they agree whatever their grid or block
 // shape. Every kernel takes a `head_offset` added to h in the counter: a
 // call over heads [o, o + H) of a tensor sharded by heads (tensor
@@ -111,15 +110,48 @@
 //    (dead by then) to TMA stores; each output row is written once, no
 //    atomics. Shared memory at dh 64, T = 120: 2 x 64 KB + 64 KB + the
 //    bias slot, 227 KB.
-//  * f32 (forward and backward): attention_simt / attention_bwd_simt on the
-//    CUDA cores, with the reference's exact expf and division. 4 warps; a
-//    warp takes one query row at a time (lane j owns keys j, j+32, j+64,
-//    j+96), then, in the backward, one key row at a time for dK and dV
-//    (lane i owns queries i, i+32, ...), recomputing that row's p from the
-//    query rows' statistics instead of keeping a T x T tile: its shared
-//    memory grows with T, not T^2 (dh 128 takes every T <= 128). Operands
-//    are staged with rows padded to dh + 1 floats, so that both the
-//    lane-per-row and the lane-per-column reads are free of bank conflicts.
+//  * f32 (forward and backward, dh a multiple of 8 up to 128):
+//    attention_fwd_tf32 and attention_bwd_tf32, the same two TPU kernels
+//    on the tensor cores in 3xTF32. Each f32 operand fragment is split in
+//    registers into hi = x rounded to TF32 (to nearest, ties away) and lo
+//    = x - hi rounded likewise; a k step of 8 issues
+//    lo.hi, hi.lo and hi.hi (lo.lo dropped) as mma.sync.m16n8k8.tf32 into
+//    a fresh accumulator that is then added to the sum in f32: the tensor
+//    core truncates as it adds to a running sum
+//    (tools/tf32_probe.py). At the data sheet's 495 / 3 = 165 TFLOP/s of
+//    3xTF32 the training page would be bytes-bound: the forward's 262 MB
+//    (q, k, v, out and the f32 bias) take 78.2 us at 3.35 TB/s against
+//    45.8 us of products, the backward's 451 MB 134.7 us against 114.6 us
+//    (the CUDA cores' 67 TFLOP/s: 112.9 and 282.3 us of products). On this
+//    card mma.sync.m16n8k8.tf32 issues at 0.6 a clock an SM, 323 TFLOP/s
+//    (tools/tf32_probe.py), so 3xTF32 products alone take the forward 70
+//    us and the backward 176 us; beside each product a warp
+//    issues its B fragment's split and its accumulator's adds, and the
+//    kernels are bound by that issue in 8 warps an SM, not by bytes. The
+//    design: one CTA of 8 warps per (b, h) item (up to 255 registers a
+//    thread: one CTA an SM), a warp per 16 query (or key) rows; row b's
+//    bias and the operands' tiles reach shared memory by cp.async (16-byte
+//    pieces for the tiles) in groups waited for in the order they are
+//    used, so that each product runs while the next operand arrives; tile
+//    rows padded to dh + 4 floats so that both fragment reads are free of
+//    bank conflicts, bias rows to 8 mod 32; the A operands of S-type
+//    products read from device memory one k step ahead; an accumulator is
+//    the A operand of the next product in place (its columns 2t, 2t + 1
+//    taken as the k steps t, t + 4, the B fragment's rows permuted to
+//    match); outputs leave from the accumulators by 8-byte stores, each
+//    row once. The softmax, the dropout (one Philox draw per lane and
+//    8-key chunk: the accumulator layout is the draw's) and dS run on the
+//    fragments, with the reference's expf and IEEE division. A warp skips
+//    the products (by groups of four chunks in S, pairs in P.V), the
+//    exponentials and the draws of the 8-key chunks that the bias masks in
+//    all its rows (tf_dead_rows; about half of them at bert-naml's
+//    packing); a group that runs is one branch-free block, so that its
+//    products overlap. The backward: phase 1, K and V whole, for the
+//    query rows (S, dPd, the softmax, dS, dQ); phase 2, g and Q whole, for
+//    the key rows (dV and dK). Where shared memory holds them (dh up to 88
+//    at T 128), pd and dS of the head stay there for phase 2's A operands;
+//    else phase 1 keeps the rows' statistics and keep bits and phase 2
+//    recomputes S^T and dPd^T.
 //  * keep mask: dropout_mask. What bounds it is the integer work of its
 //    Philox draws: of a draw's 20 IMAD.WIDE.U32 only rounds 3-9's 14 take
 //    all of (b, h, i, j) (the split below), on the FMA pipe, which takes
@@ -158,8 +190,6 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr int kMaxT = 128;
-constexpr int kSimtWarps = 4;
-constexpr int kSimtThreads = 32 * kSimtWarps;
 constexpr int kMaskThreads = 256;
 constexpr int kMaskCtasPerSm = 4;
 constexpr int kMaskDraws = 4;  // draws per unit of work of dropout_mask
@@ -171,18 +201,6 @@ __device__ inline float2 load2(const float* p) {
 }
 __device__ inline float2 load2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ inline float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ inline float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
 }
 
 // ---------------------------------------------------------------------------
@@ -337,15 +355,6 @@ __device__ __forceinline__ uint4 dropout_bits4_split(const PhiloxColItem& ci,
   return philox4x32_10<3>(make_uint4(hi ^ ci.y, lo, ci.z ^ w.w, ci.w), k);
 }
 
-// The bits of one element (i, j).
-template <typename K>
-__device__ __forceinline__ uint32_t dropout_bits(const K& k, int b, int h,
-                                                 int i, int j) {
-  const uint4 r = dropout_bits4(k, b, h, i, j);
-  const int w = ((i >> 3) & 1) * 2 + (j & 1);
-  return w == 0 ? r.x : w == 1 ? r.y : w == 2 ? r.z : r.w;
-}
-
 // the dropout of one probability: kept (scaled) or zero
 __device__ __forceinline__ float drop(float p, uint32_t bits, uint32_t thresh,
                                       float keep_scale) {
@@ -494,301 +503,795 @@ dropout_mask(const int* __restrict__ seed_ptr, uint8_t* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------------
-// CUDA-core kernels (f32)
+// Tensor-core kernels (f32): 3xTF32 mma.sync
 // ---------------------------------------------------------------------------
 
-// shared memory, in floats: K^T[dh][T] | V[T][dh] | q[warps][dh] | p[warps][kMaxT]
-__host__ __device__ inline size_t simt_smem_bytes(int T, int dh) {
-  return ((size_t)2 * T * dh + (size_t)kSimtWarps * (dh + kMaxT)) * sizeof(float);
+constexpr int kTfWarps = 8;  // a warp per 16 rows: 128 rows
+constexpr int kTfThreads = 32 * kTfWarps;
+constexpr int kTfChunks = kMaxT / 8;  // 8-key chunks of a row
+constexpr int kMaxDh = 128;
+constexpr float kF32Lowest = -3.402823466e38f;
+// the output tiles of 8 columns a pass of P.V (or dS.K, pd^T.g, dS^T.Q) in
+// each kernel
+constexpr int kFwdTiles = 4;
+constexpr int kBwdTiles = 4;
+// S = X.K^T takes its 8-key chunks in groups of this many, each group one
+// block of independent products
+constexpr int kTfGroup = 4;
+
+// x rounded to TF32 (10 explicit mantissa bits, to nearest, ties away),
+// as cvt.rna.tf32.f32 rounds: half of the 13 dropped bits added to the
+// magnitude's bits, then those bits cleared. An add and a mask, where
+// cvt.rna.tf32.f32 takes a longer integer sequence on sm_90. Finite
+// inputs (a NaN or an infinity is not kept as one).
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
 
-__global__ void __launch_bounds__(kSimtThreads)
-attention_simt(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ bias,
-               float* __restrict__ out, int Tn, int H, int dh, float scale,
-               long long sb, long long sq, const int* __restrict__ seed_ptr,
-               uint32_t thresh, float keep_scale, int dropout, int head_offset) {
+// An f32 operand fragment as two TF32 ones: hi = rna_tf32(x), lo =
+// rna_tf32(x - hi) (x - hi is exact in f32)
+template <int N>
+struct Split {
+  uint32_t hi[N], lo[N];
+  __device__ __forceinline__ explicit Split(const float (&x)[N]) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      hi[e] = rna_tf32(x[e]);
+      lo[e] = rna_tf32(x[e] - __uint_as_float(hi[e]));
+    }
+  }
+};
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a . b for one k step of 8 in 3xTF32: lo.hi + hi.lo + hi.hi (lo.lo
+// dropped), summed in a fresh accumulator and added to d in f32
+// (legommenders_tpu_torch/tools/tf32_probe.py: the tensor core's own
+// accumulation of the running sum truncates)
+__device__ __forceinline__ void mma3(float (&d)[4], const Split<4>& a,
+                                     const Split<2>& b) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, a.lo, b.hi);
+  mma_tf32(t, a.hi, b.lo);
+  mma_tf32(t, a.hi, b.hi);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
+}
+
+// Operand tiles in shared memory: a head's rows (keys or queries) whole,
+// row-major, rows padded to dh + 4 floats, so that both fragment reads are
+// free of bank conflicts: row g, column t (tf_b_nk) and rows 2t and
+// 2t + 1, column g (tf_b_kn), for the lane's g = lane / 4, t = lane % 4.
+// Rows from T up to a multiple of 32 (a group of chunks) are zero.
+__host__ __device__ inline int tf_rows(int T) { return (T + 31) & ~31; }
+__host__ __device__ inline int tf_rows16(int T) { return (T + 15) & ~15; }
+__host__ __device__ inline size_t tf_tile_floats(int T, int dh) {
+  return (size_t)tf_rows(T) * (dh + 4);
+}
+// Row b's bias in shared memory: T rows (one for a broadcast view, sq 0) of
+// ldb floats, ldb at least T and 8 mod 32, so that a warp's reads of
+// column pairs (8 rows x 4 pairs) are free of bank conflicts; 8 floats of
+// slack after it for a pair read that starts at the last column.
+__host__ __device__ inline int tf_bias_ld(int T) { return (T + 23) / 32 * 32 + 8; }
+__host__ __device__ inline size_t tf_bias_floats(int T) {
+  return (size_t)T * tf_bias_ld(T) + 8;
+}
+// K and V (the forward takes Q's fragments from device memory) | the bias
+__host__ __device__ inline size_t tf32_fwd_smem_bytes(int T, int dh) {
+  return (2 * tf_tile_floats(T, dh) + tf_bias_floats(T)) * sizeof(float);
+}
+// The backward keeps P (with its keep factors) and dS of the head in
+// shared memory where they fit (STASH): rows of the queries up to a
+// multiple of 16, of tf_stash_ld floats (at least as many, 4 mod 32, so
+// that phase 2's reads of a key column pair of rows 2t, 2t + 1 are free of
+// bank conflicts)
+__host__ __device__ inline int tf_stash_ld(int T) {
+  return (tf_rows16(T) + 27) / 32 * 32 + 4;
+}
+__host__ __device__ inline size_t tf_stash_floats(int T) {
+  return (size_t)tf_rows16(T) * tf_stash_ld(T);
+}
+// STASH: two tiles | P | dS, whose space holds the bias before dS is
+// written. Else: two tiles, the row statistics m, l and rowsum(dP * P)
+// [3][kMaxT], the keep bits [warps][chunks][4] | the bias.
+__host__ __device__ inline size_t tf32_bwd_smem_bytes(int T, int dh,
+                                                      bool stash) {
+  const size_t ds = tf_stash_floats(T), bias = tf_bias_floats(T);
+  return (stash ? 2 * tf_tile_floats(T, dh) + ds + (ds > bias ? ds : bias)
+                : 2 * tf_tile_floats(T, dh) + 3 * kMaxT +
+                      kTfWarps * kTfChunks * 4 + bias) *
+         sizeof(float);
+}
+
+// rows 0..T-1 of one head (row stride D) into tile t by cp.async of 16 B,
+// a thread on one 16-byte column of every (256 / (dh / 4))-th row; the
+// padding rows zeroed
+__device__ void tf_load_tile(float* t, const float* x, int Tn, int D, int dh) {
+  const int ld = dh + 4, per_row = dh / 4, rows_per = kTfThreads / per_row;
+  const int r0 = threadIdx.x / per_row, c = (threadIdx.x - r0 * per_row) * 4;
+  if (r0 < rows_per)
+    for (int r = r0; r < Tn; r += rows_per)
+      hopper::cp_async<16>(t + r * ld + c, x + (size_t)r * D + c);
+  for (int u = threadIdx.x; u < (tf_rows(Tn) - Tn) * ld; u += kTfThreads)
+    t[Tn * ld + u] = 0.f;
+}
+
+// Row b's bias (src: its first element, row stride sq) into bs by cp.async
+// of CB bytes (16, 8 or 4: the widest every row starts and ends on)
+template <int CB>
+__device__ void tf_load_bias_cb(float* bs, const float* src, long long sq,
+                                int Tn) {
+  constexpr int U = CB / 4;
+  const int ld = tf_bias_ld(Tn), rows = sq ? Tn : 1, per_row = Tn / U;
+  for (int u = threadIdx.x; u < rows * per_row; u += kTfThreads) {
+    const int r = u / per_row, c = (u - r * per_row) * U;
+    hopper::cp_async<CB>(bs + r * ld + c, src + r * sq + c);
+  }
+}
+
+__device__ void tf_load_bias(float* bs, const float* src, long long sq,
+                             int Tn, int cb) {
+  if (cb == 16)
+    tf_load_bias_cb<16>(bs, src, sq, Tn);
+  else if (cb == 8)
+    tf_load_bias_cb<8>(bs, src, sq, Tn);
+  else
+    tf_load_bias_cb<4>(bs, src, sq, Tn);
+}
+
+// A fragment (rows m0 + g, m0 + g + 8; columns k0 + t, k0 + t + 4) from
+// device memory (row stride D, rows past T zero)
+__device__ __forceinline__ void tf_a_global(float (&a)[4], const float* x,
+                                            int D, int m0, int k0, int Tn,
+                                            int g, int t) {
+  const int r0 = m0 + g, r1 = r0 + 8;
+  const float* p0 = x + (size_t)r0 * D + k0 + t;
+  const float* p1 = x + (size_t)r1 * D + k0 + t;
+  a[0] = r0 < Tn ? __ldg(p0) : 0.f;
+  a[1] = r1 < Tn ? __ldg(p1) : 0.f;
+  a[2] = r0 < Tn ? __ldg(p0 + 4) : 0.f;
+  a[3] = r1 < Tn ? __ldg(p1 + 4) : 0.f;
+}
+
+// B fragment of X^T for a tile X (rows = n): B[k][n] = X[n0 + n][k0 + k]
+__device__ __forceinline__ Split<2> tf_b_nk(const float* s, int ld, int n0,
+                                            int k0, int g, int t) {
+  const float* p = s + (n0 + g) * ld + k0 + t;
+  const float b[2] = {p[0], p[4]};
+  return Split<2>(b);
+}
+
+// B fragment of a tile X (rows = k) in the k order of an accumulator used
+// as the A operand (tf_acc_a): logical k = t, t + 4 are rows k0 + 2t,
+// k0 + 2t + 1
+__device__ __forceinline__ Split<2> tf_b_kn(const float* s, int ld, int k0,
+                                            int n0, int g, int t) {
+  const float* p = s + (k0 + 2 * t) * ld + n0 + g;
+  const float b[2] = {p[0], p[ld]};
+  return Split<2>(b);
+}
+
+// An m16n8 accumulator (rows g, g + 8; columns 2t, 2t + 1) as the A
+// fragment of the next product over those 8 columns, in tf_b_kn's k order
+__device__ __forceinline__ Split<4> tf_acc_a(const float (&c)[4]) {
+  const float a[4] = {c[0], c[2], c[1], c[3]};
+  return Split<4>(a);
+}
+
+// The bias of (i0, j), (i0, j + 1), (i0 + 8, j), (i0 + 8, j + 1) from the
+// staged row (bs, row stride rs: ldb, or 0 for a broadcast view): 0 in
+// rows past T, -inf in columns past T
+__device__ __forceinline__ float4 tf_bias4(const float* bs, int rs, int Tn,
+                                           int i0, int j) {
+  const int i1 = i0 + 8;
+  const bool k0 = j < Tn, k1 = j + 1 < Tn;
+  float2 x = make_float2(0.f, 0.f), y = x;
+  if (k0) {
+    x = *reinterpret_cast<const float2*>(bs + min(i0, Tn - 1) * rs + j);
+    y = *reinterpret_cast<const float2*>(bs + min(i1, Tn - 1) * rs + j);
+  }
+  float4 r;
+  r.x = k0 ? (i0 < Tn ? x.x : 0.f) : -INFINITY;
+  r.y = k1 ? (i0 < Tn ? x.y : 0.f) : -INFINITY;
+  r.z = k0 ? (i1 < Tn ? y.x : 0.f) : -INFINITY;
+  r.w = k1 ? (i1 < Tn ? y.y : 0.f) : -INFINITY;
+  return r;
+}
+
+// The chunks (bit c: keys 8c..8c+7) that a warp may skip in its 16 rows
+// from i0 - g: those whose elements are all masked (bias at the f32 lowest
+// value, or a row or a column past T), when each of its rows below T has
+// a key that is not masked. Every weight of such a chunk is exactly 0 in a
+// row below T (exp underflows), so skipping its products, exponentials and
+// draws changes no value that is stored. Else none (a row over masked
+// keys only takes them all, as the plain version does).
+__device__ inline uint32_t tf_dead_rows(const float* bs, int rs, int Tn,
+                                        int i0, int nkt, int t) {
+  uint32_t live = 0u;
+  bool has0 = false, has1 = false;
+#pragma unroll
+  for (int c = 0; c < kTfChunks; ++c) {
+    const float4 e = tf_bias4(bs, rs, Tn, i0, 8 * c + 2 * t);
+    const bool l0 = i0 < Tn && (e.x > kF32Lowest || e.y > kF32Lowest);
+    const bool l1 = i0 + 8 < Tn && (e.z > kF32Lowest || e.w > kF32Lowest);
+    has0 |= l0;
+    has1 |= l1;
+    live |= (uint32_t)(l0 || l1) << c;
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    has0 |= __shfl_xor_sync(0xffffffffu, (int)has0, o) != 0;
+    has1 |= __shfl_xor_sync(0xffffffffu, (int)has1, o) != 0;
+  }
+  const bool ok = __all_sync(0xffffffffu, (has0 || i0 >= Tn) &&
+                                              (has1 || i0 + 8 >= Tn));
+  const uint32_t all = (1u << nkt) - 1u;
+  return ok ? all & ~__reduce_or_sync(0xffffffffu, live) : 0u;
+}
+
+// The softmax of this thread's two rows of S (in place: s holds p on
+// return): scale + bias, the row max, expf(s - max), the row sums and IEEE
+// division, as the plain version. Scale + bias and the max take every
+// chunk, branch-free (a dead chunk's scores are at the lowest value, below
+// the row's max; past T -inf); the exponentials and divisions skip dead
+// chunks and those past T, whose weights are exactly 0.
+__device__ inline void tf_softmax(float (&s)[kTfChunks][4], uint32_t dead,
+                                  int nkt, const float* bs, int rs, int Tn,
+                                  int i0, int t, float scale, float& m0,
+                                  float& m1, float& l0, float& l1) {
+  m0 = -INFINITY;
+  m1 = -INFINITY;
+#pragma unroll
+  for (int c = 0; c < kTfChunks; ++c) {
+    const float4 e = tf_bias4(bs, rs, Tn, i0, 8 * c + 2 * t);
+    s[c][0] = s[c][0] * scale + e.x;
+    s[c][1] = s[c][1] * scale + e.y;
+    s[c][2] = s[c][2] * scale + e.z;
+    s[c][3] = s[c][3] * scale + e.w;
+    m0 = fmaxf(m0, fmaxf(s[c][0], s[c][1]));
+    m1 = fmaxf(m1, fmaxf(s[c][2], s[c][3]));
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+  }
+  l0 = 0.f;
+  l1 = 0.f;
+#pragma unroll
+  for (int c = 0; c < kTfChunks; ++c) {
+    if (c < nkt && !((dead >> c) & 1u)) {
+      s[c][0] = expf(s[c][0] - m0);
+      s[c][1] = expf(s[c][1] - m0);
+      s[c][2] = expf(s[c][2] - m1);
+      s[c][3] = expf(s[c][3] - m1);
+      l0 += s[c][0] + s[c][1];
+      l1 += s[c][2] + s[c][3];
+    } else {
+      s[c][0] = s[c][1] = s[c][2] = s[c][3] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+  }
+#pragma unroll
+  for (int c = 0; c < kTfChunks; ++c) {
+    if (c < nkt && !((dead >> c) & 1u)) {
+      s[c][0] = s[c][0] / l0;
+      s[c][1] = s[c][1] / l0;
+      s[c][2] = s[c][2] / l1;
+      s[c][3] = s[c][3] / l1;
+    }
+  }
+}
+
+// S = X . K^T for a warp's 16 rows: A fragments from device memory
+// (`a_glob`: rows m0.., row stride D; past T zero), B from the tile `kt`
+// (all keys). A group of kTfGroup chunks is skipped where all its chunks
+// are in `dead` or past T; a group that runs runs its chunks in one
+// branch-free block, so that their products overlap (a chunk's three
+// products and its add depend on each other). The next k step's A
+// fragment is loaded ahead of its use.
+__device__ __forceinline__ void tf_scores(float (&s)[kTfChunks][4],
+                                          const float* a_glob, int D,
+                                          const float* kt, int ld, int m0,
+                                          int dh, int nkt, uint32_t dead,
+                                          int Tn, int g, int t) {
+#pragma unroll
+  for (int c = 0; c < kTfChunks; ++c)
+    s[c][0] = s[c][1] = s[c][2] = s[c][3] = 0.f;
+  constexpr uint32_t kGroupBits = (1u << kTfGroup) - 1u;
+  const uint32_t idle = dead | ~((1u << nkt) - 1u);
+  float an[4];
+  tf_a_global(an, a_glob, D, m0, 0, Tn, g, t);
+  for (int k0 = 0; k0 < dh; k0 += 8) {
+    const Split<4> a(an);
+    if (k0 + 8 < dh) tf_a_global(an, a_glob, D, m0, k0 + 8, Tn, g, t);
+#pragma unroll
+    for (int c0 = 0; c0 < kTfChunks; c0 += kTfGroup) {
+      if (((idle >> c0) & kGroupBits) != kGroupBits) {
+#pragma unroll
+        for (int c = c0; c < c0 + kTfGroup; ++c)
+          mma3(s[c], a, tf_b_nk(kt, ld, 8 * c, k0, g, t));
+      }
+    }
+  }
+}
+
+// Y = P . X for a warp's 16 rows, P an accumulator-layout (16 x 8 chunks)
+// register tile and X a tile (rows = keys): 8 NT output columns a pass,
+// stored (rows below T) to y (row stride D) with 8-byte stores. Chunks go
+// in pairs, a pair skipped where both are in `dead` or past T (P is 0
+// there: a dead chunk beside a live one adds exact zeros).
+template <int NT, bool FULL>
+__device__ __forceinline__ void tf_product_pass(
+    float (&o)[NT][4], const float (&p)[kTfChunks][4], const float* xt,
+    int ld, uint32_t idle, int d0, int nd, int g, int t) {
+#pragma unroll
+  for (int c0 = 0; c0 < kTfChunks; c0 += 2) {
+    if (((idle >> c0) & 3u) != 3u) {
+#pragma unroll
+      for (int c = c0; c < c0 + 2; ++c) {
+        const Split<4> a = tf_acc_a(p[c]);
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          if (FULL || n < nd)
+            mma3(o[n], a, tf_b_kn(xt, ld, 8 * c, d0 + 8 * n, g, t));
+      }
+    }
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void tf_product_store(
+    const float (&p)[kTfChunks][4], const float* xt, int ld, int nkt,
+    uint32_t dead, float* y, int D, int m0, int dh, int Tn, int g, int t) {
+  const int r0 = m0 + g, r1 = r0 + 8;
+  const uint32_t idle = dead | ~((1u << nkt) - 1u);
+  for (int d0 = 0; d0 < dh; d0 += 8 * NT) {
+    const int nd = min(NT, (dh - d0) / 8);
+    float o[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    // whole passes (nd == NT) without a branch per tile
+    if (nd == NT)
+      tf_product_pass<NT, true>(o, p, xt, ld, idle, d0, nd, g, t);
+    else
+      tf_product_pass<NT, false>(o, p, xt, ld, idle, d0, nd, g, t);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      if (n < nd) {
+        const int col = d0 + 8 * n + 2 * t;
+        if (r0 < Tn)
+          *reinterpret_cast<float2*>(y + (size_t)r0 * D + col) =
+              make_float2(o[n][0], o[n][1]);
+        if (r1 < Tn)
+          *reinterpret_cast<float2*>(y + (size_t)r1 * D + col) =
+              make_float2(o[n][2], o[n][3]);
+      }
+    }
+  }
+}
+
+// Y = X^T . Z for a warp's 16 key rows m0.. (phase 2 of the backward): X
+// a stashed T x T tile (P or dS; rows = queries, row stride lx), read by
+// fragments in tf_b_kn's k order, Z a tile (rows = queries): 8 NT output
+// columns a pass, stored (rows below T) to y (row stride D). A chunk of 8
+// queries whose fragment is 0 in every lane adds nothing and is skipped.
+template <int NT>
+__device__ __forceinline__ void tf_stash_product_store(
+    const float* xs, int lx, const float* zt, int ld, int nkt, float* y,
+    int D, int m0, int dh, int Tn, int g, int t) {
+  const int r0 = m0 + g, r1 = r0 + 8;
+  for (int d0 = 0; d0 < dh; d0 += 8 * NT) {
+    const int nd = min(NT, (dh - d0) / 8);
+    float o[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    for (int c = 0; c < nkt; ++c) {
+      const float* x0 = xs + (8 * c + 2 * t) * lx + r0;
+      const float a[4] = {x0[0], x0[8], x0[lx], x0[lx + 8]};
+      if (!__any_sync(0xffffffffu, a[0] != 0.f || a[1] != 0.f ||
+                                        a[2] != 0.f || a[3] != 0.f))
+        continue;
+      const Split<4> A(a);
+      if (nd == NT) {  // a whole pass: no branch per tile
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          mma3(o[n], A, tf_b_kn(zt, ld, 8 * c, d0 + 8 * n, g, t));
+      } else {
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          if (n < nd) mma3(o[n], A, tf_b_kn(zt, ld, 8 * c, d0 + 8 * n, g, t));
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      if (n < nd) {
+        const int col = d0 + 8 * n + 2 * t;
+        if (r0 < Tn)
+          *reinterpret_cast<float2*>(y + (size_t)r0 * D + col) =
+              make_float2(o[n][0], o[n][1]);
+        if (r1 < Tn)
+          *reinterpret_cast<float2*>(y + (size_t)r1 * D + col) =
+              make_float2(o[n][2], o[n][3]);
+      }
+    }
+  }
+}
+
+// Rows i0 and i0 + 8 of this thread's accumulator fragments into a stashed
+// tile (row stride lx), every chunk of the first 16-row multiple of T's
+// columns; rows past T as 0
+__device__ __forceinline__ void tf_stash_store(float* xs, int lx,
+                                               const float (&x)[kTfChunks][4],
+                                               int Tn, int i0, int t) {
+  const bool v0 = i0 < Tn, v1 = i0 + 8 < Tn;
+  const int nc = tf_rows16(Tn) / 8;
+#pragma unroll
+  for (int c = 0; c < kTfChunks; ++c) {
+    if (c < nc) {
+      float* p = xs + i0 * lx + 8 * c + 2 * t;
+      *reinterpret_cast<float2*>(p) =
+          v0 ? make_float2(x[c][0], x[c][1]) : make_float2(0.f, 0.f);
+      *reinterpret_cast<float2*>(p + 8 * lx) =
+          v1 ? make_float2(x[c][2], x[c][3]) : make_float2(0.f, 0.f);
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// The forward. One CTA of 8 warps per (b, h) item; row b's bias, K and V
+// of the head whole in shared memory (three cp.async groups, waited for
+// in that order: the dead chunks from the bias while K arrives, S =
+// Q.K^T while V arrives); warp w owns query rows 16w..16w+15, Q's
+// fragments read from device memory: S on the tensor cores in 3xTF32, the
+// softmax and the dropout on the accumulator fragments (the Philox draw of
+// a lane's four elements of a chunk is one draw), then O = P.V with P's
+// fragments as the A operand, stored from the accumulators.
+__global__ void __launch_bounds__(kTfThreads, 1)
+attention_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ bias,
+                   float* __restrict__ out, int Tn, int H, int dh, float scale,
+                   long long sb, long long sq, int bias_copy,
+                   const int* __restrict__ seed_ptr, uint32_t thresh,
+                   float keep_scale, int dropout, int head_offset) {
   extern __shared__ __align__(16) float smem[];
-  float* kt = smem;                        // [dh][Tn]
-  float* vs = kt + (size_t)dh * Tn;        // [Tn][dh]
-  float* qs = vs + (size_t)Tn * dh;        // [kSimtWarps][dh]
-  float* ps = qs + kSimtWarps * dh;        // [kSimtWarps][kMaxT]
-
+  const size_t tile = tf_tile_floats(Tn, dh);
+  float* ks = smem;
+  float* vs = ks + tile;
+  float* bsm = vs + tile;
   const int b = blockIdx.x / H, h = blockIdx.x - b * H;
-  const int D = H * dh;
+  const int D = H * dh, ld = dh + 4, rs = sq ? tf_bias_ld(Tn) : 0;
   const size_t base = (size_t)b * Tn * D + (size_t)h * dh;
-  const PhiloxKey key(dropout ? static_cast<uint32_t>(*seed_ptr) : 0u);
-  for (int i = threadIdx.x; i < Tn * dh; i += kSimtThreads) {
-    const int j = i / dh, d = i - j * dh;
-    const size_t g = base + (size_t)j * D + d;
-    kt[d * Tn + j] = k[g];
-    vs[i] = v[g];
-  }
+  tf_load_bias(bsm, bias + b * sb, sq, Tn, bias_copy);
+  cp_async_commit();
+  tf_load_tile(ks, k + base, Tn, D, dh);
+  cp_async_commit();
+  tf_load_tile(vs, v + base, Tn, D, dh);
+  cp_async_commit();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = 16 * warp, i0 = m0 + g;
+  const int nkt = (Tn + 7) >> 3;
+  const bool has_rows = m0 < Tn;
+  cp_async_wait<2>();
   __syncthreads();
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* qw = qs + warp * dh;
-  float* pw = ps + warp * kMaxT;
-  const float* bb = bias + b * sb;
-  for (int i = warp; i < Tn; i += kSimtWarps) {
-    for (int d = lane; d < dh; d += 32) qw[d] = q[base + (size_t)i * D + d];
-    __syncwarp();
-    // scores: lane j owns keys j, j+32, j+64, j+96, four independent
-    // chains, each summed over d in order
-    float s[kMaxT / 32];
+  const uint32_t dead =
+      has_rows ? tf_dead_rows(bsm, rs, Tn, i0, nkt, t) : 0u;
+  cp_async_wait<1>();
+  __syncthreads();
+  float s[kTfChunks][4];
+  if (has_rows) {
+    tf_scores(s, q + base, D, ks, ld, m0, dh, nkt, dead, Tn, g, t);
+    float mx0, mx1, l0, l1;
+    tf_softmax(s, dead, nkt, bsm, rs, Tn, i0, t, scale, mx0, mx1, l0, l1);
+    if (dropout) {
+      const PhiloxKey key(static_cast<uint32_t>(*seed_ptr));
+      const PhiloxRow prow = philox_row(key, b, h + head_offset, i0);
 #pragma unroll
-    for (int c = 0; c < kMaxT / 32; ++c) s[c] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < dh; ++d) {
-      const float qd = qw[d];
-      const float* kr = kt + d * Tn + lane;
-#pragma unroll
-      for (int c = 0; c < kMaxT / 32; ++c)
-        if (lane + 32 * c < Tn) s[c] = fmaf(qd, kr[32 * c], s[c]);
-    }
-    float m = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < kMaxT / 32; ++c) {
-      const int j = lane + 32 * c;
-      s[c] = j < Tn ? s[c] * scale + bb[i * sq + j] : -INFINITY;
-      m = fmaxf(m, s[c]);
-    }
-    m = warp_max(m);
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < kMaxT / 32; ++c) {
-      const float e = lane + 32 * c < Tn ? expf(s[c] - m) : 0.f;
-      s[c] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-#pragma unroll
-    for (int c = 0; c < kMaxT / 32; ++c) {
-      const int j = lane + 32 * c;
-      if (j < Tn) {
-        float p = s[c] / sum;
-        if (dropout) p = drop(p, dropout_bits(key, b, h + head_offset, i, j), thresh, keep_scale);
-        pw[j] = p;
+      for (int c = 0; c < kTfChunks; ++c) {
+        if (c < nkt && !((dead >> c) & 1u)) {
+          const uint4 r = dropout_bits4_at(prow, key, 4 * c + t);
+          s[c][0] = drop(s[c][0], r.x, thresh, keep_scale);
+          s[c][1] = drop(s[c][1], r.y, thresh, keep_scale);
+          s[c][2] = drop(s[c][2], r.z, thresh, keep_scale);
+          s[c][3] = drop(s[c][3], r.w, thresh, keep_scale);
+        }
       }
     }
-    __syncwarp();
-    // output: lane d owns columns d, d+32, d+64, d+96 of each 128
-    for (int d0 = lane; d0 < dh; d0 += 128) {
-      float o[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-      for (int j = 0; j < Tn; ++j) {
-        const float pj = pw[j];
-        const float* vr = vs + j * dh + d0;
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (d0 + 32 * c < dh) o[c] = fmaf(pj, vr[32 * c], o[c]);
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (d0 + 32 * c < dh) out[base + (size_t)i * D + d0 + 32 * c] = o[c];
-    }
-    __syncwarp();  // qw and pw are rewritten by the next row
   }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (has_rows)
+    tf_product_store<kFwdTiles>(s, vs, ld, nkt, dead, out + base, D, m0, dh,
+                                Tn, g, t);
 }
 
-// shared memory, in floats: K[T][dh+1] | V[T][dh+1] in phase 1, Q[T][dh+1] |
-// g[T][dh+1] in phase 2 (the same space) | the row statistics m, l and
-// rowsum(dP * P) [3][kMaxT] | one row of two operands a warp [warps][2 dh]
-// | dS and pd of that row a warp [warps][2 kMaxT]: linear in T, 141,824 B
-// at T 128, dh 128
-__host__ __device__ inline size_t bwd_simt_smem_bytes(int T, int dh) {
-  return ((size_t)2 * T * (dh + 1) + (size_t)3 * kMaxT +
-          (size_t)kSimtWarps * 2 * (dh + kMaxT)) * sizeof(float);
-}
-
-// The scores and dP of one (query, key) pair: lane-owned sums over d in
-// order, the same chain in both phases, so that phase 2 recomputes phase
-// 1's p bit for bit.
-__device__ inline void bwd_simt_dots(const float* __restrict__ a,
-                                     const float* __restrict__ b,
-                                     const float* __restrict__ c,
-                                     const float* __restrict__ e, int dh,
-                                     float& s, float& dp) {
-#pragma unroll 4
-  for (int d = 0; d < dh; ++d) {
-    s = fmaf(a[d], b[d], s);
-    dp = fmaf(c[d], e[d], dp);
-  }
-}
-
-// Two phases, each over one operand pair held whole in shared memory
-// (rows padded to dh + 1 floats: both the lane-per-row and the
-// lane-per-column reads are free of bank conflicts):
-//  1. K and V; a warp takes one query row i at a time (lane j owns keys j,
-//     j+32, j+64, j+96): s, p, the keep factors, dP and dS, the row's
-//     max m_i, sum l_i and rs_i = sum_j dP_ij P_ij kept in shared memory,
-//     and dQ_i = dS_i K from the warp's dS row;
-//  2. Q and g; a warp takes one key row j at a time (lane i owns queries
-//     i, i+32, ...): s and dP recomputed by the same sums, p = exp(s -
-//     m_i) / l_i, dS and pd, then dK_j = dS^T Q and dV_j = pd^T g from the
-//     warp's two rows.
-// No T x T tile is kept: the scores are computed twice instead.
-__global__ void __launch_bounds__(kSimtThreads)
-attention_bwd_simt(const float* __restrict__ q, const float* __restrict__ k,
+// The backward. One CTA of 8 warps per (b, h) item, each output row
+// written once (no atomics). Phase 1, K and V whole in shared memory (with
+// row b's bias): warp w on query rows 16w..: dPd = g.V^T, then (g loading
+// into V's tile) S = Q.K^T (Q and g fragments from device memory, one k
+// step ahead), the softmax, the keep factors, dP, the row sums and dS on
+// the fragments, then dQ = dS.K. Phase 2, g and Q whole (Q loading into
+// K's tile while dQ runs): warp w on key rows 16w.., dV = pd^T.g and dK =
+// dS^T.Q. With STASH (where shared memory holds them: dh up to 88 at T
+// 128), pd and dS go to shared memory (dS over the bias, once every warp
+// is done with it), and phase 2 reads its A fragments there. Else phase
+// 1 keeps the rows' max, sum and rowsum(dP * P) and the keep bits (four
+// ballots a chunk), and phase 2 recomputes S^T = K.Q^T and dPd^T = V.g^T,
+// P from the statistics (expf and IEEE division; its products in another
+// order than phase 1's, so not bit for bit), with the keep bits read
+// back, dS^T and pd^T on the fragments.
+template <bool STASH>
+__global__ void __launch_bounds__(kTfThreads, 1)
+attention_bwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ bias,
                    const float* __restrict__ g, float* __restrict__ dq,
                    float* __restrict__ dk, float* __restrict__ dv, int Tn,
                    int H, int dh, float scale, long long sb, long long sq,
-                   const int* __restrict__ seed_ptr, uint32_t thresh,
-                   float keep_scale, int dropout, int head_offset) {
+                   int bias_copy, const int* __restrict__ seed_ptr,
+                   uint32_t thresh, float keep_scale, int dropout,
+                   int head_offset) {
   extern __shared__ __align__(16) float smem[];
-  const int KS = dh + 1;
-  float* as = smem;                            // K, then Q: [Tn][KS]
-  float* bs = as + (size_t)Tn * KS;            // V, then g: [Tn][KS]
-  float* row_m = bs + (size_t)Tn * KS;         // [kMaxT]
-  float* row_l = row_m + kMaxT;                // [kMaxT]
-  float* row_rs = row_l + kMaxT;               // [kMaxT]
-  float* rows = row_rs + kMaxT;                // [kSimtWarps][2 dh]
-  float* wrow = rows + kSimtWarps * 2 * dh;    // [kSimtWarps][2 kMaxT]
-
+  const size_t tile = tf_tile_floats(Tn, dh);
+  float* as = smem;                  // K, then Q
+  float* bs = as + tile;             // V, then g
+  // STASH: pd | dS (the bias before it)
+  float* pst = bs + tile;
+  float* dst = pst + tf_stash_floats(Tn);
+  // else: the row statistics, the keep bits, the bias
+  float* row_m = bs + tile;          // [kMaxT]
+  float* row_l = row_m + kMaxT;      // [kMaxT]
+  float* row_rs = row_l + kMaxT;     // [kMaxT]
+  uint32_t* keep_w = reinterpret_cast<uint32_t*>(row_rs + kMaxT);
+  float* bsm = STASH ? dst
+                     : reinterpret_cast<float*>(keep_w + kTfWarps * kTfChunks * 4);
+  const int lx = tf_stash_ld(Tn);
   const int b = blockIdx.x / H, h = blockIdx.x - b * H;
-  const int D = H * dh;
+  const int D = H * dh, ld = dh + 4, rs = sq ? tf_bias_ld(Tn) : 0;
   const size_t base = (size_t)b * Tn * D + (size_t)h * dh;
-  const PhiloxKey key(dropout ? static_cast<uint32_t>(*seed_ptr) : 0u);
-  for (int i = threadIdx.x; i < Tn * dh; i += kSimtThreads) {
-    const int j = i / dh, d = i - j * dh;
-    const size_t gi = base + (size_t)j * D + d;
-    as[j * KS + d] = k[gi];
-    bs[j * KS + d] = v[gi];
-  }
-  __syncthreads();
+  tf_load_bias(bsm, bias + b * sb, sq, Tn, bias_copy);
+  tf_load_tile(bs, v + base, Tn, D, dh);
+  cp_async_commit();
+  tf_load_tile(as, k + base, Tn, D, dh);
+  cp_async_commit();
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* r0 = rows + warp * 2 * dh;   // q_i / k_j
-  float* r1 = r0 + dh;                // g_i / v_j
-  float* dsw = wrow + warp * 2 * kMaxT;
-  float* pdw = dsw + kMaxT;
-  const float* bb = bias + b * sb;
-  // phase 1: one query row per warp at a time
-  for (int i = warp; i < Tn; i += kSimtWarps) {
-    for (int d = lane; d < dh; d += 32) {
-      r0[d] = q[base + (size_t)i * D + d];
-      r1[d] = g[base + (size_t)i * D + d];
-    }
-    __syncwarp();
-    float s[kMaxT / 32], dpd[kMaxT / 32];
-#pragma unroll
-    for (int c = 0; c < kMaxT / 32; ++c) {
-      s[c] = dpd[c] = 0.f;
-      const int j = lane + 32 * c;
-      if (j < Tn)
-        bwd_simt_dots(r0, as + j * KS, r1, bs + j * KS, dh, s[c], dpd[c]);
-    }
-    float m = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < kMaxT / 32; ++c) {
-      const int j = lane + 32 * c;
-      s[c] = j < Tn ? fmaf(s[c], scale, bb[i * sq + j]) : -INFINITY;
-      m = fmaxf(m, s[c]);
-    }
-    m = warp_max(m);
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < kMaxT / 32; ++c) {
-      const float e = lane + 32 * c < Tn ? expf(s[c] - m) : 0.f;
-      s[c] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    float rs = 0.f;
-#pragma unroll
-    for (int c = 0; c < kMaxT / 32; ++c) {
-      const int j = lane + 32 * c;
-      if (j < Tn) {
-        s[c] = s[c] / sum;                     // p
-        float kf = 1.f;
-        if (dropout)
-          kf = dropout_bits(key, b, h + head_offset, i, j) >= thresh ? keep_scale : 0.f;
-        dpd[c] *= kf;                          // dp
-        rs += dpd[c] * s[c];
-      }
-    }
-    rs = warp_sum(rs);
-    if (lane == 0) {
-      row_m[i] = m;
-      row_l[i] = sum;
-      row_rs[i] = rs;
-    }
-#pragma unroll
-    for (int c = 0; c < kMaxT / 32; ++c) {
-      const int j = lane + 32 * c;
-      if (j < Tn) dsw[j] = s[c] * (dpd[c] - rs) * scale;
-    }
-    __syncwarp();
-    // dQ row i: lane d owns columns d, d+32, d+64, d+96 of each 128
-    for (int d0 = lane; d0 < dh; d0 += 128) {
-      float o[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-      for (int j = 0; j < Tn; ++j) {
-        const float dsj = dsw[j];
-        const float* kr = as + j * KS + d0;
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (d0 + 32 * c < dh) o[c] = fmaf(dsj, kr[32 * c], o[c]);
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (d0 + 32 * c < dh) dq[base + (size_t)i * D + d0 + 32 * c] = o[c];
-    }
-    __syncwarp();  // the warp's rows are rewritten by the next row
-  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, t = lane & 3;
+  const int m0 = 16 * warp, i0 = m0 + gr, i1 = i0 + 8;
+  const int nkt = (Tn + 7) >> 3;
+  const bool has_rows = m0 < Tn;
+
+  // ---- phase 1: query rows ----------------------------------------------
+  cp_async_wait<1>();  // the bias and V
   __syncthreads();
-  for (int i = threadIdx.x; i < Tn * dh; i += kSimtThreads) {
-    const int j = i / dh, d = i - j * dh;
-    const size_t gi = base + (size_t)j * D + d;
-    as[j * KS + d] = q[gi];
-    bs[j * KS + d] = g[gi];
-  }
+  uint32_t dead = has_rows ? tf_dead_rows(bsm, rs, Tn, i0, nkt, t) : 0u;
+  float s[kTfChunks][4], dp[kTfChunks][4];
+  if (has_rows)
+    tf_scores(dp, g + base, D, bs, ld, m0, dh, nkt, dead, Tn, gr, t);
+  __syncthreads();  // V's tile is free
+  tf_load_tile(bs, g + base, Tn, D, dh);
+  cp_async_commit();
+  cp_async_wait<1>();  // K
   __syncthreads();
-  // phase 2: one key row per warp at a time
-  for (int j = warp; j < Tn; j += kSimtWarps) {
-    for (int d = lane; d < dh; d += 32) {
-      r0[d] = k[base + (size_t)j * D + d];
-      r1[d] = v[base + (size_t)j * D + d];
-    }
-    __syncwarp();
+  if (has_rows) {
+    tf_scores(s, q + base, D, as, ld, m0, dh, nkt, dead, Tn, gr, t);
+    float mx0, mx1, l0, l1;
+    tf_softmax(s, dead, nkt, bsm, rs, Tn, i0, t, scale, mx0, mx1, l0, l1);
+    // dp = dPd * keep factor (pd = p * keep factor too, with STASH);
+    // rs = rowsum(dp * p)
+    float rs0 = 0.f, rs1 = 0.f;
+    const PhiloxKey key(dropout ? static_cast<uint32_t>(*seed_ptr) : 0u);
+    const PhiloxRow prow = philox_row(key, b, h + head_offset, i0);
 #pragma unroll
-    for (int c = 0; c < kMaxT / 32; ++c) {
-      const int i = lane + 32 * c;
-      if (i < Tn) {
-        float s = 0.f, dpd = 0.f;
-        bwd_simt_dots(as + i * KS, r0, bs + i * KS, r1, dh, s, dpd);
-        s = fmaf(s, scale, bb[i * sq + j]);  // as in phase 1
-        const float p = expf(s - row_m[i]) / row_l[i];
-        float kf = 1.f;
-        if (dropout)
-          kf = dropout_bits(key, b, h + head_offset, i, j) >= thresh ? keep_scale : 0.f;
-        pdw[i] = p * kf;
-        dsw[i] = p * (dpd * kf - row_rs[i]) * scale;
-      }
-    }
-    __syncwarp();
-    for (int d0 = lane; d0 < dh; d0 += 128) {
-      float ok[4] = {0.f, 0.f, 0.f, 0.f}, ov[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-      for (int i = 0; i < Tn; ++i) {
-        const float dsi = dsw[i], pdi = pdw[i];
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (d0 + 32 * c < dh) {
-            ok[c] = fmaf(dsi, as[i * KS + d0 + 32 * c], ok[c]);
-            ov[c] = fmaf(pdi, bs[i * KS + d0 + 32 * c], ov[c]);
-          }
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (d0 + 32 * c < dh) {
-          dk[base + (size_t)j * D + d0 + 32 * c] = ok[c];
-          dv[base + (size_t)j * D + d0 + 32 * c] = ov[c];
+    for (int c = 0; c < kTfChunks; ++c) {
+      if (dropout && c < nkt && !((dead >> c) & 1u)) {
+        const uint4 r = dropout_bits4_at(prow, key, 4 * c + t);
+        const bool k0 = r.x >= thresh, k1 = r.y >= thresh,
+                   k2 = r.z >= thresh, k3 = r.w >= thresh;
+        dp[c][0] *= k0 ? keep_scale : 0.f;
+        dp[c][1] *= k1 ? keep_scale : 0.f;
+        dp[c][2] *= k2 ? keep_scale : 0.f;
+        dp[c][3] *= k3 ? keep_scale : 0.f;
+        if constexpr (STASH) {
+          // pd, for dV; dS below takes p itself
+          const float pd[4] = {s[c][0] * (k0 ? keep_scale : 0.f),
+                               s[c][1] * (k1 ? keep_scale : 0.f),
+                               s[c][2] * (k2 ? keep_scale : 0.f),
+                               s[c][3] * (k3 ? keep_scale : 0.f)};
+          float* pp = pst + i0 * lx + 8 * c + 2 * t;
+          *reinterpret_cast<float2*>(pp) =
+              i0 < Tn ? make_float2(pd[0], pd[1]) : make_float2(0.f, 0.f);
+          *reinterpret_cast<float2*>(pp + 8 * lx) =
+              i1 < Tn ? make_float2(pd[2], pd[3]) : make_float2(0.f, 0.f);
+        } else {
+          const uint4 w = make_uint4(__ballot_sync(0xffffffffu, k0),
+                                     __ballot_sync(0xffffffffu, k1),
+                                     __ballot_sync(0xffffffffu, k2),
+                                     __ballot_sync(0xffffffffu, k3));
+          if (lane == 0)
+            reinterpret_cast<uint4*>(keep_w)[warp * kTfChunks + c] = w;
         }
+      } else if (!STASH && dropout && lane == 0 && c < nkt) {
+        reinterpret_cast<uint4*>(keep_w)[warp * kTfChunks + c] =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
     }
-    __syncwarp();  // the warp's rows are rewritten by the next key
+    if constexpr (STASH) {
+      // pd where the draws did not write it: no dropout, dead chunks (0)
+      // and the chunks past T's (0)
+      if (!dropout) {
+        tf_stash_store(pst, lx, s, Tn, i0, t);
+      } else {
+        const int nc = tf_rows16(Tn) / 8;
+#pragma unroll
+        for (int c = 0; c < kTfChunks; ++c) {
+          if (c < nc && !(c < nkt && !((dead >> c) & 1u))) {
+            float* pp = pst + i0 * lx + 8 * c + 2 * t;
+            *reinterpret_cast<float2*>(pp) = make_float2(0.f, 0.f);
+            *reinterpret_cast<float2*>(pp + 8 * lx) = make_float2(0.f, 0.f);
+          }
+        }
+      }
+    }
+    // p is 0 in dead chunks and past T
+#pragma unroll
+    for (int c = 0; c < kTfChunks; ++c) {
+      rs0 += dp[c][0] * s[c][0] + dp[c][1] * s[c][1];
+      rs1 += dp[c][2] * s[c][2] + dp[c][3] * s[c][3];
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      rs0 += __shfl_xor_sync(0xffffffffu, rs0, o);
+      rs1 += __shfl_xor_sync(0xffffffffu, rs1, o);
+    }
+    if (!STASH && t == 0) {
+      if (i0 < Tn) {
+        row_m[i0] = mx0;
+        row_l[i0] = l0;
+        row_rs[i0] = rs0;
+      }
+      if (i1 < Tn) {
+        row_m[i1] = mx1;
+        row_l[i1] = l1;
+        row_rs[i1] = rs1;
+      }
+    }
+    // dS = p * (dp - rs) * scale, in dp's registers
+#pragma unroll
+    for (int c = 0; c < kTfChunks; ++c) {
+      dp[c][0] = s[c][0] * (dp[c][0] - rs0) * scale;
+      dp[c][1] = s[c][1] * (dp[c][1] - rs0) * scale;
+      dp[c][2] = s[c][2] * (dp[c][2] - rs1) * scale;
+      dp[c][3] = s[c][3] * (dp[c][3] - rs1) * scale;
+    }
   }
+  if constexpr (STASH) {
+    __syncthreads();  // the bias is free: dS over it
+    if (has_rows) tf_stash_store(dst, lx, dp, Tn, i0, t);
+  }
+  if (has_rows)
+    tf_product_store<kBwdTiles>(dp, as, ld, nkt, dead, dq + base, D, m0, dh,
+                                Tn, gr, t);
+  __syncthreads();  // K's tile is free
+  tf_load_tile(as, q + base, Tn, D, dh);
+  cp_async_commit();
+
+  // ---- phase 2: key rows ------------------------------------------------
+  if constexpr (STASH) {
+    cp_async_wait<0>();  // g and Q
+    __syncthreads();     // and pd and dS
+    if (has_rows) {
+      tf_stash_product_store<kBwdTiles>(pst, lx, bs, ld, nkt, dv + base, D,
+                                        m0, dh, Tn, gr, t);
+      tf_stash_product_store<kBwdTiles>(dst, lx, as, ld, nkt, dk + base, D,
+                                        m0, dh, Tn, gr, t);
+    }
+    return;
+  }
+  // A lane holds (key j, query i) for j = i0, i1 and i = 8c + 2t, 8c + 2t
+  // + 1 of every chunk c of queries. dead: the query chunks whose elements
+  // here are all masked (or past T) and whose rows below T each have a key
+  // that is not (their max is above the lowest value).
+  cp_async_wait<1>();
+  __syncthreads();  // g, the statistics and the keep bits
+  uint32_t mine = 0u;
+  if (has_rows) {
+#pragma unroll
+    for (int c = 0; c < kTfChunks; ++c) {
+      bool live = false, ok = true;
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int i = 8 * c + 2 * t + x;
+        const bool in = i < Tn;
+        const float m = in ? row_m[i] : 0.f;
+        const float* br = bsm + min(i, Tn - 1) * rs;
+        const float e0 = in && i0 < Tn ? br[i0] : kF32Lowest;
+        const float e1 = in && i1 < Tn ? br[i1] : kF32Lowest;
+        ok = ok && (!in || m > kF32Lowest);
+        live = live || e0 > kF32Lowest || e1 > kF32Lowest;
+      }
+      mine |= (uint32_t)(!live && ok) << c;
+    }
+    mine &= (1u << nkt) - 1u;
+  }
+  dead = __reduce_and_sync(0xffffffffu, mine);
+  if (has_rows)
+    tf_scores(dp, v + base, D, bs, ld, m0, dh, nkt, dead, Tn, gr, t);
+  cp_async_wait<0>();
+  __syncthreads();
+  if (!has_rows) return;
+  tf_scores(s, k + base, D, as, ld, m0, dh, nkt, dead, Tn, gr, t);
+  // s - m_i in place, every chunk, branch-free (queries past T: -inf)
+#pragma unroll
+  for (int c = 0; c < kTfChunks; ++c) {
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int i = 8 * c + 2 * t + x;  // query
+      const bool in = i < Tn;
+      const float m = in ? row_m[i] : 0.f;
+      const float* br = bsm + min(i, Tn - 1) * rs;
+      const float e0 = in && i0 < Tn ? br[i0] : -INFINITY;
+      const float e1 = in && i1 < Tn ? br[i1] : -INFINITY;
+      s[c][x] = s[c][x] * scale + e0 - m;
+      s[c][2 + x] = s[c][2 + x] * scale + e1 - m;
+    }
+  }
+  // P, dS and pd; dead chunks and those past T are 0
+#pragma unroll
+  for (int c = 0; c < kTfChunks; ++c) {
+    if (c < nkt && !((dead >> c) & 1u)) {
+      uint32_t w0 = 0u, w1 = 0u;
+      if (dropout) {
+        const uint32_t* kw = keep_w + ((c >> 1) * kTfChunks + 2 * warp) * 4 +
+                             (c & 1) * 2 + (gr & 1);
+        w0 = kw[0];
+        w1 = kw[4];
+      }
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int i = 8 * c + 2 * t + x;  // query
+        const int bit = (2 * t + x) * 4 + (gr >> 1);
+        const bool in = i < Tn;  // rows past T hold no statistics
+        const float li = in ? row_l[i] : 1.f, rsi = in ? row_rs[i] : 0.f;
+#pragma unroll
+        for (int y = 0; y < 2; ++y) {
+          const int e = 2 * y + x;  // key i0 (y 0) or i1 (y 1)
+          const float p = expf(s[c][e]) / li;  // 0 past T (expf(-inf))
+          float kf = 1.f;
+          if (dropout) kf = (((y ? w1 : w0) >> bit) & 1u) ? keep_scale : 0.f;
+          dp[c][e] = p * (dp[c][e] * kf - rsi) * scale;  // dS
+          s[c][e] = p * kf;                               // pd
+        }
+      }
+    } else {
+      s[c][0] = s[c][1] = s[c][2] = s[c][3] = 0.f;
+      dp[c][0] = dp[c][1] = dp[c][2] = dp[c][3] = 0.f;
+    }
+  }
+  tf_product_store<kBwdTiles>(s, bs, ld, nkt, dead, dv + base, D, m0, dh, Tn,
+                              gr, t);
+  tf_product_store<kBwdTiles>(dp, as, ld, nkt, dead, dk + base, D, m0, dh,
+                              Tn, gr, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -1890,8 +2393,11 @@ extern "C" {
 // kernels do not take).
 size_t packed_attention_smem_bytes(int T, int dh, int qkv_is_bf16,
                                    int backward) {
-  if (!qkv_is_bf16)
-    return backward ? bwd_simt_smem_bytes(T, dh) : simt_smem_bytes(T, dh);
+  if (!qkv_is_bf16) {
+    if (dh % 8 || dh < 8 || dh > kMaxDh) return 0;
+    return backward ? tf32_bwd_smem_bytes(T, dh, false)
+                    : tf32_fwd_smem_bytes(T, dh);
+  }
   switch (dh) {
     case 16: return backward ? bwd_smem_bytes<16>(1, 0) : fwd_smem_bytes<16>(T, 4, 1);
     case 32: return backward ? bwd_smem_bytes<32>(1, 0) : fwd_smem_bytes<32>(T, 4, 1);
@@ -1918,8 +2424,9 @@ int packed_attention_prepare(int device) {
   g_optin[device] = optin;
   g_sms[device] = sms;
   const cudaError_t errs[] = {
-      allow_optin_smem(attention_simt, optin),
-      allow_optin_smem(attention_bwd_simt, optin),
+      allow_optin_smem(attention_fwd_tf32, optin),
+      allow_optin_smem(attention_bwd_tf32<true>, optin),
+      allow_optin_smem(attention_bwd_tf32<false>, optin),
       allow_optin_dh<16>(optin),
       allow_optin_dh<32>(optin),
       allow_optin_dh<64>(optin),
@@ -1955,11 +2462,13 @@ int packed_attention_forward(const void* q, const void* k, const void* v,
   const Drop dr = {static_cast<const int*>(seed), thresh, keep_scale, dropout,
                    head_offset};
   if (!qkv_is_bf16) {
-    attention_simt<<<B * H, kSimtThreads, simt_smem_bytes(T, dh), st>>>(
+    if (dh % 8 || dh < 8 || dh > kMaxDh) return cudaErrorInvalidValue;
+    attention_fwd_tf32<<<B * H, kTfThreads, tf32_fwd_smem_bytes(T, dh), st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(bias),
-        static_cast<float*>(out), T, H, dh, scale, sb, sq, dr.seed, thresh,
-        keep_scale, dropout, head_offset);
+        static_cast<float*>(out), T, H, dh, scale, sb, sq,
+        bias_copy_bytes<float>(bias, T, sb, sq), dr.seed, thresh, keep_scale,
+        dropout, head_offset);
     return cudaGetLastError();
   }
   if (bias_is_bf16)
@@ -1989,12 +2498,18 @@ int packed_attention_backward(const void* q, const void* k, const void* v,
   const Drop dr = {static_cast<const int*>(seed), thresh, keep_scale, dropout,
                    head_offset};
   if (!qkv_is_bf16) {
-    attention_bwd_simt<<<B * H, kSimtThreads, bwd_simt_smem_bytes(T, dh), st>>>(
+    if (dh % 8 || dh < 8 || dh > kMaxDh) return cudaErrorInvalidValue;
+    // pd and dS kept in shared memory where they fit
+    const bool stash =
+        tf32_bwd_smem_bytes(T, dh, true) <= (size_t)g_optin[device];
+    auto kernel = stash ? attention_bwd_tf32<true> : attention_bwd_tf32<false>;
+    kernel<<<B * H, kTfThreads, tf32_bwd_smem_bytes(T, dh, stash), st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(bias),
         static_cast<const float*>(g), static_cast<float*>(dq),
         static_cast<float*>(dk), static_cast<float*>(dv), T, H, dh, scale,
-        sb, sq, dr.seed, thresh, keep_scale, dropout, head_offset);
+        sb, sq, bias_copy_bytes<float>(bias, T, sb, sq), dr.seed, thresh,
+        keep_scale, dropout, head_offset);
     return cudaGetLastError();
   }
   if (bias_is_bf16)

@@ -19,10 +19,24 @@ sequence with a block-diagonal bias (models/lm/layers.pack_items /
 packed_mask_bias).
 
 On the card, bf16 runs the Hopper kernels `attention_fwd_tc` and
-`attention_bwd_tc`; f32 runs CUDA-core kernels that repeat the
-reference's exact expf and division. What bounds the bf16 kernels at
-bert-naml's pages is not bytes or tensor-core time but each consumer warp's
-chain of softmax, Philox draws and epilogue. Their design:
+`attention_bwd_tc`; f32 runs `attention_fwd_tf32` and `attention_bwd_tf32`
+(head widths a multiple of 8 up to 128), which take every product on the
+tensor cores in 3xTF32: each f32 operand split into hi = rna_tf32(x) and
+lo = rna_tf32(x - hi), lo.hi + hi.lo + hi.hi issued by mma.sync into a fresh
+accumulator per k step of 8 and added in f32, with the reference's expf
+and IEEE division. At the data sheet's 3xTF32 rate (495 / 3 TFLOP/s)
+bert-naml's training page would be bytes-bound (the f32 forward's 262 MB
+take 78.2 us at 3.35 TB/s, the backward's 451 MB 134.7 us); on the card
+what bounds them is the issue of each product's instructions (mma.sync,
+the operand's split, the accumulator's add) in 8 warps an SM. Their
+design (one 8-warp CTA per (b, h), a warp per 16 rows, operands and the
+bias by cp.async into bank-conflict-free padded rows, accumulators reused
+in place as the next product's A operand, the softmax and the dropout on
+the fragments, 8-key chunks the bias masks skipped, a backward in two
+phases that keeps pd and dS in shared memory where they fit) is in the
+source's header. What bounds the bf16 kernels at bert-naml's pages is
+not bytes or tensor-core time but each consumer warp's chain of softmax,
+Philox draws and epilogue. Their design:
 - persistent, one 384-thread CTA per SM walking a b-major share of the
   (b, h) items;
 - warpgroup 0 is the producer, cut to 40 registers by setmaxnreg. Its warp 0
@@ -76,6 +90,9 @@ from legommenders_tpu_torch.ops import build
 MAX_T = 128
 # head widths of the bf16 (tensor-core) kernels
 BF16_HEAD_WIDTHS = (16, 32, 64, 128)
+# the f32 (3xTF32 tensor-core) kernels take head widths that are multiples
+# of 8 up to this
+F32_MAX_HEAD_WIDTH = 128
 # the largest dynamic shared memory a block may use on sm_90
 MAX_SMEM_BYTES = 232448
 
@@ -282,6 +299,10 @@ def _check_cuda(num_heads: int, q, k, v, bias, g=None, backward=False):
     if bf16 and dh not in BF16_HEAD_WIDTHS:
         raise ValueError(f"packed_attention: bf16 takes head widths "
                          f"{BF16_HEAD_WIDTHS}, got {dh}")
+    if not bf16 and (dh % 8 or not 0 < dh <= F32_MAX_HEAD_WIDTH):
+        raise ValueError(f"packed_attention: f32 takes head widths that are "
+                         f"multiples of 8 up to {F32_MAX_HEAD_WIDTH}, got "
+                         f"{dh}")
     smem = _kernel_lib().packed_attention_smem_bytes(T, dh, int(bf16),
                                                      int(backward))
     if smem > MAX_SMEM_BYTES:
@@ -436,8 +457,9 @@ class _PackedAttention(torch.autograd.Function):
 
 def packed_attention(num_heads: int, dropout_p: float, q, k, v, bias,
                      seed=None, head_offset: int = 0):
-    """q, k, v (B, T, D) f32 or bf16 with D = num_heads * dh, T <= 128 and,
-    in bf16, dh in BF16_HEAD_WIDTHS; bias (B, T, T) additive, in q's dtype
+    """q, k, v (B, T, D) f32 or bf16 with D = num_heads * dh, T <= 128 and
+    dh in BF16_HEAD_WIDTHS (bf16) or a multiple of 8 up to
+    F32_MAX_HEAD_WIDTH (f32); bias (B, T, T) additive, in q's dtype
     or f32 (its last dimension contiguous; broadcast views with stride 0
     are read as they are); `seed` the (1,) int32 dropout seed on q's
     device, needed when dropout_p > 0 and unused otherwise; `head_offset`

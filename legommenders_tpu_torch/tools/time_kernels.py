@@ -32,12 +32,16 @@ max), on chip_smoke.py's inputs taken from this checkout for either tree:
     with each case's bound (chip_smoke.roof: the bytes of q, k, v, the
     output and the bias, and the products, at the local width) under
     "bounds_us";
-  - f32: the f32 (CUDA-core) forward and backward at bert-naml's
+  - f32: the f32 (3xTF32 tensor-core) forward and backward at bert-naml's
     attention pages in f32 (the training page at dropout 0.1 and 0, the
-    serving page at 0; the backward at the training page) and torch's
+    serving page at 0; the backward at the training page) and at the
+    decoder pages (chip_smoke.DECODER_PAGES: Llama / GLM dh 128 and OPT
+    dh 64, serving and training, causal packed biases, dropout 0; the
+    backward at the training pages), and torch's
     scaled_dot_product_attention at f32 with the float mask and the
-    dropout (forward, and forward + backward), with each page's bound at
-    the f32 rate (chip_smoke.roof) under "bounds_us".
+    dropout (forward, and forward + backward at the training pages), with
+    each page's bound at 3xTF32's 165 TFLOP/s and, beside it, at the CUDA
+    cores' 67 (chip_smoke.roof) under "bounds_us".
 Prints one JSON object (and writes it to --out).
 """
 import argparse
@@ -164,38 +168,53 @@ def _bounds_us(B, T, Dm, xb, bb, precision="bf16"):
 
 def f32_cases(torch, device, bounds):
     """(name, fn, calls) of the f32 attention kernels and SDPA at f32 at
-    bert-naml's pages; fills `bounds`."""
+    bert-naml's pages and the decoder pages; fills `bounds`."""
     from torch.nn import functional as F
     from legommenders_tpu_torch.ops import attention as A
 
     seed = torch.tensor([20231], dtype=torch.int32, device=device)
-    heads = chip_smoke.ATTN_PAGE["heads"]
-    cases = []
-    for page, cfg, s in (("train", chip_smoke.TRAIN_PAGE, 11),
-                         ("serve", chip_smoke.ATTN_PAGE, 7)):
+
+    def bert(cfg, s):
         q, k, v, bias = chip_smoke.attention_inputs(torch.float32, device,
                                                     seed=s, page=cfg)
-        B, T, Dm = q.shape
-        bounds[f"f32 {page}"] = dict(zip(("fwd", "bwd"), _bounds_us(
-            B, T, Dm, q.element_size(), bias.element_size(), "f32")))
         g = torch.randn(q.shape, generator=torch.Generator(
             device=device).manual_seed(12), device=device)
-        for p in ((0.1, 0.0) if page == "train" else (0.0,)):
+        return q, k, v, bias, g
+
+    pages = [("train", chip_smoke.ATTN_PAGE["heads"], (0.1, 0.0), True,
+              lambda: bert(chip_smoke.TRAIN_PAGE, 11)),
+             ("serve", chip_smoke.ATTN_PAGE["heads"], (0.0,), False,
+              lambda: bert(chip_smoke.ATTN_PAGE, 7))]
+    pages += [(name, cfg["heads"], (0.0,), cfg["train"],
+               functools.partial(chip_smoke.decoder_attention_inputs, cfg,
+                                 torch.float32, device, 5))
+              for name, cfg in chip_smoke.DECODER_PAGES.items()]
+    cases = []
+    for page, heads, ps, train, make in pages:
+        q, k, v, bias, g = make()
+        B, T, Dm = q.shape
+        xb, bb = q.element_size(), bias.element_size()
+        bounds[f"f32 {page}"] = dict(
+            zip(("fwd", "bwd"), _bounds_us(B, T, Dm, xb, bb, "tf32x3")),
+            **dict(zip(("fwd_cuda_core", "bwd_cuda_core"),
+                       _bounds_us(B, T, Dm, xb, bb, "f32"))))
+        calls = CALLS if Dm < 4096 else CALLS // 5
+        for p in ps:
             cases.append((f"f32 {page} p{p} fwd", functools.partial(
-                A.packed_attention, heads, p, q, k, v, bias, seed), CALLS))
-            if page == "train":
+                A.packed_attention, heads, p, q, k, v, bias, seed), calls))
+            if train:
                 cases.append((f"f32 {page} p{p} bwd", functools.partial(
                     A.packed_attention_backward, heads, p, q, k, v, bias,
-                    seed, g), CALLS))
-        p = 0.1 if page == "train" else 0.0
+                    seed, g), calls))
+        p = ps[0]
         qh, kh, vh = (t.view(B, T, heads, Dm // heads).transpose(1, 2)
                       .detach().requires_grad_(True) for t in (q, k, v))
         gh = g.view(B, T, heads, Dm // heads).transpose(1, 2)
         cases.append((f"f32 {page} sdpa fwd", functools.partial(
-            _sdpa_fwd, F, qh, kh, vh, bias[:, None], p), CALLS))
-        if page == "train":
+            _sdpa_fwd, F, qh, kh, vh, bias[:, None], p), calls))
+        if train:
             cases.append((f"f32 {page} sdpa fwd+bwd", functools.partial(
-                _sdpa_fwd_bwd, F, qh, kh, vh, bias[:, None], p, gh), CALLS))
+                _sdpa_fwd_bwd, F, qh, kh, vh, bias[:, None], p, gh), calls))
     return cases
 
 

@@ -94,6 +94,10 @@ def test_profiled_names_are_kernels_of_the_sources():
     assert "attention_fwd_tc" in chip_smoke.KERNEL_NAMES["packed_attention"]
     assert "attention_bwd_tc" in \
         chip_smoke.KERNEL_NAMES["packed_attention_backward"]
+    # and the f32 route's (3xTF32)
+    assert "attention_fwd_tf32" in chip_smoke.KERNEL_NAMES["packed_attention"]
+    assert "attention_bwd_tf32" in \
+        chip_smoke.KERNEL_NAMES["packed_attention_backward"]
 
 
 @pytest.mark.parametrize("page,T", [("ATTN_PAGE", 102), ("TRAIN_PAGE", 120)])

@@ -26,9 +26,15 @@ kernel names must show it took those and the CUDA-core pool f32 and the
 odd shapes. The run loop on the card (a 150-item NAML fixture, f32): four
 Trainer steps on host batches and on device batches, a checkpoint round
 trip of CUDA tensors (exact), and full-forward scores against cached ones
-(1e-5). The f32 backward (attention_bwd_simt, its operands streamed: no
-T x T tile) at head width 128: T 128 (the Llama training page), 117 and
-116, with and without dropout; the long-sequence pool
+(1e-5). The f32 kernels (attention_fwd_tf32 and attention_bwd_tf32, 3xTF32
+on the tensor cores) at the shapes their fragments and chunk skipping make
+risky (TF32_CASES: T 1, 9, 33 and 117, not multiples of the 16-row and
+8-key fragments; dh 8 and 128, the backward keeping pd and dS in shared
+memory at the narrow widths and recomputing them at 128; B * H far below
+and above the SMs; packed, causal, key-validity and broadcast biases), and
+the backward at head width 128: T 128 (the Llama training page), 117 and
+116, with and without dropout; the keep mask both apply read back as in bf16; the long-sequence
+pool
 (additive_pool_long) at L 129, 495 and 1,023, f32 and bf16, all-masked
 items exactly 0. The LM knobs: fused_qkv and norm_bf16 in the BERT,
 Llama and OPT slices at bf16 against the CPU (2e-2), the `ffn` and `dots`
@@ -433,18 +439,20 @@ def test_attention_wrapper_refuses(device):
     flat = torch.zeros(q.numel() + 1, device=device, dtype=q.dtype)
     with pytest.raises(ValueError, match="aligned"):
         packed_attention(2, 0.0, flat[1:].view(q.shape), k, v, bias)
-    with pytest.raises(ValueError, match="shared memory"):
-        wide = torch.zeros(1, 128, 2 * 256, device=device)
-        packed_attention(2, 0.0, wide, wide, wide,
-                         torch.zeros(1, 128, 128, device=device))
-    # the f32 backward takes dh 128 at every T since its operands stream
-    # (test_f32_backward_at_head_width_128); dh 256 is still past its
-    # shared memory at T 128
-    with pytest.raises(ValueError, match="shared memory"):
-        wide = torch.zeros(1, 128, 2 * 256, device=device)
-        packed_attention_backward(2, 0.0, wide, wide, wide,
-                                  torch.zeros(1, 128, 128, device=device),
-                                  None, wide)
+    # the f32 kernels take head widths that are multiples of 8 up to 128,
+    # forward and backward: 256, 136 and 12 raise before a launch
+    for dh in (256, 136, 12):
+        wide = torch.zeros(1, 128, 2 * dh, device=device)
+        bias0 = torch.zeros(1, 128, 128, device=device)
+        before = (packed_attention.launches,
+                  packed_attention_backward.launches)
+        with pytest.raises(ValueError, match="multiples of 8 up to 128"):
+            packed_attention(2, 0.0, wide, wide, wide, bias0)
+        with pytest.raises(ValueError, match="multiples of 8 up to 128"):
+            packed_attention_backward(2, 0.0, wide, wide, wide, bias0, None,
+                                      wide)
+        assert (packed_attention.launches,
+                packed_attention_backward.launches) == before
 
 
 # ---------------------------------------------------------------------------
@@ -707,21 +715,24 @@ def test_tc_attention_shapes_match_plain(device, B, T, heads, dh, L,
         assert _close(a, b, "bf16")
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,T,heads,dh", [(3, 64, 2, 64), (4, 37, 2, 64),
-                                          (5, 120, 3, 128), (2, 16, 2, 16)])
-def test_tc_keep_mask_is_the_mask_kernels(device, B, T, heads, dh):
-    """The keep mask the forward and the backward apply, read back exactly:
-    with q = k = 0 and a zero bias every weight is 1/T, and with v (or g) the
-    identity over the keys out[i, j] (dv[j, i]) is above 0 iff element
-    (i, j) is kept. It must equal the mask kernel's bit for bit."""
+                                          (5, 120, 3, 128), (2, 16, 2, 16),
+                                          (3, 117, 2, 128), (2, 9, 3, 16)])
+def test_tc_keep_mask_is_the_mask_kernels(device, B, T, heads, dh, dtype):
+    """The keep mask the forward and the backward apply (the bf16 and the
+    f32 kernels), read back exactly: with q = k = 0 and a zero bias every
+    weight is 1/T, and with v (or g) the identity over the keys out[i, j]
+    (dv[j, i]) is above 0 iff element (i, j) is kept. It must equal the
+    mask kernel's bit for bit."""
     p = 0.1
     D = heads * dh
-    z = torch.zeros(B, T, D, device=device, dtype=torch.bfloat16)
-    eye = torch.zeros(B, T, heads, dh, device=device, dtype=torch.bfloat16)
+    z = torch.zeros(B, T, D, device=device, dtype=dtype)
+    eye = torch.zeros(B, T, heads, dh, device=device, dtype=dtype)
     idx = torch.arange(T, device=device)
     eye[:, idx, :, idx] = 1.0
     eye = eye.reshape(B, T, D)
-    bias = torch.zeros(B, T, T, device=device, dtype=torch.bfloat16)
+    bias = torch.zeros(B, T, T, device=device, dtype=dtype)
     seed = torch.tensor([777 + T], dtype=torch.int32, device=device)
     keep = dropout_keep_mask(heads, p, B, T, seed)
     with torch.no_grad():
@@ -732,6 +743,60 @@ def test_tc_keep_mask_is_the_mask_kernels(device, B, T, heads, dh):
     bwd = dv.reshape(B, T, heads, dh)[..., :T].permute(0, 2, 3, 1) > 0
     assert torch.equal(fwd, keep)
     assert torch.equal(bwd, keep)
+
+
+# ---------------------------------------------------------------------------
+# the f32 kernels (3xTF32 mma.sync): 16-row and 8-key fragments, chunks the
+# bias masks skipped, operands in padded shared-memory rows
+# ---------------------------------------------------------------------------
+# (B, T, heads, dh, packed_L, bias): "packed" block-diagonal items of
+# packed_L, "causal" those items causal, "keys" key validity (one row per
+# packed row, contiguous), "broadcast" key validity as a view with stride 0
+# over the query rows. T 1, 9, 33 and 117 are not multiples of the
+# fragments; dh 8 and 128 the narrowest and widest; 1 x 1 (b, h) items far
+# below the SMs, 300 x 4 far above.
+TF32_CASES = [(4, 1, 2, 64, 0, "keys"), (3, 9, 2, 8, 0, "broadcast"),
+              (5, 33, 3, 24, 11, "packed"), (3, 117, 2, 128, 39, "causal"),
+              (1, 117, 1, 64, 39, "packed"), (300, 50, 4, 32, 0, "keys"),
+              (2, 128, 2, 128, 0, "broadcast"), (6, 120, 2, 8, 40, "causal"),
+              (2, 9, 1, 128, 0, "keys"), (171, 102, 12, 64, 34, "packed")]
+
+
+def _tf32_inputs(B, T, heads, dh, L, bias_kind, device):
+    q, k, v, bias = _attn_inputs(B, T, heads * dh, device, torch.float32,
+                                 L if bias_kind == "packed" else 0, seed=4)
+    if bias_kind == "causal":
+        bias = _causal_inputs(B, T, heads, dh, L, device, torch.float32)[3]
+    elif bias_kind == "broadcast":
+        bias = bias[:, :1].expand(B, T, T)
+        assert T == 1 or bias.stride(1) == 0
+    return q, k, v, bias
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("B,T,heads,dh,L,bias_kind", TF32_CASES)
+def test_tf32_attention_shapes_match_plain(device, B, T, heads, dh, L,
+                                           bias_kind, p):
+    """The f32 forward and backward against the plain versions given the
+    mask kernel's mask, within 1e-5 (values O(1))."""
+    q, k, v, bias = _tf32_inputs(B, T, heads, dh, L, bias_kind, device)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(B)
+                    ).to(device)
+    seed = torch.tensor([5151 + T], dtype=torch.int32, device=device)
+    keep = dropout_keep_mask(heads, p, B, T, seed) if p > 0 else None
+    f0, b0 = packed_attention.launches, packed_attention_backward.launches
+    with torch.no_grad():
+        got = packed_attention(heads, p, q, k, v, bias, seed)
+        want = reference_attention(heads, p, q, k, v, bias, keep)
+        grads = packed_attention_backward(heads, p, q, k, v, bias, seed, g)
+        wgrads = reference_attention_backward(heads, p, q, k, v, bias, g, keep)
+    torch.cuda.synchronize()
+    assert packed_attention.launches == f0 + 1
+    assert packed_attention_backward.launches == b0 + 1
+    for a, b in ((got, want),) + tuple(zip(grads, wgrads)):
+        assert a.dtype == torch.float32 and a.shape == q.shape
+        assert torch.isfinite(a).all()
+        assert _close(a, b, "f32")
 
 
 # --------------------------------------------------------------------- #
@@ -1093,8 +1158,8 @@ def test_decoder_attention_matches_plain(device, B, T, heads, dh, L):
 
 
 # (B, T, heads, dh, L): the f32 backward at head width 128 at the Llama
-# training page (T 128), at T 117 and at T 116 (the last T the kernel took
-# before it streamed its operands)
+# training page (T 128), at T 117 and at T 116 (the last T an earlier
+# CUDA-core kernel took before it streamed its operands)
 F32_BWD_CASES = [(128, 128, 32, 128, 32), (5, 117, 4, 128, 39),
                  (5, 116, 4, 128, 29)]
 
@@ -1102,9 +1167,10 @@ F32_BWD_CASES = [(128, 128, 32, 128, 32), (5, 117, 4, 128, 39),
 @pytest.mark.parametrize("p", [0.0, 0.1])
 @pytest.mark.parametrize("B,T,heads,dh,L", F32_BWD_CASES)
 def test_f32_backward_at_head_width_128(device, B, T, heads, dh, L, p):
-    """attention_bwd_simt (f32, shared memory linear in T) at dh 128 with
-    causal packed biases, with and without dropout (the mask kernel's
-    mask given to the plain backward), within 1e-5."""
+    """attention_bwd_tf32 (f32, 3xTF32, K and V then Q and g whole in
+    shared memory) at dh 128 with causal packed biases, with and without
+    dropout (the mask kernel's mask given to the plain backward), within
+    1e-5."""
     q, k, v, bias = _causal_inputs(B, T, heads, dh, L, device, torch.float32)
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(T)
                     ).to(device)
