@@ -269,8 +269,8 @@ and exits non-zero when any phase fails:
  13. the model-parallel axis and catalog_parallel on the 16,384-item
      catalog (DOTS_DATA_KW, for the time limit; the TP cases on 2,048
      items, P13_SMALL_DATA_KW, since PR 15's phase 14), bf16, random
-     weights from seed 0: two rank processes of this script
-     (`--phase13-rank`) share the card over gloo (NCCL refuses two ranks
+     weights from seed 0: two rank processes (`p13_rank`, started by
+     parallel/launch.py) share the card over gloo (NCCL refuses two ranks
      on one device; gloo's all-gathers go through host memory, the model,
      the kernels and the optimizer stay on the card) while this process
      runs each case in one process from the same weights and batches;
@@ -307,14 +307,14 @@ and exits non-zero when any phase fails:
      head slice bit for bit and to their plain versions at the kernels'
      gates (`p13_attention_offsets`); the sharded checkpoint read in one
      process equal to the gathered weights bit for bit; `[mp]` lines.
- 14. the sequence-parallel and pipeline-parallel axes (`--phase14-rank`,
+ 14. the sequence-parallel and pipeline-parallel axes (`p14_rank`,
      two ranks over gloo, phase 13's checks): flatten_transformer at sp 2
      under Ulysses and ring (bf16, and Ulysses at f32), flatten_fastformer
      at sp 2, bert-naml and a Llama-7B-width slice at pp 2; `[sp]` and
      `[pp]` lines.
  15. the mesh combinations and the catalog-parallel evaluation on 2,048
      items (P13_SMALL_DATA_KW), bf16, dropout 0, the dev and test rows of
-     the first P15_USERS users (`--phase15-rank`): four ranks over gloo
+     the first P15_USERS users (`p15_rank`): four ranks over gloo
      run bert-naml at (mp 2, pp 2) (Megatron TP inside each GPipe stage:
      the attention kernels at head offset 0 or 6, counted by offset),
      flatten_transformer at (mp 2, sp 2) under Ulysses (its tables
@@ -326,6 +326,21 @@ and exits non-zero when any phase fails:
      one process from the same weights and batches by phase 13's checks
      in every (dp, sp, pp) cell, and each rank's launches against the
      count the code gives (`_p15_expected`); `[mesh15]` lines.
+ 16. the scaling sweep and the multi-chip dry run (the port's scaling.py
+     and graft.dryrun_multichip, four ranks sharing the card over gloo
+     through parallel/launch.py, f32): the pool at the phase's shapes and
+     both attention kernels at head width 8 (T 6, 9 and 126) against
+     their plain versions; dryrun_multichip(4): the NRMS Trainer at (dp 2,
+     mp 2) and at catalog_parallel 4, a 2-layer BERT Trainer at (dp 2, pp
+     2) against the same run in this process (GAUC within 5e-3), the sp
+     pool against one process's, then sweep(n=4) (dp 1, 2, 4, (2, 2), sp
+     4, pp 2, catalog_parallel 4; its step-equivalence asserts; each
+     point's collective bytes); NRMS at its YAML's width (hidden 64, 8
+     heads, attention dropout 0) on DATA_KW at dp 4 and (dp 2, mp 2),
+     batches of TRAIN_BATCH, P16_STEPS steps, within the sweep's rtol of
+     one process from the same weights; each rank's launches against the
+     count the code gives (`_p16_point_expected`,
+     `_p16_trainer_expected`); `[scaling]` lines.
 Then it prints one JSON line of kernels, the card line, and
 {"ok": true, "device": {...}} as the last line.
 """
@@ -489,14 +504,15 @@ def roof(flops: float, nbytes: float, dtype: str):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def bound(N: int, L: int, dtype: str, h: int = H):
-    """The additive pool's bound at hidden width h: inputs read once,
-    output written once; its operations are the products at the data-sheet
-    peak for dtype and the N*L*h tanh at the special-function units' rate,
-    which run on separate units: the longest of the three."""
+def bound(N: int, L: int, dtype: str, h: int = H, d: int = D):
+    """The additive pool's bound at width d and hidden width h: inputs
+    read once, output written once; its operations are the products at
+    the data-sheet peak for dtype and the N*L*h tanh at the
+    special-function units' rate, which run on separate units: the
+    longest of the three."""
     xb = 2 if dtype == "bf16" else 4
-    flops = 2.0 * N * L * (D * h + h + D)
-    nbytes = N * L * D * xb + N * L * 4 + (D * h + 2 * h) * 4 + N * D * xb
+    flops = 2.0 * N * L * (d * h + h + d)
+    nbytes = N * L * d * xb + N * L * 4 + (d * h + 2 * h) * 4 + N * d * xb
     ms, by = roof(flops, nbytes, dtype)
     tanh_ms = N * L * h / TANH_PER_S * 1e3
     return (ms, by) if ms >= tanh_ms else (tanh_ms, "operations")
@@ -580,31 +596,31 @@ def pool_iters(N: int) -> int:
     return 20 if N > PAGE_N else 50
 
 
-def pool_inputs(N, L, dtype, device, seed, h=H):
+def pool_inputs(N, L, dtype, device, seed, h=H, d=D):
     """x ~ N(0, 1); mask with random holes, every 97th row fully masked and
     every 89th fully valid; weights at the model's init scale."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(seed)
-    x = torch.randn(N, L, D, generator=g, device=device).to(dtype)
+    x = torch.randn(N, L, d, generator=g, device=device).to(dtype)
     mask = (torch.rand(N, L, generator=g, device=device) < 0.8).float()
     mask[::97] = 0.0
     mask[1::89] = 1.0
-    w1 = torch.randn(D, h, generator=g, device=device) / math.sqrt(D)
+    w1 = torch.randn(d, h, generator=g, device=device) / math.sqrt(d)
     b1 = torch.randn(h, generator=g, device=device) * 0.1
     w2 = torch.randn(h, generator=g, device=device) / math.sqrt(h)
     return x, mask, w1, b1, w2
 
 
 def check_pool(pool: str, N: int, L: int, dtype_name: str, device,
-               h: int = H, plain_iters: int = 5) -> dict:
+               h: int = H, plain_iters: int = 5, d: int = D) -> dict:
     import torch
     from legommenders_tpu_torch.ops.additive import (
         additive_pool, additive_pool_reference, pool_kernel,
     )
 
     dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
-    args = pool_inputs(N, L, dtype, device, seed=L, h=h)
+    args = pool_inputs(N, L, dtype, device, seed=L, h=h, d=d)
     x, mask = args[0], args[1]
     with torch.inference_mode():
         got = additive_pool(*args)
@@ -612,9 +628,9 @@ def check_pool(pool: str, N: int, L: int, dtype_name: str, device,
         torch.cuda.synchronize()
         err = (got.float() - want).abs()
         zero_rows = mask.sum(dim=1) == 0
-        res = {"pool": pool, "N": N, "L": L, "D": D, "H": h,
+        res = {"pool": pool, "N": N, "L": L, "D": d, "H": h,
                "dtype": dtype_name,
-               "kernel": pool_kernel(dtype, L, D, h)[0],
+               "kernel": pool_kernel(dtype, L, d, h)[0],
                "max_abs_err": float(err.max()),
                "rel_err": float(err.max() / want.abs().max()),
                "all_masked_rows": int(zero_rows.sum()),
@@ -623,7 +639,7 @@ def check_pool(pool: str, N: int, L: int, dtype_name: str, device,
                               iters=pool_iters(N)),
                "plain_ms": time_ms(lambda: additive_pool_reference(*args),
                                    iters=plain_iters)}
-    res["bound_ms"], res["bound_by"] = bound(N, L, dtype_name, h)
+    res["bound_ms"], res["bound_by"] = bound(N, L, dtype_name, h, d)
     res["bound_peak"] = f"{dtype_name} {PEAK[dtype_name] / 1e12:g} TFLOP/s"
     ok = (res["max_abs_err"] <= F32_TOL if dtype_name == "f32"
           else res["rel_err"] <= BF16_REL_TOL)
@@ -2303,11 +2319,12 @@ def run_ctr_model(name: str, data, device) -> dict:
 # 15 was added, 2 since phase 15's f32 pp ranks),
 # pages of 512 under full remat, as bench_lm.py trains BERT at 10 of 12.
 # glm-naml at GLM's full width (d 4096, 32 heads over 2 kv heads, SwiGLU
-# 13,696) cut from 28 layers to 4 at tune_from 2 to fit the time limit;
+# 13,696) cut from 28 layers to 4 at tune_from 2, to 3 (one trained
+# layer) since phase 16, to fit the time limit;
 # opt-naml at OPTBase (12 layers, d 768, 12 heads) at tune_from 10 with
 # hidden dropout 0.1 (dropout_reuse).
 LLAMA_TRAIN_LAYERS, LLAMA_TUNE_FROM, LLAMA_SERVING_LAYERS = 4, 2, 2
-GLM_LAYERS, GLM_TUNE_FROM = 4, 2
+GLM_LAYERS, GLM_TUNE_FROM = 3, 2
 OPT_TUNE_FROM = 10
 # one timed step (2 before), for the time limit: llama-naml's takes
 # 20.8 s at the Llama-7B width (NVIDIA H100 80GB HBM3 at 700 W)
@@ -2783,10 +2800,11 @@ BERT_ZOO_TUNE_FROM, BERT_ZOO_STEPS, BERT_ZOO_PAGE = 10, 2, 512
 FLATTEN_MODELS = {"flatten_transformer": (31, 128, 512),
                   "flatten_fastformer": (15, TRAIN_BATCH, 4 * TRAIN_BATCH)}
 # flatten_transformer's Tester.test() over the dev and test rows of the
-# first 2,000 of the 20,000 users (~47 full-forward pages of 512 at
-# L 1,023; 4,000 users' 94 pages took 26.4 s and all 469 131.5 s on an
-# NVIDIA H100 80GB HBM3 at 700 W), for the time limit: depth, not width
-FLATTEN_TEST_USERS = {"flatten_transformer": 2000}
+# first 1,000 of the 20,000 users (~24 full-forward pages of 512 at
+# L 1,023; 2,000 users' 47 pages took 13.2 s, 4,000 users' 94 26.4 s and
+# all 469 131.5 s on an NVIDIA H100 80GB HBM3 at 700 W), for the time
+# limit (2,000 until phase 16): depth, not width
+FLATTEN_TEST_USERS = {"flatten_transformer": 1000}
 FLATTEN_STEPS = 4
 # the flatten user pools (D 64, H 64) over a step's users and a test page
 FLATTEN_POOLS = {f"{name} user": (slots, h) for name, slots, h in (
@@ -3145,7 +3163,8 @@ PHASES = {3: "kernels", 4: "serving", 5: "training", 6: "run loop",
           12: "drivers and data parallel",
           13: "model parallel and catalog_parallel",
           14: "sequence and pipeline parallel",
-          15: "mesh combinations and catalog-parallel evaluation"}
+          15: "mesh combinations and catalog-parallel evaluation",
+          16: "scaling sweep and multi-chip dry run"}
 
 
 class phase_timer:
@@ -4691,34 +4710,27 @@ def p13_attention_offsets(device) -> dict:
     return out
 
 
-def p13_rank(argv) -> int:
-    """A rank of phase 13: <init file> <rank> <tmp dir>. Opens the gloo
-    group on cuda:0, runs every case at its mesh, writes its records."""
+def p13_rank(tmp: str) -> dict:
+    """A rank of phase 13 (in a gloo group on cuda:0, parallel/launch.py):
+    every case at its mesh; its records."""
     import pickle
 
     import torch
     from legommenders_tpu_torch.parallel import mesh
 
-    init, rank, tmp = argv
-    rank = int(rank)
-    mesh.initialize_multihost(f"file://{init}", P13_RANKS, rank,
-                              device="cuda", backend="gloo")
-    try:
-        device = torch.device("cuda", 0)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        with open(os.path.join(tmp, "data.pkl"), "rb") as f:
-            datas = pickle.load(f)
-        out = {"group": {"backend": torch.distributed.get_backend(),
-                         "rank": rank}}
-        for name, case in p13_cases().items():
-            out[name] = p13_run(name, case, case.mesh, datas[case.data],
-                                device, tmp)
-        out["mask"] = p13_masks(device, 6 * rank, 6).cpu()
-        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
-    finally:
-        mesh.shutdown()
-    return 0
+    rank = mesh.world()[0]
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(tmp, "data.pkl"), "rb") as f:
+        datas = pickle.load(f)
+    out = {"group": {"backend": torch.distributed.get_backend(),
+                     "rank": rank}}
+    for name, case in p13_cases().items():
+        out[name] = p13_run(name, case, case.mesh, datas[case.data],
+                            device, tmp)
+    out["mask"] = p13_masks(device, 6 * rank, 6).cpu()
+    return out
 
 
 def _p13_whole(ranks, name: str, key: str) -> dict:
@@ -4883,6 +4895,7 @@ def run_phase13(device, card) -> dict:
     from legommenders_tpu_torch.data.processors.synthetic import (
         SyntheticProcessor,
     )
+    from legommenders_tpu_torch.parallel import launch
     from legommenders_tpu_torch.runtime.checkpoint import load_auto
     from legommenders_tpu_torch.runtime.manager import Manager
 
@@ -4897,12 +4910,8 @@ def run_phase13(device, card) -> dict:
             pickle.dump(datas, f)
         out["data_s"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
-        env = {**os.environ, "PYTHONPATH": ROOT}
-        init = os.path.join(tmp, "group")
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--phase13-rank",
-             init, str(r), tmp], env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for r in range(P13_RANKS)]
+        group = launch.start(p13_rank, P13_RANKS, (tmp,), "cuda",
+                             P13_TIMEOUT_S)
         one = {}
         try:
             t0 = time.perf_counter()
@@ -4918,22 +4927,10 @@ def run_phase13(device, card) -> dict:
             out["attention_offsets"] = p13_attention_offsets(device)
             out["offsets_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
-            logs = [p.communicate(timeout=P13_TIMEOUT_S)[0] for p in procs]
+            ranks = group.wait()
             out["ranks_wait_s"] = time.perf_counter() - t0
         finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        for r, text in enumerate(logs):
-            if procs[r].returncode:
-                for line in text.splitlines()[-60:]:
-                    log(f"[mp rank {r}] {line}")
-        if any(p.returncode for p in procs):
-            raise RuntimeError(f"phase 13 ranks failed: "
-                               f"{[p.returncode for p in procs]}")
-        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
-                            weights_only=False) for r in range(P13_RANKS)]
+            group.stop()
         out["group"] = ranks[0]["group"]
         out["masks_equal"] = all(torch.equal(
             ranks[r]["mask"], whole_mask[:, 6 * r:6 * r + 6])
@@ -5163,42 +5160,32 @@ def p14_gloo_all_to_all(device, axis) -> dict:
         return {"direct": f"{type(e).__name__}: {e}"[:300]}
 
 
-def p14_rank(argv) -> int:
-    """A rank of phase 14: <init file> <rank> <tmp dir>. Opens the gloo
-    group on cuda:0, runs every case at its mesh and the Llama slice at
-    pp 2, writes its records."""
+def p14_rank(tmp: str) -> dict:
+    """A rank of phase 14 (in a gloo group on cuda:0, parallel/launch.py):
+    every case at its mesh and the Llama slice at pp 2; its records."""
     import pickle
 
     import torch
     from legommenders_tpu_torch.parallel import mesh
 
-    init, rank, tmp = argv
-    rank = int(rank)
-    mesh.initialize_multihost(f"file://{init}", P14_RANKS, rank,
-                              device="cuda", backend="gloo")
-    try:
-        device = torch.device("cuda", 0)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        with open(os.path.join(tmp, "data.pkl"), "rb") as f:
-            datas = pickle.load(f)
-        out = {"group": {"backend": torch.distributed.get_backend(),
-                         "rank": rank},
-               "gloo_all_to_all": p14_gloo_all_to_all(
-                   device, mesh.mesh_from_policy({"sp": 2}).sp_axis)}
-        for name, spec in p14_cases().items():
-            t0 = time.perf_counter()
-            out[name] = p14_run(name, spec, spec.case.mesh, datas, device,
-                                tmp)
-            out[name]["wall_s"] = time.perf_counter() - t0
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(tmp, "data.pkl"), "rb") as f:
+        datas = pickle.load(f)
+    out = {"group": {"backend": torch.distributed.get_backend(),
+                     "rank": mesh.world()[0]},
+           "gloo_all_to_all": p14_gloo_all_to_all(
+               device, mesh.mesh_from_policy({"sp": 2}).sp_axis)}
+    for name, spec in p14_cases().items():
         t0 = time.perf_counter()
-        out["llama slice"] = p14_llama_slice(
-            device, mesh.mesh_from_policy({"pp": 2}))
-        out["llama slice"]["wall_s"] = time.perf_counter() - t0
-        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
-    finally:
-        mesh.shutdown()
-    return 0
+        out[name] = p14_run(name, spec, spec.case.mesh, datas, device, tmp)
+        out[name]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["llama slice"] = p14_llama_slice(
+        device, mesh.mesh_from_policy({"pp": 2}))
+    out["llama slice"]["wall_s"] = time.perf_counter() - t0
+    return out
 
 
 def _p14_expected(name: str, spec: P14Spec, one: dict, m_item_pools: int,
@@ -5250,6 +5237,7 @@ def run_phase14(device, card) -> dict:
     import tempfile
 
     import torch
+    from legommenders_tpu_torch.parallel import launch
 
     out = {}
     cases = p14_cases()
@@ -5269,30 +5257,10 @@ def run_phase14(device, card) -> dict:
         one["llama slice"] = p14_llama_slice(device)
         out["one_process_s"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
-        env = {**os.environ, "PYTHONPATH": ROOT}
-        init = os.path.join(tmp, "group")
         t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--phase14-rank",
-             init, str(r), tmp], env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for r in range(P14_RANKS)]
-        try:
-            logs = [p.communicate(timeout=P14_TIMEOUT_S)[0] for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
+        ranks = launch.launch(p14_rank, P14_RANKS, (tmp,), "cuda",
+                              P14_TIMEOUT_S)
         out["ranks_s"] = time.perf_counter() - t0
-        for r, text in enumerate(logs):
-            if procs[r].returncode:
-                for line in text.splitlines()[-60:]:
-                    log(f"[sp/pp rank {r}] {line}")
-        if any(p.returncode for p in procs):
-            raise RuntimeError(f"phase 14 ranks failed: "
-                               f"{[p.returncode for p in procs]}")
-        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
-                            weights_only=False) for r in range(P14_RANKS)]
     out["group"] = ranks[0]["group"]
     out["gloo_all_to_all"] = [r["gloo_all_to_all"] for r in ranks]
     problems = []
@@ -5563,37 +5531,30 @@ def p15_runs() -> list:
                for name in P15_F32])
 
 
-def p15_rank(argv) -> int:
-    """A rank of phase 15: <group> <init file> <rank> <tmp dir>. Opens the
-    group's gloo group on cuda:0, runs the group's cases at their meshes,
-    writes its records."""
+def p15_rank(group: str, tmp: str) -> dict:
+    """A rank of one of phase 15's groups (in a gloo group on cuda:0,
+    parallel/launch.py): the group's cases at their meshes; its
+    records."""
     import pickle
 
     import torch
-    from legommenders_tpu_torch.parallel import mesh
 
-    group, init, rank, tmp = argv
-    rank = int(rank)
-    mesh.initialize_multihost(f"file://{init}", P15_GROUPS[group], rank,
-                              device="cuda", backend="gloo")
-    try:
-        device = torch.device("cuda", 0)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        with open(os.path.join(tmp, "data.pkl"), "rb") as f:
-            datas = pickle.load(f)
-        out = {}
-        for label, spec, dtype in p15_runs():
-            if spec.group != group:
-                continue
-            t0 = time.perf_counter()
-            out[label] = p15_run(label, spec, spec.case.mesh, datas, device,
-                                 tmp, dtype=dtype)
-            out[label]["wall_s"] = time.perf_counter() - t0
-        torch.save(out, os.path.join(tmp, f"{group}{rank}.pt"))
-    finally:
-        mesh.shutdown()
-    return 0
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(tmp, "data.pkl"), "rb") as f:
+        datas = pickle.load(f)
+    out = {}
+    for label, spec, dtype in p15_runs():
+        if spec.group != group:
+            continue
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out[label] = p15_run(label, spec, spec.case.mesh, datas, device,
+                             tmp, dtype=dtype)
+        out[label]["wall_s"] = time.perf_counter() - t0
+        out[label]["peak_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+    return out
 
 
 def _p15_bf16_rule(got: dict, want16: dict, want32: dict) -> tuple:
@@ -5712,6 +5673,7 @@ def run_phase15(device, card) -> dict:
     import tempfile
 
     import torch
+    from legommenders_tpu_torch.parallel import launch
 
     out = {}
     cases = p15_cases()
@@ -5741,32 +5703,19 @@ def run_phase15(device, card) -> dict:
             torch.cuda.empty_cache()
         out["one_process_s"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
-        env = {**os.environ, "PYTHONPATH": ROOT}
+        # the six ranks share the card with what this process still holds
+        out["parent_gb"] = {"allocated": torch.cuda.memory_allocated() / 1e9,
+                            "reserved": torch.cuda.memory_reserved() / 1e9}
         t0 = time.perf_counter()
-        procs = {(g, r): subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--phase15-rank", g,
-             os.path.join(tmp, f"group_{g}"), str(r), tmp], env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for g, n in P15_GROUPS.items() for r in range(n)}
+        groups = {g: launch.start(p15_rank, n, (g, tmp), "cuda",
+                                  P15_TIMEOUT_S)
+                  for g, n in P15_GROUPS.items()}
         try:
-            logs = {k: p.communicate(timeout=P15_TIMEOUT_S)[0]
-                    for k, p in procs.items()}
+            ranks = {g: launched.wait() for g, launched in groups.items()}
         finally:
-            for p in procs.values():
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
+            for launched in groups.values():
+                launched.stop()
         out["ranks_s"] = time.perf_counter() - t0
-        for (g, r), text in logs.items():
-            if procs[(g, r)].returncode:
-                for line in text.splitlines()[-60:]:
-                    log(f"[mesh15 {g} rank {r}] {line}")
-        if any(p.returncode for p in procs.values()):
-            raise RuntimeError(f"phase 15 ranks failed: "
-                               f"{[p.returncode for p in procs.values()]}")
-        ranks = {g: [torch.load(os.path.join(tmp, f"{g}{r}.pt"),
-                                weights_only=False) for r in range(n)]
-                 for g, n in P15_GROUPS.items()}
     problems = []
     runs = p15_runs()
     for name, spec, dtype in runs:
@@ -5788,6 +5737,8 @@ def run_phase15(device, card) -> dict:
         for key in ("grads_err", "update_err", "loss_err", "dev_err"):
             rec[key] = max(c[key] for c in recs)
         rec["wall_s"] = [r[name]["wall_s"] for r in group]
+        rec["peak_reserved_gb"] = [r[name]["peak_reserved_gb"]
+                                   for r in group]
         rec["launches"] = [r[name]["launches"] for r in group]
         rec["offsets"] = [r[name]["offsets"] for r in group]
         rec["one_launches"] = ref["launches"]
@@ -5849,9 +5800,364 @@ def run_phase15(device, card) -> dict:
             f"one process {r['one_launches']} ({card}; the ranks share the "
             f"card over gloo: no multi-card speed)")
     log(f"[mesh15] data {out['data_s']:.2f} s, one process "
-        f"{out['one_process_s']:.2f} s, the ranks {out['ranks_s']:.2f} s")
+        f"{out['one_process_s']:.2f} s, the ranks {out['ranks_s']:.2f} s; "
+        f"this process held {out['parent_gb']['reserved']:.2f} GB beside "
+        f"them, a rank's case at most "
+        f"{max(max(out[n]['peak_reserved_gb']) for n, _, _ in runs):.2f} GB")
     log(f"[mesh15] {json.dumps(out, default=str)}")
     return {"phase15": out}
+
+
+# --------------------------------------------------------------------- #
+# phase 16: the scaling sweep and the multi-chip dry run                 #
+# --------------------------------------------------------------------- #
+# four rank processes share the card over gloo, as in phase 15
+P16_RANKS = 4
+P16_TIMEOUT_S = 300
+# the full-width points: NRMS at config/model/nrms.yaml's defaults (phase
+# 7's: hidden 64, 8 item and 8 user heads) on DATA_KW, batches of
+# TRAIN_BATCH, f32, P16_STEPS steps, at dp 4 and (dp 2, mp 2)
+P16_POINTS = ((4, 1), (2, 2))
+P16_STEPS = 3
+# the item encode in pages of P16_PAGE under `full` remat (phase 5's
+# knobs): unpaged, a (dp 2, mp 2) rank's f32 encode of the whole catalog
+# (local batch 1,024: 2 x 1,024 x 55 occurrences >= 65,000 items) peaks
+# near 20 GB (an NVIDIA H100 80GB HBM3 rank held 17.2 GB when it asked
+# for 2.1 GB more), and four of them overfill the card
+P16_PAGE = 8192
+# the pool's f32 shapes on the phase's paths: (N, L, D), H 256
+P16_POOLS = {"nrms item page (full width)": (P16_PAGE, 33, 64),
+             "nrms user (full width)": (TRAIN_BATCH, 50, 64),
+             "entry nrms item": (64, 9, 32),
+             "entry nrms user": (16, 8, 32),
+             "bert item": (40, 9, 16), "bert ada user": (16, 4, 16),
+             "catalog naml item": (100, 9, 16),
+             "catalog naml user": (16, 6, 16)}
+# the f32 attention pages at head width 8 (2 heads of a width-16 BERT):
+# (rows, item length L, items packed a row, shortest valid length); the
+# pp point's microbatch (every token valid), the staged Trainer's
+# microbatch (40 items / 4 microbatches / dp 2), the serial Trainer's
+# packed page (14 items of 9 a row)
+P16_ATTENTION = {"pp point microbatch": (2, 6, 1, 6),
+                 "staged Trainer microbatch": (5, 9, 1, 4),
+                 "serial Trainer page": (3, 9, 14, 4)}
+# the sweep's pp point and the dry run's BERT: 2 layers staged over 2
+# ranks in 2 x 2 microbatches (the slice's default)
+P16_PP = dict(layers=2, stages=2, microbatches=4)
+
+
+def p16_cfg(page: int = 0) -> dict:
+    """NRMS at its YAML's defaults, attention dropout 0 (the sweep's
+    points hold step equivalence, which dropout drawn per dp rank would
+    break), its item encode in pages of `page` under `full` remat."""
+    cfg = zoo_cfg("nrms")
+    for side in ("item_config", "user_config"):
+        cfg["config"][side]["attention_dropout"] = 0.0
+    if page:
+        cfg["config"].update(item_page_size=page, item_page_remat="full")
+    return cfg
+
+
+def p16_build(data, page: int):
+    """scaling.run_point's `build` of the full-width NRMS on `data`."""
+    def build(batch_size, device):
+        from legommenders_tpu_torch import graft
+        from legommenders_tpu_torch.runtime.manager import Manager
+
+        m = Manager(model_cfg=p16_cfg(page),
+                    exp_cfg={"policy": {"batch_size": batch_size,
+                                        "lr": 1e-3}},
+                    data=data, device=device)
+        return m, graft.first_batch(m)
+    return build
+
+
+def p16_full_rank(data_path: str, batch: int, page: int, device) -> dict:
+    """A rank of the full-width points: each point in turn on its mesh,
+    batches of `batch`, item pages of `page`."""
+    import pickle
+
+    import torch
+    from legommenders_tpu_torch import graft, scaling
+
+    with open(data_path, "rb") as f:
+        data = pickle.load(f)
+    out = {}
+    cuda = torch.device(device).type == "cuda"
+    with graft.f32():
+        for n_dp, n_mp in P16_POINTS:
+            t0 = time.perf_counter()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            out[(n_dp, n_mp)] = rec = scaling.run_point(
+                n_dp, n_mp, batch, P16_STEPS, device,
+                build=p16_build(data, page))
+            rec["s"] = time.perf_counter() - t0
+            rec["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                              if cuda else None)
+            if cuda:
+                torch.cuda.empty_cache()
+    return out
+
+
+def p16_attention_inputs(rows: int, L: int, pack: int, shortest: int,
+                         device, seed: int):
+    """q, k, v, the output gradient ~ N(0, 1) at width 16 and the bias
+    packed_mask_bias makes for rows x pack items of L tokens, their valid
+    lengths `shortest` .. L."""
+    import torch
+    from legommenders_tpu_torch.models.lm.layers import (
+        pack_items, packed_mask_bias,
+    )
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    items = rows * pack
+    lens = torch.randint(shortest, L + 1, (items,), generator=g,
+                         device=device)
+    mask = (torch.arange(L, device=device)[None] < lens[:, None]).int()
+    _, mask_p, _ = pack_items(torch.zeros(items, L, 1, device=device), mask,
+                              pack)
+    B, T = mask_p.shape
+    q, k, v, gr = (torch.randn(B, T, 16, generator=g, device=device)
+                   for _ in range(4))
+    return q, k, v, packed_mask_bias(mask_p, L, torch.float32)[:, 0], gr
+
+
+def p16_kernel_checks(device) -> dict:
+    """16.1: the pool at P16_POOLS and both attention kernels at
+    P16_ATTENTION (f32, dropout 0) against their plain versions, within
+    F32_TOL."""
+    import torch
+    from legommenders_tpu_torch.ops.attention import (
+        packed_attention, packed_attention_backward, reference_attention,
+        reference_attention_backward,
+    )
+
+    pools = [check_pool(name, N, L, "f32", device, d=d)
+             for name, (N, L, d) in P16_POOLS.items()]
+    attention = []
+    seed = torch.tensor([4242], dtype=torch.int32, device=device)
+    for name, (rows, L, pack, shortest) in P16_ATTENTION.items():
+        q, k, v, bias, g = p16_attention_inputs(rows, L, pack, shortest,
+                                                device, 16)
+        with torch.no_grad():
+            out = packed_attention(2, 0.0, q, k, v, bias)
+            grads = packed_attention_backward(2, 0.0, q, k, v, bias, seed, g)
+            want = reference_attention(2, 0.0, q, k, v, bias)
+            wgrads = reference_attention_backward(2, 0.0, q, k, v, bias, g)
+        rec = {"page": name, "B": q.shape[0], "T": q.shape[1], "heads": 2,
+               "dh": 8, "out_max_abs_err": float((out - want).abs().max()),
+               "grad_max_abs_err": max(float((a - b).abs().max())
+                                       for a, b in zip(grads, wgrads))}
+        attention.append(rec)
+        if not (rec["out_max_abs_err"] <= F32_TOL
+                and rec["grad_max_abs_err"] <= F32_TOL):
+            raise RuntimeError(f"the f32 attention disagrees with its plain "
+                               f"version at head width 8: {rec}")
+    return {"pools": pools, "attention": attention}
+
+
+def _p16_point_expected(label: str, steps: int) -> dict:
+    """A sweep or full-width point's launches on each rank, by the code:
+    an NRMS step pools its items once and its users once (one item
+    encode a step, the whole catalog or the batch's occurrences; dp and
+    mp change neither); the sp pool is plain torch; the pp point runs the
+    serial slice's layers once and the rank's stage once a microbatch,
+    forward only; the catalog point pools the catalog and the users once
+    in one process's step and once in the sharded step."""
+    kind = label.split()[0]
+    if kind == "dp":
+        return {"additive_pool": 2 * steps}
+    if kind == "pp":
+        return {"packed_attention": P16_PP["layers"] + P16_PP["microbatches"]
+                * P16_PP["layers"] // P16_PP["stages"]}
+    if kind == "catalog":
+        return {"additive_pool": 4}
+    return {}
+
+
+def _p16_full_expected(n_dp: int, data) -> dict:
+    """A full-width point's launches on each rank by the code: a step
+    encodes the whole catalog where it holds at most 2 x B x (K + S)
+    occurrences (`full_catalog_encode` auto; B the rank's rows), else the
+    rows' B x (K + S), in pages of P16_PAGE, each page twice (the forward
+    and the `full` recompute) where there is more than one, then pools
+    the users once."""
+    cfg = p16_cfg(P16_PAGE)["config"]
+    B = TRAIN_BATCH // n_dp
+    occ = B * (1 + int(cfg["neg_count"]) + data.history_matrix().shape[1])
+    M = data.num_items if data.num_items <= 2 * occ else occ
+    items = 2 * -(-M // P16_PAGE) if M > P16_PAGE else 1
+    return {"additive_pool": P16_STEPS * (items + 1)}
+
+
+def _p16_trainer_expected(name: str, rec: dict, mesh_cfg, rank: int
+                          ) -> dict:
+    """A dry-run Trainer pass's launches on one rank by the code (`rec`:
+    graft's record of the run; `mesh_cfg`: its mesh policy, None in one
+    process): a step pools its rows' items once and users once (mp does
+    not split the pool; catalog_parallel pools the rank's catalog rows);
+    each evaluation (a dev pass an epoch, then the test) rebuilds the
+    repr caches, the items and the users of the rank's dp block in pages,
+    one pool a page. The BERT's attention: a step runs each layer forward
+    and backward once, or under pp the rank's layers / pp layers once a
+    microbatch; a cache page runs every layer forward (evaluation is
+    serial). The sp pool is plain torch."""
+    from legommenders_tpu_torch.parallel.mesh import AXES, _coords
+
+    if name == "sp":
+        return {}
+    mesh_cfg = mesh_cfg or {}
+    dims = tuple(int(mesh_cfg.get(a) or 1) for a in AXES)
+    dp, i, stages = dims[0], _coords(rank, dims)[0], dims[3]
+    items, users, page = rec["cache"]
+
+    def pages(n):
+        k = -(-n // dp)
+        return -(-(min((i + 1) * k, n) - min(i * k, n)) // page)
+
+    steps, evals = rec["steps"], rec["evaluations"]
+    want = {"additive_pool": 2 * steps + evals * (pages(items)
+                                                  + pages(users))}
+    if name == "pp":
+        layers = P16_PP["layers"]
+        train = (P16_PP["microbatches"] * layers // stages if stages > 1
+                 else layers)
+        want["packed_attention"] = (steps * train
+                                    + evals * pages(items) * layers)
+        want["packed_attention_backward"] = steps * train
+    return want
+
+
+def _p16_launch_problems(got: dict, want: dict, where: str) -> list:
+    keys = ("additive_pool", "packed_attention", "packed_attention_backward")
+    if all(got.get(k, 0) == want.get(k, 0) for k in keys):
+        return []
+    return [f"{where}: launches {got} != the code's {want}"]
+
+
+def run_phase16(data, device, card) -> dict:
+    """Phase 16: the scaling sweep and the multi-chip dry run (scaling.py,
+    graft.dryrun_multichip) with four ranks on the card over gloo, the
+    full-width NRMS at dp 4 and (dp 2, mp 2) against one process, each
+    rank's launches against the code's count."""
+    import pickle
+    import tempfile
+
+    import torch
+    from legommenders_tpu_torch import graft, scaling
+    from legommenders_tpu_torch.parallel import launch
+
+    out = {}
+    problems = []
+    cuda = device.type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "data.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(data, f)
+        full = launch.start(p16_full_rank, P16_RANKS,
+                            (path, TRAIN_BATCH, P16_PAGE, device.type),
+                            device.type, P16_TIMEOUT_S)
+        try:
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            with graft.f32():
+                ref = scaling.run_point(1, 1, TRAIN_BATCH, P16_STEPS, device,
+                                        build=p16_build(data, P16_PAGE))
+            if cuda:
+                ref["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                torch.cuda.empty_cache()
+            out["one_process_s"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            dry = graft.dryrun_multichip(P16_RANKS, device.type,
+                                         timeout=P16_TIMEOUT_S)
+            out["dryrun_s"] = time.perf_counter() - t1
+            out["checks"] = p16_kernel_checks(device)
+            full_ranks = full.wait()
+        finally:
+            full.stop()
+        out["phase_s"] = time.perf_counter() - t0
+    # the sweep's records (its asserts held in graft.dryrun_multichip)
+    out["records"] = dry["records"]
+    out["summary"] = dry["summary"]
+    out["launches"] = {}
+    for w, ranks in dry["sweep_ranks"].items():
+        for r, points in enumerate(ranks):
+            for label, res in points.items():
+                key = f"sweep {label} (rank {r} of {w}, gloo)"
+                out["launches"][key] = res["launches"]
+                problems += _p16_launch_problems(
+                    res["launches"], _p16_point_expected(
+                        label, scaling.STEPS), key)
+    out["sweep_s"] = {label: [ranks[r][label]["s"]
+                              for r in range(len(ranks))]
+                      for ranks in dry["sweep_ranks"].values()
+                      for label in ranks[0]}
+    key = "dry run pp 1 Trainer (one process)"
+    out["launches"][key] = dry["serial"]["launches"]
+    problems += _p16_launch_problems(dry["serial"]["launches"],
+                                     _p16_trainer_expected(
+                                         "pp", dry["serial"], None, 0), key)
+    meshes = graft.dryrun_meshes(P16_RANKS)
+    for r, passes in enumerate(dry["ranks"]):
+        for name, rec in passes.items():
+            key = f"dry run {name} (rank {r} of {P16_RANKS}, gloo)"
+            out["launches"][key] = rec["launches"]
+            problems += _p16_launch_problems(
+                rec["launches"], _p16_trainer_expected(
+                    name, rec, meshes.get(name), r), key)
+    # the full-width points against one process
+    out["launches"]["full width (one process)"] = ref["launches"]
+    problems += _p16_launch_problems(
+        ref["launches"], _p16_full_expected(1, data),
+        "full width one process")
+    full_recs = []
+    for (n_dp, n_mp), res in full_ranks[0].items():
+        dev = max(float(abs(res["params"][k] - ref["params"][k]).max())
+                  for k in ref["params"])
+        rel = abs(res["loss"] - ref["loss"]) / max(1.0, abs(ref["loss"]))
+        rec = {"dp": n_dp, "mp": n_mp, "loss": res["loss"],
+               "one_process_loss": ref["loss"], "loss_rel_err": rel,
+               "max_param_dev_vs_one_process": dev,
+               "collective_bytes": res["vol"],
+               "s": [rk[(n_dp, n_mp)]["s"] for rk in full_ranks],
+               "peak_gb": [rk[(n_dp, n_mp)]["peak_gb"]
+                           for rk in full_ranks]}
+        full_recs.append(rec)
+        if rel > scaling.RTOL or dev >= scaling.PARAM_TOL:
+            problems.append(f"full width dp {n_dp} mp {n_mp}: loss rel err "
+                            f"{rel:.3e}, params {dev:.3e}")
+        if n_mp == 1 and res["vol"] != {
+                "all-reduce": 4 * (ref["trainable"] + 1)}:
+            problems.append(f"full width dp {n_dp}: {res['vol']} is not "
+                            f"one f32 all-reduce of the "
+                            f"{ref['trainable']} gradients and the loss")
+        for r, rk in enumerate(full_ranks):
+            key = f"full width dp {n_dp} mp {n_mp} (rank {r}, gloo)"
+            out["launches"][key] = rk[(n_dp, n_mp)]["launches"]
+            problems += _p16_launch_problems(
+                rk[(n_dp, n_mp)]["launches"], _p16_full_expected(n_dp, data),
+                key)
+    out["full_width"] = full_recs
+    if problems:
+        log(f"[scaling] {json.dumps(out, default=str)[:20000]}")
+        raise RuntimeError(f"phase 16 failed: {problems}")
+    log(f"[scaling] {dry['summary']}")
+    for rec in dry["records"]:
+        log(f"[scaling] {json.dumps(rec)}")
+    for label, s in out["sweep_s"].items():
+        log(f"[scaling] sweep point {label}: {max(s):.2f} s ({card}; gloo "
+            f"ranks sharing one card)")
+    for rec in full_recs:
+        log(f"[scaling] full width {json.dumps(rec)} ({card})")
+    log(f"[scaling] the full-width one process {out['one_process_s']:.2f} "
+        f"s (peak {ref.get('peak_gb')} GB), then the dry run + sweep "
+        f"{out['dryrun_s']:.2f} s, beside the full-width ranks; "
+        f"{out['phase_s']:.2f} s in all ({card})")
+    log(f"[scaling] launches a rank (the code's, checked): "
+        f"{json.dumps(out['launches'])}")
+    return {"phase16": out}
 
 
 def _kernel_line(R: dict) -> list:
@@ -5990,6 +6296,10 @@ def _kernel_line(R: dict) -> list:
     runs.update(phase13_runs)
     runs.update(phase14_runs)
     runs.update(phase15_runs)
+    phase16_runs = (R.get("phase16") or {}).get("launches", {})
+    runs.update(phase16_runs)
+    p16_checks = (R.get("phase16") or {}).get("checks", {})
+    p16_pages = p16_checks.get("attention", [])
 
     def by_path(key):
         return {p: c.get(key, 0) for p, c in runs.items()}
@@ -6064,6 +6374,9 @@ def _kernel_line(R: dict) -> list:
                               for p, c in phase14_runs.items()},
             phase15_launches={p: c.get("additive_pool", 0)
                               for p, c in phase15_runs.items()},
+            phase16_launches={p: c.get("additive_pool", 0)
+                              for p, c in phase16_runs.items()},
+            phase16_shapes=shapes(p16_checks.get("pools", [])),
             checks=pool_all))
     sdpa = "torch.nn.functional.scaled_dot_product_attention"
     train = R.get("train_checks", [])
@@ -6164,6 +6477,10 @@ def _kernel_line(R: dict) -> list:
                               for p, c in phase14_runs.items()},
             phase15_launches={p: c.get("packed_attention", 0)
                               for p, c in phase15_runs.items()},
+            phase16_launches={p: c.get("packed_attention", 0)
+                              for p, c in phase16_runs.items()},
+            phase16_dh8_pages=[{k: c[k] for k in (
+                "page", "B", "T", "out_max_abs_err")} for c in p16_pages],
             checks=R.get("attn_checks", [])))
         decoder_launches = {p: c["packed_attention_backward"]
                             for p, c in decoder_runs.items()}
@@ -6201,6 +6518,10 @@ def _kernel_line(R: dict) -> list:
                               for p, c in phase14_runs.items()},
             phase15_launches={p: c.get("packed_attention_backward", 0)
                               for p, c in phase15_runs.items()},
+            phase16_launches={p: c.get("packed_attention_backward", 0)
+                              for p, c in phase16_runs.items()},
+            phase16_dh8_pages=[{k: c[k] for k in (
+                "page", "B", "T", "grad_max_abs_err")} for c in p16_pages],
             f32_dh128_edges=R.get("f32_edges", []),
             checks=train))
     if tr is not None:
@@ -6219,12 +6540,6 @@ def _kernel_line(R: dict) -> list:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv[:1] == ["--phase13-rank"]:
-        return p13_rank(argv[1:])
-    if argv[:1] == ["--phase14-rank"]:
-        return p14_rank(argv[1:])
-    if argv[:1] == ["--phase15-rank"]:
-        return p15_rank(argv[1:])
     phases = parse_phases(argv)
     try:
         import torch
@@ -6302,6 +6617,9 @@ def main(argv=None) -> int:
     if 15 in phases:
         with phase_timer(15, PHASES[15]):
             R.update(run_phase15(device, card))
+    if 16 in phases:
+        with phase_timer(16, PHASES[16]):
+            R.update(run_phase16(data, device, card))
 
     kernels = _kernel_line(R)
     total = time.perf_counter() - t_run

@@ -54,6 +54,14 @@ of `jax.devices()`:
     sequence under the first, a slice with `pipeline_stages` stages its
     layers under the second (parallel/pipeline.py), and evaluation runs
     the serial stack under `no_pipeline`.
+  * `count_collectives` counts the bytes this process's collectives move,
+    by kind under the names of XLA's HLO (`all-reduce`, `all-gather`,
+    `all-to-all`, `collective-permute`), as the JAX package's
+    scaling.collective_volume reads them from the compiled HLO: each
+    call's result in the tensor's own dtype. Every collective of the
+    port goes through `all_reduce_`, `all_gather_dim`, `_all_to_all` and
+    `_shift`; off by default, the counter costs each of them one check of
+    a module flag.
 
 Collectives under gloo: all-reduce, broadcast and all-to-all take CUDA
 tensors (an all-to-all of CUDA tensors checked on the card: chip_smoke.py
@@ -463,6 +471,33 @@ def shard_rows(batch: Dict, mesh: Mesh) -> Dict:
 # --------------------------------------------------------------------- #
 # collectives                                                           #
 # --------------------------------------------------------------------- #
+# {kind: bytes} inside `count_collectives`, else None
+_COUNTS: Optional[Dict[str, int]] = None
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """`with count_collectives() as c:` fills c, {kind: bytes}, with the
+    bytes of every collective this process makes inside the block: an
+    all-reduce counts its tensor, an all-gather its concatenated output,
+    an all-to-all and a shift the tensor received, each in its own dtype
+    (a bf16 sum that gloo takes in f32 counts at bf16, what NCCL moves; a
+    transfer's host copies and a barrier count nothing). A sum or a
+    gather over an axis of size 1 makes no collective and counts nothing.
+    A block inside another counts into its own dict only."""
+    global _COUNTS
+    prev, _COUNTS = _COUNTS, {}
+    try:
+        yield _COUNTS
+    finally:
+        _COUNTS = prev
+
+
+def _count(kind: str, t: torch.Tensor, times: int = 1):
+    _COUNTS[kind] = (_COUNTS.get(kind, 0)
+                     + t.numel() * t.element_size() * times)
+
+
 def _gloo(group) -> bool:
     return dist.get_backend(group) == "gloo"
 
@@ -472,6 +507,8 @@ def all_reduce_(t: torch.Tensor, axis: Axis) -> torch.Tensor:
     sums in f32 under gloo."""
     if axis.size == 1 or not dist.is_initialized():
         return t
+    if _COUNTS is not None:
+        _count("all-reduce", t)
     if t.dtype == torch.bfloat16 and _gloo(axis.group):
         wide = t.float()
         dist.all_reduce(wide, group=axis.group)
@@ -539,6 +576,8 @@ def all_gather_dim(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     if axis.size == 1:
         return t
     src = t.contiguous()
+    if _COUNTS is not None:
+        _count("all-gather", src, axis.size)
     if _via_host(src, axis):
         src = src.cpu()
     parts = [torch.empty_like(src) for _ in range(axis.size)]
@@ -552,6 +591,8 @@ def _all_to_all(t: torch.Tensor, axis: Axis, split: int,
     concatenated along `cat` in member order."""
     send = torch.stack(t.chunk(axis.size, dim=split)).contiguous()
     recv = torch.empty_like(send)
+    if _COUNTS is not None:
+        _count("all-to-all", recv)
     dist.all_to_all_single(recv, send, group=axis.group)
     return torch.cat(recv.unbind(0), dim=cat)
 
@@ -563,6 +604,8 @@ def _shift(t: torch.Tensor, axis: Axis, offset: int) -> torch.Tensor:
     if _via_host(src, axis):
         src = src.cpu()
     recv = torch.empty_like(src)
+    if _COUNTS is not None:
+        _count("collective-permute", recv)
     ops = [dist.P2POp(dist.isend, src,
                       axis.global_rank(axis.index + offset), axis.group),
            dist.P2POp(dist.irecv, recv,

@@ -9,6 +9,8 @@ exist; a history cut as a data config cuts it keeps every other store.
 Phase 9.1's f32-backward pages are T 116 and 117 at head width 128.
 Phase 14's and 15's cases run what they name, a rank's launch counts
 are the code's, and the fixture keeps the first users' dev and test rows.
+Phase 16's launch counts by point and by Trainer pass are the code's, and
+its pool checks take every shape its models pool.
 The remat and knob A/Bs compare the losses both runs took
 (`shared_loss_err`).
 """
@@ -36,10 +38,10 @@ def test_phases_select(argv, want):
 
 
 def test_unknown_phase_is_refused():
-    # phase 15 exists since the mesh combinations
-    assert chip_smoke.parse_phases(["--phases", "15"]) == {15}
+    # phase 16 exists since the scaling sweep and the dry run
+    assert chip_smoke.parse_phases(["--phases", "16"]) == {16}
     with pytest.raises(SystemExit):
-        chip_smoke.parse_phases(["--phases", "16"])
+        chip_smoke.parse_phases(["--phases", "17"])
 
 
 def test_phase14_cases_run_what_they_name():
@@ -250,7 +252,7 @@ def test_phase13_cases_shard_what_they_name():
     dcnv2_id's CrossNetMix shards its 4 experts 2 a rank; NAML's
     30,000-word table shards to 15,000 rows a rank at min_rows_to_shard
     0; the catalog-parallel bert-naml runs at dropout 0 over the two
-    ranks. A rank runs through `--phase13-rank`."""
+    ranks. A rank runs `chip_smoke.p13_rank` (parallel/launch.py)."""
     from legommenders_tpu_torch.parallel import mesh as tmesh
 
     cases = chip_smoke.p13_cases()
@@ -448,3 +450,99 @@ def test_shared_loss_err_compares_the_steps_both_runs_took():
     assert chip_smoke.shared_loss_err(a, dict(a)) == 0.0
     c = {"warm_loss": 3.0, "losses": [1.0, 0.5]}
     assert chip_smoke.shared_loss_err(c, b) == pytest.approx(0.5)
+
+
+@pytest.mark.parametrize("label,want", [
+    ("dp 1", {"additive_pool": 6}), ("dp 2 mp 2", {"additive_pool": 6}),
+    ("sp 4", {}), ("pp 2", {"packed_attention": 2 + 4}),
+    ("catalog 4", {"additive_pool": 4})])
+def test_p16_point_expected_launches_are_the_codes(label, want):
+    """A sweep point's launches on each rank (3 steps): an NRMS step pools
+    its items and its users once; the sp pool is plain; the pp point runs
+    the serial slice's 2 layers, then its one staged layer in 4
+    microbatches; the catalog point one process's step and the sharded
+    step, two pools each. The counts a CPU rehearsal of the phase read
+    from the plain versions' calls."""
+    assert chip_smoke._p16_point_expected(label, 3) == want
+
+
+@pytest.mark.parametrize("name,rec,mesh_cfg,rank,want", [
+    # the serial BERT: 2 steps of 2 layers, 2 evaluations of 3 item pages
+    # (40 items in pages of 16) and 2 user pages (24 users)
+    ("pp", {"steps": 2, "evaluations": 2, "cache": (40, 24, 16)}, None, 0,
+     {"additive_pool": 14, "packed_attention": 16,
+      "packed_attention_backward": 4}),
+    # staged at (dp 2, pp 2), rank 3 (dp index 1): 4 microbatches of its
+    # one layer a step; its block of 20 items and of 12 users, 2 + 1 pages
+    ("pp", {"steps": 2, "evaluations": 2, "cache": (40, 24, 16)},
+     {"dp": 2, "pp": 2}, 3,
+     {"additive_pool": 10, "packed_attention": 16,
+      "packed_attention_backward": 8}),
+    ("mesh", {"steps": 2, "evaluations": 2, "cache": (64, 32, 512)},
+     {"dp": 2, "mp": 2}, 1, {"additive_pool": 8}),
+    ("catalog", {"steps": 2, "evaluations": 2, "cache": (64, 32, 512)},
+     {"dp": 4, "catalog_parallel": True}, 2, {"additive_pool": 8}),
+    ("sp", {}, {"sp": 4}, 0, {})])
+def test_p16_trainer_expected_launches_are_the_codes(name, rec, mesh_cfg,
+                                                     rank, want):
+    """The dry run's Trainer passes: a step pools its rows' items and users
+    once (the BERT's layers forward and backward once, or under pp its
+    stage's layer once a microbatch); an evaluation encodes the rank's dp
+    block of items and users in cache pages (the BERT's layers once a
+    page). The counts a CPU rehearsal of the phase read from the plain
+    versions' calls."""
+    assert chip_smoke._p16_trainer_expected(name, rec, mesh_cfg,
+                                            rank) == want
+
+
+def test_p16_pool_shapes_are_the_models():
+    """Phase 16's pool checks take every (L, D) the phase's models pool:
+    the entry NRMS, the BERT, the catalog point's NAML and NRMS at its
+    YAML's width on titles of 30 and histories of 50."""
+    import torch
+    from legommenders_tpu_torch import graft, scaling
+    from legommenders_tpu_torch.models.common import AdditiveAttention
+
+    seen = set()
+
+    def hook(mod, args):
+        if isinstance(mod, AdditiveAttention):
+            seen.add(tuple(args[0].shape[-2:]))
+
+    wide = SyntheticProcessor(num_items=200, num_users=50, title_len=30,
+                              history_len=50).as_lego_data()
+    models = [(graft.nrms_cfg(), graft.synthetic(64, 32)),
+              (graft.BERT_CFG, graft.synthetic(40, 24, history_len=4)),
+              (scaling.CATALOG_CFG, graft.synthetic(100, 40, history_len=6)),
+              (chip_smoke.p16_cfg(), wide)]
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+    try:
+        for cfg, data in models:
+            m = Manager(model_cfg=cfg, exp_cfg={"policy": {
+                "batch_size": 16}}, data=data, device="cpu")
+            with torch.no_grad():
+                m.model(graft.first_batch(m), m.contents.columns)
+    finally:
+        handle.remove()
+    assert seen == {(L, d) for _, L, d in chip_smoke.P16_POOLS.values()}
+
+
+def test_p16_full_expected_launches_are_the_codes():
+    """The full-width points (batch 2,048, 65,000 items, 4 negatives,
+    histories of 50; pages of 8,192 under `full` remat): one process and
+    a (dp 2, mp 2) rank encode the whole catalog a step (8 pages, twice),
+    a dp-4 rank its 512 rows' 28,160 occurrences (4 pages, twice); the
+    user pool once; 3 steps."""
+    import numpy as np
+
+    class Fixture:
+        num_items = chip_smoke.DATA_KW["num_items"]
+
+        @staticmethod
+        def history_matrix():
+            return np.zeros((4, chip_smoke.DATA_KW["history_len"]))
+
+    for n_dp, pages in ((1, 8), (2, 8), (4, 4)):
+        assert chip_smoke._p16_full_expected(n_dp, Fixture) == {
+            "additive_pool": 3 * (2 * pages + 1)}
+
