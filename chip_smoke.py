@@ -23,9 +23,14 @@ and exits non-zero when any phase fails:
        user pool 20,000 x 50 x 64, H = 256) and at one page of 512 items
        or users at each length the main paths pool (L = 31, 34, 40, 50),
        with partly and fully masked rows; all-masked rows must give
-       exactly 0; bf16 goes to the tensor-core kernel, f32 to the
-       CUDA-core one; the bound counts the N*L*H tanh at the
-       special-function units' rate beside the products and the bytes;
+       exactly 0; bf16 goes to additive_pool_tc, f32 to
+       additive_pool_kernel (3xTF32); the bound counts the N*L*H tanh at
+       the special-function units' rate beside the products (f32 at
+       3xTF32's 165 TFLOP/s, the CUDA cores' 67 beside it) and the bytes;
+       then the tile kernels at their edges (check_pool_edges:
+       additive_pool_long at L 129-4,096 over N 1, 7, 131 and 600, both at
+       D 4 / 20 / 100 and H 1 / 33 / 100 / 300), each call made twice and
+       the two outputs bit-equal;
      - the packed attention forward at bert-naml's serving page (171
        packed rows of 3 items x 34 tokens = 102, D = 768, 12 heads), with
        the block-diagonal biases packed_mask_bias makes from random title
@@ -359,8 +364,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 # NVIDIA H100 SXM data-sheet peaks (dense): bf16 and TF32 on the tensor
-# cores, f32 on the CUDA cores; the f32 attention kernels take three TF32
-# products for each f32 one (3xTF32), an effective 495 / 3 TFLOP/s
+# cores, f32 on the CUDA cores; the f32 attention and pool kernels take
+# three TF32 products for each f32 one (3xTF32), an effective 495 / 3
+# TFLOP/s
 PEAK = {"bf16": 989e12, "f32": 67e12, "tf32x3": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 # 132 SMs at 1.98 GHz (H100 SXM boost)
@@ -489,9 +495,9 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def attention_peak(dtype_name: str) -> str:
-    """The PEAK key of the attention kernels in dtype_name: the f32 kernels
-    run their products in 3xTF32 on the tensor cores."""
+def product_peak(dtype_name: str) -> str:
+    """The PEAK key of the products of the port's kernels in dtype_name:
+    the f32 kernels run their products in 3xTF32 on the tensor cores."""
     return "tf32x3" if dtype_name == "f32" else dtype_name
 
 
@@ -504,16 +510,17 @@ def roof(flops: float, nbytes: float, dtype: str):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def bound(N: int, L: int, dtype: str, h: int = H, d: int = D):
+def bound(N: int, L: int, dtype: str, h: int = H, d: int = D,
+          peak: str = ""):
     """The additive pool's bound at width d and hidden width h: inputs
     read once, output written once; its operations are the products at
-    the data-sheet peak for dtype and the N*L*h tanh at the
-    special-function units' rate, which run on separate units: the
-    longest of the three."""
+    the tensor cores' peak for dtype (f32 in 3xTF32, product_peak; `peak`
+    names another PEAK key) and the N*L*h tanh at the special-function
+    units' rate, which run on separate units: the longest of the three."""
     xb = 2 if dtype == "bf16" else 4
     flops = 2.0 * N * L * (d * h + h + d)
     nbytes = N * L * d * xb + N * L * 4 + (d * h + 2 * h) * 4 + N * d * xb
-    ms, by = roof(flops, nbytes, dtype)
+    ms, by = roof(flops, nbytes, peak or product_peak(dtype))
     tanh_ms = N * L * h / TANH_PER_S * 1e3
     return (ms, by) if ms >= tanh_ms else (tanh_ms, "operations")
 
@@ -640,13 +647,101 @@ def check_pool(pool: str, N: int, L: int, dtype_name: str, device,
                "plain_ms": time_ms(lambda: additive_pool_reference(*args),
                                    iters=plain_iters)}
     res["bound_ms"], res["bound_by"] = bound(N, L, dtype_name, h, d)
-    res["bound_peak"] = f"{dtype_name} {PEAK[dtype_name] / 1e12:g} TFLOP/s"
+    peak = product_peak(dtype_name)
+    res["bound_peak"] = f"{peak} {PEAK[peak] / 1e12:g} TFLOP/s"
+    if dtype_name == "f32":
+        # the bound with the products on the CUDA cores, beside it
+        res["cuda_core_bound_ms"] = bound(N, L, dtype_name, h, d, "f32")[0]
     ok = (res["max_abs_err"] <= F32_TOL if dtype_name == "f32"
           else res["rel_err"] <= BF16_REL_TOL)
     if not (ok and res["all_masked_exact_zero"] and res["all_masked_rows"]):
         raise RuntimeError(f"additive_pool disagrees with its plain "
                            f"version: {res}")
     return res
+
+
+# the tile kernels' edges (phase 3): additive_pool_long around its tiles
+# of 128 positions, over N 1, 7 and 131 (an item spread over several CTAs)
+# and 600 (on one CTA each) at D 64, H 64; both tile kernels at odd widths
+# (additive_pool_kernel at L 13, additive_pool_long at 150)
+POOL_EDGE_LS = (129, 255, 256, 257, 1024, 1025, 4096)
+POOL_EDGE_NS = (1, 7, 131, 600)
+POOL_ODD_DS, POOL_ODD_HS = (4, 20, 100), (1, 33, 100, 300)
+POOL_ODD_LS, POOL_ODD_N = (13, 150), 37
+
+
+def pool_edge_cases():
+    """(N, L, D, H) of the tile kernels' edge checks (POOL_EDGE_*,
+    POOL_ODD_*)."""
+    return ([(n, L, D, 64) for L in POOL_EDGE_LS for n in POOL_EDGE_NS]
+            + [(POOL_ODD_N, L, d, h) for L in POOL_ODD_LS
+               for d in POOL_ODD_DS for h in POOL_ODD_HS])
+
+
+def pool_edge_inputs(N, L, dtype, device, seed, h, d):
+    """pool_inputs with the masks the tile edges need: item 0 all masked
+    (where N > 1), item 1 valid only in its last tile of 128 positions,
+    item 2 with its second tile all masked; the rest valid at random."""
+    import torch
+
+    x, mask, w1, b1, w2 = pool_inputs(N, L, dtype, device, seed, h=h, d=d)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    mask.copy_((torch.rand(N, L, generator=g, device=device) < 0.8).float())
+    last = (L - 1) // 128 * 128
+    if N > 1:
+        mask[0] = 0.0
+    if N > 2:
+        mask[1, :last] = 0.0
+        mask[1, last] = 1.0
+    if N > 3 and L > 128:
+        mask[2, 128:256] = 0.0
+    return x, mask, w1, b1, w2
+
+
+def check_pool_edges(device) -> dict:
+    """The tile kernels (additive_pool_kernel, additive_pool_long) at
+    pool_edge_cases, f32 and bf16, against the plain version (f32 within
+    F32_TOL absolute, bf16 within BF16_REL_TOL of the largest), all-masked
+    items exactly 0, and each call made twice: the two outputs bit-equal.
+    Returns a summary; raises at the first case that fails."""
+    import torch
+    from legommenders_tpu_torch.ops.additive import (
+        additive_pool, additive_pool_reference, pool_kernel,
+    )
+
+    t0 = time.perf_counter()
+    worst = {"f32": 0.0, "bf16": 0.0}
+    kernels = {}
+    for N, L, d, h in pool_edge_cases():
+        for dtype_name, dtype in (("f32", torch.float32),
+                                  ("bf16", torch.bfloat16)):
+            kernel = pool_kernel(dtype, L, d, h)[0]
+            kernels[kernel] = kernels.get(kernel, 0) + 1
+            args = pool_edge_inputs(N, L, dtype, device, N + L + d + h, h, d)
+            with torch.inference_mode():
+                a = additive_pool(*args)
+                b = additive_pool(*args)
+                want = additive_pool_reference(args[0].float(), *args[1:])
+            torch.cuda.synchronize()
+            err = float((a.float() - want).abs().max())
+            top = float(want.abs().max())
+            score = err if dtype_name == "f32" else err / max(top, 1e-30)
+            worst[dtype_name] = max(worst[dtype_name], score)
+            masked = args[1].sum(dim=1) == 0
+            ok = (torch.equal(a, b) and bool((a[masked] == 0).all())
+                  and score <= (F32_TOL if dtype_name == "f32"
+                                else BF16_REL_TOL)
+                  and kernel != MAIN_POOL_KERNEL)
+            if not ok:
+                raise RuntimeError(
+                    f"additive_pool ({kernel}) at N {N} L {L} D {d} H {h} "
+                    f"{dtype_name}: error {score} (largest {top}), "
+                    f"bit-equal {torch.equal(a, b)}, all-masked rows 0 "
+                    f"{bool((a[masked] == 0).all())}")
+    return {"cases": len(pool_edge_cases()) * 2, "kernels": kernels,
+            "f32_max_abs_err": worst["f32"],
+            "bf16_max_rel_err": worst["bf16"], "bit_equal": True,
+            "s": time.perf_counter() - t0}
 
 
 def attention_inputs(dtype, device, seed, page=ATTN_PAGE):
@@ -704,7 +799,7 @@ def check_attention(dtype_name: str, device) -> dict:
                    qh, kh, vh, attn_mask=mask4), iters=50)}
     flops = 4.0 * B * T * T * Dm
     nbytes = 4 * B * T * Dm * q.element_size() + B * T * T * bias.element_size()
-    peak = attention_peak(dtype_name)
+    peak = product_peak(dtype_name)
     res["bound_ms"], res["bound_by"] = roof(flops, nbytes, peak)
     res["bound_peak"] = f"{peak} {PEAK[peak] / 1e12:g} TFLOP/s"
     if dtype_name == "f32":
@@ -779,7 +874,7 @@ def check_attention_train(dtype_name: str, p: float, device) -> dict:
         raise RuntimeError(f"attention training kernels disagree with "
                            f"their plain versions ({problems}): {res}")
     xb, bb = q.element_size(), bias.element_size()
-    peak = attention_peak(dtype_name)
+    peak = product_peak(dtype_name)
     res["bound_peak"] = f"{peak} {PEAK[peak] / 1e12:g} TFLOP/s"
     # recompute S, then dPd, dV, dQ, dK: five T x T x dh products per head
     bwd_work = (10.0 * B * T * T * Dm, 7 * B * T * Dm * xb + B * T * T * bb)
@@ -3222,8 +3317,11 @@ def run_kernel_checks(device) -> dict:
             res = check_pool(pool, N, L, dtype, device)
             checks.append(res)
             log(f"[kernel] {json.dumps(res)}")
-    log(f"[kernel] persistent grid by (L, D, H, bf16, device): "
+    log(f"[kernel] plan (persistent grid, and the tile kernels' tile rows, "
+        f"stages, items a tile) by (kernel, L, D, H, bf16, device): "
         f"{additive._grids}")
+    edges = check_pool_edges(device)
+    log(f"[kernel] pool edges {json.dumps(edges)}")
     attn_checks = []
     for dtype in ("f32", "bf16"):
         res = check_attention(dtype, device)
@@ -3245,8 +3343,8 @@ def run_kernel_checks(device) -> dict:
             f" us, {c['bwd_bound_by']}), forward + backward "
             f"{(c['fwd_ms'] + c['bwd_ms']) * 1e3:.1f} us (SDPA f32 "
             f"{c['sdpa_fwd_bwd_ms'] * 1e3:.1f} us)" for c in f32))
-    return {"checks": checks, "attn_checks": attn_checks,
-            "train_checks": train_checks}
+    return {"checks": checks, "pool_edges": edges,
+            "attn_checks": attn_checks, "train_checks": train_checks}
 
 
 def run_serving(data, device) -> dict:
@@ -6377,7 +6475,7 @@ def _kernel_line(R: dict) -> list:
             phase16_launches={p: c.get("additive_pool", 0)
                               for p, c in phase16_runs.items()},
             phase16_shapes=shapes(p16_checks.get("pools", [])),
-            checks=pool_all))
+            edge_checks=R.get("pool_edges"), checks=pool_all))
     sdpa = "torch.nn.functional.scaled_dot_product_attention"
     train = R.get("train_checks", [])
     tr = next((c for c in train if c["dtype"] == "bf16"

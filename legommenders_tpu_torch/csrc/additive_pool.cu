@@ -9,8 +9,9 @@
 //               pool to exactly 0), the denominator adds EPS = 1e-8
 //     out[n]  = sum_l a[l] * x[n, l, :]
 // x is f32 or bf16, mask/W1/b1/w2 are f32, out has x's type; all sums are
-// taken in f32. Three kernels; the wrapper picks one by x's type and widths
-// (ops/additive.py `pool_kernel`), and a failure of any raises.
+// taken in f32. Three kernels, all scoring on the tensor cores; the wrapper
+// picks one by x's type and widths (ops/additive.py `pool_kernel`), and a
+// failure of any raises.
 //
 // additive_pool_tc: bf16 x with D = 64, H a multiple of 64 up to 256 and
 // L <= 128 -- every shape the models run (L 31, 34, 40 or 50, H 256).
@@ -65,31 +66,69 @@
 //      bf16 x tile still in shared memory (16 bytes a lane, through the
 //      swizzle) in f32; one 128-byte store per item.
 //
-// additive_pool_kernel: f32 x, where the parity gate is 1e-5 absolute,
-// which neither TF32 nor tanh.approx meets, and every shape the
-// tensor-core kernel does not take; on the CUDA cores in f32. Persistent
-// blocks of 256 threads; block b walks items n = b, b + gridDim.x, ... .
-// W1 (D x H, f32) is staged in shared memory once per block. For each item:
-//   1. its x rows are staged in shared memory as f32 (positions L..Lp-1
-//      are zero, Lp = L rounded up to the register tile LT);
-//   2. thread t owns hidden units j = t, t + 256, ...; it keeps LT
-//      accumulators in registers, so each W1 value read from shared memory
-//      feeds LT FMAs while x is read as broadcast float4s;
-//   3. tanhf(.) * w2[j] is summed over each warp with shuffles and over the
-//      eight warps through shared memory;
-//   4. warp 0 runs the masked softmax with the reference's guards;
-//   5. threads d < D write sum_l a[l] * x[l, d].
-//
-// additive_pool_long: every L > 128 (the flattened histories of the
-// flatten user operators: L 495 and 1,023 at D 64, H 64), f32 or bf16 x.
-// The Pallas kernel holds a whole item in VMEM; additive_pool_kernel keeps
-// all of an item's x in shared memory, which at L 1,023, D 64 is more than
-// a block may have. This one streams an item's positions in chunks of 64
-// through shared memory with an online softmax (running max, sum and
-// weighted sum, the reference's EPS and all-masked rule kept), so its
-// shared memory does not grow with L. What bounds it: the N*L*H tanh and
-// the N*L*D*H products of the scores on the CUDA cores (f32, as
-// additive_pool_kernel); its bytes (N*L*D once) take less time.
+// additive_pool_kernel and additive_pool_long: every other shape. The
+// first takes L <= 128 (f32 x: its 1e-5 gate, which tanh.approx does not
+// meet; bf16 x at widths additive_pool_tc does not take, any D that is a
+// multiple of 4 and any H), the second L > 128 of either type (the
+// flattened histories of the flatten user operators: L 495 and 1,023 at
+// D 64, H 64). Both score bf16 x as exactly as f32 x (16 bits of W1, the
+// accurate tanh), as the CUDA-core kernels they replace did: a flatten
+// user pool's bf16 gradients are held against the sequence-parallel
+// pool's, which computes in f32 (chip_smoke.py phase 15).
+//   What bounds them. At f32 the products: 2 N L D H FLOP at 3xTF32's
+//   165 TFLOP/s (the f32 catalog, 65,000 x 31 at H 256: 408 us), then the
+//   tanh (123 us at one special-function instruction each; this one takes
+//   two), then the bytes (154 us). The flatten pools at D 64, H 64 move
+//   more bytes than they compute: N 8,192 x L 495 reads 519 MB in bf16
+//   (155 us at 3.35 TB/s; the tanh 62 us, the products 33 us), 1.04 GB in
+//   f32 (310 us; the products 200 us). Measured, both sit at 3-6x their
+//   bound, held by the issue of the products' instructions (3xTF32: ~22
+//   a product of 16 x 8 x 8, most of them splitting W1's fragments anew
+//   in every warp) and, in bf16, by the tiles' epilogues and barriers.
+//   Design (PERF.md section 6 has the times). One device routine scores a
+//   tile of up to 128 consecutive positions of x seen as (N*L, D); the two
+//   kernels differ only in what they do with the scores.
+//    * Persistent CTAs of 256 threads, 2 an SM where the tiles allow. A
+//      tile of additive_pool_kernel holds G = R // L whole items (R <= 128
+//      rows), fewer where N items would not fill the grid; CTA b takes
+//      tiles b, b + grid, ... . additive_pool_long cuts
+//      an item into tiles of R = 128 positions and spreads it over c CTAs
+//      (c <= its tiles), each taking every c-th tile: c = 1 where the items
+//      alone fill the card (N 512 at L 1,023, N >= 2,048 at L 495), else
+//      the c that fills it best (N 128 at L 1,023: 2), so that the card
+//      does not wait on a few long items.
+//    * Loads: cp.async of 16 bytes (8 where a bf16 row is not a multiple
+//      of 16 bytes) into a ring of up to 4 stages, so that the next tiles
+//      load while one is scored; the mask beside each tile.
+//    * W1 is staged once a CTA as W1^T in the route's operand type (f32,
+//      or for bf16 x two bf16 planes, hi = bf16(W1) and lo = bf16(W1 -
+//      hi)), rows of round_up(D, k) + pad elements: the k padding is zero
+//      and every fragment read of a warp hits 32 banks. H is padded to
+//      whole groups of 64 columns with w2 = 0, so odd widths score on the
+//      same path.
+//    * Scores: warp w multiplies rows 16w..16w+15 of the tile by W1 on
+//      mma.sync, 64 columns at a time: bf16 m16n8k16 against hi and lo,
+//      or f32 as three TF32 products a k step of 8 (3xTF32, hopper.cuh's
+//      mma3). The epilogue stays in registers: + b1, tanh as 1 - 2 /
+//      (e^{2v} + 1) by ex2.approx and a fast division (within 1e-6), x
+//      w2, summed along the row, then a quad shuffle and one shared-memory
+//      slot a row.
+//    * additive_pool_kernel: one warp an item, every warp of the CTA: the
+//      masked softmax over the item's scores, then each lane sums a column
+//      pair over the positions still in shared memory.
+//    * additive_pool_long: every warp takes the tile's masked max m_t;
+//      warp w sums e = exp(s - m_t') * mask and e * x over its 16 rows
+//      (m_t' = m_t, or 0 where the tile has no valid position: the
+//      reference's rule); the warps' sums, added in a fixed order, fold
+//      into the CTA's running (m, sum, acc[D]) by an online softmax, a
+//      tile with no valid position scaled by exactly 0. With c = 1 the CTA
+//      writes out = acc / (sum + EPS). Else it writes its share's partial
+//      to a workspace the wrapper allocates, and the CTA that adds the
+//      item's last ticket (a per-item counter it resets to 0, so the next
+//      launch needs no memset) combines the shares in share order: out =
+//      sum_j f_j acc_j / (sum_j f_j sum_j + EPS), f_j = e^{m_j - M'}, M'
+//      the reference's guarded max. One launch a call; two calls are
+//      bit-equal.
 //
 // The device queries and the shared-memory attributes are set once by the
 // prepare entry points, not on every launch. The C entry points return a
@@ -99,6 +138,7 @@
 #include <cfloat>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -122,315 +162,565 @@ __device__ inline float warp_max(float v) {
   return v;
 }
 
+__device__ __forceinline__ float tanh_approx(float v) {
+  float r;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// tanh v = 1 - 2 / (e^{2v} + 1): ex2.approx and rcp.approx, within 1e-6
+// absolute (+-1 where e^{2v} overflows or vanishes)
+__device__ __forceinline__ float tanh_f32(float v) {
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(v * 2.8853900817779268f));
+  return 1.f - __fdividef(2.f, e + 1.f);
+}
+
 // ---------------------------------------------------------------------------
-// CUDA-core kernel (f32, and the shapes the tensor-core kernel does not take)
+// Tile kernels: additive_pool_kernel (whole items) and additive_pool_long
+// (an item's positions over several CTAs), mma.sync in bf16 or 3xTF32
 // ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kLT = 8;  // sequence positions per register tile
+constexpr int kMaxRows = 16 * kWarps;  // a warp scores 16 rows of a tile
+constexpr int kMaxStages = 4;
+constexpr int kGroupTiles = 8;   // 8-column tiles of W1 a warp holds at once
+constexpr int kStageLoads = 16;  // W1 loads a thread has in flight
+// the shared memory a CTA may take for two to share an SM (228 KB, 1 KB
+// of it reserved for each CTA)
+constexpr int kHalfSm = 113 * 1024;
 
-// shared memory, in floats: W1[D*H] | x[Lp*D] | partial s[Lp*kWarps] | a[Lp]
-__host__ __device__ inline size_t smem_floats(int L, int D, int H) {
-  const size_t Lp = round_up(L, kLT);
-  return (size_t)D * H + Lp * D + Lp * kWarps + Lp;
+// The route of x's type: the k of one product (kStep), and the padding of
+// an operand row in elements (kPad): with rows of round_up(D, kStep) +
+// kPad elements (an odd multiple of 4 words), a warp's fragment read (8
+// rows x 4 words) hits 32 distinct banks.
+template <typename T>
+struct Route;
+template <>
+struct Route<float> {
+  static constexpr int kStep = 8, kPad = 4;
+};
+template <>
+struct Route<__nv_bfloat16> {
+  static constexpr int kStep = 16, kPad = 8;
+};
+
+// Shared memory of a CTA, byte offsets: x stages (S x R rows of ld) | W1^T
+// (Hp rows of ld, H padded to whole groups of 64 columns; bf16: a plane of
+// hi = bf16(W1) and one of lo = bf16(W1 - hi)) | mask stages
+// (S x R) | {b1, w2} pairs (Hp / 2 float4) | scores (R) | e (R) | the
+// warps' running weighted sums (kWarps x Dp), maxima and sums (kWarps
+// each), the combine flag
+struct Layout {
+  int Dp, ld, Hp, R, S;
+  int w1t, mask, bw, sc, es, red, bytes;
+  __host__ __device__ Layout(int D, int H, int R_, int S_, int step, int pad,
+                             int eb)
+      : Dp(round_up(D, step)), ld(Dp + pad),
+        Hp(round_up(H, 8 * kGroupTiles)), R(R_), S(S_) {
+    w1t = S * R * ld * eb;
+    mask = w1t + Hp * ld * 4;  // f32, or two bf16 planes
+    bw = mask + S * R * 4;
+    sc = bw + Hp * 8;
+    es = sc + R * 4;
+    red = es + R * 4;
+    bytes = round_up(red + (kWarps * Dp + 2 * kWarps + 4) * 4, 16);
+  }
+};
+
+template <typename T>
+__host__ __device__ inline Layout layout_of(int D, int H, int R, int S) {
+  return Layout(D, H, R, S, Route<T>::kStep, Route<T>::kPad, (int)sizeof(T));
 }
 
-__device__ inline float to_f32(float v) { return v; }
-__device__ inline float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ inline void store(float* p, float v) { *p = v; }
-__device__ inline void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
 
-// Scores of Lp staged positions (Lp a multiple of kLT), summed per warp:
-// part[l * kWarps + w] = sum over the hidden units j of warp w of
-// tanh(x[l] . W1[:, j] + b1[j]) * w2[j]. With G = 1 thread t owns j = t,
-// t + 256, ... for every position; with G > 1 (H = 256 / G, a multiple of
-// 32) the threads form G groups of H, group g taking the register tiles
-// g, g + G, ... and thread t of a group hidden unit t, so that every
-// thread scores at H < 256; only the warps of a tile's group write its
-// part entries (group_warps). A thread keeps kLT accumulators, so each W1
-// value read from shared memory feeds kLT FMAs while x is read as
-// broadcast float4s.
-__device__ inline void score_rows(const float* __restrict__ xs,
-                                  const float* __restrict__ w1s,
-                                  const float* __restrict__ b1,
-                                  const float* __restrict__ w2,
-                                  float* __restrict__ part, int Lp, int D,
-                                  int H, int G = 1) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int hs = kThreads / G, g = tid / hs, j0 = tid - g * hs;
-  // scores: s[l] = sum_j tanh(x[l] . W1[:, j] + b1[j]) * w2[j]
-  for (int l0 = g * kLT; l0 < Lp; l0 += G * kLT) {
-    float p[kLT];
+__device__ __forceinline__ uint32_t word(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The CTA's shared memory, carved by its Layout
+template <typename T>
+struct Tiles {
+  Layout lo;
+  T* x;
+  T* w1t;
+  float* mask;
+  float4* bw;
+  float* sc;
+  float* es;
+  float* red;
+  __device__ Tiles(unsigned char* smem, int D, int H, int R, int S)
+      : lo(layout_of<T>(D, H, R, S)),
+        x(reinterpret_cast<T*>(smem)),
+        w1t(reinterpret_cast<T*>(smem + lo.w1t)),
+        mask(reinterpret_cast<float*>(smem + lo.mask)),
+        bw(reinterpret_cast<float4*>(smem + lo.bw)),
+        sc(reinterpret_cast<float*>(smem + lo.sc)),
+        es(reinterpret_cast<float*>(smem + lo.es)),
+        red(reinterpret_cast<float*>(smem + lo.red)) {}
+  // the stage of this CTA's k-th tile
+  __device__ T* xs(int k) const { return x + (k % lo.S) * lo.R * lo.ld; }
+  __device__ float* ms(int k) const { return mask + (k % lo.S) * lo.R; }
+};
+
+// W1^T in the route's type (zero past D and H), the {b1, w2} pairs (w2 = 0
+// past H), and the zero columns D..Dp-1 of every x stage (cp.async writes
+// only columns below D)
+template <typename T>
+__device__ void stage_weights(const Tiles<T>& s, const float* __restrict__ w1,
+                              const float* __restrict__ b1,
+                              const float* __restrict__ w2, int D, int H) {
+  const Layout& lo = s.lo;
+  // kStageLoads loads in flight a thread before their stores: a CTA of
+  // one or two tiles waits on this staging, not on its tiles
+  const int total = lo.Dp * lo.Hp;
+  for (int i0 = threadIdx.x; i0 < total; i0 += kThreads * kStageLoads) {
+    float v[kStageLoads];
 #pragma unroll
-    for (int t = 0; t < kLT; ++t) p[t] = 0.f;
-    for (int j = j0; j < H; j += hs) {
-      float acc[kLT];
-      const float bj = b1[j];
+    for (int b = 0; b < kStageLoads; ++b) {
+      const int i = i0 + b * kThreads, d = i / lo.Hp, j = i - d * lo.Hp;
+      v[b] = i < total && d < D && j < H ? w1[(size_t)d * H + j] : 0.f;
+    }
 #pragma unroll
-      for (int t = 0; t < kLT; ++t) acc[t] = 0.f;
-      for (int d = 0; d < D; d += 4) {
-        const float wa = w1s[(d + 0) * H + j];
-        const float wb = w1s[(d + 1) * H + j];
-        const float wc = w1s[(d + 2) * H + j];
-        const float wd = w1s[(d + 3) * H + j];
-#pragma unroll
-        for (int t = 0; t < kLT; ++t) {
-          const float4 xv =
-              *reinterpret_cast<const float4*>(xs + (l0 + t) * D + d);
-          acc[t] = fmaf(xv.x, wa, acc[t]);
-          acc[t] = fmaf(xv.y, wb, acc[t]);
-          acc[t] = fmaf(xv.z, wc, acc[t]);
-          acc[t] = fmaf(xv.w, wd, acc[t]);
-        }
+    for (int b = 0; b < kStageLoads; ++b) {
+      const int i = i0 + b * kThreads, d = i / lo.Hp, j = i - d * lo.Hp;
+      if (i >= total) continue;
+      T* w = s.w1t + j * lo.ld + d;  // j fastest
+      if constexpr (std::is_same<T, float>::value) {
+        *w = v[b];
+      } else {
+        const T hi = __float2bfloat16(v[b]);
+        w[0] = hi;
+        w[lo.Hp * lo.ld] = __float2bfloat16(v[b] - __bfloat162float(hi));
       }
-      const float qj = w2[j];
-#pragma unroll
-      for (int t = 0; t < kLT; ++t) p[t] = fmaf(tanhf(acc[t] + bj), qj, p[t]);
     }
-#pragma unroll
-    for (int t = 0; t < kLT; ++t) {
-      const float v = warp_sum(p[t]);
-      if (lane == 0) part[(l0 + t) * kWarps + warp] = v;
-    }
+  }
+  for (int p = threadIdx.x; p < lo.Hp / 2; p += kThreads) {
+    const int a = 2 * p, b = a + 1;
+    s.bw[p] = make_float4(a < H ? b1[a] : 0.f, b < H ? b1[b] : 0.f,
+                          a < H ? w2[a] : 0.f, b < H ? w2[b] : 0.f);
+  }
+  const int pad = lo.Dp - D;
+  for (int i = threadIdx.x; i < lo.S * lo.R * pad; i += kThreads) {
+    const int r = i / pad;
+    s.x[r * lo.ld + D + i - r * pad] = T(0.f);
   }
 }
 
+// Positions p0 .. p0 + rows - 1 of x, seen as (N * L, D), into a tile of
+// rows of ld elements by cp.async of cb bytes, and their mask values;
+// committed by the caller
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-additive_pool_kernel(const T* __restrict__ x, const float* __restrict__ mask,
-                     const float* __restrict__ w1, const float* __restrict__ b1,
-                     const float* __restrict__ w2, T* __restrict__ out,
-                     int N, int L, int D, int H) {
-  extern __shared__ __align__(16) float smem[];
-  const int Lp = round_up(L, kLT);
-  float* w1s = smem;
-  float* xs = w1s + (size_t)D * H;
-  float* part = xs + (size_t)Lp * D;
-  float* as = part + (size_t)Lp * kWarps;
+__device__ __forceinline__ void load_tile(T* xt, float* mt,
+                                          const T* __restrict__ x,
+                                          const float* __restrict__ mask,
+                                          long long p0, int rows, int D,
+                                          int ld, int cb) {
+  const int rb = D * (int)sizeof(T), per = rb / cb, lb = ld * (int)sizeof(T);
+  const unsigned char* src = reinterpret_cast<const unsigned char*>(x + p0 * D);
+  unsigned char* dst = reinterpret_cast<unsigned char*>(xt);
+  for (int i = threadIdx.x; i < rows * per; i += kThreads) {
+    const int r = i / per, c = (i - r * per) * cb;
+    if (cb == 16)
+      hopper::cp_async<16>(dst + r * lb + c, src + (size_t)r * rb + c);
+    else
+      hopper::cp_async<8>(dst + r * lb + c, src + (size_t)r * rb + c);
+  }
+  for (int r = threadIdx.x; r < rows; r += kThreads)
+    hopper::cp_async<4>(mt + r, mask + p0 + r);
+}
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  for (int i = tid; i < D * H; i += kThreads) w1s[i] = w1[i];
-  // the padding positions are never written again
-  for (int i = L * D + tid; i < Lp * D; i += kThreads) xs[i] = 0.f;
-
-  for (int n = blockIdx.x; n < N; n += gridDim.x) {
-    const T* xr = x + (size_t)n * L * D;
-    for (int i = tid; i < L * D; i += kThreads) xs[i] = to_f32(xr[i]);
-    __syncthreads();
-
-    score_rows(xs, w1s, b1, w2, part, Lp, D, H);
-    __syncthreads();
-
-    // masked softmax over l; lane k owns positions k, k + 32, ...
-    if (warp == 0) {
-      const float neg = -FLT_MAX;
-      const float* mr = mask + (size_t)n * L;
-      float m = neg;
-      for (int l = lane; l < L; l += 32) {
-        float s = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) s += part[l * kWarps + w];
-        s = mr[l] > 0.f ? s : neg;
-        as[l] = s;
-        m = fmaxf(m, s);
-      }
-      m = warp_max(m);
-      m = m > neg * 0.5f ? m : 0.f;
-      float sum = 0.f;
-      for (int l = lane; l < L; l += 32) {
-        const float e = expf(as[l] - m) * mr[l];
-        as[l] = e;
-        sum += e;
-      }
-      const float denom = warp_sum(sum) + kEps;
-      for (int l = lane; l < L; l += 32) as[l] = as[l] / denom;
-    }
-    __syncthreads();
-
-    for (int d = tid; d < D; d += kThreads) {
-      float o = 0.f;
-      for (int l = 0; l < L; ++l) o = fmaf(as[l], xs[l * D + d], o);
-      store(out + (size_t)n * D + d, o);
-    }
-    __syncthreads();  // xs and as are rewritten by the next item
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: hopper::cp_async_wait<0>(); break;
+    case 1: hopper::cp_async_wait<1>(); break;
+    case 2: hopper::cp_async_wait<2>(); break;
+    default: hopper::cp_async_wait<3>(); break;
   }
 }
 
-// Lets the kernel use the device's opt-in shared memory and sets *blocks to
-// the persistent blocks that fit on the device at once at these widths.
+// sc[r] = sum_j tanh(xt[r] . W1[:, j] + b1[j]) * w2[j] for the rows r of
+// the tile's 16-row slabs that hold any of its `rows` rows; warp w takes
+// rows 16w..16w+15 (its rows past `rows` are scored from whatever the
+// stage holds, and never read)
 template <typename T>
-cudaError_t prepare(int L, int D, int H, int device, int* blocks) {
-  auto kernel = additive_pool_kernel<T>;
-  const size_t smem = smem_floats(L, D, H) * sizeof(float);
-  int sms = 0, optin = 0, per_sm = 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               device);
-  if (err != cudaSuccess) return err;
-  if (smem > (size_t)optin) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             optin);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                      smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *blocks = per_sm * sms;
-  return cudaSuccess;
-}
-
-template <typename T>
-int launch(const void* x, const void* mask, const void* w1, const void* b1,
-           const void* w2, void* out, int N, int L, int D, int H, int blocks,
-           cudaStream_t stream) {
-  const size_t smem = smem_floats(L, D, H) * sizeof(float);
-  const int grid = N < blocks ? N : blocks;
-  additive_pool_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(mask),
-      static_cast<const float*>(w1), static_cast<const float*>(b1),
-      static_cast<const float*>(w2), static_cast<T*>(out), N, L, D, H);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// Long-sequence kernel (L > 128: the flattened histories), f32 or bf16 x
-// ---------------------------------------------------------------------------
-
-constexpr int kChunk = 64;  // positions staged at once
-
-// shared memory, in floats: W1[D*H] | x[kChunk*D] | partial s[kChunk*kWarps]
-// | e[kChunk] | mask[kChunk] | acc[D] | the chunk's rescale factor and the
-// denominator: independent of L
-__host__ __device__ inline size_t long_smem_floats(int D, int H) {
-  return (size_t)D * H + (size_t)kChunk * D + kChunk * kWarps +
-         2 * kChunk + D + 2;
-}
-
-// The thread groups of the long kernel's scores: 256 / H where H is a
-// multiple of 32 below 256, else 1 (score_rows).
-__host__ __device__ inline int long_groups(int H) {
-  return H % 32 == 0 && H < kThreads && kThreads % H == 0 ? kThreads / H : 1;
-}
-
-// Persistent blocks of 256 threads; block b walks items n = b, b +
-// gridDim.x, ... . W1 is staged once per block. An item's positions are
-// streamed in chunks of kChunk: each chunk (16-byte loads where x's rows
-// allow) and its mask are staged in shared memory as f32, scored as
-// additive_pool_kernel scores (score_rows, every thread busy at H 64:
-// long_groups), and folded into
-// an online softmax: warp 0 keeps the running max m of the masked scores
-// (-FLT_MAX for masked positions) and the running sum of e = exp(s - m') *
-// mask, where m' is m, or 0 while every position so far is masked (the
-// reference's all-masked rule); each chunk rescales the sum and the
-// running weighted sum acc[d] (thread d) by exp(m'_old - m'_new) (0 while
-// nothing was summed) before adding its own terms. out = acc / (sum +
-// EPS): the reference's a = e / (sum + EPS), summed in another order; an
-// all-masked item gives exactly 0.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-additive_pool_long(const T* __restrict__ x, const float* __restrict__ mask,
-                   const float* __restrict__ w1, const float* __restrict__ b1,
-                   const float* __restrict__ w2, T* __restrict__ out, int N,
-                   int L, int D, int H, int G) {
-  extern __shared__ __align__(16) float smem[];
-  float* w1s = smem;
-  float* xs = w1s + (size_t)D * H;
-  float* part = xs + (size_t)kChunk * D;
-  float* es = part + kChunk * kWarps;
-  float* ms = es + kChunk;
-  float* acc = ms + kChunk;
-  float* stat = acc + D;  // [0] rescale, [1] denominator
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float neg = -FLT_MAX;
-  // a tile's partial scores come from the warps of its group
-  const int wpg = kWarps / G;
-  // 16-byte loads of x where its rows are 16-byte multiples
-  constexpr int V = 16 / sizeof(T);
-  const bool vec = (D * (int)sizeof(T)) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  for (int i = tid; i < D * H; i += kThreads) w1s[i] = w1[i];
-
-  for (int n = blockIdx.x; n < N; n += gridDim.x) {
-    const T* xr = x + (size_t)n * L * D;
-    const float* mr = mask + (size_t)n * L;
-    float m_run = neg, sum_run = 0.f;  // warp 0's
-    for (int d = tid; d < D; d += kThreads) acc[d] = 0.f;
-    for (int c0 = 0; c0 < L; c0 += kChunk) {
-      const int nc = min(kChunk, L - c0), ncp = round_up(nc, kLT);
-      const T* xc = xr + (size_t)c0 * D;
-      if (vec) {
-        for (int i = tid * V; i < ncp * D; i += kThreads * V) {
-          if (i < nc * D) {
-            const uint4 u = *reinterpret_cast<const uint4*>(xc + i);
-            const T* e = reinterpret_cast<const T*>(&u);
+__device__ __forceinline__ void score_tile(const T* __restrict__ xt,
+                                           const T* __restrict__ w1t,
+                                           const float4* __restrict__ bw,
+                                           float* __restrict__ sc, int rows,
+                                           const Layout& lo) {
+  constexpr int kStep = Route<T>::kStep;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, r0 = 16 * warp, ld = lo.ld;
+  if (r0 >= rows) return;
+  const T* xa = xt + (r0 + g) * ld;
+  float s0 = 0.f, s1 = 0.f;  // rows r0 + g, r0 + g + 8
+  for (int j0 = 0; j0 < lo.Hp; j0 += 8 * kGroupTiles) {
+    const T* wb = w1t + (j0 + g) * ld;
+    float acc[kGroupTiles][4];
 #pragma unroll
-            for (int k = 0; k < V; ++k) xs[i + k] = to_f32(e[k]);
-          } else {
+    for (int q = 0; q < kGroupTiles; ++q)
 #pragma unroll
-            for (int k = 0; k < V; ++k) xs[i + k] = 0.f;
-          }
+      for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
+#pragma unroll 2
+    for (int k0 = 0; k0 < lo.Dp; k0 += kStep) {
+      if constexpr (std::is_same<T, float>::value) {
+        const float av[4] = {xa[k0 + t], xa[8 * ld + k0 + t], xa[k0 + t + 4],
+                             xa[8 * ld + k0 + t + 4]};
+        const hopper::Split<4> a(av);
+#pragma unroll
+        for (int q = 0; q < kGroupTiles; ++q) {
+          const float* p = wb + 8 * q * ld + k0 + t;
+          const float bv[2] = {p[0], p[4]};
+          hopper::mma3(acc[q], a, hopper::Split<2>(bv));
         }
       } else {
-        for (int i = tid; i < ncp * D; i += kThreads)
-          xs[i] = i < nc * D ? to_f32(xc[i]) : 0.f;
-      }
-      if (tid < nc) ms[tid] = mr[c0 + tid];
-      __syncthreads();
-      score_rows(xs, w1s, b1, w2, part, ncp, D, H, G);
-      __syncthreads();
-      if (warp == 0) {
-        float cm = neg;
-        for (int l = lane; l < nc; l += 32) {
-          const int w0 = ((l / kLT) % G) * wpg;
-          float s = 0.f;
-          for (int w = w0; w < w0 + wpg; ++w) s += part[l * kWarps + w];
-          s = ms[l] > 0.f ? s : neg;
-          es[l] = s;
-          cm = fmaxf(cm, s);
+        const int c = k0 + 2 * t;
+        const uint32_t a[4] = {word(xa + c), word(xa + 8 * ld + c),
+                               word(xa + c + 8), word(xa + 8 * ld + c + 8)};
+#pragma unroll
+        for (int q = 0; q < kGroupTiles; ++q) {
+          const T* p = wb + 8 * q * ld + c;
+          const T* pl = p + lo.Hp * ld;  // W1 - bf16(W1)
+          const uint32_t b[2] = {word(p), word(p + 8)};
+          const uint32_t bl[2] = {word(pl), word(pl + 8)};
+          hopper::mma_bf16(acc[q], a, b);
+          hopper::mma_bf16(acc[q], a, bl);
         }
-        const float m_new = fmaxf(m_run, warp_max(cm));
-        const float m_eff = m_new > neg * 0.5f ? m_new : 0.f;
-        const float scale = m_run > neg * 0.5f ? expf(m_run - m_eff) : 0.f;
-        float sum = 0.f;
-        for (int l = lane; l < nc; l += 32) {
-          const float e = expf(es[l] - m_eff) * ms[l];
-          es[l] = e;
-          sum += e;
-        }
-        sum_run = fmaf(sum_run, scale, warp_sum(sum));
-        m_run = m_new;
-        if (lane == 0) stat[0] = scale;
       }
-      __syncthreads();
-      const float scale = stat[0];
-      for (int d = tid; d < D; d += kThreads) {
-        float o = acc[d] * scale;
-        for (int l = 0; l < nc; ++l) o = fmaf(es[l], xs[l * D + d], o);
-        acc[d] = o;
-      }
-      __syncthreads();  // xs, es and ms are rewritten by the next chunk
     }
-    if (tid == 0) stat[1] = sum_run + kEps;
-    __syncthreads();
-    const float denom = stat[1];
-    for (int d = tid; d < D; d += kThreads)
-      store(out + (size_t)n * D + d, acc[d] / denom);
-    __syncthreads();  // acc and stat are rewritten by the next item
+#pragma unroll
+    for (int q = 0; q < kGroupTiles; ++q) {
+      // columns j0 + 8q + 2t and + 1
+      const float4 p = bw[(j0 >> 1) + 4 * q + t];
+      s0 = fmaf(tanh_f32(acc[q][0] + p.x), p.z, s0);
+      s0 = fmaf(tanh_f32(acc[q][1] + p.y), p.w, s0);
+      s1 = fmaf(tanh_f32(acc[q][2] + p.x), p.z, s1);
+      s1 = fmaf(tanh_f32(acc[q][3] + p.y), p.w, s1);
+    }
+  }
+  s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+  s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+  s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+  s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+  if (t == 0) {
+    sc[r0 + g] = s0;
+    sc[r0 + g + 8] = s1;
   }
 }
 
+// dst[c] = scale * sum_l e[l] * xt[l, c] over `rows` rows of the tile, in
+// f32, c < D; the calling warp's lane takes column pairs lane, lane + 32,
+// ...
 template <typename T>
-cudaError_t prepare_long(int D, int H, int device, int* blocks) {
-  auto kernel = additive_pool_long<T>;
-  const size_t smem = long_smem_floats(D, H) * sizeof(float);
+__device__ __forceinline__ void weighted_sum(const T* __restrict__ xt,
+                                             const float* __restrict__ e,
+                                             int rows, int D, int ld,
+                                             float scale, T* __restrict__ dst) {
+  for (int p = threadIdx.x & 31; 2 * p < D; p += 32) {
+    float2 a = make_float2(0.f, 0.f);
+#pragma unroll 4
+    for (int l = 0; l < rows; ++l) {
+      const float2 v = load_pair(xt + l * ld + 2 * p);
+      a.x = fmaf(e[l], v.x, a.x);
+      a.y = fmaf(e[l], v.y, a.y);
+    }
+    store_pair(dst + 2 * p, a.x * scale, a.y * scale);
+  }
+}
+
+// The ring over this CTA's tiles, which a cursor walks (valid(), p0(),
+// rows(), next()): each loaded S - 1 tiles ahead, scored into s.sc (each
+// warp its own rows), then handed to epi(cursor, x stage, mask stage),
+// which every thread calls and which syncs the CTA itself where it reads
+// another warp's scores. One CTA barrier a tile where S >= 2: it makes
+// the tile's copies visible, and it frees the stage the previous tile
+// held, which is refilled right after it.
+template <typename T, typename Cursor, typename Epi>
+__device__ __forceinline__ void run_tiles(const Tiles<T>& s,
+                                          const T* __restrict__ x,
+                                          const float* __restrict__ mask,
+                                          int D, int cb, Cursor cur, Epi epi) {
+  const int S = s.lo.S;
+  Cursor ahead = cur;
+  auto issue = [&](int k) {
+    if (ahead.valid()) {
+      load_tile(s.xs(k), s.ms(k), x, mask, ahead.p0(), ahead.rows(), D,
+                s.lo.ld, cb);
+      ahead.next();
+    }
+    hopper::cp_async_commit();  // a group per tile, empty or not
+  };
+  for (int k = 0; k + 1 < S; ++k) issue(k);
+  for (int k = 0; cur.valid(); ++k, cur.next()) {
+    if (S == 1) {
+      __syncthreads();  // the previous tile is done with the one stage
+      issue(k);
+    }
+    cp_async_wait_upto(S == 1 ? 0 : S - 2);  // this tile's copies
+    __syncthreads();
+    if (S > 1) issue(k + S - 1);  // into the stage the previous tile freed
+    score_tile<T>(s.xs(k), s.w1t, s.bw, s.sc, cur.rows(), s.lo);
+    epi(cur, s.xs(k), s.ms(k));
+  }
+}
+
+// additive_pool_kernel's tiles: unit u holds items uG .. uG + G - 1
+struct ItemTiles {
+  int u, N, L, G, units;
+  __device__ bool valid() const { return u < units; }
+  __device__ long long p0() const { return (long long)u * G * L; }
+  __device__ int items() const { return min(G, N - u * G); }
+  __device__ int rows() const { return items() * L; }
+  __device__ void next() { u += gridDim.x; }
+};
+
+// Whole items: warp w pools items w, w + kWarps, ... of each tile.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+additive_pool_kernel(const T* __restrict__ x, const float* __restrict__ mask,
+                     const float* __restrict__ w1, const float* __restrict__ b1,
+                     const float* __restrict__ w2, T* __restrict__ out, int N,
+                     int L, int D, int H, int G, int R, int S, int cb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tiles<T> s(smem, D, H, R, S);
+  stage_weights(s, w1, b1, w2, D, H);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const ItemTiles first = {(int)blockIdx.x, N, L, G, (N + G - 1) / G};
+  run_tiles(s, x, mask, D, cb, first,
+            [&](const ItemTiles& c, const T* xt, const float* mt) {
+    __syncthreads();  // every warp's scores
+    for (int i = warp; i < c.items(); i += kWarps) {
+      float* si = s.sc + i * L;
+      const float* mi = mt + i * L;
+      float m = -FLT_MAX;
+      for (int l = lane; l < L; l += 32)
+        m = fmaxf(m, mi[l] > 0.f ? si[l] : -FLT_MAX);
+      m = warp_max(m);
+      m = m > -0.5f * FLT_MAX ? m : 0.f;
+      float sum = 0.f;
+      for (int l = lane; l < L; l += 32) {
+        const float e = mi[l] > 0.f ? expf(si[l] - m) * mi[l] : 0.f;
+        si[l] = e;
+        sum += e;
+      }
+      const float inv = 1.f / (warp_sum(sum) + kEps);
+      __syncwarp();
+      weighted_sum(xt + i * L * s.lo.ld, si, L, D, s.lo.ld, inv,
+                   out + (size_t)(c.u * G + i) * D);
+    }
+  });
+}
+
+// additive_pool_long's tiles: unit u is share j = u % c of item n = u / c,
+// its tiles t = j, j + c, ... of R positions
+struct ShareTiles {
+  int u, i, c, nt, L, R, units;
+  __device__ bool valid() const { return u < units; }
+  __device__ int tile() const { return u % c + i * c; }
+  __device__ long long p0() const {
+    return (long long)(u / c) * L + (long long)tile() * R;
+  }
+  __device__ int rows() const { return min(R, L - tile() * R); }
+  __device__ bool last() const { return tile() + c >= nt; }
+  __device__ void next() {
+    if (last()) {
+      u += gridDim.x;
+      i = 0;
+    } else {
+      ++i;
+    }
+  }
+};
+
+__device__ __forceinline__ float guarded(float m) {
+  return m > -0.5f * FLT_MAX ? m : 0.f;
+}
+
+// An item's positions over c CTAs (c = 1 where the items alone fill the
+// card; additive_pool_long_split). Warp w folds rows 16w..16w+15 of each
+// tile of its CTA's share into a running (m_w, z_w, acc_w) by an online
+// softmax: m_w the raw masked max, z_w = sum e and acc_w = sum e x, e =
+// exp(s - m_w') * mask, m_w' = guarded(m_w); a fold with nothing valid so
+// far scales by exactly 0. At the share's last tile the warps' states
+// combine in warp order; with c = 1 the CTA writes out = acc / (z + EPS),
+// else part[u] = (m, z, acc[D]), and the CTA that adds the item's last
+// ticket combines the c shares in share order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+additive_pool_long(const T* __restrict__ x, const float* __restrict__ mask,
+                   const float* __restrict__ w1, const float* __restrict__ b1,
+                   const float* __restrict__ w2, T* __restrict__ out,
+                   float* __restrict__ part, int* __restrict__ tickets, int N,
+                   int L, int D, int H, int R, int S, int c, int cb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tiles<T> s(smem, D, H, R, S);
+  stage_weights(s, w1, b1, w2, D, H);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nt = (L + R - 1) / R, Dp = s.lo.Dp;
+  float* acc_w = s.red + warp * Dp;  // this warp's, by column pairs
+  float* wm = s.red + kWarps * Dp;   // the warps' m_w, then z_w
+  float* wz = wm + kWarps;
+  int* last = reinterpret_cast<int*>(wz + kWarps);
+  float m_w = -FLT_MAX, z_w = 0.f;  // alike in the warp's lanes
+  const ShareTiles first = {(int)blockIdx.x, 0, c, nt, L, R, N * c};
+  run_tiles(s, x, mask, D, cb, first,
+            [&](const ShareTiles& cur, const T* xt, const float* mt) {
+    __syncwarp();  // this warp's scores
+    const int r0 = 16 * warp, nr = max(0, min(16, cur.rows() - r0));
+    float v = -FLT_MAX, mk = 0.f;
+    if (lane < nr) {
+      mk = mt[r0 + lane];
+      v = mk > 0.f ? s.sc[r0 + lane] : -FLT_MAX;
+    }
+    const float mn = fmaxf(m_w, warp_max(v)), gn = guarded(mn);
+    const float su = m_w > -0.5f * FLT_MAX ? expf(guarded(m_w) - gn) : 0.f;
+    const float e = lane < nr && mk > 0.f ? expf(v - gn) * mk : 0.f;
+    z_w = z_w * su + warp_sum(e);
+    m_w = mn;
+    if (lane < nr) s.es[r0 + lane] = e;
+    __syncwarp();
+    // acc_w = acc_w * su + sum_l e_l x_l (acc_w = 0 at a share's first tile)
+    const bool fresh = cur.i == 0;
+    for (int p = lane; 2 * p < D; p += 32) {
+      float2 a = fresh ? make_float2(0.f, 0.f)
+                       : make_float2(acc_w[2 * p] * su, acc_w[2 * p + 1] * su);
+      for (int l = 0; l < nr; ++l) {
+        const float el = s.es[r0 + l];
+        const float2 xv = load_pair(xt + (r0 + l) * s.lo.ld + 2 * p);
+        a.x = fmaf(el, xv.x, a.x);
+        a.y = fmaf(el, xv.y, a.y);
+      }
+      acc_w[2 * p] = a.x;
+      acc_w[2 * p + 1] = a.y;
+    }
+    if (!cur.last()) return;
+    // the share's end: the warps' states, in warp order
+    if (lane == 0) {
+      wm[warp] = m_w;
+      wz[warp] = z_w;
+    }
+    m_w = -FLT_MAX;
+    z_w = 0.f;
+    __syncthreads();
+    float M = -FLT_MAX;
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wm[w]);
+    const float Mg = guarded(M);
+    float z = 0.f;
+    for (int w = 0; w < kWarps; ++w)
+      if (wm[w] > -0.5f * FLT_MAX) z = fmaf(expf(wm[w] - Mg), wz[w], z);
+    const int n = cur.u / c;
+    float* pu = part + (size_t)cur.u * (D + 2);
+    for (int d = tid; d < D; d += kThreads) {
+      float a = 0.f;
+      for (int w = 0; w < kWarps; ++w)
+        if (wm[w] > -0.5f * FLT_MAX)
+          a = fmaf(expf(wm[w] - Mg), s.red[w * Dp + d], a);
+      if (c == 1)
+        store(out + (size_t)n * D + d, a / (z + kEps));
+      else
+        pu[2 + d] = a;
+    }
+    if (c == 1) return;
+    if (tid == 0) {
+      pu[0] = M;
+      pu[1] = z;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      __threadfence();  // this CTA's partials, before its ticket
+      *last = atomicAdd(tickets + n, 1) == c - 1;
+      __threadfence();
+    }
+    __syncthreads();
+    if (!*last) return;
+    const float* pn = part + (size_t)n * c * (D + 2);
+    float Ms = -FLT_MAX;
+    for (int j = 0; j < c; ++j) Ms = fmaxf(Ms, __ldcg(pn + (size_t)j * (D + 2)));
+    const float Msg = guarded(Ms);
+    for (int d = tid; d < D; d += kThreads) {
+      float o = 0.f, den = 0.f;
+#pragma unroll 4
+      for (int j = 0; j < c; ++j) {
+        const float* pj = pn + (size_t)j * (D + 2);
+        const float mj = __ldcg(pj), zj = __ldcg(pj + 1);
+        const float aj = __ldcg(pj + 2 + d);
+        // a share with no valid position adds exactly 0 (its e^{m - M'}
+        // could be inf, its sums are 0)
+        if (mj > -0.5f * FLT_MAX) {
+          const float f = expf(mj - Msg);
+          den = fmaf(f, zj, den);
+          o = fmaf(f, aj, o);
+        }
+      }
+      store(out + (size_t)n * D + d, o / (den + kEps));
+    }
+    if (tid == 0) tickets[n] = 0;
+  });
+}
+
+// A launch's shape: tile rows R, ring stages S, items a tile G (whole
+// items; 1 for the long kernel) and the shared memory of a CTA
+struct Plan {
+  int R, S, G, bytes;
+};
+
+// The tile rows: whole items' largest packing (G = 128 // L), or 128
+// positions; fewer where one stage of them does not fit `budget`. Then the
+// stages, up to kMaxStages: as many as fit half an SM where one does (two
+// CTAs an SM: one scores while the other waits, which beat one CTA with
+// four stages at f32, H 256), else as many as fit the budget. false where
+// not even the smallest tile fits.
+template <typename T>
+bool plan_of(bool long_seq, int L, int D, int H, int budget, Plan* p) {
+  int R = 0, G = 1;
+  for (int k = 0;; ++k) {
+    if (long_seq) {
+      R = kMaxRows - 16 * k;
+      if (R < 16) return false;
+    } else {
+      G = kMaxRows / L - k;
+      if (G < 1) return false;
+      R = round_up(G * L, 16);
+    }
+    if (layout_of<T>(D, H, R, 1).bytes <= budget) break;
+  }
+  int S = 1;
+  while (S < kMaxStages && layout_of<T>(D, H, R, S + 1).bytes <= kHalfSm) ++S;
+  if (layout_of<T>(D, H, R, 1).bytes > kHalfSm)
+    while (S < kMaxStages && layout_of<T>(D, H, R, S + 1).bytes <= budget) ++S;
+  *p = {R, S, long_seq ? 1 : G, layout_of<T>(D, H, R, S).bytes};
+  return true;
+}
+
+template <typename T>
+const void* tile_kernel(bool long_seq) {
+  return long_seq ? reinterpret_cast<const void*>(additive_pool_long<T>)
+                  : reinterpret_cast<const void*>(additive_pool_kernel<T>);
+}
+
+// Lets the kernel use the device's opt-in shared memory and fills cfg:
+// {persistent CTAs, R, S, G}
+template <typename T>
+cudaError_t prepare_tiles(bool long_seq, int L, int D, int H, int device,
+                          int* cfg) {
   int sms = 0, optin = 0, per_sm = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -439,29 +729,80 @@ cudaError_t prepare_long(int D, int H, int device, int* blocks) {
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                device);
   if (err != cudaSuccess) return err;
-  if (smem > (size_t)optin) return cudaErrorInvalidValue;
+  Plan p;
+  if (!plan_of<T>(long_seq, L, D, H, optin, &p)) return cudaErrorInvalidValue;
+  const void* kernel = tile_kernel<T>(long_seq);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              optin);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                      smem);
+                                                      p.bytes);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *blocks = per_sm * sms;
+  cfg[0] = per_sm * sms;
+  cfg[1] = p.R;
+  cfg[2] = p.S;
+  cfg[3] = p.G;
   return cudaSuccess;
 }
 
+// 16-byte copies where x and its rows allow, else 8 (a bf16 row of D % 8
+// == 4); 0 where x is not 8-byte aligned
+int copy_bytes(const void* x, int row_bytes) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(x) | (uintptr_t)row_bytes;
+  return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : 0;
+}
+
+// The CTAs an item of nt tiles is spread over, c <= nt, for `blocks`
+// persistent CTAs: the least of rounds x (tiles a share + half a tile for
+// a share's partials and ticket where c > 1), the rounds ceil(N c /
+// blocks); the smallest such c. Items that fill the card alone take c = 1.
+int split_of(int N, int nt, int blocks) {
+  int best = 1;
+  long long best_cost = -1;
+  for (int c = 1; c <= nt; ++c) {
+    const long long rounds = ((long long)N * c + blocks - 1) / blocks;
+    const long long cost = rounds * (2LL * ((nt + c - 1) / c) + (c > 1));
+    if (best_cost < 0 || cost < best_cost) {
+      best = c;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
 template <typename T>
-int launch_long(const void* x, const void* mask, const void* w1,
-                const void* b1, const void* w2, void* out, int N, int L, int D,
-                int H, int blocks, cudaStream_t stream) {
-  const size_t smem = long_smem_floats(D, H) * sizeof(float);
-  const int grid = N < blocks ? N : blocks;
-  additive_pool_long<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(mask),
-      static_cast<const float*>(w1), static_cast<const float*>(b1),
-      static_cast<const float*>(w2), static_cast<T*>(out), N, L, D, H,
-      long_groups(H));
+int launch_tiles(bool long_seq, const void* x, const void* mask,
+                 const void* w1, const void* b1, const void* w2, void* out,
+                 void* part, void* tickets, int N, int L, int D, int H,
+                 int blocks, int R, int S, int G, int c, cudaStream_t stream) {
+  const int cb = copy_bytes(x, D * (int)sizeof(T));
+  if (cb == 0 || R < 16 || R > kMaxRows || R % 16 || S < 1 ||
+      S > kMaxStages || G < 1 || L < 1 || (!long_seq && G * L > R) ||
+      c < 1 || (long_seq && c > (L + R - 1) / R) ||
+      (long_seq && c > 1 && (!part || !tickets)) ||
+      reinterpret_cast<uintptr_t>(mask) % 4)
+    return cudaErrorInvalidValue;
+  const int smem = layout_of<T>(D, H, R, S).bytes;
+  // fewer items a tile where the tiles would not fill the grid (a few
+  // dozen items), so that they score on as many SMs
+  if (!long_seq) G = max(1, min(G, (N + blocks - 1) / blocks));
+  const long long units = long_seq ? (long long)N * c : (N + G - 1) / G;
+  if (units > INT32_MAX) return cudaErrorInvalidValue;
+  const int grid = units < blocks ? (int)units : blocks;
+  const T* xt = static_cast<const T*>(x);
+  const float* m = static_cast<const float*>(mask);
+  const float* pw1 = static_cast<const float*>(w1);
+  const float* pb1 = static_cast<const float*>(b1);
+  const float* pw2 = static_cast<const float*>(w2);
+  T* o = static_cast<T*>(out);
+  if (long_seq)
+    additive_pool_long<T><<<grid, kThreads, smem, stream>>>(
+        xt, m, pw1, pb1, pw2, o, static_cast<float*>(part),
+        static_cast<int*>(tickets), N, L, D, H, R, S, c, cb);
+  else
+    additive_pool_kernel<T><<<grid, kThreads, smem, stream>>>(
+        xt, m, pw1, pb1, pw2, o, N, L, D, H, G, R, S, cb);
   return cudaGetLastError();
 }
 
@@ -505,12 +846,6 @@ __device__ __forceinline__ uint64_t kdesc(const unsigned char* t, int row0,
                                           int k) {
   return hopper::make_desc(t + row0 * kRowBytes + k * 32, 16, 8 * kRowBytes,
                            kSwizzle);
-}
-
-__device__ __forceinline__ float tanh_approx(float v) {
-  float r;
-  asm("tanh.approx.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
 }
 
 // acc = rows 64wg..64wg+63 of the x stage xt times W1 columns 64c..64c+63,
@@ -781,38 +1116,77 @@ int launch_tc(const CUtensorMap& mx, const CUtensorMap& mm, const void* w1,
 
 extern "C" {
 
-// Dynamic shared memory one block of the CUDA-core kernel needs at these
-// widths.
-size_t additive_pool_smem_bytes(int L, int D, int H) {
-  return smem_floats(L, D, H) * sizeof(float);
+// The least dynamic shared memory a CTA of the tile kernels needs at these
+// widths (one stage of the smallest tile: one item for additive_pool_kernel,
+// 16 positions for additive_pool_long).
+size_t additive_pool_smem_bytes(int long_seq, int L, int D, int H,
+                                int x_is_bf16) {
+  const int R = long_seq ? 16 : round_up(L, 16);
+  return x_is_bf16 ? layout_of<__nv_bfloat16>(D, H, R, 1).bytes
+                   : layout_of<float>(D, H, R, 1).bytes;
 }
 
-// Readies the CUDA-core kernel for x of this type at these widths on
-// `device`, once: sets *blocks to the persistent grid that
-// additive_pool_forward takes. Returns a cudaError_t.
-int additive_pool_prepare(int L, int D, int H, int x_is_bf16, int device,
-                          int* blocks) {
-  if (x_is_bf16) return prepare<__nv_bfloat16>(L, D, H, device, blocks);
-  return prepare<float>(L, D, H, device, blocks);
+// Readies a tile kernel (additive_pool_long if long_seq, else
+// additive_pool_kernel) for x of this type at these widths on `device`,
+// once: cfg[0..3] = the persistent CTAs, the tile rows R, the ring's stages
+// S and the items a tile G that additive_pool_forward /
+// additive_pool_long_forward take. Returns a cudaError_t.
+int additive_pool_prepare(int long_seq, int L, int D, int H, int x_is_bf16,
+                          int device, int* cfg) {
+  if (x_is_bf16)
+    return prepare_tiles<__nv_bfloat16>(long_seq, L, D, H, device, cfg);
+  return prepare_tiles<float>(long_seq, L, D, H, device, cfg);
 }
 
-// The CUDA-core kernel. x (N, L, D) f32 or bf16 (x_is_bf16), mask (N, L)
-// f32, w1 (D, H) f32, b1 (H) f32, w2 (H) f32 -> out (N, D) of x's type. All
-// contiguous, all on `device`; D % 4 == 0; `blocks` from
-// additive_pool_prepare at the same widths, type and device. Enqueued on
-// `stream`; queries nothing and returns a cudaError_t.
+// additive_pool_kernel. x (N, L, D) f32 or bf16 (x_is_bf16), 8-byte
+// aligned, mask (N, L) f32, w1 (D, H) f32, b1 (H) f32, w2 (H) f32 -> out
+// (N, D) of x's type. All contiguous, all on `device`; D % 4 == 0; blocks,
+// R, S and G from additive_pool_prepare at the same widths, type and
+// device. Enqueued on `stream`; queries nothing and returns a cudaError_t.
 int additive_pool_forward(const void* x, const void* mask, const void* w1,
                           const void* b1, const void* w2, void* out, int N,
                           int L, int D, int H, int x_is_bf16, int blocks,
-                          int device, void* stream) {
+                          int R, int S, int G, int device, void* stream) {
   if (N == 0) return cudaSuccess;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_is_bf16)
-    return launch<__nv_bfloat16>(x, mask, w1, b1, w2, out, N, L, D, H, blocks,
-                                 st);
-  return launch<float>(x, mask, w1, b1, w2, out, N, L, D, H, blocks, st);
+    return launch_tiles<__nv_bfloat16>(false, x, mask, w1, b1, w2, out,
+                                       nullptr, nullptr, N, L, D, H, blocks,
+                                       R, S, G, 1, st);
+  return launch_tiles<float>(false, x, mask, w1, b1, w2, out, nullptr,
+                             nullptr, N, L, D, H, blocks, R, S, G, 1, st);
+}
+
+// The CTAs additive_pool_long spreads each of N items of L positions over
+// (split_of), for tiles of R positions and `blocks` persistent CTAs.
+int additive_pool_long_split(int N, int L, int R, int blocks) {
+  return N < 1 || L < 1 || R < 1 || blocks < 1
+             ? 1
+             : split_of(N, (L + R - 1) / R, blocks);
+}
+
+// additive_pool_long, any L >= 1: the arguments of additive_pool_forward
+// (blocks, R and S from additive_pool_prepare with long_seq), c from
+// additive_pool_long_split, and where c > 1 `part`, N * c * (D + 2) f32 of
+// workspace, and `tickets`, N int32 that are 0 (the kernel leaves them 0
+// again).
+int additive_pool_long_forward(const void* x, const void* mask,
+                               const void* w1, const void* b1, const void* w2,
+                               void* out, void* part, void* tickets, int N,
+                               int L, int D, int H, int x_is_bf16, int blocks,
+                               int R, int S, int c, int device, void* stream) {
+  if (N == 0) return cudaSuccess;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_is_bf16)
+    return launch_tiles<__nv_bfloat16>(true, x, mask, w1, b1, w2, out, part,
+                                       tickets, N, L, D, H, blocks, R, S, 1,
+                                       c, st);
+  return launch_tiles<float>(true, x, mask, w1, b1, w2, out, part, tickets,
+                             N, L, D, H, blocks, R, S, 1, c, st);
 }
 
 // Readies the tensor-core kernel for hidden width H on `device`, once: lets
@@ -867,38 +1241,6 @@ int additive_pool_tc_forward(const void* x, const void* mask, const void* w1,
     case 3: return launch_tc<3>(mx, mm, w1, b1, w2, out, N, L, G, n_tiles, grid, st);
     default: return launch_tc<4>(mx, mm, w1, b1, w2, out, N, L, G, n_tiles, grid, st);
   }
-}
-
-// Dynamic shared memory one block of the long-sequence kernel needs at
-// these widths, whatever L.
-size_t additive_pool_long_smem_bytes(int D, int H) {
-  return long_smem_floats(D, H) * sizeof(float);
-}
-
-// Readies the long-sequence kernel as additive_pool_prepare readies the
-// CUDA-core one.
-int additive_pool_long_prepare(int D, int H, int x_is_bf16, int device,
-                               int* blocks) {
-  if (x_is_bf16) return prepare_long<__nv_bfloat16>(D, H, device, blocks);
-  return prepare_long<float>(D, H, device, blocks);
-}
-
-// The long-sequence kernel, any L >= 1: the arguments of
-// additive_pool_forward, `blocks` from additive_pool_long_prepare.
-int additive_pool_long_forward(const void* x, const void* mask,
-                               const void* w1, const void* b1, const void* w2,
-                               void* out, int N, int L, int D, int H,
-                               int x_is_bf16, int blocks, int device,
-                               void* stream) {
-  if (N == 0) return cudaSuccess;
-  if (L < 1) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_is_bf16)
-    return launch_long<__nv_bfloat16>(x, mask, w1, b1, w2, out, N, L, D, H,
-                                      blocks, st);
-  return launch_long<float>(x, mask, w1, b1, w2, out, N, L, D, H, blocks, st);
 }
 
 const char* additive_pool_error_string(int err) {

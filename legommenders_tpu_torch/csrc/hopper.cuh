@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
 // mbarriers, TMA tensor loads, cp.async, wgmma shared-memory descriptors
-// and the wgmma instructions themselves, named barriers and setmaxnreg.
+// and the wgmma instructions themselves, named barriers and setmaxnreg,
+// and mma.sync in bf16 and in 3xTF32.
 // Device code, and on the host `encode_tiled`, the driver's
 // cuTensorMapEncodeTiled, and `tensor_map`, the cache through which a
 // source encodes its tensor maps.
@@ -261,6 +262,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's committed cp.async groups are
+// pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
 // orders this thread's generic-proxy shared-memory writes before later
 // async-proxy reads (wgmma operands)
 __device__ __forceinline__ void fence_proxy_async() {
@@ -506,6 +518,72 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
         "n"(TB));
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync: bf16, and f32 as three TF32 products (3xTF32)
+// ---------------------------------------------------------------------------
+
+// x rounded to TF32 (10 explicit mantissa bits, to nearest, ties away),
+// as cvt.rna.tf32.f32 rounds: half of the 13 dropped bits added to the
+// magnitude's bits, then those bits cleared. An add and a mask, where
+// cvt.rna.tf32.f32 takes a longer integer sequence on sm_90. Finite
+// inputs (a NaN or an infinity is not kept as one).
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// An f32 operand fragment as two TF32 ones: hi = rna_tf32(x), lo =
+// rna_tf32(x - hi) (x - hi is exact in f32)
+template <int N>
+struct Split {
+  uint32_t hi[N], lo[N];
+  __device__ __forceinline__ explicit Split(const float (&x)[N]) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      hi[e] = rna_tf32(x[e]);
+      lo[e] = rna_tf32(x[e] - __uint_as_float(hi[e]));
+    }
+  }
+};
+
+// d += a . b, m16n8k8 with TF32 operands. Fragments (g = lane / 4, t =
+// lane % 4): a rows g, g + 8 at columns t, t + 4 (a[0] (g, t), a[1]
+// (g + 8, t), a[2] (g, t + 4), a[3] (g + 8, t + 4)); b rows t, t + 4 of
+// column g; d as in wgmma_ss's note (rows g, g + 8, columns 2t, 2t + 1)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a . b for one k step of 8 in 3xTF32: lo.hi + hi.lo + hi.hi (lo.lo
+// dropped), summed in a fresh accumulator and added to d in f32
+// (legommenders_tpu_torch/tools/tf32_probe.py: the tensor core's own
+// accumulation of the running sum truncates)
+__device__ __forceinline__ void mma3(float (&d)[4], const Split<4>& a,
+                                     const Split<2>& b) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, a.lo, b.hi);
+  mma_tf32(t, a.hi, b.lo);
+  mma_tf32(t, a.hi, b.hi);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
+}
+
+// d += a . b, m16n8k16 with bf16 operands, each register two consecutive
+// k: a[0] row g, k 2t..2t+1; a[1] row g + 8; a[2], a[3] the same rows at
+// k + 8; b[0] k 2t..2t+1 of column g, b[1] k + 8; d as mma_tf32's
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 }  // namespace hopper

@@ -519,51 +519,12 @@ constexpr int kBwdTiles = 4;
 // block of independent products
 constexpr int kTfGroup = 4;
 
-// x rounded to TF32 (10 explicit mantissa bits, to nearest, ties away),
-// as cvt.rna.tf32.f32 rounds: half of the 13 dropped bits added to the
-// magnitude's bits, then those bits cleared. An add and a mask, where
-// cvt.rna.tf32.f32 takes a longer integer sequence on sm_90. Finite
-// inputs (a NaN or an infinity is not kept as one).
-__device__ __forceinline__ uint32_t rna_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-// An f32 operand fragment as two TF32 ones: hi = rna_tf32(x), lo =
-// rna_tf32(x - hi) (x - hi is exact in f32)
-template <int N>
-struct Split {
-  uint32_t hi[N], lo[N];
-  __device__ __forceinline__ explicit Split(const float (&x)[N]) {
-#pragma unroll
-    for (int e = 0; e < N; ++e) {
-      hi[e] = rna_tf32(x[e]);
-      lo[e] = rna_tf32(x[e] - __uint_as_float(hi[e]));
-    }
-  }
-};
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a . b for one k step of 8 in 3xTF32: lo.hi + hi.lo + hi.hi (lo.lo
-// dropped), summed in a fresh accumulator and added to d in f32
-// (legommenders_tpu_torch/tools/tf32_probe.py: the tensor core's own
-// accumulation of the running sum truncates)
-__device__ __forceinline__ void mma3(float (&d)[4], const Split<4>& a,
-                                     const Split<2>& b) {
-  float t[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(t, a.lo, b.hi);
-  mma_tf32(t, a.hi, b.lo);
-  mma_tf32(t, a.hi, b.hi);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) d[e] += t[e];
-}
+// the 3xTF32 helpers (rna_tf32, Split, mma_tf32, mma3) are hopper.cuh's,
+// shared with the pool's kernels
+using hopper::mma3;
+using hopper::mma_tf32;
+using hopper::rna_tf32;
+using hopper::Split;
 
 // Operand tiles in shared memory: a head's rows (keys or queries) whole,
 // row-major, rows padded to dh + 4 floats, so that both fragment reads are
@@ -949,14 +910,8 @@ __device__ __forceinline__ void tf_stash_store(float* xs, int lx,
   }
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
 
 // The forward. One CTA of 8 warps per (b, h) item; row b's bias, K and V
 // of the head whole in shared memory (three cp.async groups, waited for

@@ -9,14 +9,18 @@ the hand-written CUDA kernel `csrc/additive_pool.cu`.
 The kernels replace the Pallas TPU kernel of the JAX package
 (ops/pallas_additive.py `_kernel`, launched by `_forward_pallas`). In the
 JAX package that kernel is opt-in and the default path is `_forward_jnp`;
-in the port the CUDA kernels are the path on the card. `pool_kernel` says
-which of the three takes a call: `additive_pool_tc` (bf16 x on the tensor
-cores, whole items per 128-row tile: every item and click pool the models
-run), `additive_pool_long` (any x with L > 128: the flattened histories of
-the flatten user operators; positions streamed through shared memory with
-an online softmax) or `additive_pool_kernel` (the CUDA cores: f32 x, and
-every other shape the tensor-core kernel does not take). The choice is by
-dtype and shape only; a build or launch error of any raises.
+in the port the CUDA kernels are the path on the card, all three scoring
+on the tensor cores. `pool_kernel` says which takes a call:
+`additive_pool_tc` (bf16 x at D 64, H a multiple of 64 up to 256, whole
+items per 128-row tile on wgmma: every item and click pool the models run;
+bound by the N*L*H tanh, then the bytes), `additive_pool_long` (any x with
+L > 128: the flattened histories of the flatten user operators; tiles of
+128 positions, an item spread over several CTAs where the items alone do
+not fill the card and combined in the same launch; bound by the bytes) or
+`additive_pool_kernel` (f32 x, and every other width: whole items per
+tile; at f32 bound by the products). The last two score on mma.sync, bf16
+or f32 as 3xTF32 (csrc/additive_pool.cu says how). The choice is by dtype
+and shape only; a build or launch error of any raises.
 
 `additive_pool` is a torch.autograd.Function. Its forward takes a CPU
 tensor through `additive_pool_reference` and a CUDA tensor through a
@@ -43,8 +47,14 @@ LONG_KERNEL = "additive_pool_long"
 # row), H in 64-column wgmma groups, items packed whole into 128-row tiles
 TC_D, TC_H_STEP, TC_MAX_H, TC_TILE_ROWS = 64, 64, 256, 128
 
-# (kernel, L, D, H, x is bf16, device index) -> persistent grid of a kernel
+# (kernel, L, D, H, x is bf16, device index) -> the launch's plan: the
+# persistent grid, and for the tile kernels the tile rows R, the ring's
+# stages S and the items a tile G (csrc/additive_pool.cu `plan_of`)
 _grids = {}
+# device -> the long kernel's per-item tickets (int32, zeroed once; each
+# launch leaves them 0), grown to the largest N seen. Launches on one
+# stream at a time share them, as the port's pools run.
+_tickets = {}
 
 
 def pool_kernel(dtype: torch.dtype, L: int, D: int, H: int):
@@ -52,8 +62,9 @@ def pool_kernel(dtype: torch.dtype, L: int, D: int, H: int):
     and the items one of its tiles holds: (LONG_KERNEL, 1) for L > 128, of
     either dtype; (TC_KERNEL, G = 128 // L) for bf16 x with D = 64, H a
     multiple of 64 up to 256 and L <= 128; (SIMT_KERNEL, 1) otherwise (f32
-    x, whose 1e-5 gate neither the tensor cores nor the fast tanh meet, and
-    every other width)."""
+    x, whose 1e-5 gate wgmma's bf16 products and the fast tanh do not
+    meet, and every other width; that kernel packs G = R // L items a tile
+    itself)."""
     if L > TC_TILE_ROWS:
         return LONG_KERNEL, 1
     if (dtype == torch.bfloat16 and D == TC_D and 1 <= L <= TC_TILE_ROWS
@@ -98,28 +109,23 @@ def additive_pool_backward_reference(x, mask, w1, b1, w2, g):
 def _kernel_lib() -> ctypes.CDLL:
     lib = build.library("additive_pool")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.additive_pool_forward.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
-                                          i, p]
+    lib.additive_pool_forward.argtypes = [p, p, p, p, p, p] + [i] * 10 + [p]
     lib.additive_pool_forward.restype = i
-    lib.additive_pool_prepare.argtypes = [i, i, i, i, i,
+    lib.additive_pool_long_forward.argtypes = [p] * 8 + [i] * 10 + [p]
+    lib.additive_pool_long_forward.restype = i
+    lib.additive_pool_long_split.argtypes = [i, i, i, i]
+    lib.additive_pool_long_split.restype = i
+    lib.additive_pool_prepare.argtypes = [i, i, i, i, i, i,
                                           ctypes.POINTER(ctypes.c_int)]
     lib.additive_pool_prepare.restype = i
+    lib.additive_pool_smem_bytes.argtypes = [i, i, i, i, i]
+    lib.additive_pool_smem_bytes.restype = ctypes.c_size_t
     lib.additive_pool_tc_forward.argtypes = [p, p, p, p, p, p, i, i, i, i,
                                              i, i, p]
     lib.additive_pool_tc_forward.restype = i
     lib.additive_pool_tc_prepare.argtypes = [i, i,
                                              ctypes.POINTER(ctypes.c_int)]
     lib.additive_pool_tc_prepare.restype = i
-    lib.additive_pool_smem_bytes.argtypes = [i, i, i]
-    lib.additive_pool_smem_bytes.restype = ctypes.c_size_t
-    lib.additive_pool_long_forward.argtypes = (
-        lib.additive_pool_forward.argtypes)
-    lib.additive_pool_long_forward.restype = i
-    lib.additive_pool_long_prepare.argtypes = [i, i, i, i,
-                                               ctypes.POINTER(ctypes.c_int)]
-    lib.additive_pool_long_prepare.restype = i
-    lib.additive_pool_long_smem_bytes.argtypes = [i, i]
-    lib.additive_pool_long_smem_bytes.restype = ctypes.c_size_t
     lib.additive_pool_error_string.argtypes = [i]
     lib.additive_pool_error_string.restype = ctypes.c_char_p
     return lib
@@ -133,35 +139,46 @@ def _check(lib, err: int, what: str):
 
 
 def _grid(lib, kernel: str, L: int, D: int, H: int, bf16: bool,
-          device: int) -> int:
-    """A kernel's persistent grid at these widths, prepared on first use."""
+          device: int) -> tuple:
+    """A kernel's plan at these widths, prepared on first use: (persistent
+    grid,) for the tensor-core kernel, (grid, R, S, G) for the tile
+    kernels."""
     key = (kernel, L, D, H, bf16, device)
     if key not in _grids:
-        blocks = ctypes.c_int(0)
         if kernel == TC_KERNEL:
+            blocks = ctypes.c_int(0)
             err = lib.additive_pool_tc_prepare(H, device, ctypes.byref(blocks))
+            plan = (blocks.value,)
         else:
-            long = kernel == LONG_KERNEL
-            smem = (lib.additive_pool_long_smem_bytes(D, H) if long
-                    else lib.additive_pool_smem_bytes(L, D, H))
+            long = int(kernel == LONG_KERNEL)
+            smem = lib.additive_pool_smem_bytes(long, L, D, H, int(bf16))
             if smem > MAX_SMEM_BYTES:
                 raise ValueError(f"additive_pool: L={L} D={D} H={H} need "
                                  f"{smem} B of shared memory, more than "
                                  f"{MAX_SMEM_BYTES}")
-            if long:
-                err = lib.additive_pool_long_prepare(D, H, int(bf16), device,
-                                                     ctypes.byref(blocks))
-            else:
-                err = lib.additive_pool_prepare(L, D, H, int(bf16), device,
-                                                ctypes.byref(blocks))
+            cfg = (ctypes.c_int * 4)()
+            err = lib.additive_pool_prepare(long, L, D, H, int(bf16), device,
+                                            cfg)
+            plan = tuple(cfg)
         _check(lib, err, "prepare")
-        _grids[key] = blocks.value
+        _grids[key] = plan
     return _grids[key]
 
 
+def _tickets_for(N: int, device: torch.device) -> torch.Tensor:
+    """At least N zeroed int32 tickets on `device` for the long kernel,
+    allocated (zeroed) only when a larger N comes: every launch leaves its
+    tickets 0 again, so the pool's launch needs no memset."""
+    t = _tickets.get(device)
+    if t is None or t.numel() < N:
+        t = _tickets[device] = torch.zeros(max(N, 1024), dtype=torch.int32,
+                                           device=device)
+    return t
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """t, or a fresh copy where t does not start on the 16 bytes TMA
-    needs (a view that starts mid-row)."""
+    """t, or a fresh copy where t does not start on the 16 bytes that TMA
+    and the 16-byte copies need (a view that starts mid-row)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -192,30 +209,47 @@ def _forward(x, mask, w1, b1, w2):
     lib = _kernel_lib()
     bf16, dev = x.dtype == torch.bfloat16, x.device.index or 0
     kernel, G = pool_kernel(x.dtype, L, D, H)
-    blocks = _grid(lib, kernel, L, D, H, bf16, dev)
+    plan = _grid(lib, kernel, L, D, H, bf16, dev)
     out = torch.empty((N, D), dtype=x.dtype, device=x.device)
     if N == 0:
         return out
     # no-ops for f32 contiguous inputs (what AdditiveAttention passes)
     maskf = mask.float().contiguous()
     w1f, b1f, w2f = (t.float().contiguous() for t in (w1, b1, w2))
+    if kernel == LONG_KERNEL:
+        blocks, R, S, _ = plan
+        # the CTAs an item is spread over, and where more than one, their
+        # shares' partials (m, sum, acc[D]) and the items' tickets
+        c = lib.additive_pool_long_split(N, L, R, blocks)
+        part = tickets = None
+        if c > 1:
+            part = torch.empty(N * c * (D + 2), dtype=torch.float32,
+                               device=x.device)
+            tickets = _tickets_for(N, x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with build.launch_range("additive_pool"):
+        # held in names until the launch is enqueued: a copy freed earlier
+        # could hand its memory to the next one
+        xa, maska = _aligned(x), _aligned(maskf)
         if kernel == TC_KERNEL:
-            # held in names until the launch is enqueued: a copy freed
-            # earlier could hand its memory to the next one
-            xa, maska, w1a = _aligned(x), _aligned(maskf), _aligned(w1f)
+            w1a = _aligned(w1f)
             err = lib.additive_pool_tc_forward(
                 xa.data_ptr(), maska.data_ptr(), w1a.data_ptr(),
                 b1f.data_ptr(), w2f.data_ptr(), out.data_ptr(), N, L, H, G,
-                blocks, dev, stream)
+                plan[0], dev, stream)
+        elif kernel == LONG_KERNEL:
+            err = lib.additive_pool_long_forward(
+                xa.data_ptr(), maska.data_ptr(), w1f.data_ptr(),
+                b1f.data_ptr(), w2f.data_ptr(), out.data_ptr(),
+                part.data_ptr() if c > 1 else None,
+                tickets.data_ptr() if c > 1 else None, N, L, D, H,
+                int(bf16), blocks, R, S, c, dev, stream)
         else:
-            launch = (lib.additive_pool_long_forward if kernel == LONG_KERNEL
-                      else lib.additive_pool_forward)
-            err = launch(
-                x.data_ptr(), maskf.data_ptr(), w1f.data_ptr(),
+            blocks, R, S, G = plan
+            err = lib.additive_pool_forward(
+                xa.data_ptr(), maska.data_ptr(), w1f.data_ptr(),
                 b1f.data_ptr(), w2f.data_ptr(), out.data_ptr(), N, L, D, H,
-                int(bf16), blocks, dev, stream)
+                int(bf16), blocks, R, S, G, dev, stream)
     _check(lib, err, "kernel launch")
     additive_pool.launches += 1
     return out
@@ -242,12 +276,13 @@ def additive_pool(x, mask, w1, b1, w2):
     and w2.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel
-    `pool_kernel` names; the weights and mask are passed to it as f32. The
-    tensor-core kernel rounds W1 to bf16 once: exact for AdditiveAttention,
-    whose W1 holds bf16 values at the bf16 policy, and at most 2^-9 of each
-    weight for an f32 W1, inside the bf16 tolerance. Raises on a tensor
-    that is on neither device, and on shapes, dtypes or layouts the kernels
-    do not take."""
+    `pool_kernel` names; the weights and mask are passed to it as f32.
+    `additive_pool_tc` rounds W1 to bf16 once: exact for
+    AdditiveAttention, whose W1 holds bf16 values at the bf16 policy, and
+    at most 2^-9 of each weight for an f32 W1, inside the bf16 tolerance.
+    The other two keep 16 bits of W1 for bf16 x and score f32 x in 3xTF32,
+    within the f32 tolerance. Raises on a tensor that is on neither
+    device, and on shapes, dtypes or layouts the kernels do not take."""
     return _AdditivePool.apply(x, mask, w1, b1, w2)
 
 

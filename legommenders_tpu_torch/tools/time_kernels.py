@@ -3,7 +3,7 @@
 trees can be compared in one run (parent, change, change, parent):
 
     python3 legommenders_tpu_torch/tools/time_kernels.py --root DIR \
-        [--kernels pool,attention,mask,tp,f32] [--out FILE]
+        [--kernels pool,attention,mask,tp,f32,long,pool_f32] [--out FILE]
 
 Imports legommenders_tpu_torch from DIR (its kernels built there at first
 use) and times, with chip_smoke.time_ms, REPS times each (median, min,
@@ -41,7 +41,18 @@ max), on chip_smoke.py's inputs taken from this checkout for either tree:
     scaled_dot_product_attention at f32 with the float mask and the
     dropout (forward, and forward + backward at the training pages), with
     each page's bound at 3xTF32's 165 TFLOP/s and, beside it, at the CUDA
-    cores' 67 (chip_smoke.roof) under "bounds_us".
+    cores' 67 (chip_smoke.roof) under "bounds_us";
+  - long: the long-sequence pool (additive_pool_long) at the flatten user
+    pools (chip_smoke.FLATTEN_POOLS: L 1,023 over a flatten_transformer
+    step's 128 users and a test page's 512, L 495 over a
+    flatten_fastformer step's 2,048 and a test page's 8,192; D 64, H 64),
+    bf16 and f32;
+  - pool_f32: the pool at f32 (additive_pool_kernel) at the item catalog
+    and user pool (chip_smoke.POOLS), the CTR user pools
+    (chip_smoke.CTR_POOLS), the semantic items (chip_smoke.SEMANTIC_POOLS:
+    L 4 over 65,000) and phase 16's shapes (chip_smoke.P16_POOLS);
+  with each pool's bound (chip_smoke.bound: f32 products at 3xTF32's 165
+  TFLOP/s) under "bounds_us".
 Prints one JSON object (and writes it to --out).
 """
 import argparse
@@ -60,7 +71,7 @@ sys.path.insert(0, CHECKOUT)
 import chip_smoke  # noqa: E402  (no top-level torch or port import)
 
 CALLS, REPS = 50, 5
-KERNELS = ("pool", "attention", "mask", "tp", "f32")
+KERNELS = ("pool", "attention", "mask", "tp", "f32", "long", "pool_f32")
 
 
 def _stats(xs):
@@ -105,6 +116,45 @@ def pool_cases(torch, device):
                     N, L, torch.bfloat16, device, seed=L)),
              chip_smoke.pool_iters(N))
             for name, (N, L) in shapes]
+
+
+def _pool_at(torch, device, bounds, name, N, L, dtype_name, h, d):
+    """(name, fn, calls) of the pool at (N, L, d, h) on chip_smoke's
+    inputs; its bound (chip_smoke.bound) into `bounds`."""
+    from legommenders_tpu_torch.ops.additive import additive_pool
+
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype_name]
+    bounds[name] = chip_smoke.bound(N, L, dtype_name, h, d)[0] * 1e3
+    return (name, functools.partial(additive_pool, *chip_smoke.pool_inputs(
+        N, L, dtype, device, seed=L, h=h, d=d)), chip_smoke.pool_iters(N))
+
+
+def long_cases(torch, device, bounds):
+    """(name, fn, calls) of the long pool at the flatten user pools, bf16
+    and f32; fills `bounds`."""
+    cases = []
+    for pool, (L, h) in chip_smoke.FLATTEN_POOLS.items():
+        _, batch, eval_batch = chip_smoke.FLATTEN_MODELS[pool.split()[0]]
+        for n, where in ((batch, "step"), (eval_batch, "test page")):
+            for dt in ("bf16", "f32"):
+                cases.append(_pool_at(torch, device, bounds,
+                                      f"long {pool} N {n} ({where}) {dt}",
+                                      n, L, dt, h, chip_smoke.D))
+    return cases
+
+
+def pool_f32_cases(torch, device, bounds):
+    """(name, fn, calls) of the pool at f32 at the catalog, user, CTR,
+    semantic and phase 16 shapes; fills `bounds`."""
+    c = chip_smoke
+    shapes = [(name, N, L, c.H, c.D) for name, (N, L) in c.POOLS.items()]
+    shapes += [(name, N, 50, h, c.D) for name, (N, h) in c.CTR_POOLS.items()]
+    shapes += [(name, N, L, h, c.D)
+               for name, (N, L, h) in c.SEMANTIC_POOLS.items()]
+    shapes += [(name, N, L, c.H, d)
+               for name, (N, L, d) in c.P16_POOLS.items()]
+    return [_pool_at(torch, device, bounds, f"f32 {name}", N, L, "f32", h, d)
+            for name, N, L, h, d in shapes]
 
 
 def attention_cases(torch, device):
@@ -290,12 +340,16 @@ def main() -> int:
             res["host_us_bwd"] = _host_us(torch, by_name["train p0.1 bwd"])
     if "mask" in kernels:
         cases += mask_cases(torch, device)
-    if "tp" in kernels or "f32" in kernels:
+    if {"tp", "f32", "long", "pool_f32"} & set(kernels):
         res["bounds_us"] = {}
     if "tp" in kernels:
         cases += tp_cases(torch, device, res["bounds_us"])
     if "f32" in kernels:
         cases += f32_cases(torch, device, res["bounds_us"])
+    if "long" in kernels:
+        cases += long_cases(torch, device, res["bounds_us"])
+    if "pool_f32" in kernels:
+        cases += pool_f32_cases(torch, device, res["bounds_us"])
     # outside no_grad: the SDPA case runs its backward
     times = {name: [] for name, _, _ in cases}
     for _ in range(REPS):

@@ -203,16 +203,80 @@ def test_pool_timer_times_the_smoke_runs_pool_shapes():
         assert out.dtype == torch.bfloat16 and out.shape[1] == 64
 
 
+def test_pool_timer_times_the_long_and_f32_sets():
+    """tools/time_kernels.py's `long` set times the four flatten user pools
+    in bf16 and f32, its `pool_f32` set the f32 pool at chip_smoke's
+    catalog, user, CTR, semantic and phase-16 shapes, each with
+    chip_smoke.bound's bound (here on the CPU, through the plain version,
+    at cut sizes)."""
+    sys.path.insert(0, os.path.join(ROOT, "legommenders_tpu_torch", "tools"))
+    import time_kernels
+    from unittest import mock
+
+    assert {"long", "pool_f32"} <= set(time_kernels.KERNELS)
+    bounds = {}
+    with mock.patch.object(chip_smoke, "FLATTEN_MODELS", {
+            "flatten_transformer": (31, 2, 3),
+            "flatten_fastformer": (15, 4, 5)}):
+        long = time_kernels.long_cases(torch, "cpu", bounds)
+    assert [tuple(fn.args[0].shape) + (fn.args[0].dtype,)
+            for _, fn, _ in long] == [
+        (n, L, 64, dt) for L, ns in ((1023, (2, 3)), (495, (4, 5)))
+        for n in ns for dt in (torch.bfloat16, torch.float32)]
+    with mock.patch.object(chip_smoke, "POOLS", {"item": (9, 31),
+                                                 "user": (5, 50)}), \
+            mock.patch.object(chip_smoke, "CTR_POOLS", {"c": (3, 64)}), \
+            mock.patch.object(chip_smoke, "SEMANTIC_POOLS",
+                              {"s": (7, 4, 256)}), \
+            mock.patch.object(chip_smoke, "P16_POOLS", {"p": (4, 9, 16)}):
+        f32 = time_kernels.pool_f32_cases(torch, "cpu", bounds)
+    assert [(name, tuple(fn.args[0].shape), fn.args[2].shape[1])
+            for name, fn, _ in f32] == [
+        ("f32 item", (9, 31, 64), 256), ("f32 user", (5, 50, 64), 256),
+        ("f32 c", (3, 50, 64), 64), ("f32 s", (7, 4, 64), 256),
+        ("f32 p", (4, 9, 16), 256)]
+    for name, fn, _ in long + f32:
+        out = fn()
+        assert out.shape == fn.args[0].shape[::2]
+        assert bounds[name] == pytest.approx(1e3 * chip_smoke.bound(
+            out.shape[0], fn.args[0].shape[1],
+            "bf16" if out.dtype == torch.bfloat16 else "f32",
+            fn.args[2].shape[1], out.shape[1])[0])
+
+
+@pytest.mark.parametrize("N,L", [(1, 129), (7, 300), (600, 257), (37, 13)])
+def test_pool_edge_inputs_mask_the_tile_edges(N, L):
+    """chip_smoke.pool_edge_inputs, which the card checks of the tile
+    kernels pool: item 0 all masked (where N > 1), item 1 valid only in
+    its last tile of 128 positions, item 2's second tile all masked, and
+    every case of pool_edge_cases a multiple of 4 wide."""
+    x, mask, w1, b1, w2 = chip_smoke.pool_edge_inputs(N, L, torch.float32,
+                                                      "cpu", 3, 33, 20)
+    assert x.shape == (N, L, 20) and w1.shape == (20, 33)
+    valid = mask > 0
+    last = (L - 1) // 128 * 128
+    if N > 1:
+        assert not valid[0].any()
+    else:
+        assert valid[0].any()
+    if N > 2:
+        assert not valid[1, :last].any() and valid[1, last]
+    if N > 3 and L > 128:
+        assert not valid[2, 128:256].any()
+    assert all(d % 4 == 0 for _, _, d, _ in chip_smoke.pool_edge_cases())
+
+
 @pytest.mark.parametrize("N,L,dtype,by", [
     (65000, 31, "bf16", "tanh"), (20000, 50, "bf16", "tanh"),
     (512, 31, "bf16", "tanh"), (65000, 31, "f32", "flops")])
 def test_pool_bound_is_the_longest_of_bytes_products_and_tanh(N, L, dtype,
                                                                by):
     """At bf16 the N*L*H tanh on the special-function units take longer
-    than the bytes and the products; at f32 the products on the CUDA cores
-    take longest."""
+    than the bytes and the products; at f32 the products, counted on the
+    tensor cores in 3xTF32 (165 TFLOP/s), take longest."""
     D, H = chip_smoke.D, chip_smoke.H
-    flops_ms, _ = chip_smoke.roof(2.0 * N * L * (D * H + H + D), 0, dtype)
+    flops_ms, _ = chip_smoke.roof(2.0 * N * L * (D * H + H + D), 0,
+                                  chip_smoke.product_peak(dtype))
     tanh_ms = N * L * H / chip_smoke.TANH_PER_S * 1e3
     ms, bound_by = chip_smoke.bound(N, L, dtype)
     assert bound_by == "operations"

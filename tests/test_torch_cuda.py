@@ -5,8 +5,8 @@ and keep mask.
 Imports no JAX, so that it runs on a machine with the card but without
 JAX: `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`.
 Each kernel is held against its plain version at small, odd shapes (the
-pool: L not a multiple of the register tile, H below and above the block
-width; the attention: odd B and T <= 128, packed and plain biases, every
+pool: L not a multiple of a warp's 16 rows, H below and above a 64-column
+group; the attention: odd B and T <= 128, packed and plain biases, every
 head width of the tensor-core path and two of the CUDA-core path, at
 dropout 0 and 0.1 with the mask the mask kernel draws) with f32 inputs
 within 1e-5 (values O(1), sums in another order) and bf16 within 2e-2 of
@@ -22,8 +22,8 @@ per 128-row tile) is held at every main-path L with N around one tile, a
 page and more tiles than the grid, with all-masked and single-position
 items, an f32 W1, one item per tile and every hidden width, and at the news
 zoo's pools (L 1 and 30 at H 256, L 32-34 and 50 at H 64); the profiler's
-kernel names must show it took those and the CUDA-core pool f32 and the
-odd shapes. The run loop on the card (a 150-item NAML fixture, f32): four
+kernel names must show it took those and additive_pool_kernel f32 and
+the odd shapes. The run loop on the card (a 150-item NAML fixture, f32): four
 Trainer steps on host batches and on device batches, a checkpoint round
 trip of CUDA tensors (exact), and full-forward scores against cached ones
 (1e-5). The f32 kernels (attention_fwd_tf32 and attention_bwd_tf32, 3xTF32
@@ -33,10 +33,12 @@ risky (TF32_CASES: T 1, 9, 33 and 117, not multiples of the 16-row and
 memory at the narrow widths and recomputing them at 128; B * H far below
 and above the SMs; packed, causal, key-validity and broadcast biases), and
 the backward at head width 128: T 128 (the Llama training page), 117 and
-116, with and without dropout; the keep mask both apply read back as in bf16; the long-sequence
-pool
-(additive_pool_long) at L 129, 495 and 1,023, f32 and bf16, all-masked
-items exactly 0. The LM knobs: fused_qkv and norm_bf16 in the BERT,
+116, with and without dropout; the keep mask both apply read back as in
+bf16; the long-sequence pool (additive_pool_long) at L 129, 495 and
+1,023, f32 and bf16, all-masked items exactly 0; both tile kernels
+(additive_pool_kernel, additive_pool_long) at chip_smoke.py's edge cases
+(L 129 to 4,096 over N 1, 7, 131 and 600; D 4 / 20 / 100, H 1 / 33 /
+100 / 300), each call twice and bit-equal. The LM knobs: fused_qkv and norm_bf16 in the BERT,
 Llama and OPT slices at bf16 against the CPU (2e-2), the `ffn` and `dots`
 page remat against `full` (1e-5, the attention launched twice a page);
 the pool at L 4 (an item's semantic codes). The attention forward and
@@ -1058,6 +1060,47 @@ def test_long_pool_matches_plain(device, N, L, H, dtype):
         assert err.item() <= 1e-5
     else:
         assert (err / want.abs().max()).item() <= 2e-2
+
+
+# the tile kernels (additive_pool_kernel, additive_pool_long) at their
+# edges: chip_smoke.py's phase-3 cases (check_pool_edges)
+import chip_smoke  # noqa: E402
+from legommenders_tpu_torch.ops import additive as _additive  # noqa: E402
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("N,L,D,H", chip_smoke.pool_edge_cases())
+def test_tile_pools_at_their_edges(device, N, L, D, H, dtype):
+    """additive_pool_long at L around its tiles of 128 positions over N 1,
+    7 and 131 (an item spread over several CTAs) and 600 (an item on one
+    CTA), with an all-masked item, one valid only in its last tile, one
+    whose second tile is all masked; and both tile kernels at D 4 / 20 /
+    100 and H 1 / 33 / 100 / 300, against the plain version: f32 within
+    1e-5, bf16 within 2e-2 of the largest output; all-masked items exactly
+    0; a second call bit-equal to the first; the long kernel's tickets 0
+    again after it."""
+    tdtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    kernel = pool_kernel(tdtype, L, D, H)[0]
+    assert kernel == (LONG_KERNEL if L > 128 else SIMT_KERNEL)
+    args = chip_smoke.pool_edge_inputs(N, L, tdtype, device, N + L + D + H,
+                                       H, D)
+    before = additive_pool.launches
+    with torch.no_grad():
+        got = additive_pool(*args)
+        again = additive_pool(*args)
+        want = additive_pool_reference(args[0].float(), *args[1:])
+    torch.cuda.synchronize()
+    assert additive_pool.launches == before + 2
+    assert got.dtype == tdtype and got.shape == (N, D)
+    assert torch.equal(got, again)
+    assert (got[args[1].sum(dim=1) == 0] == 0).all()
+    err = (got.float() - want).abs().max().item()
+    if dtype == "f32":
+        assert err <= 1e-5
+    else:
+        assert err / want.abs().max().item() <= 2e-2
+    tickets = _additive._tickets.get(got.device)
+    assert tickets is None or not tickets[:N].any()
 
 
 CTR_ID_MODELS = ("dnn_id", "pnn_id", "deepfm_id", "dcn_id", "dcnv2_id",
