@@ -24,6 +24,7 @@ from legommenders_tpu_torch.data.token_store import UNSET
 from legommenders_tpu_torch.runtime.steps import (
     make_train_step, step_generator,
 )
+from legommenders_tpu_torch.utils import spans
 from legommenders_tpu_torch.utils.device import resolve_device
 
 
@@ -107,24 +108,25 @@ class DeviceTrainPipeline:
 
     def assemble(self, idx, rng: torch.Generator) -> Dict[str, torch.Tensor]:
         """(B,) substrate row indices -> the batch dict."""
-        idx = torch.as_tensor(idx, dtype=torch.int64, device=self.device)
-        users = self.user_ids[idx]
-        pos = self.item_ids[idx]
-        if self.use_neg_sampling:
-            negs = self._sample_negatives(users, rng)
-            cands = torch.cat([pos[:, None], negs], dim=1)
-        else:
-            cands = pos[:, None]
-        batch = {
-            "history": self.history[users],
-            "mask": self.hist_mask[users],
-            "candidates": cands,
-            "user_id": users,
-            "label": self.labels[idx],
-        }
-        for col, mat in self.user_extra.items():
-            batch[col] = mat[users]
-        return batch
+        with spans.span("lego.assemble"):
+            idx = torch.as_tensor(idx, dtype=torch.int64, device=self.device)
+            users = self.user_ids[idx]
+            pos = self.item_ids[idx]
+            if self.use_neg_sampling:
+                negs = self._sample_negatives(users, rng)
+                cands = torch.cat([pos[:, None], negs], dim=1)
+            else:
+                cands = pos[:, None]
+            batch = {
+                "history": self.history[users],
+                "mask": self.hist_mask[users],
+                "candidates": cands,
+                "user_id": users,
+                "label": self.labels[idx],
+            }
+            for col, mat in self.user_extra.items():
+                batch[col] = mat[users]
+            return batch
 
     def make_fused_train_step(self, model, item_contents, optimizer,
                               seed: int = 0):
@@ -136,7 +138,8 @@ class DeviceTrainPipeline:
                                      self.use_neg_sampling)
 
         def step(idx, step_idx: int):
-            rng = step_generator(seed, step_idx, self.device)
-            return train_step(self.assemble(idx, rng), rng)
+            with spans.span("lego.step", step_idx=int(step_idx)):
+                rng = step_generator(seed, step_idx, self.device)
+                return train_step(self.assemble(idx, rng), rng)
 
         return step

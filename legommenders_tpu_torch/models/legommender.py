@@ -77,6 +77,7 @@ from legommenders_tpu_torch.models.operators.lm_ops import (
 from legommenders_tpu_torch.models.predictors.base import BasePredictor
 from legommenders_tpu_torch.ops import catalog_grad
 from legommenders_tpu_torch.parallel.mesh import get_pp_mesh
+from legommenders_tpu_torch.utils import spans
 
 REMAT_POLICIES = ("full", "none", "dots", "ffn")
 _aten = torch.ops.aten
@@ -285,6 +286,21 @@ class Legommender(nn.Module):
         """Fast-eval path: precomputed reprs -> scores (B, K)."""
         return self.predictor(user_repr, item_repr)
 
+    def _user_and_score(self, clicks: torch.Tensor, click_mask: torch.Tensor,
+                        item_repr: torch.Tensor,
+                        rng: Optional[torch.Generator]) -> torch.Tensor:
+        """The user encode and the predictor, each a span of its own."""
+        user_repr = spans.region(
+            "lego.user_encode",
+            lambda c: self.encode_user(c, click_mask, rng), clicks)
+        return self._score(user_repr, item_repr, rng)
+
+    def _score(self, user_repr: torch.Tensor, item_repr: torch.Tensor,
+               rng: Optional[torch.Generator]) -> torch.Tensor:
+        return spans.region("lego.score",
+                            lambda u, i: self.predictor(u, i, rng),
+                            user_repr, item_repr)
+
     def forward(self, batch: Dict[str, torch.Tensor],
                 item_contents: Dict[str, torch.Tensor],
                 rng: Optional[torch.Generator] = None,
@@ -300,8 +316,7 @@ class Legommender(nn.Module):
         if not self.use_item_content:
             item_repr = self.item_id_embedding(cand_ids, rng)
             clicks = self.item_id_embedding(hist_ids, rng)
-            user_repr = self.encode_user(clicks, click_mask, rng)
-            return self.predictor(user_repr, item_repr, rng)
+            return self._user_and_score(clicks, click_mask, item_repr, rng)
         (B, K), S = cand_ids.shape, hist_ids.shape[1]
         num_items = next(iter(item_contents.values())).shape[0]
         safe_cand = cand_ids.clamp(0, num_items - 1)
@@ -313,7 +328,9 @@ class Legommender(nn.Module):
                 item_repr = item_reprs[safe_cand]
             else:
                 cand = {c: a[safe_cand] for c, a in item_contents.items()}
-                item_repr = self.encode_item_content(cand, rng)
+                item_repr = spans.region(
+                    "lego.item_encode",
+                    lambda: self.encode_item_content(cand, rng))
             if self.user_batch_cols:
                 # the user side reads its own batch columns (SemanticMix)
                 hist = {c: batch[c] for c in self.user_batch_cols}
@@ -321,8 +338,10 @@ class Legommender(nn.Module):
                 hist = {c: torch.where(click_mask[..., None] > 0,
                                        a[safe_hist], -1)
                         for c, a in item_contents.items()}
-            user_repr = self.encode_user_flatten(hist, rng)
-            return self.predictor(user_repr, item_repr, rng)
+            user_repr = spans.region(
+                "lego.user_encode",
+                lambda: self.encode_user_flatten(hist, rng))
+            return self._score(user_repr, item_repr, rng)
         use_catalog = item_reprs is not None or (
             self.full_catalog_encode == "on" or (
                 self.full_catalog_encode == "auto"
@@ -330,8 +349,10 @@ class Legommender(nn.Module):
         if use_catalog:
             # every item encoded once, occurrences gathered
             all_reprs = (item_reprs if item_reprs is not None
-                         else self.encode_item_content(item_contents, rng,
-                                                       catalog=True))
+                         else spans.region(
+                             "lego.item_encode",
+                             lambda: self.encode_item_content(
+                                 item_contents, rng, catalog=True)))
             item_repr = all_reprs[safe_cand]
             hp = self.catalog_history_plan
             uid = batch.get("user_id")
@@ -349,8 +370,9 @@ class Legommender(nn.Module):
             # one item-operator pass over candidates + clicks
             all_ids = torch.cat([safe_cand.reshape(-1), safe_hist.reshape(-1)])
             contents = {c: a[all_ids] for c, a in item_contents.items()}
-            reprs = self.encode_item_content(contents, rng)
+            reprs = spans.region(
+                "lego.item_encode",
+                lambda: self.encode_item_content(contents, rng))
             item_repr = reprs[:B * K].reshape(B, K, -1)
             clicks = reprs[B * K:].reshape(B, S, -1)
-        user_repr = self.encode_user(clicks, click_mask, rng)
-        return self.predictor(user_repr, item_repr, rng)
+        return self._user_and_score(clicks, click_mask, item_repr, rng)

@@ -37,6 +37,7 @@ import torch
 
 from legommenders_tpu_torch.ops import build
 from legommenders_tpu_torch.ops.core import masked_softmax
+from legommenders_tpu_torch.utils import spans
 
 # the largest dynamic shared memory a block may use on sm_90
 MAX_SMEM_BYTES = 232448
@@ -265,8 +266,9 @@ class _AdditivePool(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, mask, w1, b1, w2 = ctx.saved_tensors
-        dx, dw1, db1, dw2 = additive_pool_backward_reference(
-            x, mask, w1, b1, w2, g)
+        with spans.span("lego.pool.backward"):
+            dx, dw1, db1, dw2 = additive_pool_backward_reference(
+                x, mask, w1, b1, w2, g)
         return dx, None, dw1, db1, dw2
 
 

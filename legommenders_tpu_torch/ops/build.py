@@ -129,7 +129,13 @@ def library(name: str) -> ctypes.CDLL:
 def launch_range(name: str):
     """A profiler range named `name` around a wrapper's kernel launch while
     a profiler runs (nothing otherwise), so that a trace ties the
-    runtime's launch call to the wrapper that made it."""
+    runtime's launch call to the wrapper that made it.
+
+    It is the program's one profiler range: readers of a trace find the
+    wrappers' kernels by these names, and leave the ranges' device-side
+    annotations out of the device's work. Every other interval the
+    program marks is a span of `utils/spans.py`, kept in memory on the
+    trace's clock, which adds nothing to the trace."""
     import torch
 
     if torch.autograd._profiler_enabled():

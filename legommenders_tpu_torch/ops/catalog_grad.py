@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from legommenders_tpu_torch.data.token_store import UNSET
+from legommenders_tpu_torch.utils import spans
 
 last_trace = {"live": (), "dead": (), "history": False}
 
@@ -94,7 +95,8 @@ class _Take(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.plan.segment_reduce(g), None
+        with spans.span("lego.plans.backward"):
+            return ctx.plan.segment_reduce(g), None
 
 
 class CatalogGradPlan:
@@ -221,10 +223,11 @@ class _HistoryTake(torch.autograd.Function):
         plan = ctx.plan
         D = g.shape[-1]
         S = plan.seq_len
-        gu = g.new_zeros(plan.num_users, S * D)
-        gu.index_add_(0, uc, g.reshape(-1, S * D))
-        return plan.inner.segment_reduce(gu.view(plan.num_users, S, D)), \
-            None, None
+        with spans.span("lego.plans.backward"):
+            gu = g.new_zeros(plan.num_users, S * D)
+            gu.index_add_(0, uc, g.reshape(-1, S * D))
+            return plan.inner.segment_reduce(
+                gu.view(plan.num_users, S, D)), None, None
 
 
 class HistoryGradPlan:

@@ -25,6 +25,7 @@ import torch
 
 from legommenders_tpu_torch.data.token_store import UNSET
 from legommenders_tpu_torch.parallel.mesh import all_gather_rows, no_pipeline
+from legommenders_tpu_torch.utils import spans
 from legommenders_tpu_torch.utils.device import resolve_device
 
 
@@ -91,33 +92,41 @@ class ReprCache:
                 (k - (hi - lo),) + tuple(block.shape[1:]))])
         return all_gather_rows(block, self.mesh)[:n]
 
+    def _item_page(self, s: int, e: int) -> torch.Tensor:
+        with spans.span("lego.cache.item_page"):
+            return self.model.encode_item_page(
+                {c: a[s:e] for c, a in self.item_contents.items()})
+
     @torch.inference_mode()
     def build_item_cache(self) -> torch.Tensor:
-        if self.local_items:
-            k = next(iter(self.item_contents.values())).shape[0]
-            outs = [self.model.encode_item_page(
-                        {c: a[s:s + self.page_size]
-                         for c, a in self.item_contents.items()})
-                    for s in range(0, k, self.page_size)]
-            self.item_repr = all_gather_rows(
-                torch.cat(outs), self.mesh,
-                self.mesh.catalog_axis)[:self.num_items]
+        with spans.span("lego.cache.items"):
+            if self.local_items:
+                k = next(iter(self.item_contents.values())).shape[0]
+                outs = [self._item_page(s, s + self.page_size)
+                        for s in range(0, k, self.page_size)]
+                self.item_repr = all_gather_rows(
+                    torch.cat(outs), self.mesh,
+                    self.mesh.catalog_axis)[:self.num_items]
+                return self.item_repr
+            outs = [self._item_page(s, e)
+                    for s, e in self.pages(self.num_items)]
+            self.item_repr = self._gather(outs, self.num_items)
             return self.item_repr
-        outs = [self.model.encode_item_page(
-                    {c: a[s:e] for c, a in self.item_contents.items()})
-                for s, e in self.pages(self.num_items)]
-        self.item_repr = self._gather(outs, self.num_items)
-        return self.item_repr
+
+    def _user_page(self, s: int, e: int) -> torch.Tensor:
+        with spans.span("lego.cache.user_page"):
+            return self.model.encode_user(
+                self.item_repr[self.hist_safe[s:e]], self.hist_mask[s:e])
 
     @torch.inference_mode()
     def build_user_cache(self) -> torch.Tensor:
         if self.item_repr is None:
             raise RuntimeError("build_item_cache first")
-        outs = [self.model.encode_user(self.item_repr[self.hist_safe[s:e]],
-                                       self.hist_mask[s:e])
-                for s, e in self.pages(self.num_users)]
-        self.user_repr = self._gather(outs, self.num_users)
-        return self.user_repr
+        with spans.span("lego.cache.users"):
+            outs = [self._user_page(s, e)
+                    for s, e in self.pages(self.num_users)]
+            self.user_repr = self._gather(outs, self.num_users)
+            return self.user_repr
 
     @no_pipeline()
     def cache(self):

@@ -53,6 +53,7 @@ from legommenders_tpu_torch.parallel.mesh import (
 from legommenders_tpu_torch.runtime.device_metrics import compute_device
 from legommenders_tpu_torch.runtime.metrics import MetricPool
 from legommenders_tpu_torch.runtime.steps import make_eval_step
+from legommenders_tpu_torch.utils import spans
 from legommenders_tpu_torch.utils.device import resolve_device
 from legommenders_tpu_torch.utils.timer import Timer
 
@@ -168,15 +169,16 @@ class Evaluator:
         item_repr, user_repr = self.cache.item_repr, self.cache.user_repr
         nu, ni = user_repr.shape[0], item_repr.shape[0]
         out = []
-        for s in range(0, ph.n, self.DEVICE_EVAL_PAGE):
-            e = s + self.DEVICE_EVAL_PAGE
-            users, items, n = self._split(ph.users[s:e], ph.items[s:e])
-            u = user_repr[users.clamp(0, nu - 1)]
-            i = item_repr[items.clamp(0, ni - 1)][:, None, :]
-            with split_batch(self.mesh):
-                scores = self.model.score_cached(u, i).reshape(-1)
-            out.append(self._gather(scores, n))
-        return torch.cat(out)
+        with spans.span("lego.eval.score"):
+            for s in range(0, ph.n, self.DEVICE_EVAL_PAGE):
+                e = s + self.DEVICE_EVAL_PAGE
+                users, items, n = self._split(ph.users[s:e], ph.items[s:e])
+                u = user_repr[users.clamp(0, nu - 1)]
+                i = item_repr[items.clamp(0, ni - 1)][:, None, :]
+                with split_batch(self.mesh):
+                    scores = self.model.score_cached(u, i).reshape(-1)
+                out.append(self._gather(scores, n))
+            return torch.cat(out)
 
     def _split(self, users: torch.Tensor, items: torch.Tensor):
         """A page's (users, items) -> this rank's rows of it, padded with
@@ -286,11 +288,13 @@ class Evaluator:
     @torch.inference_mode()
     def metrics(self, phase: str, scores: torch.Tensor) -> Dict[str, float]:
         ph = self.phase(phase)
-        if self.pool.supports_device:
-            vals = compute_device(self.pool.metrics, scores, ph.labels_d,
-                                  ph.groups_d, ph.num_groups)
-            return {str(m): vals[str(m)] for m in self.pool.metrics}
-        return self.pool(scores.float().cpu().numpy(), ph.labels, ph.groups)
+        with spans.span("lego.eval.metrics"):
+            if self.pool.supports_device:
+                vals = compute_device(self.pool.metrics, scores, ph.labels_d,
+                                      ph.groups_d, ph.num_groups)
+                return {str(m): vals[str(m)] for m in self.pool.metrics}
+            return self.pool(scores.float().cpu().numpy(), ph.labels,
+                             ph.groups)
 
     @no_pipeline()
     def evaluate(self, phase: str, latency_timer: Optional[Timer] = None,

@@ -17,6 +17,8 @@ from typing import Callable, Dict, Optional
 import torch
 from torch.nn import functional as F
 
+from legommenders_tpu_torch.utils import spans
+
 
 def neg_sampling_loss(scores: torch.Tensor) -> torch.Tensor:
     """Cross-entropy with the positive always at column 0."""
@@ -61,8 +63,9 @@ def make_loss_fn(model, item_contents: Dict[str, torch.Tensor],
     def loss_fn(batch, rng):
         scores = model(batch, item_contents, rng)
         if use_neg_sampling:
-            return neg_sampling_loss(scores)
-        return ranking_loss(scores, batch["label"])
+            return spans.region("lego.score", neg_sampling_loss, scores)
+        return spans.region("lego.score", lambda s: ranking_loss(
+            s, batch["label"]), scores)
     return loss_fn
 
 
@@ -74,10 +77,14 @@ def make_train_step(model, item_contents: Dict[str, torch.Tensor],
     loss_fn = make_loss_fn(model, item_contents, use_neg_sampling)
 
     def step(batch, rng):
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(batch, rng)
-        loss.backward()
-        optimizer.step()
+        with spans.span("lego.zero_grad"):
+            optimizer.zero_grad(set_to_none=True)
+        with spans.span("lego.forward"):
+            loss = loss_fn(batch, rng)
+        with spans.span("lego.backward"):
+            loss.backward()
+        with spans.span("lego.optimizer"):
+            optimizer.step()
         return loss.detach()
 
     return step

@@ -7,7 +7,10 @@ reference tester.py:110-121).
 
 `--load_sign` loads checkpoints/<data>/<model>/<sig>.ckpt, the port's own
 or one the JAX package wrote; `--trace DIR` writes a torch.profiler chrome
-trace of the evaluation to DIR/trace.json.
+trace of the evaluation to DIR/trace.json and the program's spans of it
+(`utils/spans.py`: the cache builds and each of their pages, the scoring,
+the metrics; start and end on the trace's clock, in ns since the Unix
+epoch) to DIR/spans.json.
 """
 import os
 import sys
@@ -15,6 +18,7 @@ import sys
 from legommenders_tpu_torch.cli.base import BaseLego, run_cli, write_results
 from legommenders_tpu_torch.runtime.checkpoint import load_auto
 from legommenders_tpu_torch.runtime.tester import Tester
+from legommenders_tpu_torch.utils import spans
 
 
 class TesterCLI(BaseLego):
@@ -46,7 +50,8 @@ class TesterCLI(BaseLego):
             os.makedirs(str(trace_dir), exist_ok=True)
             path = os.path.join(str(trace_dir), "trace.json")
             prof.export_chrome_trace(path)
-            self.log.info(f"profiler trace written to {path}")
+            spans.dump(os.path.join(str(trace_dir), "spans.json"))
+            self.log.info(f"profiler trace and spans written to {trace_dir}")
         else:
             results = self._evaluate(tester)
         if self.is_main:

@@ -8,7 +8,8 @@
     `process.main` into a temporary directory, then `trainer.main` (2
     epochs of 4 batches of 16, hidden 16) writes the result CSV with JAX's
     metric keys, and `tester.main` reloads its checkpoint (`--load_sign`),
-    times 2 batches (`--latency`) and writes a torch.profiler trace;
+    times 2 batches (`--latency`) and writes a torch.profiler trace and
+    the program's spans of it;
   * without `--device cpu` the CLI raises where there is no card, and the
     multi-host options raise.
 """
@@ -101,6 +102,9 @@ def test_cli_smoke_on_the_cpu(tmp_path, monkeypatch):
     for k in results:
         assert abs(again[k] - results[k]) <= 1e-6, (k, again, results)
     assert (trace / "trace.json").stat().st_size > 0
+    names = {r["name"] for r in json.loads((trace / "spans.json").read_text())}
+    assert {"lego.cache.items", "lego.cache.item_page", "lego.cache.users",
+            "lego.eval.metrics"} <= names
 
 
 def test_cli_requires_cuda_unless_cpu(tmp_path, monkeypatch):
